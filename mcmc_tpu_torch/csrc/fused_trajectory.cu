@@ -49,6 +49,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "chain_rows.cuh"
 #include "philox.cuh"
 #include "targets.cuh"
 
@@ -57,8 +58,6 @@ namespace mcmc {
 constexpr int WARPS_PER_BLOCK = 8;
 constexpr int MAX_K = 4;  // registers per lane: dim <= 128
 constexpr float ENERGY_OVERFLOW = 1e10f;
-constexpr uint32_t ACCEPT_DRAW = 32;
-constexpr float TWO_PI_F = 6.283185307179586f;
 constexpr float PI_F = 3.141592653589793f;
 
 // Must match SCHEDULE_IDS in mcmc_tpu_torch/ops/fused_trajectory.py.
@@ -86,36 +85,6 @@ __device__ __forceinline__ float friction(int schedule, float t, float T, float 
     default:
       return 0.f;
   }
-}
-
-// p ~ N(0, M) for this lane's coordinates from Philox; zeros past dim.
-template <int K>
-__device__ __forceinline__ void philox_momentum(float (&p)[K], const float (&invm)[K],
-                                                int lane, int dim, uint32_t chain,
-                                                uint32_t call, uint32_t t, uint32_t k0,
-                                                uint32_t k1) {
-#pragma unroll
-  for (int r = 0; r < K; ++r) {
-    const int d = lane + 32 * r;
-    p[r] = 0.f;
-    if (d < dim) {
-      const uint4 x = philox4x32_10(make_uint4(chain, call, t, static_cast<uint32_t>(d >> 2)),
-                                    k0, k1);
-      const bool second_pair = (d & 2) != 0;
-      const float ua = bits_to_uniform(second_pair ? x.z : x.x);
-      const float ub = bits_to_uniform(second_pair ? x.w : x.y);
-      const float rad = sqrtf(-2.f * logf(ua));
-      const float theta = TWO_PI_F * ub;
-      const float z = (d & 1) ? rad * sinf(theta) : rad * cosf(theta);
-      p[r] = z / sqrtf(invm[r]);
-    }
-  }
-}
-
-__device__ __forceinline__ float philox_accept_uniform(uint32_t chain, uint32_t call,
-                                                       uint32_t t, uint32_t k0,
-                                                       uint32_t k1) {
-  return bits_to_uniform(philox4x32_10(make_uint4(chain, call, t, ACCEPT_DRAW), k0, k1).x);
 }
 
 // One MH transition of the chain this warp holds. On entry (q, g, lp) is the
@@ -224,26 +193,6 @@ __device__ __forceinline__ void load_state(const float* q_in, const float* g_in,
     q[r] = valid ? q_in[row + d] : 0.f;
     g[r] = valid ? g_in[row + d] : 0.f;
     invm[r] = valid ? invm_in[d] : 1.f;
-  }
-}
-
-template <int K>
-__device__ __forceinline__ void store_row(float* out, size_t row, int lane, int dim,
-                                          const float (&v)[K]) {
-#pragma unroll
-  for (int r = 0; r < K; ++r) {
-    const int d = lane + 32 * r;
-    if (d < dim) out[row + d] = v[r];
-  }
-}
-
-template <int K>
-__device__ __forceinline__ void load_row(const float* in, size_t row, int lane, int dim,
-                                         float (&v)[K]) {
-#pragma unroll
-  for (int r = 0; r < K; ++r) {
-    const int d = lane + 32 * r;
-    v[r] = d < dim ? in[row + d] : 0.f;
   }
 }
 

@@ -1,7 +1,9 @@
 """Build and bind the hand-written CUDA kernels of ``mcmc_tpu_torch/csrc``.
 
 The kernels are compiled at first use with ``nvcc`` for Hopper (sm_90a) into
-a shared library with a plain C interface, loaded with ``ctypes``. The library
+one shared library with a plain C interface, loaded with ``ctypes``: every
+``csrc/*.cu`` is compiled to an object by its own ``nvcc`` process, all
+started together, and the objects are linked into one library. The library
 lands in ``mcmc_tpu_torch/_build/`` under a name carrying a hash of the
 sources and flags, so an edit to any source builds a new one. Nothing here
 runs at import time: the CPU tests import every module on hosts with no
@@ -22,9 +24,8 @@ from typing import NamedTuple
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-MAIN_SOURCE = "fused_trajectory.cu"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
 # (family, dim, n_chains, num_steps, schedule[, transitions]), scalars, key,
@@ -33,6 +34,13 @@ _SIGNATURES = {
     "grahmc_step_launch": [_I] * 5 + [_P, _P, _U] + [_P] * 6 + [_P] * 7 + [_P],
     "grahmc_multistep_launch": [_I] * 6 + [_P, _P, _U] + [_P] * 6 + [_P] * 7
                                + [_P],
+    # (family, dim, n_chains, transitions, n_hist), scale, key, call, q, lp,
+    # noise, u, five outputs, stream
+    "rwmh_multistep_launch": [_I] * 5 + [_P, _P, _U] + [_P] * 4 + [_P] * 5
+                             + [_P],
+    # (family, dim, n_chains, n_iters, slots, max_tree_depth), scalars,
+    # inv_mass, key, call, host arrays of the state and draw pointers, stream
+    "nuts_window_launch": [_I] * 6 + [_P, _P, _P, _U, _P, _P, _P],
 }
 
 
@@ -68,6 +76,37 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _compile(nvcc: str, out: Path) -> str:
+    """Compile every csrc/*.cu to an object, one nvcc process per source, all
+    running at once, then link them into the shared library `out`. Returns
+    the compilers' output (ptxas registers and spills per kernel)."""
+    sources = sorted(CSRC.glob("*.cu"))
+    objs = [out.with_name(f"{out.name}.{src.stem}.o") for src in sources]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+             for src, obj in zip(sources, objs)]
+    logs, failed = [], []
+    for src, proc in zip(sources, procs):
+        text = proc.communicate()[0]
+        logs.append(f"[{src.name}]\n{text}")
+        if proc.returncode != 0:
+            failed.append(src.name)
+    log = "".join(logs)
+    if not failed:
+        link = subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
+                               "-shared", "-o", str(out), *map(str, objs)],
+                              capture_output=True, text=True)
+        log += link.stdout + link.stderr
+        if link.returncode != 0:
+            failed.append("link")
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{log}")
+    return log
+
+
 def load_library() -> KernelLibrary:
     """Build (once per source hash) and load the kernel library; later calls
     in the process return the loaded one without touching the disk."""
@@ -80,13 +119,8 @@ def load_library() -> KernelLibrary:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
         t0 = time.perf_counter()
-        proc = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / MAIN_SOURCE)],
-            capture_output=True, text=True)
+        log = _compile(nvcc, tmp)
         seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():

@@ -259,17 +259,28 @@ def _check_inputs(info, q, lp, grad, scalars, inv_mass, key, p0, u,
     if p0 is not None:
         expected["p0"] = (p0, lead + (n_chains, dim))
         expected["u"] = (u, lead + (n_chains,))
-    for name, (t, shape) in expected.items():
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
+    check_tensors(expected, q.device, key)
+
+
+def check_tensors(expected: dict, device, key: Optional[Tensor] = None,
+                  dtype: torch.dtype = torch.float32) -> None:
+    """Raise unless every tensor of `expected` ({name: (tensor, shape)} or
+    {name: (tensor, shape, dtype)}) has its dtype (default `dtype`) and
+    shape, is contiguous and lies on `device`; and unless `key`, if given,
+    is a (2,) int32 tensor there. The wrappers' argument check."""
+    for name, spec in expected.items():
+        t, shape = spec[:2]
+        want = spec[2] if len(spec) > 2 else dtype
+        if t.dtype != want:
+            raise TypeError(f"{name} must be {want}, got {t.dtype}")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        if t.device != q.device:
-            raise ValueError(f"{name} is on {t.device}, positions on {q.device}")
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, positions on {device}")
     if key is not None and (key.dtype != torch.int32 or key.shape != (2,)
-                            or key.device != q.device):
+                            or key.device != device):
         raise ValueError("key must be a (2,) int32 tensor on the positions' device")
 
 

@@ -161,7 +161,9 @@ def test_port_never_imports_jax():
         "import sys\n"
         "import mcmc_tpu_torch, mcmc_tpu_torch.interop, mcmc_tpu_torch.samplers\n"
         "import mcmc_tpu_torch.ops.fused_trajectory, mcmc_tpu_torch.ops._cuda\n"
-        "import mcmc_tpu_torch.diagnostics, mcmc_tpu_torch.tuning\n"
+        "import mcmc_tpu_torch.ops.fused_rwmh, mcmc_tpu_torch.ops.fused_nuts\n"
+        "import mcmc_tpu_torch.samplers.rwmh, mcmc_tpu_torch.samplers.nuts_persistent\n"
+        "import mcmc_tpu_torch.diagnostics, mcmc_tpu_torch.tuning, chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'mcmc_tpu.')))\n"
         "assert not bad, bad\n"
     )
