@@ -6,8 +6,9 @@
 Run from the repository root on a machine with a CUDA GPU and nvcc. It
 builds the hand-written CUDA kernels from mcmc_tpu_torch/csrc, holds each
 against its plain PyTorch version at its main-path shape, checks the
-in-kernel Philox draws statistically (fused against eager), then runs the
-three device rows of bench.py on the port:
+in-kernel Philox draws statistically (fused against eager), then runs
+bench.py's GRAHMC, NUTS, NUTS-multinomial and RWMH rows and a dense-metric
+NUTS row on the port:
 
 - GRAHMC: the 50-D Neal's funnel at 65,536 chains, L = 16 and the constant
   schedule, the step size tuned by dual averaging through the fused kernel,
@@ -15,16 +16,24 @@ three device rows of bench.py on the port:
   and a 4,096-chain run through the multi-transition kernel (kernels 1, 2);
 - persistent NUTS: the same funnel at 65,536 chains, the step size tuned by
   dual averaging through the persistent path, then 192 draws of 64 slots,
-  timed, with the last rep's full-history bulk ESS (kernel 4);
+  timed, with the last rep's full-history bulk ESS (kernel 4, endpoint
+  scheme); then the same run with the multinomial scheme (kernel 4a);
+- dense-metric NUTS: the 50-D rho = 0.9 correlated Gaussian at 65,536
+  chains with the oracle metric (its covariance), the step tuned as the
+  NUTS row's, 192 draws of 64 slots with both schemes (kernels 4b and 4a
+  with 4b), and at 4,096 chains the diagonal metric's ESS against it;
 - RWMH: the 10-D standard normal at 65,536 chains, 16,384 draws, 32
   transitions per call (kernel 3).
 
 Every phase passes or raises; there is no CPU path. The last two lines are a
-JSON object describing each kernel and {"ok": true, "device": {...}}.
+JSON object describing each kernel and kernel-4 variant (its launches on the
+main paths, error against its plain version, time, the plain version's
+time and the least time the card could take) and {"ok": true, "device": {...}}.
 """
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -75,7 +84,27 @@ RWMH_SCALE = 2.38 / RWMH_DIM ** 0.5
 RWMH_REPS = 6                # first rep dropped (bench.py:_timed_reps)
 SPLIT_MAX = 1e-3             # share of chains whose path may split
 IN_FLIGHT_MAX = 0.05         # funnel: share whose trajectory in flight may drift
+# NUTS-multinomial row (bench.py:453-493): the NUTS row's step, init and sizes
+# dense-metric NUTS row: 50-D rho = 0.9 correlated Gaussian, oracle metric
+DENSE_RHO = 0.9
+DENSE_PARITY_STEP = 0.5      # whitened N(0, I_50): near its tuned step
+DENSE_CHECK_CHAINS = 4096    # the oracle-vs-diagonal ESS check
+DENSE_ESS_RATIO = 3.0        # tests/test_dense_metric.py:77
+# multinomial variance check: 4-D N(0, I) from exact starts, both backends
+VAR_DIM = 4
+VAR_CHAINS = 65536
+VAR_STEP = 0.5
+VAR_SAMPLES = 16
+VAR_DEPTH = 8
+VAR_TOL = 0.02
 
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 FLOP/s outside the
+# tensor cores; a kernel's bound is the larger of its bytes and its float
+# operations over these.
+PEAK_BYTES = 3.35e12
+PEAK_F32 = 67e12
+
+NUTS_SRC = ("mcmc_tpu_torch/csrc/fused_nuts.cu", "mcmc_tpu/ops/fused_nuts.py:139")
 KERNELS = {   # name: (source, the TPU kernel it replaces)
     "grahmc_step_kernel": ("mcmc_tpu_torch/csrc/fused_trajectory.cu",
                            "mcmc_tpu/ops/fused_trajectory.py:280"),
@@ -83,13 +112,38 @@ KERNELS = {   # name: (source, the TPU kernel it replaces)
                                 "mcmc_tpu/ops/fused_trajectory.py:683"),
     "rwmh_multistep_kernel": ("mcmc_tpu_torch/csrc/fused_rwmh.cu",
                               "mcmc_tpu/ops/fused_rwmh.py:44"),
-    "nuts_window_kernel": ("mcmc_tpu_torch/csrc/fused_nuts.cu",
-                           "mcmc_tpu/ops/fused_nuts.py:139"),
+    "nuts_window_kernel": NUTS_SRC,                     # endpoint, diagonal
+    "nuts_window_kernel[multinomial]": NUTS_SRC,
+    "nuts_window_kernel[dense]": NUTS_SRC,
+    "nuts_window_kernel[multinomial+dense]": NUTS_SRC,
 }
+# kernel 4's variant names (ops/fused_nuts.py:VARIANTS) -> the names above
+NUTS_NAMES = {"endpoint": "nuts_window_kernel",
+              "multinomial": "nuts_window_kernel[multinomial]",
+              "dense": "nuts_window_kernel[dense]",
+              "multinomial+dense": "nuts_window_kernel[multinomial+dense]"}
 
 
 def say(msg=""):
     print(msg, flush=True)
+
+
+def ptxas_summary(log):
+    """One line per compiled kernel of nvcc's -Xptxas -v log: its mangled
+    name (template arguments included), registers and spills."""
+    name, spill = None, ""
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            name, spill = entry.group(1), ""
+        elif "spill" in line:
+            spill = line.strip()
+        elif "registers" in line and name:
+            regs = re.search(r"Used \d+ registers", line)
+            yield f"{name}: {regs.group(0) if regs else line.strip()}; {spill}"
+            name = None
+        elif "error" in line:
+            yield line.strip()
 
 
 def require(cond, msg):
@@ -279,45 +333,68 @@ def phase_parity_rwmh(torch, ft, fr, targets, dev):
 
 
 def _clone_state(ps):
-    return type(ps)(*(t.clone() for t in ps))
+    return type(ps)(*(None if t is None else t.clone() for t in ps))
+
+
+def _target(targets, family):
+    """The rows' DIM-dimensional target of `family` (rho = DENSE_RHO for the
+    correlated Gaussian)."""
+    if family == "correlated_gaussian":
+        return targets.get_target(family, dim=DIM, correlation=DENSE_RHO)
+    return targets.get_target(family, dim=DIM)
 
 
 def phase_parity_nuts(torch, ft, fn, tn, targets, dev):
-    """Kernel 4 against its plain version at the NUTS row's shape (65,536 x
-    50, 16 iterations x W = 4, depth 10) from a state in mid-flight:
-    injected draws, then Philox. On the standard normal every chain that
-    does not split must agree in every field. On the funnel, the main path's
-    target, the leapfrog is unstable in the neck at this step (exp(x0 / 2)
-    below the step), so there a rounding difference grows within a subtree
-    until the subtree ends divergent: the trajectory in flight may differ on
-    up to IN_FLIGHT_MAX of the chains, while the emitted state is held to the
-    SPLIT_MAX rule."""
-    say("[3c] kernel 4 (persistent NUTS window) vs plain version on the card")
-    max_err = 0.0
-    for family, in_flight_max in (("standard_normal", SPLIT_MAX),
-                                  ("neals_funnel", IN_FLIGHT_MAX)):
-        t = getattr(targets, family)(DIM)
+    """Kernel 4's four variants against their plain versions at the rows'
+    shapes (65,536 x 50, 16 iterations x W = 4, depth 10) from a state in
+    mid-flight: injected draws, then Philox. The endpoint scheme on the
+    standard normal and the funnel (the NUTS row), the multinomial scheme on
+    the funnel (the NUTS-multinomial row), the dense metric alone and with
+    the multinomial scheme on the correlated Gaussian with its oracle metric
+    (the dense row). On the Gaussians every chain that does not split must
+    agree in every field. On the funnel, the leapfrog is unstable in the
+    neck at this step (exp(x0 / 2) below the step), so there a rounding
+    difference grows within a subtree until the subtree ends divergent: the
+    trajectory in flight may differ on up to IN_FLIGHT_MAX of the chains,
+    while the emitted state is held to the SPLIT_MAX rule."""
+    say("[3c] kernel 4 (persistent NUTS window), four variants, vs plain version")
+    max_err = dict.fromkeys(NUTS_NAMES.values(), 0.0)
+    for family, multinomial, dense, step, in_flight_max in (
+            ("standard_normal", False, False, NUTS_PARITY_STEP, SPLIT_MAX),
+            ("neals_funnel", False, False, NUTS_PARITY_STEP, IN_FLIGHT_MAX),
+            ("neals_funnel", True, False, NUTS_PARITY_STEP, IN_FLIGHT_MAX),
+            ("correlated_gaussian", False, True, DENSE_PARITY_STEP, SPLIT_MAX),
+            ("correlated_gaussian", True, True, DENSE_PARITY_STEP, SPLIT_MAX)):
+        t = _target(targets, family)
         info = t.value_and_grad_fn.kernel_info
         g = _gen(torch, dev, 102)
         q = torch.randn((NUTS_CHAINS, DIM), generator=g, device=dev) * 0.5
         lp, grad = t.value_and_grad_fn(q)
-        scalars = fn.nuts_scalars(NUTS_PARITY_STEP, 1000.0, dev)
-        ones = torch.ones(DIM, device=dev)
+        scalars = fn.nuts_scalars(step, 1000.0, dev)
+        inv_mass, l_inv = fn.window_metric(
+            t.true_cov if dense else torch.ones(DIM), dev)
         key = ft.PhiloxStream.from_generator(g, dev).key
         args = (info, NUTS_ITERS, NUTS_W, NUTS_DEPTH)
-        warm = fn.nuts_window_kernel(*args, tn._init_pstate(q, lp, grad, torch.float32),
-                                     scalars, ones, key=key, call=0)
+        start = tn._init_pstate(q, lp, grad, torch.float32, multinomial=multinomial,
+                                max_tree_depth=NUTS_DEPTH)
+        warm = fn.nuts_window_kernel(*args, start, scalars, inv_mass, key=key, call=0,
+                                     l_inv=l_inv)
         shape = (NUTS_ITERS, NUTS_CHAINS)
+        n_slice = NUTS_ITERS * NUTS_W if multinomial else NUTS_ITERS
         draws = (torch.randn(shape + (DIM,), generator=g, device=dev),
                  torch.rand(shape, generator=g, device=dev) < 0.5,
                  torch.rand(shape, generator=g, device=dev) < 0.5,
                  torch.rand(shape, generator=g, device=dev),
-                 torch.rand(shape, generator=g, device=dev).clamp_min(2.0 ** -25),
+                 torch.rand((n_slice, NUTS_CHAINS), generator=g,
+                            device=dev).clamp_min(2.0 ** -25),
                  torch.rand(shape, generator=g, device=dev))
+        name = NUTS_NAMES[fn.variant(warm, inv_mass)]
         for mode, rand in (("injected", dict(draws=draws)),
                            ("philox", dict(key=key, call=1))):
-            kern = fn.nuts_window_kernel(*args, _clone_state(warm), scalars, ones, **rand)
-            plain = fn.nuts_window_plain(*args, _clone_state(warm), scalars, ones, **rand)
+            kern = fn.nuts_window_kernel(*args, _clone_state(warm), scalars, inv_mass,
+                                         l_inv=l_inv, **rand)
+            plain = fn.nuts_window_plain(*args, _clone_state(warm), scalars, inv_mass,
+                                         l_inv=l_inv, **rand)
             torch.cuda.synchronize()
             same, emitted, in_flight, err = fn.window_agreement(kern, plain)
             n = NUTS_CHAINS
@@ -326,18 +403,19 @@ def phase_parity_nuts(torch, ft, fn, tn, targets, dev):
             drift = int((kept & ~in_flight).sum())
             done = int((kern.transitions - warm.transitions).sum())
             executed = int((kern.n_exec - warm.n_exec).sum())
-            say(f"  nuts {family} {mode}: discrete state identical on "
+            label = f"{name} {family} {mode}"
+            say(f"  {label}: discrete state identical on "
                 f"{int(same.sum())}/{n} chains, emitted state within 1e-4 on "
                 f"{n - split} ({split} split), trajectory in flight on "
                 f"{n - split - drift} ({drift} drifted); max |err| {err:.3g}; "
                 f"{done} transitions, {executed} of "
                 f"{n * NUTS_STEPS_PER_SAMPLE} slots executed")
-            require(split <= SPLIT_MAX * n, f"nuts {family} {mode}: {split} chains split")
+            require(split <= SPLIT_MAX * n, f"{label}: {split} chains split")
             require(drift <= in_flight_max * n,
-                    f"nuts {family} {mode}: {drift} trajectories in flight differ")
-            require(done > 0, f"nuts {family} {mode}: no transition completed")
-            max_err = max(max_err, err)
-    return {"nuts_window_kernel": max_err}
+                    f"{label}: {drift} trajectories in flight differ")
+            require(done > 0, f"{label}: no transition completed")
+            max_err[name] = max(max_err[name], err)
+    return max_err
 
 # ---------------------------------------------------------------------------
 # Phase 4: in-kernel Philox, statistically
@@ -521,73 +599,194 @@ def phase_main_path(torch, ft, targets, samplers, tuning, diagnostics, dev):
     return step
 
 
-def phase_nuts_row(torch, targets, samplers, tuning, diagnostics, dev):
-    """bench.py's NUTS row on the port: DA tune through the persistent path
-    (NUTS_TUNE_CALLS one-window runs, no host read inside), then 192 draws of
-    64 slots at 65,536 chains, a warm-up and NUTS_REPS timed reps (first
-    dropped), the median per-rep useful grads/s and the last rep's
-    full-history ESS."""
-    say("[5b] NUTS row: 50-D funnel, 65,536 chains, persistent NUTS (kernel 4)")
-    t = targets.neals_funnel(DIM)
-    t0 = time.perf_counter()
-    pos = torch.randn((NUTS_CHAINS, DIM), generator=_gen(torch, dev, 11), device=dev) * 0.5
+def _da_tune_nuts(torch, tuning, samplers, dev, t, chains, **kw):
+    """The NUTS row's step-size tune: NUTS_TUNE_CALLS one-window runs of
+    NUTS_TUNE_SPS slots, each from the last one's final state, dual
+    averaging on the batch-mean accept with no host read inside; returns
+    the smoothed step as a device tensor."""
+    pos = torch.randn((chains, DIM), generator=_gen(torch, dev, 11), device=dev) * 0.5
     da = tuning.da_init(DA_INIT_STEP, device=dev)
     for i in range(NUTS_TUNE_CALLS):
         res = samplers.nuts_run_persistent(
             _gen(torch, dev, 12 + i), t.log_prob_fn, pos,
             step_size=tuning.da_step_size(da), num_samples=1,
             steps_per_sample=NUTS_TUNE_SPS, value_and_grad_fn=t.value_and_grad_fn,
-            collect_chains=8)
+            collect_chains=8, **kw)
         pos = res.final_state.position
         da = tuning.da_update(da, torch.nanmean(res.info["mean_accept_probs"]),
                               TARGET_ACCEPT)
-    step_t = tuning.da_final_step_size(da)
+    return tuning.da_final_step_size(da)
+
+
+def _nuts_timed(torch, samplers, diagnostics, dev, t, label, seed, chains=NUTS_CHAINS,
+                reps=NUTS_REPS, **kw):
+    """bench.py's NUTS protocol: from N(0, 0.5^2) starts (fixed seed 3), a
+    warm-up and `reps` timed runs of NUTS_SAMPLES draws x 64 slots keeping
+    the full history; the median useful (executed-leapfrog) grads/s over
+    reps 2 and up, and the min bulk-ESS of the last rep's history over its
+    wall time. Checks shapes, finite draws and the leapfrog counters."""
+    init = torch.randn((chains, DIM), generator=_gen(torch, dev, 3), device=dev) * 0.5
+    kw = dict(kw, num_samples=NUTS_SAMPLES, steps_per_sample=NUTS_STEPS_PER_SAMPLE,
+              value_and_grad_fn=t.value_and_grad_fn)
+    res = samplers.nuts_run_persistent(_gen(torch, dev, seed), t.log_prob_fn, init, **kw)
+    del res
+    torch.cuda.synchronize()
+    runs = []
+    for rep in range(reps):
+        t0 = time.perf_counter()
+        res = samplers.nuts_run_persistent(_gen(torch, dev, seed + 1 + rep), t.log_prob_fn,
+                                           init, **kw)
+        torch.cuda.synchronize()
+        runs.append((int(res.info["n_leapfrogs"]), time.perf_counter() - t0))
+        if rep < reps - 1:
+            del res
+    rates = sorted(n / d for n, d in runs[1:] or runs)
+    slots = NUTS_SAMPLES * NUTS_STEPS_PER_SAMPLE * chains
+    out = dict(rate=rates[len(rates) // 2], wall=runs[-1][1],
+               accept=float(torch.nanmean(res.info["mean_accept_probs"])),
+               depth=float(res.info["mean_tree_depth"].mean()),
+               divergences=int(res.info["total_divergences"]),
+               executed=runs[-1][0] / slots)
+    say(f"  {label}: {NUTS_SAMPLES} draws x {NUTS_STEPS_PER_SAMPLE} slots x {chains} "
+        f"chains; reps (leapfrogs, s) {[(n, round(d, 4)) for n, d in runs]}")
+    which = f"median of reps 2-{reps}" if reps > 1 else "one rep"
+    say(f"  {label}: useful grads/s {out['rate']:.1f} ({which}); "
+        f"executed {out['executed']:.4f} of the slots; accept {out['accept']:.4f}; "
+        f"mean tree depth {out['depth']:.3f}; divergences {out['divergences']}")
+    require(res.samples.shape == (NUTS_SAMPLES, chains, DIM), f"{label}: history shape")
+    require(bool(torch.isfinite(res.samples).all()), f"{label}: non-finite draws")
+    require(bool(torch.isfinite(res.log_probs).all()), f"{label}: non-finite log-probs")
+    require(int(res.info["n_leapfrogs"]) <= int(res.info["n_leapfrog_slots"]) == slots,
+            f"{label}: leapfrog counters")
+    t0 = time.perf_counter()
+    ess = diagnostics.ess_bulk_chunked(res.samples, chain_chunk=8192, dim_chunk=4)
+    torch.cuda.synchronize()
+    out["ess_min"] = float(ess.min())
+    out["ess_rate"] = out["ess_min"] / out["wall"]
+    require(bool(torch.isfinite(ess).all()) and out["ess_min"] > 0, f"{label}: bulk ESS")
+    say(f"  {label}: last rep's full history: min bulk-ESS {out['ess_min']:.1f}, median "
+        f"{float(ess.median()):.1f}, ESS/s {out['ess_rate']:.1f} "
+        f"(diagnostics {time.perf_counter() - t0:.2f} s)")
+    return out, res
+
+
+def phase_nuts_row(torch, targets, samplers, tuning, diagnostics, dev):
+    """bench.py's NUTS row on the port: DA tune through the persistent path
+    (NUTS_TUNE_CALLS one-window runs, no host read inside), then 192 draws of
+    64 slots at 65,536 chains, a warm-up and NUTS_REPS timed reps (first
+    dropped), the median per-rep useful grads/s and the last rep's
+    full-history ESS; then bench.py's NUTS-multinomial row, the same run
+    with the multinomial scheme at the same step (bench.py:453-493)."""
+    say("[5b] NUTS row: 50-D funnel, 65,536 chains, persistent NUTS (kernel 4)")
+    t = targets.neals_funnel(DIM)
+    t0 = time.perf_counter()
+    step_t = _da_tune_nuts(torch, tuning, samplers, dev, t, NUTS_CHAINS)
     step = float(step_t)
     say(f"  tuned step {step:.6f} ({NUTS_TUNE_CALLS} runs of {NUTS_TUNE_SPS} slots, "
         f"{time.perf_counter() - t0:.2f} s)")
     require(0.0 < step < 1.0, "tuned NUTS step out of range")
+    endpoint, _ = _nuts_timed(torch, samplers, diagnostics, dev, t, "endpoint", 4,
+                              step_size=step_t)
+    say(f"  nuts_useful_grads_per_sec {endpoint['rate']:.1f}, nuts_ess_per_sec "
+        f"{endpoint['ess_rate']:.1f}")
+    require(abs(endpoint["accept"] - TARGET_ACCEPT) < 0.1,
+            f"tuned NUTS accept {endpoint['accept']}")
 
-    n_init = torch.randn((NUTS_CHAINS, DIM), generator=_gen(torch, dev, 3), device=dev) * 0.5
-    kw = dict(step_size=step_t, num_samples=NUTS_SAMPLES,
-              steps_per_sample=NUTS_STEPS_PER_SAMPLE, value_and_grad_fn=t.value_and_grad_fn)
-    res = samplers.nuts_run_persistent(_gen(torch, dev, 4), t.log_prob_fn, n_init, **kw)
-    del res
-    torch.cuda.synchronize()
-    reps = []
-    for rep in range(NUTS_REPS):
-        t0 = time.perf_counter()
-        res = samplers.nuts_run_persistent(_gen(torch, dev, 5 + rep), t.log_prob_fn,
-                                           n_init, **kw)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        reps.append((int(res.info["n_leapfrogs"]), dt))
-        if rep < NUTS_REPS - 1:
-            del res
-    rates = sorted(n / d for n, d in reps[1:])
-    rate = rates[len(rates) // 2]
-    slots = NUTS_SAMPLES * NUTS_STEPS_PER_SAMPLE * NUTS_CHAINS
-    accept = float(torch.nanmean(res.info["mean_accept_probs"]))
-    depth = float(res.info["mean_tree_depth"].mean())
-    say(f"  timed runs: {NUTS_SAMPLES} draws x {NUTS_STEPS_PER_SAMPLE} slots x "
-        f"{NUTS_CHAINS} chains; reps (leapfrogs, s) {[(n, round(d, 4)) for n, d in reps]}")
-    say(f"  useful grads/s {rate:.1f} (median of reps 2-{NUTS_REPS}); executed "
-        f"{reps[-1][0] / slots:.4f} of the slots; accept {accept:.4f}; mean tree depth "
-        f"{depth:.3f}; divergences {int(res.info['total_divergences'])}")
-    require(res.samples.shape == (NUTS_SAMPLES, NUTS_CHAINS, DIM), "NUTS history shape")
-    require(bool(torch.isfinite(res.samples).all()), "non-finite NUTS draws")
-    require(bool(torch.isfinite(res.log_probs).all()), "non-finite NUTS log-probs")
-    require(abs(accept - TARGET_ACCEPT) < 0.1, f"tuned NUTS accept {accept}")
-    require(int(res.info["n_leapfrogs"]) <= int(res.info["n_leapfrog_slots"]) == slots,
-            "NUTS leapfrog counters")
+    say("[5b'] NUTS-multinomial row: the same funnel, step and starts, "
+        "proposal_scheme='multinomial' (kernel 4a)")
+    multi, _ = _nuts_timed(torch, samplers, diagnostics, dev, t, "multinomial", 40,
+                           step_size=step_t, proposal_scheme="multinomial")
+    ratio = multi["ess_rate"] / endpoint["ess_rate"]
+    say(f"  nuts_multinomial_useful_grads_per_sec {multi['rate']:.1f}, "
+        f"nuts_multinomial_ess_per_sec {multi['ess_rate']:.1f}, "
+        f"nuts_multinomial_vs_endpoint_ess {ratio:.4f}")
+    require(0.4 < multi["accept"] <= 1.0, f"multinomial accept {multi['accept']}")
+    return dict(step=step, endpoint=endpoint, multinomial=multi, vs_endpoint=ratio)
+
+
+def phase_dense_row(torch, targets, samplers, tuning, diagnostics, dev):
+    """The dense-metric NUTS row (the port's own; bench.py has none): the
+    50-D rho = 0.9 correlated Gaussian at 65,536 chains with the oracle
+    metric inv_mass_matrix = its covariance (tests/test_dense_metric.py's
+    drive), the step tuned with the NUTS row's protocol, then 192 draws of
+    64 slots with the endpoint scheme (kernel 4b) and with the multinomial
+    scheme (kernels 4a with 4b), bench.py's timing and ESS protocol. Then
+    at 4,096 chains the same endpoint run with the diagonal metric diag(Sigma),
+    its step tuned the same way: its min bulk-ESS must be at least
+    DENSE_ESS_RATIO times lower (tests/test_dense_metric.py:77)."""
+    say("[5c] dense-metric NUTS row: 50-D correlated Gaussian (rho 0.9), 65,536 "
+        "chains, oracle metric (kernel 4b)")
+    t = _target(targets, "correlated_gaussian")
+    sigma = t.true_cov.to(dev)
     t0 = time.perf_counter()
-    ess = diagnostics.ess_bulk_chunked(res.samples, chain_chunk=8192, dim_chunk=4)
-    torch.cuda.synchronize()
-    ess_min = float(ess.min())
-    require(bool(torch.isfinite(ess).all()) and ess_min > 0, "NUTS bulk ESS")
-    say(f"  last rep's full history: min bulk-ESS {ess_min:.1f}, median "
-        f"{float(ess.median()):.1f}, ESS/s {ess_min / reps[-1][1]:.1f} "
-        f"(diagnostics {time.perf_counter() - t0:.2f} s)")
-    return step
+    step_t = _da_tune_nuts(torch, tuning, samplers, dev, t, NUTS_CHAINS,
+                           inv_mass_matrix=sigma)
+    step = float(step_t)
+    say(f"  tuned step {step:.6f} ({NUTS_TUNE_CALLS} runs of {NUTS_TUNE_SPS} slots, "
+        f"{time.perf_counter() - t0:.2f} s)")
+    require(0.0 < step < 3.0, "tuned dense step out of range")
+    dense, res = _nuts_timed(torch, samplers, diagnostics, dev, t, "dense", 60,
+                             step_size=step_t, inv_mass_matrix=sigma)
+    cov_err = float((torch.cov(res.samples[-1].T.double()) - sigma).abs().max())
+    del res
+    say(f"  nuts_dense_useful_grads_per_sec {dense['rate']:.1f}, nuts_dense_ess_per_sec "
+        f"{dense['ess_rate']:.1f}; last draw's covariance across chains within "
+        f"{cov_err:.4f} of Sigma")
+    require(abs(dense["accept"] - TARGET_ACCEPT) < 0.1, f"tuned dense accept {dense['accept']}")
+    require(cov_err < 0.1, f"dense row covariance off by {cov_err}")
+    both, _ = _nuts_timed(torch, samplers, diagnostics, dev, t, "multinomial+dense", 70,
+                          step_size=step_t, inv_mass_matrix=sigma,
+                          proposal_scheme="multinomial")
+    say(f"  nuts_dense_multinomial_useful_grads_per_sec {both['rate']:.1f}, "
+        f"nuts_dense_multinomial_ess_per_sec {both['ess_rate']:.1f}")
+    require(0.4 < both["accept"] <= 1.0, f"multinomial+dense accept {both['accept']}")
+
+    step_d = _da_tune_nuts(torch, tuning, samplers, dev, t, DENSE_CHECK_CHAINS,
+                           inv_mass_matrix=torch.diagonal(sigma))
+    check = {}
+    for name, metric, s in (("dense", sigma, step_t),
+                            ("diagonal", torch.diagonal(sigma), step_d)):
+        check[name], _ = _nuts_timed(torch, samplers, diagnostics, dev, t,
+                                     f"{name} at {DENSE_CHECK_CHAINS} chains", 80,
+                                     chains=DENSE_CHECK_CHAINS, reps=1, step_size=s,
+                                     inv_mass_matrix=metric)
+    ess_ratio = check["dense"]["ess_min"] / check["diagonal"]["ess_min"]
+    say(f"  oracle dense vs diagonal metric at {DENSE_CHECK_CHAINS} chains (steps "
+        f"{step:.4f} / {float(step_d):.4f}): min bulk-ESS {check['dense']['ess_min']:.1f} "
+        f"vs {check['diagonal']['ess_min']:.1f}, ratio {ess_ratio:.2f}")
+    require(ess_ratio >= DENSE_ESS_RATIO, f"dense/diagonal min-ESS ratio {ess_ratio}")
+    return dict(step=step, dense=dense, multinomial_dense=both, ess_ratio=ess_ratio)
+
+
+def phase_multinomial_variance(torch, targets, samplers, dev):
+    """The multinomial scheme's point, fused (in-kernel Philox) against
+    eager: on the 4-D standard normal from exact starts at 65,536 chains its
+    marginal variance lies within VAR_TOL of 1 on both backends, where the
+    endpoint scheme reads ~0.967 (nuts_persistent.py:174-176 in the JAX
+    package; in 50-D with a unit metric it does not show)."""
+    say(f"[4c] multinomial scheme: {VAR_DIM}-D N(0, I) from exact starts, "
+        f"{VAR_CHAINS} chains, fused against eager")
+    t = targets.standard_normal(VAR_DIM)
+    q0 = torch.randn((VAR_CHAINS, VAR_DIM), generator=_gen(torch, dev, 26), device=dev)
+    var = {}
+    for scheme in ("endpoint", "multinomial"):
+        for backend in ("fused", "eager"):
+            res = samplers.nuts_run_persistent(
+                _gen(torch, dev, 27), t.log_prob_fn, q0, step_size=VAR_STEP,
+                num_samples=VAR_SAMPLES, steps_per_sample=NUTS_STEPS_PER_SAMPLE,
+                max_tree_depth=VAR_DEPTH, value_and_grad_fn=t.value_and_grad_fn,
+                backend=backend, proposal_scheme=scheme)
+            flat = res.samples.reshape(-1, VAR_DIM)
+            var[scheme, backend] = float(flat.var(0).mean())
+            say(f"  {scheme} {backend}: marginal variance {var[scheme, backend]:.4f}, "
+                f"max |mean| {float(flat.mean(0).abs().max()):.4f}, accept "
+                f"{float(torch.nanmean(res.info['mean_accept_probs'])):.4f}, mean tree "
+                f"depth {float(res.info['mean_tree_depth'].mean()):.3f}")
+    for backend in ("fused", "eager"):
+        v = var["multinomial", backend]
+        require(abs(v - 1.0) < VAR_TOL, f"multinomial {backend}: variance {v}")
+        require(var["endpoint", backend] < v, f"{backend}: endpoint not below multinomial")
+    return var
 
 
 def phase_rwmh_row(torch, targets, samplers, dev):
@@ -687,17 +886,21 @@ def phase_timing(torch, ft, targets, step, dev, reps=20, burst=10):
     return times
 
 
-def phase_timing_rwmh_nuts(torch, ft, fr, fn, tn, targets, nuts_step, dev, reps=10,
-                           burst=10, plain_burst=1):
-    """Kernels 3 and 4 against their plain versions at the rows' shapes,
-    Philox mode: median over `reps` samples, `burst` kernel calls or
-    `plain_burst` plain calls per sample. The NUTS window runs on from a
-    state that two windows have already advanced, as in a run."""
+def phase_timing_rwmh_nuts(torch, ft, fr, fn, tn, targets, nuts_step, dense_step, dev,
+                           reps=10, burst=10, plain_burst=1):
+    """Kernel 3 and kernel 4's four variants against their plain versions at
+    the rows' shapes, Philox mode: median over `reps` samples, `burst`
+    kernel calls or `plain_burst` plain calls per sample. A NUTS window runs
+    on from a state that two windows have already advanced, as in a run;
+    for its bound, the kernel's executed leapfrogs per call are counted and
+    its live checkpoint-stack slots read before and after the timed calls.
+    Returns {name: (kernel ms, plain ms)} and {name: {"leapfrogs": per call,
+    "stack_slots": live slots carried into a window and out of it}}."""
     say(f"[6b] kernels 3 and 4 vs plain versions: CUDA events, median of {reps} "
         f"bursts of {burst} kernel / {plain_burst} plain calls, Philox mode")
     g = _gen(torch, dev, 41)
     key = ft.PhiloxStream.from_generator(g, dev).key
-    times = {}
+    times, measured = {}, {}
 
     t = targets.standard_normal(RWMH_DIM)
     q = torch.randn((RWMH_CHAINS, RWMH_DIM), generator=g, device=dev) * 0.3
@@ -708,33 +911,118 @@ def phase_timing_rwmh_nuts(torch, ft, fr, fn, tn, targets, nuts_step, dev, reps=
     ms = _interleaved(torch, fns, reps, {"kernel": burst, "plain": plain_burst})
     times["rwmh_multistep_kernel"] = (statistics.median(ms["kernel"]),
                                       statistics.median(ms["plain"]))
+    say(f"  rwmh_multistep_kernel ({RWMH_CHAINS} x {RWMH_DIM}, T = {RWMH_T}): kernel "
+        f"{times['rwmh_multistep_kernel'][0]:.4f} ms, plain "
+        f"{times['rwmh_multistep_kernel'][1]:.4f} ms")
 
-    t = targets.neals_funnel(DIM)
-    info = t.value_and_grad_fn.kernel_info
-    q = torch.randn((NUTS_CHAINS, DIM), generator=g, device=dev) * 0.5
-    lp, grad = t.value_and_grad_fn(q)
-    scalars = fn.nuts_scalars(nuts_step, 1000.0, dev)
-    ones = torch.ones(DIM, device=dev)
-    args = (info, NUTS_ITERS, NUTS_W, NUTS_DEPTH)
-    state = tn._init_pstate(q, lp, grad, torch.float32)
-    for call in range(2):
-        state = fn.nuts_window_kernel(*args, state, scalars, ones, key=key, call=call)
-    states = {"kernel": state, "plain": _clone_state(state)}
-    fns = {"kernel": lambda: fn.nuts_window_kernel(*args, states["kernel"], scalars, ones,
-                                                   key=key, call=2),
-           "plain": lambda: fn.nuts_window_plain(*args, states["plain"], scalars, ones,
-                                                 key=key, call=2)}
-    ms = _interleaved(torch, fns, reps, {"kernel": burst, "plain": plain_burst})
-    times["nuts_window_kernel"] = (statistics.median(ms["kernel"]),
-                                   statistics.median(ms["plain"]))
-    for name, shape in (("rwmh_multistep_kernel",
-                         f"{RWMH_CHAINS} x {RWMH_DIM}, T = {RWMH_T}"),
-                        ("nuts_window_kernel",
-                         f"{NUTS_CHAINS} x {DIM}, {NUTS_ITERS} iterations x W = "
-                         f"{NUTS_W}, step {nuts_step:.4f}")):
-        say(f"  {name} ({shape}): kernel {times[name][0]:.4f} ms, plain "
-            f"{times[name][1]:.4f} ms")
-    return times
+    for family, multinomial, dense, step in (
+            ("neals_funnel", False, False, nuts_step), ("neals_funnel", True, False, nuts_step),
+            ("correlated_gaussian", False, True, dense_step),
+            ("correlated_gaussian", True, True, dense_step)):
+        t = _target(targets, family)
+        info = t.value_and_grad_fn.kernel_info
+        q = torch.randn((NUTS_CHAINS, DIM), generator=g, device=dev) * 0.5
+        lp, grad = t.value_and_grad_fn(q)
+        scalars = fn.nuts_scalars(step, 1000.0, dev)
+        inv_mass, l_inv = fn.window_metric(t.true_cov if dense else torch.ones(DIM), dev)
+        args = (info, NUTS_ITERS, NUTS_W, NUTS_DEPTH)
+        state = tn._init_pstate(q, lp, grad, torch.float32, multinomial=multinomial,
+                                max_tree_depth=NUTS_DEPTH)
+        for call in range(2):
+            state = fn.nuts_window_kernel(*args, state, scalars, inv_mass, key=key,
+                                          call=call, l_inv=l_inv)
+        states = {"kernel": state, "plain": _clone_state(state)}
+        before = int(state.n_exec.sum())
+        slots_before = live_stack_slots(state)
+        fns = {"kernel": lambda: fn.nuts_window_kernel(*args, states["kernel"], scalars,
+                                                       inv_mass, key=key, call=2,
+                                                       l_inv=l_inv),
+               "plain": lambda: fn.nuts_window_plain(*args, states["plain"], scalars,
+                                                     inv_mass, key=key, call=2,
+                                                     l_inv=l_inv)}
+        ms = _interleaved(torch, fns, reps, {"kernel": burst, "plain": plain_burst})
+        name = NUTS_NAMES[fn.variant(state, inv_mass)]
+        measured[name] = {
+            "leapfrogs": (int(states["kernel"].n_exec.sum()) - before) / (1 + reps * burst),
+            "stack_slots": slots_before + live_stack_slots(states["kernel"])}
+        times[name] = (statistics.median(ms["kernel"]), statistics.median(ms["plain"]))
+        say(f"  {name} ({family}, {NUTS_CHAINS} x {DIM}, {NUTS_ITERS} iterations x W = "
+            f"{NUTS_W}, step {float(step):.4f}): kernel {times[name][0]:.4f} ms, plain "
+            f"{times[name][1]:.4f} ms; {measured[name]['leapfrogs']:.0f} leapfrogs executed "
+            f"per call; live stack slots in and out {measured[name]['stack_slots']}")
+    return times, measured
+
+
+def live_stack_slots(state):
+    """Checkpoint-stack slots (a q row and a p row each) that a window must
+    carry across its boundary from this state: a chain n leaves into a
+    subtree of 2^depth (0 < n < 2^depth) that has not turned holds popcount(n)
+    live slots, the first states of its open aligned blocks, which its later
+    odd leaves check; every other slot is written before it is read within
+    a window. 0 under the endpoint scheme."""
+    if state.q_stk is None:
+        return 0
+    size = 1 << state.depth
+    n = size - state.steps_left
+    open_ = ~state.needs_start & ~state.turn_sub & (n > 0) & (n < size)
+    live = sum((n >> b) & 1 for b in range(NUTS_DEPTH))
+    return int((live * open_).sum())
+
+
+# Float operations per coordinate: a target's value and gradient, a diagonal
+# leapfrog with its kinetic energy (two half kicks, the drift, p M^{-1} p).
+TARGET_FLOPS = {"standard_normal": 3, "neals_funnel": 5, "correlated_gaussian": 6}
+LEAPFROG_FLOPS = 10
+SUBSTEP_FLOPS = 9        # GRAHMC: two friction scalings, two half kicks, the drift
+TRANSITION_FLOPS = 13    # GRAHMC: Box-Muller momentum, two kinetic energies, flip
+
+
+def bound(nbytes, flops):
+    """(least ms, "bytes" or "operations"): the larger of the bytes over the
+    card's memory rate and the float operations over its f32 rate."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_F32
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def kernel_bounds(measured):
+    """Each kernel's bound at this run's shapes: every input read once and
+    every output written once; the float operations of the leapfrogs (and
+    momentum draws) these inputs need, counted per coordinate -- Philox's
+    integer work, per-chain scalars and, for NUTS, starts and subtree ends
+    are not counted, so each bound is a lower bound. `measured` holds kernel
+    4's leapfrogs per call and live checkpoint-stack slots for each variant
+    (data-dependent, phase_timing_rwmh_nuts): of the stacks only the slots
+    live at a window's boundary must cross device memory."""
+    f = TARGET_FLOPS["neals_funnel"]
+    row, chain = DIM * 4, 4
+    step_io = CHAINS * (2 * row + chain) + CHAINS * (3 * row + 3 * chain + 1)
+    step_ops = CHAINS * DIM * (NUM_STEPS * (SUBSTEP_FLOPS + f) + TRANSITION_FLOPS)
+    multi_io = (MULTI_CHAINS * (2 * row + chain) * 2
+                + MULTI_T * MULTI_CHAINS * (1 + chain + row + chain))
+    multi_ops = (MULTI_T * MULTI_CHAINS * DIM
+                 * (NUM_STEPS * (SUBSTEP_FLOPS + f) + TRANSITION_FLOPS))
+    rwmh_io = (RWMH_CHAINS * (RWMH_DIM * 4 + 4) * 2 + RWMH_T * RWMH_CHAINS
+               + RWMH_T * RWMH_COLLECT * (RWMH_DIM * 4 + 4))
+    rwmh_ops = RWMH_T * RWMH_CHAINS * RWMH_DIM * (8 + TARGET_FLOPS["standard_normal"])
+    out = {"grahmc_step_kernel": bound(step_io, step_ops),
+           "grahmc_multistep_kernel": bound(multi_io, multi_ops),
+           "rwmh_multistep_kernel": bound(rwmh_io, rwmh_ops)}
+    for (multinomial, dense), family in (((False, False), "neals_funnel"),
+                                         ((True, False), "neals_funnel"),
+                                         ((False, True), "correlated_gaussian"),
+                                         ((True, True), "correlated_gaussian")):
+        name = NUTS_NAMES[("multinomial+dense" if dense else "multinomial") if multinomial
+                          else ("dense" if dense else "endpoint")]
+        state = NUTS_CHAINS * (14 * row + 17 * chain + 2)
+        if multinomial:          # reservoir, log weights, flags
+            state += NUTS_CHAINS * (2 * row + 3 * chain + 2)
+        # the live stack slots, read in and written out, a q and a p row each
+        stacks = measured[name]["stack_slots"] * 2 * row
+        nbytes = 2 * state + stacks + (2 * DIM * row if dense else row)
+        per_leaf = DIM * (LEAPFROG_FLOPS + TARGET_FLOPS[family]
+                          + (4 * DIM if dense else 0) + (3 if multinomial else 0))
+        out[name] = bound(nbytes, measured[name]["leapfrogs"] * per_leaf)
+    return out
 
 
 def main():
@@ -764,34 +1052,42 @@ def main():
     say("[2] build kernels from mcmc_tpu_torch/csrc")
     lib = _cuda.load_library()
     say(f"  {lib.path.name}: built in {lib.build_seconds:.2f} s")
-    for line in lib.build_log.splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
-            say(f"  ptxas: {line.strip()}")
+    for line in ptxas_summary(lib.build_log):
+        say(f"  ptxas: {line}")
 
     max_err = phase_parity(torch, ft, targets, dev)
     max_err.update(phase_parity_rwmh(torch, ft, fr, targets, dev))
     max_err.update(phase_parity_nuts(torch, ft, fn, tn, targets, dev))
     phase_philox_stats(torch, targets, samplers, dev)
     phase_stats_rwmh_nuts(torch, targets, samplers, dev)
+    phase_multinomial_variance(torch, targets, samplers, dev)
 
-    kernels = {"grahmc_step_kernel": ft.grahmc_step_kernel,
-               "grahmc_multistep_kernel": ft.grahmc_multistep_kernel,
-               "rwmh_multistep_kernel": fr.rwmh_multistep_kernel,
-               "nuts_window_kernel": fn.nuts_window_kernel}
+    wrappers = (ft.grahmc_step_kernel, ft.grahmc_multistep_kernel,
+                fr.rwmh_multistep_kernel)
+
+    def counts():
+        """Each kernel's and kernel-4 variant's launch count."""
+        got = {k.__name__: k.launches for k in wrappers}
+        got.update({NUTS_NAMES[v]: n
+                    for v, n in fn.nuts_window_kernel.variant_launches.items()})
+        return got
     launches = {}
 
     def drive(label, run, expected):
         """Run one main path with every count set to 0 just before it; each
         kernel must launch exactly as often as `expected` says (0 for the
-        kernels of the other paths)."""
-        for k in kernels.values():
+        kernels of the other paths). A kernel's reported launches are its
+        sum over the paths that run it."""
+        for k in wrappers:
             k.launches = 0
+        fn.reset_launches()
         out = run()
-        got = {name: k.launches for name, k in kernels.items()}
-        want = {name: expected.get(name, 0) for name in kernels}
+        got = counts()
+        want = {name: expected.get(name, 0) for name in KERNELS}
         say(f"  launches on the {label}: {got} (expected {want})")
         require(got == want, f"{label}: launches {got}, expected {want}")
-        launches.update({name: got[name] for name in expected})
+        for name in expected:
+            launches[name] = launches.get(name, 0) + got[name]
         return out
 
     g_step = drive("GRAHMC main path",
@@ -800,24 +1096,43 @@ def main():
                    {"grahmc_step_kernel": TUNE_BATCHES * TUNE_BATCH_LEN
                     + TIMED_SAMPLES * (1 + TIMED_REPS) + 2 * ESS_SAMPLES,
                     "grahmc_multistep_kernel": MULTI_SAMPLES // MULTI_T})
-    n_step = drive("NUTS row",
-                   lambda: phase_nuts_row(torch, targets, samplers, tuning, diagnostics,
+    row_runs = NUTS_SAMPLES * (1 + NUTS_REPS)      # windows of one timed row
+    nuts = drive("NUTS and NUTS-multinomial rows",
+                 lambda: phase_nuts_row(torch, targets, samplers, tuning, diagnostics,
+                                        dev),
+                 {"nuts_window_kernel": NUTS_TUNE_CALLS + row_runs,
+                  "nuts_window_kernel[multinomial]": row_runs})
+    check_runs = 2 * NUTS_SAMPLES                   # warm-up and one rep
+    dense = drive("dense-metric NUTS row",
+                  lambda: phase_dense_row(torch, targets, samplers, tuning, diagnostics,
                                           dev),
-                   {"nuts_window_kernel": NUTS_TUNE_CALLS
-                    + NUTS_SAMPLES * (1 + NUTS_REPS)})
+                  {"nuts_window_kernel[dense]": NUTS_TUNE_CALLS + row_runs + check_runs,
+                   "nuts_window_kernel[multinomial+dense]": row_runs,
+                   "nuts_window_kernel": NUTS_TUNE_CALLS + check_runs})
     drive("RWMH row", lambda: phase_rwmh_row(torch, targets, samplers, dev),
           {"rwmh_multistep_kernel": RWMH_SAMPLES // RWMH_T * (1 + RWMH_REPS)})
-    require(all(n > 0 for n in launches.values()) and set(launches) == set(kernels),
+    require(all(n > 0 for n in launches.values()) and set(launches) == set(KERNELS),
             f"a kernel no main path launched: {launches}")
 
     times = phase_timing(torch, ft, targets, g_step, dev)
-    times.update(phase_timing_rwmh_nuts(torch, ft, fr, fn, tn, targets, n_step, dev))
+    nuts_times, measured = phase_timing_rwmh_nuts(torch, ft, fr, fn, tn, targets,
+                                                  nuts["step"], dense["step"], dev)
+    times.update(nuts_times)
+    bounds = kernel_bounds(measured)
     say(f"[7] done in {time.perf_counter() - t_start:.1f} s")
+    say(f"  rows: nuts_useful_grads_per_sec {nuts['endpoint']['rate']:.1f}, "
+        f"nuts_ess_per_sec {nuts['endpoint']['ess_rate']:.1f}, "
+        f"nuts_multinomial_useful_grads_per_sec {nuts['multinomial']['rate']:.1f}, "
+        f"nuts_multinomial_ess_per_sec {nuts['multinomial']['ess_rate']:.1f}, "
+        f"nuts_multinomial_vs_endpoint_ess {nuts['vs_endpoint']:.4f}, "
+        f"nuts_dense_useful_grads_per_sec {dense['dense']['rate']:.1f}, "
+        f"nuts_dense_ess_per_sec {dense['dense']['ess_rate']:.1f}")
     say(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
          "replaces": KERNELS[name][1], "launches": launches[name],
-         "max_abs_err": max_err[name], "ms": times[name][0], "plain_ms": times[name][1]}
-        for name in kernels]}))
+         "max_abs_err": max_err[name], "ms": times[name][0], "plain_ms": times[name][1],
+         "bound_ms": bounds[name][0], "bound_by": bounds[name][1], "library_ms": None}
+        for name in KERNELS]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

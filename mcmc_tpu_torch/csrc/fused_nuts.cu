@@ -1,60 +1,95 @@
-// Fused persistent-NUTS window for NVIDIA Hopper (sm_90a), endpoint scheme,
-// diagonal metric.
+// Fused persistent-NUTS window for NVIDIA Hopper (sm_90a): both proposal
+// schemes (endpoint, multinomial) and both metrics (diagonal, dense).
 //
 // Replaces mcmc_tpu/ops/fused_nuts.py:_make_kernel (built by _build_call for
-// make_fused_nuts_window): one snapshot window -- n_iters machine iterations
-// of up to W leapfrog slots each -- of the persistent-NUTS state machine.
-// Per iteration and chain: a fresh transition's start (momentum, h0, slice
-// variable, direction); the slots, slot 0 always live and a later one only
-// while the subtree is open; at a subtree's end the endpoint store, the
-// endpoint-validity proposal swap, divergence and U-turn tests; then either
-// the transition's completion (1/k snapshot reservoir) or the next doubling.
+// make_fused_nuts_window), with its `multinomial` and `dense` flags as the
+// template flags MULTI and DENSE: one snapshot window -- n_iters machine
+// iterations of up to W leapfrog slots each -- of the persistent-NUTS state
+// machine. Per iteration and chain: a fresh transition's start (momentum,
+// h0, slice variable, direction); the slots, slot 0 always live and a later
+// one only while the subtree is open; at a subtree's end the endpoint store,
+// the proposal update, divergence and U-turn tests; then either the
+// transition's completion (1/k snapshot reservoir) or the next doubling.
 // The plain PyTorch version is mcmc_tpu_torch/ops/fused_nuts.py:
 // nuts_window_plain (samplers/nuts_persistent.py:_machine_iteration).
 //
+// Endpoint scheme: the endpoint-validity proposal swap at each subtree end.
+// Multinomial scheme (MULTI): every live leaf enters the subtree's weighted
+// reservoir (q_sub, g_sub, lp_sub; log weight lw_sub) with weight
+// e^{h0 - h}, a divergent leaf poisons its subtree, and the full recursive
+// sub-U-turn check set runs from two checkpoint stacks: leaf i of the
+// subtree stores (q, p) at stack slot popcount(i >> 1) when even, and when
+// odd checks slots popcount(i >> 1) - trailing_ones(i) + 1 .. popcount(i >> 1)
+// (two warp-reduced dot products each). At the subtree's end a valid
+// subtree replaces the proposal w.p. min(1, W_sub / W_tree).
+// Dense metric (DENSE): v = M^{-1} p and p0 = z @ L^{-1} from M^{-1} and
+// L^{-1} in shared memory (metric.cuh). The U-turn test uses the raw
+// momentum for both metrics.
+//
 // What bounds it on an H100: each chain's state (14 position-like rows and
-// 19 scalars, ~5.8 kB at D = 50) crosses device memory once per window, 0.4
-// GB at 65,536 chains -- ~0.12 ms at 3.35 TB/s -- against 64 leapfrogs per
-// chain in a bench window. Each leapfrog is the target (one expf and a warp
-// reduction on the funnel), the kinetic energy (a second reduction) and the
-// accept expf; a subtree's end adds two reductions for the U-turn test.
-// Instruction issue and the latency of those dependent shuffles, not device
-// memory, set the time.
+// 19 scalars, ~5.8 kB at D = 50; +2 rows and 5 scalars under MULTI) crosses
+// device memory once per window, 0.4 GB at 65,536 chains -- ~0.12 ms at
+// 3.35 TB/s -- against 64 leapfrogs per chain in a bench window. Each
+// leapfrog is the target (one expf and a warp reduction on the funnel), the
+// kinetic energy (a second reduction) and the accept expf; a subtree's end
+// adds two reductions for the U-turn test. Instruction issue and the
+// latency of those dependent shuffles, not device memory, set the time.
+// MULTI adds per leaf a log1pf/expf pair, a stack store or up to depth
+// checks of two reductions each. DENSE adds per leapfrog two D x D
+// products (velocity and kinetic energy), 2 D^2 multiply-adds per chain,
+// each reading one shared word: at D = 50 these, not the target, set the
+// time.
 //
 // Design: one warp per chain, as kernels 1 and 2. Lane j holds coordinates
-// j, j+32, ... of all 14 rows (K = ceil(D / 32) registers each), which stay
-// in registers for the whole window; the per-chain scalars sit in every
-// lane's registers, identical across the warp. Every per-chain mask of the
-// TPU kernel (jnp.where on needs_start, a live slot, a boundary, term or
-// cont) is a warp-uniform branch here, so a chain skips what it does not
-// need: masked slots are not computed at all, and a chain draws its
-// momentum and flags only when it starts or reaches a boundary. Counters
-// are int32, not the TPU kernel's f32 rows. The public (C, D) row-major
-// layout is read and written as is.
+// j, j+32, ... of all rows (K = ceil(D / 32) registers each), which stay in
+// registers for the whole window; the per-chain scalars sit in every lane's
+// registers, identical across the warp. Every per-chain mask of the TPU
+// kernel (jnp.where on needs_start, a live slot, a boundary, term or cont)
+// is a warp-uniform branch here, so a chain skips what it does not need:
+// masked slots are not computed at all, and a chain draws its momentum and
+// flags only when it starts or reaches a boundary. Counters are int32, not
+// the TPU kernel's f32 rows. The public (C, D) row-major layout is read and
+// written as is. The checkpoint stacks (C, max_tree_depth, D) x 2, 4 kB per
+// chain at D = 50, are state that outlives the window: the kernel stores and
+// checks them in place in device memory rather than in registers (a
+// data-dependent slot would make every access an unrolled select over all
+// slots, 2 S K more registers) or in shared memory (a copy in and out of
+// the whole stacks every window). A lane touches only its own coordinates;
+// the stacks of the resident chains, ~2,000 x 4 kB, stay in the 50 MB L2.
 //
 // Randomness: injected (draws non-null: p0 (n_iters, C, D), dir, dir2 bool,
-// swap, slice, res float (n_iters, C)) or Philox4x32-10 with counter (chain,
-// call, iteration, draw): the momentum from draws 0..31 as in philox.cuh,
-// (dir, dir2, swap, slice) from the four words of FLAGS_DRAW, the reservoir
-// uniform from word x0 of RES_DRAW.
+// swap, res float (n_iters, C), slice (n_iters, C), or (n_iters * W, C)
+// under MULTI with slot k of iteration i at row i * W + k) or Philox4x32-10
+// with counter (chain, call, iteration, draw): the momentum from draws
+// 0..31 as in philox.cuh, (dir, dir2, swap, slice) from the four words of
+// FLAGS_DRAW, the reservoir uniform from word x0 of RES_DRAW, and under
+// MULTI slot k's leaf uniform from word k % 4 of draw SLICE_DRAW + k / 4;
+// slot 0's leaf uniform is also the start's slice variable there.
 
+#include <cmath>
 #include <cstddef>
 #include <cstdint>
 #include <cstring>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 #include "chain_rows.cuh"
+#include "metric.cuh"
 #include "philox.cuh"
 #include "targets.cuh"
 
 namespace mcmc {
 namespace nuts {
 
-constexpr int WARPS_PER_BLOCK = 4;
 constexpr int MAX_K = 4;  // dim <= 128
 constexpr uint32_t FLAGS_DRAW = 32;
 constexpr uint32_t RES_DRAW = 33;
+constexpr uint32_t SLICE_DRAW = 34;
 constexpr float NAN_ACCEPT_FALLBACK = 0.65f;
+
+// The dense variant shares its block's M^{-1} and L^{-1} among more warps.
+template <bool DENSE>
+constexpr int WARPS_PER_BLOCK = DENSE ? 8 : 4;
 
 // Field order must match KERNEL_FIELDS in mcmc_tpu_torch/ops/fused_nuts.py.
 struct State {
@@ -64,8 +99,13 @@ struct State {
   int *n_valid, *n_steps, *depth, *steps_left, *transitions, *divergences, *depth_acc,
       *n_exec, *k_res;                                                       // (C,)
   bool *diverged, *needs_start;                                              // (C,)
+  // multinomial scheme only (null otherwise)
+  float *q_sub, *g_sub;              // (C, D)
+  float *lp_sub, *lw_tree, *lw_sub;  // (C,)
+  bool *div_sub, *turn_sub;          // (C,)
+  float *q_stk, *p_stk;              // (C, max_tree_depth, D)
 };
-constexpr size_t N_STATE_FIELDS = 33;
+constexpr size_t N_STATE_FIELDS = 42;
 static_assert(sizeof(State) == N_STATE_FIELDS * sizeof(void*), "State is a pointer array");
 
 struct Draws {
@@ -77,8 +117,10 @@ static_assert(sizeof(Draws) == 6 * sizeof(void*), "Draws is a pointer array");
 
 struct Args {
   int dim, n_chains, n_iters, slots, max_tree_depth;
+  TargetParams params;
   const float* scalars;  // (step size, delta_max), device
-  const float* inv_mass;
+  const float* inv_mass;  // (D,) or, DENSE, (D, D)
+  const float* l_inv;     // DENSE: (D, D) L^{-1}
   const uint32_t* key;
   uint32_t call;
   State s;
@@ -98,6 +140,31 @@ __device__ __forceinline__ Flags load_flags(const Args& a, size_t slot, uint32_t
           bits_to_uniform(x.w)};
 }
 
+// The multinomial scheme's per-slot leaf uniforms of one iteration; a
+// Philox block serves four slots.
+struct SliceStream {
+  uint4 block;
+  int block_idx = -1;
+
+  __device__ __forceinline__ float get(const Args& a, int k, uint32_t chain, uint32_t it,
+                                       uint32_t k0, uint32_t k1) {
+    if (a.d.p0 != nullptr) {
+      return a.d.slice[(static_cast<size_t>(it) * a.slots + k) * a.n_chains + chain];
+    }
+    if (k / 4 != block_idx) {
+      block_idx = k / 4;
+      block = philox4x32_10(
+          make_uint4(chain, a.call, it, SLICE_DRAW + static_cast<uint32_t>(block_idx)), k0, k1);
+    }
+    switch (k % 4) {
+      case 0: return bits_to_uniform(block.x);
+      case 1: return bits_to_uniform(block.y);
+      case 2: return bits_to_uniform(block.z);
+      default: return bits_to_uniform(block.w);
+    }
+  }
+};
+
 template <int K>
 __device__ __forceinline__ void copy(float (&dst)[K], const float (&src)[K]) {
 #pragma unroll
@@ -113,34 +180,61 @@ __device__ __forceinline__ float dot(const float (&a)[K], const float (&b)[K]) {
   return warp_sum(s);
 }
 
-// 0.5 p . M^{-1} p, the plain version's kinetic_energy term for term.
-template <int K>
-__device__ __forceinline__ float kinetic(const float (&p)[K], const float (&invm)[K]) {
-  float s = 0.f;
-#pragma unroll
-  for (int r = 0; r < K; ++r) s += p[r] * (p[r] * invm[r]);
-  return 0.5f * warp_sum(s);
+// log(e^a + e^b) as max + log1p(exp(min - max)); -inf when both are -inf.
+__device__ __forceinline__ float log_add_exp(float a, float b) {
+  const float mx = fmaxf(a, b), mn = fminf(a, b);
+  return mx == -INFINITY ? mx : mx + log1pf(expf(mn - mx));
 }
 
-template <int FAMILY, int K>
-__global__ void __launch_bounds__(WARPS_PER_BLOCK * 32) nuts_window_kernel(const Args a) {
-  const int chain = blockIdx.x * WARPS_PER_BLOCK + (threadIdx.x >> 5);
+// y + a x. ROUNDED rounds the product before the sum, as the plain
+// version's separate tensor operations do; otherwise nvcc may contract it
+// to an FMA. The dense variants need the rounded form: under an
+// ill-conditioned M^{-1} a rounding difference grows along the trajectory.
+template <bool ROUNDED>
+__device__ __forceinline__ float add_scaled(float y, float a, float x) {
+  if constexpr (ROUNDED) {
+    return __fadd_rn(y, __fmul_rn(a, x));
+  } else {
+    return y + a * x;
+  }
+}
+
+template <int K, bool DENSE>
+using Metric = typename std::conditional<DENSE, DenseMetric<K>, DiagMetric<K>>::type;
+
+// The chain's metric. DENSE: the whole block loads M^{-1} and L^{-1} into
+// shared memory, so every thread must call this before any returns.
+template <int K, bool DENSE>
+__device__ __forceinline__ Metric<K, DENSE> make_metric(const Args& a, float* smem, int warp,
+                                                        int lane) {
+  if constexpr (DENSE) {
+    const int n = a.dim * a.dim;
+    load_dense_metric(smem, a.inv_mass, a.l_inv, a.dim);
+    return DenseMetric<K>{smem, smem + n, smem + 2 * n + warp * 32 * K, a.dim, lane};
+  } else {
+    return DiagMetric<K>(a.inv_mass, lane, a.dim);
+  }
+}
+
+template <int FAMILY, int K, bool MULTI, bool DENSE>
+__global__ void __launch_bounds__(WARPS_PER_BLOCK<DENSE> * 32)
+    nuts_window_kernel(const Args a) {
+  constexpr int WARPS = WARPS_PER_BLOCK<DENSE>;
+  const int warp = threadIdx.x >> 5;
+  const int chain = blockIdx.x * WARPS + warp;
   const int lane = threadIdx.x & 31;
+  const int dim = a.dim;
+
+  extern __shared__ float smem[];
+  const Metric<K, DENSE> metric = make_metric<K, DENSE>(a, smem, warp, lane);
   if (chain >= a.n_chains) return;  // uniform across the warp
 
-  const int dim = a.dim;
   const size_t row = static_cast<size_t>(chain) * dim;
-  const Target<FAMILY, K> target(dim);
+  const Target<FAMILY, K> target(dim, a.params);
   const float step = a.scalars[0];
   const float delta_max = a.scalars[1];
   const bool philox = a.d.p0 == nullptr;
   const uint32_t k0 = philox ? a.key[0] : 0u, k1 = philox ? a.key[1] : 0u;
-  float invm[K];
-#pragma unroll
-  for (int r = 0; r < K; ++r) {
-    const int d = lane + 32 * r;
-    invm[r] = d < dim ? a.inv_mass[d] : 1.f;
-  }
 
   const State& S = a.s;
   float q[K], grad[K], q_l[K], p_l[K], g_l[K], q_r[K], p_r[K], g_r[K], q_prop[K], g_prop[K],
@@ -169,26 +263,42 @@ __global__ void __launch_bounds__(WARPS_PER_BLOCK * 32) nuts_window_kernel(const
       n_exec = S.n_exec[chain], k_res = S.k_res[chain];
   bool diverged = S.diverged[chain], needs_start = S.needs_start[chain];
 
+  // multinomial scheme: the subtree's reservoir and this chain's stacks
+  float q_sub[MULTI ? K : 1], g_sub[MULTI ? K : 1];
+  float lp_sub = 0.f, lw_tree = 0.f, lw_sub = 0.f;
+  bool div_sub = false, turn_sub = false;
+  float *q_stk = nullptr, *p_stk = nullptr;
+  if constexpr (MULTI) {
+    load_row(S.q_sub, row, lane, dim, q_sub);
+    load_row(S.g_sub, row, lane, dim, g_sub);
+    lp_sub = S.lp_sub[chain], lw_tree = S.lw_tree[chain], lw_sub = S.lw_sub[chain];
+    div_sub = S.div_sub[chain], turn_sub = S.turn_sub[chain];
+    const size_t stk = static_cast<size_t>(chain) * a.max_tree_depth * dim;
+    q_stk = S.q_stk + stk;
+    p_stk = S.p_stk + stk;
+  }
+
   for (int it = 0; it < a.n_iters; ++it) {
     const size_t slot = static_cast<size_t>(it) * a.n_chains + chain;  // (n_iters, C) index
     const uint32_t uit = static_cast<uint32_t>(it);
     Flags f{};
     bool have_flags = false;
+    SliceStream slices;
 
     // --- 1. fresh-transition start ---------------------------------------
     if (needs_start) {
       float p0[K];
       if (philox) {
-        philox_momentum(p0, invm, lane, dim, chain, a.call, uit, k0, k1);
+        philox_normal_row(p0, lane, dim, chain, a.call, uit, k0, k1);
       } else {
         load_row(a.d.p0, slot * dim, lane, dim, p0);
-#pragma unroll
-        for (int r = 0; r < K; ++r) p0[r] = p0[r] / sqrtf(invm[r]);
       }
+      metric.unwhiten(p0);
       f = load_flags(a, slot, chain, uit, k0, k1);
       have_flags = true;
-      h0 = -lp + kinetic(p0, invm);
-      log_u = logf(f.slice) - h0;
+      h0 = -lp + metric.kinetic(p0);
+      const float slice_u = MULTI ? slices.get(a, 0, chain, uit, k0, k1) : f.slice;
+      log_u = logf(slice_u) - h0;
       copy(q_l, q), copy(p_l, p0), copy(g_l, grad);
       copy(q_r, q), copy(p_r, p0), copy(g_r, grad);
       copy(q_prop, q), copy(g_prop, grad);
@@ -202,6 +312,16 @@ __global__ void __launch_bounds__(WARPS_PER_BLOCK * 32) nuts_window_kernel(const
       direction = f.dir ? 1.f : -1.f;
       diverged = false;
       needs_start = false;
+      if constexpr (MULTI) {
+        // the root tree: the initial state with weight e^0 = 1; the
+        // subtree reservoir starts empty
+        copy(q_sub, q), copy(g_sub, grad);
+        lp_sub = lp;
+        lw_tree = 0.f;
+        lw_sub = -INFINITY;
+        div_sub = false;
+        turn_sub = false;
+      }
     }
 
     // --- 2. leapfrog slots: slot 0 always, later ones while the subtree
@@ -211,22 +331,60 @@ __global__ void __launch_bounds__(WARPS_PER_BLOCK * 32) nuts_window_kernel(const
     float lp_c = lp, h_c = h0;
     for (int k = 0; k < a.slots; ++k) {
       if (k > 0 && steps_left <= 0) break;
-      float p[K], qn[K], gn[K];
+      float p[K], qn[K], gn[K], v[K];
 #pragma unroll
-      for (int r = 0; r < K; ++r) {
-        p[r] = p_c[r] + half * g_c[r];
-        qn[r] = q_c[r] + eps * (p[r] * invm[r]);
-      }
+      for (int r = 0; r < K; ++r) p[r] = add_scaled<DENSE>(p_c[r], half, g_c[r]);
+      metric.velocity(p, v);
+#pragma unroll
+      for (int r = 0; r < K; ++r) qn[r] = add_scaled<DENSE>(q_c[r], eps, v[r]);
       lp_c = target(qn, gn, lane);
 #pragma unroll
-      for (int r = 0; r < K; ++r) p[r] = p[r] + half * gn[r];
-      h_c = -lp_c + kinetic(p, invm);
+      for (int r = 0; r < K; ++r) p[r] = add_scaled<DENSE>(p[r], half, gn[r]);
+      h_c = -lp_c + metric.kinetic(p);
       const float dh = h0 - h_c;
       sum_alpha += expf(dh > 0.f ? 0.f : dh);  // min(0, dh), NaN kept
       copy(q_c, qn), copy(p_c, p), copy(g_c, gn);
       ++n_steps;
       ++n_exec;
       --steps_left;
+
+      if constexpr (MULTI) {
+        // the leaf's weighted reservoir; both weights -inf: no take
+        const float su = slices.get(a, k, chain, uit, k0, k1);
+        const bool fin = isfinite(h_c);
+        const float lw_leaf = fin ? h0 - h_c : -INFINITY;
+        const float lse = log_add_exp(lw_sub, lw_leaf);
+        const bool dead = lw_leaf == -INFINITY && lw_sub == -INFINITY;
+        if (!dead && su < expf(lw_leaf - lse)) {
+          copy(q_sub, q_c), copy(g_sub, g_c);
+          lp_sub = lp_c;
+        }
+        lw_sub = lse;
+        div_sub = div_sub || !fin || (h_c - h0) > delta_max;
+
+        // checkpoint stacks: even leaves store, odd leaves check
+        const int i_leaf = (1 << depth) - steps_left - 1;
+        const int sslot = __popc(i_leaf >> 1);
+        if ((i_leaf & 1) == 0) {
+          const size_t at = static_cast<size_t>(sslot) * dim;
+          store_row(q_stk, at, lane, dim, q_c);
+          store_row(p_stk, at, lane, dim, p_c);
+        } else if (!turn_sub) {  // a set flag stays set: the checks would change nothing
+          const int lo = sslot - (__popc(i_leaf ^ (i_leaf + 1)) - 1) + 1;
+          for (int si = sslot; si >= lo; --si) {
+            float qs[K], ps[K], dq[K];
+            const size_t at = static_cast<size_t>(si) * dim;
+            load_row(q_stk, at, lane, dim, qs);
+            load_row(p_stk, at, lane, dim, ps);
+#pragma unroll
+            for (int r = 0; r < K; ++r) dq[r] = (q_c[r] - qs[r]) * direction;
+            if (dot(dq, ps) < 0.f || dot(dq, p_c) < 0.f) {
+              turn_sub = true;
+              break;
+            }
+          }
+        }
+      }
     }
 
     // --- 3. subtree-boundary bookkeeping ----------------------------------
@@ -236,28 +394,42 @@ __global__ void __launch_bounds__(WARPS_PER_BLOCK * 32) nuts_window_kernel(const
     } else {
       copy(q_l, q_c), copy(p_l, p_c), copy(g_l, g_c);
     }
-    // endpoint-validity proposal swap (reference NUTS.py:319-336)
-    const bool div_new = (h_c - h0) > delta_max;
-    const bool valid = (log_u <= -h_c) && !div_new;
-    const int n_new = valid ? (1 << depth) : 0;
-    const int total = n_valid + n_new;
-    const float swap_prob =
-        (valid && total > 0) ? static_cast<float>(n_new) / static_cast<float>(max(total, 1))
-                             : 0.f;
     if (!have_flags) f = load_flags(a, slot, chain, uit, k0, k1);
-    if (f.swap < swap_prob) {
-      copy(q_prop, q_c), copy(g_prop, g_c);
-      lp_prop = lp_c;
+    if constexpr (MULTI) {
+      // biased progressive subtree merge (Stan): a valid subtree replaces
+      // the proposal w.p. min(1, W_sub / W_tree)
+      const bool sub_ok = !div_sub && !turn_sub && isfinite(lw_sub);
+      const float dl = lw_sub - lw_tree;
+      if (sub_ok && f.swap < expf(dl > 0.f ? 0.f : dl)) {
+        copy(q_prop, q_sub), copy(g_prop, g_sub);
+        lp_prop = lp_sub;
+      }
+      if (sub_ok) lw_tree = log_add_exp(lw_tree, lw_sub);
+      diverged = diverged || div_sub;
+    } else {
+      // endpoint-validity proposal swap (reference NUTS.py:319-336)
+      const bool div_new = (h_c - h0) > delta_max;
+      const bool valid = (log_u <= -h_c) && !div_new;
+      const int n_new = valid ? (1 << depth) : 0;
+      const int total = n_valid + n_new;
+      const float swap_prob =
+          (valid && total > 0) ? static_cast<float>(n_new) / static_cast<float>(max(total, 1))
+                               : 0.f;
+      if (f.swap < swap_prob) {
+        copy(q_prop, q_c), copy(g_prop, g_c);
+        lp_prop = lp_c;
+      }
+      n_valid = total;
+      diverged = diverged || div_new;
     }
-    n_valid = total;
-    diverged = diverged || div_new;
 
-    // termination, evaluated after the doubling (reference while cond)
+    // termination, evaluated after the doubling (reference while cond); a
+    // subtree with an internal U-turn ends the trajectory as well
     float dq[K];
 #pragma unroll
     for (int r = 0; r < K; ++r) dq[r] = q_r[r] - q_l[r];
     const bool u_turn = (dot(dq, p_l) < 0.f) || (dot(dq, p_r) < 0.f);
-    if (depth + 1 >= a.max_tree_depth || u_turn || diverged) {
+    if (depth + 1 >= a.max_tree_depth || u_turn || diverged || (MULTI && turn_sub)) {
       // the transition completes: adopt the proposal, log its statistics
       float mean_alpha = sum_alpha / static_cast<float>(max(n_steps, 1));
       if (!isfinite(mean_alpha)) mean_alpha = NAN_ACCEPT_FALLBACK;
@@ -287,6 +459,11 @@ __global__ void __launch_bounds__(WARPS_PER_BLOCK * 32) nuts_window_kernel(const
       } else {
         copy(q_c, q_l), copy(p_c, p_l), copy(g_c, g_l);
       }
+      if constexpr (MULTI) {  // a fresh subtree: an empty reservoir
+        lw_sub = -INFINITY;
+        div_sub = false;
+        turn_sub = false;
+      }
     }
   }
 
@@ -304,6 +481,10 @@ __global__ void __launch_bounds__(WARPS_PER_BLOCK * 32) nuts_window_kernel(const
   store_row(S.p_c, row, lane, dim, p_c);
   store_row(S.g_c, row, lane, dim, g_c);
   store_row(S.q_res, row, lane, dim, q_res);
+  if constexpr (MULTI) {
+    store_row(S.q_sub, row, lane, dim, q_sub);
+    store_row(S.g_sub, row, lane, dim, g_sub);
+  }
   if (lane == 0) {
     S.lp[chain] = lp, S.lp_prop[chain] = lp_prop, S.h0[chain] = h0, S.log_u[chain] = log_u;
     S.sum_alpha[chain] = sum_alpha, S.direction[chain] = direction;
@@ -313,42 +494,71 @@ __global__ void __launch_bounds__(WARPS_PER_BLOCK * 32) nuts_window_kernel(const
     S.divergences[chain] = divergences, S.depth_acc[chain] = depth_acc;
     S.n_exec[chain] = n_exec, S.k_res[chain] = k_res;
     S.diverged[chain] = diverged, S.needs_start[chain] = needs_start;
+    if constexpr (MULTI) {
+      S.lp_sub[chain] = lp_sub, S.lw_tree[chain] = lw_tree, S.lw_sub[chain] = lw_sub;
+      S.div_sub[chain] = div_sub, S.turn_sub[chain] = turn_sub;
+    }
   }
 }
 
-template <int FAMILY, int K>
+template <int FAMILY, int K, bool MULTI, bool DENSE>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  const unsigned blocks =
-      static_cast<unsigned>((a.n_chains + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK);
-  nuts_window_kernel<FAMILY, K><<<blocks, WARPS_PER_BLOCK * 32, 0, stream>>>(a);
+  constexpr int WARPS = WARPS_PER_BLOCK<DENSE>;
+  const unsigned blocks = static_cast<unsigned>((a.n_chains + WARPS - 1) / WARPS);
+  size_t smem = 0;
+  if constexpr (DENSE) {
+    smem = (2 * static_cast<size_t>(a.dim) * a.dim + WARPS * 32 * K) * sizeof(float);
+    // above 48 kB only after opting in (D > 74); up to 139 kB at D = 128
+    const cudaError_t err = cudaFuncSetAttribute(nuts_window_kernel<FAMILY, K, MULTI, DENSE>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  nuts_window_kernel<FAMILY, K, MULTI, DENSE><<<blocks, WARPS * 32, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <int FAMILY>
+template <int FAMILY, bool MULTI, bool DENSE>
 cudaError_t dispatch_k(const Args& a, cudaStream_t stream) {
   switch ((a.dim + 31) / 32) {
-    case 1: return launch<FAMILY, 1>(a, stream);
-    case 2: return launch<FAMILY, 2>(a, stream);
-    case 3: return launch<FAMILY, 3>(a, stream);
-    case 4: return launch<FAMILY, 4>(a, stream);
+    case 1: return launch<FAMILY, 1, MULTI, DENSE>(a, stream);
+    case 2: return launch<FAMILY, 2, MULTI, DENSE>(a, stream);
+    case 3: return launch<FAMILY, 3, MULTI, DENSE>(a, stream);
+    case 4: return launch<FAMILY, 4, MULTI, DENSE>(a, stream);
     default: return cudaErrorInvalidValue;
   }
+}
+
+template <int FAMILY>
+cudaError_t dispatch_variant(const Args& a, bool multi, bool dense, cudaStream_t stream) {
+  if (multi) {
+    return dense ? dispatch_k<FAMILY, true, true>(a, stream)
+                 : dispatch_k<FAMILY, true, false>(a, stream);
+  }
+  return dense ? dispatch_k<FAMILY, false, true>(a, stream)
+               : dispatch_k<FAMILY, false, false>(a, stream);
 }
 
 }  // namespace nuts
 }  // namespace mcmc
 
 // Plain C entry point, bound with ctypes by mcmc_tpu_torch/ops/_cuda.py.
-// `state` is a host array of the 33 device pointers of struct State, in its
-// order; `draws` a host array of the 6 injected draw pointers, or null for
-// the in-kernel Philox draws (then key must be non-null). The kernel updates
-// the state in place. Returns the launch's cudaError_t.
+// `multinomial` and `dense` pick the variant. `target_params` is a host
+// array of the 4 floats of TargetParams. `state` is a host array of the 42
+// device pointers of struct State, in its order (the last 9 null without
+// `multinomial`); `draws` a host array of the 6 injected draw pointers, or
+// null for the in-kernel Philox draws (then key must be non-null). `l_inv`
+// is needed with `dense`. The kernel updates the state in place. Returns the
+// launch's cudaError_t.
 extern "C" int nuts_window_launch(int family, int dim, int n_chains, int n_iters, int slots,
-                                  int max_tree_depth, const float* scalars,
-                                  const float* inv_mass, const uint32_t* key, unsigned int call,
-                                  void* const* state, void* const* draws, void* stream) {
+                                  int max_tree_depth, int multinomial, int dense,
+                                  const float* target_params, const float* scalars,
+                                  const float* inv_mass, const float* l_inv, const uint32_t* key,
+                                  unsigned int call, void* const* state, void* const* draws,
+                                  void* stream) {
   using namespace mcmc;
-  if (state == nullptr || (draws == nullptr && key == nullptr)) {
+  if (state == nullptr || target_params == nullptr || (draws == nullptr && key == nullptr) ||
+      (dense && l_inv == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (dim < 1 || dim > 32 * nuts::MAX_K || n_chains < 1 || n_iters < 1 || slots < 1 ||
@@ -358,13 +568,22 @@ extern "C" int nuts_window_launch(int family, int dim, int n_chains, int n_iters
   nuts::Args a{};
   a.dim = dim, a.n_chains = n_chains, a.n_iters = n_iters, a.slots = slots;
   a.max_tree_depth = max_tree_depth, a.scalars = scalars, a.inv_mass = inv_mass;
-  a.key = key, a.call = call;
+  a.l_inv = l_inv, a.key = key, a.call = call;
+  std::memcpy(a.params.v, target_params, sizeof(a.params.v));
   std::memcpy(&a.s, state, sizeof(nuts::State));
   if (draws != nullptr) std::memcpy(&a.d, draws, sizeof(nuts::Draws));
+  if (multinomial && (a.s.q_sub == nullptr || a.s.q_stk == nullptr || a.s.p_stk == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool multi = multinomial != 0, dns = dense != 0;
   switch (family) {
-    case STANDARD_NORMAL: return static_cast<int>(nuts::dispatch_k<STANDARD_NORMAL>(a, s));
-    case NEALS_FUNNEL: return static_cast<int>(nuts::dispatch_k<NEALS_FUNNEL>(a, s));
+    case STANDARD_NORMAL:
+      return static_cast<int>(nuts::dispatch_variant<STANDARD_NORMAL>(a, multi, dns, s));
+    case NEALS_FUNNEL:
+      return static_cast<int>(nuts::dispatch_variant<NEALS_FUNNEL>(a, multi, dns, s));
+    case CORRELATED_GAUSSIAN:
+      return static_cast<int>(nuts::dispatch_variant<CORRELATED_GAUSSIAN>(a, multi, dns, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

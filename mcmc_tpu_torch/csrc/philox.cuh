@@ -42,17 +42,16 @@ __device__ __forceinline__ float bits_to_uniform(uint32_t bits) {
 constexpr uint32_t ACCEPT_DRAW = 32;  // the per-chain uniform of draw 32, word x0
 constexpr float TWO_PI_F = 6.283185307179586f;
 
-// p ~ N(0, M) for this lane's coordinates lane + 32 r of a warp-per-chain
+// z ~ N(0, I) for this lane's coordinates lane + 32 r of a warp-per-chain
 // layout; zeros past dim.
 template <int K>
-__device__ __forceinline__ void philox_momentum(float (&p)[K], const float (&invm)[K],
-                                                int lane, int dim, uint32_t chain,
-                                                uint32_t call, uint32_t t, uint32_t k0,
-                                                uint32_t k1) {
+__device__ __forceinline__ void philox_normal_row(float (&z)[K], int lane, int dim,
+                                                  uint32_t chain, uint32_t call, uint32_t t,
+                                                  uint32_t k0, uint32_t k1) {
 #pragma unroll
   for (int r = 0; r < K; ++r) {
     const int d = lane + 32 * r;
-    p[r] = 0.f;
+    z[r] = 0.f;
     if (d < dim) {
       const uint4 x = philox4x32_10(make_uint4(chain, call, t, static_cast<uint32_t>(d >> 2)),
                                     k0, k1);
@@ -61,10 +60,20 @@ __device__ __forceinline__ void philox_momentum(float (&p)[K], const float (&inv
       const float ub = bits_to_uniform(second_pair ? x.w : x.y);
       const float rad = sqrtf(-2.f * logf(ua));
       const float theta = TWO_PI_F * ub;
-      const float z = (d & 1) ? rad * sinf(theta) : rad * cosf(theta);
-      p[r] = z / sqrtf(invm[r]);
+      z[r] = (d & 1) ? rad * sinf(theta) : rad * cosf(theta);
     }
   }
+}
+
+// p ~ N(0, M) for a diagonal M^{-1}: z / sqrt(M^{-1}), zeros past dim.
+template <int K>
+__device__ __forceinline__ void philox_momentum(float (&p)[K], const float (&invm)[K],
+                                                int lane, int dim, uint32_t chain,
+                                                uint32_t call, uint32_t t, uint32_t k0,
+                                                uint32_t k1) {
+  philox_normal_row(p, lane, dim, chain, call, t, k0, k1);
+#pragma unroll
+  for (int r = 0; r < K; ++r) p[r] = p[r] / sqrtf(invm[r]);
 }
 
 __device__ __forceinline__ float philox_accept_uniform(uint32_t chain, uint32_t call,

@@ -1,6 +1,7 @@
 // Target device functions inlined into the fused kernels.
 //
-// Replace mcmc_tpu/ops/padded_targets.py:_standard_normal and _neals_funnel.
+// Replace mcmc_tpu/ops/padded_targets.py:_standard_normal, _neals_funnel and
+// _correlated.
 // A group of G lanes (G a power of two, 32 = a whole warp) holds one chain:
 // each lane owns K coordinates (zeros past dim), and coordinate 0 is register
 // 0 of the group's lane 0. The GRAHMC and NUTS kernels use G = 32 with lane j
@@ -16,7 +17,14 @@
 namespace mcmc {
 
 // Must match FAMILY_IDS in mcmc_tpu_torch/ops/padded_targets.py.
-enum Family { STANDARD_NORMAL = 0, NEALS_FUNNEL = 1 };
+enum Family { STANDARD_NORMAL = 0, NEALS_FUNNEL = 1, CORRELATED_GAUSSIAN = 2 };
+
+// A family's float parameters, computed on the host in double and rounded
+// once (mcmc_tpu_torch/ops/padded_targets.py:device_params); zeros for the
+// families that take none.
+struct TargetParams {
+  float v[4];
+};
 
 constexpr unsigned FULL_MASK = 0xffffffffu;
 constexpr double LOG_2PI = 1.8378770664093453;         // log(2 pi)
@@ -43,7 +51,8 @@ struct Target;
 template <int K, int G>
 struct Target<STANDARD_NORMAL, K, G> {
   float c;
-  __device__ explicit Target(int dim) : c(static_cast<float>(dim * LOG_2PI)) {}
+  __device__ explicit Target(int dim, const TargetParams& = TargetParams{})
+      : c(static_cast<float>(dim * LOG_2PI)) {}
 
   __device__ __forceinline__ float operator()(const float (&q)[K], float (&g)[K],
                                               int /*lane*/) const {
@@ -63,7 +72,7 @@ struct Target<STANDARD_NORMAL, K, G> {
 template <int K, int G>
 struct Target<NEALS_FUNNEL, K, G> {
   float d_rest, c_rest, c_neck;
-  __device__ explicit Target(int dim)
+  __device__ explicit Target(int dim, const TargetParams& = TargetParams{})
       : d_rest(static_cast<float>(dim - 1)),
         c_rest(static_cast<float>((dim - 1) * LOG_2PI)),
         c_neck(static_cast<float>(LOG_2PI_9)) {}
@@ -85,6 +94,42 @@ struct Target<NEALS_FUNNEL, K, G> {
     }
     return -0.5f * (x0 * x0 / 9.f + c_neck) -
            0.5f * (sum_sq * inv_var + d_rest * x0 + c_rest);
+  }
+};
+
+// Compound-symmetry Gaussian, Sigma^{-1} = a I + b J: with s = sum q,
+// siv = a q + b s, grad = -siv, lp = -0.5 (siv . q + log|Sigma| + D log 2pi).
+// Two group sums, O(D). The b s term would leak into the zero coordinates
+// past dim, so it is masked there; that mask is the warp-per-chain layout's
+// (lane j owns j + 32 r), the only one this functor serves. Params: a, b and
+// the constant log|Sigma| + D log 2pi. Its sums and products are rounded as
+// the plain version's (ops/padded_targets.py:_correlated, warp_order_sum)
+// are: under the dense oracle metric the sum s moves the trajectory along
+// the metric's largest eigenvector (45x the others at D = 50), so a
+// rounding difference there would grow along every trajectory.
+template <int K, int G>
+struct Target<CORRELATED_GAUSSIAN, K, G> {
+  static_assert(G == 32, "the correlated Gaussian serves the warp-per-chain layout");
+  float a, b, c;
+  int dim;
+  __device__ explicit Target(int dim_, const TargetParams& p)
+      : a(p.v[0]), b(p.v[1]), c(p.v[2]), dim(dim_) {}
+
+  __device__ __forceinline__ float operator()(const float (&q)[K], float (&g)[K],
+                                              int lane) const {
+    float s = 0.f;
+#pragma unroll
+    for (int r = 0; r < K; ++r) s += q[r];
+    s = group_sum<G>(s);
+    const float bs = __fmul_rn(b, s);
+    float m = 0.f;
+#pragma unroll
+    for (int r = 0; r < K; ++r) {
+      const float siv = lane + 32 * r < dim ? __fadd_rn(__fmul_rn(a, q[r]), bs) : 0.f;
+      m = __fadd_rn(m, __fmul_rn(siv, q[r]));
+      g[r] = -siv;
+    }
+    return -0.5f * (group_sum<G>(m) + c);
   }
 };
 

@@ -7,10 +7,14 @@ Everything here takes numpy arrays (``np.asarray`` of the JAX arrays), so this
 module, like the rest of the port, never imports ``jax``.
 """
 
+import math
+
 import numpy as np
 import torch
 
-from mcmc_tpu_torch.ops.fused_nuts import BOOL_FIELDS, INT_FIELDS
+from mcmc_tpu_torch.ops.fused_nuts import (BOOL_FIELDS, INT_FIELDS,
+                                           MULTI_BOOL_FIELDS, MULTI_FLOAT_FIELDS,
+                                           MULTI_FULL_FIELDS, STACK_FIELDS)
 from mcmc_tpu_torch.samplers.base import ChainState
 from mcmc_tpu_torch.samplers.nuts_persistent import _PState
 from mcmc_tpu_torch.targets import TargetDistribution, get_target
@@ -20,11 +24,16 @@ from mcmc_tpu_torch.tuning.dual_averaging import DualAveragingState
 def target_from_tag(info: dict) -> TargetDistribution:
     """The port's target for a JAX target's ``pallas_info`` tag
     ``{"family", "dim", "params"}``. Raises for families not yet ported and
-    for parameters these families do not take."""
-    target = get_target(info["family"], dim=int(info["dim"]))
-    if dict(info.get("params", {})) != target.params:
-        raise ValueError(f"{info['family']} takes params {target.params}, "
-                         f"got {info['params']}")
+    for parameters that differ from the port target's own tag."""
+    params = dict(info.get("params", {}))
+    kwargs = {}
+    if info["family"] == "correlated_gaussian" and "a" in params:
+        kwargs["correlation"] = 1.0 - 1.0 / params["a"]    # a = 1 / (1 - rho)
+    target = get_target(info["family"], dim=int(info["dim"]), **kwargs)
+    ours = target.value_and_grad_fn.kernel_info["params"]
+    if set(params) != set(ours) or not all(
+            math.isclose(params[k], ours[k], rel_tol=1e-12) for k in ours):
+        raise ValueError(f"{info['family']} takes params {ours}, got {params}")
     return target
 
 
@@ -34,9 +43,9 @@ def _tensor(a, device, dtype=None) -> torch.Tensor:
 
 
 def chain_state_from_numpy(position, log_prob, grad_log_prob, accept_count,
-                           divergence_count, device="cpu") -> ChainState:
+                           divergence_count, device="cuda") -> ChainState:
     """ChainState from the five arrays of a JAX ChainState, dtypes kept
-    (counters as int32)."""
+    (counters as int32), on the card unless `device` names another."""
     return ChainState(
         position=_tensor(position, device),
         log_prob=_tensor(log_prob, device),
@@ -47,36 +56,45 @@ def chain_state_from_numpy(position, log_prob, grad_log_prob, accept_count,
 
 
 def da_state_from_numpy(log_step, log_step_bar, h_bar, mu, count,
-                        device="cpu") -> DualAveragingState:
-    """DualAveragingState from the five scalars of a JAX one."""
+                        device="cuda") -> DualAveragingState:
+    """DualAveragingState from the five scalars of a JAX one, on the card
+    unless `device` names another."""
     return DualAveragingState(*(_tensor(v, device).reshape(())
                                 for v in (log_step, log_step_bar, h_bar, mu,
                                           count)))
 
 
-def nuts_state_from_numpy(device="cpu", **fields) -> _PState:
+def nuts_state_from_numpy(device="cuda", **fields) -> _PState:
     """The port's persistent-NUTS machine state from the JAX machine's, as
     numpy arrays keyed by the JAX `_PState` field names (``ps._asdict()``,
-    or the fields of an unpacked kernel-layout `TState`: (C, D) arrays and
-    (C,) rows). Float fields keep their dtype (`direction` takes the
-    positions'), counters become int32 and flags bool (a float row counts as
-    set above 0.5). `n_exec`, which the JAX machine does not carry, defaults
-    to zeros. Fields of the multinomial scheme must be absent or None: the
-    port runs the endpoint scheme only."""
+    or the fields of an unpacked kernel-layout `TState`: (C, D) arrays,
+    (C,) rows and (C, max_tree_depth, D) checkpoint stacks), on the card
+    unless `device` names another. Float fields keep their dtype
+    (`direction` takes the positions'), counters become int32 and flags
+    bool (a float row counts as set above 0.5). `n_exec`, which the JAX
+    machine does not carry, defaults to zeros. The multinomial scheme's
+    fields come all together (that scheme's state) or not at all (the
+    endpoint scheme's)."""
     extra = sorted(k for k, v in fields.items()
                    if k not in _PState._fields and v is not None)
     if extra:
-        raise ValueError(f"fields the port's endpoint machine does not carry: {extra}")
-    missing = [f for f in _PState._fields if f != "n_exec" and fields.get(f) is None]
+        raise ValueError(f"fields the port's machine does not carry: {extra}")
+    multi = MULTI_FULL_FIELDS + MULTI_FLOAT_FIELDS + MULTI_BOOL_FIELDS + STACK_FIELDS
+    given = [f for f in multi if fields.get(f) is not None]
+    if given and len(given) != len(multi):
+        raise ValueError(f"partial multinomial state: missing "
+                         f"{sorted(set(multi) - set(given))}")
+    names = [f for f in _PState._fields if given or f not in multi]
+    missing = [f for f in names if f != "n_exec" and fields.get(f) is None]
     if missing:
         raise ValueError(f"missing machine state fields: {missing}")
     if fields.get("n_exec") is None:
         fields["n_exec"] = np.zeros(np.shape(fields["lp"]), np.int32)
     q_dtype = np.asarray(fields["q"]).dtype
     out = {}
-    for name in _PState._fields:
+    for name in names:
         a = np.asarray(fields[name])
-        if name in BOOL_FIELDS:
+        if name in BOOL_FIELDS + MULTI_BOOL_FIELDS:
             a = a > 0.5 if a.dtype.kind == "f" else a.astype(bool)
         elif name in INT_FIELDS:
             a = a.astype(np.int32)

@@ -38,9 +38,10 @@ _SIGNATURES = {
     # noise, u, five outputs, stream
     "rwmh_multistep_launch": [_I] * 5 + [_P, _P, _U] + [_P] * 4 + [_P] * 5
                              + [_P],
-    # (family, dim, n_chains, n_iters, slots, max_tree_depth), scalars,
-    # inv_mass, key, call, host arrays of the state and draw pointers, stream
-    "nuts_window_launch": [_I] * 6 + [_P, _P, _P, _U, _P, _P, _P],
+    # (family, dim, n_chains, n_iters, slots, max_tree_depth, multinomial,
+    # dense), host target params, scalars, inv_mass, l_inv, key, call, host
+    # arrays of the state and draw pointers, stream
+    "nuts_window_launch": [_I] * 8 + [_P] * 5 + [_U, _P, _P, _P],
 }
 
 

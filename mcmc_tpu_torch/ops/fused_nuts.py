@@ -1,30 +1,43 @@
 """Fused persistent-NUTS window: CUDA kernel wrapper and its plain version.
 
-Port of ``mcmc_tpu/ops/fused_nuts.py`` (endpoint scheme, diagonal metric).
-One kernel, in ``mcmc_tpu_torch/csrc/fused_nuts.cu``: ``nuts_window_kernel``
-runs one snapshot window -- `n_iters` machine iterations of up to W leapfrog
-slots each -- of the persistent-NUTS state machine with each chain's whole
-state in registers, so device memory sees the state once per window instead
-of once per leapfrog (the TPU ``_make_kernel``). Its plain version,
-``nuts_window_plain``, is ``samplers.nuts_persistent._machine_iteration``
-with `slots` = W, the same arithmetic as the eager machine.
+Port of ``mcmc_tpu/ops/fused_nuts.py``: both proposal schemes (endpoint,
+multinomial) and both metrics (diagonal, dense), four variants of one
+kernel. One kernel, in ``mcmc_tpu_torch/csrc/fused_nuts.cu``:
+``nuts_window_kernel`` runs one snapshot window -- `n_iters` machine
+iterations of up to W leapfrog slots each -- of the persistent-NUTS state
+machine with each chain's state in registers, so device memory sees the
+state once per window instead of once per leapfrog (the TPU
+``_make_kernel``). Its plain version, ``nuts_window_plain``, is
+``samplers.nuts_persistent._machine_iteration`` with `slots` = W, the same
+arithmetic as the eager machine (the dense products summed in the kernel's
+order, ``trajectory.ordered_matmul``).
 
 State: the port's ``_PState`` in its own layout -- the 14 position-like
 fields of FULL_FIELDS as (C, D) row-major float32, per-chain float32
-scalars, int32 counters and bool flags; no 8/128 padding, no chain tile, no
-f32-carried counters. The wrapper and its plain version write the new state
-into the given tensors (a field that aliases another is cloned first) and
-return it.
+scalars, int32 counters and bool flags; under the multinomial scheme also
+the subtree reservoir (q_sub, g_sub (C, D), lp_sub, lw_tree, lw_sub,
+div_sub, turn_sub (C,)) and the two checkpoint stacks q_stk, p_stk
+(C, max_tree_depth, D). No 8/128 padding, no chain tile, no f32-carried
+counters. The scheme is the state's: a state with q_sub runs the
+multinomial scheme. The metric is inv_mass's: (D,) diagonal, or (D, D)
+dense with its unwhitening factor l_inv = L^{-1} (M^{-1} = L L^T). The
+wrapper and its plain version write the new state into the given tensors
+(a field that aliases another is cloned first) and return it.
 
 Randomness: injected (`draws` = p0 (n_iters, C, D) normals, dir, dir2
-(n_iters, C) bool, swap, slice, res (n_iters, C) float32) or drawn in the
-kernel from Philox4x32-10 with counter (chain, call, iteration, draw):
-draws 0..31 give the momentum exactly as ``philox_normal`` lays it out,
-draw FLAGS_DRAW's four words give dir, dir2 (uniform < 1/2), swap and slice,
-and word x0 of RES_DRAW the reservoir uniform -- ``philox_nuts_draws``.
+(n_iters, C) bool, swap, slice, res (n_iters, C) float32; under the
+multinomial scheme slice is (n_iters * W, C), slot k of iteration i at row
+i * W + k, as the TPU kernel takes it) or drawn in the kernel from
+Philox4x32-10 with counter (chain, call, iteration, draw): draws 0..31 give
+the momentum exactly as ``philox_normal`` lays it out, draw FLAGS_DRAW's
+four words give dir, dir2 (uniform < 1/2), swap and slice, word x0 of
+RES_DRAW the reservoir uniform, and under the multinomial scheme slot k's
+leaf uniform is word k % 4 of draw SLICE_DRAW + k // 4 (slot 0's doubling
+as the start's slice variable) -- ``philox_nuts_draws``.
 
 The wrapper takes the plain version ONLY for tensors on the CPU; for CUDA
-tensors it launches the kernel or raises, and counts ``.launches``.
+tensors it launches the kernel or raises, and counts ``.launches`` (all
+variants) and ``.variant_launches[name]`` (per variant, VARIANTS).
 """
 
 import ctypes
@@ -35,16 +48,20 @@ import torch
 from mcmc_tpu_torch.ops.fused_trajectory import (
     MAX_DIM, PhiloxStream, _bits_to_uniform, _kernel_device, _philox_words,
     _ptr, _raise_on_error, _U32, check_tensors, philox_normal)
-from mcmc_tpu_torch.ops.padded_targets import FAMILY_IDS, device_vag, kernel_info
+from mcmc_tpu_torch.ops.padded_targets import (FAMILY_IDS, device_params,
+                                               device_vag, kernel_info)
 from mcmc_tpu_torch.samplers.nuts_persistent import _machine_iteration, _PState
-from mcmc_tpu_torch.samplers.trajectory import as_scalar
+from mcmc_tpu_torch.samplers.trajectory import (as_scalar, dense_unwhitening,
+                                                ordered_matmul)
 
 Tensor = torch.Tensor
 
 FLAGS_DRAW = 32   # words: dir, dir2, swap, slice
 RES_DRAW = 33     # word x0: the snapshot reservoir uniform
+SLICE_DRAW = 34   # multinomial: slot k's leaf uniform, word k % 4 of draw 34 + k // 4
 
-# Field order of `struct State` in csrc/fused_nuts.cu.
+# Field order of `struct State` in csrc/fused_nuts.cu: the endpoint machine's
+# 33 fields, then the multinomial scheme's 9 (null under the endpoint scheme).
 FULL_FIELDS = ("q", "grad", "q_l", "p_l", "g_l", "q_r", "p_r", "g_r",
                "q_prop", "g_prop", "q_c", "p_c", "g_c", "q_res")
 FLOAT_FIELDS = ("lp", "lp_prop", "h0", "log_u", "sum_alpha", "direction",
@@ -52,8 +69,23 @@ FLOAT_FIELDS = ("lp", "lp_prop", "h0", "log_u", "sum_alpha", "direction",
 INT_FIELDS = ("n_valid", "n_steps", "depth", "steps_left", "transitions",
               "divergences", "depth_acc", "n_exec", "k_res")
 BOOL_FIELDS = ("diverged", "needs_start")
-KERNEL_FIELDS = FULL_FIELDS + FLOAT_FIELDS + INT_FIELDS + BOOL_FIELDS
+MULTI_FULL_FIELDS = ("q_sub", "g_sub")
+MULTI_FLOAT_FIELDS = ("lp_sub", "lw_tree", "lw_sub")
+MULTI_BOOL_FIELDS = ("div_sub", "turn_sub")
+STACK_FIELDS = ("q_stk", "p_stk")
+KERNEL_FIELDS = (FULL_FIELDS + FLOAT_FIELDS + INT_FIELDS + BOOL_FIELDS
+                 + MULTI_FULL_FIELDS + MULTI_FLOAT_FIELDS + MULTI_BOOL_FIELDS
+                 + STACK_FIELDS)
 assert sorted(KERNEL_FIELDS) == sorted(_PState._fields)
+
+# (multinomial, dense) -> variant name; the kernel's MULTI and DENSE flags
+VARIANTS = {(False, False): "endpoint", (True, False): "multinomial",
+            (False, True): "dense", (True, True): "multinomial+dense"}
+
+
+def variant(state: _PState, inv_mass: Tensor) -> str:
+    """The kernel variant a window of `state` under `inv_mass` runs."""
+    return VARIANTS[(state.q_sub is not None, inv_mass.ndim == 2)]
 
 
 def nuts_scalars(step_size, delta_max, device) -> Tensor:
@@ -63,16 +95,31 @@ def nuts_scalars(step_size, delta_max, device) -> Tensor:
                         as_scalar(delta_max, torch.float32, device)])
 
 
+def philox_slice_uniforms(key: Tensor, call: int, it: int, n_chains: int,
+                          slots: int, device) -> Tensor:
+    """(slots, C) multinomial leaf uniforms of iteration `it`: slot k is
+    word k % 4 of draw SLICE_DRAW + k // 4."""
+    chains = torch.arange(n_chains, dtype=torch.int64, device=device)[None, :]
+    draws = SLICE_DRAW + torch.arange((slots + 3) // 4, dtype=torch.int64,
+                                      device=device)[:, None]
+    words = _philox_words(key, call, it, chains, draws)
+    u = torch.stack([_bits_to_uniform(x) for x in words], dim=1)
+    return u.reshape(-1, n_chains)[:slots]
+
+
 def philox_nuts_draws(key: Tensor, call: int, it: int, n_chains: int, dim: int,
-                      device):
+                      device, slots: Optional[int] = None):
     """Iteration `it`'s randomness as the kernel draws it: (z (C, D),
-    dir (C,) bool, dir2 (C,) bool, swap, slice, res (C,) float32)."""
+    dir (C,) bool, dir2 (C,) bool, swap, slice, res (C,) float32); with
+    `slots` (the multinomial scheme) slice is the (slots, C) leaf uniforms."""
     z = philox_normal(key, call, it, n_chains, dim, device)
     chains = torch.arange(n_chains, dtype=torch.int64, device=device)
     draw = torch.full((), FLAGS_DRAW, dtype=torch.int64, device=device)
     x = [_bits_to_uniform(w) for w in _philox_words(key, call, it, chains, draw)]
     res = _bits_to_uniform(_philox_words(key, call, it, chains, draw + 1)[0])
-    return z, x[0] < 0.5, x[1] < 0.5, x[2], x[3], res
+    slc = x[3] if slots is None else philox_slice_uniforms(key, call, it, n_chains,
+                                                            slots, device)
+    return z, x[0] < 0.5, x[1] < 0.5, x[2], slc, res
 
 
 def _distinct(state: _PState) -> _PState:
@@ -81,34 +128,52 @@ def _distinct(state: _PState) -> _PState:
     in-place write of one field cannot overwrite another."""
     seen, fields = set(), {}
     for name, t in zip(state._fields, state):
+        if t is None:
+            fields[name] = t
+            continue
         ptr = t.untyped_storage().data_ptr()
         fields[name] = t.clone() if ptr in seen else t
         seen.add(ptr)
     return _PState(**fields)
 
 
+def _iteration_draws(draws, it: int, slots: int, multinomial: bool):
+    """Iteration `it`'s part of injected draws."""
+    d = [x[it] for x in draws]
+    if multinomial:
+        d[4] = draws[4][it * slots:(it + 1) * slots]
+    return tuple(d)
+
+
 def nuts_window_plain(info: dict, n_iters: int, steps_per_iter: int,
                       max_tree_depth: int, state: _PState, scalars: Tensor,
                       inv_mass: Tensor, key: Optional[Tensor] = None,
-                      call: int = 0, draws=None) -> _PState:
+                      call: int = 0, draws=None,
+                      l_inv: Optional[Tensor] = None) -> _PState:
     """Plain PyTorch version of nuts_window_kernel, on any device (same
     arguments and results)."""
     state = _distinct(state)
     n_chains, dim = state.q.shape
+    multinomial = state.q_sub is not None
     vag = device_vag(info)
     s = state
     for it in range(n_iters):
-        d = (tuple(x[it] for x in draws) if draws is not None
-             else philox_nuts_draws(key, call, it, n_chains, dim, s.q.device))
+        if draws is not None:
+            d = _iteration_draws(draws, it, steps_per_iter, multinomial)
+        else:
+            d = philox_nuts_draws(key, call, it, n_chains, dim, s.q.device,
+                                  steps_per_iter if multinomial else None)
         s = _machine_iteration(s, d, vag, scalars[0], inv_mass, max_tree_depth,
-                               scalars[1], slots=steps_per_iter)
+                               scalars[1], slots=steps_per_iter, l_inv=l_inv,
+                               matmul=ordered_matmul)
     for dst, src in zip(state, s):
-        dst.copy_(src)
+        if dst is not None:
+            dst.copy_(src)
     return state
 
 
 def _check_inputs(info, n_iters, steps_per_iter, max_tree_depth, state,
-                  scalars, inv_mass, key, draws):
+                  scalars, inv_mass, key, draws, l_inv):
     n_chains, dim = state.q.shape
     if dim != info["dim"]:
         raise ValueError(f"positions have dim {dim}, target has {info['dim']}")
@@ -120,79 +185,110 @@ def _check_inputs(info, n_iters, steps_per_iter, max_tree_depth, state,
         raise ValueError(f"max_tree_depth must lie in [1, 30], got {max_tree_depth}")
     if draws is None and key is None:
         raise ValueError("need a Philox key or injected draws")
-    expected = {"scalars": (scalars, (2,)), "inv_mass": (inv_mass, (dim,))}
-    for name in FULL_FIELDS:
+    dense = inv_mass.ndim == 2
+    if dense != (l_inv is not None):
+        raise ValueError("a dense (D, D) inv_mass needs its l_inv, a diagonal one none")
+    multinomial = state.q_sub is not None
+    missing = [f for f in KERNEL_FIELDS if getattr(state, f) is None]
+    if multinomial and missing:
+        raise ValueError(f"the multinomial scheme needs all of its fields: missing {missing}")
+    expected = {"scalars": (scalars, (2,)),
+                "inv_mass": (inv_mass, (dim, dim) if dense else (dim,))}
+    if dense:
+        expected["l_inv"] = (l_inv, (dim, dim))
+    for name in FULL_FIELDS + (MULTI_FULL_FIELDS if multinomial else ()):
         expected[name] = (getattr(state, name), (n_chains, dim))
-    for names, dtype in ((FLOAT_FIELDS, torch.float32), (INT_FIELDS, torch.int32),
-                         (BOOL_FIELDS, torch.bool)):
+    groups = ((FLOAT_FIELDS, torch.float32), (INT_FIELDS, torch.int32),
+              (BOOL_FIELDS, torch.bool))
+    if multinomial:
+        groups += ((MULTI_FLOAT_FIELDS, torch.float32), (MULTI_BOOL_FIELDS, torch.bool))
+        for name in STACK_FIELDS:
+            expected[name] = (getattr(state, name), (n_chains, max_tree_depth, dim))
+    for names, dtype in groups:
         for name in names:
             expected[name] = (getattr(state, name), (n_chains,), dtype)
     if draws is not None:
         if len(draws) != 6:
             raise ValueError("draws are (p0, dir, dir2, swap, slice, res)")
-        row = (n_iters, n_chains)
+        it = (n_iters, n_chains)
+        slc = (n_iters * steps_per_iter, n_chains) if multinomial else it
         for name, t, shape, dtype in zip(
                 ("p0", "dir", "dir2", "swap", "slice", "res"), draws,
-                (row + (dim,),) + (row,) * 5,
+                (it + (dim,), it, it, it, slc, it),
                 (torch.float32, torch.bool, torch.bool) + (torch.float32,) * 3):
             expected[name] = (t, shape, dtype)
     check_tensors(expected, state.q.device, key)
 
 
 def _pointers(tensors) -> ctypes.Array:
-    return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
+    return (ctypes.c_void_p * len(tensors))(*(_ptr(t) for t in tensors))
 
 
 def nuts_window_kernel(info: dict, n_iters: int, steps_per_iter: int,
                        max_tree_depth: int, state: _PState, scalars: Tensor,
                        inv_mass: Tensor, key: Optional[Tensor] = None,
-                       call: int = 0, draws=None) -> _PState:
+                       call: int = 0, draws=None,
+                       l_inv: Optional[Tensor] = None) -> _PState:
     """One persistent-NUTS window of every chain (kernel 4): `n_iters`
     machine iterations of up to W = `steps_per_iter` leapfrog slots.
 
-    state: the port's _PState in float32 / int32 / bool (KERNEL_FIELDS);
-    scalars (2,) = (step size, delta_max); inv_mass (D,) float32; key (2,)
-    int32 with the host `call` index (the window index) when `draws` are
-    not injected. Writes the new state into the state's tensors and
-    returns it.
+    state: the port's _PState in float32 / int32 / bool, with the
+    multinomial fields or without them (endpoint scheme); scalars (2,) =
+    (step size, delta_max); inv_mass (D,) or (D, D) float32, l_inv (D, D)
+    with a dense one; key (2,) int32 with the host `call` index (the window
+    index) when `draws` are not injected. Writes the new state into the
+    state's tensors and returns it.
     """
     _check_inputs(info, n_iters, steps_per_iter, max_tree_depth, state, scalars,
-                  inv_mass, key, draws)
+                  inv_mass, key, draws, l_inv)
     if state.q.device.type == "cpu":
         return nuts_window_plain(info, n_iters, steps_per_iter, max_tree_depth,
-                                 state, scalars, inv_mass, key, call, draws)
+                                 state, scalars, inv_mass, key, call, draws, l_inv)
     _kernel_device(state.q)
     state = _distinct(state)
     n_chains, dim = state.q.shape
+    name = variant(state, inv_mass)
     from mcmc_tpu_torch.ops import _cuda
     lib = _cuda.load_library().lib
     fields = _pointers([getattr(state, f) for f in KERNEL_FIELDS])
     injected = None if draws is None else _pointers(draws)
+    params = (ctypes.c_float * 4)(*device_params(info))
     code = lib.nuts_window_launch(
         FAMILY_IDS[info["family"]], dim, n_chains, n_iters, steps_per_iter,
-        max_tree_depth, scalars.data_ptr(), inv_mass.data_ptr(), _ptr(key),
+        max_tree_depth, int(state.q_sub is not None), int(inv_mass.ndim == 2),
+        params, scalars.data_ptr(), inv_mass.data_ptr(), _ptr(l_inv), _ptr(key),
         call & _U32, fields, injected,
         torch.cuda.current_stream(state.q.device).cuda_stream)
-    _raise_on_error(code, "nuts_window_kernel")
+    _raise_on_error(code, f"nuts_window_kernel ({name})")
     nuts_window_kernel.launches += 1
+    nuts_window_kernel.variant_launches[name] += 1
     return state
 
 
-nuts_window_kernel.launches = 0
+def reset_launches() -> None:
+    """Set kernel 4's launch counts, total and per variant, to 0."""
+    nuts_window_kernel.launches = 0
+    nuts_window_kernel.variant_launches = dict.fromkeys(VARIANTS.values(), 0)
+
+
+reset_launches()
 
 
 # What a window emits: the chain's current state, its snapshot reservoir and
 # its accept statistic. The other float fields are the trajectory in flight.
 EMITTED_FIELDS = ("q", "grad", "q_res", "lp", "lp_res", "alpha_acc")
-IN_FLIGHT_FIELDS = tuple(f for f in FULL_FIELDS + FLOAT_FIELDS
+IN_FLIGHT_FIELDS = tuple(f for f in FULL_FIELDS + FLOAT_FIELDS + MULTI_FULL_FIELDS
+                         + MULTI_FLOAT_FIELDS + STACK_FIELDS
                          if f not in EMITTED_FIELDS)
 
 
 def _chains_close(x: Tensor, y: Tensor, tol: float) -> Tensor:
-    """(C,) bool: every entry of the chain within tol + tol |y|, or equal
-    (infinities), or NaN in both."""
-    ok = ((x - y).abs() <= tol + tol * y.abs()) | (x == y) | (x.isnan() & y.isnan())
-    return ok.all(dim=1) if ok.ndim == 2 else ok
+    """(C,) bool: every entry of the chain within tol + tol |y| (a finite
+    difference), or equal (infinities), or NaN in both."""
+    diff = (x - y).abs()
+    ok = (((diff <= tol + tol * y.abs()) & torch.isfinite(diff)) | (x == y)
+          | (x.isnan() & y.isnan()))
+    return ok.reshape(ok.shape[0], -1).all(dim=1)
 
 
 def window_agreement(a: _PState, b: _PState, tol: float = 1e-4):
@@ -205,16 +301,19 @@ def window_agreement(a: _PState, b: _PState, tol: float = 1e-4):
     is unstable (the funnel's neck at a large step) a rounding difference
     grows within a subtree until the trajectory diverges. So the result is
     per chain: (same: every counter and flag equal, emitted: the emitted
-    state within tol, in_flight: the trajectory in flight within tol, err:
+    state within tol, in_flight: the trajectory in flight within tol -- with
+    the multinomial reservoir, log weights and checkpoint stacks --, err:
     the largest |a - b| of the emitted fields on the chains that are `same`
     and `emitted`)."""
     same = torch.ones_like(a.needs_start)
-    for name in INT_FIELDS + BOOL_FIELDS:
-        same &= getattr(a, name) == getattr(b, name)
+    for name in INT_FIELDS + BOOL_FIELDS + MULTI_BOOL_FIELDS:
+        if getattr(a, name) is not None:
+            same &= getattr(a, name) == getattr(b, name)
     emitted, in_flight = torch.ones_like(same), torch.ones_like(same)
     for names, ok in ((EMITTED_FIELDS, emitted), (IN_FLIGHT_FIELDS, in_flight)):
         for name in names:
-            ok &= _chains_close(getattr(a, name), getattr(b, name), tol)
+            if getattr(a, name) is not None:
+                ok &= _chains_close(getattr(a, name), getattr(b, name), tol)
     keep = same & emitted
     err = 0.0
     for name in EMITTED_FIELDS:
@@ -224,6 +323,17 @@ def window_agreement(a: _PState, b: _PState, tol: float = 1e-4):
     return same, emitted, in_flight, err
 
 
+def window_metric(inv_mass_matrix: Tensor, device):
+    """(inv_mass, l_inv) in float32 on `device`, as the kernel takes them: a
+    dense M^{-1} is factored here, once, in float64 (l_inv is None for a
+    diagonal one)."""
+    inv_mass = inv_mass_matrix.to(device=device, dtype=torch.float32).contiguous()
+    if inv_mass.ndim != 2:
+        return inv_mass, None
+    l_inv = dense_unwhitening(inv_mass_matrix.to(device=device, dtype=torch.float64))
+    return inv_mass, l_inv.to(torch.float32).contiguous()
+
+
 def make_fused_nuts_window(value_and_grad_fn, generator: torch.Generator,
                            step_size, inv_mass_matrix: Tensor,
                            max_tree_depth: int, delta_max, steps_per_iter: int,
@@ -231,14 +341,16 @@ def make_fused_nuts_window(value_and_grad_fn, generator: torch.Generator,
     """Build window(state, n_slots) -> state: one kernel 4 call running
     n_slots // steps_per_iter machine iterations, its Philox key drawn once
     from `generator` and its call index the window's number. The state is
-    the float32 _PState; the step size may be a device tensor."""
-    info = kernel_info(value_and_grad_fn)
+    the float32 _PState (its fields choose the scheme); inv_mass_matrix is
+    (D,) or (D, D); the step size may be a device tensor."""
+    info = kernel_info(value_and_grad_fn, "nuts")
     stream = PhiloxStream.from_generator(generator, device)
     scalars = nuts_scalars(step_size, delta_max, device)
-    inv_mass = inv_mass_matrix.to(device=device, dtype=torch.float32).contiguous()
+    inv_mass, l_inv = window_metric(inv_mass_matrix, device)
 
     def window(ps: _PState, n_slots: int) -> _PState:
         return nuts_window_kernel(info, n_slots // steps_per_iter, steps_per_iter,
                                   max_tree_depth, ps, scalars, inv_mass,
-                                  key=stream.key, call=stream.next_call())
+                                  key=stream.key, call=stream.next_call(),
+                                  l_inv=l_inv)
     return window

@@ -144,7 +144,7 @@ def make_fused_rwmh_multistep(value_and_grad_fn, transitions: int,
     if value_and_grad_fn is None:
         raise TypeError("the fused backend requires an analytic "
                         "value_and_grad_fn from mcmc_tpu_torch.targets")
-    info = kernel_info(value_and_grad_fn)
+    info = kernel_info(value_and_grad_fn, "rwmh")
 
     def multi(stream: PhiloxStream, state, scale):
         n = state.position.shape[0] if n_hist is None else n_hist

@@ -26,7 +26,7 @@ the kernels draw.
 
 Supported: a diagonal metric, the five named friction schedules and
 NO_FRICTION, and target families with a device function
-(``padded_targets.FAMILY_IDS``); D <= 128. Anything else raises.
+(``padded_targets.KERNEL_FAMILIES["grahmc"]``); D <= 128. Anything else raises.
 """
 
 import math
@@ -422,7 +422,7 @@ def _kernel_target(value_and_grad_fn, friction_schedule):
     if value_and_grad_fn is None:
         raise TypeError("the fused backend requires an analytic "
                         "value_and_grad_fn from mcmc_tpu_torch.targets")
-    return kernel_info(value_and_grad_fn), schedule_id(friction_schedule)
+    return kernel_info(value_and_grad_fn, "grahmc"), schedule_id(friction_schedule)
 
 
 def _advance(state, q1, lp1, g1, n_accept, n_divergent):
@@ -500,7 +500,7 @@ def make_debug_trajectory(value_and_grad_fn, num_steps: int,
 
     Returns run(q, lp, grad, p0, u, step_size, gamma, steepness, inv_mass)
     -> (q', lp', grad', accept, delta_h)."""
-    info = kernel_info(value_and_grad_fn)
+    info = kernel_info(value_and_grad_fn, "grahmc")
     if info["dim"] != dim:
         raise ValueError(f"target dim {info['dim']} != {dim}")
     sched = schedule_id(friction_schedule)

@@ -1,7 +1,7 @@
 """Plain PyTorch versions of the kernels' target device functions.
 
-Port of the two main-path device functions of ``mcmc_tpu/ops/padded_targets.py``
-(``_standard_normal`` and ``_neals_funnel``). The TPU versions work on blocks
+Port of three device functions of ``mcmc_tpu/ops/padded_targets.py``
+(``_standard_normal``, ``_neals_funnel`` and ``_correlated``). The TPU versions work on blocks
 padded to the (8, 128) tiles, in a lane or a transposed layout; the CUDA
 kernels keep the public (chains, dim) row-major layout and mask lanes past
 ``dim`` themselves, so none of the padding, ``_mask_row`` or layout code is
@@ -9,34 +9,45 @@ ported. What remains is the float32 arithmetic of
 ``mcmc_tpu_torch/csrc/targets.cuh``, in the same order, on (C, D) tensors.
 
 Families are keyed by the ``kernel_info`` tag the target factories attach;
-``FAMILY_IDS`` is the enum the CUDA launcher switches on.
+``FAMILY_IDS`` is the enum the CUDA launchers switch on, and
+``KERNEL_FAMILIES`` the families each kernel's launcher dispatches on.
 """
 
 import math
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
 from mcmc_tpu_torch.targets import LOG_2PI
 
 # Must match `enum Family` in csrc/targets.cuh.
-FAMILY_IDS = {"standard_normal": 0, "neals_funnel": 1}
+FAMILY_IDS = {"standard_normal": 0, "neals_funnel": 1, "correlated_gaussian": 2}
+# The families each kernel's launcher dispatches on. The correlated Gaussian's
+# functor masks coordinates in the warp-per-chain layout; kernel 4 runs it.
+KERNEL_FAMILIES = {
+    "grahmc": ("standard_normal", "neals_funnel"),
+    "rwmh": ("standard_normal", "neals_funnel"),
+    "nuts": ("standard_normal", "neals_funnel", "correlated_gaussian"),
+}
 
 
-def kernel_info(value_and_grad_fn) -> dict:
+def kernel_info(value_and_grad_fn, kernel: Optional[str] = None) -> dict:
     """The target's kernel dispatch tag.
 
     Raises TypeError when the closure carries no tag and KeyError for
     families without a device function (a Python callable cannot be
-    compiled into the CUDA kernel)."""
+    compiled into the CUDA kernel), or, with `kernel` (a KERNEL_FAMILIES
+    key), for families that kernel does not dispatch on."""
     info = getattr(value_and_grad_fn, "kernel_info", None)
     if info is None:
         raise TypeError(
             "value_and_grad_fn has no kernel_info tag; the fused backend "
             "needs a target built by mcmc_tpu_torch.targets")
-    if info["family"] not in _BUILDERS:
+    families = _BUILDERS if kernel is None else KERNEL_FAMILIES[kernel]
+    if info["family"] not in families:
+        where = "" if kernel is None else f" in the {kernel} kernel"
         raise KeyError(f"target family {info['family']!r} has no device "
-                       f"function yet; ported: {sorted(_BUILDERS)}")
+                       f"function{where} yet; ported: {sorted(families)}")
     return info
 
 
@@ -49,6 +60,17 @@ def make_device_vag(value_and_grad_fn) -> Callable:
 def device_vag(info: dict) -> Callable:
     """make_device_vag from the kernel_info dict itself."""
     return _BUILDERS[info["family"]](info["dim"], info["params"])
+
+
+def device_params(info: dict) -> tuple:
+    """The four floats of `struct TargetParams` (csrc/targets.cuh) for this
+    target, computed in double as the plain version computes them: (a, b,
+    log|Sigma| + D log 2pi, 0) for the correlated Gaussian, zeros for the
+    families without parameters."""
+    if info["family"] == "correlated_gaussian":
+        p = info["params"]
+        return (p["a"], p["b"], p["log_det_cov"] + info["dim"] * LOG_2PI, 0.0)
+    return (0.0, 0.0, 0.0, 0.0)
 
 
 def _standard_normal(dim, params):
@@ -77,7 +99,39 @@ def _neals_funnel(dim, params):
     return vag
 
 
+def warp_order_sum(x: torch.Tensor) -> torch.Tensor:
+    """Row sums of x (C, D) in the order of csrc/targets.cuh's warp_sum over
+    the warp-per-chain layout: lane j adds its coordinates j, j + 32, ... in
+    turn, then a butterfly over the 32 lanes (offsets 16, 8, 4, 2, 1)."""
+    n_chains, dim = x.shape
+    k = -(-dim // 32)
+    lanes = torch.zeros((n_chains, 32 * k), dtype=x.dtype, device=x.device)
+    lanes[:, :dim] = x
+    lanes = lanes.reshape(n_chains, k, 32)
+    v = lanes[:, 0]
+    for r in range(1, k):
+        v = v + lanes[:, r]
+    idx = torch.arange(32, device=x.device)
+    for off in (16, 8, 4, 2, 1):
+        v = v + v[:, idx ^ off]
+    return v[:, 0]
+
+
+def _correlated(dim, params):
+    a, b = params["a"], params["b"]
+    const = params["log_det_cov"] + dim * LOG_2PI
+
+    def vag(q):
+        # the kernel's summation order: see csrc/targets.cuh
+        s = warp_order_sum(q)[:, None]
+        siv = a * q + b * s
+        lp = -0.5 * (warp_order_sum(siv * q) + const)
+        return lp, -siv
+    return vag
+
+
 _BUILDERS = {
     "standard_normal": _standard_normal,
     "neals_funnel": _neals_funnel,
+    "correlated_gaussian": _correlated,
 }

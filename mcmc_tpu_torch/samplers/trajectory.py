@@ -29,17 +29,38 @@ def as_scalar(x, dtype: torch.dtype, device) -> Tensor:
     return torch.full((), float(x), dtype=dtype, device=device)
 
 
-def velocity(p: Tensor, inv_mass_matrix: Tensor) -> Tensor:
+def velocity(p: Tensor, inv_mass_matrix: Tensor,
+             matmul: Callable = torch.matmul) -> Tensor:
     """dq/dt = M^{-1} p: elementwise for a diagonal metric, one matmul for
-    a dense (symmetric) one."""
+    a dense (symmetric) one (`matmul`, e.g. ordered_matmul)."""
     if inv_mass_matrix.ndim == 2:
-        return p @ inv_mass_matrix
+        return matmul(p, inv_mass_matrix)
     return p * inv_mass_matrix
 
 
-def kinetic_energy(p: Tensor, inv_mass_matrix: Tensor) -> Tensor:
+def kinetic_energy(p: Tensor, inv_mass_matrix: Tensor,
+                   matmul: Callable = torch.matmul) -> Tensor:
     """0.5 * p^T M^{-1} p per chain."""
-    return 0.5 * torch.sum(p * velocity(p, inv_mass_matrix), dim=-1)
+    return 0.5 * torch.sum(p * velocity(p, inv_mass_matrix, matmul), dim=-1)
+
+
+def ordered_matmul(x: Tensor, a: Tensor) -> Tensor:
+    """x @ a for a row batch x (..., D) and a (D, D) matrix, summed over i in
+    order with each product x_i a_i rounded before it is added: the dense
+    metric products of csrc/metric.cuh, bit for bit."""
+    acc = x[..., 0:1] * a[0]
+    for i in range(1, a.shape[0]):
+        acc = acc + x[..., i:i + 1] * a[i]
+    return acc
+
+
+def dense_unwhitening(inv_mass_matrix: Tensor) -> Tensor:
+    """L^{-1} for a dense M^{-1} = L L^T (lower Cholesky factor L): a row of
+    standard normals z gives the momentum p = z @ L^{-1}, whose covariance
+    L^{-T} L^{-1} is M. Computed once per run, outside any sampling loop."""
+    chol = torch.linalg.cholesky(inv_mass_matrix)
+    eye = torch.eye(chol.shape[0], dtype=chol.dtype, device=chol.device)
+    return torch.linalg.solve_triangular(chol, eye, upper=False)
 
 
 def sample_momentum(generator: torch.Generator, shape, inv_mass_matrix: Tensor,

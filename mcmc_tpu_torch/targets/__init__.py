@@ -6,8 +6,10 @@ taking a ``torch.Generator``, and a ``kernel_info`` tag
 counterpart of the JAX package's ``pallas_info``, and what the fused kernels
 dispatch on (``mcmc_tpu_torch.ops.padded_targets``).
 
-Only the two main-path targets are ported so far: ``standard_normal`` and
-``neals_funnel``. ``get_target`` raises for every other name.
+Ported so far: ``standard_normal``, ``neals_funnel`` and
+``correlated_gaussian`` (the dense-metric NUTS row's target).
+``get_target`` raises for every other name; ``get_reference_sampler`` gives
+the correlated Gaussian's exact i.i.d. sampler.
 """
 
 import math
@@ -120,15 +122,72 @@ def neals_funnel(dim: int = 10) -> TargetDistribution:
     )
 
 
+def correlated_gaussian(dim: int = 10, correlation: float = 0.9) -> TargetDistribution:
+    """Compound-symmetry Gaussian: Sigma = (1 - rho) I + rho J.
+
+    Closed forms:
+      Sigma^{-1} = a I + b J, a = 1/(1-rho), b = -rho/((1-rho)(1+(D-1)rho))
+      log|Sigma| = (D-1) log(1-rho) + log(1+(D-1)rho)
+    grad log p = -(Sigma^{-1} x) = -(a x + b sum(x) 1), O(D), no matmul.
+    """
+    rho = correlation
+    a = 1.0 / (1.0 - rho)
+    b = -rho / ((1.0 - rho) * (1.0 + (dim - 1) * rho))
+    log_det_cov = (dim - 1) * math.log(1.0 - rho) + math.log(1.0 + (dim - 1) * rho)
+    cov = (1.0 - rho) * torch.eye(dim, dtype=torch.float64) + rho
+
+    def value_and_grad_fn(x):
+        s = torch.sum(x, dim=-1, keepdim=True)
+        sigma_inv_x = a * x + b * s
+        mahal = torch.sum(sigma_inv_x * x, dim=-1)
+        lp = -0.5 * (mahal + log_det_cov + x.shape[-1] * LOG_2PI)
+        return lp, -sigma_inv_x
+
+    def log_prob_fn(x):
+        return value_and_grad_fn(x)[0]
+
+    def init_sampler(generator, n_chains, dtype=torch.float32):
+        return _randn(generator, (n_chains, dim), dtype)
+
+    _tag(value_and_grad_fn, "correlated_gaussian", dim, a=a, b=b,
+         log_det_cov=log_det_cov)
+    return TargetDistribution(
+        log_prob_fn=log_prob_fn,
+        dim=dim,
+        true_mean=torch.zeros(dim, dtype=torch.float64),
+        true_cov=cov,
+        name=f"CorrelatedGaussian{dim}D_rho{correlation}",
+        description=f"{dim}D Gaussian with correlation rho={correlation} - "
+                    f"tests handling of correlation",
+        init_sampler=init_sampler,
+        value_and_grad_fn=value_and_grad_fn,
+        family="correlated_gaussian",
+        params={"correlation": correlation},
+    )
+
+
 _TARGETS = {
     "standard_normal": standard_normal,
     "neals_funnel": neals_funnel,
+    "correlated_gaussian": correlated_gaussian,
 }
 
 
-def get_target(name: str, dim: int = 10) -> TargetDistribution:
-    """A ported target by name; raises ValueError for any other name."""
+def get_target(name: str, dim: int = 10, **kwargs) -> TargetDistribution:
+    """A ported target by name (keyword parameters go to its factory);
+    raises ValueError for any other name."""
     if name not in _TARGETS:
         raise ValueError(f"Unknown or not yet ported target '{name}'. "
                          f"Available: {sorted(_TARGETS)}")
-    return _TARGETS[name](dim=dim)
+    return _TARGETS[name](dim=dim, **kwargs)
+
+
+def get_reference_sampler(name: str, dim: int = 10, **kwargs):
+    """Exact i.i.d. sampler (generator, n) -> (n, dim) float64 of a target,
+    or None; so far only the correlated Gaussian's."""
+    if name == "correlated_gaussian":
+        rho = kwargs.get("correlation", 0.9)
+        cov = (1.0 - rho) * torch.eye(dim, dtype=torch.float64) + rho
+        chol = torch.linalg.cholesky(cov)
+        return lambda g, n: _randn(g, (n, dim), torch.float64) @ chol.to(g.device).T
+    return None

@@ -27,7 +27,9 @@ class DualAveragingState(NamedTuple):
 
 
 def da_init(initial_step_size, dtype: torch.dtype = torch.float32,
-            device="cpu") -> DualAveragingState:
+            device="cuda") -> DualAveragingState:
+    """The DA state at `initial_step_size`, on the card unless `device`
+    names another device."""
     log_step = torch.log(torch.full((), float(initial_step_size), dtype=dtype,
                                     device=device))
     return DualAveragingState(

@@ -1,5 +1,6 @@
-"""The hand-written CUDA kernels (GRAHMC 1 and 2, RWMH 3, persistent NUTS 4)
-against their plain versions, on the card.
+"""The hand-written CUDA kernels (GRAHMC 1 and 2, RWMH 3, persistent NUTS 4
+with its multinomial and dense variants) against their plain versions, on
+the card.
 
 Marked `cuda`; each test skips without a CUDA device. This file imports no
 JAX, so it runs on a GPU host without the JAX package's dependencies:
@@ -155,6 +156,69 @@ def test_nuts_window_kernel_matches_plain(dev, family, dim, step, slots):
         drift = float((kept & ~in_flight).float().mean())
         assert drift <= (0.05 if family == "neals_funnel" else 0.01), drift
         assert int(kern.transitions.sum()) > 0
+
+
+@pytest.mark.parametrize("multinomial,dense,family,dim,step", [
+    (True, False, "neals_funnel", 50, 0.2), (True, False, "standard_normal", 10, 0.5),
+    (False, True, "correlated_gaussian", 50, 0.3), (True, True, "correlated_gaussian", 50, 0.3),
+    (False, False, "correlated_gaussian", 50, 0.3), (True, True, "standard_normal", 128, 0.3)])
+def test_nuts_window_variants_match_plain(dev, multinomial, dense, family, dim, step):
+    """Kernel 4's multinomial and dense variants (and the correlated
+    Gaussian's device function) against their plain versions, injected and
+    Philox, W = 4 over 64 slots from a state one window in: as
+    test_nuts_window_kernel_matches_plain, with the variant's own launch
+    count."""
+    info, q, lp, grad, g = _inputs(dev, family, dim, 2048, dim)
+    scalars = fn.nuts_scalars(step, 1000.0, dev)
+    if dense:
+        a = torch.randn((dim, dim), generator=g, device=dev, dtype=torch.float64)
+        metric = a @ a.T / dim + 0.5 * torch.eye(dim, device=dev, dtype=torch.float64)
+    else:
+        metric = torch.rand(dim, generator=g, device=dev) + 0.5
+    inv_mass, l_inv = fn.window_metric(metric, dev)
+    key = torch.tensor([1, 2], dtype=torch.int32, device=dev)
+    args = (info, 16, 4, 10)
+    start = tn._init_pstate(q, lp, grad, torch.float32, multinomial=multinomial)
+    warm = fn.nuts_window_plain(*args, start, scalars, inv_mass, key=key, call=0, l_inv=l_inv)
+    n_slice = 64 if multinomial else 16
+    draws = (torch.randn((16, 2048, dim), generator=g, device=dev),
+             torch.rand((16, 2048), generator=g, device=dev) < 0.5,
+             torch.rand((16, 2048), generator=g, device=dev) < 0.5,
+             torch.rand((16, 2048), generator=g, device=dev),
+             torch.rand((n_slice, 2048), generator=g, device=dev).clamp_min(2.0 ** -25),
+             torch.rand((16, 2048), generator=g, device=dev))
+    name = fn.VARIANTS[(multinomial, dense)]
+    for rand in (dict(draws=draws), dict(key=key, call=4)):
+        def clone():
+            return tn._PState(*(None if t is None else t.clone() for t in warm))
+        before = fn.nuts_window_kernel.variant_launches[name]
+        kern = fn.nuts_window_kernel(*args, clone(), scalars, inv_mass, l_inv=l_inv, **rand)
+        assert fn.nuts_window_kernel.variant_launches[name] == before + 1
+        plain = fn.nuts_window_plain(*args, clone(), scalars, inv_mass, l_inv=l_inv, **rand)
+        same, emitted, in_flight, err = fn.window_agreement(kern, plain)
+        kept = same & emitted
+        assert float(kept.float().mean()) >= 0.99, (float(same.float().mean()), err)
+        drift = float((kept & ~in_flight).float().mean())
+        assert drift <= (0.05 if family == "neals_funnel" else 0.01), drift
+        assert int((kern.transitions - warm.transitions).sum()) > 0
+
+
+def test_fused_multinomial_dense_run(dev):
+    """nuts_run_persistent with the multinomial scheme and the oracle dense
+    metric on the card: one kernel 4 call per window, all of the
+    multinomial+dense variant, and the correlated Gaussian's covariance."""
+    t = get_target("correlated_gaussian", dim=20)
+    q = torch.randn((4096, 20), device=dev)
+    fn.reset_launches()
+    res = tn.nuts_run_persistent(torch.Generator(device=dev).manual_seed(0), t.log_prob_fn,
+                                 q, step_size=0.5, num_samples=64, steps_per_sample=16,
+                                 burn_in_steps=32, inv_mass_matrix=t.true_cov.to(dev),
+                                 value_and_grad_fn=t.value_and_grad_fn,
+                                 proposal_scheme="multinomial")
+    assert fn.nuts_window_kernel.variant_launches["multinomial+dense"] == 65
+    assert fn.nuts_window_kernel.launches == 65
+    s = res.samples.reshape(-1, 20).double()
+    assert float((torch.cov(s.T) - t.true_cov.to(dev)).abs().max()) < 0.1
 
 
 def test_fused_rwmh_and_nuts_runs(dev):

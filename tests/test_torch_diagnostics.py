@@ -98,7 +98,7 @@ def test_dual_averaging_sequence_matches_jax():
     rng = np.random.default_rng(4)
     accepts = rng.uniform(0.2, 1.0, 50)
     js = j_da.da_init(0.1)
-    ts = t_da.da_init(0.1, dtype=torch.float64)
+    ts = t_da.da_init(0.1, dtype=torch.float64, device="cpu")
     for k, a in enumerate(accepts):
         js = j_da.da_update(js, a, 0.65)
         # alternate a number and a 0-d tensor accept statistic
@@ -118,7 +118,7 @@ def test_dual_averaging_state_carries_across():
     js = j_da.da_init(0.3)
     for a in rng.uniform(0.3, 0.9, 7):
         js = j_da.da_update(js, a, 0.8)
-    ts = interop.da_state_from_numpy(*(np.asarray(v) for v in js))
+    ts = interop.da_state_from_numpy(*(np.asarray(v) for v in js), device="cpu")
     for a in rng.uniform(0.3, 0.9, 5):
         js = j_da.da_update(js, a, 0.8)
         ts = t_da.da_update(ts, float(a), 0.8)

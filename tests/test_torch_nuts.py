@@ -110,8 +110,8 @@ def test_eager_machine_matches_jax_window_step(family, dim, step):
     jstep = j_window_step(vag_f32, jnp.asarray(step, F32), inv_mass, DEPTH, 1000.0, F32)
     ps = lax.scan(jstep, ps0, (xs[0], xs[1], xs[2], xs[3], xs[4], xs[5]))[0]
 
-    s = interop.nuts_state_from_numpy(**{k: np.asarray(v) for k, v in
-                                         ps0._asdict().items() if v is not None})
+    s = interop.nuts_state_from_numpy(device="cpu", **{
+        k: np.asarray(v) for k, v in ps0._asdict().items() if v is not None})
     tt = t_get_target(family, dim=dim)
     tstep = tn._make_window_step(tt.value_and_grad_fn, step, torch.ones(dim),
                                  DEPTH, 1000.0)
@@ -137,8 +137,8 @@ def test_plain_window_matches_pallas_kernel(family, dim, step, steps_per_iter):
     ts = window(key, jfn.pack_state(q0, lp0, g0, d_pad), step, jnp.ones(dim, F32))
 
     ps0 = j_init_pstate(q0, lp0, g0, F32)
-    s = interop.nuts_state_from_numpy(**{k: np.asarray(v) for k, v in
-                                         ps0._asdict().items() if v is not None})
+    s = interop.nuts_state_from_numpy(device="cpu", **{
+        k: np.asarray(v) for k, v in ps0._asdict().items() if v is not None})
     info = t_get_target(family, dim=dim).value_and_grad_fn.kernel_info
     out = fn.nuts_window_kernel(info, n_iters, steps_per_iter, DEPTH, s,
                                 fn.nuts_scalars(step, 1000.0, "cpu"), torch.ones(dim),
@@ -161,7 +161,8 @@ def test_window_writes_the_given_state_and_draws_documented_philox():
     scalars = fn.nuts_scalars(0.3, 1000.0, "cpu")
     key = torch.tensor([3, 4], dtype=torch.int32)
     s0 = tn._init_pstate(q, lp, g, torch.float32)
-    assert len({t.data_ptr() for t in s0}) == len(s0)
+    fields = [t for t in s0 if t is not None]       # the endpoint scheme's
+    assert len({t.data_ptr() for t in fields}) == len(fields) == 33
     q_init = s0.q.clone()
     a = fn.nuts_window_kernel(info, 8, 2, 5, s0, scalars, torch.ones(6), key=key, call=5)
     assert a.q.data_ptr() == s0.q.data_ptr() and not torch.equal(a.q, q_init)
@@ -175,7 +176,8 @@ def test_window_writes_the_given_state_and_draws_documented_philox():
     b = fn.nuts_window_kernel(info, 8, 2, 5, tn._init_pstate(q, lp, g, torch.float32),
                               scalars, torch.ones(6), draws=draws)
     for name in a._fields:
-        assert torch.equal(getattr(a, name), getattr(b, name)), name
+        if getattr(a, name) is not None:
+            assert torch.equal(getattr(a, name), getattr(b, name)), name
     z, dirs, dirs2, swap, slc, res = fn.philox_nuts_draws(key, 0, 0, 40000, 3, "cpu")
     for bits in (dirs, dirs2):
         assert abs(float(bits.float().mean()) - 0.5) < 0.01
@@ -195,7 +197,7 @@ def test_window_agreement_sorts_chains():
     a = tn._init_pstate(q, lp, g, torch.float32)
     same, emitted, in_flight, err = fn.window_agreement(a, a)
     assert bool(same.all() & emitted.all() & in_flight.all()) and err == 0.0
-    b = tn._PState(*(x.clone() for x in a))
+    b = tn._PState(*(None if x is None else x.clone() for x in a))
     b.depth[0] += 1
     b.q[1, 2] += 1e-3
     b.lp[3] += 5e-5                          # inside tol: 1e-4 + 1e-4 |lp|
@@ -271,16 +273,21 @@ def test_run_collect_prefix_snapshot_modes_and_burn_in_reset(backend):
 
 
 def test_run_argument_errors():
+    """Bad arguments raise; the multinomial scheme and a dense metric run
+    (tests/test_torch_nuts_multinomial.py, tests/test_torch_dense_nuts.py)
+    and an unknown scheme raises."""
     t = t_get_target("standard_normal", dim=3)
     pos = torch.zeros(8, 3)
     with pytest.raises(ValueError, match="divisible"):
         _run("fused", dim=3, num_samples=4, steps_per_sample=6, steps_per_iter=4)
     with pytest.raises(ValueError, match="fused"):
         _run("eager", dim=3, steps_per_iter=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _run("eager", proposal_scheme="multinomial")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _run("fused", inv_mass_matrix=torch.eye(4))
+    for backend in ("eager", "fused"):
+        res = _run(backend, proposal_scheme="multinomial", inv_mass_matrix=torch.eye(4),
+                   num_samples=2)
+        assert res.samples.shape == (2, 8, 4)
+    with pytest.raises(ValueError, match="proposal_scheme"):
+        _run("eager", proposal_scheme="bogus")
     with pytest.raises(ValueError):
         _run("eager", snapshot_mode="first")
     with pytest.raises(TypeError):
@@ -295,8 +302,14 @@ def test_run_argument_errors():
     assert tn._resolve_backend("auto", None, "cuda") == "eager"
     with pytest.raises(ValueError):
         interop.nuts_state_from_numpy(q=np.zeros((2, 3)))
-    with pytest.raises(ValueError):
-        interop.nuts_state_from_numpy(q_sub=np.zeros((2, 3)))
+    # the multinomial scheme's fields: all of them are carried, a part raises
+    s = tn._init_pstate(pos, torch.zeros(8), pos, torch.float32, multinomial=True,
+                        max_tree_depth=5)
+    fields = {k: v.numpy() for k, v in s._asdict().items()}
+    carried = interop.nuts_state_from_numpy(device="cpu", **fields)
+    assert carried.q_stk.shape == (8, 5, 3) and carried.turn_sub.dtype == torch.bool
+    with pytest.raises(ValueError, match="partial"):
+        interop.nuts_state_from_numpy(device="cpu", **dict(fields, q_stk=None))
 
 
 @pytest.mark.parametrize("backend", ["eager", "fused"])

@@ -130,7 +130,7 @@ def test_dual_averaging_tune_then_fused_run_on_funnel():
     state = init_chain_state(init, t.log_prob_fn, t.value_and_grad_fn)
     fused = ft.make_fused_grahmc_step(t.value_and_grad_fn, 16, tg.constant_schedule)
     stream = ft.PhiloxStream.from_generator(torch.Generator().manual_seed(12), "cpu")
-    da = t_da.da_init(0.1)
+    da = t_da.da_init(0.1, device="cpu")
     ones = torch.ones(10)
     for _ in range(30):
         eps = t_da.da_step_size(da)
@@ -156,13 +156,24 @@ def test_dual_averaging_tune_then_fused_run_on_funnel():
     assert abs(float(res.accept_rate.mean()) - 0.65) < 0.1
 
 
+def test_entry_points_default_to_the_card():
+    """dual averaging's state and interop's state builders run on the card
+    unless the caller names another device (the CPU tests pass "cpu")."""
+    import inspect
+    for fn in (t_da.da_init, interop.chain_state_from_numpy,
+               interop.da_state_from_numpy, interop.nuts_state_from_numpy):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__
+
+
 def test_port_never_imports_jax():
     code = (
         "import sys\n"
         "import mcmc_tpu_torch, mcmc_tpu_torch.interop, mcmc_tpu_torch.samplers\n"
         "import mcmc_tpu_torch.ops.fused_trajectory, mcmc_tpu_torch.ops._cuda\n"
         "import mcmc_tpu_torch.ops.fused_rwmh, mcmc_tpu_torch.ops.fused_nuts\n"
+        "import mcmc_tpu_torch.ops.padded_targets, mcmc_tpu_torch.targets\n"
         "import mcmc_tpu_torch.samplers.rwmh, mcmc_tpu_torch.samplers.nuts_persistent\n"
+        "import mcmc_tpu_torch.samplers.trajectory\n"
         "import mcmc_tpu_torch.diagnostics, mcmc_tpu_torch.tuning, chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'mcmc_tpu.')))\n"
         "assert not bad, bad\n"
