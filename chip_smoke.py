@@ -1,14 +1,14 @@
 #!/usr/bin/env python3
 """Drive the mcmc_tpu_torch main paths once on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--multistep-switch]
 
 Run from the repository root on a machine with a CUDA GPU and nvcc. It
 builds the hand-written CUDA kernels from mcmc_tpu_torch/csrc, holds each
 against its plain PyTorch version at its main-path shape, checks the
 in-kernel Philox draws statistically (fused against eager), then runs
-bench.py's GRAHMC, NUTS, NUTS-multinomial and RWMH rows and a dense-metric
-NUTS row on the port:
+bench.py's GRAHMC, NUTS, NUTS-multinomial and RWMH rows, a dense-metric
+NUTS row and a dense-warmup GRAHMC row on the port:
 
 - GRAHMC: the 50-D Neal's funnel at 65,536 chains, L = 16 and the constant
   schedule, the step size tuned by dual averaging through the fused kernel,
@@ -23,10 +23,21 @@ NUTS row on the port:
   NUTS row's, 192 draws of 64 slots with both schemes (kernels 4b and 4a
   with 4b), and at 4,096 chains the diagonal metric's ESS against it;
 - RWMH: the 10-D standard normal at 65,536 chains, 16,384 draws, 32
-  transitions per call (kernel 3).
+  transitions per call (kernel 3);
+- dense-warmup GRAHMC: the 50-D rho = 0.9 correlated Gaussian at 65,536
+  chains, the library's windowed warmup learning a dense metric and the
+  sequential ESJD tune of gamma (kernel 1a), then the GRAHMC row's timing
+  and ESS protocol at the tuned step, gamma and metric (kernel 1a), and at
+  4,096 chains a dense and a diagonal warmup each followed by a 256-draw
+  multistep run (kernels 2a and 2).
+
+--multistep-switch adds a measurement that gates nothing: grahmc_run at
+1,024 and 4,096 chains through the multi-transition dispatch (T = 8)
+against the single-transition one (T = 1), with the learned dense metric
+and its diagonal.
 
 Every phase passes or raises; there is no CPU path. The last two lines are a
-JSON object describing each kernel and kernel-4 variant (its launches on the
+JSON object describing each kernel and kernel variant (its launches on the
 main paths, error against its plain version, time, the plain version's
 time and the least time the card could take) and {"ok": true, "device": {...}}.
 """
@@ -90,6 +101,15 @@ DENSE_RHO = 0.9
 DENSE_PARITY_STEP = 0.5      # whitened N(0, I_50): near its tuned step
 DENSE_CHECK_CHAINS = 4096    # the oracle-vs-diagonal ESS check
 DENSE_ESS_RATIO = 3.0        # tests/test_dense_metric.py:77
+# dense-warmup GRAHMC row: the same target, the metric learned by the
+# library's default schedule (500 + [25, 50, 100, 200, 500, 1000] + 125,
+# update_freq 100) and the default gamma grid and tune (max_iter_step 1000,
+# 150 ESJD transitions per gamma)
+WARMUP_STEPS = 2500
+WARMUP_TRANSITIONS = 2700        # masked steps pad the 25- and 50-step windows
+TUNE_TRANSITIONS = 7 * (1000 + 150)
+WARMUP_METRIC_TOL = 0.05         # max |M^{-1} - Sigma|; shrinkage alone 0.0045
+WARMUP_COV_TOL = 0.1
 # multinomial variance check: 4-D N(0, I) from exact starts, both backends
 VAR_DIM = 4
 VAR_CHAINS = 65536
@@ -105,11 +125,13 @@ PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 
 NUTS_SRC = ("mcmc_tpu_torch/csrc/fused_nuts.cu", "mcmc_tpu/ops/fused_nuts.py:139")
+STEP_SRC = ("mcmc_tpu_torch/csrc/fused_trajectory.cu", "mcmc_tpu/ops/fused_trajectory.py:280")
+MULTI_SRC = ("mcmc_tpu_torch/csrc/fused_trajectory.cu", "mcmc_tpu/ops/fused_trajectory.py:683")
 KERNELS = {   # name: (source, the TPU kernel it replaces)
-    "grahmc_step_kernel": ("mcmc_tpu_torch/csrc/fused_trajectory.cu",
-                           "mcmc_tpu/ops/fused_trajectory.py:280"),
-    "grahmc_multistep_kernel": ("mcmc_tpu_torch/csrc/fused_trajectory.cu",
-                                "mcmc_tpu/ops/fused_trajectory.py:683"),
+    "grahmc_step_kernel": STEP_SRC,                     # diagonal
+    "grahmc_step_kernel[dense]": STEP_SRC,
+    "grahmc_multistep_kernel": MULTI_SRC,
+    "grahmc_multistep_kernel[dense]": MULTI_SRC,
     "rwmh_multistep_kernel": ("mcmc_tpu_torch/csrc/fused_rwmh.cu",
                               "mcmc_tpu/ops/fused_rwmh.py:44"),
     "nuts_window_kernel": NUTS_SRC,                     # endpoint, diagonal
@@ -117,7 +139,9 @@ KERNELS = {   # name: (source, the TPU kernel it replaces)
     "nuts_window_kernel[dense]": NUTS_SRC,
     "nuts_window_kernel[multinomial+dense]": NUTS_SRC,
 }
-# kernel 4's variant names (ops/fused_nuts.py:VARIANTS) -> the names above
+# kernels 1 and 2's variant names (ops/fused_trajectory.py:VARIANTS), and
+# kernel 4's (ops/fused_nuts.py:VARIANTS) -> the names above
+GRAHMC_NAMES = {"diagonal": "", "dense": "[dense]"}
 NUTS_NAMES = {"endpoint": "nuts_window_kernel",
               "multinomial": "nuts_window_kernel[multinomial]",
               "dense": "nuts_window_kernel[dense]",
@@ -332,6 +356,54 @@ def phase_parity_rwmh(torch, ft, fr, targets, dev):
     return {"rwmh_multistep_kernel": max_err}
 
 
+def phase_parity_dense(torch, ft, targets, row, dev):
+    """Kernels 1a and 2a against their plain versions at the dense-warmup
+    row's shapes (65,536 x 50, L = 16; 4,096 x 50, T = 8), with the learned
+    metric at the tuned step and gamma, from the warmed positions: injected
+    draws, then Philox. A chain whose accept decisions differ has split (at
+    most SPLIT_MAX of them); the rest agree within 1e-4 (delta H within
+    2e-3, a difference of two energies of magnitude ~100)."""
+    say("[3d] kernels 1a and 2a (dense metric) vs plain versions: the learned metric "
+        "at the tuned step")
+    t = _target(targets, "correlated_gaussian")
+    info = t.value_and_grad_fn.kernel_info
+    invm, l_inv = ft.prepare_dense_metric(row["inv_mass"])
+    scalars = ft.kernel_scalars(row["step"], row["gamma"], row["steepness"], dev)
+    sid = ft.SCHEDULE_IDS["constant"]
+    g = _gen(torch, dev, 103)
+    key = ft.PhiloxStream.from_generator(g, dev).key
+    max_err = {"grahmc_step_kernel[dense]": 0.0, "grahmc_multistep_kernel[dense]": 0.0}
+    for name, n, lead in (("grahmc_step_kernel[dense]", CHAINS, ()),
+                          ("grahmc_multistep_kernel[dense]", MULTI_CHAINS, (MULTI_T,))):
+        q = row["pos"][:n].contiguous()
+        lp, grad = t.value_and_grad_fn(q)
+        args = (info, NUM_STEPS, sid, *lead, q, lp.contiguous(), grad.contiguous(), scalars,
+                invm)
+        p0 = ft.unwhiten(torch.randn(lead + (n, DIM), generator=g, device=dev), invm, l_inv)
+        u = torch.rand(lead + (n,), generator=g, device=dev).clamp_min(2.0 ** -25)
+        kernel_fn, plain_fn = ((ft.grahmc_multistep_kernel, ft.grahmc_multistep_plain) if lead
+                               else (ft.grahmc_step_kernel, ft.grahmc_step_plain))
+        for mode, rand in (("injected", dict(p0=p0.contiguous(), u=u)),
+                           ("philox", dict(key=key, call=7))):
+            kern = kernel_fn(*args, l_inv=l_inv, **rand)
+            plain = plain_fn(*args, l_inv=l_inv, **rand)
+            torch.cuda.synchronize()
+            if lead:      # (q, lp, grad, accept (T, C), dh (T, C), hist_q, hist_lp)
+                agree = (kern[3] == plain[3]).all(dim=0)
+                pairs = [(kern[i][agree], plain[i][agree]) for i in (0, 1, 2)]
+                pairs += [(kern[i][:, agree], plain[i][:, agree]) for i in (5, 6)]
+                dh = (kern[4][:, agree], plain[4][:, agree])
+            else:         # (q, lp, grad, accept, dh, proposal q, proposal lp)
+                agree = kern[3] == plain[3]
+                pairs = [(kern[i][agree], plain[i][agree]) for i in (0, 1, 2, 5, 6)]
+                dh = (kern[4][agree], plain[4][agree])
+            err, within = _close_on(pairs)
+            _split_check(f"{name} {mode}", agree, err, within)
+            require(_close_on([dh], tol=2e-3)[1], f"{name} {mode}: delta H differs")
+            max_err[name] = max(max_err[name], err)
+    return max_err
+
+
 def _clone_state(ps):
     return type(ps)(*(None if t is None else t.clone() for t in ps))
 
@@ -371,8 +443,7 @@ def phase_parity_nuts(torch, ft, fn, tn, targets, dev):
         q = torch.randn((NUTS_CHAINS, DIM), generator=g, device=dev) * 0.5
         lp, grad = t.value_and_grad_fn(q)
         scalars = fn.nuts_scalars(step, 1000.0, dev)
-        inv_mass, l_inv = fn.window_metric(
-            t.true_cov if dense else torch.ones(DIM), dev)
+        inv_mass, l_inv = ft.kernel_metric((t.true_cov if dense else torch.ones(DIM)).to(dev))
         key = ft.PhiloxStream.from_generator(g, dev).key
         args = (info, NUTS_ITERS, NUTS_W, NUTS_DEPTH)
         start = tn._init_pstate(q, lp, grad, torch.float32, multinomial=multinomial,
@@ -819,6 +890,126 @@ def phase_rwmh_row(torch, targets, samplers, dev):
     require(0.2 < accept < 0.35, f"RWMH accept {accept}")
 
 
+def phase_dense_warmup_row(torch, targets, samplers, tuning, diagnostics, dev):
+    """The dense-warmup GRAHMC row (the port's own; bench.py has none): from
+    N(0, 0.5^2) starts, run_adaptive_warmup("grahmc", learn_mass_matrix=
+    "dense", backend="fused") learns a dense metric for the 50-D rho = 0.9
+    Gaussian at 65,536 chains with the library's default schedule, then
+    tunes gamma by ESJD (all through kernel 1a); then, from the warmed
+    positions, the GRAHMC row's protocol (bench.py:328-411) at the tuned
+    step, gamma and metric: a warm-up and TIMED_REPS timed 768-draw runs
+    keeping a 64-chain history (the median gives
+    grahmc_dense_chain_steps_per_sec) and one 192-draw full-history run
+    (min bulk-ESS over its wall, grahmc_dense_ess_per_sec). Gates: the
+    learned metric within WARMUP_METRIC_TOL of Sigma, accept 0.65 +- 0.1,
+    the last draw's covariance within WARMUP_COV_TOL of Sigma. Then at 4,096
+    chains a dense and a diagonal warmup, each followed by a 256-draw run
+    through the multistep dispatch (kernels 2a and 2): the dense min
+    bulk-ESS at least DENSE_ESS_RATIO times the diagonal one. The gamma
+    tune's share of the warmup is timed by running the library's
+    sequential_tune_grahmc once more, from the warmed positions and metric
+    (the same number of transitions as the warmup's own tune)."""
+    say("[5e] dense-warmup GRAHMC row: 50-D correlated Gaussian (rho 0.9), 65,536 chains, "
+        "dense metric learned by the windowed warmup, gamma by ESJD (kernel 1a)")
+    t = _target(targets, "correlated_gaussian")
+    sigma = t.true_cov.to(dev)
+    constant = samplers.constant_schedule
+
+    def warmup(chains, learn, seed):
+        init = torch.randn((chains, DIM), generator=_gen(torch, dev, seed), device=dev) * 0.5
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = tuning.run_adaptive_warmup(
+            "grahmc", t.log_prob_fn, None, init, _gen(torch, dev, seed + 1),
+            num_warmup=WARMUP_STEPS, learn_mass_matrix=learn, backend="fused",
+            num_steps=NUM_STEPS, schedule_type="constant",
+            value_and_grad_fn=t.value_and_grad_fn)
+        torch.cuda.synchronize()
+        return out + (time.perf_counter() - t0,)
+
+    def run(pos, step, inv_mass, info, seed, **kw):
+        return samplers.grahmc_run(
+            _gen(torch, dev, seed), t.log_prob_fn, pos, step_size=step, num_steps=NUM_STEPS,
+            gamma=info["gamma"], steepness=info["steepness"], burn_in=0,
+            friction_schedule=constant, inv_mass_matrix=inv_mass,
+            value_and_grad_fn=t.value_and_grad_fn, backend="fused", **kw)
+
+    step, inv_mass, pos, info, warmup_sec = warmup(CHAINS, "dense", 50)
+    metric_err = float((inv_mass.double() - sigma).abs().max())
+    cond = float(torch.linalg.cond(inv_mass.double()))
+    say(f"  grahmc_dense_warmup_sec {warmup_sec:.4f} ({WARMUP_TRANSITIONS} warmup and "
+        f"{TUNE_TRANSITIONS} gamma-tune transitions); tuned step {step:.6f}, gamma "
+        f"{info['gamma']}")
+    say(f"  learned metric: max |M^-1 - Sigma| {metric_err:.5f}, condition number "
+        f"{cond:.1f} (Sigma: {float(torch.linalg.cond(sigma)):.1f}); last batch "
+        f"accept {info['accept_trace'][-1]:.4f}")
+    require(metric_err <= WARMUP_METRIC_TOL, f"learned metric off Sigma by {metric_err}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _s, gamma_again, _st, history = tuning.sequential_tune_grahmc(
+        _gen(torch, dev, 59), t.log_prob_fn, None, pos, num_steps=NUM_STEPS,
+        inv_mass_matrix=inv_mass, init_step_size=step, value_and_grad_fn=t.value_and_grad_fn,
+        backend="fused")
+    torch.cuda.synchronize()
+    tune_sec = time.perf_counter() - t0
+    say(f"  the gamma tune again from the warmed state: {TUNE_TRANSITIONS} transitions in "
+        f"{tune_sec:.4f} s, so the windows took {warmup_sec - tune_sec:.4f} s; it picks gamma "
+        f"{gamma_again}; per gamma (step, ESJD): "
+        + ", ".join(f"{g_}: ({s_:.4f}, {e:.4f})" for g_, s_, e in zip(
+            history["gamma_grid"], history["per_gamma_step"], history["esjd"])))
+
+    kw = dict(collect_chains=COLLECT, num_samples=TIMED_SAMPLES)
+    res = run(pos, step, inv_mass, info, 52, **kw)               # warm-up
+    torch.cuda.synchronize()
+    dts = []
+    for rep in range(TIMED_REPS):
+        t0 = time.perf_counter()
+        res = run(pos, step, inv_mass, info, 53 + rep, **kw)
+        torch.cuda.synchronize()
+        dts.append(time.perf_counter() - t0)
+    dt = statistics.median(dts)
+    accept = float(res.accept_rate.mean())
+    rate = CHAINS * TIMED_SAMPLES / dt
+    say(f"  timed runs: {TIMED_SAMPLES} draws x {CHAINS} chains, median of {TIMED_REPS} "
+        f"reps {dt:.4f} s (reps {[round(x, 4) for x in dts]}); accept {accept:.4f}; "
+        f"grahmc_dense_chain_steps_per_sec {rate:.1f}")
+    require(res.samples.shape == (TIMED_SAMPLES, COLLECT, DIM), "dense history shape")
+    require(bool(torch.isfinite(res.samples).all()), "non-finite dense draws")
+    require(abs(accept - TARGET_ACCEPT) <= 0.1, f"dense tuned accept {accept}")
+    del res
+    t0 = time.perf_counter()
+    full = run(pos, step, inv_mass, info, 60, num_samples=ESS_SAMPLES)
+    torch.cuda.synchronize()
+    dt_full = time.perf_counter() - t0
+    require(full.samples.shape == (ESS_SAMPLES, CHAINS, DIM), "dense full history shape")
+    cov_err = float((torch.cov(full.samples[-1].T.double()) - sigma).abs().max())
+    ess = diagnostics.ess_bulk_chunked(full.samples, chain_chunk=8192, dim_chunk=4)
+    ess_min = float(ess.min())
+    del full
+    require(bool(torch.isfinite(ess).all()) and ess_min > 0, "dense bulk ESS")
+    say(f"  full-history run: {ESS_SAMPLES} draws x {CHAINS} chains in {dt_full:.4f} s; "
+        f"min bulk-ESS {ess_min:.1f}, grahmc_dense_ess_per_sec {ess_min / dt_full:.1f}; "
+        f"last draw's covariance within {cov_err:.4f} of Sigma")
+    require(cov_err <= WARMUP_COV_TOL, f"dense row covariance off by {cov_err}")
+
+    check = {}
+    for name, learn, seed in (("dense", "dense", 70), ("diagonal", True, 72)):
+        s_c, im_c, pos_c, info_c, sec_c = warmup(MULTI_CHAINS, learn, seed)
+        r = run(pos_c, s_c, im_c, info_c, seed + 10, num_samples=MULTI_SAMPLES)
+        check[name] = float(diagnostics.ess_bulk_chunked(r.samples, chain_chunk=4096,
+                                                         dim_chunk=10).min())
+        say(f"  {name} warmup at {MULTI_CHAINS} chains in {sec_c:.2f} s: step {s_c:.4f}, "
+            f"gamma {info_c['gamma']}; {MULTI_SAMPLES}-draw run accept "
+            f"{float(r.accept_rate.mean()):.4f}, min bulk-ESS {check[name]:.1f}")
+    ratio = check["dense"] / check["diagonal"]
+    say(f"  learned dense vs diagonal metric at {MULTI_CHAINS} chains: min bulk-ESS ratio "
+        f"{ratio:.2f}")
+    require(ratio >= DENSE_ESS_RATIO, f"dense/diagonal min-ESS ratio {ratio}")
+    return dict(step=step, gamma=info["gamma"], steepness=info["steepness"],
+                inv_mass=inv_mass, pos=pos, rate=rate, ess_rate=ess_min / dt_full,
+                warmup_sec=warmup_sec, ess_ratio=ratio)
+
+
 # ---------------------------------------------------------------------------
 # Phase 6: kernel and plain times at the main-path shapes
 # ---------------------------------------------------------------------------
@@ -886,6 +1077,76 @@ def phase_timing(torch, ft, targets, step, dev, reps=20, burst=10):
     return times
 
 
+def phase_timing_dense(torch, ft, targets, row, dev, reps=10, burst=10, plain_burst=1):
+    """Kernels 1a (65,536 x 50, L = 16) and 2a (4,096 x 50, T = 8, L = 16)
+    against their plain versions with the learned metric at the tuned step,
+    Philox mode, from the warmed positions: median over `reps` samples,
+    interleaved, `burst` kernel or `plain_burst` plain calls per sample."""
+    say(f"[6c] kernels 1a and 2a vs plain versions: CUDA events, median of {reps} bursts "
+        f"of {burst} kernel / {plain_burst} plain calls, Philox mode")
+    t = _target(targets, "correlated_gaussian")
+    info = t.value_and_grad_fn.kernel_info
+    invm, l_inv = ft.prepare_dense_metric(row["inv_mass"])
+    scalars = ft.kernel_scalars(row["step"], row["gamma"], row["steepness"], dev)
+    key = ft.PhiloxStream.from_generator(_gen(torch, dev, 42), dev).key
+    times = {}
+    for name, n, kernel_fn, plain_fn, lead in (
+            ("grahmc_step_kernel[dense]", CHAINS, ft.grahmc_step_kernel,
+             ft.grahmc_step_plain, ()),
+            ("grahmc_multistep_kernel[dense]", MULTI_CHAINS, ft.grahmc_multistep_kernel,
+             ft.grahmc_multistep_plain, (MULTI_T,))):
+        q = row["pos"][:n].contiguous()
+        lp, grad = t.value_and_grad_fn(q)
+        args = (info, NUM_STEPS, ft.SCHEDULE_IDS["constant"], *lead, q, lp.contiguous(),
+                grad.contiguous(), scalars, invm)
+        fns = {"kernel": lambda: kernel_fn(*args, key=key, call=0, l_inv=l_inv),
+               "plain": lambda: plain_fn(*args, key=key, call=0, l_inv=l_inv)}
+        ms = _interleaved(torch, fns, reps, {"kernel": burst, "plain": plain_burst})
+        times[name] = (statistics.median(ms["kernel"]), statistics.median(ms["plain"]))
+        say(f"  {name} ({n} x {DIM}{', T = %d' % MULTI_T if lead else ''}, L = {NUM_STEPS}): "
+            f"kernel {times[name][0]:.4f} ms, plain {times[name][1]:.4f} ms; kernel "
+            f"quartiles {[round(x, 4) for x in statistics.quantiles(ms['kernel'], n=4)]}")
+    return times
+
+
+def phase_multistep_switch(torch, targets, samplers, row, dev, chain_counts=(1024, 4096)):
+    """grahmc_run end to end at the multistep switch: MULTI_SAMPLES draws
+    take the multi-transition dispatch (T = 8), one draw fewer the
+    single-transition one (T = 1, as no T > 1 divides it), each with the
+    learned dense metric and with its diagonal, from the warmed positions at
+    the tuned step. Host clock around synchronized runs, the median of 3
+    after a warm-up; chain-steps/s per dispatch."""
+    say(f"[6d] the multistep switch: grahmc_run at {list(chain_counts)} chains, "
+        f"T = {MULTI_T} against T = 1, dense and diagonal metric")
+    t = _target(targets, "correlated_gaussian")
+    out = {}
+    for metric_name, metric in (("dense", row["inv_mass"]),
+                                 ("diagonal", torch.diagonal(row["inv_mass"]).contiguous())):
+        for n in chain_counts:
+            for samples in (MULTI_SAMPLES, MULTI_SAMPLES - 1):
+                def run(seed):
+                    return samplers.grahmc_run(
+                        _gen(torch, dev, seed), t.log_prob_fn, row["pos"][:n].contiguous(),
+                        step_size=row["step"], num_steps=NUM_STEPS, gamma=row["gamma"],
+                        steepness=row["steepness"], num_samples=samples,
+                        friction_schedule=samplers.constant_schedule,
+                        inv_mass_matrix=metric, value_and_grad_fn=t.value_and_grad_fn,
+                        collect_chains=COLLECT, backend="fused")
+                run(90)
+                dts = []
+                for rep in range(3):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    run(91 + rep)
+                    torch.cuda.synchronize()
+                    dts.append(time.perf_counter() - t0)
+                per_call = MULTI_T if samples % MULTI_T == 0 else 1
+                out[metric_name, n, per_call] = n * samples / statistics.median(dts)
+            say(f"  {metric_name}, {n} chains: chain-steps/s T = {MULTI_T} "
+                f"{out[metric_name, n, MULTI_T]:.1f}, T = 1 {out[metric_name, n, 1]:.1f}")
+    return out
+
+
 def phase_timing_rwmh_nuts(torch, ft, fr, fn, tn, targets, nuts_step, dense_step, dev,
                            reps=10, burst=10, plain_burst=1):
     """Kernel 3 and kernel 4's four variants against their plain versions at
@@ -924,7 +1185,7 @@ def phase_timing_rwmh_nuts(torch, ft, fr, fn, tn, targets, nuts_step, dense_step
         q = torch.randn((NUTS_CHAINS, DIM), generator=g, device=dev) * 0.5
         lp, grad = t.value_and_grad_fn(q)
         scalars = fn.nuts_scalars(step, 1000.0, dev)
-        inv_mass, l_inv = fn.window_metric(t.true_cov if dense else torch.ones(DIM), dev)
+        inv_mass, l_inv = ft.kernel_metric((t.true_cov if dense else torch.ones(DIM)).to(dev))
         args = (info, NUTS_ITERS, NUTS_W, NUTS_DEPTH)
         state = tn._init_pstate(q, lp, grad, torch.float32, multinomial=multinomial,
                                 max_tree_depth=NUTS_DEPTH)
@@ -975,6 +1236,13 @@ TARGET_FLOPS = {"standard_normal": 3, "neals_funnel": 5, "correlated_gaussian": 
 LEAPFROG_FLOPS = 10
 SUBSTEP_FLOPS = 9        # GRAHMC: two friction scalings, two half kicks, the drift
 TRANSITION_FLOPS = 13    # GRAHMC: Box-Muller momentum, two kinetic energies, flip
+# the dense variants: per coordinate the same less the diagonal velocity,
+# unwhitening and kinetic products, which the dense products per transition
+# take over: L + 2 full D x D ones (two kinetic energies, a velocity per
+# substep; a multiply and an add per entry) and the unwhitening by the lower
+# triangular L^{-1}, D (D + 1) operations
+DENSE_SUBSTEP_FLOPS = 8
+DENSE_TRANSITION_FLOPS = 9
 
 
 def bound(nbytes, flops):
@@ -1004,8 +1272,16 @@ def kernel_bounds(measured):
     rwmh_io = (RWMH_CHAINS * (RWMH_DIM * 4 + 4) * 2 + RWMH_T * RWMH_CHAINS
                + RWMH_T * RWMH_COLLECT * (RWMH_DIM * 4 + 4))
     rwmh_ops = RWMH_T * RWMH_CHAINS * RWMH_DIM * (8 + TARGET_FLOPS["standard_normal"])
+    # dense (the correlated Gaussian): M^{-1} and L^{-1} read once more
+    dense_chain = (DIM * (NUM_STEPS * (DENSE_SUBSTEP_FLOPS + TARGET_FLOPS["correlated_gaussian"])
+                          + DENSE_TRANSITION_FLOPS)
+                   + (NUM_STEPS + 2) * 2 * DIM * DIM + DIM * (DIM + 1))
+    metric_io = 2 * DIM * row
     out = {"grahmc_step_kernel": bound(step_io, step_ops),
            "grahmc_multistep_kernel": bound(multi_io, multi_ops),
+           "grahmc_step_kernel[dense]": bound(step_io + metric_io, CHAINS * dense_chain),
+           "grahmc_multistep_kernel[dense]": bound(multi_io + metric_io,
+                                                   MULTI_T * MULTI_CHAINS * dense_chain),
            "rwmh_multistep_kernel": bound(rwmh_io, rwmh_ops)}
     for (multinomial, dense), family in (((False, False), "neals_funnel"),
                                          ((True, False), "neals_funnel"),
@@ -1062,12 +1338,12 @@ def main():
     phase_stats_rwmh_nuts(torch, targets, samplers, dev)
     phase_multinomial_variance(torch, targets, samplers, dev)
 
-    wrappers = (ft.grahmc_step_kernel, ft.grahmc_multistep_kernel,
-                fr.rwmh_multistep_kernel)
-
     def counts():
-        """Each kernel's and kernel-4 variant's launch count."""
-        got = {k.__name__: k.launches for k in wrappers}
+        """Each kernel's and kernel variant's launch count."""
+        got = {f"{k.__name__}{GRAHMC_NAMES[v]}": n
+               for k in (ft.grahmc_step_kernel, ft.grahmc_multistep_kernel)
+               for v, n in k.variant_launches.items()}
+        got["rwmh_multistep_kernel"] = fr.rwmh_multistep_kernel.launches
         got.update({NUTS_NAMES[v]: n
                     for v, n in fn.nuts_window_kernel.variant_launches.items()})
         return got
@@ -1078,8 +1354,8 @@ def main():
         kernel must launch exactly as often as `expected` says (0 for the
         kernels of the other paths). A kernel's reported launches are its
         sum over the paths that run it."""
-        for k in wrappers:
-            k.launches = 0
+        ft.reset_launches()
+        fr.rwmh_multistep_kernel.launches = 0
         fn.reset_launches()
         out = run()
         got = counts()
@@ -1111,6 +1387,16 @@ def main():
                    "nuts_window_kernel": NUTS_TUNE_CALLS + check_runs})
     drive("RWMH row", lambda: phase_rwmh_row(torch, targets, samplers, dev),
           {"rwmh_multistep_kernel": RWMH_SAMPLES // RWMH_T * (1 + RWMH_REPS)})
+    warmed = WARMUP_TRANSITIONS + TUNE_TRANSITIONS     # one warmup with its tune
+    dense_row = drive("dense-warmup GRAHMC row",
+                      lambda: phase_dense_warmup_row(torch, targets, samplers, tuning,
+                                                     diagnostics, dev),
+                      {"grahmc_step_kernel[dense]": 2 * warmed + TUNE_TRANSITIONS
+                       + TIMED_SAMPLES * (1 + TIMED_REPS) + ESS_SAMPLES,
+                       "grahmc_multistep_kernel[dense]": MULTI_SAMPLES // MULTI_T,
+                       "grahmc_step_kernel": warmed,
+                       "grahmc_multistep_kernel": MULTI_SAMPLES // MULTI_T})
+    max_err.update(phase_parity_dense(torch, ft, targets, dense_row, dev))
     require(all(n > 0 for n in launches.values()) and set(launches) == set(KERNELS),
             f"a kernel no main path launched: {launches}")
 
@@ -1118,6 +1404,9 @@ def main():
     nuts_times, measured = phase_timing_rwmh_nuts(torch, ft, fr, fn, tn, targets,
                                                   nuts["step"], dense["step"], dev)
     times.update(nuts_times)
+    times.update(phase_timing_dense(torch, ft, targets, dense_row, dev))
+    if "--multistep-switch" in sys.argv[1:]:
+        phase_multistep_switch(torch, targets, samplers, dense_row, dev)
     bounds = kernel_bounds(measured)
     say(f"[7] done in {time.perf_counter() - t_start:.1f} s")
     say(f"  rows: nuts_useful_grads_per_sec {nuts['endpoint']['rate']:.1f}, "
@@ -1126,7 +1415,10 @@ def main():
         f"nuts_multinomial_ess_per_sec {nuts['multinomial']['ess_rate']:.1f}, "
         f"nuts_multinomial_vs_endpoint_ess {nuts['vs_endpoint']:.4f}, "
         f"nuts_dense_useful_grads_per_sec {dense['dense']['rate']:.1f}, "
-        f"nuts_dense_ess_per_sec {dense['dense']['ess_rate']:.1f}")
+        f"nuts_dense_ess_per_sec {dense['dense']['ess_rate']:.1f}, "
+        f"grahmc_dense_chain_steps_per_sec {dense_row['rate']:.1f}, "
+        f"grahmc_dense_ess_per_sec {dense_row['ess_rate']:.1f}, "
+        f"grahmc_dense_warmup_sec {dense_row['warmup_sec']:.4f}")
     say(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
          "replaces": KERNELS[name][1], "launches": launches[name],

@@ -70,7 +70,6 @@
 #include <cstddef>
 #include <cstdint>
 #include <cstring>
-#include <type_traits>
 #include <cuda_runtime.h>
 
 #include "chain_rows.cuh"
@@ -186,36 +185,6 @@ __device__ __forceinline__ float log_add_exp(float a, float b) {
   return mx == -INFINITY ? mx : mx + log1pf(expf(mn - mx));
 }
 
-// y + a x. ROUNDED rounds the product before the sum, as the plain
-// version's separate tensor operations do; otherwise nvcc may contract it
-// to an FMA. The dense variants need the rounded form: under an
-// ill-conditioned M^{-1} a rounding difference grows along the trajectory.
-template <bool ROUNDED>
-__device__ __forceinline__ float add_scaled(float y, float a, float x) {
-  if constexpr (ROUNDED) {
-    return __fadd_rn(y, __fmul_rn(a, x));
-  } else {
-    return y + a * x;
-  }
-}
-
-template <int K, bool DENSE>
-using Metric = typename std::conditional<DENSE, DenseMetric<K>, DiagMetric<K>>::type;
-
-// The chain's metric. DENSE: the whole block loads M^{-1} and L^{-1} into
-// shared memory, so every thread must call this before any returns.
-template <int K, bool DENSE>
-__device__ __forceinline__ Metric<K, DENSE> make_metric(const Args& a, float* smem, int warp,
-                                                        int lane) {
-  if constexpr (DENSE) {
-    const int n = a.dim * a.dim;
-    load_dense_metric(smem, a.inv_mass, a.l_inv, a.dim);
-    return DenseMetric<K>{smem, smem + n, smem + 2 * n + warp * 32 * K, a.dim, lane};
-  } else {
-    return DiagMetric<K>(a.inv_mass, lane, a.dim);
-  }
-}
-
 template <int FAMILY, int K, bool MULTI, bool DENSE>
 __global__ void __launch_bounds__(WARPS_PER_BLOCK<DENSE> * 32)
     nuts_window_kernel(const Args a) {
@@ -226,7 +195,8 @@ __global__ void __launch_bounds__(WARPS_PER_BLOCK<DENSE> * 32)
   const int dim = a.dim;
 
   extern __shared__ float smem[];
-  const Metric<K, DENSE> metric = make_metric<K, DENSE>(a, smem, warp, lane);
+  const Metric<K, DENSE> metric =
+      make_metric<K, DENSE>(a.inv_mass, a.l_inv, dim, smem, warp, lane);
   if (chain >= a.n_chains) return;  // uniform across the warp
 
   const size_t row = static_cast<size_t>(chain) * dim;
@@ -505,9 +475,8 @@ template <int FAMILY, int K, bool MULTI, bool DENSE>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   constexpr int WARPS = WARPS_PER_BLOCK<DENSE>;
   const unsigned blocks = static_cast<unsigned>((a.n_chains + WARPS - 1) / WARPS);
-  size_t smem = 0;
+  const size_t smem = metric_smem_bytes<K, DENSE>(a.dim, WARPS);
   if constexpr (DENSE) {
-    smem = (2 * static_cast<size_t>(a.dim) * a.dim + WARPS * 32 * K) * sizeof(float);
     // above 48 kB only after opting in (D > 74); up to 139 kB at D = 128
     const cudaError_t err = cudaFuncSetAttribute(nuts_window_kernel<FAMILY, K, MULTI, DENSE>,
                                                  cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -1,4 +1,5 @@
-// Fused GRAHMC/HMC transitions for NVIDIA Hopper (sm_90a).
+// Fused GRAHMC/HMC transitions for NVIDIA Hopper (sm_90a), diagonal and
+// dense metric.
 //
 // What each function replaces (TPU Pallas kernels of the JAX package):
 //   grahmc_step_kernel      <- mcmc_tpu/ops/fused_trajectory.py:_make_kernel
@@ -10,8 +11,12 @@
 //                              (make_fused_grahmc_multistep): T transitions per
 //                              call, writing per-transition accept, delta H and
 //                              post-transition q and lp.
+//   The template flag DENSE is the TPU kernels' `dense` flag (variants 1a
+//   and 2a): M^{-1} is a (D, D) matrix, the momentum is z @ L^{-1} with
+//   M^{-1} = L L^T, and every velocity and kinetic energy is a D x D product
+//   (metric.cuh).
 //   targets.cuh             <- mcmc_tpu/ops/padded_targets.py:_standard_normal,
-//                              _neals_funnel (inlined into both kernels).
+//                              _neals_funnel, _correlated (inlined).
 // Both kernels share one __device__ transition. Plain PyTorch versions of
 // everything here live in mcmc_tpu_torch/ops/fused_trajectory.py.
 //
@@ -22,23 +27,33 @@
 // exp(-x0)) and about 10 flops per coordinate, plus two dependent warp
 // reductions (5 shuffles each) per substep on the funnel. At L = 16 the
 // arithmetic and the serial dependency chain of each chain's substeps, not
-// device memory, set the time.
+// device memory, set the time of the diagonal variants. The dense variants
+// add L + 3 D x D products per transition (the unwhitening, two kinetic
+// energies, a velocity per substep), 2 D^2 flops each per chain, every
+// multiply-add reading one word of shared memory: those products set their
+// time.
 //
 // Design: one warp per chain. Lane j holds coordinates j, j+32, j+64, j+96
-// (K = ceil(D / 32) <= 4 registers each of q, p, grad and M^{-1}), and q, p
-// and grad stay in registers for the whole trajectory -- in the multistep
-// kernel for all T transitions -- so device memory sees the state once per
-// call. Per-chain sums are __shfl_xor_sync butterflies; the funnel's neck
-// coordinate is broadcast from lane 0 with __shfl_sync. The public (C, D)
-// row-major layout is read and written as is: a warp touches one contiguous
-// row, nothing is padded or transposed, and lanes past D hold zeros that no
-// sum sees. 65,536 chains are 65,536 warps, enough to keep every SM's
-// schedulers fed while each warp waits on its shuffles.
+// (K = ceil(D / 32) <= 4 registers each of q, p and grad; the diagonal of
+// M^{-1} too under the diagonal metric), and q, p and grad stay in registers
+// for the whole trajectory -- in the multistep kernel for all T transitions
+// -- so device memory sees the state once per call. Per-chain sums are
+// __shfl_xor_sync butterflies; the funnel's neck coordinate is broadcast from
+// lane 0 with __shfl_sync. The public (C, D) row-major layout is read and
+// written as is: a warp touches one contiguous row, nothing is padded or
+// transposed, and lanes past D hold zeros that no sum sees. 65,536 chains
+// are 65,536 warps, enough to keep every SM's schedulers fed while each warp
+// waits on its shuffles. Under DENSE the block's 8 warps share one copy of
+// M^{-1} and L^{-1} in shared memory (20 kB at D = 50, 128 kB at D = 128),
+// and the leapfrog's products are rounded before their sums (add_scaled):
+// under an ill-conditioned metric a rounding difference would grow along
+// the trajectory away from the plain version's.
 //
-// Randomness: injected (p0, u pointers non-null) or Philox4x32-10 with key
-// (key[0], key[1]) and counter (chain, call, transition, draw). Momentum
-// coordinate d uses draw d / 4 (Box-Muller on words (x0, x1) for d % 4 in
-// {0, 1} -- cos, sin -- and (x2, x3) for {2, 3}); the accept uniform uses
+// Randomness: injected (p0, u pointers non-null; p0 is the momentum, already
+// unwhitened) or Philox4x32-10 with key (key[0], key[1]) and counter (chain,
+// call, transition, draw). Standard normal z_d uses draw d / 4 (Box-Muller on
+// words (x0, x1) for d % 4 in {0, 1} -- cos, sin -- and (x2, x3) for
+// {2, 3}), unwhitened to the momentum by the metric; the accept uniform uses
 // word x0 of draw ACCEPT_DRAW.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -47,9 +62,11 @@
 
 #include <cstddef>
 #include <cstdint>
+#include <cstring>
 #include <cuda_runtime.h>
 
 #include "chain_rows.cuh"
+#include "metric.cuh"
 #include "philox.cuh"
 #include "targets.cuh"
 
@@ -87,25 +104,25 @@ __device__ __forceinline__ float friction(int schedule, float t, float T, float 
   }
 }
 
-// One MH transition of the chain this warp holds. On entry (q, g, lp) is the
-// current state; on exit the selected state. (q1, lp1) is the proposal and
-// dh = H1 - H0. Returns the accept decision (uniform across the warp).
-template <int FAMILY, int K>
-__device__ __forceinline__ bool transition(const Target<FAMILY, K>& target, const Scalars& sc,
+// One MH transition of the chain this warp holds, from momentum p0. On entry
+// (q, g, lp) is the current state; on exit the selected state. (q1, lp1) is
+// the proposal and dh = H1 - H0. Returns the accept decision (uniform across
+// the warp).
+template <int FAMILY, int K, typename M>
+__device__ __forceinline__ bool transition(const Target<FAMILY, K>& target, const M& metric,
+                                           const Scalars& sc,
                                            int num_steps, int schedule, int lane,
-                                           const float (&invm)[K], const float (&p0)[K],
-                                           float u, float (&q)[K], float (&g)[K], float& lp,
-                                           float (&q1)[K], float& lp1, float& dh) {
-  float p[K], g1[K];
-  float kin = 0.f;
+                                           const float (&p0)[K], float u, float (&q)[K],
+                                           float (&g)[K], float& lp, float (&q1)[K],
+                                           float& lp1, float& dh) {
+  float p[K], g1[K], v[K];
 #pragma unroll
   for (int r = 0; r < K; ++r) {
     q1[r] = q[r];
     g1[r] = g[r];
     p[r] = p0[r];
-    kin += p[r] * (p[r] * invm[r]);
   }
-  const float h0 = -lp + 0.5f * warp_sum(kin);
+  const float h0 = -lp + metric.kinetic(p);
 
   const float half = 0.5f * sc.eps;
   const float total = sc.eps * static_cast<float>(num_steps);
@@ -121,25 +138,21 @@ __device__ __forceinline__ bool transition(const Target<FAMILY, K>& target, cons
       for (int r = 0; r < K; ++r) p[r] *= scale;
     }
 #pragma unroll
-    for (int r = 0; r < K; ++r) {
-      p[r] += half * g1[r];
-      q1[r] += sc.eps * (p[r] * invm[r]);
-    }
+    for (int r = 0; r < K; ++r) p[r] = add_scaled<M::DENSE>(p[r], half, g1[r]);
+    metric.velocity(p, v);
+#pragma unroll
+    for (int r = 0; r < K; ++r) q1[r] = add_scaled<M::DENSE>(q1[r], sc.eps, v[r]);
     lp1 = target(q1, g1, lane);
 #pragma unroll
     for (int r = 0; r < K; ++r) {
-      p[r] += half * g1[r];
+      p[r] = add_scaled<M::DENSE>(p[r], half, g1[r]);
       if (schedule != NO_FRICTION) p[r] *= scale;
     }
   }
 
-  kin = 0.f;
 #pragma unroll
-  for (int r = 0; r < K; ++r) {
-    p[r] = -p[r];
-    kin += p[r] * (p[r] * invm[r]);
-  }
-  float h1 = -lp1 + 0.5f * warp_sum(kin);
+  for (int r = 0; r < K; ++r) p[r] = -p[r];
+  float h1 = -lp1 + metric.kinetic(p);
   if (!isfinite(h1)) h1 = ENERGY_OVERFLOW;
   dh = h1 - h0;
   const float log_alpha = h0 - h1;
@@ -157,12 +170,30 @@ __device__ __forceinline__ bool transition(const Target<FAMILY, K>& target, cons
   return accept;
 }
 
+// The momentum and accept uniform of transition t: injected, or the Philox
+// normals unwhitened by the metric.
+template <int K, typename M>
+__device__ __forceinline__ void randoms(const float* p0_in, const float* u_in, size_t trow,
+                                        size_t slot, const M& metric, int lane,
+                                        int dim, uint32_t chain, uint32_t call, uint32_t t,
+                                        const uint32_t* key, float (&p0)[K], float& u) {
+  if (p0_in != nullptr) {
+    load_row(p0_in, trow, lane, dim, p0);
+    u = u_in[slot];
+  } else {
+    philox_normal_row(p0, lane, dim, chain, call, t, key[0], key[1]);
+    metric.unwhiten(p0);
+    u = philox_accept_uniform(chain, call, t, key[0], key[1]);
+  }
+}
+
 struct StepArgs {
   int dim, n_chains, num_steps, schedule;
+  TargetParams params;
   const float* scalars;
   const uint32_t* key;
   uint32_t call;
-  const float *q, *lp, *grad, *inv_mass, *p0, *u;
+  const float *q, *lp, *grad, *inv_mass, *l_inv, *p0, *u;
   float *q_out, *lp_out, *grad_out;
   bool* acc_out;
   float *dh_out, *prop_q, *prop_lp;
@@ -170,56 +201,39 @@ struct StepArgs {
 
 struct MultiArgs {
   int dim, n_chains, num_steps, schedule, transitions;
+  TargetParams params;
   const float* scalars;
   const uint32_t* key;
   uint32_t call;
-  const float *q, *lp, *grad, *inv_mass, *p0, *u;
+  const float *q, *lp, *grad, *inv_mass, *l_inv, *p0, *u;
   float *q_out, *lp_out, *grad_out;
   bool* acc_out;
   float *dh_out, *hist_q, *hist_lp;
 };
 
-// Load this lane's coordinates of row `row` (zeros past dim) and M^{-1}
-// (ones past dim).
-template <int K>
-__device__ __forceinline__ void load_state(const float* q_in, const float* g_in,
-                                           const float* invm_in, size_t row, int lane,
-                                           int dim, float (&q)[K], float (&g)[K],
-                                           float (&invm)[K]) {
-#pragma unroll
-  for (int r = 0; r < K; ++r) {
-    const int d = lane + 32 * r;
-    const bool valid = d < dim;
-    q[r] = valid ? q_in[row + d] : 0.f;
-    g[r] = valid ? g_in[row + d] : 0.f;
-    invm[r] = valid ? invm_in[d] : 1.f;
-  }
-}
-
-template <int FAMILY, int K>
+template <int FAMILY, int K, bool DENSE>
 __global__ void __launch_bounds__(WARPS_PER_BLOCK * 32) grahmc_step_kernel(const StepArgs a) {
-  const int chain = blockIdx.x * WARPS_PER_BLOCK + (threadIdx.x >> 5);
+  const int warp = threadIdx.x >> 5;
+  const int chain = blockIdx.x * WARPS_PER_BLOCK + warp;
   const int lane = threadIdx.x & 31;
+  extern __shared__ float smem[];
+  const Metric<K, DENSE> metric =
+      make_metric<K, DENSE>(a.inv_mass, a.l_inv, a.dim, smem, warp, lane);
   if (chain >= a.n_chains) return;  // uniform across the warp
 
   const Scalars sc{a.scalars[0], a.scalars[1], a.scalars[2]};
-  const Target<FAMILY, K> target(a.dim);
+  const Target<FAMILY, K> target(a.dim, a.params);
   const size_t row = static_cast<size_t>(chain) * a.dim;
-  float q[K], g[K], invm[K], p0[K];
-  load_state(a.q, a.grad, a.inv_mass, row, lane, a.dim, q, g, invm);
+  float q[K], g[K], p0[K];
+  load_row(a.q, row, lane, a.dim, q);
+  load_row(a.grad, row, lane, a.dim, g);
   float lp = a.lp[chain];
   float u;
-  if (a.p0 != nullptr) {
-    load_row(a.p0, row, lane, a.dim, p0);
-    u = a.u[chain];
-  } else {
-    philox_momentum(p0, invm, lane, a.dim, chain, a.call, 0u, a.key[0], a.key[1]);
-    u = philox_accept_uniform(chain, a.call, 0u, a.key[0], a.key[1]);
-  }
+  randoms(a.p0, a.u, row, chain, metric, lane, a.dim, chain, a.call, 0u, a.key, p0, u);
 
   float q1[K], lp1, dh;
-  const bool accept =
-      transition(target, sc, a.num_steps, a.schedule, lane, invm, p0, u, q, g, lp, q1, lp1, dh);
+  const bool accept = transition(target, metric, sc, a.num_steps, a.schedule, lane, p0, u, q,
+                                 g, lp, q1, lp1, dh);
 
   store_row(a.q_out, row, lane, a.dim, q);
   store_row(a.grad_out, row, lane, a.dim, g);
@@ -232,34 +246,33 @@ __global__ void __launch_bounds__(WARPS_PER_BLOCK * 32) grahmc_step_kernel(const
   }
 }
 
-template <int FAMILY, int K>
+template <int FAMILY, int K, bool DENSE>
 __global__ void __launch_bounds__(WARPS_PER_BLOCK * 32)
     grahmc_multistep_kernel(const MultiArgs a) {
-  const int chain = blockIdx.x * WARPS_PER_BLOCK + (threadIdx.x >> 5);
+  const int warp = threadIdx.x >> 5;
+  const int chain = blockIdx.x * WARPS_PER_BLOCK + warp;
   const int lane = threadIdx.x & 31;
+  extern __shared__ float smem[];
+  const Metric<K, DENSE> metric =
+      make_metric<K, DENSE>(a.inv_mass, a.l_inv, a.dim, smem, warp, lane);
   if (chain >= a.n_chains) return;
 
   const Scalars sc{a.scalars[0], a.scalars[1], a.scalars[2]};
-  const Target<FAMILY, K> target(a.dim);
+  const Target<FAMILY, K> target(a.dim, a.params);
   const size_t row = static_cast<size_t>(chain) * a.dim;
-  float q[K], g[K], invm[K];
-  load_state(a.q, a.grad, a.inv_mass, row, lane, a.dim, q, g, invm);
+  float q[K], g[K];
+  load_row(a.q, row, lane, a.dim, q);
+  load_row(a.grad, row, lane, a.dim, g);
   float lp = a.lp[chain];
 
   for (int t = 0; t < a.transitions; ++t) {
     const size_t slot = static_cast<size_t>(t) * a.n_chains + chain;  // (T, C) index
     const size_t trow = slot * a.dim;                                  // (T, C, D) row
     float p0[K], u;
-    if (a.p0 != nullptr) {
-      load_row(a.p0, trow, lane, a.dim, p0);
-      u = a.u[slot];
-    } else {
-      philox_momentum(p0, invm, lane, a.dim, chain, a.call, static_cast<uint32_t>(t),
-                      a.key[0], a.key[1]);
-      u = philox_accept_uniform(chain, a.call, static_cast<uint32_t>(t), a.key[0], a.key[1]);
-    }
+    randoms(a.p0, a.u, trow, slot, metric, lane, a.dim, chain, a.call,
+            static_cast<uint32_t>(t), a.key, p0, u);
     float q1[K], lp1, dh;
-    const bool accept = transition(target, sc, a.num_steps, a.schedule, lane, invm, p0, u,
+    const bool accept = transition(target, metric, sc, a.num_steps, a.schedule, lane, p0, u,
                                    q, g, lp, q1, lp1, dh);
     store_row(a.hist_q, trow, lane, a.dim, q);
     if (lane == 0) {
@@ -273,83 +286,124 @@ __global__ void __launch_bounds__(WARPS_PER_BLOCK * 32)
   if (lane == 0) a.lp_out[chain] = lp;
 }
 
-template <template <int, int> class Launch, int FAMILY, typename Args>
-cudaError_t dispatch_k(const Args& a, cudaStream_t stream) {
-  switch ((a.dim + 31) / 32) {
-    case 1: return Launch<FAMILY, 1>::run(a, stream);
-    case 2: return Launch<FAMILY, 2>::run(a, stream);
-    case 3: return Launch<FAMILY, 3>::run(a, stream);
-    case 4: return Launch<FAMILY, 4>::run(a, stream);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-template <template <int, int> class Launch, typename Args>
-cudaError_t dispatch(int family, const Args& a, cudaStream_t stream) {
-  if (a.dim < 1 || a.dim > 32 * MAX_K || a.n_chains < 1 || a.num_steps < 0) {
-    return cudaErrorInvalidValue;
-  }
-  switch (family) {
-    case STANDARD_NORMAL: return dispatch_k<Launch, STANDARD_NORMAL>(a, stream);
-    case NEALS_FUNNEL: return dispatch_k<Launch, NEALS_FUNNEL>(a, stream);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
 inline dim3 grid_for(int n_chains) {
   return dim3(static_cast<unsigned>((n_chains + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK));
 }
 
-template <int FAMILY, int K>
+// Launch `kernel` with the metric's shared memory; above 48 kB (dense,
+// D > 76) only after opting in.
+template <int K, bool DENSE, typename Args>
+cudaError_t launch(void (*kernel)(const Args), const Args& a, cudaStream_t stream) {
+  const size_t smem = metric_smem_bytes<K, DENSE>(a.dim, WARPS_PER_BLOCK);
+  if constexpr (DENSE) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<grid_for(a.n_chains), WARPS_PER_BLOCK * 32, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <int FAMILY, int K, bool DENSE>
 struct StepLaunch {
   static cudaError_t run(const StepArgs& a, cudaStream_t stream) {
-    grahmc_step_kernel<FAMILY, K><<<grid_for(a.n_chains), WARPS_PER_BLOCK * 32, 0, stream>>>(a);
-    return cudaGetLastError();
+    return launch<K, DENSE>(grahmc_step_kernel<FAMILY, K, DENSE>, a, stream);
   }
 };
 
-template <int FAMILY, int K>
+template <int FAMILY, int K, bool DENSE>
 struct MultiLaunch {
   static cudaError_t run(const MultiArgs& a, cudaStream_t stream) {
-    grahmc_multistep_kernel<FAMILY, K>
-        <<<grid_for(a.n_chains), WARPS_PER_BLOCK * 32, 0, stream>>>(a);
-    return cudaGetLastError();
+    return launch<K, DENSE>(grahmc_multistep_kernel<FAMILY, K, DENSE>, a, stream);
   }
 };
+
+template <template <int, int, bool> class Launch, int FAMILY, bool DENSE, typename Args>
+cudaError_t dispatch_k(const Args& a, cudaStream_t stream) {
+  switch ((a.dim + 31) / 32) {
+    case 1: return Launch<FAMILY, 1, DENSE>::run(a, stream);
+    case 2: return Launch<FAMILY, 2, DENSE>::run(a, stream);
+    case 3: return Launch<FAMILY, 3, DENSE>::run(a, stream);
+    case 4: return Launch<FAMILY, 4, DENSE>::run(a, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <template <int, int, bool> class Launch, int FAMILY, typename Args>
+cudaError_t dispatch_metric(bool dense, const Args& a, cudaStream_t stream) {
+  return dense ? dispatch_k<Launch, FAMILY, true>(a, stream)
+               : dispatch_k<Launch, FAMILY, false>(a, stream);
+}
+
+template <template <int, int, bool> class Launch, typename Args>
+cudaError_t dispatch(int family, bool dense, const Args& a, cudaStream_t stream) {
+  if (a.dim < 1 || a.dim > 32 * MAX_K || a.n_chains < 1 || a.num_steps < 0) {
+    return cudaErrorInvalidValue;
+  }
+  switch (family) {
+    case STANDARD_NORMAL: return dispatch_metric<Launch, STANDARD_NORMAL>(dense, a, stream);
+    case NEALS_FUNNEL: return dispatch_metric<Launch, NEALS_FUNNEL>(dense, a, stream);
+    case CORRELATED_GAUSSIAN:
+      return dispatch_metric<Launch, CORRELATED_GAUSSIAN>(dense, a, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
 
 }  // namespace mcmc
 
 // Plain C entry points, bound with ctypes by mcmc_tpu_torch/ops/_cuda.py.
-// Pointers are device pointers; p0/u null selects the in-kernel Philox draws
-// (then key must be non-null). Each returns the launch's cudaError_t.
+// Pointers are device pointers except `target_params`, a host array of the 4
+// floats of TargetParams. p0/u null selects the in-kernel Philox draws (then
+// key must be non-null). `dense` selects the dense metric: inv_mass is then
+// (dim, dim) and l_inv its (dim, dim) factor L^{-1}, required. Each returns
+// the launch's cudaError_t.
 extern "C" int grahmc_step_launch(int family, int dim, int n_chains, int num_steps,
-                                  int schedule, const float* scalars, const uint32_t* key,
-                                  unsigned int call, const float* q, const float* lp,
-                                  const float* grad, const float* inv_mass, const float* p0,
+                                  int schedule, int dense, const float* target_params,
+                                  const float* scalars, const uint32_t* key, unsigned int call,
+                                  const float* q, const float* lp, const float* grad,
+                                  const float* inv_mass, const float* l_inv, const float* p0,
                                   const float* u, float* q_out, float* lp_out,
                                   float* grad_out, bool* acc_out, float* dh_out,
                                   float* prop_q, float* prop_lp, void* stream) {
-  if (p0 == nullptr && key == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  const mcmc::StepArgs a{dim,    n_chains, num_steps, schedule, scalars, key,     call,
-                         q,      lp,       grad,      inv_mass, p0,      u,       q_out,
-                         lp_out, grad_out, acc_out,   dh_out,   prop_q,  prop_lp};
-  return static_cast<int>(
-      mcmc::dispatch<mcmc::StepLaunch>(family, a, static_cast<cudaStream_t>(stream)));
+  if ((p0 == nullptr && key == nullptr) || target_params == nullptr ||
+      (dense && l_inv == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  mcmc::StepArgs a{};
+  a.dim = dim, a.n_chains = n_chains, a.num_steps = num_steps, a.schedule = schedule;
+  std::memcpy(a.params.v, target_params, sizeof(a.params.v));
+  a.scalars = scalars, a.key = key, a.call = call;
+  a.q = q, a.lp = lp, a.grad = grad, a.inv_mass = inv_mass, a.l_inv = l_inv;
+  a.p0 = p0, a.u = u;
+  a.q_out = q_out, a.lp_out = lp_out, a.grad_out = grad_out, a.acc_out = acc_out;
+  a.dh_out = dh_out, a.prop_q = prop_q, a.prop_lp = prop_lp;
+  return static_cast<int>(mcmc::dispatch<mcmc::StepLaunch>(family, dense != 0, a,
+                                                           static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" int grahmc_multistep_launch(int family, int dim, int n_chains, int num_steps,
-                                       int schedule, int transitions, const float* scalars,
+                                       int schedule, int transitions, int dense,
+                                       const float* target_params, const float* scalars,
                                        const uint32_t* key, unsigned int call,
                                        const float* q, const float* lp, const float* grad,
-                                       const float* inv_mass, const float* p0,
-                                       const float* u, float* q_out, float* lp_out,
-                                       float* grad_out, bool* acc_out, float* dh_out,
-                                       float* hist_q, float* hist_lp, void* stream) {
-  if (p0 == nullptr && key == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  if (transitions < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const mcmc::MultiArgs a{dim,    n_chains, num_steps, schedule, transitions, scalars, key,
-                          call,   q,        lp,        grad,     inv_mass,    p0,      u,
-                          q_out,  lp_out,   grad_out,  acc_out,  dh_out,      hist_q,  hist_lp};
-  return static_cast<int>(
-      mcmc::dispatch<mcmc::MultiLaunch>(family, a, static_cast<cudaStream_t>(stream)));
+                                       const float* inv_mass, const float* l_inv,
+                                       const float* p0, const float* u, float* q_out,
+                                       float* lp_out, float* grad_out, bool* acc_out,
+                                       float* dh_out, float* hist_q, float* hist_lp,
+                                       void* stream) {
+  if ((p0 == nullptr && key == nullptr) || target_params == nullptr ||
+      (dense && l_inv == nullptr) || transitions < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  mcmc::MultiArgs a{};
+  a.dim = dim, a.n_chains = n_chains, a.num_steps = num_steps, a.schedule = schedule;
+  a.transitions = transitions;
+  std::memcpy(a.params.v, target_params, sizeof(a.params.v));
+  a.scalars = scalars, a.key = key, a.call = call;
+  a.q = q, a.lp = lp, a.grad = grad, a.inv_mass = inv_mass, a.l_inv = l_inv;
+  a.p0 = p0, a.u = u;
+  a.q_out = q_out, a.lp_out = lp_out, a.grad_out = grad_out, a.acc_out = acc_out;
+  a.dh_out = dh_out, a.hist_q = hist_q, a.hist_lp = hist_lp;
+  return static_cast<int>(mcmc::dispatch<mcmc::MultiLaunch>(family, dense != 0, a,
+                                                            static_cast<cudaStream_t>(stream)));
 }

@@ -21,16 +21,38 @@
 // has condition number 451) makes these sums cancel, so their rounding
 // grows along a trajectory, and this order is the one the plain version
 // (samplers/trajectory.py:ordered_matmul) repeats bit for bit.
+//
+// Kernels 1, 2 (fused_trajectory.cu) and 4 (fused_nuts.cu) take the metric
+// as a template flag DENSE: Metric<K, DENSE> is the type, make_metric builds
+// it (the dense one after the block has loaded its shared memory), and
+// add_scaled<DENSE> is the leapfrog's y + a x, rounded as the dense
+// variants need.
 #pragma once
 
+#include <cstddef>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 #include "targets.cuh"
 
 namespace mcmc {
 
+// y + a x. ROUNDED rounds the product before the sum, as the plain
+// version's separate tensor operations do; otherwise nvcc may contract it
+// to an FMA. The dense variants need the rounded form: under an
+// ill-conditioned M^{-1} a rounding difference grows along the trajectory.
+template <bool ROUNDED>
+__device__ __forceinline__ float add_scaled(float y, float a, float x) {
+  if constexpr (ROUNDED) {
+    return __fadd_rn(y, __fmul_rn(a, x));
+  } else {
+    return y + a * x;
+  }
+}
+
 template <int K>
 struct DiagMetric {
+  static constexpr bool DENSE = false;
   float invm[K];
 
   __device__ DiagMetric(const float* inv_mass, int lane, int dim) {
@@ -76,13 +98,17 @@ __device__ __forceinline__ void load_dense_metric(float* smem, const float* inv_
 
 template <int K>
 struct DenseMetric {
+  static constexpr bool DENSE = true;
   const float* minv;  // shared (dim, dim) M^{-1}, symmetric
   const float* linv;  // shared (dim, dim) L^{-1}, row-major
   float* row;         // this warp's shared row of 32 K floats
   int dim, lane;
 
   // out = x @ A for a (dim, dim) row-major A in shared memory; zeros past
-  // dim. All 32 lanes take part.
+  // dim. All 32 lanes take part. LOWER: A is lower triangular, so column d
+  // sums from row i = d; the terms skipped are +-0 and leave the rounded sum
+  // of the full order (the plain version's) unchanged.
+  template <bool LOWER = false>
   __device__ __forceinline__ void row_times(const float (&x)[K], const float* A,
                                             float (&out)[K]) const {
 #pragma unroll
@@ -96,8 +122,9 @@ struct DenseMetric {
       const int d = lane + 32 * r;
       float acc = 0.f;
       if (d < dim) {
-        acc = __fmul_rn(row[0], A[d]);
-        for (int i = 1; i < dim; ++i) acc = __fadd_rn(acc, __fmul_rn(row[i], A[i * dim + d]));
+        const int i0 = LOWER ? d : 0;
+        acc = __fmul_rn(row[i0], A[i0 * dim + d]);
+        for (int i = i0 + 1; i < dim; ++i) acc = __fadd_rn(acc, __fmul_rn(row[i], A[i * dim + d]));
       }
       out[r] = acc;
     }
@@ -118,13 +145,43 @@ struct DenseMetric {
     return 0.5f * warp_sum(s);
   }
 
-  // z -> z @ L^{-1}, in place: covariance L^{-T} L^{-1} = M.
+  // z -> z @ L^{-1}, in place: covariance L^{-T} L^{-1} = M. L^{-1} is
+  // lower triangular (trajectory.dense_unwhitening).
   __device__ __forceinline__ void unwhiten(float (&z)[K]) const {
     float p[K];
-    row_times(z, linv, p);
+    row_times<true>(z, linv, p);
 #pragma unroll
     for (int r = 0; r < K; ++r) z[r] = p[r];
   }
 };
+
+template <int K, bool DENSE>
+using Metric = typename std::conditional<DENSE, DenseMetric<K>, DiagMetric<K>>::type;
+
+// Dynamic shared memory of a block of `warps` warp-per-chain chains under
+// the dense metric: M^{-1}, L^{-1} and one row per warp (0 for diagonal).
+template <int K, bool DENSE>
+inline size_t metric_smem_bytes(int dim, int warps) {
+  if (!DENSE) return 0;
+  return (2 * static_cast<size_t>(dim) * dim + static_cast<size_t>(warps) * 32 * K) *
+         sizeof(float);
+}
+
+// The chain's metric: inv_mass is (dim,) for the diagonal metric, (dim, dim)
+// with its factor l_inv for the dense one. DENSE: the whole block loads
+// M^{-1} and L^{-1} into `smem` (metric_smem_bytes), so every thread of the
+// block must call this before any returns.
+template <int K, bool DENSE>
+__device__ __forceinline__ Metric<K, DENSE> make_metric(const float* inv_mass,
+                                                        const float* l_inv, int dim,
+                                                        float* smem, int warp, int lane) {
+  if constexpr (DENSE) {
+    const int n = dim * dim;
+    load_dense_metric(smem, inv_mass, l_inv, dim);
+    return DenseMetric<K>{smem, smem + n, smem + 2 * n + warp * 32 * K, dim, lane};
+  } else {
+    return DiagMetric<K>(inv_mass, lane, dim);
+  }
+}
 
 }  // namespace mcmc

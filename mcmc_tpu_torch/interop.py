@@ -2,7 +2,8 @@
 
 MCMC has no weights: what moves between the two packages is the target's
 parameters, the chain state (and the persistent-NUTS machine state), the
-mass matrix and the dual-averaging state.
+mass matrix (a factored dense one too), the dual-averaging state and the
+warmup's Welford and dense-moment accumulators.
 Everything here takes numpy arrays (``np.asarray`` of the JAX arrays), so this
 module, like the rest of the port, never imports ``jax``.
 """
@@ -15,10 +16,12 @@ import torch
 from mcmc_tpu_torch.ops.fused_nuts import (BOOL_FIELDS, INT_FIELDS,
                                            MULTI_BOOL_FIELDS, MULTI_FLOAT_FIELDS,
                                            MULTI_FULL_FIELDS, STACK_FIELDS)
+from mcmc_tpu_torch.ops.fused_trajectory import PreparedDenseMetric
 from mcmc_tpu_torch.samplers.base import ChainState
 from mcmc_tpu_torch.samplers.nuts_persistent import _PState
 from mcmc_tpu_torch.targets import TargetDistribution, get_target
 from mcmc_tpu_torch.tuning.dual_averaging import DualAveragingState
+from mcmc_tpu_torch.tuning.welford import DenseMomentState, WelfordState
 
 
 def target_from_tag(info: dict) -> TargetDistribution:
@@ -102,3 +105,39 @@ def nuts_state_from_numpy(device="cuda", **fields) -> _PState:
             a = a.astype(q_dtype)
         out[name] = _tensor(a, device)
     return _PState(**out)
+
+
+def welford_state_from_numpy(count, mean, m2, device="cuda") -> WelfordState:
+    """WelfordState from the three arrays of a JAX one, dtypes kept, on the
+    card unless `device` names another."""
+    return WelfordState(_tensor(count, device).reshape(()), _tensor(mean, device),
+                        _tensor(m2, device))
+
+
+def dense_moment_state_from_numpy(count, center, sum_d, sum_o,
+                                  device="cuda") -> DenseMomentState:
+    """DenseMomentState from the four arrays of a JAX one, dtypes kept, on
+    the card unless `device` names another."""
+    return DenseMomentState(_tensor(count, device).reshape(()), _tensor(center, device),
+                            _tensor(sum_d, device), _tensor(sum_o, device))
+
+
+def metric_from_numpy(inv_mass, l_inv=None, dim=None, device="cuda"):
+    """The port's metric from the JAX package's: a (D,) or (D, D) inv_mass
+    array as a tensor (dtype kept), or the two arrays (invm, l_inv) of a
+    JAX PreparedDenseMetric, with the target's `dim`, as a
+    PreparedDenseMetric in float32. The JAX one is padded to its TPU block
+    d_pad with an identity block, so L^{-1} is block diagonal too and its
+    leading (dim, dim) block is the factor of the leading block of M^{-1}:
+    that block is kept (L^{-1}'s lower triangle, as the kernels take it).
+    On the card unless `device` names another."""
+    if l_inv is None:
+        return _tensor(inv_mass, device)
+    if dim is None:
+        raise ValueError("a JAX PreparedDenseMetric is padded to its TPU block: "
+                         "pass the target's dim to cut it")
+    dim = int(dim)
+    invm, l_inv = (np.asarray(a)[:dim, :dim] for a in (inv_mass, l_inv))
+    return PreparedDenseMetric(
+        *(_tensor(np.ascontiguousarray(a), device, torch.float32)
+          for a in (invm, np.tril(l_inv))))

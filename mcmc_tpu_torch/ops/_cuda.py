@@ -28,11 +28,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-# (family, dim, n_chains, num_steps, schedule[, transitions]), scalars, key,
-# call, q, lp, grad, inv_mass, p0, u, seven outputs, stream
+# (family, dim, n_chains, num_steps, schedule[, transitions], dense), host
+# target params, scalars, key, call, q, lp, grad, inv_mass, l_inv, p0, u,
+# seven outputs, stream
 _SIGNATURES = {
-    "grahmc_step_launch": [_I] * 5 + [_P, _P, _U] + [_P] * 6 + [_P] * 7 + [_P],
-    "grahmc_multistep_launch": [_I] * 6 + [_P, _P, _U] + [_P] * 6 + [_P] * 7
+    "grahmc_step_launch": [_I] * 6 + [_P, _P, _P, _U] + [_P] * 7 + [_P] * 7 + [_P],
+    "grahmc_multistep_launch": [_I] * 7 + [_P, _P, _P, _U] + [_P] * 7 + [_P] * 7
                                + [_P],
     # (family, dim, n_chains, transitions, n_hist), scale, key, call, q, lp,
     # noise, u, five outputs, stream

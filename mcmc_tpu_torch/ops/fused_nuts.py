@@ -47,12 +47,11 @@ import torch
 
 from mcmc_tpu_torch.ops.fused_trajectory import (
     MAX_DIM, PhiloxStream, _bits_to_uniform, _kernel_device, _philox_words,
-    _ptr, _raise_on_error, _U32, check_tensors, philox_normal)
+    _ptr, _raise_on_error, _U32, check_tensors, kernel_metric, philox_normal)
 from mcmc_tpu_torch.ops.padded_targets import (FAMILY_IDS, device_params,
                                                device_vag, kernel_info)
 from mcmc_tpu_torch.samplers.nuts_persistent import _machine_iteration, _PState
-from mcmc_tpu_torch.samplers.trajectory import (as_scalar, dense_unwhitening,
-                                                ordered_matmul)
+from mcmc_tpu_torch.samplers.trajectory import as_scalar, ordered_matmul
 
 Tensor = torch.Tensor
 
@@ -323,17 +322,6 @@ def window_agreement(a: _PState, b: _PState, tol: float = 1e-4):
     return same, emitted, in_flight, err
 
 
-def window_metric(inv_mass_matrix: Tensor, device):
-    """(inv_mass, l_inv) in float32 on `device`, as the kernel takes them: a
-    dense M^{-1} is factored here, once, in float64 (l_inv is None for a
-    diagonal one)."""
-    inv_mass = inv_mass_matrix.to(device=device, dtype=torch.float32).contiguous()
-    if inv_mass.ndim != 2:
-        return inv_mass, None
-    l_inv = dense_unwhitening(inv_mass_matrix.to(device=device, dtype=torch.float64))
-    return inv_mass, l_inv.to(torch.float32).contiguous()
-
-
 def make_fused_nuts_window(value_and_grad_fn, generator: torch.Generator,
                            step_size, inv_mass_matrix: Tensor,
                            max_tree_depth: int, delta_max, steps_per_iter: int,
@@ -346,7 +334,7 @@ def make_fused_nuts_window(value_and_grad_fn, generator: torch.Generator,
     info = kernel_info(value_and_grad_fn, "nuts")
     stream = PhiloxStream.from_generator(generator, device)
     scalars = nuts_scalars(step_size, delta_max, device)
-    inv_mass, l_inv = window_metric(inv_mass_matrix, device)
+    inv_mass, l_inv = kernel_metric(inv_mass_matrix.to(device))
 
     def window(ps: _PState, n_slots: int) -> _PState:
         return nuts_window_kernel(info, n_slots // steps_per_iter, steps_per_iter,

@@ -1,7 +1,8 @@
 """Fused GRAHMC/HMC transitions: CUDA kernel wrappers and their plain versions.
 
 Port of ``mcmc_tpu/ops/fused_trajectory.py``. Two kernels, both in
-``mcmc_tpu_torch/csrc/fused_trajectory.cu``:
+``mcmc_tpu_torch/csrc/fused_trajectory.cu``, each with a diagonal and a
+dense variant (the TPU kernels' ``dense`` flag: variants 1a and 2a):
 
 - ``grahmc_step_kernel`` — one MH transition per chain (the TPU
   ``_make_kernel``): momentum draw, L conformal-leapfrog substeps with the
@@ -12,9 +13,17 @@ Port of ``mcmc_tpu/ops/fused_trajectory.py``. Two kernels, both in
   kept in registers (the TPU ``_make_multistep_kernel``); writes each
   transition's accept, delta H and post-transition q and lp.
 
+The metric is inv_mass's: (D,) diagonal, or (D, D) dense with its
+unwhitening factor l_inv = L^{-1} (M^{-1} = L L^T), the momentum then being
+z @ L^{-1}. ``prepare_dense_metric`` factors a dense M^{-1} once; the public
+constructors take a raw (D,) or (D, D) metric or a ``PreparedDenseMetric``,
+as the JAX ones do. The dense plain versions sum the products in the
+kernels' order (``trajectory.ordered_matmul``).
+
 Each wrapper takes its plain PyTorch version ONLY for tensors on the CPU;
 for CUDA tensors it launches the kernel or raises. There is no fallback. Each
-counts its launches in a plain int attribute, ``.launches``.
+counts its launches in plain int attributes, ``.launches`` (both variants)
+and ``.variant_launches[name]`` (VARIANTS); ``reset_launches`` zeroes them.
 
 Randomness: either injected (``p0`` and ``u``, the parity mode the tests use)
 or drawn in the kernel from Philox4x32-10. The Philox key is two 32-bit words
@@ -24,23 +33,24 @@ that ``PhiloxStream`` advances. ``philox4x32_10`` below is the same generator
 in PyTorch integer arithmetic, so the plain versions draw exactly the bits
 the kernels draw.
 
-Supported: a diagonal metric, the five named friction schedules and
-NO_FRICTION, and target families with a device function
+Supported: a diagonal or dense metric, the five named friction schedules
+and NO_FRICTION, and target families with a device function
 (``padded_targets.KERNEL_FAMILIES["grahmc"]``); D <= 128. Anything else raises.
 """
 
+import ctypes
 import math
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
 from mcmc_tpu_torch import precision
-from mcmc_tpu_torch.ops.padded_targets import (FAMILY_IDS, device_vag,
-                                               kernel_info)
+from mcmc_tpu_torch.ops.padded_targets import (FAMILY_IDS, device_params,
+                                               device_vag, kernel_info)
 from mcmc_tpu_torch.samplers.grahmc import DIVERGENCE_DELTA_H, FRICTION_SCHEDULES
-from mcmc_tpu_torch.samplers.trajectory import (as_scalar,
+from mcmc_tpu_torch.samplers.trajectory import (as_scalar, dense_unwhitening,
                                                 integrate_trajectory,
-                                                kinetic_energy)
+                                                kinetic_energy, ordered_matmul)
 
 Tensor = torch.Tensor
 
@@ -55,6 +65,8 @@ SCHEDULE_IDS = {None: 0, "constant": 1, "tanh": 2, "sigmoid": 3,
                 "linear": 4, "sine": 5}
 _SCHEDULE_FNS = {SCHEDULE_IDS[name]: fn for name, fn in FRICTION_SCHEDULES.items()}
 _SCHEDULE_FNS[0] = None
+# dense metric? -> variant name; the kernels' DENSE flag
+VARIANTS = {False: "diagonal", True: "dense"}
 
 
 def schedule_id(friction_schedule: Optional[Callable]) -> int:
@@ -167,6 +179,37 @@ def kernel_scalars(step_size, gamma, steepness, device) -> Tensor:
 
 
 # ============================================================================
+# Dense metric, factored once
+# ============================================================================
+
+class PreparedDenseMetric(NamedTuple):
+    """A dense M^{-1} factored once for reuse across kernel calls. The
+    public constructors accept it anywhere they accept a raw (D, D)
+    inv_mass_matrix; the JAX package's (padded to its TPU block) has no
+    padding here."""
+    invm: Tensor     # (D, D) float32 M^{-1}
+    l_inv: Tensor    # (D, D) float32 L^{-1}, lower triangular, M^{-1} = L L^T
+
+
+def prepare_dense_metric(inv_mass_matrix: Tensor,
+                         check_errors: bool = True) -> PreparedDenseMetric:
+    """Factor a dense (D, D) M^{-1} once, outside any sampling loop, in
+    float64, on its own device. check_errors=False does not wait for the
+    device to check positive definiteness (trajectory.dense_unwhitening)."""
+    shape = tuple(inv_mass_matrix.shape)
+    if len(shape) != 2 or shape[0] != shape[1]:
+        raise ValueError(f"a dense metric is a square (D, D) matrix, got {shape}")
+    l_inv = dense_unwhitening(inv_mass_matrix.to(torch.float64), check_errors)
+    return PreparedDenseMetric(_f32(inv_mass_matrix), _f32(l_inv))
+
+
+def is_dense_metric(inv_mass_matrix) -> bool:
+    """True for a raw (D, D) matrix or a PreparedDenseMetric."""
+    return (isinstance(inv_mass_matrix, PreparedDenseMetric)
+            or inv_mass_matrix.ndim == 2)
+
+
+# ============================================================================
 # Plain versions
 # ============================================================================
 
@@ -174,13 +217,13 @@ def _transition(vag, q, lp, grad, p0, u, scalars, inv_mass, num_steps,
                 schedule):
     """One float32 transition, the arithmetic of the kernel's __device__
     transition. Returns (q, lp, grad, accept, dh, prop_q, prop_lp)."""
-    h0 = -lp + kinetic_energy(p0, inv_mass)
+    h0 = -lp + kinetic_energy(p0, inv_mass, ordered_matmul)
     q1, p1, lp1, g1 = integrate_trajectory(
         q, p0, lp, grad, vag, scalars[0], num_steps, inv_mass,
         friction_schedule=_SCHEDULE_FNS[schedule], gamma_max=scalars[1],
-        steepness=scalars[2])
+        steepness=scalars[2], matmul=ordered_matmul)
     p1 = -p1
-    h1 = precision.guard_energy(-lp1 + kinetic_energy(p1, inv_mass))
+    h1 = precision.guard_energy(-lp1 + kinetic_energy(p1, inv_mass, ordered_matmul))
     accept = torch.log(u) < torch.clamp(h0 - h1, max=0.0)
     return (torch.where(accept[:, None], q1, q),
             torch.where(accept, lp1, lp),
@@ -188,23 +231,34 @@ def _transition(vag, q, lp, grad, p0, u, scalars, inv_mass, num_steps,
             accept, h1 - h0, q1, lp1)
 
 
-def _randoms(key, call, t, p0, u, inv_mass, n_chains, dim, device):
+def unwhiten(z: Tensor, inv_mass: Tensor, l_inv: Optional[Tensor]) -> Tensor:
+    """Standard normals z -> momentum ~ N(0, M), as the kernels unwhiten:
+    z / sqrt(M^{-1}) (diagonal), z @ L^{-1} summed in order (dense)."""
+    if l_inv is not None:
+        return ordered_matmul(z, l_inv)
+    return z / torch.sqrt(inv_mass)
+
+
+def _randoms(key, call, t, p0, u, inv_mass, l_inv, n_chains, dim, device):
     """Injected (p0, u) or this transition's Philox draws."""
     if p0 is not None:
         return p0, u
     z = philox_normal(key, call, t, n_chains, dim, device)
-    return z / torch.sqrt(inv_mass), philox_uniform(key, call, t, n_chains, device)
+    return (unwhiten(z, inv_mass, l_inv),
+            philox_uniform(key, call, t, n_chains, device))
 
 
 def grahmc_step_plain(info: dict, num_steps: int, schedule: int, q: Tensor,
                       lp: Tensor, grad: Tensor, scalars: Tensor,
                       inv_mass: Tensor, key: Optional[Tensor] = None,
                       call: int = 0, p0: Optional[Tensor] = None,
-                      u: Optional[Tensor] = None):
+                      u: Optional[Tensor] = None,
+                      l_inv: Optional[Tensor] = None):
     """Plain PyTorch version of grahmc_step_kernel, on any device (same
     arguments and results)."""
     n_chains, dim = q.shape
-    p0, u = _randoms(key, call, 0, p0, u, inv_mass, n_chains, dim, q.device)
+    p0, u = _randoms(key, call, 0, p0, u, inv_mass, l_inv, n_chains, dim,
+                     q.device)
     return _transition(device_vag(info), q, lp, grad, p0, u, scalars,
                        inv_mass, num_steps, schedule)
 
@@ -214,7 +268,8 @@ def grahmc_multistep_plain(info: dict, num_steps: int, schedule: int,
                            grad: Tensor, scalars: Tensor, inv_mass: Tensor,
                            key: Optional[Tensor] = None, call: int = 0,
                            p0: Optional[Tensor] = None,
-                           u: Optional[Tensor] = None):
+                           u: Optional[Tensor] = None,
+                           l_inv: Optional[Tensor] = None):
     """Plain PyTorch version of grahmc_multistep_kernel, on any device (same
     arguments and results)."""
     n_chains, dim = q.shape
@@ -222,8 +277,8 @@ def grahmc_multistep_plain(info: dict, num_steps: int, schedule: int,
     accs, dhs, hist_q, hist_lp = [], [], [], []
     for t in range(transitions):
         p0_t, u_t = _randoms(key, call, t, None if p0 is None else p0[t],
-                             None if u is None else u[t], inv_mass, n_chains,
-                             dim, q.device)
+                             None if u is None else u[t], inv_mass, l_inv,
+                             n_chains, dim, q.device)
         q, lp, grad, acc, dh, _, _ = _transition(
             vag, q, lp, grad, p0_t, u_t, scalars, inv_mass, num_steps,
             schedule)
@@ -239,7 +294,7 @@ def grahmc_multistep_plain(info: dict, num_steps: int, schedule: int,
 # Kernel wrappers
 # ============================================================================
 
-def _check_inputs(info, q, lp, grad, scalars, inv_mass, key, p0, u,
+def _check_inputs(info, q, lp, grad, scalars, inv_mass, key, p0, u, l_inv,
                   transitions=None):
     n_chains, dim = q.shape
     if dim != info["dim"]:
@@ -252,10 +307,15 @@ def _check_inputs(info, q, lp, grad, scalars, inv_mass, key, p0, u,
         raise ValueError("inject both p0 and u, or neither")
     if p0 is None and key is None:
         raise ValueError("need a Philox key or injected p0 and u")
+    dense = inv_mass.ndim == 2
+    if dense != (l_inv is not None):
+        raise ValueError("a dense (D, D) inv_mass needs its l_inv, a diagonal one none")
     lead = () if transitions is None else (transitions,)
     expected = {"q": (q, (n_chains, dim)), "lp": (lp, (n_chains,)),
                 "grad": (grad, (n_chains, dim)), "scalars": (scalars, (3,)),
-                "inv_mass": (inv_mass, (dim,))}
+                "inv_mass": (inv_mass, (dim, dim) if dense else (dim,))}
+    if dense:
+        expected["l_inv"] = (l_inv, (dim, dim))
     if p0 is not None:
         expected["p0"] = (p0, lead + (n_chains, dim))
         expected["u"] = (u, lead + (n_chains,))
@@ -301,22 +361,36 @@ def _raise_on_error(code: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed with CUDA error {code}")
 
 
+def _count(kernel, inv_mass: Tensor) -> None:
+    kernel.launches += 1
+    kernel.variant_launches[VARIANTS[inv_mass.ndim == 2]] += 1
+
+
+def _metric_args(info: dict, inv_mass: Tensor, l_inv: Optional[Tensor]):
+    """The launchers' (dense, host target params, inv_mass, l_inv) args."""
+    params = (ctypes.c_float * 4)(*device_params(info))
+    return int(inv_mass.ndim == 2), params, inv_mass.data_ptr(), _ptr(l_inv)
+
+
 def grahmc_step_kernel(info: dict, num_steps: int, schedule: int, q: Tensor,
                        lp: Tensor, grad: Tensor, scalars: Tensor,
                        inv_mass: Tensor, key: Optional[Tensor] = None,
                        call: int = 0, p0: Optional[Tensor] = None,
-                       u: Optional[Tensor] = None):
-    """One fused transition of every chain (kernel 1).
+                       u: Optional[Tensor] = None,
+                       l_inv: Optional[Tensor] = None):
+    """One fused transition of every chain (kernel 1; 1a with a dense
+    metric).
 
     q, grad (C, D), lp (C,), scalars (3,) = (eps, gamma, steepness),
-    inv_mass (D,), injected p0 (C, D) and u (C,): float32, contiguous.
-    key (2,) int32 with the host `call` index when p0/u are not injected.
+    inv_mass (D,) or (D, D) with its l_inv (D, D), injected momentum p0
+    (C, D) and u (C,): float32, contiguous. key (2,) int32 with the host
+    `call` index when p0/u are not injected.
     Returns (q, lp, grad, accept (C,) bool, delta_h, proposal_q, proposal_lp).
     """
-    _check_inputs(info, q, lp, grad, scalars, inv_mass, key, p0, u)
+    _check_inputs(info, q, lp, grad, scalars, inv_mass, key, p0, u, l_inv)
     if q.device.type == "cpu":
         return grahmc_step_plain(info, num_steps, schedule, q, lp, grad,
-                                 scalars, inv_mass, key, call, p0, u)
+                                 scalars, inv_mass, key, call, p0, u, l_inv)
     _kernel_device(q)
     n_chains, dim = q.shape
     from mcmc_tpu_torch.ops import _cuda
@@ -324,20 +398,18 @@ def grahmc_step_kernel(info: dict, num_steps: int, schedule: int, q: Tensor,
     q_out, grad_out, prop_q = (torch.empty_like(q) for _ in range(3))
     lp_out, dh, prop_lp = (torch.empty_like(lp) for _ in range(3))
     acc = torch.empty(n_chains, dtype=torch.bool, device=q.device)
+    dense, params, invm_ptr, l_inv_ptr = _metric_args(info, inv_mass, l_inv)
     code = lib.grahmc_step_launch(
-        FAMILY_IDS[info["family"]], dim, n_chains, num_steps, schedule,
-        scalars.data_ptr(), _ptr(key), call & _U32,
-        q.data_ptr(), lp.data_ptr(), grad.data_ptr(), inv_mass.data_ptr(),
+        FAMILY_IDS[info["family"]], dim, n_chains, num_steps, schedule, dense,
+        params, scalars.data_ptr(), _ptr(key), call & _U32,
+        q.data_ptr(), lp.data_ptr(), grad.data_ptr(), invm_ptr, l_inv_ptr,
         _ptr(p0), _ptr(u),
         q_out.data_ptr(), lp_out.data_ptr(), grad_out.data_ptr(),
         acc.data_ptr(), dh.data_ptr(), prop_q.data_ptr(), prop_lp.data_ptr(),
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on_error(code, "grahmc_step_kernel")
-    grahmc_step_kernel.launches += 1
+    _count(grahmc_step_kernel, inv_mass)
     return q_out, lp_out, grad_out, acc, dh, prop_q, prop_lp
-
-
-grahmc_step_kernel.launches = 0
 
 
 def grahmc_multistep_kernel(info: dict, num_steps: int, schedule: int,
@@ -345,8 +417,10 @@ def grahmc_multistep_kernel(info: dict, num_steps: int, schedule: int,
                             grad: Tensor, scalars: Tensor, inv_mass: Tensor,
                             key: Optional[Tensor] = None, call: int = 0,
                             p0: Optional[Tensor] = None,
-                            u: Optional[Tensor] = None):
-    """T = `transitions` fused transitions of every chain (kernel 2).
+                            u: Optional[Tensor] = None,
+                            l_inv: Optional[Tensor] = None):
+    """T = `transitions` fused transitions of every chain (kernel 2; 2a
+    with a dense metric).
 
     Inputs as grahmc_step_kernel; injected p0 is (T, C, D) and u (T, C).
     Returns (q, lp, grad, accept (T, C) bool, delta_h (T, C),
@@ -355,12 +429,12 @@ def grahmc_multistep_kernel(info: dict, num_steps: int, schedule: int,
     """
     if transitions < 1:
         raise ValueError("transitions must be >= 1")
-    _check_inputs(info, q, lp, grad, scalars, inv_mass, key, p0, u,
+    _check_inputs(info, q, lp, grad, scalars, inv_mass, key, p0, u, l_inv,
                   transitions)
     if q.device.type == "cpu":
         return grahmc_multistep_plain(info, num_steps, schedule, transitions,
                                       q, lp, grad, scalars, inv_mass, key,
-                                      call, p0, u)
+                                      call, p0, u, l_inv)
     _kernel_device(q)
     n_chains, dim = q.shape
     from mcmc_tpu_torch.ops import _cuda
@@ -370,20 +444,28 @@ def grahmc_multistep_kernel(info: dict, num_steps: int, schedule: int,
     acc = torch.empty((transitions, n_chains), dtype=torch.bool, device=q.device)
     dh, hist_lp = (lp.new_empty((transitions, n_chains)) for _ in range(2))
     hist_q = q.new_empty((transitions, n_chains, dim))
+    dense, params, invm_ptr, l_inv_ptr = _metric_args(info, inv_mass, l_inv)
     code = lib.grahmc_multistep_launch(
         FAMILY_IDS[info["family"]], dim, n_chains, num_steps, schedule,
-        transitions, scalars.data_ptr(), _ptr(key), call & _U32,
-        q.data_ptr(), lp.data_ptr(), grad.data_ptr(), inv_mass.data_ptr(),
+        transitions, dense, params, scalars.data_ptr(), _ptr(key), call & _U32,
+        q.data_ptr(), lp.data_ptr(), grad.data_ptr(), invm_ptr, l_inv_ptr,
         _ptr(p0), _ptr(u),
         q_out.data_ptr(), lp_out.data_ptr(), grad_out.data_ptr(),
         acc.data_ptr(), dh.data_ptr(), hist_q.data_ptr(), hist_lp.data_ptr(),
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on_error(code, "grahmc_multistep_kernel")
-    grahmc_multistep_kernel.launches += 1
+    _count(grahmc_multistep_kernel, inv_mass)
     return q_out, lp_out, grad_out, acc, dh, hist_q, hist_lp
 
 
-grahmc_multistep_kernel.launches = 0
+def reset_launches() -> None:
+    """Set kernels 1 and 2's launch counts, total and per variant, to 0."""
+    for kernel in (grahmc_step_kernel, grahmc_multistep_kernel):
+        kernel.launches = 0
+        kernel.variant_launches = dict.fromkeys(VARIANTS.values(), 0)
+
+
+reset_launches()
 
 
 # ============================================================================
@@ -394,11 +476,19 @@ def _f32(t: Tensor) -> Tensor:
     return t.to(torch.float32).contiguous()
 
 
-def _diagonal_metric(inv_mass_matrix: Tensor) -> Tensor:
+def kernel_metric(inv_mass_matrix):
+    """(inv_mass, l_inv) in float32 as the kernels take them, from a (D,)
+    metric (l_inv None), a PreparedDenseMetric, or a raw (D, D) one,
+    factored here on every call as the JAX package's raw dense metric is:
+    prepare it once outside a loop."""
+    if isinstance(inv_mass_matrix, PreparedDenseMetric):
+        return inv_mass_matrix
+    if inv_mass_matrix.ndim == 2:
+        return prepare_dense_metric(inv_mass_matrix)
     if inv_mass_matrix.ndim != 1:
-        raise ValueError("the fused kernels take a diagonal metric (D,); "
-                         "run a dense metric with backend='eager'")
-    return _f32(inv_mass_matrix)
+        raise ValueError(f"a metric is (D,) or (D, D), got "
+                         f"{tuple(inv_mass_matrix.shape)}")
+    return _f32(inv_mass_matrix), None
 
 
 def _scalar_cache():
@@ -440,7 +530,8 @@ def make_fused_grahmc_step(value_and_grad_fn, num_steps: int,
                            friction_schedule: Optional[Callable]):
     """Build fused(stream, state, step_size, gamma, steepness, inv_mass)
     -> (new_state, (accept, proposal_q, proposal_lp, delta_h)), the
-    grahmc_step contract on kernel 1. `stream` is a PhiloxStream on the
+    grahmc_step contract on kernel 1 (1a for a dense metric: a raw (D, D)
+    one or a PreparedDenseMetric). `stream` is a PhiloxStream on the
     state's device. Raises TypeError/KeyError for untagged targets, families
     without a device function and schedules without a kernel counterpart."""
     info, sched = _kernel_target(value_and_grad_fn, friction_schedule)
@@ -448,12 +539,12 @@ def make_fused_grahmc_step(value_and_grad_fn, num_steps: int,
 
     def fused(stream: PhiloxStream, state, step_size, gamma, steepness,
               inv_mass_matrix):
+        inv_mass, l_inv = kernel_metric(inv_mass_matrix)
         q1, lp1, g1, accept, dh, prop_q, prop_lp = grahmc_step_kernel(
             info, num_steps, sched, _f32(state.position), _f32(state.log_prob),
             _f32(state.grad_log_prob),
             scalars_for(step_size, gamma, steepness, state.position.device),
-            _diagonal_metric(inv_mass_matrix), key=stream.key,
-            call=stream.next_call())
+            inv_mass, key=stream.key, call=stream.next_call(), l_inv=l_inv)
         divergent = torch.abs(dh) > DIVERGENCE_DELTA_H
         new_state = _advance(state, q1, lp1, g1, accept.to(torch.int32),
                              divergent.to(torch.int32))
@@ -470,18 +561,18 @@ def make_fused_grahmc_multistep(value_and_grad_fn, num_steps: int,
     """Build multi(stream, state, step_size, gamma, steepness, inv_mass)
     -> (new_state, (accept (T, C), hist_q (T, C, D), hist_lp (T, C),
     delta_h (T, C))) running T = `transitions` transitions per kernel 2
-    call."""
+    call (2a for a dense metric, raw or prepared)."""
     info, sched = _kernel_target(value_and_grad_fn, friction_schedule)
     scalars_for = _scalar_cache()
 
     def multi(stream: PhiloxStream, state, step_size, gamma, steepness,
               inv_mass_matrix):
+        inv_mass, l_inv = kernel_metric(inv_mass_matrix)
         q1, lp1, g1, accept, dh, hist_q, hist_lp = grahmc_multistep_kernel(
             info, num_steps, sched, transitions, _f32(state.position),
             _f32(state.log_prob), _f32(state.grad_log_prob),
             scalars_for(step_size, gamma, steepness, state.position.device),
-            _diagonal_metric(inv_mass_matrix), key=stream.key,
-            call=stream.next_call())
+            inv_mass, key=stream.key, call=stream.next_call(), l_inv=l_inv)
         divergent = torch.abs(dh) > DIVERGENCE_DELTA_H
         new_state = _advance(state, q1, lp1, g1,
                              torch.sum(accept, dim=0, dtype=torch.int32),
@@ -496,7 +587,8 @@ def make_fused_grahmc_multistep(value_and_grad_fn, num_steps: int,
 def make_debug_trajectory(value_and_grad_fn, num_steps: int,
                           friction_schedule: Optional[Callable],
                           n_chains: int, dim: int):
-    """Kernel 1 with injected momentum and uniforms, the parity hook.
+    """Kernel 1 (1a for a dense metric) with injected momentum and
+    uniforms, the parity hook.
 
     Returns run(q, lp, grad, p0, u, step_size, gamma, steepness, inv_mass)
     -> (q', lp', grad', accept, delta_h)."""
@@ -508,10 +600,11 @@ def make_debug_trajectory(value_and_grad_fn, num_steps: int,
     def run(q, lp, grad, p0, u, step_size, gamma, steepness, inv_mass):
         if q.shape != (n_chains, dim):
             raise ValueError(f"expected q of shape {(n_chains, dim)}")
+        invm, l_inv = kernel_metric(inv_mass)
         q1, lp1, g1, accept, dh, _, _ = grahmc_step_kernel(
             info, num_steps, sched, _f32(q), _f32(lp), _f32(grad),
             kernel_scalars(step_size, gamma, steepness, q.device),
-            _diagonal_metric(inv_mass), p0=_f32(p0), u=_f32(u))
+            invm, p0=_f32(p0), u=_f32(u), l_inv=l_inv)
         return q1, lp1, g1, accept, dh
 
     return run

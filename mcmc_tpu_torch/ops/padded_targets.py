@@ -23,9 +23,10 @@ from mcmc_tpu_torch.targets import LOG_2PI
 # Must match `enum Family` in csrc/targets.cuh.
 FAMILY_IDS = {"standard_normal": 0, "neals_funnel": 1, "correlated_gaussian": 2}
 # The families each kernel's launcher dispatches on. The correlated Gaussian's
-# functor masks coordinates in the warp-per-chain layout; kernel 4 runs it.
+# functor masks coordinates in the warp-per-chain layout; kernels 1, 2 and 4
+# run it.
 KERNEL_FAMILIES = {
-    "grahmc": ("standard_normal", "neals_funnel"),
+    "grahmc": ("standard_normal", "neals_funnel", "correlated_gaussian"),
     "rwmh": ("standard_normal", "neals_funnel"),
     "nuts": ("standard_normal", "neals_funnel", "correlated_gaussian"),
 }

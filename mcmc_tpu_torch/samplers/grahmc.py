@@ -173,12 +173,13 @@ def grahmc_run(
     PyTorch, any log-prob, diagonal or dense metric. backend="fused" is the
     counterpart of "pallas": the hand-written CUDA kernels of
     ``mcmc_tpu_torch.ops.fused_trajectory`` on a GPU (their plain PyTorch
-    version on the CPU), for tagged targets and a diagonal metric. It runs
-    the multi-transition kernel when proposals are not tracked and there are
-    at most MULTISTEP_MAX_CHAINS chains, with T from (8, 4, 2, 1) dividing
-    both num_samples and burn_in; otherwise one kernel call per transition.
-    (The JAX dispatch also requires its TPU transposed layout; that test has
-    no counterpart on the GPU and is dropped.)
+    version on the CPU), for tagged targets, with a diagonal metric or a
+    dense one (factored once per run, kernels 1a and 2a). It runs the
+    multi-transition kernel when proposals are not tracked and there are at
+    most MULTISTEP_MAX_CHAINS chains, with T from (8, 4, 2, 1) dividing both
+    num_samples and burn_in; otherwise one kernel call per transition. (The
+    JAX dispatch also requires its TPU transposed layout; that test has no
+    counterpart on the GPU and is dropped.)
 
     `generator` must live on the positions' device. The fused backend draws
     its two Philox key words from it once per run.
@@ -198,10 +199,14 @@ def grahmc_run(
 
     if backend == "fused":
         from mcmc_tpu_torch.ops.fused_trajectory import (
-            PhiloxStream, make_fused_grahmc_multistep, make_fused_grahmc_step)
+            PhiloxStream, make_fused_grahmc_multistep, make_fused_grahmc_step,
+            prepare_dense_metric)
         if value_and_grad_fn is None:
             raise TypeError("the fused backend requires an analytic "
                             "value_and_grad_fn from mcmc_tpu_torch.targets")
+        if inv_mass_matrix.ndim == 2:
+            # factor the dense metric once for the whole run
+            inv_mass_matrix = prepare_dense_metric(inv_mass_matrix)
         stream = PhiloxStream.from_generator(generator, state.position.device)
         trans_per_call = 1
         if not track_proposals and n_chains <= MULTISTEP_MAX_CHAINS:

@@ -54,13 +54,17 @@ def ordered_matmul(x: Tensor, a: Tensor) -> Tensor:
     return acc
 
 
-def dense_unwhitening(inv_mass_matrix: Tensor) -> Tensor:
+def dense_unwhitening(inv_mass_matrix: Tensor, check_errors: bool = True) -> Tensor:
     """L^{-1} for a dense M^{-1} = L L^T (lower Cholesky factor L): a row of
     standard normals z gives the momentum p = z @ L^{-1}, whose covariance
-    L^{-T} L^{-1} is M. Computed once per run, outside any sampling loop."""
-    chol = torch.linalg.cholesky(inv_mass_matrix)
+    L^{-T} L^{-1} is M. Computed once per metric, outside any sampling loop,
+    and exactly lower triangular, as the kernels' unwhitening takes it
+    (csrc/metric.cuh skips the zero triangle). check_errors=False skips the positive-definiteness check, which would
+    wait for the device (the warmup's shrunk estimates are positive definite
+    by construction)."""
+    chol, _ = torch.linalg.cholesky_ex(inv_mass_matrix, check_errors=check_errors)
     eye = torch.eye(chol.shape[0], dtype=chol.dtype, device=chol.device)
-    return torch.linalg.solve_triangular(chol, eye, upper=False)
+    return torch.linalg.solve_triangular(chol, eye, upper=False).tril()
 
 
 def sample_momentum(generator: torch.Generator, shape, inv_mass_matrix: Tensor,
@@ -88,12 +92,14 @@ def integrate_trajectory(
     friction_schedule: Optional[Callable] = None,
     gamma_max=None,
     steepness=None,
+    matmul: Callable = torch.matmul,
 ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
     """Integrate num_steps (conformal) leapfrog substeps for all chains.
 
     step_size, gamma_max and steepness may be Python numbers or 0-d tensors
     (a tensor step size from dual averaging never leaves the device).
-    Returns (q, p, lp, grad) after the trajectory.
+    `matmul` computes a dense metric's velocity (ordered_matmul in the
+    kernels' plain versions). Returns (q, p, lp, grad) after the trajectory.
     """
     pos_dtype = q.dtype
     e_dtype = lp.dtype
@@ -112,7 +118,7 @@ def integrate_trajectory(
             scale = torch.exp(-gamma_t * half_eps)
             p = p * scale
         p = p + half_eps * grad
-        q = q + eps * velocity(p, inv_mass_matrix)
+        q = q + eps * velocity(p, inv_mass_matrix, matmul)
         lp, grad = value_and_grad(q)
         lp = lp.to(e_dtype)
         grad = grad.to(pos_dtype)

@@ -1,11 +1,23 @@
-"""Adaptation ported so far: the dual-averaging step-size core."""
+"""Adaptive warmup: dual averaging, Welford mass-matrix learning, windowed
+adaptation, sequential ESJD friction tuning (port of ``mcmc_tpu.tuning``;
+the per-sampler convergence-driven DA tuners and the deprecated joint GRAHMC
+tuner are not ported yet)."""
 
+from mcmc_tpu_torch.tuning.adaptation import build_schedule, run_adaptive_warmup
 from mcmc_tpu_torch.tuning.dual_averaging import (
     TARGET_ACCEPT_GRAHMC, TARGET_ACCEPT_HMC, DualAveragingState,
-    da_final_step_size, da_init, da_step_size, da_update,
+    da_final_step_size, da_init, da_reset, da_step_size, da_update,
+)
+from mcmc_tpu_torch.tuning.sequential import sequential_tune_grahmc
+from mcmc_tpu_torch.tuning.welford import (
+    WelfordState, chain_averaged_variance, shrink_variance, welford_covariance,
+    welford_init, welford_update, welford_update_batch,
 )
 
 __all__ = [
-    "DualAveragingState", "da_init", "da_update", "da_step_size",
+    "WelfordState", "welford_init", "welford_update", "welford_update_batch",
+    "welford_covariance", "chain_averaged_variance", "shrink_variance",
+    "DualAveragingState", "da_init", "da_update", "da_reset", "da_step_size",
     "da_final_step_size", "TARGET_ACCEPT_HMC", "TARGET_ACCEPT_GRAHMC",
+    "build_schedule", "run_adaptive_warmup", "sequential_tune_grahmc",
 ]

@@ -1,5 +1,6 @@
 """Nesterov dual averaging for step-size adaptation (Hoffman & Gelman 2014),
-first slice of ``mcmc_tpu/tuning/dual_averaging.py``.
+the core of ``mcmc_tpu/tuning/dual_averaging.py`` (without its per-sampler
+convergence-driven tuners and the deprecated joint GRAHMC tuner).
 
 Stan constants gamma=0.05, t0=10, kappa=0.75. The state is 0-d tensors on the
 device, so a tune loop can feed a batch-mean acceptance tensor straight back
@@ -9,6 +10,8 @@ into the next step size without reading anything on the host.
 from typing import NamedTuple
 
 import torch
+
+from mcmc_tpu_torch.samplers.trajectory import as_scalar
 
 DA_GAMMA = 0.05   # shrinkage toward mu (Stan)
 DA_T0 = 10.0      # iteration offset (Stan)
@@ -28,10 +31,10 @@ class DualAveragingState(NamedTuple):
 
 def da_init(initial_step_size, dtype: torch.dtype = torch.float32,
             device="cuda") -> DualAveragingState:
-    """The DA state at `initial_step_size`, on the card unless `device`
-    names another device."""
-    log_step = torch.log(torch.full((), float(initial_step_size), dtype=dtype,
-                                    device=device))
+    """The DA state at `initial_step_size` (a number or a tensor, which
+    stays on the device), on the card unless `device` names another
+    device."""
+    log_step = torch.log(as_scalar(initial_step_size, dtype, device))
     return DualAveragingState(
         log_step=log_step,
         log_step_bar=log_step,
@@ -54,6 +57,20 @@ def da_update(state: DualAveragingState, accept_stat,
     # The first iteration initializes the smoothed value outright.
     log_step_bar = torch.where(m == 1.0, log_step, smoothed)
     return DualAveragingState(log_step, log_step_bar, h_bar, state.mu, m)
+
+
+def da_reset(state: DualAveragingState) -> DualAveragingState:
+    """Restart adaptation around the current best estimate (new mu), as the
+    windowed warmup does when the mass matrix changes: the smoothed step
+    (the current one before any update) becomes the new reference."""
+    current = torch.where(state.count > 0, state.log_step_bar, state.log_step)
+    return DualAveragingState(
+        log_step=current,
+        log_step_bar=current,
+        h_bar=torch.zeros_like(current),
+        mu=current,
+        count=torch.zeros_like(state.count),
+    )
 
 
 def da_step_size(state: DualAveragingState) -> torch.Tensor:

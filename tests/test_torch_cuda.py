@@ -1,6 +1,7 @@
-"""The hand-written CUDA kernels (GRAHMC 1 and 2, RWMH 3, persistent NUTS 4
-with its multinomial and dense variants) against their plain versions, on
-the card.
+"""The hand-written CUDA kernels (GRAHMC 1 and 2 with their dense variants
+1a and 2a, RWMH 3, persistent NUTS 4 with its multinomial and dense
+variants) against their plain versions, on the card, and the dense warmup
+that runs 1a.
 
 Marked `cuda`; each test skips without a CUDA device. This file imports no
 JAX, so it runs on a GPU host without the JAX package's dependencies:
@@ -81,6 +82,77 @@ def test_multistep_kernel_matches_plain(dev, family):
     torch.testing.assert_close(kern[3], plain[3])          # accepts, (T, C)
     for a, b in zip(kern[5:], plain[5:]):                  # histories
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+def _dense_metric(dev, dim, g):
+    a = torch.randn((dim, dim), generator=g, device=dev, dtype=torch.float64)
+    return ft.prepare_dense_metric(a @ a.T / dim + 0.5 * torch.eye(dim, device=dev,
+                                                                   dtype=torch.float64))
+
+
+@pytest.mark.parametrize("dim", [1, 3, 50, 128])
+@pytest.mark.parametrize("family", ["standard_normal", "neals_funnel", "correlated_gaussian"])
+def test_dense_kernels_match_plain(dev, family, dim):
+    """Kernels 1a and 2a against their plain versions with a random dense
+    metric, injected and Philox: accepts equal away from the MH borderline,
+    states within 1e-4 (1a); each chain's accept sequence and history
+    within 1e-4 on >= 99% of chains (2a, T = 4); the dense launch counts."""
+    info, q, lp, grad, g = _inputs(dev, family, dim, 1000, dim + 7)
+    invm, l_inv = _dense_metric(dev, dim, g)
+    eps = 0.02 if family == "neals_funnel" else 0.05
+    scalars = ft.kernel_scalars(eps, 0.7, 3.0, dev)
+    args = (info, 8, ft.SCHEDULE_IDS["constant"], q, lp, grad, scalars, invm)
+    p0 = ft.unwhiten(torch.randn((1000, dim), generator=g, device=dev), invm, l_inv)
+    u = torch.rand(1000, generator=g, device=dev).clamp_min(2.0 ** -25)
+    key = torch.tensor([3, -4], dtype=torch.int32, device=dev)
+    for rand, log_u in ((dict(p0=p0, u=u), torch.log(u)),
+                        (dict(key=key, call=5),
+                         torch.log(ft.philox_uniform(key, 5, 0, 1000, dev)))):
+        before = dict(ft.grahmc_step_kernel.variant_launches)
+        kern = ft.grahmc_step_kernel(*args, l_inv=l_inv, **rand)
+        assert ft.grahmc_step_kernel.variant_launches == dict(before, dense=before["dense"] + 1)
+        _assert_close(kern, ft.grahmc_step_plain(*args, l_inv=l_inv, **rand), log_u)
+
+        margs = args[:3] + (4,) + args[3:]
+        mrand = dict(key=key, call=5) if "key" in rand else dict(
+            p0=p0.expand(4, -1, -1).contiguous(), u=u.expand(4, -1).contiguous())
+        before = ft.grahmc_multistep_kernel.variant_launches["dense"]
+        kern = ft.grahmc_multistep_kernel(*margs, l_inv=l_inv, **mrand)
+        assert ft.grahmc_multistep_kernel.variant_launches["dense"] == before + 1
+        plain = ft.grahmc_multistep_plain(*margs, l_inv=l_inv, **mrand)
+        agree = (kern[3] == plain[3]).all(dim=0)
+        assert float(agree.float().mean()) >= 0.99
+        for a, b in zip(kern[5:], plain[5:]):
+            torch.testing.assert_close(a[:, agree], b[:, agree], rtol=1e-4, atol=1e-4)
+
+
+def test_dense_warmup_on_the_card(dev, monkeypatch):
+    """run_adaptive_warmup(learn_mass_matrix="dense") at 1,024 chains of the
+    10-D rho = 0.9 Gaussian: "auto" runs kernel 1a for every warmup and tune
+    transition (never the eager step), and the metric learns rho."""
+    from mcmc_tpu_torch import tuning
+    from mcmc_tpu_torch.tuning import sequential
+
+    def eager_step(*a, **k):
+        raise AssertionError("the fused warmup ran the eager step")
+    monkeypatch.setattr(sequential, "grahmc_step", eager_step)
+    t = get_target("correlated_gaussian", dim=10)
+    q = torch.randn((1024, 10), generator=torch.Generator(device=dev).manual_seed(0),
+                    device=dev) * 0.5
+    ft.reset_launches()
+    step, inv_mass, pos, info = tuning.run_adaptive_warmup(
+        "grahmc", t.log_prob_fn, None, q, torch.Generator(device=dev).manual_seed(1),
+        num_warmup=425, learn_mass_matrix="dense", num_steps=8, schedule_type="constant",
+        value_and_grad_fn=t.value_and_grad_fn, exploration_steps=100,
+        adaptation_windows=[25, 50, 125], cooldown_steps=125, max_iter_step=100,
+        gamma_samples_per_eval=25)
+    # 1 + 1 + 1 + 2 + 2 batches of 100 steps, then 7 evaluations of 100 + 25
+    assert ft.grahmc_step_kernel.variant_launches == {"diagonal": 0, "dense": 700 + 875}
+    corr = inv_mass / torch.sqrt(torch.outer(torch.diagonal(inv_mass),
+                                             torch.diagonal(inv_mass)))
+    assert float(corr[~torch.eye(10, dtype=torch.bool, device=dev)].min()) > 0.5
+    assert step > 0 and bool(torch.isfinite(pos).all())
+    assert 0.4 < sum(info["accept_trace"][-2:]) / 2 < 0.9
 
 
 def test_fused_run_shapes_and_dim_limit(dev):
@@ -175,7 +247,7 @@ def test_nuts_window_variants_match_plain(dev, multinomial, dense, family, dim, 
         metric = a @ a.T / dim + 0.5 * torch.eye(dim, device=dev, dtype=torch.float64)
     else:
         metric = torch.rand(dim, generator=g, device=dev) + 0.5
-    inv_mass, l_inv = fn.window_metric(metric, dev)
+    inv_mass, l_inv = ft.kernel_metric(metric)
     key = torch.tensor([1, 2], dtype=torch.int32, device=dev)
     args = (info, 16, 4, 10)
     start = tn._init_pstate(q, lp, grad, torch.float32, multinomial=multinomial)

@@ -19,7 +19,7 @@ from mcmc_tpu.ops.padded_targets import make_padded_vag  # noqa: E402
 from mcmc_tpu_torch import interop  # noqa: E402
 from mcmc_tpu_torch import targets as tt  # noqa: E402
 from mcmc_tpu_torch.diagnostics import ess_bulk  # noqa: E402
-from mcmc_tpu_torch.ops import fused_nuts as fn  # noqa: E402
+from mcmc_tpu_torch.ops.fused_trajectory import kernel_metric  # noqa: E402
 from mcmc_tpu_torch.ops.padded_targets import (  # noqa: E402
     KERNEL_FAMILIES, device_params, kernel_info, make_device_vag)
 from mcmc_tpu_torch.samplers import nuts_persistent as tn  # noqa: E402
@@ -61,8 +61,9 @@ def test_correlated_device_function_matches_jax_padded_vag(dim):
 
 def test_correlated_tag_kernel_families_and_reference_sampler():
     """The tag holds a, b and log|Sigma| as the JAX package computes them;
-    target_from_tag carries a JAX tag across; kernel 4 dispatches on the
-    family, kernels 1 to 3 do not; the exact sampler has covariance Sigma."""
+    target_from_tag carries a JAX tag across; kernels 1, 2 and 4 dispatch
+    on the family, kernel 3 does not; the exact sampler has covariance
+    Sigma."""
     t = tt.get_target("correlated_gaussian", dim=7)
     info = kernel_info(t.value_and_grad_fn, "nuts")
     theirs = jt.get_target("correlated_gaussian", dim=7).value_and_grad_fn.pallas_info
@@ -70,10 +71,10 @@ def test_correlated_tag_kernel_families_and_reference_sampler():
     assert info["params"] == pytest.approx(theirs["params"], rel=1e-14)
     assert interop.target_from_tag(theirs).params == {"correlation": pytest.approx(0.9)}
     assert device_params(info)[:2] == (info["params"]["a"], info["params"]["b"])
-    for kernel in ("grahmc", "rwmh"):
-        assert "correlated_gaussian" not in KERNEL_FAMILIES[kernel]
-        with pytest.raises(KeyError):
-            kernel_info(t.value_and_grad_fn, kernel)
+    assert kernel_info(t.value_and_grad_fn, "grahmc") is info
+    assert "correlated_gaussian" not in KERNEL_FAMILIES["rwmh"]
+    with pytest.raises(KeyError):
+        kernel_info(t.value_and_grad_fn, "rwmh")
     with pytest.raises(ValueError):
         interop.target_from_tag(dict(theirs, params=dict(theirs["params"], a=3.0)))
     draws = tt.get_reference_sampler("correlated_gaussian", 7)(
@@ -83,19 +84,20 @@ def test_correlated_tag_kernel_families_and_reference_sampler():
 
 
 def test_dense_unwhitening_and_window_metric():
-    """z @ L^{-1} has covariance M = (M^{-1})^{-1}; window_metric factors a
-    dense metric in float64 and hands the kernel float32, a diagonal one
-    passes through without l_inv."""
+    """z @ L^{-1} has covariance M = (M^{-1})^{-1}; the kernels' metric
+    (fused_trajectory.kernel_metric, which kernel 4's window takes too)
+    factors a dense metric in float64 and hands the kernel float32, a
+    diagonal one passes through without l_inv."""
     inv_mass = torch.from_numpy(random_metric(4).astype(np.float64))
     l_inv = dense_unwhitening(inv_mass)
     z = torch.randn((200000, 4), generator=torch.Generator().manual_seed(1),
                     dtype=torch.float64)
     np.testing.assert_allclose(torch.cov((z @ l_inv).T).numpy(),
                                torch.linalg.inv(inv_mass).numpy(), atol=0.03)
-    im, li = fn.window_metric(inv_mass, "cpu")
+    im, li = kernel_metric(inv_mass)
     assert im.dtype == li.dtype == torch.float32
     torch.testing.assert_close(li, l_inv.float())
-    im, li = fn.window_metric(torch.ones(4, dtype=torch.float64), "cpu")
+    im, li = kernel_metric(torch.ones(4, dtype=torch.float64))
     assert li is None and im.dtype == torch.float32
 
 

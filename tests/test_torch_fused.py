@@ -210,11 +210,14 @@ def test_unknown_schedule_family_or_metric_raises():
     with pytest.raises(KeyError):
         ft.make_fused_grahmc_step(other_family, 4, tg.tanh_schedule)
 
+    # a dense metric runs kernel 1a (tests/test_torch_dense_grahmc.py); one
+    # that is not (D,) or (D, D) raises
     q = torch.zeros(4, 5)
-    with pytest.raises(ValueError):
-        tg.grahmc_run(torch.Generator(), t.log_prob_fn, q, 0.1, 4, 1.0, 1.0, 2,
-                      inv_mass_matrix=torch.eye(5),
-                      value_and_grad_fn=t.value_and_grad_fn, backend="fused")
+    for bad in (torch.ones(5, 4), torch.ones(2, 5, 5)):
+        with pytest.raises(ValueError):
+            tg.grahmc_run(torch.Generator(), t.log_prob_fn, q, 0.1, 4, 1.0, 1.0, 2,
+                          inv_mass_matrix=bad,
+                          value_and_grad_fn=t.value_and_grad_fn, backend="fused")
     with pytest.raises(TypeError):
         tg.grahmc_run(torch.Generator(), t.log_prob_fn, q, 0.1, 4, 1.0, 1.0, 2,
                       backend="fused")

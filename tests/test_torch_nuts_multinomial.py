@@ -26,7 +26,8 @@ from mcmc_tpu.samplers.nuts_persistent import _make_window_step as j_window_step
 from mcmc_tpu.targets import get_target as j_get_target  # noqa: E402
 from mcmc_tpu_torch import interop  # noqa: E402
 from mcmc_tpu_torch.ops import fused_nuts as fn  # noqa: E402
-from mcmc_tpu_torch.ops.fused_trajectory import _bits_to_uniform, philox4x32_10  # noqa: E402
+from mcmc_tpu_torch.ops.fused_trajectory import (  # noqa: E402
+    _bits_to_uniform, kernel_metric, philox4x32_10)
 from mcmc_tpu_torch.samplers import nuts_persistent as tn  # noqa: E402
 from mcmc_tpu_torch.targets import get_target as t_get_target  # noqa: E402
 
@@ -126,7 +127,7 @@ def run_pallas_and_plain(family, dim, step, slots, inv_mass, multinomial):
     s = interop.nuts_state_from_numpy(device="cpu", **{
         k: np.asarray(v) for k, v in ps0._asdict().items() if v is not None})
     info = t_get_target(family, dim=dim).value_and_grad_fn.kernel_info
-    im, l_inv = fn.window_metric(torch.from_numpy(inv_mass), "cpu")
+    im, l_inv = kernel_metric(torch.from_numpy(inv_mass))
     out = fn.nuts_window_kernel(info, n_iters, slots, DEPTH, s,
                                 fn.nuts_scalars(step, 1000.0, "cpu"), im,
                                 draws=jax_window_draws(key, dim, n_iters, slots,
