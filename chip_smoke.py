@@ -29,7 +29,18 @@ NUTS row and a dense-warmup GRAHMC row on the port:
   sequential ESJD tune of gamma (kernel 1a), then the GRAHMC row's timing
   and ESS protocol at the tuned step, gamma and metric (kernel 1a), and at
   4,096 chains a dense and a diagonal warmup each followed by a 256-draw
-  multistep run (kernels 2a and 2).
+  multistep run (kernels 2a and 2);
+- tempered GRAHMC (bench.py:581-634): the 10-D two-mode mixture, a 6-rung
+  geometric ladder (beta_min 0.02) over 8,192 chains, L = 16, tanh friction,
+  256 draws per run, each run continuing from the last one's replicas
+  (kernel 1b, one launch per sweep); then the crossing check (4-D mixture,
+  separation 10, 4,096 chains all started in the left mode: the ladder
+  finds both modes, fused HMC through kernel 2 stays) and tune_ladder over
+  the row's configuration;
+- annealed SMC (bench.py:636-720): adaptive-schedule evidence runs on the
+  10-D mixture at 32,768 particles, and the move-dominated pair at 65,536
+  particles on a fixed 13-rung ladder with 2 and 8 moves (kernel 1c, one
+  launch per move).
 
 --multistep-switch adds a measurement that gates nothing: grahmc_run at
 1,024 and 4,096 chains through the multi-transition dispatch (T = 8)
@@ -118,11 +129,51 @@ VAR_SAMPLES = 16
 VAR_DEPTH = 8
 VAR_TOL = 0.02
 
+# tempered row (bench.py:587-634)
+TEMP_DIM = 10
+TEMP_K = 6
+TEMP_CHAINS = 8192
+TEMP_L = 16
+TEMP_DRAWS = 256
+TEMP_STEP = 0.5
+TEMP_BETA_MIN = 0.02
+TEMP_GAMMA = 0.1
+TEMP_STEEP = 5.0
+TEMP_COLLECT = 64
+TEMP_REPS = 4                # after two warm runs, each continuing the ladder
+# crossing check (tests/test_tempered.py:111-137) at 4,096 chains
+CROSS_DIM = 4
+CROSS_SEP = 10.0
+CROSS_CHAINS = 4096
+CROSS_K = 6
+CROSS_BETA_MIN = 0.01
+CROSS_STEP = 0.3
+CROSS_DRAWS = 800
+CROSS_BURN = 200
+# ladder tune (tests/test_ladder.py:141-170) on the tempered row's configuration
+LADDER_ROUNDS = 8
+LADDER_DRAWS = 64
+# SMC row (bench.py:643-678) and its move-dominated pair (bench.py:686-720)
+SMC_DIM = 10
+SMC_P = 32768
+SMC_STEP = 0.4
+SMC_L = 8
+SMC_MOVES = 2
+SMC_BASE_SCALE = 6.0
+SMC_REPS = 4                 # after one warm run
+MOVE_P = 65536
+MOVE_L = 16
+MOVE_RUNGS = 13              # the fixed ladder linspace(0.08, 1, 13)
+MOVE_REPS = 3                # after one warm run; min of the reps
+
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 FLOP/s outside the
 # tensor cores; a kernel's bound is the larger of its bytes and its float
 # operations over these.
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
+# device clock cycles (~2.5 ms) the device sleeps before a timed burst of
+# 10 kernel calls, longer than the host takes to enqueue them
+HOLD_CYCLES = 5_000_000
 
 NUTS_SRC = ("mcmc_tpu_torch/csrc/fused_nuts.cu", "mcmc_tpu/ops/fused_nuts.py:139")
 STEP_SRC = ("mcmc_tpu_torch/csrc/fused_trajectory.cu", "mcmc_tpu/ops/fused_trajectory.py:280")
@@ -138,9 +189,14 @@ KERNELS = {   # name: (source, the TPU kernel it replaces)
     "nuts_window_kernel[multinomial]": NUTS_SRC,
     "nuts_window_kernel[dense]": NUTS_SRC,
     "nuts_window_kernel[multinomial+dense]": NUTS_SRC,
+    "grahmc_scaled_kernel": ("mcmc_tpu_torch/csrc/fused_trajectory_scaled.cu",
+                             "mcmc_tpu/ops/fused_trajectory.py:333"),
+    "grahmc_bridged_kernel": ("mcmc_tpu_torch/csrc/fused_trajectory_bridged.cu",
+                              "mcmc_tpu/ops/fused_trajectory.py:344"),
 }
-# kernels 1 and 2's variant names (ops/fused_trajectory.py:VARIANTS), and
-# kernel 4's (ops/fused_nuts.py:VARIANTS) -> the names above
+# kernels 1, 2, 1b and 1c's metric variants (ops/fused_trajectory.py:VARIANTS),
+# and kernel 4's (ops/fused_nuts.py:VARIANTS) -> the names above (1b's and
+# 1c's dense variants run on no main path: the card tests check them)
 GRAHMC_NAMES = {"diagonal": "", "dense": "[dense]"}
 NUTS_NAMES = {"endpoint": "nuts_window_kernel",
               "multinomial": "nuts_window_kernel[multinomial]",
@@ -487,6 +543,144 @@ def phase_parity_nuts(torch, ft, fn, tn, targets, dev):
             require(done > 0, f"{label}: no transition completed")
             max_err[name] = max(max_err[name], err)
     return max_err
+
+def _mixture_state(torch, t, n, seed, dev, beta_row=None):
+    """(q, lp, grad) of the mixture from its init_sampler (half the chains
+    near each mode), tempered by `beta_row` when given."""
+    q = t.init_sampler(_gen(torch, dev, seed), n)
+    lp, grad = t.value_and_grad_fn(q)
+    if beta_row is not None:
+        lp, grad = beta_row * lp, beta_row[:, None] * grad
+    return q, lp.contiguous(), grad.contiguous()
+
+
+def _compare_drift(label, torch, kern, plain, log_u, potential, tol=1e-4):
+    """Kernel against plain version for one transition of kernel 1b or 1c,
+    with _compare's tolerances: accepts equal away from the MH borderline
+    on all but SPLIT_MAX of the chains; on the chains whose accepts agree and
+    whose proposal did not drift, the new q within tol of the plain
+    version's (element-wise, absolute plus relative), and the new lp and
+    grad within tol of `potential` (the plain version's (lp, grad) function)
+    at the kernel's own q. The last is the check of the kernel's
+    arithmetic: the mixture's gradient at its barrier moves ~5x as fast as
+    x0 (d g0 / d x0 = h^2 - 1 at x0 = 0), so a q within tol may carry a
+    gradient beyond it, which the direct error printed beside shows. A
+    trajectory may drift: across the barrier (a concave ridge) the leapfrog
+    is unstable at the hot rungs' long steps, so a rounding difference grows
+    along the trajectory, as kernel 4's trajectory in flight does on the
+    funnel's neck; the proposal q and lp must agree on all but IN_FLIGHT_MAX
+    of the chains, and delta H within 2e-3 on those that did not drift or
+    diverge. Returns the max abs error of q, lp and grad against the plain
+    version where they are compared."""
+    q, lp, grad, acc, dh, prop_q, prop_lp = range(7)
+    n = kern[acc].numel()
+    borderline = (log_u - torch.clamp(-plain[dh], max=0.0)).abs() < 1e-4
+    differ = kern[acc] != plain[acc]
+    n_split = int((differ & ~borderline).sum())
+    same = ~differ
+
+    def close(a, b):
+        diff = (a - b).abs()
+        ok = diff <= tol + tol * b.abs()
+        return (ok.all(dim=1) if ok.ndim == 2 else ok), diff
+
+    kept = same & close(kern[prop_q], plain[prop_q])[0] & close(kern[prop_lp], plain[prop_lp])[0]
+    drifted = int((same & ~kept).sum())
+    at_q = potential(kern[q])
+    err, residual = 0.0, 0.0
+    for i, ref in ((q, plain[q]), (lp, at_q[0]), (grad, at_q[1])):
+        ok, diff = close(kern[i], ref)
+        require(bool(ok[kept].all()), f"{label}: field {i} of the new state differs beyond "
+                f"{tol} (max |diff| {float(diff[kept].max()):.3g})")
+        residual = max(residual, float(diff[kept].max()))
+        err = max(err, float(close(kern[i], plain[i])[1][kept].max()))
+    stable = kept & (plain[dh].abs() < 1000.0)
+    require(bool(close(kern[dh], plain[dh])[1][stable]
+                 .le(2e-3 + 2e-3 * plain[dh][stable].abs()).all()),
+            f"{label}: delta H differs beyond 2e-3")
+    say(f"  {label}: accepts agree on {int(same.sum())}/{n} (borderline "
+        f"{int((differ & borderline).sum())}, split {n_split}); proposal within {tol} on "
+        f"{int(kept.sum())} ({drifted} drifted), the new state on all of those (max |err| "
+        f"{err:.3g} against the plain version; {residual:.3g} with lp and grad taken at the "
+        f"kernel's q), divergent {int((kept & ~stable).sum())}")
+    require(n_split <= SPLIT_MAX * n, f"{label}: {n_split} of {n} chains split")
+    require(drifted <= IN_FLIGHT_MAX * n, f"{label}: {drifted} of {n} proposals drifted")
+    return err
+
+
+def phase_parity_variants(torch, ft, targets, samplers, dev):
+    """Kernels 1b and 1c against their plain versions at the rows' shapes:
+    1b over the tempered row's 6 x 8,192 x 10 replicas with its rung table
+    (eps_k = 0.5 / sqrt(beta_k), tanh gamma 0.1, steepness 5, L = 16); 1c at
+    65,536 x 10, L = 16 for beta 0.05, 0.5 and 1 on the bridge to N(0, 6^2
+    I); injected draws, then Philox (_compare_drift). Then the beta = 1 identity:
+    1b (one rung) and 1c give kernel 1's results bit for bit."""
+    say("[3e] kernels 1b (scaled) and 1c (bridged) vs plain versions on the card")
+    t = targets.get_target("gaussian_mixture", dim=TEMP_DIM)
+    info = t.value_and_grad_fn.kernel_info
+    ones = torch.ones(TEMP_DIM, device=dev)
+    g = _gen(torch, dev, 104)
+    key = ft.PhiloxStream.from_generator(g, dev).key
+    tanh = ft.SCHEDULE_IDS["tanh"]
+    max_err = {"grahmc_scaled_kernel": 0.0, "grahmc_bridged_kernel": 0.0}
+
+    def randoms(n):
+        """Injected draws and Philox, each with its log u."""
+        u = torch.rand(n, generator=g, device=dev).clamp_min(2.0 ** -25)
+        return (("injected", dict(p0=torch.randn((n, TEMP_DIM), generator=g, device=dev), u=u),
+                 torch.log(u)),
+                ("philox", dict(key=key, call=7), torch.log(ft.philox_uniform(key, 7, 0, n, dev))))
+
+    def check(name, label, kernel_fn, plain_fn, args, n, potential):
+        for mode, rand, log_u in randoms(n):
+            kern = kernel_fn(*args, **rand)
+            plain = plain_fn(*args, **rand)
+            torch.cuda.synchronize()
+            err = _compare_drift(f"{label} {mode}", torch, kern, plain, log_u, potential)
+            max_err[name] = max(max_err[name], err)
+
+    n = TEMP_K * TEMP_CHAINS
+    betas = samplers.geometric_ladder(TEMP_K, TEMP_BETA_MIN, device=dev)
+    beta_row = betas.repeat_interleave(TEMP_CHAINS)
+    rungs = ft.rung_table(TEMP_STEP / torch.sqrt(betas), TEMP_GAMMA, TEMP_STEEP, betas, dev)
+    state = _mixture_state(torch, t, n, 105, dev, beta_row)
+    check("grahmc_scaled_kernel", f"1b {TEMP_K} x {TEMP_CHAINS}", ft.grahmc_scaled_kernel,
+          ft.grahmc_scaled_plain, (info, TEMP_L, tanh, *state, rungs, ones), n,
+          ft.scaled_vag(ft.device_vag(info), beta_row))
+
+    base = ft.bridge_base(None, SMC_BASE_SCALE, TEMP_DIM, dev)
+    q = t.init_sampler(_gen(torch, dev, 106), MOVE_P)
+    for beta in (0.05, 0.5, 1.0):
+        potential = ft.bridged_vag(ft.device_vag(info), torch.tensor(beta, device=dev),
+                                   torch.tensor(base.log_norm, dtype=torch.float32,
+                                                device=dev), base.mean, base.inv_scale)
+        lp, grad = potential(q)
+        args = (info, MOVE_L, 0, q, lp.contiguous(), grad.contiguous(),
+                ft.bridge_scalars(SMC_STEP, 0.0, 1.0, beta, base.log_norm, dev), base.mean,
+                base.inv_scale, ones)
+        check("grahmc_bridged_kernel", f"1c beta {beta}", ft.grahmc_bridged_kernel,
+              ft.grahmc_bridged_plain, args, MOVE_P, potential)
+
+    q, lp, grad = _mixture_state(torch, t, MOVE_P, 107, dev)
+    for mode, rand, _ in randoms(MOVE_P):
+        plain = ft.grahmc_step_kernel(info, TEMP_L, tanh, q, lp, grad,
+                                      ft.kernel_scalars(TEMP_STEP, TEMP_GAMMA, TEMP_STEEP, dev),
+                                      ones, **rand)
+        scaled = ft.grahmc_scaled_kernel(
+            info, TEMP_L, tanh, q, lp, grad,
+            ft.rung_table(TEMP_STEP, TEMP_GAMMA, TEMP_STEEP, 1.0, dev), ones, **rand)
+        bridged = ft.grahmc_bridged_kernel(
+            info, TEMP_L, tanh, q, lp, grad,
+            ft.bridge_scalars(TEMP_STEP, TEMP_GAMMA, TEMP_STEEP, 1.0, base.log_norm, dev),
+            base.mean, base.inv_scale, ones, **rand)
+        torch.cuda.synchronize()
+        for name, out in (("1b", scaled), ("1c", bridged)):
+            require(all(torch.equal(a, b) for a, b in zip(out, plain)),
+                    f"{name} at beta = 1 ({mode}) differs from kernel 1")
+        say(f"  beta = 1 ({mode}): 1b and 1c equal kernel 1 bit for bit on {MOVE_P} chains "
+            f"(accept {float(plain[3].float().mean()):.4f})")
+    return max_err
+
 
 # ---------------------------------------------------------------------------
 # Phase 4: in-kernel Philox, statistically
@@ -1010,16 +1204,253 @@ def phase_dense_warmup_row(torch, targets, samplers, tuning, diagnostics, dev):
                 warmup_sec=warmup_sec, ess_ratio=ratio)
 
 
+def device_busy_seconds(torch, run):
+    """Device time of the CUDA kernels and copies that `run` launches, from
+    one torch.profiler trace (0.0 when the profiler saw no device work)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA) / 1e6
+
+
+def say_busy(label, busy, wall):
+    if busy > 0.0:
+        say(f"  {label}: device busy {busy * 1e3:.3f} ms of the {wall * 1e3:.3f} ms median wall "
+            f"({busy / wall:.4f}), one profiled rep")
+    else:
+        say(f"  {label}: device busy not measured (the profiler saw no device time)")
+
+
+def _tempered_kw(t, samplers):
+    """The tempered row's sampler settings but its ladder and step."""
+    return dict(num_steps=TEMP_L, gamma=TEMP_GAMMA, steepness=TEMP_STEEP,
+                friction_schedule=samplers.tanh_schedule,
+                value_and_grad_fn=t.value_and_grad_fn, backend="auto")
+
+
+def phase_tempered_row(torch, targets, samplers, dev):
+    """bench.py's tempered row on the port: 8,192 chains of the 10-D mixture
+    from its init_sampler, a 6-rung geometric ladder to beta 0.02 with
+    eps_k = 0.5 / sqrt(beta_k), L = 16, tanh gamma 0.1 (backend "auto",
+    which resolves to kernel 1b on the card); two warm runs (a cold start,
+    then a continuation) and TEMP_REPS timed runs of 256 draws, each
+    continuing from the last one's replicas; the median wall gives
+    tempered_replica_transitions_per_sec = K C draws / s. Then one more
+    continuation under the profiler for the device-busy share. Gates:
+    finite draws, every pair's swap rate > 0.1, cold accept in (0.75, 0.95)
+    (the JAX package's bench reads 0.856 here, BENCH_r05.json)."""
+    say("[5f] tempered row: 10-D mixture, 6 rungs x 8,192 chains, L = 16 (kernel 1b)")
+    t = targets.get_target("gaussian_mixture", dim=TEMP_DIM)
+    init = t.init_sampler(_gen(torch, dev, 50), TEMP_CHAINS)
+    kw = dict(_tempered_kw(t, samplers), step_size=TEMP_STEP, n_temps=TEMP_K,
+              beta_min=TEMP_BETA_MIN, num_samples=TEMP_DRAWS, collect_chains=TEMP_COLLECT)
+    box = {"rep": None}
+
+    def run(seed):
+        res = samplers.tempered_run(_gen(torch, dev, seed), t.log_prob_fn, init,
+                                    init_replica_position=box["rep"], **kw)
+        box["rep"] = res.info["replica_final_positions"]
+        return res
+
+    for seed in (51, 51):
+        run(seed)
+    torch.cuda.synchronize()
+    dts = []
+    for rep in range(TEMP_REPS):
+        t0 = time.perf_counter()
+        res = run(52 + rep)
+        torch.cuda.synchronize()
+        dts.append(time.perf_counter() - t0)
+    dt = statistics.median(dts)
+    rate = TEMP_K * TEMP_CHAINS * TEMP_DRAWS / dt
+    swaps = [round(float(x), 4) for x in res.info["swap_accept_rate"]]
+    cold = float(res.accept_rate.mean())
+    say(f"  timed runs: {TEMP_DRAWS} draws x {TEMP_K} x {TEMP_CHAINS}, reps "
+        f"{[round(x, 4) for x in dts]} s; tempered_replica_transitions_per_sec {rate:.1f}")
+    say(f"  tempered_swap_accept {swaps}, tempered_cold_accept {cold:.4f}; replica accept "
+        f"{[round(float(x), 4) for x in res.info['replica_accept_rate']]}")
+    require(res.samples.shape == (TEMP_DRAWS, TEMP_COLLECT, TEMP_DIM), "tempered history shape")
+    require(bool(torch.isfinite(res.samples).all()), "non-finite tempered draws")
+    require(all(x > 0.1 for x in swaps), f"tempered swap rates {swaps}")
+    require(0.75 < cold < 0.95, f"tempered cold accept {cold}")
+    busy = device_busy_seconds(torch, lambda: run(60))
+    say_busy("tempered row", busy, dt)
+    return dict(rate=rate, swaps=swaps, cold=cold, wall=dt, busy=busy)
+
+
+def phase_crossing(torch, targets, samplers, dev):
+    """tests/test_tempered.py's crossing check on the card at 4,096 chains:
+    the 4-D mixture with separation 10 (a 5-sigma barrier), every chain
+    started in the left mode. tempered_run (6 rungs to beta 0.01, step 0.3,
+    L = 16, 800 draws after 200 of burn-in; kernel 1b) must find both modes:
+    right fraction 0.4-0.6 and |Var x0 - 26| < 3. Fused HMC from the same
+    start (kernel 2, T = 8) must stay: right fraction < 0.15."""
+    say(f"[5g] crossing check: 4-D mixture, separation 10, {CROSS_CHAINS} chains from the "
+        f"left mode")
+    t = targets.get_target("gaussian_mixture", dim=CROSS_DIM, separation=CROSS_SEP)
+    init = torch.randn((CROSS_CHAINS, CROSS_DIM), generator=_gen(torch, dev, 80),
+                       device=dev) * 0.3
+    init[:, 0] -= CROSS_SEP / 2
+    kw = dict(step_size=CROSS_STEP, num_steps=16, num_samples=CROSS_DRAWS, burn_in=CROSS_BURN,
+              value_and_grad_fn=t.value_and_grad_fn)
+    rh = samplers.hmc_run(_gen(torch, dev, 81), t.log_prob_fn, init, backend="fused", **kw)
+    right_h = float((rh.samples[..., 0] > 0).float().mean())
+    del rh
+    rt = samplers.tempered_run(_gen(torch, dev, 81), t.log_prob_fn, init, n_temps=CROSS_K,
+                               beta_min=CROSS_BETA_MIN, backend="auto", **kw)
+    x0 = rt.samples[..., 0].reshape(-1).double()
+    right, var = float((x0 > 0).double().mean()), float(x0.var())
+    say(f"  fused HMC: right-mode fraction {right_h:.4f}; tempered: right-mode fraction "
+        f"{right:.4f}, mean x0 {float(x0.mean()):.4f}, Var x0 {var:.4f} (exact 26), swaps "
+        f"{[round(float(x), 4) for x in rt.info['swap_accept_rate']]}")
+    require(right_h < 0.15, f"HMC crossed: right fraction {right_h}")
+    require(0.4 < right < 0.6, f"tempered right fraction {right}")
+    require(abs(var - 26.0) < 3.0, f"tempered Var x0 {var}")
+    return dict(right=right, var=var, right_hmc=right_h)
+
+
+def phase_ladder_tune(torch, targets, samplers, tuning, dev):
+    """tune_ladder closing over the fused tempered_run on the tempered row's
+    configuration: LADDER_ROUNDS rounds of LADDER_DRAWS-draw bursts, each
+    continuing from the last one's replicas, the rung steps tuned jointly
+    toward accept 0.65 (tests/test_ladder.py:141-170). Gate: the final
+    deviation from 0.234 at most the initial one + 0.05."""
+    say(f"[5h] ladder tune: {LADDER_ROUNDS} rounds of {LADDER_DRAWS}-draw bursts on the "
+        f"tempered row's configuration")
+    t = targets.get_target("gaussian_mixture", dim=TEMP_DIM)
+    init = t.init_sampler(_gen(torch, dev, 90), TEMP_CHAINS)
+    kw = _tempered_kw(t, samplers)
+    rounds = [0]
+
+    def burst(betas, steps, rep):
+        rounds[0] += 1
+        r = samplers.tempered_run(_gen(torch, dev, 90 + rounds[0]), t.log_prob_fn, init,
+                                  step_size=torch.from_numpy(steps).to(dev),
+                                  num_samples=LADDER_DRAWS, betas=torch.from_numpy(betas),
+                                  init_replica_position=rep, collect_chains=1, **kw)
+        return (r.info["swap_accept_rate"].cpu().numpy(), r.info["swap_attempts"].cpu().numpy(),
+                r.info["replica_accept_rate"].cpu().numpy(), r.info["replica_final_positions"])
+
+    t0 = time.perf_counter()
+    betas, info = tuning.tune_ladder(burst, TEMP_K, beta_min_init=TEMP_BETA_MIN,
+                                     n_rounds=LADDER_ROUNDS, step_size=TEMP_STEP,
+                                     target_accept=0.65)
+    say(f"  {time.perf_counter() - t0:.2f} s; deviation from 0.234: initial "
+        f"{info['initial_deviation']:.4f}, final {info['final_deviation']:.4f}; betas "
+        f"{[round(float(b), 4) for b in betas]}, steps "
+        f"{[round(float(x), 4) for x in info['step_sizes']]}")
+    require(info["final_deviation"] <= info["initial_deviation"] + 0.05,
+            f"ladder deviation grew: {info['initial_deviation']} -> {info['final_deviation']}")
+    return info
+
+
+def _smc_kw(t):
+    return dict(dim=SMC_DIM, step_size=SMC_STEP, base_scale=SMC_BASE_SCALE,
+                value_and_grad_fn=t.value_and_grad_fn, move_backend="auto")
+
+
+def phase_smc_row(torch, targets, samplers, dev):
+    """bench.py's SMC row on the port: adaptive-schedule SMC from N(0, 6^2 I)
+    to the 10-D mixture, 32,768 particles, eps 0.4, L = 8, 2 moves per stage,
+    final_resample, move_backend "auto" (kernel 1c on the card); one warm
+    run and SMC_REPS timed runs; smc_particle_leapfrogs_per_sec = P stages
+    moves L / wall per rep (each rep's own stage count), the median; log Z,
+    stages and the mode fraction of the last rep; one more run under the
+    profiler for the device-busy share. Gates: |log Z| < 0.1, mode fraction
+    0.4-0.6, |Var x0 - 7.25| < 0.5. Returns the row's numbers and the
+    kernel-1c launches its runs made (stages x moves each)."""
+    say("[5i] SMC row: 10-D mixture, 32,768 particles, adaptive schedule (kernel 1c)")
+    t = targets.get_target("gaussian_mixture", dim=SMC_DIM)
+    kw = dict(_smc_kw(t), n_particles=SMC_P, num_steps=SMC_L, move_steps=SMC_MOVES,
+              final_resample=True)
+    backend = samplers.smc.resolve_move_backend("auto", t.value_and_grad_fn, False, None, dev)
+    require(backend == "fused", f"SMC move backend resolved to {backend}")
+    stages = []
+
+    def run(seed):
+        r = samplers.smc_run(_gen(torch, dev, seed), t.log_prob_fn, **kw)
+        stages.append(r.info["n_stages"])
+        return r
+
+    run(60)
+    torch.cuda.synchronize()
+    rates, dts = [], []
+    for rep in range(SMC_REPS):
+        t0 = time.perf_counter()
+        r = run(61 + rep)
+        torch.cuda.synchronize()
+        dts.append(time.perf_counter() - t0)
+        rates.append(SMC_P * stages[-1] * SMC_MOVES * SMC_L / dts[-1])
+    rate = statistics.median(rates)
+    x0 = r.particles[:, 0].double()
+    mode, var, log_z = float((x0 > 0).double().mean()), float(x0.var()), float(r.log_Z)
+    say(f"  reps (stages, s) {[(n, round(d, 4)) for n, d in zip(stages[1:], dts)]}; "
+        f"smc_particle_leapfrogs_per_sec {rate:.1f}")
+    say(f"  smc_log_z {log_z:+.5f}, smc_stages {stages[-1]}, smc_mode_fraction {mode:.4f}, "
+        f"Var x0 {var:.4f} (exact 7.25), resamples {r.info['n_resamples']}, final step "
+        f"{float(r.info['final_step_size']):.4f}")
+    require(bool(torch.isfinite(r.particles).all()), "non-finite SMC particles")
+    require(abs(log_z) < 0.1, f"SMC log Z {log_z}")
+    require(0.4 < mode < 0.6, f"SMC mode fraction {mode}")
+    require(abs(var - 7.25) < 0.5, f"SMC Var x0 {var}")
+    out = dict(rate=rate, log_z=log_z, stages=stages[-1], mode=mode,
+               wall=statistics.median(dts))
+    out["busy"] = device_busy_seconds(torch, lambda: run(70))
+    say_busy(f"SMC row ({stages[-1]} stages in the profiled run)", out["busy"], out["wall"])
+    out["launches"] = SMC_MOVES * sum(stages)
+    return out
+
+
+def phase_smc_move_pair(torch, targets, samplers, dev):
+    """bench.py's move-dominated pair on the port: 65,536 particles, L = 16,
+    the fixed 13-rung ladder linspace(0.08, 1, 13), 2 and 8 moves per stage,
+    one warm run and MOVE_REPS reps each, the min wall of each;
+    smc_move_dominated_leapfrogs_per_sec = P 13 8 L / wall at 8 moves."""
+    say("[5j] SMC move-dominated pair: 65,536 particles, L = 16, 13 fixed rungs, 2 and 8 moves")
+    t = targets.get_target("gaussian_mixture", dim=SMC_DIM)
+    betas = torch.linspace(0.08, 1.0, MOVE_RUNGS, dtype=torch.float64)
+    walls = {}
+    for moves in (2, 8):
+        kw = dict(_smc_kw(t), n_particles=MOVE_P, num_steps=MOVE_L, move_steps=moves,
+                  betas=betas)
+        samplers.smc_run(_gen(torch, dev, 70), t.log_prob_fn, **kw)
+        torch.cuda.synchronize()
+        dts = []
+        for rep in range(MOVE_REPS):
+            t0 = time.perf_counter()
+            r = samplers.smc_run(_gen(torch, dev, 71 + rep), t.log_prob_fn, **kw)
+            torch.cuda.synchronize()
+            dts.append(time.perf_counter() - t0)
+        require(r.info["n_stages"] == MOVE_RUNGS, "fixed-ladder stage count")
+        walls[moves] = min(dts)
+        say(f"  {moves} moves: reps {[round(x, 4) for x in dts]} s, log Z "
+            f"{float(r.log_Z):+.5f}")
+    rate = MOVE_P * MOVE_RUNGS * 8 * MOVE_L / walls[8]
+    say(f"  smc_move_dominated_leapfrogs_per_sec {rate:.1f}; smc_move_pair_ms moves2 "
+        f"{walls[2] * 1e3:.3f}, moves8 {walls[8] * 1e3:.3f} ({walls[8] / walls[2]:.3f}x the "
+        f"time for 4x the moves)")
+    return dict(rate=rate, walls=walls)
+
+
 # ---------------------------------------------------------------------------
 # Phase 6: kernel and plain times at the main-path shapes
 # ---------------------------------------------------------------------------
 
 def _event_ms(torch, fn, burst):
     """Device time per call of `burst` back-to-back calls between two CUDA
-    events; a burst keeps the device busy, so the host's Python time per call
-    (~60 us) does not enter a kernel's time unless it exceeds it."""
+    events. The device first sleeps HOLD_CYCLES while the host enqueues the
+    burst, so the host's Python time per call, which can be as long as a
+    short kernel's own, does not enter a kernel's time; a plain version,
+    whose host time far exceeds the hold, is timed with its host gaps as
+    before."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(HOLD_CYCLES)
     start.record()
     for _ in range(burst):
         fn()
@@ -1214,6 +1645,49 @@ def phase_timing_rwmh_nuts(torch, ft, fr, fn, tn, targets, nuts_step, dense_step
     return times, measured
 
 
+def phase_timing_variants(torch, ft, targets, samplers, dev, reps=10, burst=10, plain_burst=1):
+    """Kernels 1b (the tempered row's 6 x 8,192 x 10 replicas and rung
+    table, L = 16) and 1c (65,536 x 10, L = 16, beta 0.5; and the SMC row's
+    32,768 x 10, L = 8, printed) against their plain versions, Philox mode:
+    median over `reps` samples, interleaved, `burst` kernel or `plain_burst`
+    plain calls per sample."""
+    say(f"[6e] kernels 1b and 1c vs plain versions: CUDA events, median of {reps} bursts of "
+        f"{burst} kernel / {plain_burst} plain calls, Philox mode")
+    t = targets.get_target("gaussian_mixture", dim=TEMP_DIM)
+    info = t.value_and_grad_fn.kernel_info
+    ones = torch.ones(TEMP_DIM, device=dev)
+    key = ft.PhiloxStream.from_generator(_gen(torch, dev, 43), dev).key
+    betas = samplers.geometric_ladder(TEMP_K, TEMP_BETA_MIN, device=dev)
+    n = TEMP_K * TEMP_CHAINS
+    args = (info, TEMP_L, ft.SCHEDULE_IDS["tanh"],
+            *_mixture_state(torch, t, n, 44, dev, betas.repeat_interleave(TEMP_CHAINS)),
+            ft.rung_table(TEMP_STEP / torch.sqrt(betas), TEMP_GAMMA, TEMP_STEEP, betas, dev), ones)
+    cases = [("grahmc_scaled_kernel", f"{TEMP_K} x {TEMP_CHAINS} x {TEMP_DIM}, L = {TEMP_L}",
+              ft.grahmc_scaled_kernel, ft.grahmc_scaled_plain, args)]
+    base = ft.bridge_base(None, SMC_BASE_SCALE, TEMP_DIM, dev)
+    for label, n_p, steps in (("grahmc_bridged_kernel", MOVE_P, MOVE_L),
+                              ("grahmc_bridged_kernel (SMC row)", SMC_P, SMC_L)):
+        q = t.init_sampler(_gen(torch, dev, 45), n_p)
+        lp, grad = ft.bridged_vag(ft.device_vag(info), torch.tensor(0.5, device=dev),
+                                  torch.tensor(base.log_norm, dtype=torch.float32,
+                                               device=dev), base.mean, base.inv_scale)(q)
+        cases.append((label, f"{n_p} x {TEMP_DIM}, L = {steps}, beta 0.5",
+                      ft.grahmc_bridged_kernel, ft.grahmc_bridged_plain,
+                      (info, steps, 0, q, lp.contiguous(), grad.contiguous(),
+                       ft.bridge_scalars(SMC_STEP, 0.0, 1.0, 0.5, base.log_norm, dev),
+                       base.mean, base.inv_scale, ones)))
+    times = {}
+    for name, shape, kernel_fn, plain_fn, a in cases:
+        fns = {"kernel": lambda: kernel_fn(*a, key=key, call=0),
+               "plain": lambda: plain_fn(*a, key=key, call=0)}
+        ms = _interleaved(torch, fns, reps, {"kernel": burst, "plain": plain_burst})
+        times[name] = (statistics.median(ms["kernel"]), statistics.median(ms["plain"]))
+        say(f"  {name} ({shape}): kernel {times[name][0]:.4f} ms, plain {times[name][1]:.4f} "
+            f"ms; kernel quartiles "
+            f"{[round(x, 4) for x in statistics.quantiles(ms['kernel'], n=4)]}")
+    return times
+
+
 def live_stack_slots(state):
     """Checkpoint-stack slots (a q row and a p row each) that a window must
     carry across its boundary from this state: a chain n leaves into a
@@ -1232,7 +1706,10 @@ def live_stack_slots(state):
 
 # Float operations per coordinate: a target's value and gradient, a diagonal
 # leapfrog with its kinetic energy (two half kicks, the drift, p M^{-1} p).
-TARGET_FLOPS = {"standard_normal": 3, "neals_funnel": 5, "correlated_gaussian": 6}
+TARGET_FLOPS = {"standard_normal": 3, "neals_funnel": 5, "correlated_gaussian": 6,
+                "gaussian_mixture": 5}
+SCALED_FLOPS = 1         # 1b: the gradient times beta
+BRIDGED_FLOPS = 7        # 1c: z = (q - m) / S, z^2 and its sum, the mixed gradient
 LEAPFROG_FLOPS = 10
 SUBSTEP_FLOPS = 9        # GRAHMC: two friction scalings, two half kicks, the drift
 TRANSITION_FLOPS = 13    # GRAHMC: Box-Muller momentum, two kinetic energies, flip
@@ -1283,6 +1760,23 @@ def kernel_bounds(measured):
            "grahmc_multistep_kernel[dense]": bound(multi_io + metric_io,
                                                    MULTI_T * MULTI_CHAINS * dense_chain),
            "rwmh_multistep_kernel": bound(rwmh_io, rwmh_ops)}
+    # 1b and 1c at D = 10: kernel 1's reads and writes at their row counts
+    # (the rung table, scalars and base rows are a few hundred bytes)
+    mix = TARGET_FLOPS["gaussian_mixture"]
+    row10 = TEMP_DIM * 4
+
+    def step_rows(n):
+        return n * (2 * row10 + chain) + n * (3 * row10 + 3 * chain + 1)
+    n_temp = TEMP_K * TEMP_CHAINS
+    out["grahmc_scaled_kernel"] = bound(
+        step_rows(n_temp),
+        n_temp * TEMP_DIM * (TEMP_L * (SUBSTEP_FLOPS + mix + SCALED_FLOPS) + TRANSITION_FLOPS))
+    # the SMC moves run without friction: two scalings fewer per substep
+    bridged = SUBSTEP_FLOPS - 2 + mix + BRIDGED_FLOPS
+    out["grahmc_bridged_kernel"] = bound(
+        step_rows(MOVE_P), MOVE_P * TEMP_DIM * (MOVE_L * bridged + TRANSITION_FLOPS))
+    out["grahmc_bridged_kernel (SMC row)"] = bound(
+        step_rows(SMC_P), SMC_P * TEMP_DIM * (SMC_L * bridged + TRANSITION_FLOPS))
     for (multinomial, dense), family in (((False, False), "neals_funnel"),
                                          ((True, False), "neals_funnel"),
                                          ((False, True), "correlated_gaussian"),
@@ -1334,14 +1828,14 @@ def main():
     max_err = phase_parity(torch, ft, targets, dev)
     max_err.update(phase_parity_rwmh(torch, ft, fr, targets, dev))
     max_err.update(phase_parity_nuts(torch, ft, fn, tn, targets, dev))
+    max_err.update(phase_parity_variants(torch, ft, targets, samplers, dev))
     phase_philox_stats(torch, targets, samplers, dev)
     phase_stats_rwmh_nuts(torch, targets, samplers, dev)
     phase_multinomial_variance(torch, targets, samplers, dev)
 
     def counts():
         """Each kernel's and kernel variant's launch count."""
-        got = {f"{k.__name__}{GRAHMC_NAMES[v]}": n
-               for k in (ft.grahmc_step_kernel, ft.grahmc_multistep_kernel)
+        got = {f"{k.__name__}{GRAHMC_NAMES[v]}": n for k in ft.KERNELS
                for v, n in k.variant_launches.items()}
         got["rwmh_multistep_kernel"] = fr.rwmh_multistep_kernel.launches
         got.update({NUTS_NAMES[v]: n
@@ -1353,13 +1847,16 @@ def main():
         """Run one main path with every count set to 0 just before it; each
         kernel must launch exactly as often as `expected` says (0 for the
         kernels of the other paths). A kernel's reported launches are its
-        sum over the paths that run it."""
+        sum over the paths that run it. `expected` may be a function of the
+        path's result, for a path whose launches depend on its data."""
         ft.reset_launches()
         fr.rwmh_multistep_kernel.launches = 0
         fn.reset_launches()
         out = run()
         got = counts()
-        want = {name: expected.get(name, 0) for name in KERNELS}
+        if callable(expected):
+            expected = expected(out)
+        want = {name: expected.get(name, 0) for name in got}
         say(f"  launches on the {label}: {got} (expected {want})")
         require(got == want, f"{label}: launches {got}, expected {want}")
         for name in expected:
@@ -1397,6 +1894,18 @@ def main():
                        "grahmc_step_kernel": warmed,
                        "grahmc_multistep_kernel": MULTI_SAMPLES // MULTI_T})
     max_err.update(phase_parity_dense(torch, ft, targets, dense_row, dev))
+    tempered = drive("tempered row", lambda: phase_tempered_row(torch, targets, samplers, dev),
+                     {"grahmc_scaled_kernel": TEMP_DRAWS * (2 + TEMP_REPS + 1)})
+    cross = drive("crossing check", lambda: phase_crossing(torch, targets, samplers, dev),
+                  {"grahmc_scaled_kernel": CROSS_BURN + CROSS_DRAWS,
+                   "grahmc_multistep_kernel": (CROSS_BURN + CROSS_DRAWS) // MULTI_T})
+    drive("ladder tune", lambda: phase_ladder_tune(torch, targets, samplers, tuning, dev),
+          {"grahmc_scaled_kernel": LADDER_ROUNDS * LADDER_DRAWS})
+    smc = drive("SMC row", lambda: phase_smc_row(torch, targets, samplers, dev),
+                lambda out: {"grahmc_bridged_kernel": out["launches"]})
+    move_pair = drive("SMC move-dominated pair",
+                      lambda: phase_smc_move_pair(torch, targets, samplers, dev),
+                      {"grahmc_bridged_kernel": (1 + MOVE_REPS) * MOVE_RUNGS * (2 + 8)})
     require(all(n > 0 for n in launches.values()) and set(launches) == set(KERNELS),
             f"a kernel no main path launched: {launches}")
 
@@ -1405,6 +1914,7 @@ def main():
                                                   nuts["step"], dense["step"], dev)
     times.update(nuts_times)
     times.update(phase_timing_dense(torch, ft, targets, dense_row, dev))
+    times.update(phase_timing_variants(torch, ft, targets, samplers, dev))
     if "--multistep-switch" in sys.argv[1:]:
         phase_multistep_switch(torch, targets, samplers, dense_row, dev)
     bounds = kernel_bounds(measured)
@@ -1418,7 +1928,19 @@ def main():
         f"nuts_dense_ess_per_sec {dense['dense']['ess_rate']:.1f}, "
         f"grahmc_dense_chain_steps_per_sec {dense_row['rate']:.1f}, "
         f"grahmc_dense_ess_per_sec {dense_row['ess_rate']:.1f}, "
-        f"grahmc_dense_warmup_sec {dense_row['warmup_sec']:.4f}")
+        f"grahmc_dense_warmup_sec {dense_row['warmup_sec']:.4f}, "
+        f"tempered_replica_transitions_per_sec {tempered['rate']:.1f}, "
+        f"tempered_swap_accept {tempered['swaps']}, "
+        f"tempered_cold_accept {tempered['cold']:.4f}, "
+        f"tempered_crossing_right_fraction {cross['right']:.4f}, "
+        f"smc_particle_leapfrogs_per_sec {smc['rate']:.1f}, smc_log_z {smc['log_z']:+.5f}, "
+        f"smc_stages {smc['stages']}, smc_mode_fraction {smc['mode']:.4f}, "
+        f"smc_move_dominated_leapfrogs_per_sec {move_pair['rate']:.1f}, smc_move_pair_ms "
+        f"{{'moves2': {move_pair['walls'][2] * 1e3:.3f}, "
+        f"'moves8': {move_pair['walls'][8] * 1e3:.3f}}}")
+    say(f"  bound of 1c at the SMC row's shape: "
+        f"{bounds['grahmc_bridged_kernel (SMC row)'][0]:.5f} ms, "
+        f"{bounds['grahmc_bridged_kernel (SMC row)'][1]}")
     say(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
          "replaces": KERNELS[name][1], "launches": launches[name],

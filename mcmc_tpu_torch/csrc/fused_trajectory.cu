@@ -16,9 +16,12 @@
 //   M^{-1} = L L^T, and every velocity and kinetic energy is a D x D product
 //   (metric.cuh).
 //   targets.cuh             <- mcmc_tpu/ops/padded_targets.py:_standard_normal,
-//                              _neals_funnel, _correlated (inlined).
-// Both kernels share one __device__ transition. Plain PyTorch versions of
-// everything here live in mcmc_tpu_torch/ops/fused_trajectory.py.
+//                              _neals_funnel, _correlated, _gaussian_mixture
+//                              (inlined).
+// Both kernels share one __device__ transition (trajectory.cuh) with the
+// scaled and bridged variants of kernel 1 (fused_trajectory_scaled.cu,
+// fused_trajectory_bridged.cu). Plain PyTorch versions of everything here
+// live in mcmc_tpu_torch/ops/fused_trajectory.py.
 //
 // What bounds them on an H100: per transition a kernel reads and writes the
 // chain state once -- q and grad in; q, grad and the proposal out -- about
@@ -65,139 +68,9 @@
 #include <cstring>
 #include <cuda_runtime.h>
 
-#include "chain_rows.cuh"
-#include "metric.cuh"
-#include "philox.cuh"
-#include "targets.cuh"
+#include "trajectory.cuh"
 
 namespace mcmc {
-
-constexpr int WARPS_PER_BLOCK = 8;
-constexpr int MAX_K = 4;  // registers per lane: dim <= 128
-constexpr float ENERGY_OVERFLOW = 1e10f;
-constexpr float PI_F = 3.141592653589793f;
-
-// Must match SCHEDULE_IDS in mcmc_tpu_torch/ops/fused_trajectory.py.
-enum Schedule { NO_FRICTION = 0, CONSTANT = 1, TANH = 2, SIGMOID = 3, LINEAR = 4, SINE = 5 };
-
-struct Scalars {
-  float eps, gamma, steep;
-};
-
-// gamma(t) of mcmc_tpu_torch/samplers/grahmc.py, same operation order.
-__device__ __forceinline__ float friction(int schedule, float t, float T, float g, float s) {
-  switch (schedule) {
-    case CONSTANT:
-      return t < T / 2.f ? -g : (t > T / 2.f ? g : 0.f);
-    case TANH:
-      return g * tanhf(s * (2.f * t / T - 1.f));
-    case SIGMOID: {
-      const float z = s * (t / T - 0.5f);
-      return g * (2.f / (1.f + expf(-z)) - 1.f);
-    }
-    case LINEAR:
-      return g * (2.f * t / T - 1.f);
-    case SINE:
-      return g * sinf(PI_F * (t / T - 0.5f));
-    default:
-      return 0.f;
-  }
-}
-
-// One MH transition of the chain this warp holds, from momentum p0. On entry
-// (q, g, lp) is the current state; on exit the selected state. (q1, lp1) is
-// the proposal and dh = H1 - H0. Returns the accept decision (uniform across
-// the warp).
-template <int FAMILY, int K, typename M>
-__device__ __forceinline__ bool transition(const Target<FAMILY, K>& target, const M& metric,
-                                           const Scalars& sc,
-                                           int num_steps, int schedule, int lane,
-                                           const float (&p0)[K], float u, float (&q)[K],
-                                           float (&g)[K], float& lp, float (&q1)[K],
-                                           float& lp1, float& dh) {
-  float p[K], g1[K], v[K];
-#pragma unroll
-  for (int r = 0; r < K; ++r) {
-    q1[r] = q[r];
-    g1[r] = g[r];
-    p[r] = p0[r];
-  }
-  const float h0 = -lp + metric.kinetic(p);
-
-  const float half = 0.5f * sc.eps;
-  const float total = sc.eps * static_cast<float>(num_steps);
-  lp1 = lp;
-  for (int i = 0; i < num_steps; ++i) {
-    float scale = 1.f;
-    if (schedule != NO_FRICTION) {
-      // midpoint grid t = (i + 1/2) eps
-      const float gt = friction(schedule, (static_cast<float>(i) + 0.5f) * sc.eps, total,
-                                sc.gamma, sc.steep);
-      scale = expf(-gt * half);
-#pragma unroll
-      for (int r = 0; r < K; ++r) p[r] *= scale;
-    }
-#pragma unroll
-    for (int r = 0; r < K; ++r) p[r] = add_scaled<M::DENSE>(p[r], half, g1[r]);
-    metric.velocity(p, v);
-#pragma unroll
-    for (int r = 0; r < K; ++r) q1[r] = add_scaled<M::DENSE>(q1[r], sc.eps, v[r]);
-    lp1 = target(q1, g1, lane);
-#pragma unroll
-    for (int r = 0; r < K; ++r) {
-      p[r] = add_scaled<M::DENSE>(p[r], half, g1[r]);
-      if (schedule != NO_FRICTION) p[r] *= scale;
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < K; ++r) p[r] = -p[r];
-  float h1 = -lp1 + metric.kinetic(p);
-  if (!isfinite(h1)) h1 = ENERGY_OVERFLOW;
-  dh = h1 - h0;
-  const float log_alpha = h0 - h1;
-  const float log_u = logf(u);
-  // log u < min(0, log_alpha); a NaN log_alpha rejects, as in PyTorch
-  const bool accept = (log_u < 0.f) && (log_u < log_alpha);
-  if (accept) {
-#pragma unroll
-    for (int r = 0; r < K; ++r) {
-      q[r] = q1[r];
-      g[r] = g1[r];
-    }
-    lp = lp1;
-  }
-  return accept;
-}
-
-// The momentum and accept uniform of transition t: injected, or the Philox
-// normals unwhitened by the metric.
-template <int K, typename M>
-__device__ __forceinline__ void randoms(const float* p0_in, const float* u_in, size_t trow,
-                                        size_t slot, const M& metric, int lane,
-                                        int dim, uint32_t chain, uint32_t call, uint32_t t,
-                                        const uint32_t* key, float (&p0)[K], float& u) {
-  if (p0_in != nullptr) {
-    load_row(p0_in, trow, lane, dim, p0);
-    u = u_in[slot];
-  } else {
-    philox_normal_row(p0, lane, dim, chain, call, t, key[0], key[1]);
-    metric.unwhiten(p0);
-    u = philox_accept_uniform(chain, call, t, key[0], key[1]);
-  }
-}
-
-struct StepArgs {
-  int dim, n_chains, num_steps, schedule;
-  TargetParams params;
-  const float* scalars;
-  const uint32_t* key;
-  uint32_t call;
-  const float *q, *lp, *grad, *inv_mass, *l_inv, *p0, *u;
-  float *q_out, *lp_out, *grad_out;
-  bool* acc_out;
-  float *dh_out, *prop_q, *prop_lp;
-};
 
 struct MultiArgs {
   int dim, n_chains, num_steps, schedule, transitions;
@@ -222,28 +95,7 @@ __global__ void __launch_bounds__(WARPS_PER_BLOCK * 32) grahmc_step_kernel(const
   if (chain >= a.n_chains) return;  // uniform across the warp
 
   const Scalars sc{a.scalars[0], a.scalars[1], a.scalars[2]};
-  const Target<FAMILY, K> target(a.dim, a.params);
-  const size_t row = static_cast<size_t>(chain) * a.dim;
-  float q[K], g[K], p0[K];
-  load_row(a.q, row, lane, a.dim, q);
-  load_row(a.grad, row, lane, a.dim, g);
-  float lp = a.lp[chain];
-  float u;
-  randoms(a.p0, a.u, row, chain, metric, lane, a.dim, chain, a.call, 0u, a.key, p0, u);
-
-  float q1[K], lp1, dh;
-  const bool accept = transition(target, metric, sc, a.num_steps, a.schedule, lane, p0, u, q,
-                                 g, lp, q1, lp1, dh);
-
-  store_row(a.q_out, row, lane, a.dim, q);
-  store_row(a.grad_out, row, lane, a.dim, g);
-  store_row(a.prop_q, row, lane, a.dim, q1);
-  if (lane == 0) {
-    a.lp_out[chain] = lp;
-    a.acc_out[chain] = accept;
-    a.dh_out[chain] = dh;
-    a.prop_lp[chain] = lp1;
-  }
+  step_chain<K>(a, Target<FAMILY, K>(a.dim, a.params), metric, sc, chain, lane);
 }
 
 template <int FAMILY, int K, bool DENSE>
@@ -286,24 +138,6 @@ __global__ void __launch_bounds__(WARPS_PER_BLOCK * 32)
   if (lane == 0) a.lp_out[chain] = lp;
 }
 
-inline dim3 grid_for(int n_chains) {
-  return dim3(static_cast<unsigned>((n_chains + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK));
-}
-
-// Launch `kernel` with the metric's shared memory; above 48 kB (dense,
-// D > 76) only after opting in.
-template <int K, bool DENSE, typename Args>
-cudaError_t launch(void (*kernel)(const Args), const Args& a, cudaStream_t stream) {
-  const size_t smem = metric_smem_bytes<K, DENSE>(a.dim, WARPS_PER_BLOCK);
-  if constexpr (DENSE) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  kernel<<<grid_for(a.n_chains), WARPS_PER_BLOCK * 32, smem, stream>>>(a);
-  return cudaGetLastError();
-}
-
 template <int FAMILY, int K, bool DENSE>
 struct StepLaunch {
   static cudaError_t run(const StepArgs& a, cudaStream_t stream) {
@@ -317,37 +151,6 @@ struct MultiLaunch {
     return launch<K, DENSE>(grahmc_multistep_kernel<FAMILY, K, DENSE>, a, stream);
   }
 };
-
-template <template <int, int, bool> class Launch, int FAMILY, bool DENSE, typename Args>
-cudaError_t dispatch_k(const Args& a, cudaStream_t stream) {
-  switch ((a.dim + 31) / 32) {
-    case 1: return Launch<FAMILY, 1, DENSE>::run(a, stream);
-    case 2: return Launch<FAMILY, 2, DENSE>::run(a, stream);
-    case 3: return Launch<FAMILY, 3, DENSE>::run(a, stream);
-    case 4: return Launch<FAMILY, 4, DENSE>::run(a, stream);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-template <template <int, int, bool> class Launch, int FAMILY, typename Args>
-cudaError_t dispatch_metric(bool dense, const Args& a, cudaStream_t stream) {
-  return dense ? dispatch_k<Launch, FAMILY, true>(a, stream)
-               : dispatch_k<Launch, FAMILY, false>(a, stream);
-}
-
-template <template <int, int, bool> class Launch, typename Args>
-cudaError_t dispatch(int family, bool dense, const Args& a, cudaStream_t stream) {
-  if (a.dim < 1 || a.dim > 32 * MAX_K || a.n_chains < 1 || a.num_steps < 0) {
-    return cudaErrorInvalidValue;
-  }
-  switch (family) {
-    case STANDARD_NORMAL: return dispatch_metric<Launch, STANDARD_NORMAL>(dense, a, stream);
-    case NEALS_FUNNEL: return dispatch_metric<Launch, NEALS_FUNNEL>(dense, a, stream);
-    case CORRELATED_GAUSSIAN:
-      return dispatch_metric<Launch, CORRELATED_GAUSSIAN>(dense, a, stream);
-    default: return cudaErrorInvalidValue;
-  }
-}
 
 }  // namespace mcmc
 

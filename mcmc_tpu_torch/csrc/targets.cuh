@@ -1,7 +1,7 @@
 // Target device functions inlined into the fused kernels.
 //
-// Replace mcmc_tpu/ops/padded_targets.py:_standard_normal, _neals_funnel and
-// _correlated.
+// Replace mcmc_tpu/ops/padded_targets.py:_standard_normal, _neals_funnel,
+// _correlated and _gaussian_mixture.
 // A group of G lanes (G a power of two, 32 = a whole warp) holds one chain:
 // each lane owns K coordinates (zeros past dim), and coordinate 0 is register
 // 0 of the group's lane 0. The GRAHMC and NUTS kernels use G = 32 with lane j
@@ -17,7 +17,12 @@
 namespace mcmc {
 
 // Must match FAMILY_IDS in mcmc_tpu_torch/ops/padded_targets.py.
-enum Family { STANDARD_NORMAL = 0, NEALS_FUNNEL = 1, CORRELATED_GAUSSIAN = 2 };
+enum Family {
+  STANDARD_NORMAL = 0,
+  NEALS_FUNNEL = 1,
+  CORRELATED_GAUSSIAN = 2,
+  GAUSSIAN_MIXTURE = 3
+};
 
 // A family's float parameters, computed on the host in double and rounded
 // once (mcmc_tpu_torch/ops/padded_targets.py:device_params); zeros for the
@@ -29,6 +34,8 @@ struct TargetParams {
 constexpr unsigned FULL_MASK = 0xffffffffu;
 constexpr double LOG_2PI = 1.8378770664093453;         // log(2 pi)
 constexpr double LOG_2PI_9 = 4.0351016437455645;       // log(2 pi * 9)
+constexpr double LOG_HALF = -0.6931471805599453;       // log(1/2)
+constexpr double HALF_LOG_2PI = 0.9189385332046727;    // log(2 pi) / 2
 
 // Sum over each aligned group of G lanes; every lane gets its group's
 // total. All 32 lanes of the warp must take part.
@@ -130,6 +137,42 @@ struct Target<CORRELATED_GAUSSIAN, K, G> {
       g[r] = -siv;
     }
     return -0.5f * (group_sum<G>(m) + c);
+  }
+};
+
+// Two-mode mixture: x0 ~ (N(-h, 1) + N(h, 1)) / 2 with h = sep / 2, the
+// other coordinates N(0, 1). x0 is coordinate 0, broadcast from the group's
+// lane 0 with one shuffle as the funnel's neck is; two expf, one logf and one
+// group sum of the other coordinates' squares. Params: h.
+template <int K, int G>
+struct Target<GAUSSIAN_MIXTURE, K, G> {
+  float half_sep, c_rest;
+  __device__ explicit Target(int dim, const TargetParams& p)
+      : half_sep(p.v[0]), c_rest(static_cast<float>((dim - 1) * LOG_2PI)) {}
+
+  __device__ __forceinline__ float operator()(const float (&q)[K], float (&g)[K],
+                                              int lane) const {
+    const float x0 = __shfl_sync(FULL_MASK, q[0], 0, G);
+    const float a = x0 + half_sep;
+    const float b = x0 - half_sep;
+    const float m1 = -0.5f * (a * a);
+    const float m2 = -0.5f * (b * b);
+    const float mx = fmaxf(m1, m2);
+    const float e1 = expf(m1 - mx);
+    const float e2 = expf(m2 - mx);
+    const float lse = e1 + e2;
+    const float log_p_x0 =
+        static_cast<float>(LOG_HALF) + mx + logf(lse) - static_cast<float>(HALF_LOG_2PI);
+    float s = 0.f;
+#pragma unroll
+    for (int r = 0; r < K; ++r) {
+      const float v = (r == 0 && lane == 0) ? 0.f : q[r];
+      s += v * v;
+      g[r] = -q[r];
+    }
+    const float sum_sq = group_sum<G>(s);
+    if (lane == 0) g[0] = -(a * e1 + b * e2) / lse;
+    return log_p_x0 - 0.5f * (sum_sq + c_rest);
   }
 };
 

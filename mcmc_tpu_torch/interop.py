@@ -32,6 +32,8 @@ def target_from_tag(info: dict) -> TargetDistribution:
     kwargs = {}
     if info["family"] == "correlated_gaussian" and "a" in params:
         kwargs["correlation"] = 1.0 - 1.0 / params["a"]    # a = 1 / (1 - rho)
+    if info["family"] == "gaussian_mixture" and "separation" in params:
+        kwargs["separation"] = params["separation"]
     target = get_target(info["family"], dim=int(info["dim"]), **kwargs)
     ours = target.value_and_grad_fn.kernel_info["params"]
     if set(params) != set(ours) or not all(

@@ -35,6 +35,14 @@ _SIGNATURES = {
     "grahmc_step_launch": [_I] * 6 + [_P, _P, _P, _U] + [_P] * 7 + [_P] * 7 + [_P],
     "grahmc_multistep_launch": [_I] * 7 + [_P, _P, _P, _U] + [_P] * 7 + [_P] * 7
                                + [_P],
+    # (family, dim, n_chains, rung_chains, num_steps, schedule, dense), host
+    # target params, rung table, key, call, the seven inputs and outputs of
+    # grahmc_step_launch, stream
+    "grahmc_scaled_launch": [_I] * 7 + [_P, _P, _P, _U] + [_P] * 7 + [_P] * 7 + [_P],
+    # (family, dim, n_chains, num_steps, schedule, dense), host target
+    # params, scalars, base mean and 1/scale rows, key, call, seven inputs,
+    # seven outputs, stream
+    "grahmc_bridged_launch": [_I] * 6 + [_P] * 5 + [_U] + [_P] * 7 + [_P] * 7 + [_P],
     # (family, dim, n_chains, transitions, n_hist), scale, key, call, q, lp,
     # noise, u, five outputs, stream
     "rwmh_multistep_launch": [_I] * 5 + [_P, _P, _U] + [_P] * 4 + [_P] * 5

@@ -2,7 +2,9 @@
 
 Port of ``mcmc_tpu/ops/fused_trajectory.py``. Two kernels, both in
 ``mcmc_tpu_torch/csrc/fused_trajectory.cu``, each with a diagonal and a
-dense variant (the TPU kernels' ``dense`` flag: variants 1a and 2a):
+dense variant (the TPU kernels' ``dense`` flag: variants 1a and 2a), and two
+variants of the first with another potential (the TPU kernel's ``scaled``
+and ``bridged`` flags), each diagonal or dense too:
 
 - ``grahmc_step_kernel`` — one MH transition per chain (the TPU
   ``_make_kernel``): momentum draw, L conformal-leapfrog substeps with the
@@ -12,6 +14,15 @@ dense variant (the TPU kernels' ``dense`` flag: variants 1a and 2a):
 - ``grahmc_multistep_kernel`` — T such transitions per call with the state
   kept in registers (the TPU ``_make_multistep_kernel``); writes each
   transition's accept, delta H and post-transition q and lp.
+- ``grahmc_scaled_kernel`` (1b, ``csrc/fused_trajectory_scaled.cu``) — one
+  transition of every row of a tempering ladder's replica-major (K C, D)
+  batch in one launch, rung k = row // C sampling pi^beta_k with its own
+  step: a (K, 4) rung table (eps_k, gamma, steepness, beta_k), each row the
+  TPU scaled kernel's scalars (``rung_table``).
+- ``grahmc_bridged_kernel`` (1c, ``csrc/fused_trajectory_bridged.cu``) — one
+  transition on annealed SMC's bridge beta logp + (1 - beta) log N(m, S^2 I):
+  scalars (eps, gamma, steepness, beta, base_log_norm) (``bridge_scalars``)
+  and the base's (D,) mean and 1/S rows (``bridge_base``).
 
 The metric is inv_mass's: (D,) diagonal, or (D, D) dense with its
 unwhitening factor l_inv = L^{-1} (M^{-1} = L L^T), the momentum then being
@@ -22,8 +33,9 @@ kernels' order (``trajectory.ordered_matmul``).
 
 Each wrapper takes its plain PyTorch version ONLY for tensors on the CPU;
 for CUDA tensors it launches the kernel or raises. There is no fallback. Each
-counts its launches in plain int attributes, ``.launches`` (both variants)
-and ``.variant_launches[name]`` (VARIANTS); ``reset_launches`` zeroes them.
+counts its launches in plain int attributes, ``.launches`` (both metric
+variants) and ``.variant_launches[name]`` (VARIANTS); ``reset_launches``
+zeroes them.
 
 Randomness: either injected (``p0`` and ``u``, the parity mode the tests use)
 or drawn in the kernel from Philox4x32-10. The Philox key is two 32-bit words
@@ -51,6 +63,7 @@ from mcmc_tpu_torch.samplers.grahmc import DIVERGENCE_DELTA_H, FRICTION_SCHEDULE
 from mcmc_tpu_torch.samplers.trajectory import (as_scalar, dense_unwhitening,
                                                 integrate_trajectory,
                                                 kinetic_energy, ordered_matmul)
+from mcmc_tpu_torch.targets import LOG_2PI
 
 Tensor = torch.Tensor
 
@@ -178,6 +191,46 @@ def kernel_scalars(step_size, gamma, steepness, device) -> Tensor:
                         for x in (step_size, gamma, steepness)])
 
 
+def rung_table(step_sizes, gamma, steepness, betas, device) -> Tensor:
+    """Kernel 1b's (K, 4) float32 table, row k = (eps_k, gamma, steepness,
+    beta_k): the TPU scaled kernel's scalars for rung k. step_sizes and
+    betas are (K,) tensors (or numbers, K = 1); gamma and steepness are
+    shared by the rungs."""
+    cols = [x.to(device=device, dtype=torch.float32).reshape(-1)
+            if isinstance(x, torch.Tensor) else as_scalar(x, torch.float32, device)[None]
+            for x in (step_sizes, gamma, steepness, betas)]
+    n_rungs = max(c.numel() for c in cols)
+    return torch.stack([c.expand(n_rungs) for c in cols], dim=1).contiguous()
+
+
+class BridgeBase(NamedTuple):
+    """The spherical-Gaussian base N(m, S^2 I) of kernel 1c's bridge."""
+    mean: Tensor        # (D,) float32 m
+    inv_scale: Tensor   # (D,) float32 1/S, computed in double
+    log_norm: float     # -sum log S - D/2 log 2pi, in double
+
+
+def bridge_base(base_mean, base_scale, dim: int, device) -> BridgeBase:
+    """The base from a mean (None = 0) and scale, numbers or (D,)-broadcastable
+    arrays or tensors, computed in double on the host and rounded once, as
+    device_params does; once per run."""
+    def host(x):
+        return torch.as_tensor(x, dtype=torch.float64).cpu().broadcast_to((dim,))
+    scale = host(base_scale)
+    if bool((scale <= 0.0).any()):
+        raise ValueError("base scale must be strictly positive")
+    mean = torch.zeros(dim, dtype=torch.float64) if base_mean is None else host(base_mean)
+    log_norm = float(-torch.sum(torch.log(scale)) - 0.5 * dim * LOG_2PI)
+    return BridgeBase(_f32(mean).to(device), _f32(1.0 / scale).to(device), log_norm)
+
+
+def bridge_scalars(step_size, gamma, steepness, beta, log_norm: float, device) -> Tensor:
+    """Kernel 1c's (5,) float32 scalars (eps, gamma, steepness, beta,
+    base_log_norm); a tensor step size or beta stays on the device."""
+    return torch.stack([as_scalar(x, torch.float32, device)
+                        for x in (step_size, gamma, steepness, beta, log_norm)])
+
+
 # ============================================================================
 # Dense metric, factored once
 # ============================================================================
@@ -290,12 +343,61 @@ def grahmc_multistep_plain(info: dict, num_steps: int, schedule: int,
             torch.stack(hist_q), torch.stack(hist_lp))
 
 
+def scaled_vag(vag: Callable, beta: Tensor) -> Callable:
+    """lp and grad of `vag` times beta, per row (1b's potential)."""
+    def scaled(q):
+        lp, grad = vag(q)
+        return beta * lp, beta[:, None] * grad
+    return scaled
+
+
+def bridged_vag(vag: Callable, beta: Tensor, log_norm: Tensor, mean: Tensor,
+                inv_scale: Tensor) -> Callable:
+    """beta * vag + (1 - beta) * log N(mean, diag(inv_scale^-2)) (1c's
+    potential), in the TPU kernel's order."""
+    def mixture(q):
+        lt, gt = vag(q)
+        z = (q - mean) * inv_scale
+        lb = -0.5 * torch.sum(z * z, dim=1) + log_norm
+        return beta * lt + (1.0 - beta) * lb, beta * gt - (1.0 - beta) * (z * inv_scale)
+    return mixture
+
+
+def grahmc_scaled_plain(info: dict, num_steps: int, schedule: int, q: Tensor,
+                        lp: Tensor, grad: Tensor, rungs: Tensor, inv_mass: Tensor,
+                        key: Optional[Tensor] = None, call: int = 0,
+                        p0: Optional[Tensor] = None, u: Optional[Tensor] = None,
+                        l_inv: Optional[Tensor] = None):
+    """Plain PyTorch version of grahmc_scaled_kernel, on any device (same
+    arguments and results): each row's rung scalars as (N, 1) rows."""
+    n_chains, dim = q.shape
+    rows = rungs.repeat_interleave(n_chains // rungs.shape[0], dim=0)
+    p0, u = _randoms(key, call, 0, p0, u, inv_mass, l_inv, n_chains, dim, q.device)
+    return _transition(scaled_vag(device_vag(info), rows[:, 3]), q, lp, grad, p0, u,
+                       (rows[:, 0:1], rows[:, 1:2], rows[:, 2:3]), inv_mass, num_steps,
+                       schedule)
+
+
+def grahmc_bridged_plain(info: dict, num_steps: int, schedule: int, q: Tensor,
+                         lp: Tensor, grad: Tensor, scalars: Tensor, base_mean: Tensor,
+                         base_inv_scale: Tensor, inv_mass: Tensor,
+                         key: Optional[Tensor] = None, call: int = 0,
+                         p0: Optional[Tensor] = None, u: Optional[Tensor] = None,
+                         l_inv: Optional[Tensor] = None):
+    """Plain PyTorch version of grahmc_bridged_kernel, on any device (same
+    arguments and results)."""
+    n_chains, dim = q.shape
+    vag = bridged_vag(device_vag(info), scalars[3], scalars[4], base_mean, base_inv_scale)
+    p0, u = _randoms(key, call, 0, p0, u, inv_mass, l_inv, n_chains, dim, q.device)
+    return _transition(vag, q, lp, grad, p0, u, scalars, inv_mass, num_steps, schedule)
+
+
 # ============================================================================
 # Kernel wrappers
 # ============================================================================
 
 def _check_inputs(info, q, lp, grad, scalars, inv_mass, key, p0, u, l_inv,
-                  transitions=None):
+                  transitions=None, scalars_shape=(3,), extra=()):
     n_chains, dim = q.shape
     if dim != info["dim"]:
         raise ValueError(f"positions have dim {dim}, target has {info['dim']}")
@@ -312,8 +414,9 @@ def _check_inputs(info, q, lp, grad, scalars, inv_mass, key, p0, u, l_inv,
         raise ValueError("a dense (D, D) inv_mass needs its l_inv, a diagonal one none")
     lead = () if transitions is None else (transitions,)
     expected = {"q": (q, (n_chains, dim)), "lp": (lp, (n_chains,)),
-                "grad": (grad, (n_chains, dim)), "scalars": (scalars, (3,)),
+                "grad": (grad, (n_chains, dim)), "scalars": (scalars, scalars_shape),
                 "inv_mass": (inv_mass, (dim, dim) if dense else (dim,))}
+    expected.update({name: (t, (dim,)) for name, t in extra})
     if dense:
         expected["l_inv"] = (l_inv, (dim, dim))
     if p0 is not None:
@@ -361,6 +464,15 @@ def _raise_on_error(code: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed with CUDA error {code}")
 
 
+def _step_outputs(q: Tensor, lp: Tensor):
+    """Kernel 1's and its variants' seven output tensors (q, lp, grad,
+    accept, delta_h, proposal q, proposal lp) and their pointers."""
+    out = (torch.empty_like(q), torch.empty_like(lp), torch.empty_like(q),
+           torch.empty(q.shape[0], dtype=torch.bool, device=q.device),
+           torch.empty_like(lp), torch.empty_like(q), torch.empty_like(lp))
+    return out, [t.data_ptr() for t in out]
+
+
 def _count(kernel, inv_mass: Tensor) -> None:
     kernel.launches += 1
     kernel.variant_launches[VARIANTS[inv_mass.ndim == 2]] += 1
@@ -395,21 +507,16 @@ def grahmc_step_kernel(info: dict, num_steps: int, schedule: int, q: Tensor,
     n_chains, dim = q.shape
     from mcmc_tpu_torch.ops import _cuda
     lib = _cuda.load_library().lib
-    q_out, grad_out, prop_q = (torch.empty_like(q) for _ in range(3))
-    lp_out, dh, prop_lp = (torch.empty_like(lp) for _ in range(3))
-    acc = torch.empty(n_chains, dtype=torch.bool, device=q.device)
+    out, ptrs = _step_outputs(q, lp)
     dense, params, invm_ptr, l_inv_ptr = _metric_args(info, inv_mass, l_inv)
     code = lib.grahmc_step_launch(
         FAMILY_IDS[info["family"]], dim, n_chains, num_steps, schedule, dense,
         params, scalars.data_ptr(), _ptr(key), call & _U32,
         q.data_ptr(), lp.data_ptr(), grad.data_ptr(), invm_ptr, l_inv_ptr,
-        _ptr(p0), _ptr(u),
-        q_out.data_ptr(), lp_out.data_ptr(), grad_out.data_ptr(),
-        acc.data_ptr(), dh.data_ptr(), prop_q.data_ptr(), prop_lp.data_ptr(),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        _ptr(p0), _ptr(u), *ptrs, torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on_error(code, "grahmc_step_kernel")
     _count(grahmc_step_kernel, inv_mass)
-    return q_out, lp_out, grad_out, acc, dh, prop_q, prop_lp
+    return out
 
 
 def grahmc_multistep_kernel(info: dict, num_steps: int, schedule: int,
@@ -458,9 +565,87 @@ def grahmc_multistep_kernel(info: dict, num_steps: int, schedule: int,
     return q_out, lp_out, grad_out, acc, dh, hist_q, hist_lp
 
 
+def grahmc_scaled_kernel(info: dict, num_steps: int, schedule: int, q: Tensor,
+                         lp: Tensor, grad: Tensor, rungs: Tensor, inv_mass: Tensor,
+                         key: Optional[Tensor] = None, call: int = 0,
+                         p0: Optional[Tensor] = None, u: Optional[Tensor] = None,
+                         l_inv: Optional[Tensor] = None):
+    """One fused transition of every row of a replica-major (K C, D) batch
+    (kernel 1b): row r belongs to rung k = r // C and samples pi^beta_k.
+
+    rungs (K, 4) = (eps_k, gamma, steepness, beta_k) per rung (rung_table);
+    q, grad (K C, D) and lp (K C,) hold the tempered state (beta_k lp,
+    beta_k grad); the rest as grahmc_step_kernel's. Returns the same seven
+    tensors, tempered."""
+    n_chains = q.shape[0]
+    n_rungs = rungs.shape[0] if rungs.ndim == 2 else 0
+    if n_rungs < 1 or n_chains % n_rungs:
+        raise ValueError(f"rungs must be a (K, 4) table with K dividing the {n_chains} "
+                         f"rows, got {tuple(rungs.shape)}")
+    _check_inputs(info, q, lp, grad, rungs, inv_mass, key, p0, u, l_inv,
+                  scalars_shape=(n_rungs, 4))
+    if q.device.type == "cpu":
+        return grahmc_scaled_plain(info, num_steps, schedule, q, lp, grad, rungs, inv_mass,
+                                   key, call, p0, u, l_inv)
+    _kernel_device(q)
+    from mcmc_tpu_torch.ops import _cuda
+    lib = _cuda.load_library().lib
+    out, ptrs = _step_outputs(q, lp)
+    dense, params, invm_ptr, l_inv_ptr = _metric_args(info, inv_mass, l_inv)
+    code = lib.grahmc_scaled_launch(
+        FAMILY_IDS[info["family"]], q.shape[1], n_chains, n_chains // n_rungs, num_steps,
+        schedule, dense, params, rungs.data_ptr(), _ptr(key), call & _U32,
+        q.data_ptr(), lp.data_ptr(), grad.data_ptr(), invm_ptr, l_inv_ptr, _ptr(p0),
+        _ptr(u), *ptrs, torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on_error(code, "grahmc_scaled_kernel")
+    _count(grahmc_scaled_kernel, inv_mass)
+    return out
+
+
+def grahmc_bridged_kernel(info: dict, num_steps: int, schedule: int, q: Tensor,
+                          lp: Tensor, grad: Tensor, scalars: Tensor, base_mean: Tensor,
+                          base_inv_scale: Tensor, inv_mass: Tensor,
+                          key: Optional[Tensor] = None, call: int = 0,
+                          p0: Optional[Tensor] = None, u: Optional[Tensor] = None,
+                          l_inv: Optional[Tensor] = None):
+    """One fused transition of every chain on the SMC bridge beta logp +
+    (1 - beta) log N(m, S^2 I) (kernel 1c).
+
+    scalars (5,) = (eps, gamma, steepness, beta, base_log_norm)
+    (bridge_scalars), base_mean and base_inv_scale the (D,) rows m and 1/S
+    (bridge_base); lp and grad the bridge's at q; the rest as
+    grahmc_step_kernel's. Returns the same seven tensors."""
+    _check_inputs(info, q, lp, grad, scalars, inv_mass, key, p0, u, l_inv,
+                  scalars_shape=(5,),
+                  extra=(("base_mean", base_mean), ("base_inv_scale", base_inv_scale)))
+    if q.device.type == "cpu":
+        return grahmc_bridged_plain(info, num_steps, schedule, q, lp, grad, scalars,
+                                    base_mean, base_inv_scale, inv_mass, key, call, p0,
+                                    u, l_inv)
+    _kernel_device(q)
+    from mcmc_tpu_torch.ops import _cuda
+    lib = _cuda.load_library().lib
+    out, ptrs = _step_outputs(q, lp)
+    dense, params, invm_ptr, l_inv_ptr = _metric_args(info, inv_mass, l_inv)
+    code = lib.grahmc_bridged_launch(
+        FAMILY_IDS[info["family"]], q.shape[1], q.shape[0], num_steps, schedule, dense,
+        params, scalars.data_ptr(), base_mean.data_ptr(), base_inv_scale.data_ptr(),
+        _ptr(key), call & _U32, q.data_ptr(), lp.data_ptr(), grad.data_ptr(), invm_ptr,
+        l_inv_ptr, _ptr(p0), _ptr(u), *ptrs,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on_error(code, "grahmc_bridged_kernel")
+    _count(grahmc_bridged_kernel, inv_mass)
+    return out
+
+
+KERNELS = (grahmc_step_kernel, grahmc_multistep_kernel, grahmc_scaled_kernel,
+           grahmc_bridged_kernel)
+
+
 def reset_launches() -> None:
-    """Set kernels 1 and 2's launch counts, total and per variant, to 0."""
-    for kernel in (grahmc_step_kernel, grahmc_multistep_kernel):
+    """Set the launch counts of kernels 1, 2, 1b and 1c, total and per
+    metric variant, to 0."""
+    for kernel in KERNELS:
         kernel.launches = 0
         kernel.variant_launches = dict.fromkeys(VARIANTS.values(), 0)
 
@@ -526,25 +711,71 @@ def _advance(state, q1, lp1, g1, n_accept, n_divergent):
     )
 
 
+def _variant_step(info, num_steps, sched, q, lp, grad, step_size, gamma, steepness,
+                  inv_mass, l_inv, lp_scale=None, bridge=None, scalars=None, **rand):
+    """One transition of float32 tensors through kernel 1, 1b (lp_scale: a
+    number or a (K,) row of betas, one per rung of C = N / K rows, the step
+    size then a number or a (K,) row too) or 1c (bridge = (beta,
+    BridgeBase)). `scalars` is kernel 1's (3,) tensor when already built."""
+    if lp_scale is not None and bridge is not None:
+        raise ValueError("lp_scale and bridge are mutually exclusive")
+    dev = q.device
+    if lp_scale is not None:
+        rungs = rung_table(step_size, gamma, steepness, lp_scale, dev)
+        return grahmc_scaled_kernel(info, num_steps, sched, q, lp, grad, rungs, inv_mass,
+                                    l_inv=l_inv, **rand)
+    if bridge is not None:
+        beta, base = bridge
+        return grahmc_bridged_kernel(
+            info, num_steps, sched, q, lp, grad,
+            bridge_scalars(step_size, gamma, steepness, beta, base.log_norm, dev),
+            base.mean, base.inv_scale, inv_mass, l_inv=l_inv, **rand)
+    if scalars is None:
+        scalars = kernel_scalars(step_size, gamma, steepness, dev)
+    return grahmc_step_kernel(info, num_steps, sched, q, lp, grad, scalars, inv_mass,
+                              l_inv=l_inv, **rand)
+
+
+def _bridge(bridge, dim: int, device):
+    """(beta, BridgeBase) from (beta, BridgeBase) or (beta, mean, scale)."""
+    if bridge is None or len(bridge) == 2:
+        return bridge
+    beta, base_mean, base_scale = bridge
+    return beta, bridge_base(base_mean, base_scale, dim, device)
+
+
 def make_fused_grahmc_step(value_and_grad_fn, num_steps: int,
                            friction_schedule: Optional[Callable]):
-    """Build fused(stream, state, step_size, gamma, steepness, inv_mass)
-    -> (new_state, (accept, proposal_q, proposal_lp, delta_h)), the
-    grahmc_step contract on kernel 1 (1a for a dense metric: a raw (D, D)
-    one or a PreparedDenseMetric). `stream` is a PhiloxStream on the
-    state's device. Raises TypeError/KeyError for untagged targets, families
-    without a device function and schedules without a kernel counterpart."""
+    """Build fused(stream, state, step_size, gamma, steepness, inv_mass,
+    lp_scale=None, bridge=None) -> (new_state, (accept, proposal_q,
+    proposal_lp, delta_h)), the grahmc_step contract on kernel 1 (1a for a
+    dense metric: a raw (D, D) one or a PreparedDenseMetric). `stream` is a
+    PhiloxStream on the state's device. Raises TypeError/KeyError for
+    untagged targets, families without a device function and schedules
+    without a kernel counterpart.
+
+    lp_scale: the target's lp and grad times beta in every substep (kernel
+    1b), a number, or a (K,) row of a tempering ladder's betas for a
+    replica-major state of K rungs, the step size then a number or a (K,)
+    row too: one launch for the whole ladder. bridge: (beta, base_mean,
+    base_scale) or (beta, BridgeBase), the SMC bridge beta logp + (1 - beta)
+    log N(m, S^2 I) with a runtime beta (kernel 1c); the state's lp and grad
+    must be the bridge's."""
     info, sched = _kernel_target(value_and_grad_fn, friction_schedule)
     scalars_for = _scalar_cache()
 
     def fused(stream: PhiloxStream, state, step_size, gamma, steepness,
-              inv_mass_matrix):
+              inv_mass_matrix, lp_scale=None, bridge=None):
         inv_mass, l_inv = kernel_metric(inv_mass_matrix)
-        q1, lp1, g1, accept, dh, prop_q, prop_lp = grahmc_step_kernel(
+        dev = state.position.device
+        scalars = None
+        if lp_scale is None and bridge is None:
+            scalars = scalars_for(step_size, gamma, steepness, dev)
+        q1, lp1, g1, accept, dh, prop_q, prop_lp = _variant_step(
             info, num_steps, sched, _f32(state.position), _f32(state.log_prob),
-            _f32(state.grad_log_prob),
-            scalars_for(step_size, gamma, steepness, state.position.device),
-            inv_mass, key=stream.key, call=stream.next_call(), l_inv=l_inv)
+            _f32(state.grad_log_prob), step_size, gamma, steepness, inv_mass, l_inv,
+            lp_scale, _bridge(bridge, state.position.shape[1], dev), scalars,
+            key=stream.key, call=stream.next_call())
         divergent = torch.abs(dh) > DIVERGENCE_DELTA_H
         new_state = _advance(state, q1, lp1, g1, accept.to(torch.int32),
                              divergent.to(torch.int32))
@@ -587,24 +818,26 @@ def make_fused_grahmc_multistep(value_and_grad_fn, num_steps: int,
 def make_debug_trajectory(value_and_grad_fn, num_steps: int,
                           friction_schedule: Optional[Callable],
                           n_chains: int, dim: int):
-    """Kernel 1 (1a for a dense metric) with injected momentum and
-    uniforms, the parity hook.
+    """Kernel 1 (1a for a dense metric; 1b with lp_scale, 1c with bridge)
+    with injected momentum and uniforms, the parity hook.
 
-    Returns run(q, lp, grad, p0, u, step_size, gamma, steepness, inv_mass)
-    -> (q', lp', grad', accept, delta_h)."""
+    Returns run(q, lp, grad, p0, u, step_size, gamma, steepness, inv_mass,
+    lp_scale=None, bridge=None) -> (q', lp', grad', accept, delta_h), with
+    lp_scale and bridge as make_fused_grahmc_step's."""
     info = kernel_info(value_and_grad_fn, "grahmc")
     if info["dim"] != dim:
         raise ValueError(f"target dim {info['dim']} != {dim}")
     sched = schedule_id(friction_schedule)
 
-    def run(q, lp, grad, p0, u, step_size, gamma, steepness, inv_mass):
+    def run(q, lp, grad, p0, u, step_size, gamma, steepness, inv_mass, lp_scale=None,
+            bridge=None):
         if q.shape != (n_chains, dim):
             raise ValueError(f"expected q of shape {(n_chains, dim)}")
         invm, l_inv = kernel_metric(inv_mass)
-        q1, lp1, g1, accept, dh, _, _ = grahmc_step_kernel(
-            info, num_steps, sched, _f32(q), _f32(lp), _f32(grad),
-            kernel_scalars(step_size, gamma, steepness, q.device),
-            invm, p0=_f32(p0), u=_f32(u), l_inv=l_inv)
+        q1, lp1, g1, accept, dh, _, _ = _variant_step(
+            info, num_steps, sched, _f32(q), _f32(lp), _f32(grad), step_size, gamma,
+            steepness, invm, l_inv, lp_scale, _bridge(bridge, dim, q.device),
+            p0=_f32(p0), u=_f32(u))
         return q1, lp1, g1, accept, dh
 
     return run

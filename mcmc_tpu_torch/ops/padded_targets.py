@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the kernels' target device functions.
 
-Port of three device functions of ``mcmc_tpu/ops/padded_targets.py``
-(``_standard_normal``, ``_neals_funnel`` and ``_correlated``). The TPU versions work on blocks
+Port of four device functions of ``mcmc_tpu/ops/padded_targets.py``
+(``_standard_normal``, ``_neals_funnel``, ``_correlated`` and
+``_gaussian_mixture``). The TPU versions work on blocks
 padded to the (8, 128) tiles, in a lane or a transposed layout; the CUDA
 kernels keep the public (chains, dim) row-major layout and mask lanes past
 ``dim`` themselves, so none of the padding, ``_mask_row`` or layout code is
@@ -21,12 +22,15 @@ import torch
 from mcmc_tpu_torch.targets import LOG_2PI
 
 # Must match `enum Family` in csrc/targets.cuh.
-FAMILY_IDS = {"standard_normal": 0, "neals_funnel": 1, "correlated_gaussian": 2}
+FAMILY_IDS = {"standard_normal": 0, "neals_funnel": 1, "correlated_gaussian": 2,
+              "gaussian_mixture": 3}
 # The families each kernel's launcher dispatches on. The correlated Gaussian's
 # functor masks coordinates in the warp-per-chain layout; kernels 1, 2 and 4
-# run it.
+# run it. The mixture runs in kernels 1 and 2 (and 1's scaled and bridged
+# variants) only so far.
 KERNEL_FAMILIES = {
-    "grahmc": ("standard_normal", "neals_funnel", "correlated_gaussian"),
+    "grahmc": ("standard_normal", "neals_funnel", "correlated_gaussian",
+               "gaussian_mixture"),
     "rwmh": ("standard_normal", "neals_funnel"),
     "nuts": ("standard_normal", "neals_funnel", "correlated_gaussian"),
 }
@@ -66,11 +70,13 @@ def device_vag(info: dict) -> Callable:
 def device_params(info: dict) -> tuple:
     """The four floats of `struct TargetParams` (csrc/targets.cuh) for this
     target, computed in double as the plain version computes them: (a, b,
-    log|Sigma| + D log 2pi, 0) for the correlated Gaussian, zeros for the
-    families without parameters."""
+    log|Sigma| + D log 2pi, 0) for the correlated Gaussian, (sep / 2, 0, 0,
+    0) for the mixture, zeros for the families without parameters."""
+    p = info["params"]
     if info["family"] == "correlated_gaussian":
-        p = info["params"]
         return (p["a"], p["b"], p["log_det_cov"] + info["dim"] * LOG_2PI, 0.0)
+    if info["family"] == "gaussian_mixture":
+        return (p["separation"] / 2.0, 0.0, 0.0, 0.0)
     return (0.0, 0.0, 0.0, 0.0)
 
 
@@ -131,8 +137,31 @@ def _correlated(dim, params):
     return vag
 
 
+def _gaussian_mixture(dim, params):
+    half_sep = params["separation"] / 2.0
+    c_rest = (dim - 1) * LOG_2PI
+
+    def vag(q):
+        x0 = q[:, 0]
+        a = x0 + half_sep
+        b = x0 - half_sep
+        m1 = -0.5 * (a * a)
+        m2 = -0.5 * (b * b)
+        mx = torch.maximum(m1, m2)
+        e1 = torch.exp(m1 - mx)
+        e2 = torch.exp(m2 - mx)
+        lse = e1 + e2
+        log_p_x0 = math.log(0.5) + mx + torch.log(lse) - 0.5 * LOG_2PI
+        rest = q[:, 1:]
+        lp = log_p_x0 - 0.5 * (torch.sum(rest * rest, dim=1) + c_rest)
+        g0 = -(a * e1 + b * e2) / lse
+        return lp, torch.cat([g0[:, None], -rest], dim=1)
+    return vag
+
+
 _BUILDERS = {
     "standard_normal": _standard_normal,
     "neals_funnel": _neals_funnel,
     "correlated_gaussian": _correlated,
+    "gaussian_mixture": _gaussian_mixture,
 }

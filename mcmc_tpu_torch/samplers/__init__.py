@@ -1,5 +1,5 @@
-"""Samplers ported so far: GRAHMC, HMC, RWMH and persistent NUTS (eager and
-fused backends)."""
+"""Samplers ported so far: GRAHMC, HMC, RWMH, persistent NUTS, parallel
+tempering and annealed SMC (eager and fused backends)."""
 
 from mcmc_tpu_torch.samplers.base import (ChainState, RunResult, ensure_batched,
                                           init_chain_state)
@@ -12,12 +12,17 @@ from mcmc_tpu_torch.samplers.grahmc import (
 from mcmc_tpu_torch.samplers.hmc import hmc_init, hmc_run, hmc_step, leapfrog
 from mcmc_tpu_torch.samplers.nuts_persistent import nuts_run_persistent
 from mcmc_tpu_torch.samplers.rwmh import rwmh_init, rwmh_run, rwmh_step
+from mcmc_tpu_torch.samplers.smc import (SMCResult, gaussian_base, smc_run,
+                                         systematic_resample, weighted_moments)
+from mcmc_tpu_torch.samplers.tempered import geometric_ladder, tempered_run
 
 __all__ = [
     "ChainState", "RunResult", "ensure_batched", "init_chain_state",
     "grahmc_init", "grahmc_step", "grahmc_transition", "grahmc_run",
     "hmc_init", "hmc_step", "hmc_run", "leapfrog",
     "rwmh_init", "rwmh_step", "rwmh_run", "nuts_run_persistent",
+    "geometric_ladder", "tempered_run", "SMCResult", "gaussian_base", "smc_run",
+    "systematic_resample", "weighted_moments",
     "FRICTION_SCHEDULES", "get_friction_schedule", "default_steepness",
     "NO_FRICTION", "constant_schedule", "tanh_schedule", "sigmoid_schedule",
     "linear_schedule", "sine_schedule",

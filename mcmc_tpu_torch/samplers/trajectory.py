@@ -29,6 +29,15 @@ def as_scalar(x, dtype: torch.dtype, device) -> Tensor:
     return torch.full((), float(x), dtype=dtype, device=device)
 
 
+def as_operand(x, dtype: torch.dtype, device) -> Tensor:
+    """as_scalar, except that a (C, 1) tensor stays a per-chain row: a step
+    size (or friction, steepness) per chain, as a tempering ladder gives
+    its replicas."""
+    if isinstance(x, torch.Tensor) and x.ndim == 2:
+        return x.to(device=device, dtype=dtype)
+    return as_scalar(x, dtype, device)
+
+
 def velocity(p: Tensor, inv_mass_matrix: Tensor,
              matmul: Callable = torch.matmul) -> Tensor:
     """dq/dt = M^{-1} p: elementwise for a diagonal metric, one matmul for
@@ -96,19 +105,21 @@ def integrate_trajectory(
 ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
     """Integrate num_steps (conformal) leapfrog substeps for all chains.
 
-    step_size, gamma_max and steepness may be Python numbers or 0-d tensors
-    (a tensor step size from dual averaging never leaves the device).
+    step_size, gamma_max and steepness may be Python numbers, 0-d tensors
+    (a tensor step size from dual averaging never leaves the device) or
+    (C, 1) per-chain rows; with a row step size the friction time
+    T = eps L is per chain too.
     `matmul` computes a dense metric's velocity (ordered_matmul in the
     kernels' plain versions). Returns (q, p, lp, grad) after the trajectory.
     """
     pos_dtype = q.dtype
     e_dtype = lp.dtype
-    eps = as_scalar(step_size, pos_dtype, q.device)
+    eps = as_operand(step_size, pos_dtype, q.device)
     half_eps = 0.5 * eps
     total_time = eps * num_steps
     if friction_schedule is not None:
-        gamma_t_max = as_scalar(gamma_max, pos_dtype, q.device)
-        steep = as_scalar(steepness, pos_dtype, q.device)
+        gamma_t_max = as_operand(gamma_max, pos_dtype, q.device)
+        steep = as_operand(steepness, pos_dtype, q.device)
     for i in range(num_steps):
         if friction_schedule is not None:
             # midpoint grid: friction at i and L-1-i pairs exactly about T/2,

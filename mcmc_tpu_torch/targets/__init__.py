@@ -6,8 +6,9 @@ taking a ``torch.Generator``, and a ``kernel_info`` tag
 counterpart of the JAX package's ``pallas_info``, and what the fused kernels
 dispatch on (``mcmc_tpu_torch.ops.padded_targets``).
 
-Ported so far: ``standard_normal``, ``neals_funnel`` and
-``correlated_gaussian`` (the dense-metric NUTS row's target).
+Ported so far: ``standard_normal``, ``neals_funnel``,
+``correlated_gaussian`` (the dense-metric NUTS row's target) and
+``gaussian_mixture`` (the tempered and SMC rows' target).
 ``get_target`` raises for every other name; ``get_reference_sampler`` gives
 the correlated Gaussian's exact i.i.d. sampler.
 """
@@ -166,10 +167,69 @@ def correlated_gaussian(dim: int = 10, correlation: float = 0.9) -> TargetDistri
     )
 
 
+def gaussian_mixture(dim: int = 10, n_modes: int = 2,
+                     separation: float = 5.0) -> TargetDistribution:
+    """x0 ~ 0.5 N(-sep/2, 1) + 0.5 N(+sep/2, 1); x_i ~ N(0, 1) for i > 0.
+
+    Var[x0] = 1 + (sep/2)^2. d log p / d x0 = -(x0 + s/2) w1 - (x0 - s/2) w2
+    with the softmax weights w of the two modes.
+    """
+    if n_modes != 2:
+        raise NotImplementedError("Only 2-mode mixture currently supported")
+    half_sep = separation / 2.0
+
+    def value_and_grad_fn(x):
+        x0 = x[..., 0]
+        x_rest = x[..., 1:]
+        d_rest = x.shape[-1] - 1
+        m1 = -0.5 * (x0 + half_sep) ** 2
+        m2 = -0.5 * (x0 - half_sep) ** 2
+        mx = torch.maximum(m1, m2)
+        e1 = torch.exp(m1 - mx)
+        e2 = torch.exp(m2 - mx)
+        lse = e1 + e2
+        log_p_x0 = math.log(0.5) + mx + torch.log(lse) - 0.5 * LOG_2PI
+        lp = log_p_x0 - 0.5 * (torch.sum(x_rest * x_rest, dim=-1) + d_rest * LOG_2PI)
+        w1 = e1 / lse
+        w2 = e2 / lse
+        g0 = -(x0 + half_sep) * w1 - (x0 - half_sep) * w2
+        return lp, torch.cat([g0[..., None], -x_rest], dim=-1)
+
+    def log_prob_fn(x):
+        return value_and_grad_fn(x)[0]
+
+    def init_sampler(generator, n_chains, dtype=torch.float32):
+        # half the chains near each mode; the two halves' x0 noise is one
+        # draw's prefix, as the JAX package's reuse of one key for both
+        # halves gives
+        n_half = n_chains // 2
+        z = _randn(generator, (max(n_half, n_chains - n_half),), dtype)
+        x0 = torch.cat([z[:n_half] - half_sep, z[:n_chains - n_half] + half_sep])
+        x_rest = _randn(generator, (n_chains, dim - 1), dtype)
+        return torch.cat([x0[:, None], x_rest], dim=1)
+
+    true_cov_diag = torch.cat([torch.tensor([1.0 + half_sep ** 2], dtype=torch.float64),
+                               torch.ones(dim - 1, dtype=torch.float64)])
+    _tag(value_and_grad_fn, "gaussian_mixture", dim, separation=separation)
+    return TargetDistribution(
+        log_prob_fn=log_prob_fn,
+        dim=dim,
+        true_mean=torch.zeros(dim, dtype=torch.float64),
+        true_cov=torch.diag(true_cov_diag),
+        name=f"GaussianMixture{dim}D_modes{n_modes}_sep{separation}",
+        description=f"{dim}D Gaussian mixture (x[0] bimodal) - tests mode-switching",
+        init_sampler=init_sampler,
+        value_and_grad_fn=value_and_grad_fn,
+        family="gaussian_mixture",
+        params={"n_modes": n_modes, "separation": separation},
+    )
+
+
 _TARGETS = {
     "standard_normal": standard_normal,
     "neals_funnel": neals_funnel,
     "correlated_gaussian": correlated_gaussian,
+    "gaussian_mixture": gaussian_mixture,
 }
 
 

@@ -1,5 +1,6 @@
 """Adaptive warmup: dual averaging, Welford mass-matrix learning, windowed
-adaptation, sequential ESJD friction tuning (port of ``mcmc_tpu.tuning``;
+adaptation, sequential ESJD friction tuning, tempering-ladder tuning (port
+of ``mcmc_tpu.tuning``;
 the per-sampler convergence-driven DA tuners and the deprecated joint GRAHMC
 tuner are not ported yet)."""
 
@@ -8,6 +9,8 @@ from mcmc_tpu_torch.tuning.dual_averaging import (
     TARGET_ACCEPT_GRAHMC, TARGET_ACCEPT_HMC, DualAveragingState,
     da_final_step_size, da_init, da_reset, da_step_size, da_update,
 )
+from mcmc_tpu_torch.tuning.ladder import (DEFAULT_SWAP_TARGET, geometric_spacings,
+                                          spacings_to_betas, tune_ladder)
 from mcmc_tpu_torch.tuning.sequential import sequential_tune_grahmc
 from mcmc_tpu_torch.tuning.welford import (
     WelfordState, chain_averaged_variance, shrink_variance, welford_covariance,
@@ -20,4 +23,5 @@ __all__ = [
     "DualAveragingState", "da_init", "da_update", "da_reset", "da_step_size",
     "da_final_step_size", "TARGET_ACCEPT_HMC", "TARGET_ACCEPT_GRAHMC",
     "build_schedule", "run_adaptive_warmup", "sequential_tune_grahmc",
+    "DEFAULT_SWAP_TARGET", "geometric_spacings", "spacings_to_betas", "tune_ladder",
 ]

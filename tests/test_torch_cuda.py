@@ -1,7 +1,8 @@
 """The hand-written CUDA kernels (GRAHMC 1 and 2 with their dense variants
-1a and 2a, RWMH 3, persistent NUTS 4 with its multinomial and dense
-variants) against their plain versions, on the card, and the dense warmup
-that runs 1a.
+1a and 2a and 1's scaled and bridged variants 1b and 1c, RWMH 3, persistent
+NUTS 4 with its multinomial and dense variants) against their plain
+versions, on the card, and the dense warmup, tempered and SMC runs that
+run them.
 
 Marked `cuda`; each test skips without a CUDA device. This file imports no
 JAX, so it runs on a GPU host without the JAX package's dependencies:
@@ -313,3 +314,128 @@ def test_fused_rwmh_and_nuts_runs(dev):
     assert bool(torch.isfinite(res.samples).all())
     assert 0.5 < float(res.info["mean_accept_probs"].mean()) <= 1.0
     assert int(res.info["n_leapfrogs"]) <= int(res.info["n_leapfrog_slots"])
+
+
+def _rand(dev, g, n, dim, invm=None, l_inv=None):
+    """Injected (p0, u) and Philox randomness, each with its log u."""
+    z = torch.randn((n, dim), generator=g, device=dev)
+    p0 = z if invm is None else ft.unwhiten(z, invm, l_inv)
+    u = torch.rand(n, generator=g, device=dev).clamp_min(2.0 ** -25)
+    key = torch.tensor([11, -12], dtype=torch.int32, device=dev)
+    return ((dict(p0=p0.contiguous(), u=u), torch.log(u)),
+            (dict(key=key, call=3), torch.log(ft.philox_uniform(key, 3, 0, n, dev))))
+
+
+@pytest.mark.parametrize("dim", [1, 10, 128])
+@pytest.mark.parametrize("family", ["standard_normal", "neals_funnel", "correlated_gaussian",
+                                    "gaussian_mixture"])
+def test_mixture_in_kernels_1_and_2(dev, family, dim):
+    """The gaussian_mixture device function in kernels 1 and 2 beside the
+    other families: kernel against plain version, injected and Philox."""
+    info, q, lp, grad, g = _inputs(dev, family, dim, 1000, dim + 3)
+    args = (info, 8, ft.SCHEDULE_IDS["tanh"], q, lp, grad,
+            ft.kernel_scalars(0.05, 0.1, 5.0, dev), torch.ones(dim, device=dev))
+    for rand, log_u in _rand(dev, g, 1000, dim):
+        _assert_close(ft.grahmc_step_kernel(*args, **rand),
+                      ft.grahmc_step_plain(*args, **rand), log_u)
+    key = torch.tensor([9, 10], dtype=torch.int32, device=dev)
+    margs = args[:3] + (4,) + args[3:]
+    kern = ft.grahmc_multistep_kernel(*margs, key=key, call=2)
+    plain = ft.grahmc_multistep_plain(*margs, key=key, call=2)
+    agree = (kern[3] == plain[3]).all(dim=0)
+    assert float(agree.float().mean()) >= 0.99
+    for a, b in zip(kern[5:], plain[5:]):
+        torch.testing.assert_close(a[:, agree], b[:, agree], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dense", [False, True])
+@pytest.mark.parametrize("dim", [1, 10, 50, 128])
+@pytest.mark.parametrize("family", ["standard_normal", "neals_funnel", "correlated_gaussian",
+                                    "gaussian_mixture"])
+def test_scaled_and_bridged_kernels_match_plain(dev, family, dim, dense):
+    """Kernels 1b (three rungs of 400 rows, their own steps and betas) and
+    1c (beta 0.05, 0.5, 1; base N(0.5, 2^2 I)) against their plain
+    versions, injected and Philox: accepts equal away from the MH
+    borderline, states within 1e-4; each variant's launch count."""
+    n_rungs, chains = 3, 400
+    n = n_rungs * chains
+    info, q, lp, grad, g = _inputs(dev, family, dim, n, dim + 5)
+    invm, l_inv = _dense_metric(dev, dim, g) if dense else (
+        torch.rand(dim, generator=g, device=dev) + 0.5, None)
+    eps = 0.02 if family == "neals_funnel" else 0.05
+    betas = torch.tensor([1.0, 0.3, 0.05], device=dev)
+    rungs = ft.rung_table(eps / torch.sqrt(betas), 0.1, 5.0, betas, dev)
+    beta_row = betas.repeat_interleave(chains)
+    sargs = (info, 8, ft.SCHEDULE_IDS["tanh"], q, (beta_row * lp).contiguous(),
+             (beta_row[:, None] * grad).contiguous(), rungs, invm)
+    variant = "dense" if dense else "diagonal"
+    for rand, log_u in _rand(dev, g, n, dim, invm if dense else None, l_inv):
+        before = ft.grahmc_scaled_kernel.variant_launches[variant]
+        kern = ft.grahmc_scaled_kernel(*sargs, l_inv=l_inv, **rand)
+        assert ft.grahmc_scaled_kernel.variant_launches[variant] == before + 1
+        _assert_close(kern, ft.grahmc_scaled_plain(*sargs, l_inv=l_inv, **rand), log_u)
+
+    base = ft.bridge_base(0.5, 2.0, dim, dev)
+    for beta in (0.05, 0.5, 1.0):
+        mixture = ft.bridged_vag(ft.device_vag(info), torch.tensor(beta, device=dev),
+                                 torch.tensor(base.log_norm, dtype=torch.float32, device=dev),
+                                 base.mean, base.inv_scale)
+        blp, bgrad = mixture(q)
+        bargs = (info, 8, 0, q, blp.contiguous(), bgrad.contiguous(),
+                 ft.bridge_scalars(eps, 0.0, 1.0, beta, base.log_norm, dev), base.mean,
+                 base.inv_scale, invm)
+        for rand, log_u in _rand(dev, g, n, dim, invm if dense else None, l_inv):
+            before = ft.grahmc_bridged_kernel.variant_launches[variant]
+            kern = ft.grahmc_bridged_kernel(*bargs, l_inv=l_inv, **rand)
+            assert ft.grahmc_bridged_kernel.variant_launches[variant] == before + 1
+            _assert_close(kern, ft.grahmc_bridged_plain(*bargs, l_inv=l_inv, **rand), log_u)
+
+
+@pytest.mark.parametrize("family", ["standard_normal", "gaussian_mixture"])
+def test_variants_at_beta_one_equal_kernel_1_bit_for_bit(dev, family):
+    """At beta = 1 kernels 1b (one rung) and 1c give kernel 1's results bit
+    for bit, injected and Philox."""
+    info, q, lp, grad, g = _inputs(dev, family, 10, 2048, 17)
+    ones = torch.ones(10, device=dev)
+    base = ft.bridge_base(0.0, 6.0, 10, dev)
+    for rand, _ in _rand(dev, g, 2048, 10):
+        plain = ft.grahmc_step_kernel(info, 16, 2, q, lp, grad,
+                                      ft.kernel_scalars(0.3, 0.1, 5.0, dev), ones, **rand)
+        scaled = ft.grahmc_scaled_kernel(info, 16, 2, q, lp, grad,
+                                         ft.rung_table(0.3, 0.1, 5.0, 1.0, dev), ones, **rand)
+        bridged = ft.grahmc_bridged_kernel(
+            info, 16, 2, q, lp, grad, ft.bridge_scalars(0.3, 0.1, 5.0, 1.0, base.log_norm, dev),
+            base.mean, base.inv_scale, ones, **rand)
+        for out in (scaled, bridged):
+            for a, b in zip(out, plain):
+                assert torch.equal(a, b)
+
+
+def test_tempered_and_smc_runs_on_the_card(dev):
+    """tempered_run and smc_run on CUDA tensors resolve "auto" to their
+    fused backends: one kernel-1b launch per sweep, one kernel-1c launch
+    per SMC move, no kernel 1; the cold replica keeps N(0, I), SMC's log Z
+    reads 0 on the normalized mixture and finds both modes."""
+    from mcmc_tpu_torch.samplers import smc_run, tempered_run
+    t = get_target("standard_normal", dim=4)
+    q = torch.randn((512, 4), generator=torch.Generator(device=dev).manual_seed(1),
+                    device=dev) * 0.2
+    ft.reset_launches()
+    res = tempered_run(torch.Generator(device=dev).manual_seed(0), t.log_prob_fn, q, 0.5, 8,
+                       300, burn_in=100, n_temps=4, value_and_grad_fn=t.value_and_grad_fn)
+    assert ft.grahmc_scaled_kernel.launches == 400
+    assert ft.grahmc_step_kernel.launches == 0
+    m = res.samples.reshape(-1, 4)
+    assert float(m.mean(0).abs().max()) < 0.05 and float((m.var(0) - 1).abs().max()) < 0.08
+    sw = res.info["swap_accept_rate"]
+    assert sw.shape == (3,) and bool(((sw > 0.05) & (sw < 1.0)).all())
+
+    mt = get_target("gaussian_mixture", dim=10)
+    ft.reset_launches()
+    r = smc_run(torch.Generator(device=dev).manual_seed(4), mt.log_prob_fn, 8192, 10, 0.4, 8,
+                move_steps=2, base_scale=6.0, value_and_grad_fn=mt.value_and_grad_fn,
+                final_resample=True)
+    assert ft.grahmc_bridged_kernel.launches == 2 * r.info["n_stages"]
+    assert ft.grahmc_step_kernel.launches == 0
+    assert abs(float(r.log_Z)) < 0.1
+    assert 0.4 < float((r.particles[:, 0] > 0).float().mean()) < 0.6

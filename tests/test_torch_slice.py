@@ -160,8 +160,9 @@ def test_entry_points_default_to_the_card():
     """dual averaging's state and interop's state builders run on the card
     unless the caller names another device (the CPU tests pass "cpu")."""
     import inspect
+    from mcmc_tpu_torch.samplers import gaussian_base, geometric_ladder
     from mcmc_tpu_torch.tuning.welford import welford_init
-    for fn in (t_da.da_init, interop.chain_state_from_numpy,
+    for fn in (t_da.da_init, interop.chain_state_from_numpy, geometric_ladder, gaussian_base,
                interop.da_state_from_numpy, interop.nuts_state_from_numpy,
                interop.welford_state_from_numpy, interop.dense_moment_state_from_numpy,
                interop.metric_from_numpy, welford_init):
@@ -179,7 +180,8 @@ def test_port_never_imports_jax():
         "import mcmc_tpu_torch.samplers.trajectory\n"
         "import mcmc_tpu_torch.diagnostics, mcmc_tpu_torch.tuning, chip_smoke\n"
         "import mcmc_tpu_torch.tuning.welford, mcmc_tpu_torch.tuning.adaptation\n"
-        "import mcmc_tpu_torch.tuning.sequential\n"
+        "import mcmc_tpu_torch.tuning.sequential, mcmc_tpu_torch.tuning.ladder\n"
+        "import mcmc_tpu_torch.samplers.tempered, mcmc_tpu_torch.samplers.smc\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'mcmc_tpu')\n"
         "             or m.startswith(('jax.', 'mcmc_tpu.')))\n"
         "assert not bad, bad\n"

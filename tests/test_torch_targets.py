@@ -16,6 +16,7 @@ from mcmc_tpu_torch.ops.padded_targets import (  # noqa: E402
     FAMILY_IDS, kernel_info, make_device_vag)
 
 FAMILIES = ["standard_normal", "neals_funnel"]
+VAG_FAMILIES = FAMILIES + ["gaussian_mixture"]
 
 
 def _draws(dim, n=32, seed=0):
@@ -26,7 +27,7 @@ def _draws(dim, n=32, seed=0):
 
 
 @pytest.mark.parametrize("dim", [10, 50])
-@pytest.mark.parametrize("family", FAMILIES)
+@pytest.mark.parametrize("family", VAG_FAMILIES)
 def test_value_and_grad_matches_jax_f64(family, dim):
     x = _draws(dim)
     lp_j, g_j = jt.get_target(family, dim=dim).value_and_grad_fn(jnp.asarray(x))
@@ -41,7 +42,7 @@ def test_value_and_grad_matches_jax_f64(family, dim):
 
 
 @pytest.mark.parametrize("dim", [10, 50])
-@pytest.mark.parametrize("family", FAMILIES)
+@pytest.mark.parametrize("family", VAG_FAMILIES)
 def test_device_function_matches_jax_padded_vag(family, dim):
     """The plain version of the kernels' device function against the JAX
     package's padded device function (transposed layout) on the real
@@ -91,3 +92,52 @@ def test_init_sampler_shapes_and_scale(family):
         expected[0] = 3.0     # neck drawn from its N(0, 9) prior
     np.testing.assert_allclose(sd, expected, rtol=0.05)
     assert t.init_sampler(g, 4, dtype=torch.float64).dtype == torch.float64
+
+
+@pytest.mark.parametrize("dim_axis", [0, 1])
+@pytest.mark.parametrize("separation", [5.0, 10.0])
+def test_mixture_device_function_matches_jax_f64(separation, dim_axis):
+    """The mixture's plain device function against the JAX package's
+    _gaussian_mixture (padded, both TPU layouts) in float64, to 1e-12, with
+    x0 across both modes and the barrier."""
+    dim = 7
+    x = _draws(dim, seed=2) * 3.0
+    jtarget = jt.gaussian_mixture(dim, separation=separation)
+    d_pad = 128 if dim_axis == 1 else 8
+    block = jnp.pad(jnp.asarray(x), ((0, 0), (0, d_pad - dim)))
+    lp_j, g_j = make_padded_vag(jtarget.value_and_grad_fn, d_pad, dim_axis=dim_axis)(
+        block if dim_axis == 1 else block.T)
+    lp_j, g_j = (np.asarray(lp_j).reshape(-1), np.asarray(g_j if dim_axis == 1 else g_j.T))
+    lp_t, g_t = make_device_vag(tt.gaussian_mixture(dim, separation=separation)
+                                .value_and_grad_fn)(torch.from_numpy(x))
+    np.testing.assert_allclose(lp_t.numpy(), lp_j, rtol=1e-12)
+    np.testing.assert_allclose(g_t.numpy(), g_j[:, :dim], rtol=1e-12, atol=1e-300)
+    assert np.all(g_j[:, dim:] == 0.0)
+
+
+def test_mixture_tag_params_and_init_sampler():
+    """The mixture's tag is the JAX package's (separation), its kernel
+    parameters are (sep / 2, 0, 0, 0), the device function runs in kernels 1
+    and 2 only, and init_sampler puts half the chains near each mode with
+    the two halves' x0 noise one draw's prefix, as the JAX package's reused
+    key gives."""
+    from mcmc_tpu_torch.ops.padded_targets import KERNEL_FAMILIES, device_params
+    t = tt.get_target("gaussian_mixture", dim=5, separation=6.0)
+    info = kernel_info(t.value_and_grad_fn, "grahmc")
+    assert info == {"family": "gaussian_mixture", "dim": 5, "params": {"separation": 6.0}}
+    assert info == jt.gaussian_mixture(5, separation=6.0).value_and_grad_fn.pallas_info
+    assert FAMILY_IDS["gaussian_mixture"] == 3 and device_params(info) == (3.0, 0.0, 0.0, 0.0)
+    for kernel in ("rwmh", "nuts"):
+        assert "gaussian_mixture" not in KERNEL_FAMILIES[kernel]
+        with pytest.raises(KeyError):
+            kernel_info(t.value_and_grad_fn, kernel)
+    np.testing.assert_allclose(torch.diagonal(t.true_cov).numpy(), [10.0, 1, 1, 1, 1])
+    x = t.init_sampler(torch.Generator().manual_seed(0), 20001)
+    assert x.shape == (20001, 5) and x.dtype == torch.float32
+    left, right = x[:10000, 0], x[10000:, 0]
+    torch.testing.assert_close(left + 3.0, right[:10000] - 3.0)
+    np.testing.assert_allclose([float(left.mean()), float(right.mean())], [-3.0, 3.0],
+                               atol=0.05)
+    np.testing.assert_allclose(x[:, 1:].std(dim=0).numpy(), 1.0, rtol=0.05)
+    with pytest.raises(NotImplementedError):
+        tt.gaussian_mixture(4, n_modes=3)
