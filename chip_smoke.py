@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the mcmc_tpu_torch main paths once on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--multistep-switch]
+    python3 chip_smoke.py [--multistep-switch | --smc-repeat]
 
 Run from the repository root on a machine with a CUDA GPU and nvcc. It
 builds the hand-written CUDA kernels from mcmc_tpu_torch/csrc, holds each
@@ -40,12 +40,26 @@ NUTS row and a dense-warmup GRAHMC row on the port:
 - annealed SMC (bench.py:636-720): adaptive-schedule evidence runs on the
   10-D mixture at 32,768 particles, and the move-dominated pair at 65,536
   particles on a fixed 13-rung ladder with 2 and 8 moves (kernel 1c, one
-  launch per move).
+  launch per move); two runs with one seed must agree bit for bit;
+- config 5 (BASELINE.json configs[4]): the 100-D hierarchical logistic
+  posterior (256 data rows) at 8,192 chains, the windowed warmup with its
+  gamma tune (kernel 1d, the data-carrying form of kernel 1), a
+  1,000-draw full-history GRAHMC run with its diagnostics (1d), a 4,096-chain
+  run through the multistep dispatch (2b), persistent NUTS (4c) and RWMH
+  (3a) on the same posterior; GRAHMC's posterior means must agree with
+  RWMH's, two kernels apart.
 
 --multistep-switch adds a measurement that gates nothing: grahmc_run at
 1,024 and 4,096 chains through the multi-transition dispatch (T = 8)
 against the single-transition one (T = 1), with the learned dense metric
 and its diagonal.
+
+    python3 chip_smoke.py --smc-repeat
+
+runs only the build and the SMC repeat probe: the resampling CDF summed by
+torch.cumsum and by samplers.smc.prefix_sum, each repeated on one input,
+and the SMC row's warm run repeated with each, printing log Z's bits so
+that two processes can be compared. It exits 0 whatever it finds.
 
 Every phase passes or raises; there is no CPU path. The last two lines are a
 JSON object describing each kernel and kernel variant (its launches on the
@@ -165,6 +179,26 @@ MOVE_P = 65536
 MOVE_L = 16
 MOVE_RUNGS = 13              # the fixed ladder linspace(0.08, 1, 13)
 MOVE_REPS = 3                # after one warm run; min of the reps
+# config 5 (BASELINE.json configs[4], BASELINE.md:91): the 100-D hierarchical
+# logistic posterior at the factory's defaults, 8,192 chains; the windowed
+# warmup (diagonal metric, tanh, L = 16, the JAX defaults otherwise) with its
+# gamma tune, then GRAHMC, NUTS and RWMH on it (kernels 1d, 2b, 4c, 3a)
+HIER_DIM = 100
+HIER_N_DATA = 256
+HIER_CHAINS = 8192
+HIER_L = 16
+HIER_DRAWS = 1000            # the full-history GRAHMC run (3.3 GB)
+HIER_MULTI_CHAINS = 4096     # grahmc_run takes kernel 2b here
+HIER_MULTI_DRAWS = 256
+HIER_NUTS_REPS = 1           # timed reps after the warm-up run
+HIER_RWMH_DRAWS = 2048
+# RWMH's reference run for GRAHMC's means: HIER_RWMH_KEEP draws, one every
+# RWMH_T transitions (one kernel 3a call), every chain kept (3.3 GB)
+HIER_RWMH_KEEP = 1024
+HIER_ACCEPT_TOL = 0.07
+HIER_RHAT_MAX = 1.05
+HIER_ESS_MIN = 400.0
+HIER_MCSE_Z = 5.0            # GRAHMC and RWMH means within this many combined MCSE
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 FLOP/s outside the
 # tensor cores; a kernel's bound is the larger of its bytes and its float
@@ -193,15 +227,34 @@ KERNELS = {   # name: (source, the TPU kernel it replaces)
                              "mcmc_tpu/ops/fused_trajectory.py:333"),
     "grahmc_bridged_kernel": ("mcmc_tpu_torch/csrc/fused_trajectory_bridged.cu",
                               "mcmc_tpu/ops/fused_trajectory.py:344"),
+    # the data-carrying forms on config 5's posterior
+    "grahmc_step_kernel[data]": ("mcmc_tpu_torch/csrc/fused_trajectory.cu",
+                                 "mcmc_tpu/ops/fused_trajectory.py:300"),         # 1d
+    "grahmc_multistep_kernel[data]": ("mcmc_tpu_torch/csrc/fused_trajectory.cu",
+                                      "mcmc_tpu/ops/fused_trajectory.py:701"),    # 2b
+    "rwmh_multistep_kernel[data]": ("mcmc_tpu_torch/csrc/fused_rwmh.cu",
+                                    "mcmc_tpu/ops/fused_rwmh.py:52"),             # 3a
+    "nuts_window_kernel[data]": ("mcmc_tpu_torch/csrc/fused_nuts.cu",
+                                 "mcmc_tpu/ops/fused_nuts.py:569"),               # 4c
+    "nuts_window_kernel[multinomial+data]": ("mcmc_tpu_torch/csrc/fused_nuts.cu",
+                                             "mcmc_tpu/ops/fused_nuts.py:569"),   # 4a + 4c
 }
-# kernels 1, 2, 1b and 1c's metric variants (ops/fused_trajectory.py:VARIANTS),
-# and kernel 4's (ops/fused_nuts.py:VARIANTS) -> the names above (1b's and
-# 1c's dense variants run on no main path: the card tests check them)
-GRAHMC_NAMES = {"diagonal": "", "dense": "[dense]"}
+# kernels 1, 2, 1b and 1c's variants (ops/fused_trajectory.py:variant_name),
+# kernel 3's (ops/fused_rwmh.py) and kernel 4's (ops/fused_nuts.py:variant)
+# -> the names above (1b's and 1c's dense variants, and the data-carrying
+# forms of 1a, 1b, 1c, 2a and 4b, run on no main path: the card tests check
+# them)
+GRAHMC_NAMES = {"diagonal": "", "dense": "[dense]", "diagonal+data": "[data]",
+                "dense+data": "[dense+data]"}
+RWMH_NAMES = {"rwmh": "rwmh_multistep_kernel", "rwmh+data": "rwmh_multistep_kernel[data]"}
 NUTS_NAMES = {"endpoint": "nuts_window_kernel",
               "multinomial": "nuts_window_kernel[multinomial]",
               "dense": "nuts_window_kernel[dense]",
-              "multinomial+dense": "nuts_window_kernel[multinomial+dense]"}
+              "multinomial+dense": "nuts_window_kernel[multinomial+dense]",
+              "endpoint+data": "nuts_window_kernel[data]",
+              "multinomial+data": "nuts_window_kernel[multinomial+data]",
+              "dense+data": "nuts_window_kernel[dense+data]",
+              "multinomial+dense+data": "nuts_window_kernel[multinomial+dense+data]"}
 
 
 def say(msg=""):
@@ -368,15 +421,16 @@ def _close_on(pairs, tol=1e-4):
     return err, within
 
 
-def _split_check(label, agree, err, within, tol=1e-4):
+def _split_check(label, agree, err, within, tol=1e-4, max_split=SPLIT_MAX):
     """An accept test at its margin may come out the other way under another
-    summation order, after which the chain's path differs: at most SPLIT_MAX
-    of the chains may split, and the rest must agree within tol."""
+    summation order, after which the chain's path differs: at most
+    `max_split` of the chains may split, and the rest must agree within
+    tol."""
     n = agree.numel()
     n_split = n - int(agree.sum())
     say(f"  {label}: discrete state identical on {n - n_split}/{n} chains "
         f"({n_split} split), max |err| {err:.3g} on those")
-    require(n_split <= SPLIT_MAX * n, f"{label}: {n_split} of {n} chains split")
+    require(n_split <= max_split * n, f"{label}: {n_split} of {n} chains split")
     require(within, f"{label}: float state differs beyond {tol}")
 
 
@@ -864,12 +918,14 @@ def phase_main_path(torch, ft, targets, samplers, tuning, diagnostics, dev):
     return step
 
 
-def _da_tune_nuts(torch, tuning, samplers, dev, t, chains, **kw):
+def _da_tune_nuts(torch, tuning, samplers, dev, t, chains, init=None, **kw):
     """The NUTS row's step-size tune: NUTS_TUNE_CALLS one-window runs of
-    NUTS_TUNE_SPS slots, each from the last one's final state, dual
-    averaging on the batch-mean accept with no host read inside; returns
-    the smoothed step as a device tensor."""
-    pos = torch.randn((chains, DIM), generator=_gen(torch, dev, 11), device=dev) * 0.5
+    NUTS_TUNE_SPS slots, each from the last one's final state (the first
+    from `init`, default N(0, 0.5^2) draws), dual averaging on the
+    batch-mean accept with no host read inside; returns the smoothed step as
+    a device tensor."""
+    pos = init if init is not None else torch.randn(
+        (chains, DIM), generator=_gen(torch, dev, 11), device=dev) * 0.5
     da = tuning.da_init(DA_INIT_STEP, device=dev)
     for i in range(NUTS_TUNE_CALLS):
         res = samplers.nuts_run_persistent(
@@ -884,13 +940,16 @@ def _da_tune_nuts(torch, tuning, samplers, dev, t, chains, **kw):
 
 
 def _nuts_timed(torch, samplers, diagnostics, dev, t, label, seed, chains=NUTS_CHAINS,
-                reps=NUTS_REPS, **kw):
-    """bench.py's NUTS protocol: from N(0, 0.5^2) starts (fixed seed 3), a
-    warm-up and `reps` timed runs of NUTS_SAMPLES draws x 64 slots keeping
-    the full history; the median useful (executed-leapfrog) grads/s over
-    reps 2 and up, and the min bulk-ESS of the last rep's history over its
-    wall time. Checks shapes, finite draws and the leapfrog counters."""
-    init = torch.randn((chains, DIM), generator=_gen(torch, dev, 3), device=dev) * 0.5
+                reps=NUTS_REPS, init=None, **kw):
+    """bench.py's NUTS protocol: from `init` (default N(0, 0.5^2) starts,
+    fixed seed 3), a warm-up and `reps` timed runs of NUTS_SAMPLES draws x
+    64 slots keeping the full history; the median useful (executed-leapfrog)
+    grads/s over reps 2 and up, and the min bulk-ESS of the last rep's
+    history over its wall time. Checks shapes, finite draws and the leapfrog
+    counters."""
+    if init is None:
+        init = torch.randn((chains, DIM), generator=_gen(torch, dev, 3), device=dev) * 0.5
+    dim = init.shape[1]
     kw = dict(kw, num_samples=NUTS_SAMPLES, steps_per_sample=NUTS_STEPS_PER_SAMPLE,
               value_and_grad_fn=t.value_and_grad_fn)
     res = samplers.nuts_run_persistent(_gen(torch, dev, seed), t.log_prob_fn, init, **kw)
@@ -918,7 +977,7 @@ def _nuts_timed(torch, samplers, diagnostics, dev, t, label, seed, chains=NUTS_C
     say(f"  {label}: useful grads/s {out['rate']:.1f} ({which}); "
         f"executed {out['executed']:.4f} of the slots; accept {out['accept']:.4f}; "
         f"mean tree depth {out['depth']:.3f}; divergences {out['divergences']}")
-    require(res.samples.shape == (NUTS_SAMPLES, chains, DIM), f"{label}: history shape")
+    require(res.samples.shape == (NUTS_SAMPLES, chains, dim), f"{label}: history shape")
     require(bool(torch.isfinite(res.samples).all()), f"{label}: non-finite draws")
     require(bool(torch.isfinite(res.log_probs).all()), f"{label}: non-finite log-probs")
     require(int(res.info["n_leapfrogs"]) <= int(res.info["n_leapfrog_slots"]) == slots,
@@ -928,6 +987,7 @@ def _nuts_timed(torch, samplers, diagnostics, dev, t, label, seed, chains=NUTS_C
     torch.cuda.synchronize()
     out["ess_min"] = float(ess.min())
     out["ess_rate"] = out["ess_min"] / out["wall"]
+    out["ess"] = ess
     require(bool(torch.isfinite(ess).all()) and out["ess_min"] > 0, f"{label}: bulk ESS")
     say(f"  {label}: last rep's full history: min bulk-ESS {out['ess_min']:.1f}, median "
         f"{float(ess.median()):.1f}, ESS/s {out['ess_rate']:.1f} "
@@ -1361,7 +1421,8 @@ def phase_smc_row(torch, targets, samplers, dev):
     moves L / wall per rep (each rep's own stage count), the median; log Z,
     stages and the mode fraction of the last rep; one more run under the
     profiler for the device-busy share. Gates: |log Z| < 0.1, mode fraction
-    0.4-0.6, |Var x0 - 7.25| < 0.5. Returns the row's numbers and the
+    0.4-0.6, |Var x0 - 7.25| < 0.5, and the warm run's seed run once more
+    gives its log Z and particles bit for bit. Returns the row's numbers and the
     kernel-1c launches its runs made (stages x moves each)."""
     say("[5i] SMC row: 10-D mixture, 32,768 particles, adaptive schedule (kernel 1c)")
     t = targets.get_target("gaussian_mixture", dim=SMC_DIM)
@@ -1376,7 +1437,7 @@ def phase_smc_row(torch, targets, samplers, dev):
         stages.append(r.info["n_stages"])
         return r
 
-    run(60)
+    warm = run(60)
     torch.cuda.synchronize()
     rates, dts = [], []
     for rep in range(SMC_REPS):
@@ -1399,10 +1460,85 @@ def phase_smc_row(torch, targets, samplers, dev):
     require(abs(var - 7.25) < 0.5, f"SMC Var x0 {var}")
     out = dict(rate=rate, log_z=log_z, stages=stages[-1], mode=mode,
                wall=statistics.median(dts))
+    again = run(60)
+    same = torch.equal(warm.log_Z, again.log_Z) and torch.equal(warm.particles, again.particles)
+    say(f"  the warm run's seed again: log Z {float(again.log_Z):+.8f} against "
+        f"{float(warm.log_Z):+.8f}, particles {'equal' if same else 'differ'}")
+    require(same, "two SMC runs with one seed differ")
+    del warm, again
     out["busy"] = device_busy_seconds(torch, lambda: run(70))
     say_busy(f"SMC row ({stages[-1]} stages in the profiled run)", out["busy"], out["wall"])
     out["launches"] = SMC_MOVES * sum(stages)
     return out
+
+
+def phase_smc_repeat(torch, targets, samplers, dev, reps=200, runs=3, seeds=range(60, 65)):
+    """The SMC repeat probe (--smc-repeat), gating nothing. (1) One
+    32,768-particle weight vector: its resampling CDF summed `reps` times by
+    torch.cumsum and by samplers.smc.prefix_sum, and its logsumexp `reps`
+    times; how many results differ from the first in any bit, and the host
+    wall per call. (2) The SMC
+    row's runs (its seeds 60-64) `runs` times each with each CDF; one line
+    per run with log Z's bits (float.hex), each stage's beta and, for each
+    resampling, a digest of the CDF's bits and one of the indices drawn from
+    it, in order: lines that differ between runs or between two processes
+    name the first op whose output changed. Counts the seeds whose runs in
+    this process differ."""
+    say("[5i'] SMC repeat probe: the resampling CDF by torch.cumsum and by prefix_sum")
+    smc = samplers.smc
+    lw = torch.randn(SMC_P, generator=_gen(torch, dev, 90), device=dev) * 3.0
+    w = torch.exp(lw - torch.logsumexp(lw, 0))
+    cdfs = {"torch.cumsum": lambda x: torch.cumsum(x, 0), "prefix_sum": smc.prefix_sum}
+    for name, fn in list(cdfs.items()) + [("logsumexp", lambda x: torch.logsumexp(x, 0))]:
+        first = fn(w)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = [fn(w) for _ in range(reps)]
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / reps * 1e3
+        differ = sum(not torch.equal(out, first) for out in outs)
+        say(f"  {name} of one {SMC_P}-particle weight vector, {reps} calls: {differ} differ "
+            f"from the first; {ms:.4f} ms a call (host wall, calls back to back)")
+    t = targets.get_target("gaussian_mixture", dim=SMC_DIM)
+    kw = dict(_smc_kw(t), n_particles=SMC_P, num_steps=SMC_L, move_steps=SMC_MOVES,
+              final_resample=True)
+    trace = []
+
+    def digest(x):
+        bits = x.double().view(torch.int64)
+        return int((bits * torch.arange(1, x.shape[0] + 1, device=x.device)).sum())
+
+    def resample(generator, log_weights, u=None):
+        idx = saved[1](generator, log_weights, u)
+        trace.append(f"idx {digest(idx.double())}")
+        return idx
+
+    saved = (smc.prefix_sum, smc.systematic_resample)
+    smc.systematic_resample = resample
+    try:
+        for name, fn in cdfs.items():
+            def cdf(x, fn=fn):
+                out = fn(x)
+                trace.append(f"cdf {digest(out)}")
+                return out
+            smc.prefix_sum = cdf
+            varied = []
+            for seed in seeds:
+                lines = set()
+                for run in range(runs):
+                    trace.clear()
+                    r = samplers.smc_run(_gen(torch, dev, seed), t.log_prob_fn, **kw)
+                    betas = [float(b).hex() for b in r.info["betas"][:r.info["n_stages"]]]
+                    line = (f"log Z {float(r.log_Z).hex()}, stages {r.info['n_stages']}, betas "
+                            f"{betas}, resamplings {trace}")
+                    say(f"    {name} seed {seed} run {run}: {line}")
+                    lines.add(line)
+                if len(lines) > 1:
+                    varied.append(seed)
+            say(f"  {name}: seeds {list(seeds)}, {runs} runs each; seeds whose runs differ in "
+                f"this process: {varied}")
+    finally:
+        smc.prefix_sum, smc.systematic_resample = saved
 
 
 def phase_smc_move_pair(torch, targets, samplers, dev):
@@ -1434,6 +1570,313 @@ def phase_smc_move_pair(torch, targets, samplers, dev):
         f"{walls[2] * 1e3:.3f}, moves8 {walls[8] * 1e3:.3f} ({walls[8] / walls[2]:.3f}x the "
         f"time for 4x the moves)")
     return dict(rate=rate, walls=walls)
+
+
+def _hier_target(targets):
+    return targets.get_target("hierarchical_logistic", dim=HIER_DIM, n_data=HIER_N_DATA)
+
+
+def _mean_mcse(torch, diagnostics, samples, ess=None):
+    """Per-coordinate (mean, MCSE = sd / sqrt(bulk ESS), sd) of a full
+    history."""
+    if ess is None:
+        ess = diagnostics.ess_bulk_chunked(samples, chain_chunk=samples.shape[1], dim_chunk=4)
+    x = samples.double()
+    sd = x.std(dim=(0, 1))
+    return x.mean(dim=(0, 1)), sd / torch.sqrt(ess.double()), sd
+
+
+def _mean_z(a, b):
+    """|mean_a - mean_b| over the combined MCSE, per coordinate."""
+    return (a[0] - b[0]).abs() / (a[1] ** 2 + b[1] ** 2).sqrt()
+
+
+def _compare_means(label, a, b):
+    """Print and return the per-coordinate z of two runs' (mean, MCSE, sd)
+    and their mean shift in a's posterior sd."""
+    z = _mean_z(a, b)
+    shift = (a[0] - b[0]).abs() / a[2]
+    worst = int(z.argmax())
+    say(f"  {label} means: max |diff| / combined MCSE {float(z.max()):.3f} at coordinate "
+        f"{worst} ({float(a[0][worst]):.5f} / {float(b[0][worst]):.5f}), median "
+        f"{float(z.median()):.3f}; largest shift {float(shift.max()):.4f} posterior sd; tau "
+        f"{float(a[0][0]):.5f} / {float(b[0][0]):.5f} (MCSE {float(a[1][0]):.5f} / "
+        f"{float(b[1][0]):.5f})")
+    return z, shift
+
+
+def phase_hier_row(torch, targets, samplers, tuning, diagnostics, dev):
+    """Config 5 on the port (BASELINE.json configs[4]: the 100-D hierarchical
+    logistic posterior, tune + sample + diagnostics): 8,192 chains from the
+    target's init_sampler; run_adaptive_warmup("grahmc", diagonal metric,
+    tanh schedule, L = 16, the JAX defaults otherwise: 2,700 windowed and
+    8,050 gamma-tune transitions through kernel 1d); grahmc_run at the
+    tuned step, gamma and metric, HIER_DRAWS draws keeping every chain's
+    history (kernel 1d): chain-steps/s, min bulk-ESS/s, max split R-hat,
+    and its two halves' means; then at 4,096 chains a HIER_MULTI_DRAWS-draw
+    run through the multistep dispatch (kernel 2b); persistent NUTS with the
+    learned metric, the step tuned by the NUTS row's dual averaging, a
+    warm-up and HIER_NUTS_REPS timed runs of 192 draws x 64 slots (kernel
+    4c), then the multinomial scheme (kernel 4a's data form), their means
+    against GRAHMC's printed; rwmh_run at scale 2.38 / sqrt(D) x sqrt(mean
+    learned variance), HIER_RWMH_DRAWS timed draws, then HIER_RWMH_KEEP
+    draws thinned by RWMH_T (kernel 3a). Gates: GRAHMC accept 0.65 +-
+    HIER_ACCEPT_TOL, R-hat <= HIER_RHAT_MAX, min bulk ESS >= HIER_ESS_MIN,
+    finite draws; 2b's accept within 0.05 of the 8,192-chain run's; NUTS
+    accept 0.65 +- 0.1; RWMH finite with accept in (0.01, 0.9); GRAHMC's
+    and RWMH's posterior means within HIER_MCSE_Z combined MCSE (sd /
+    sqrt(bulk ESS)) on every coordinate."""
+    say(f"[5k] config 5: {HIER_DIM}-D hierarchical logistic posterior (n_data "
+        f"{HIER_N_DATA}), {HIER_CHAINS} chains: warmup, gamma tune, GRAHMC, NUTS, RWMH "
+        f"(kernels 1d, 2b, 4c, 3a)")
+    t = _hier_target(targets)
+    tanh = samplers.tanh_schedule
+    init = t.init_sampler(_gen(torch, dev, 110), HIER_CHAINS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step, inv_mass, pos, info = tuning.run_adaptive_warmup(
+        "grahmc", t.log_prob_fn, None, init, _gen(torch, dev, 111), num_warmup=WARMUP_STEPS,
+        learn_mass_matrix=True, backend="fused", num_steps=HIER_L, schedule_type="tanh",
+        value_and_grad_fn=t.value_and_grad_fn)
+    torch.cuda.synchronize()
+    warmup_sec = time.perf_counter() - t0
+    say(f"  hier_warmup_sec {warmup_sec:.4f} ({WARMUP_TRANSITIONS} warmup and "
+        f"{TUNE_TRANSITIONS} gamma-tune transitions); tuned step {step:.6f}, gamma "
+        f"{info['gamma']}, steepness {info['steepness']}; learned variance tau "
+        f"{float(inv_mass[0]):.4f}, beta mean {float(inv_mass[1:].mean()):.5f}; last batch "
+        f"accept {info['accept_trace'][-1]:.4f}")
+    require(0.0 < step < 5.0 and bool(torch.isfinite(pos).all()), "config-5 warmup")
+
+    kw = dict(step_size=step, num_steps=HIER_L, gamma=info["gamma"],
+              steepness=info["steepness"], friction_schedule=tanh, inv_mass_matrix=inv_mass,
+              value_and_grad_fn=t.value_and_grad_fn, backend="fused")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = samplers.grahmc_run(_gen(torch, dev, 112), t.log_prob_fn, pos,
+                              num_samples=HIER_DRAWS, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    accept = float(res.accept_rate.mean())
+    require(res.samples.shape == (HIER_DRAWS, HIER_CHAINS, HIER_DIM), "config-5 history shape")
+    require(bool(torch.isfinite(res.samples).all()), "config-5 non-finite draws")
+    t0 = time.perf_counter()
+    ess = diagnostics.ess_bulk_chunked(res.samples, chain_chunk=HIER_CHAINS, dim_chunk=4)
+    rhat = diagnostics.split_rhat_chunked(res.samples, chain_chunk=HIER_CHAINS, dim_chunk=4)
+    torch.cuda.synchronize()
+    diag_sec = time.perf_counter() - t0
+    grahmc = _mean_mcse(torch, diagnostics, res.samples, ess)
+    half = HIER_DRAWS // 2
+    halves = [_mean_mcse(torch, diagnostics, h) for h in (res.samples[:half], res.samples[half:])]
+    ess_min, rhat_max = float(ess.min()), float(rhat.max())
+    rate = HIER_CHAINS * HIER_DRAWS / wall
+    say(f"  GRAHMC: {HIER_DRAWS} draws x {HIER_CHAINS} chains in {wall:.4f} s, accept "
+        f"{accept:.4f}; hier_grahmc_chain_steps_per_sec {rate:.1f}, hier_grahmc_ess_per_sec "
+        f"{ess_min / wall:.1f} (min bulk-ESS {ess_min:.1f}, median {float(ess.median()):.1f}), "
+        f"hier_grahmc_rhat_max {rhat_max:.5f} (diagnostics {diag_sec:.2f} s)")
+    _compare_means("GRAHMC's first vs second half", *halves)
+    require(abs(accept - TARGET_ACCEPT) <= HIER_ACCEPT_TOL, f"config-5 GRAHMC accept {accept}")
+    require(rhat_max <= HIER_RHAT_MAX, f"config-5 R-hat {rhat_max}")
+    require(ess_min >= HIER_ESS_MIN, f"config-5 min bulk ESS {ess_min}")
+    del res
+
+    multi = samplers.grahmc_run(_gen(torch, dev, 113), t.log_prob_fn,
+                                pos[:HIER_MULTI_CHAINS].contiguous(),
+                                num_samples=HIER_MULTI_DRAWS, collect_chains=COLLECT, **kw)
+    acc_m = float(multi.accept_rate.mean())
+    say(f"  {HIER_MULTI_CHAINS} chains, {HIER_MULTI_DRAWS} draws through the multistep dispatch "
+        f"(kernel 2b): accept {acc_m:.4f}")
+    require(bool(torch.isfinite(multi.samples).all()), "config-5 multistep draws")
+    require(abs(acc_m - accept) <= 0.05, f"config-5 multistep accept {acc_m} vs {accept}")
+    del multi
+
+    t0 = time.perf_counter()
+    nuts_step = _da_tune_nuts(torch, tuning, samplers, dev, t, HIER_CHAINS, init=pos,
+                              inv_mass_matrix=inv_mass)
+    say(f"  NUTS step {float(nuts_step):.6f} ({NUTS_TUNE_CALLS} runs of {NUTS_TUNE_SPS} slots, "
+        f"{time.perf_counter() - t0:.2f} s)")
+    nuts, nres = _nuts_timed(torch, samplers, diagnostics, dev, t, "config-5 NUTS", 114,
+                             chains=HIER_CHAINS, reps=HIER_NUTS_REPS, init=pos,
+                             step_size=nuts_step, inv_mass_matrix=inv_mass)
+    say(f"  hier_nuts_useful_grads_per_sec {nuts['rate']:.1f}, hier_nuts_ess_per_sec "
+        f"{nuts['ess_rate']:.1f}")
+    # persistent NUTS's means are read, not gated: the JAX package's machine
+    # shows the same shifts on this posterior (tests/test_torch_hierarchical.py)
+    _compare_means("GRAHMC vs NUTS (endpoint scheme)", grahmc,
+                   _mean_mcse(torch, diagnostics, nres.samples, nuts["ess"]))
+    del nres
+    require(abs(nuts["accept"] - TARGET_ACCEPT) < 0.1, f"config-5 NUTS accept {nuts['accept']}")
+    mres = samplers.nuts_run_persistent(
+        _gen(torch, dev, 116), t.log_prob_fn, pos, step_size=nuts_step,
+        num_samples=NUTS_SAMPLES, steps_per_sample=NUTS_STEPS_PER_SAMPLE,
+        inv_mass_matrix=inv_mass, value_and_grad_fn=t.value_and_grad_fn,
+        proposal_scheme="multinomial")
+    require(bool(torch.isfinite(mres.samples).all()), "config-5 NUTS-multinomial draws")
+    say(f"  NUTS-multinomial: accept {float(torch.nanmean(mres.info['mean_accept_probs'])):.4f}, "
+        f"mean tree depth {float(mres.info['mean_tree_depth'].mean()):.3f}")
+    _compare_means("GRAHMC vs NUTS-multinomial", grahmc,
+                   _mean_mcse(torch, diagnostics, mres.samples))
+    del mres
+
+    scale = 2.38 / HIER_DIM ** 0.5 * float(inv_mass.mean()) ** 0.5
+    t0 = time.perf_counter()
+    rres = samplers.rwmh_run(_gen(torch, dev, 115), t.log_prob_fn, pos,
+                             num_samples=HIER_RWMH_DRAWS, scale=scale, collect_chains=COLLECT,
+                             value_and_grad_fn=t.value_and_grad_fn, backend="fused")
+    torch.cuda.synchronize()
+    r_wall = time.perf_counter() - t0
+    r_acc = float(rres.accept_rate.mean())
+    say(f"  RWMH: scale {scale:.5f}, {HIER_RWMH_DRAWS} draws x {HIER_CHAINS} chains in "
+        f"{r_wall:.4f} s; hier_rwmh_chain_steps_per_sec "
+        f"{HIER_CHAINS * HIER_RWMH_DRAWS / r_wall:.1f}, accept {r_acc:.4f}")
+    require(bool(torch.isfinite(rres.samples).all()), "config-5 RWMH draws")
+    require(0.01 < r_acc < 0.9, f"config-5 RWMH accept {r_acc}")
+    # RWMH as the second witness of GRAHMC's means: kernel 3a evaluates the
+    # log density only, so it shares neither 1d's gradient nor its integrator
+    g = _gen(torch, dev, 117)
+    q = rres.final_state.position
+    kept = torch.empty((HIER_RWMH_KEEP, HIER_CHAINS, HIER_DIM), device=dev)
+    for i in range(HIER_RWMH_KEEP):
+        q = samplers.rwmh_run(g, t.log_prob_fn, q, num_samples=RWMH_T, scale=scale,
+                              collect_chains=1, value_and_grad_fn=t.value_and_grad_fn,
+                              backend="fused").final_state.position
+        kept[i] = q
+    del rres
+    require(bool(torch.isfinite(kept).all()), "config-5 RWMH reference draws")
+    rwmh = _mean_mcse(torch, diagnostics, kept)
+    say(f"  RWMH reference: {HIER_RWMH_KEEP} draws x {HIER_CHAINS} chains, one every {RWMH_T} "
+        f"transitions; min bulk-ESS {float((rwmh[2] / rwmh[1]).square().min()):.1f}")
+    del kept
+    z_rwmh, _ = _compare_means("GRAHMC vs RWMH", grahmc, rwmh)
+    require(float(z_rwmh.max()) <= HIER_MCSE_Z,
+            f"config-5 GRAHMC and RWMH means differ: max z {float(z_rwmh.max())}")
+    return dict(step=step, gamma=info["gamma"], steepness=info["steepness"],
+                inv_mass=inv_mass, pos=pos, warmup_sec=warmup_sec, rate=rate,
+                ess_rate=ess_min / wall, rhat=rhat_max, accept=accept,
+                nuts_step=float(nuts_step), nuts=nuts, rwmh_scale=scale,
+                rwmh_rate=HIER_CHAINS * HIER_RWMH_DRAWS / r_wall)
+
+
+def phase_parity_hier(torch, ft, fr, fn, tn, targets, row, dev):
+    """Kernels 1d, 2b, 3a and 4c against their plain versions at config 5's
+    shapes (8,192 x 100 x 256 data rows; 2b at 4,096 chains, T = 8; 3a T =
+    32; 4c 16 iterations x W = 4), from the warmed positions at the tuned
+    step, gamma, metric and NUTS step: injected draws, then Philox. No chain
+    may split: accepts equal away from the MH borderline, q, lp and grad
+    within 1e-4 (delta H within 2e-3); kernel 4c by window_agreement, every
+    chain identical in its discrete state and within 1e-4 in its emitted and
+    in-flight state. Then kernel 4's multinomial variant on the same data,
+    which the row's multinomial runs launch, by the same rule with at most
+    SPLIT_MAX of the chains split."""
+    say("[3f] kernels 1d, 2b, 3a and 4c (the hierarchical posterior's data) vs plain versions")
+    t = _hier_target(targets)
+    info = t.value_and_grad_fn.kernel_info
+    inv_mass = row["inv_mass"].float().contiguous()
+    scalars = ft.kernel_scalars(row["step"], row["gamma"], row["steepness"], dev)
+    tanh = ft.SCHEDULE_IDS["tanh"]
+    g = _gen(torch, dev, 120)
+    key = ft.PhiloxStream.from_generator(g, dev).key
+    max_err = {}
+
+    def momentum(shape):
+        return torch.randn(shape, generator=g, device=dev) / torch.sqrt(inv_mass)
+
+    def uniforms(shape):
+        return torch.rand(shape, generator=g, device=dev).clamp_min(2.0 ** -25)
+
+    q = row["pos"].float().contiguous()
+    lp, grad = (x.contiguous() for x in t.value_and_grad_fn(q))
+    args = (info, HIER_L, tanh, q, lp, grad, scalars, inv_mass)
+    u = uniforms(HIER_CHAINS)
+    err = 0.0
+    for mode, rand, log_u in (
+            ("injected", dict(p0=momentum((HIER_CHAINS, HIER_DIM)), u=u), torch.log(u)),
+            ("philox", dict(key=key, call=7),
+             torch.log(ft.philox_uniform(key, 7, 0, HIER_CHAINS, dev)))):
+        kern = ft.grahmc_step_kernel(*args, **rand)
+        plain = ft.grahmc_step_plain(*args, **rand)
+        torch.cuda.synchronize()
+        e, same = _compare(f"1d {mode}", torch, _fields(kern), _fields(plain), log_u,
+                           torch.ones(HIER_CHAINS, dtype=torch.bool, device=dev))
+        require(bool(same.all()), f"1d {mode}: {int((~same).sum())} chains split")
+        ok = plain[4].abs() < 1000.0
+        require(torch.allclose(kern[5][ok], plain[5][ok], rtol=1e-4, atol=1e-4),
+                f"1d {mode}: proposal q differs")
+        err = max(err, e)
+    max_err["grahmc_step_kernel[data]"] = err
+
+    n = HIER_MULTI_CHAINS
+    margs = (info, HIER_L, tanh, MULTI_T, q[:n].contiguous(), lp[:n].contiguous(),
+             grad[:n].contiguous(), scalars, inv_mass)
+    u = uniforms((MULTI_T, n))
+    err = 0.0
+    for mode, rand, u_all in (
+            ("injected", dict(p0=momentum((MULTI_T, n, HIER_DIM)), u=u), u),
+            ("philox", dict(key=key, call=3), torch.stack(
+                [ft.philox_uniform(key, 3, s, n, dev) for s in range(MULTI_T)]))):
+        kern = ft.grahmc_multistep_kernel(*margs, **rand)
+        plain = ft.grahmc_multistep_plain(*margs, **rand)
+        torch.cuda.synchronize()
+        alive = torch.ones(n, dtype=torch.bool, device=dev)
+        for s in range(MULTI_T):
+            e, alive = _compare(f"2b {mode} t={s}", torch, _fields(kern, s), _fields(plain, s),
+                                torch.log(u_all[s]), alive)
+            err = max(err, e)
+        require(bool(alive.all()), f"2b {mode}: {int((~alive).sum())} chains split")
+        require(torch.allclose(kern[2], plain[2], rtol=1e-4, atol=1e-4), f"2b {mode}: final grad")
+    max_err["grahmc_multistep_kernel[data]"] = err
+
+    scale = fr.rwmh_scale(row["rwmh_scale"], dev)
+    noise = torch.randn((RWMH_T, HIER_CHAINS, HIER_DIM), generator=g, device=dev)
+    u = uniforms((RWMH_T, HIER_CHAINS))
+    err = 0.0
+    for mode, rand in (("injected", dict(noise=noise, u=u)), ("philox", dict(key=key, call=5))):
+        rargs = (info, RWMH_T, q, lp, scale, COLLECT)
+        kern = fr.rwmh_multistep_kernel(*rargs, **rand)
+        plain = fr.rwmh_multistep_plain(*rargs, **rand)
+        torch.cuda.synchronize()
+        agree = (kern[2] == plain[2]).all(dim=0)
+        hist = agree[:COLLECT]
+        e, within = _close_on([(kern[0][agree], plain[0][agree]), (kern[1][agree], plain[1][agree]),
+                               (kern[3][:, hist], plain[3][:, hist]),
+                               (kern[4][:, hist], plain[4][:, hist])])
+        _split_check(f"3a {mode}", agree, e, within, max_split=0)
+        require(0.01 < float(kern[2].float().mean()) < 0.9, f"3a {mode}: accept")
+        err = max(err, e)
+    max_err["rwmh_multistep_kernel[data]"] = err
+
+    nscalars = fn.nuts_scalars(row["nuts_step"], 1000.0, dev)
+    nargs = (info, NUTS_ITERS, NUTS_W, NUTS_DEPTH)
+    for multinomial, label, max_split in ((False, "4c", 0.0),
+                                          (True, "4a's data form", SPLIT_MAX)):
+        start = tn._init_pstate(q, lp, grad, torch.float32, multinomial=multinomial,
+                                max_tree_depth=NUTS_DEPTH)
+        warm = fn.nuts_window_kernel(*nargs, start, nscalars, inv_mass, key=key, call=0)
+        shape = (NUTS_ITERS, HIER_CHAINS)
+        n_slice = NUTS_ITERS * NUTS_W if multinomial else NUTS_ITERS
+        draws = (torch.randn(shape + (HIER_DIM,), generator=g, device=dev),
+                 torch.rand(shape, generator=g, device=dev) < 0.5,
+                 torch.rand(shape, generator=g, device=dev) < 0.5,
+                 torch.rand(shape, generator=g, device=dev), uniforms((n_slice, HIER_CHAINS)),
+                 torch.rand(shape, generator=g, device=dev))
+        name = NUTS_NAMES[fn.variant(warm, inv_mass, info)]
+        err = 0.0
+        for mode, rand in (("injected", dict(draws=draws)), ("philox", dict(key=key, call=1))):
+            kern = fn.nuts_window_kernel(*nargs, _clone_state(warm), nscalars, inv_mass, **rand)
+            plain = fn.nuts_window_plain(*nargs, _clone_state(warm), nscalars, inv_mass, **rand)
+            torch.cuda.synchronize()
+            same, emitted, in_flight, e = fn.window_agreement(kern, plain)
+            kept = same & emitted & in_flight
+            done = int((kern.transitions - warm.transitions).sum())
+            say(f"  {label} {mode}: discrete state identical on {int(same.sum())}/{HIER_CHAINS} "
+                f"chains, emitted and in-flight state within 1e-4 on {int(kept.sum())}; max |err| "
+                f"{e:.3g}; {done} transitions")
+            n_split = int((~kept).sum())
+            require(n_split <= max_split * HIER_CHAINS,
+                    f"{label} {mode}: {n_split} chains split or drifted")
+            require(done > 0, f"{label} {mode}: no transition completed")
+            err = max(err, e)
+        max_err[name] = err
+    return max_err
 
 
 # ---------------------------------------------------------------------------
@@ -1688,6 +2131,86 @@ def phase_timing_variants(torch, ft, targets, samplers, dev, reps=10, burst=10, 
     return times
 
 
+def phase_timing_hier(torch, ft, fr, fn, tn, targets, row, dev, reps=6, burst=10,
+                      plain_burst=1):
+    """Kernels 1d (8,192 x 100, L = 16), 2b (4,096 x 100, T = 8), 3a (8,192
+    x 100, T = 32) and 4c (8,192 x 100, 16 iterations x W = 4) against their
+    plain versions at config 5's tuned step, gamma, metric and NUTS step from
+    the warmed positions, Philox mode: median over `reps` samples,
+    interleaved, `burst` kernel or `plain_burst` plain calls per sample; 4c,
+    and kernel 4's multinomial variant on the same data (the row's
+    multinomial runs launch it), from a state two windows in. Then the target's share for reference: the eager
+    value_and_grad (two cuBLAS float32 products, TF32 off) at 8,192 x 100 x
+    256, on no path. Returns ({name: (kernel ms, plain ms)}, kernel 4's data
+    variants' leapfrogs per call and live stack slots as
+    phase_timing_rwmh_nuts counts them, the eager value_and_grad's ms)."""
+    say(f"[6f] kernels 1d, 2b, 3a and 4c vs plain versions: CUDA events, median of {reps} "
+        f"bursts of {burst} kernel / {plain_burst} plain calls, Philox mode")
+    t = _hier_target(targets)
+    info = t.value_and_grad_fn.kernel_info
+    key = ft.PhiloxStream.from_generator(_gen(torch, dev, 46), dev).key
+    inv_mass = row["inv_mass"].float().contiguous()
+    scalars = ft.kernel_scalars(row["step"], row["gamma"], row["steepness"], dev)
+    q = row["pos"].float().contiguous()
+    lp, grad = (x.contiguous() for x in t.value_and_grad_fn(q))
+    n = HIER_MULTI_CHAINS
+    tanh = ft.SCHEDULE_IDS["tanh"]
+    step_args = (info, HIER_L, tanh, q, lp, grad, scalars, inv_mass)
+    multi_args = (info, HIER_L, tanh, MULTI_T, q[:n].contiguous(), lp[:n].contiguous(),
+                  grad[:n].contiguous(), scalars, inv_mass)
+    rwmh_args = (info, RWMH_T, q, lp, fr.rwmh_scale(row["rwmh_scale"], dev), COLLECT)
+    nscalars = fn.nuts_scalars(row["nuts_step"], 1000.0, dev)
+    nuts_args = (info, NUTS_ITERS, NUTS_W, NUTS_DEPTH)
+    cases = [
+        ("grahmc_step_kernel[data]", f"{HIER_CHAINS} x {HIER_DIM}, L = {HIER_L}",
+         lambda: ft.grahmc_step_kernel(*step_args, key=key, call=0),
+         lambda: ft.grahmc_step_plain(*step_args, key=key, call=0)),
+        ("grahmc_multistep_kernel[data]", f"{n} x {HIER_DIM}, T = {MULTI_T}, L = {HIER_L}",
+         lambda: ft.grahmc_multistep_kernel(*multi_args, key=key, call=0),
+         lambda: ft.grahmc_multistep_plain(*multi_args, key=key, call=0)),
+        ("rwmh_multistep_kernel[data]", f"{HIER_CHAINS} x {HIER_DIM}, T = {RWMH_T}",
+         lambda: fr.rwmh_multistep_kernel(*rwmh_args, key=key, call=0),
+         lambda: fr.rwmh_multistep_plain(*rwmh_args, key=key, call=0)),
+    ]
+    windows = {}          # kernel 4's variants: the state a window runs on from
+    for multinomial in (False, True):
+        state = tn._init_pstate(q, lp, grad, torch.float32, multinomial=multinomial,
+                                max_tree_depth=NUTS_DEPTH)
+        for call in range(2):
+            state = fn.nuts_window_kernel(*nuts_args, state, nscalars, inv_mass, key=key,
+                                          call=call)
+        name = NUTS_NAMES[fn.variant(state, inv_mass, info)]
+        states = {"kernel": state, "plain": _clone_state(state)}
+        windows[name] = (states, int(state.n_exec.sum()), live_stack_slots(state))
+        cases.append((name, f"{HIER_CHAINS} x {HIER_DIM}, {NUTS_ITERS} iterations x W = {NUTS_W}",
+                      lambda st=states: fn.nuts_window_kernel(*nuts_args, st["kernel"], nscalars,
+                                                              inv_mass, key=key, call=2),
+                      lambda st=states: fn.nuts_window_plain(*nuts_args, st["plain"], nscalars,
+                                                             inv_mass, key=key, call=2)))
+    times = {}
+    for name, shape, kernel_fn, plain_fn in cases:
+        ms = _interleaved(torch, {"kernel": kernel_fn, "plain": plain_fn}, reps,
+                          {"kernel": burst, "plain": plain_burst})
+        times[name] = (statistics.median(ms["kernel"]), statistics.median(ms["plain"]))
+        say(f"  {name} ({shape}): kernel {times[name][0]:.4f} ms, plain {times[name][1]:.4f} "
+            f"ms; kernel quartiles "
+            f"{[round(x, 4) for x in statistics.quantiles(ms['kernel'], n=4)]}")
+    measured = {}
+    for name, (states, before, slots_before) in windows.items():
+        measured[name] = {
+            "leapfrogs": (int(states["kernel"].n_exec.sum()) - before) / (1 + reps * burst),
+            "stack_slots": slots_before + live_stack_slots(states["kernel"])}
+        say(f"  {name}: {measured[name]['leapfrogs']:.0f} leapfrogs executed per call; live "
+            f"stack slots in and out {measured[name]['stack_slots']}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t.value_and_grad_fn(q)
+    vag_ms = statistics.median(_event_ms(torch, lambda: t.value_and_grad_fn(q), burst)
+                               for _ in range(reps))
+    say(f"  eager value_and_grad ({HIER_CHAINS} x {HIER_DIM}, n_data {HIER_N_DATA}, cuBLAS "
+        f"float32, TF32 off; the target's share, on no path): {vag_ms:.4f} ms")
+    return times, measured, vag_ms
+
+
 def live_stack_slots(state):
     """Checkpoint-stack slots (a q row and a p row each) that a window must
     carry across its boundary from this state: a chain n leaves into a
@@ -1720,6 +2243,25 @@ TRANSITION_FLOPS = 13    # GRAHMC: Box-Muller momentum, two kinetic energies, fl
 # triangular L^{-1}, D (D + 1) operations
 DENSE_SUBSTEP_FLOPS = 8
 DENSE_TRANSITION_FLOPS = 9
+# the hierarchical posterior (csrc/targets.cuh), per evaluation: z = X beta
+# and X^T (y - sigmoid z), a multiply and an add per entry of X's p = D - 1
+# coefficient columns each; per data row |z|, exp, max, log1p, the softplus
+# sum, y z, the difference and its sum (8), and for the gradient 1 + e, the
+# quotient and the residual (3); per coordinate the prior's square, its sum
+# and beta e^-tau subtracted (4; 2 for the log-density alone)
+HIER_ROW_LP_FLOPS = 8
+HIER_ROW_GRAD_FLOPS = 3
+HIER_COORD_FLOPS = 4
+HIER_COORD_LP_FLOPS = 2
+
+
+def hier_eval_flops(grad=True):
+    """Float operations of one evaluation of config 5's target for one chain."""
+    p, n = HIER_DIM - 1, HIER_N_DATA
+    if grad:
+        return (4 * n * p + (HIER_ROW_LP_FLOPS + HIER_ROW_GRAD_FLOPS) * n
+                + HIER_COORD_FLOPS * HIER_DIM)
+    return 2 * n * p + HIER_ROW_LP_FLOPS * n + HIER_COORD_LP_FLOPS * HIER_DIM
 
 
 def bound(nbytes, flops):
@@ -1736,8 +2278,9 @@ def kernel_bounds(measured):
     integer work, per-chain scalars and, for NUTS, starts and subtree ends
     are not counted, so each bound is a lower bound. `measured` holds kernel
     4's leapfrogs per call and live checkpoint-stack slots for each variant
-    (data-dependent, phase_timing_rwmh_nuts): of the stacks only the slots
-    live at a window's boundary must cross device memory."""
+    (data-dependent, phase_timing_rwmh_nuts, and 4c's leapfrogs from
+    phase_timing_hier): of the stacks only the slots live at a window's
+    boundary must cross device memory."""
     f = TARGET_FLOPS["neals_funnel"]
     row, chain = DIM * 4, 4
     step_io = CHAINS * (2 * row + chain) + CHAINS * (3 * row + 3 * chain + 1)
@@ -1792,6 +2335,34 @@ def kernel_bounds(measured):
         per_leaf = DIM * (LEAPFROG_FLOPS + TARGET_FLOPS[family]
                           + (4 * DIM if dense else 0) + (3 if multinomial else 0))
         out[name] = bound(nbytes, measured[name]["leapfrogs"] * per_leaf)
+
+    # 1d, 2b, 3a and 4c at config 5's shapes: kernels 1, 2, 3 and 4's reads
+    # and writes at D = 100, X and y read once, and the likelihood's float
+    # work per evaluation (hier_eval_flops) in place of a target's per
+    # coordinate; 4c's leapfrogs per call as phase_timing_hier counted them
+    h_row, data = HIER_DIM * 4, (HIER_N_DATA * (HIER_DIM - 1) + HIER_N_DATA) * 4
+    hc, hm = HIER_CHAINS, HIER_MULTI_CHAINS
+    per_transition = (HIER_L * (hier_eval_flops() + HIER_DIM * SUBSTEP_FLOPS)
+                      + HIER_DIM * TRANSITION_FLOPS)
+    out["grahmc_step_kernel[data]"] = bound(
+        hc * (2 * h_row + chain) + hc * (3 * h_row + 3 * chain + 1) + data,
+        hc * per_transition)
+    out["grahmc_multistep_kernel[data]"] = bound(
+        hm * (2 * h_row + chain) * 2 + MULTI_T * hm * (1 + chain + h_row + chain) + data,
+        MULTI_T * hm * per_transition)
+    out["rwmh_multistep_kernel[data]"] = bound(
+        hc * (h_row + 4) * 2 + RWMH_T * hc + RWMH_T * COLLECT * (h_row + 4) + data,
+        RWMH_T * hc * (HIER_DIM * 8 + hier_eval_flops(grad=False)))
+    for multinomial in (False, True):
+        name = NUTS_NAMES["multinomial+data" if multinomial else "endpoint+data"]
+        state = hc * (14 * h_row + 17 * chain + 2)
+        if multinomial:
+            state += hc * (2 * h_row + 3 * chain + 2)
+        stacks = measured[name]["stack_slots"] * 2 * h_row
+        per_leaf = (HIER_DIM * (LEAPFROG_FLOPS + (3 if multinomial else 0))
+                    + hier_eval_flops())
+        out[name] = bound(2 * state + stacks + h_row + data,
+                          measured[name]["leapfrogs"] * per_leaf)
     return out
 
 
@@ -1824,6 +2395,9 @@ def main():
     say(f"  {lib.path.name}: built in {lib.build_seconds:.2f} s")
     for line in ptxas_summary(lib.build_log):
         say(f"  ptxas: {line}")
+    if "--smc-repeat" in sys.argv[1:]:
+        phase_smc_repeat(torch, targets, samplers, dev)
+        return 0
 
     max_err = phase_parity(torch, ft, targets, dev)
     max_err.update(phase_parity_rwmh(torch, ft, fr, targets, dev))
@@ -1837,7 +2411,8 @@ def main():
         """Each kernel's and kernel variant's launch count."""
         got = {f"{k.__name__}{GRAHMC_NAMES[v]}": n for k in ft.KERNELS
                for v, n in k.variant_launches.items()}
-        got["rwmh_multistep_kernel"] = fr.rwmh_multistep_kernel.launches
+        got.update({RWMH_NAMES[v]: n
+                    for v, n in fr.rwmh_multistep_kernel.variant_launches.items()})
         got.update({NUTS_NAMES[v]: n
                     for v, n in fn.nuts_window_kernel.variant_launches.items()})
         return got
@@ -1850,7 +2425,7 @@ def main():
         sum over the paths that run it. `expected` may be a function of the
         path's result, for a path whose launches depend on its data."""
         ft.reset_launches()
-        fr.rwmh_multistep_kernel.launches = 0
+        fr.reset_launches()
         fn.reset_launches()
         out = run()
         got = counts()
@@ -1906,6 +2481,15 @@ def main():
     move_pair = drive("SMC move-dominated pair",
                       lambda: phase_smc_move_pair(torch, targets, samplers, dev),
                       {"grahmc_bridged_kernel": (1 + MOVE_REPS) * MOVE_RUNGS * (2 + 8)})
+    hier = drive("config-5 row",
+                 lambda: phase_hier_row(torch, targets, samplers, tuning, diagnostics, dev),
+                 {"grahmc_step_kernel[data]": (WARMUP_TRANSITIONS + TUNE_TRANSITIONS
+                                               + HIER_DRAWS),
+                  "grahmc_multistep_kernel[data]": HIER_MULTI_DRAWS // MULTI_T,
+                  "nuts_window_kernel[data]": NUTS_TUNE_CALLS + NUTS_SAMPLES * (1 + HIER_NUTS_REPS),
+                  "nuts_window_kernel[multinomial+data]": NUTS_SAMPLES,
+                  "rwmh_multistep_kernel[data]": HIER_RWMH_DRAWS // RWMH_T + HIER_RWMH_KEEP})
+    max_err.update(phase_parity_hier(torch, ft, fr, fn, tn, targets, hier, dev))
     require(all(n > 0 for n in launches.values()) and set(launches) == set(KERNELS),
             f"a kernel no main path launched: {launches}")
 
@@ -1915,6 +2499,10 @@ def main():
     times.update(nuts_times)
     times.update(phase_timing_dense(torch, ft, targets, dense_row, dev))
     times.update(phase_timing_variants(torch, ft, targets, samplers, dev))
+    hier_times, hier_measured, vag_ms = phase_timing_hier(torch, ft, fr, fn, tn, targets, hier,
+                                                          dev)
+    times.update(hier_times)
+    measured.update(hier_measured)
     if "--multistep-switch" in sys.argv[1:]:
         phase_multistep_switch(torch, targets, samplers, dense_row, dev)
     bounds = kernel_bounds(measured)
@@ -1937,7 +2525,15 @@ def main():
         f"smc_stages {smc['stages']}, smc_mode_fraction {smc['mode']:.4f}, "
         f"smc_move_dominated_leapfrogs_per_sec {move_pair['rate']:.1f}, smc_move_pair_ms "
         f"{{'moves2': {move_pair['walls'][2] * 1e3:.3f}, "
-        f"'moves8': {move_pair['walls'][8] * 1e3:.3f}}}")
+        f"'moves8': {move_pair['walls'][8] * 1e3:.3f}}}, "
+        f"hier_warmup_sec {hier['warmup_sec']:.4f}, "
+        f"hier_grahmc_chain_steps_per_sec {hier['rate']:.1f}, "
+        f"hier_grahmc_ess_per_sec {hier['ess_rate']:.1f}, "
+        f"hier_grahmc_rhat_max {hier['rhat']:.5f}, hier_grahmc_accept {hier['accept']:.4f}, "
+        f"hier_nuts_useful_grads_per_sec {hier['nuts']['rate']:.1f}, "
+        f"hier_nuts_ess_per_sec {hier['nuts']['ess_rate']:.1f}, "
+        f"hier_rwmh_chain_steps_per_sec {hier['rwmh_rate']:.1f}, "
+        f"hier_eager_value_and_grad_ms {vag_ms:.4f}")
     say(f"  bound of 1c at the SMC row's shape: "
         f"{bounds['grahmc_bridged_kernel (SMC row)'][0]:.5f} ms, "
         f"{bounds['grahmc_bridged_kernel (SMC row)'][1]}")

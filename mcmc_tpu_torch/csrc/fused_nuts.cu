@@ -24,7 +24,11 @@
 // subtree replaces the proposal w.p. min(1, W_sub / W_tree).
 // Dense metric (DENSE): v = M^{-1} p and p0 = z @ L^{-1} from M^{-1} and
 // L^{-1} in shared memory (metric.cuh). The U-turn test uses the raw
-// momentum for both metrics.
+// momentum for both metrics. The family HIERARCHICAL_LOGISTIC is the TPU
+// kernel's data-carrying form (variant 4c, the `data_arrays` refs): its
+// functor reads X and y from device memory (struct TargetData), and its two
+// products with X per leapfrog, not the state traffic, set the time
+// (targets.cuh).
 //
 // What bounds it on an H100: each chain's state (14 position-like rows and
 // 19 scalars, ~5.8 kB at D = 50; +2 rows and 5 scalars under MULTI) crosses
@@ -89,6 +93,7 @@ constexpr float NAN_ACCEPT_FALLBACK = 0.65f;
 // The dense variant shares its block's M^{-1} and L^{-1} among more warps.
 template <bool DENSE>
 constexpr int WARPS_PER_BLOCK = DENSE ? 8 : 4;
+static_assert(WARPS_PER_BLOCK<true> <= TARGET_MAX_WARPS, "targets.cuh stages one row per warp");
 
 // Field order must match KERNEL_FIELDS in mcmc_tpu_torch/ops/fused_nuts.py.
 struct State {
@@ -117,6 +122,7 @@ static_assert(sizeof(Draws) == 6 * sizeof(void*), "Draws is a pointer array");
 struct Args {
   int dim, n_chains, n_iters, slots, max_tree_depth;
   TargetParams params;
+  TargetData data;
   const float* scalars;  // (step size, delta_max), device
   const float* inv_mass;  // (D,) or, DENSE, (D, D)
   const float* l_inv;     // DENSE: (D, D) L^{-1}
@@ -200,7 +206,7 @@ __global__ void __launch_bounds__(WARPS_PER_BLOCK<DENSE> * 32)
   if (chain >= a.n_chains) return;  // uniform across the warp
 
   const size_t row = static_cast<size_t>(chain) * dim;
-  const Target<FAMILY, K> target(dim, a.params);
+  const Target<FAMILY, K> target(dim, a.params, a.data);
   const float step = a.scalars[0];
   const float delta_max = a.scalars[1];
   const bool philox = a.d.p0 == nullptr;
@@ -513,7 +519,8 @@ cudaError_t dispatch_variant(const Args& a, bool multi, bool dense, cudaStream_t
 
 // Plain C entry point, bound with ctypes by mcmc_tpu_torch/ops/_cuda.py.
 // `multinomial` and `dense` pick the variant. `target_params` is a host
-// array of the 4 floats of TargetParams. `state` is a host array of the 42
+// array of the 4 floats of TargetParams, `data` a host TargetData of device
+// pointers (null for a family without data). `state` is a host array of the 42
 // device pointers of struct State, in its order (the last 9 null without
 // `multinomial`); `draws` a host array of the 6 injected draw pointers, or
 // null for the in-kernel Philox draws (then key must be non-null). `l_inv`
@@ -521,8 +528,9 @@ cudaError_t dispatch_variant(const Args& a, bool multi, bool dense, cudaStream_t
 // launch's cudaError_t.
 extern "C" int nuts_window_launch(int family, int dim, int n_chains, int n_iters, int slots,
                                   int max_tree_depth, int multinomial, int dense,
-                                  const float* target_params, const float* scalars,
-                                  const float* inv_mass, const float* l_inv, const uint32_t* key,
+                                  const float* target_params, const mcmc::TargetData* data,
+                                  const float* scalars, const float* inv_mass,
+                                  const float* l_inv, const uint32_t* key,
                                   unsigned int call, void* const* state, void* const* draws,
                                   void* stream) {
   using namespace mcmc;
@@ -531,7 +539,7 @@ extern "C" int nuts_window_launch(int family, int dim, int n_chains, int n_iters
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (dim < 1 || dim > 32 * nuts::MAX_K || n_chains < 1 || n_iters < 1 || slots < 1 ||
-      max_tree_depth < 1 || max_tree_depth > 30) {
+      max_tree_depth < 1 || max_tree_depth > 30 || !valid_data(family, target_data(data))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   nuts::Args a{};
@@ -539,6 +547,7 @@ extern "C" int nuts_window_launch(int family, int dim, int n_chains, int n_iters
   a.max_tree_depth = max_tree_depth, a.scalars = scalars, a.inv_mass = inv_mass;
   a.l_inv = l_inv, a.key = key, a.call = call;
   std::memcpy(a.params.v, target_params, sizeof(a.params.v));
+  a.data = target_data(data);
   std::memcpy(&a.s, state, sizeof(nuts::State));
   if (draws != nullptr) std::memcpy(&a.d, draws, sizeof(nuts::Draws));
   if (multinomial && (a.s.q_sub == nullptr || a.s.q_stk == nullptr || a.s.p_stk == nullptr)) {
@@ -553,6 +562,8 @@ extern "C" int nuts_window_launch(int family, int dim, int n_chains, int n_iters
       return static_cast<int>(nuts::dispatch_variant<NEALS_FUNNEL>(a, multi, dns, s));
     case CORRELATED_GAUSSIAN:
       return static_cast<int>(nuts::dispatch_variant<CORRELATED_GAUSSIAN>(a, multi, dns, s));
+    case HIERARCHICAL_LOGISTIC:
+      return static_cast<int>(nuts::dispatch_variant<HIERARCHICAL_LOGISTIC>(a, multi, dns, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

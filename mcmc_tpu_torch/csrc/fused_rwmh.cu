@@ -7,7 +7,12 @@
 // never read, so the compiler drops it), accept if log u < min(0, lp' - lp),
 // select, write the accept and, for the first n_hist chains only, the
 // post-transition q and lp. The plain PyTorch version is
-// mcmc_tpu_torch/ops/fused_rwmh.py:rwmh_multistep_plain.
+// mcmc_tpu_torch/ops/fused_rwmh.py:rwmh_multistep_plain. The family
+// HIERARCHICAL_LOGISTIC is the TPU kernel's data-carrying form (variant 3a,
+// the `data_arrays` refs): lp' through the functor's log-density-only form,
+// z = X q and the softplus sum with no X^T product, reading X and y from
+// device memory (struct TargetData); that product, dim n_data multiply-adds
+// per chain and transition, then sets the time (targets.cuh).
 //
 // What bounds it on an H100: per transition a chain costs one Philox block
 // per four coordinates plus one for the accept uniform, two Box-Muller pairs
@@ -44,6 +49,7 @@ namespace rwmh {
 
 constexpr int THREADS = 256;
 constexpr int K = 4;  // coordinates per lane: the four normals of one Philox draw
+static_assert(THREADS / 32 <= TARGET_MAX_WARPS, "targets.cuh stages one row per warp");
 
 struct Args {
   int dim, n_chains, transitions, n_hist;
@@ -54,6 +60,7 @@ struct Args {
   float *q_out, *lp_out;
   bool* acc_out;
   float *hist_q, *hist_lp;  // (T, n_hist, D), (T, n_hist)
+  TargetData data;
 };
 
 template <int FAMILY, int G>
@@ -67,7 +74,7 @@ __global__ void __launch_bounds__(THREADS) rwmh_multistep_kernel(const Args a) {
   const bool active = c < a.n_chains;
   const int chain = active ? c : a.n_chains - 1;
 
-  const Target<FAMILY, K, G> target(a.dim);
+  const Target<FAMILY, K, G> target(a.dim, TargetParams{}, a.data);
   const float scale = a.scale[0];
   const int dim = a.dim;
   const size_t row = static_cast<size_t>(chain) * dim;
@@ -110,7 +117,12 @@ __global__ void __launch_bounds__(THREADS) rwmh_multistep_kernel(const Args a) {
       const int d = gl * K + r;
       prop[r] = d < dim ? q[r] + scale * noise[r] : 0.f;
     }
-    const float lp1 = target(prop, g, gl);
+    float lp1;
+    if constexpr (FAMILY == HIERARCHICAL_LOGISTIC) {
+      lp1 = target.log_prob(prop, gl);  // this kernel's lane groups
+    } else {
+      lp1 = target(prop, g, gl);
+    }
     const float log_u = logf(u);
     // log u < min(0, lp' - lp); a NaN lp' rejects, as in PyTorch
     const bool accept = (log_u < 0.f) && (log_u < lp1 - lp);
@@ -166,10 +178,13 @@ cudaError_t dispatch_g(const Args& a, cudaStream_t stream) {
 }  // namespace mcmc
 
 // Plain C entry point, bound with ctypes by mcmc_tpu_torch/ops/_cuda.py.
-// Pointers are device pointers; noise/u null selects the in-kernel Philox
-// draws (then key must be non-null). Returns the launch's cudaError_t.
+// Pointers are device pointers except `data`, a host TargetData of device
+// pointers (null for a family without data); noise/u null selects the
+// in-kernel Philox draws (then key must be non-null). Returns the launch's
+// cudaError_t.
 extern "C" int rwmh_multistep_launch(int family, int dim, int n_chains, int transitions,
-                                     int n_hist, const float* scale, const uint32_t* key,
+                                     int n_hist, const mcmc::TargetData* data,
+                                     const float* scale, const uint32_t* key,
                                      unsigned int call, const float* q, const float* lp,
                                      const float* noise, const float* u, float* q_out,
                                      float* lp_out, bool* acc_out, float* hist_q,
@@ -177,15 +192,18 @@ extern "C" int rwmh_multistep_launch(int family, int dim, int n_chains, int tran
   using namespace mcmc;
   if (noise == nullptr && key == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   if (dim < 1 || dim > 32 * rwmh::K || n_chains < 1 || transitions < 1 || n_hist < 0 ||
-      n_hist > n_chains) {
+      n_hist > n_chains || !valid_data(family, target_data(data))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const rwmh::Args a{dim, n_chains, transitions, n_hist, scale, key,     call,   q,
-                     lp,  noise,    u,           q_out,  lp_out, acc_out, hist_q, hist_lp};
+  const rwmh::Args a{dim,   n_chains, transitions, n_hist, scale,   key,    call,
+                     q,     lp,       noise,       u,      q_out,   lp_out, acc_out,
+                     hist_q, hist_lp, target_data(data)};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (family) {
     case STANDARD_NORMAL: return static_cast<int>(rwmh::dispatch_g<STANDARD_NORMAL>(a, s));
     case NEALS_FUNNEL: return static_cast<int>(rwmh::dispatch_g<NEALS_FUNNEL>(a, s));
+    case HIERARCHICAL_LOGISTIC:
+      return static_cast<int>(rwmh::dispatch_g<HIERARCHICAL_LOGISTIC>(a, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -16,8 +16,13 @@
 //   M^{-1} = L L^T, and every velocity and kinetic energy is a D x D product
 //   (metric.cuh).
 //   targets.cuh             <- mcmc_tpu/ops/padded_targets.py:_standard_normal,
-//                              _neals_funnel, _correlated, _gaussian_mixture
-//                              (inlined).
+//                              _neals_funnel, _correlated, _gaussian_mixture,
+//                              _hierarchical_logistic (inlined).
+//   The family HIERARCHICAL_LOGISTIC is the TPU kernels' data-carrying form
+//   (variants 1d and 2b: the target's `data_arrays` refs): its functor reads
+//   the design matrix and labels from device memory (struct TargetData).
+//   That target's likelihood, two products with X per evaluation, not the
+//   state traffic, sets those variants' time (targets.cuh).
 // Both kernels share one __device__ transition (trajectory.cuh) with the
 // scaled and bridged variants of kernel 1 (fused_trajectory_scaled.cu,
 // fused_trajectory_bridged.cu). Plain PyTorch versions of everything here
@@ -75,6 +80,7 @@ namespace mcmc {
 struct MultiArgs {
   int dim, n_chains, num_steps, schedule, transitions;
   TargetParams params;
+  TargetData data;
   const float* scalars;
   const uint32_t* key;
   uint32_t call;
@@ -95,7 +101,7 @@ __global__ void __launch_bounds__(WARPS_PER_BLOCK * 32) grahmc_step_kernel(const
   if (chain >= a.n_chains) return;  // uniform across the warp
 
   const Scalars sc{a.scalars[0], a.scalars[1], a.scalars[2]};
-  step_chain<K>(a, Target<FAMILY, K>(a.dim, a.params), metric, sc, chain, lane);
+  step_chain<K>(a, Target<FAMILY, K>(a.dim, a.params, a.data), metric, sc, chain, lane);
 }
 
 template <int FAMILY, int K, bool DENSE>
@@ -110,7 +116,7 @@ __global__ void __launch_bounds__(WARPS_PER_BLOCK * 32)
   if (chain >= a.n_chains) return;
 
   const Scalars sc{a.scalars[0], a.scalars[1], a.scalars[2]};
-  const Target<FAMILY, K> target(a.dim, a.params);
+  const Target<FAMILY, K> target(a.dim, a.params, a.data);
   const size_t row = static_cast<size_t>(chain) * a.dim;
   float q[K], g[K];
   load_row(a.q, row, lane, a.dim, q);
@@ -156,13 +162,15 @@ struct MultiLaunch {
 
 // Plain C entry points, bound with ctypes by mcmc_tpu_torch/ops/_cuda.py.
 // Pointers are device pointers except `target_params`, a host array of the 4
-// floats of TargetParams. p0/u null selects the in-kernel Philox draws (then
-// key must be non-null). `dense` selects the dense metric: inv_mass is then
+// floats of TargetParams, and `data`, a host TargetData of device pointers
+// (null for a family without data). p0/u null selects the in-kernel Philox
+// draws (then key must be non-null). `dense` selects the dense metric: inv_mass is then
 // (dim, dim) and l_inv its (dim, dim) factor L^{-1}, required. Each returns
 // the launch's cudaError_t.
 extern "C" int grahmc_step_launch(int family, int dim, int n_chains, int num_steps,
                                   int schedule, int dense, const float* target_params,
-                                  const float* scalars, const uint32_t* key, unsigned int call,
+                                  const mcmc::TargetData* data, const float* scalars,
+                                  const uint32_t* key, unsigned int call,
                                   const float* q, const float* lp, const float* grad,
                                   const float* inv_mass, const float* l_inv, const float* p0,
                                   const float* u, float* q_out, float* lp_out,
@@ -175,6 +183,7 @@ extern "C" int grahmc_step_launch(int family, int dim, int n_chains, int num_ste
   mcmc::StepArgs a{};
   a.dim = dim, a.n_chains = n_chains, a.num_steps = num_steps, a.schedule = schedule;
   std::memcpy(a.params.v, target_params, sizeof(a.params.v));
+  a.data = mcmc::target_data(data);
   a.scalars = scalars, a.key = key, a.call = call;
   a.q = q, a.lp = lp, a.grad = grad, a.inv_mass = inv_mass, a.l_inv = l_inv;
   a.p0 = p0, a.u = u;
@@ -186,7 +195,8 @@ extern "C" int grahmc_step_launch(int family, int dim, int n_chains, int num_ste
 
 extern "C" int grahmc_multistep_launch(int family, int dim, int n_chains, int num_steps,
                                        int schedule, int transitions, int dense,
-                                       const float* target_params, const float* scalars,
+                                       const float* target_params,
+                                       const mcmc::TargetData* data, const float* scalars,
                                        const uint32_t* key, unsigned int call,
                                        const float* q, const float* lp, const float* grad,
                                        const float* inv_mass, const float* l_inv,
@@ -202,6 +212,7 @@ extern "C" int grahmc_multistep_launch(int family, int dim, int n_chains, int nu
   a.dim = dim, a.n_chains = n_chains, a.num_steps = num_steps, a.schedule = schedule;
   a.transitions = transitions;
   std::memcpy(a.params.v, target_params, sizeof(a.params.v));
+  a.data = mcmc::target_data(data);
   a.scalars = scalars, a.key = key, a.call = call;
   a.q = q, a.lp = lp, a.grad = grad, a.inv_mass = inv_mass, a.l_inv = l_inv;
   a.p0 = p0, a.u = u;

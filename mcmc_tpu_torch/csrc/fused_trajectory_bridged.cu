@@ -71,8 +71,8 @@ __global__ void __launch_bounds__(WARPS_PER_BLOCK * 32)
   if (chain >= a.n_chains) return;  // uniform across the warp
 
   const Scalars sc{a.scalars[0], a.scalars[1], a.scalars[2]};
-  Bridged<Target<FAMILY, K>, K> potential{Target<FAMILY, K>(a.dim, a.params), a.scalars[3],
-                                          1.f - a.scalars[3], a.scalars[4]};
+  Bridged<Target<FAMILY, K>, K> potential{Target<FAMILY, K>(a.dim, a.params, a.data),
+                                          a.scalars[3], 1.f - a.scalars[3], a.scalars[4]};
   load_row(a.base_mean, 0, lane, a.dim, potential.mean);
   load_row(a.base_inv_scale, 0, lane, a.dim, potential.inv_scale);
   step_chain<K>(a, potential, metric, sc, chain, lane);
@@ -94,7 +94,8 @@ struct BridgedLaunch {
 // launch's cudaError_t.
 extern "C" int grahmc_bridged_launch(int family, int dim, int n_chains, int num_steps,
                                      int schedule, int dense, const float* target_params,
-                                     const float* scalars, const float* base_mean,
+                                     const mcmc::TargetData* data, const float* scalars,
+                                     const float* base_mean,
                                      const float* base_inv_scale, const uint32_t* key,
                                      unsigned int call, const float* q, const float* lp,
                                      const float* grad, const float* inv_mass,
@@ -109,6 +110,7 @@ extern "C" int grahmc_bridged_launch(int family, int dim, int n_chains, int num_
   mcmc::StepArgs a{};
   a.dim = dim, a.n_chains = n_chains, a.num_steps = num_steps, a.schedule = schedule;
   std::memcpy(a.params.v, target_params, sizeof(a.params.v));
+  a.data = mcmc::target_data(data);
   a.scalars = scalars, a.base_mean = base_mean, a.base_inv_scale = base_inv_scale;
   a.key = key, a.call = call;
   a.q = q, a.lp = lp, a.grad = grad, a.inv_mass = inv_mass, a.l_inv = l_inv;

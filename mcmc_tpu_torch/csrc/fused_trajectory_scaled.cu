@@ -61,7 +61,8 @@ __global__ void __launch_bounds__(WARPS_PER_BLOCK * 32) grahmc_scaled_kernel(con
 
   const float* rung = a.scalars + 4 * (chain / a.rung_chains);
   const Scalars sc{rung[0], rung[1], rung[2]};
-  const Scaled<Target<FAMILY, K>> potential{Target<FAMILY, K>(a.dim, a.params), rung[3]};
+  const Scaled<Target<FAMILY, K>> potential{Target<FAMILY, K>(a.dim, a.params, a.data),
+                                             rung[3]};
   step_chain<K>(a, potential, metric, sc, chain, lane);
 }
 
@@ -81,7 +82,8 @@ struct ScaledLaunch {
 // the launch's cudaError_t.
 extern "C" int grahmc_scaled_launch(int family, int dim, int n_chains, int rung_chains,
                                     int num_steps, int schedule, int dense,
-                                    const float* target_params, const float* rungs,
+                                    const float* target_params,
+                                    const mcmc::TargetData* data, const float* rungs,
                                     const uint32_t* key, unsigned int call, const float* q,
                                     const float* lp, const float* grad,
                                     const float* inv_mass, const float* l_inv,
@@ -97,6 +99,7 @@ extern "C" int grahmc_scaled_launch(int family, int dim, int n_chains, int rung_
   a.dim = dim, a.n_chains = n_chains, a.num_steps = num_steps, a.schedule = schedule;
   a.rung_chains = rung_chains;
   std::memcpy(a.params.v, target_params, sizeof(a.params.v));
+  a.data = mcmc::target_data(data);
   a.scalars = rungs, a.key = key, a.call = call;
   a.q = q, a.lp = lp, a.grad = grad, a.inv_mass = inv_mass, a.l_inv = l_inv;
   a.p0 = p0, a.u = u;

@@ -1,7 +1,7 @@
 // Target device functions inlined into the fused kernels.
 //
 // Replace mcmc_tpu/ops/padded_targets.py:_standard_normal, _neals_funnel,
-// _correlated and _gaussian_mixture.
+// _correlated, _gaussian_mixture and _hierarchical_logistic.
 // A group of G lanes (G a power of two, 32 = a whole warp) holds one chain:
 // each lane owns K coordinates (zeros past dim), and coordinate 0 is register
 // 0 of the group's lane 0. The GRAHMC and NUTS kernels use G = 32 with lane j
@@ -21,7 +21,8 @@ enum Family {
   STANDARD_NORMAL = 0,
   NEALS_FUNNEL = 1,
   CORRELATED_GAUSSIAN = 2,
-  GAUSSIAN_MIXTURE = 3
+  GAUSSIAN_MIXTURE = 3,
+  HIERARCHICAL_LOGISTIC = 4
 };
 
 // A family's float parameters, computed on the host in double and rounded
@@ -30,6 +31,32 @@ enum Family {
 struct TargetParams {
   float v[4];
 };
+
+// A data-carrying family's data set in device memory
+// (mcmc_tpu_torch/ops/padded_targets.py:device_data); null pointers for the
+// other families. X is (n_data, dim) row-major with a zero column 0, xt its
+// (dim, n_data) transpose, y (n_data,).
+struct TargetData {
+  const float* X;
+  const float* xt;
+  const float* y;
+  int n_data;
+};
+
+// A data-carrying family needs its data set; the others take none.
+inline bool valid_data(int family, const TargetData& d) {
+  if (family != HIERARCHICAL_LOGISTIC) return true;
+  return d.X != nullptr && d.xt != nullptr && d.y != nullptr && d.n_data >= 1;
+}
+
+// The TargetData a launcher was handed: the pointed-to set, or none.
+inline TargetData target_data(const TargetData* data) {
+  return data != nullptr ? *data : TargetData{};
+}
+
+// Warps per block of every kernel that inlines a target: the hierarchical
+// functor keeps one staging row per warp in static shared memory.
+constexpr int TARGET_MAX_WARPS = 8;
 
 constexpr unsigned FULL_MASK = 0xffffffffu;
 constexpr double LOG_2PI = 1.8378770664093453;         // log(2 pi)
@@ -58,7 +85,8 @@ struct Target;
 template <int K, int G>
 struct Target<STANDARD_NORMAL, K, G> {
   float c;
-  __device__ explicit Target(int dim, const TargetParams& = TargetParams{})
+  __device__ explicit Target(int dim, const TargetParams& = TargetParams{},
+                             const TargetData& = TargetData{})
       : c(static_cast<float>(dim * LOG_2PI)) {}
 
   __device__ __forceinline__ float operator()(const float (&q)[K], float (&g)[K],
@@ -79,7 +107,8 @@ struct Target<STANDARD_NORMAL, K, G> {
 template <int K, int G>
 struct Target<NEALS_FUNNEL, K, G> {
   float d_rest, c_rest, c_neck;
-  __device__ explicit Target(int dim, const TargetParams& = TargetParams{})
+  __device__ explicit Target(int dim, const TargetParams& = TargetParams{},
+                             const TargetData& = TargetData{})
       : d_rest(static_cast<float>(dim - 1)),
         c_rest(static_cast<float>((dim - 1) * LOG_2PI)),
         c_neck(static_cast<float>(LOG_2PI_9)) {}
@@ -119,7 +148,7 @@ struct Target<CORRELATED_GAUSSIAN, K, G> {
   static_assert(G == 32, "the correlated Gaussian serves the warp-per-chain layout");
   float a, b, c;
   int dim;
-  __device__ explicit Target(int dim_, const TargetParams& p)
+  __device__ explicit Target(int dim_, const TargetParams& p, const TargetData& = TargetData{})
       : a(p.v[0]), b(p.v[1]), c(p.v[2]), dim(dim_) {}
 
   __device__ __forceinline__ float operator()(const float (&q)[K], float (&g)[K],
@@ -147,7 +176,7 @@ struct Target<CORRELATED_GAUSSIAN, K, G> {
 template <int K, int G>
 struct Target<GAUSSIAN_MIXTURE, K, G> {
   float half_sep, c_rest;
-  __device__ explicit Target(int dim, const TargetParams& p)
+  __device__ explicit Target(int dim, const TargetParams& p, const TargetData& = TargetData{})
       : half_sep(p.v[0]), c_rest(static_cast<float>((dim - 1) * LOG_2PI)) {}
 
   __device__ __forceinline__ float operator()(const float (&q)[K], float (&g)[K],
@@ -173,6 +202,147 @@ struct Target<GAUSSIAN_MIXTURE, K, G> {
     const float sum_sq = group_sum<G>(s);
     if (lane == 0) g[0] = -(a * e1 + b * e2) / lse;
     return log_p_x0 - 0.5f * (sum_sq + c_rest);
+  }
+};
+
+// The hierarchical logistic posterior (mcmc_tpu_torch/targets/hierarchical.py):
+// tau = coordinate 0, beta the rest, z = X beta over n_data rows,
+//   lp = sum_n (y_n z_n - softplus z_n) - e^-tau |beta|^2 / 2 - p tau / 2 - tau^2 / 2,
+//   grad_beta = X^T (y - sigmoid z) - beta e^-tau,
+//   grad_tau = e^-tau |beta|^2 / 2 - p / 2 - tau.
+// Of every ported target's the only gradient with real matrix work: two
+// products with the (n_data, dim) matrix X, 4 n_data dim flops, against
+// ~15 flops and two transcendentals per data row.
+//
+// z = X q by row ownership: lane l of the group owns the rows n = l, l + G,
+// ... (chunks of G rows, n_data a runtime argument). The group's q is staged
+// in a per-group row of static shared memory and read back as float4
+// broadcasts; lane l reads column n of xt = X^T, so a warp's load is one
+// coalesced line, and sums over the coordinates in order. Each row's one
+// exp(-|z|) serves the sigmoid and the softplus, on the lane that owns the
+// row. X^T (y - sigmoid z) by coordinate ownership: each row's residual is
+// broadcast from its owner with a shuffle and every lane adds X[n, d] r_n
+// for its own coordinates d, over the rows in order (coalesced reads of X's
+// row n). Per chunk of G rows that is dim / 4 shared loads and G shuffles,
+// ~n_data shuffles per evaluation, where warp sums would take 5 per row.
+// What bounds it on an H100: every chain reads all of X twice per
+// evaluation from L1 (~230 kB at dim 100, n_data 256, 32 K coordinates a
+// row in the backward product), so the L1 load rate, not device memory or
+// the f32 units, sets the time; reuse of each X load across chains
+// (blocking, shared-memory tiles, mma) is later work.
+// Products are rounded before their sums (__fmul_rn / __fadd_rn) in the
+// plain version's order (ops/padded_targets.py:_hierarchical_logistic), as
+// the correlated Gaussian's are. X's zero column 0 makes the likelihood's
+// share of tau's gradient 0; tau's gradient is the prior's alone.
+//
+// Layouts: the warp-per-chain one of kernels 1, 2 and 4 (operator(), lp and
+// gradient; G = 32, lane j holds coordinates j + 32 r) and kernel 3's lane
+// groups (log_prob, the log-density only; lane j of G holds 4 j + r).
+// X and y are read with __ldg from device memory: 100 kB at dim 100, n_data
+// 256, which every chain reads, so they stay in L1 and L2.
+template <int K, int G>
+struct Target<HIERARCHICAL_LOGISTIC, K, G> {
+  const float *X, *xt, *y;
+  int n_data, dim;
+  float half_p;
+  __device__ explicit Target(int dim_, const TargetParams&, const TargetData& data)
+      : X(data.X), xt(data.xt), y(data.y), n_data(data.n_data), dim(dim_),
+        half_p(0.5f * static_cast<float>(dim_ - 1)) {}
+
+  // lp and gradient in the warp-per-chain layout.
+  __device__ __forceinline__ float operator()(const float (&q)[K], float (&g)[K],
+                                              int lane) const {
+    static_assert(G == 32, "the gradient form serves the warp-per-chain layout");
+    return evaluate<false, true>(q, g, lane);
+  }
+
+  // lp only, in kernel 3's layout (lane j holds 4 j + r, K = 4).
+  __device__ __forceinline__ float log_prob(const float (&q)[K], int lane) const {
+    float unused[K];
+    return evaluate<true, false>(q, unused, lane);
+  }
+
+ private:
+  template <bool BLOCKED>
+  static __device__ __forceinline__ int coord(int lane, int r) {
+    return BLOCKED ? K * lane + r : lane + G * r;
+  }
+
+  template <bool BLOCKED, bool GRAD>
+  __device__ __forceinline__ float evaluate(const float (&q)[K], float (&g)[K],
+                                            int lane) const {
+    // this group's staging row: 32 K floats per warp, G K per group
+    __shared__ __align__(16) float rows[TARGET_MAX_WARPS][32 * K];
+    const int warp_lane = static_cast<int>(threadIdx.x & 31);
+    float* row = &rows[threadIdx.x >> 5][(warp_lane / G) * G * K];
+#pragma unroll
+    for (int r = 0; r < K; ++r) row[coord<BLOCKED>(lane, r)] = q[r];  // zeros past dim
+    __syncwarp();
+
+    float gl[K];
+#pragma unroll
+    for (int r = 0; r < K; ++r) gl[r] = 0.f;
+    float lik = 0.f;
+    for (int c0 = 0; c0 < n_data; c0 += G) {
+      const int n = c0 + lane;
+      float resid = 0.f;
+      if (n < n_data) {
+        const float* col = xt + n;
+        float z = 0.f;
+        for (int d = 0; d < dim; d += 4) {
+          const float4 qv = *reinterpret_cast<const float4*>(row + d);
+          z = __fadd_rn(z, __fmul_rn(__ldg(col + static_cast<size_t>(d) * n_data), qv.x));
+          if (d + 1 < dim)
+            z = __fadd_rn(z, __fmul_rn(__ldg(col + static_cast<size_t>(d + 1) * n_data), qv.y));
+          if (d + 2 < dim)
+            z = __fadd_rn(z, __fmul_rn(__ldg(col + static_cast<size_t>(d + 2) * n_data), qv.z));
+          if (d + 3 < dim)
+            z = __fadd_rn(z, __fmul_rn(__ldg(col + static_cast<size_t>(d + 3) * n_data), qv.w));
+        }
+        const float e = expf(-fabsf(z));
+        const float yn = __ldg(y + n);
+        const float softplus = __fadd_rn(fmaxf(z, 0.f), log1pf(e));
+        lik = __fadd_rn(lik, __fsub_rn(__fmul_rn(yn, z), softplus));
+        if constexpr (GRAD) {
+          const float denom = 1.f + e;
+          resid = __fsub_rn(yn, z >= 0.f ? __fdiv_rn(1.f, denom) : __fdiv_rn(e, denom));
+        }
+      }
+      if constexpr (GRAD) {
+        for (int k = 0; k < G && c0 + k < n_data; ++k) {  // uniform across the warp
+          const float rk = __shfl_sync(FULL_MASK, resid, k, G);
+          const float* xr = X + static_cast<size_t>(c0 + k) * dim;
+#pragma unroll
+          for (int r = 0; r < K; ++r) {
+            const int d = coord<BLOCKED>(lane, r);
+            if (d < dim) gl[r] = __fadd_rn(gl[r], __fmul_rn(__ldg(xr + d), rk));
+          }
+        }
+      }
+    }
+    __syncwarp();  // every lane has read the staging row
+
+    const float tau = __shfl_sync(FULL_MASK, q[0], 0, G);
+    const float inv_scale = expf(-tau);
+    float s = 0.f;
+#pragma unroll
+    for (int r = 0; r < K; ++r) {
+      const float v = coord<BLOCKED>(lane, r) == 0 ? 0.f : q[r];
+      s = __fadd_rn(s, __fmul_rn(v, v));
+    }
+    const float shrink = __fmul_rn(__fmul_rn(0.5f, inv_scale), group_sum<G>(s));
+    float lp = __fsub_rn(group_sum<G>(lik), shrink);
+    lp = __fsub_rn(lp, __fmul_rn(half_p, tau));
+    lp = __fsub_rn(lp, __fmul_rn(__fmul_rn(0.5f, tau), tau));
+    if constexpr (GRAD) {
+      const float g_tau = __fsub_rn(__fsub_rn(shrink, half_p), tau);
+#pragma unroll
+      for (int r = 0; r < K; ++r) {
+        g[r] = coord<BLOCKED>(lane, r) == 0 ? g_tau
+                                            : __fsub_rn(gl[r], __fmul_rn(q[r], inv_scale));
+      }
+    }
+    return lp;
   }
 };
 

@@ -26,6 +26,7 @@
 namespace mcmc {
 
 constexpr int WARPS_PER_BLOCK = 8;
+static_assert(WARPS_PER_BLOCK <= TARGET_MAX_WARPS, "targets.cuh stages one row per warp");
 constexpr int MAX_K = 4;  // registers per lane: dim <= 128
 constexpr float ENERGY_OVERFLOW = 1e10f;
 constexpr float PI_F = 3.141592653589793f;
@@ -142,11 +143,12 @@ __device__ __forceinline__ void randoms(const float* p0_in, const float* u_in, s
 // Arguments of kernel 1 and its variants. `scalars` is (eps, gamma,
 // steepness) for kernel 1, the (n_chains / rung_chains, 4) rung table for
 // 1b, (eps, gamma, steepness, beta, base_log_norm) for 1c; base_mean and
-// base_inv_scale are 1c's (dim,) rows.
+// base_inv_scale are 1c's (dim,) rows; `data` the target's data set.
 struct StepArgs {
   int dim, n_chains, num_steps, schedule;
   int rung_chains;
   TargetParams params;
+  TargetData data;
   const float* scalars;
   const float *base_mean, *base_inv_scale;
   const uint32_t* key;
@@ -224,7 +226,8 @@ cudaError_t dispatch_metric(bool dense, const Args& a, cudaStream_t stream) {
 // Launch<FAMILY, K, DENSE>::run for the family, K and metric of this call.
 template <template <int, int, bool> class Launch, typename Args>
 cudaError_t dispatch(int family, bool dense, const Args& a, cudaStream_t stream) {
-  if (a.dim < 1 || a.dim > 32 * MAX_K || a.n_chains < 1 || a.num_steps < 0) {
+  if (a.dim < 1 || a.dim > 32 * MAX_K || a.n_chains < 1 || a.num_steps < 0 ||
+      !valid_data(family, a.data)) {
     return cudaErrorInvalidValue;
   }
   switch (family) {
@@ -233,6 +236,8 @@ cudaError_t dispatch(int family, bool dense, const Args& a, cudaStream_t stream)
     case CORRELATED_GAUSSIAN:
       return dispatch_metric<Launch, CORRELATED_GAUSSIAN>(dense, a, stream);
     case GAUSSIAN_MIXTURE: return dispatch_metric<Launch, GAUSSIAN_MIXTURE>(dense, a, stream);
+    case HIERARCHICAL_LOGISTIC:
+      return dispatch_metric<Launch, HIERARCHICAL_LOGISTIC>(dense, a, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -27,19 +27,34 @@ from mcmc_tpu_torch.tuning.welford import DenseMomentState, WelfordState
 def target_from_tag(info: dict) -> TargetDistribution:
     """The port's target for a JAX target's ``pallas_info`` tag
     ``{"family", "dim", "params"}``. Raises for families not yet ported and
-    for parameters that differ from the port target's own tag."""
+    for parameters that differ from the port target's own tag: numbers must
+    agree to 1e-12, arrays (the hierarchical posterior's data set X, y)
+    exactly in shape and value."""
     params = dict(info.get("params", {}))
     kwargs = {}
     if info["family"] == "correlated_gaussian" and "a" in params:
         kwargs["correlation"] = 1.0 - 1.0 / params["a"]    # a = 1 / (1 - rho)
     if info["family"] == "gaussian_mixture" and "separation" in params:
         kwargs["separation"] = params["separation"]
+    if info["family"] == "hierarchical_logistic":
+        kwargs.update({k: int(params[k]) for k in ("n_data", "data_seed") if k in params})
     target = get_target(info["family"], dim=int(info["dim"]), **kwargs)
     ours = target.value_and_grad_fn.kernel_info["params"]
-    if set(params) != set(ours) or not all(
-            math.isclose(params[k], ours[k], rel_tol=1e-12) for k in ours):
-        raise ValueError(f"{info['family']} takes params {ours}, got {params}")
+    if set(params) != set(ours):
+        raise ValueError(f"{info['family']} takes params {sorted(ours)}, got {sorted(params)}")
+    differ = sorted(k for k in ours if not _same(params[k], ours[k]))
+    if differ:
+        raise ValueError(f"{info['family']}: params {differ} differ from the port target's")
     return target
+
+
+def _same(theirs, ours) -> bool:
+    """A tag parameter equal to the port's: arrays exactly, numbers to
+    1e-12."""
+    if isinstance(ours, np.ndarray):
+        theirs = np.asarray(theirs)
+        return theirs.shape == ours.shape and bool(np.array_equal(theirs, ours))
+    return math.isclose(theirs, ours, rel_tol=1e-12)
 
 
 def _tensor(a, device, dtype=None) -> torch.Tensor:

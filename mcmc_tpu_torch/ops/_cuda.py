@@ -29,29 +29,36 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
 # (family, dim, n_chains, num_steps, schedule[, transitions], dense), host
-# target params, scalars, key, call, q, lp, grad, inv_mass, l_inv, p0, u,
-# seven outputs, stream
+# target params, host TargetData, scalars, key, call, q, lp, grad, inv_mass,
+# l_inv, p0, u, seven outputs, stream
 _SIGNATURES = {
-    "grahmc_step_launch": [_I] * 6 + [_P, _P, _P, _U] + [_P] * 7 + [_P] * 7 + [_P],
-    "grahmc_multistep_launch": [_I] * 7 + [_P, _P, _P, _U] + [_P] * 7 + [_P] * 7
+    "grahmc_step_launch": [_I] * 6 + [_P, _P, _P, _P, _U] + [_P] * 7 + [_P] * 7 + [_P],
+    "grahmc_multistep_launch": [_I] * 7 + [_P, _P, _P, _P, _U] + [_P] * 7 + [_P] * 7
                                + [_P],
     # (family, dim, n_chains, rung_chains, num_steps, schedule, dense), host
-    # target params, rung table, key, call, the seven inputs and outputs of
-    # grahmc_step_launch, stream
-    "grahmc_scaled_launch": [_I] * 7 + [_P, _P, _P, _U] + [_P] * 7 + [_P] * 7 + [_P],
+    # target params, host TargetData, rung table, key, call, the seven inputs
+    # and outputs of grahmc_step_launch, stream
+    "grahmc_scaled_launch": [_I] * 7 + [_P, _P, _P, _P, _U] + [_P] * 7 + [_P] * 7 + [_P],
     # (family, dim, n_chains, num_steps, schedule, dense), host target
-    # params, scalars, base mean and 1/scale rows, key, call, seven inputs,
-    # seven outputs, stream
-    "grahmc_bridged_launch": [_I] * 6 + [_P] * 5 + [_U] + [_P] * 7 + [_P] * 7 + [_P],
-    # (family, dim, n_chains, transitions, n_hist), scale, key, call, q, lp,
-    # noise, u, five outputs, stream
-    "rwmh_multistep_launch": [_I] * 5 + [_P, _P, _U] + [_P] * 4 + [_P] * 5
+    # params, host TargetData, scalars, base mean and 1/scale rows, key,
+    # call, seven inputs, seven outputs, stream
+    "grahmc_bridged_launch": [_I] * 6 + [_P] * 6 + [_U] + [_P] * 7 + [_P] * 7 + [_P],
+    # (family, dim, n_chains, transitions, n_hist), host TargetData, scale,
+    # key, call, q, lp, noise, u, five outputs, stream
+    "rwmh_multistep_launch": [_I] * 5 + [_P, _P, _P, _U] + [_P] * 4 + [_P] * 5
                              + [_P],
     # (family, dim, n_chains, n_iters, slots, max_tree_depth, multinomial,
-    # dense), host target params, scalars, inv_mass, l_inv, key, call, host
-    # arrays of the state and draw pointers, stream
-    "nuts_window_launch": [_I] * 8 + [_P] * 5 + [_U, _P, _P, _P],
+    # dense), host target params, host TargetData, scalars, inv_mass, l_inv,
+    # key, call, host arrays of the state and draw pointers, stream
+    "nuts_window_launch": [_I] * 8 + [_P] * 6 + [_U, _P, _P, _P],
 }
+
+
+class TargetData(ctypes.Structure):
+    """`struct TargetData` of csrc/targets.cuh: a data-carrying target's
+    device pointers X (n_data, dim), xt (dim, n_data), y (n_data,)."""
+    _fields_ = [("X", ctypes.c_void_p), ("xt", ctypes.c_void_p), ("y", ctypes.c_void_p),
+                ("n_data", ctypes.c_int)]
 
 
 class KernelLibrary(NamedTuple):

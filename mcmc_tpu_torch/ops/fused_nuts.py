@@ -35,9 +35,14 @@ RES_DRAW the reservoir uniform, and under the multinomial scheme slot k's
 leaf uniform is word k % 4 of draw SLICE_DRAW + k // 4 (slot 0's doubling
 as the start's slice variable) -- ``philox_nuts_draws``.
 
+A data-carrying target (the hierarchical posterior) runs in every variant
+as the TPU kernel's ``data_arrays`` form (4c with the endpoint scheme and
+the diagonal metric), its data set passed as device pointers.
+
 The wrapper takes the plain version ONLY for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises, and counts ``.launches`` (all
-variants) and ``.variant_launches[name]`` (per variant, VARIANTS).
+variants) and ``.variant_launches[name]`` (per variant: VARIANTS, and each
+with DATA_SUFFIX for a data-carrying target).
 """
 
 import ctypes
@@ -47,9 +52,9 @@ import torch
 
 from mcmc_tpu_torch.ops.fused_trajectory import (
     MAX_DIM, PhiloxStream, _bits_to_uniform, _kernel_device, _philox_words,
-    _ptr, _raise_on_error, _U32, check_tensors, kernel_metric, philox_normal)
-from mcmc_tpu_torch.ops.padded_targets import (FAMILY_IDS, device_params,
-                                               device_vag, kernel_info)
+    _ptr, _raise_on_error, _U32, check_tensors, kernel_metric, philox_normal,
+    target_args, variant_name, variant_names)
+from mcmc_tpu_torch.ops.padded_targets import FAMILY_IDS, device_vag, kernel_info
 from mcmc_tpu_torch.samplers.nuts_persistent import _machine_iteration, _PState
 from mcmc_tpu_torch.samplers.trajectory import as_scalar, ordered_matmul
 
@@ -82,9 +87,11 @@ VARIANTS = {(False, False): "endpoint", (True, False): "multinomial",
             (False, True): "dense", (True, True): "multinomial+dense"}
 
 
-def variant(state: _PState, inv_mass: Tensor) -> str:
-    """The kernel variant a window of `state` under `inv_mass` runs."""
-    return VARIANTS[(state.q_sub is not None, inv_mass.ndim == 2)]
+def variant(state: _PState, inv_mass: Tensor, info: Optional[dict] = None) -> str:
+    """The kernel variant a window of `state` under `inv_mass` runs (for
+    the target of `info`: with DATA_SUFFIX for a data-carrying one)."""
+    base = VARIANTS[(state.q_sub is not None, inv_mass.ndim == 2)]
+    return base if info is None else variant_name(base, info)
 
 
 def nuts_scalars(step_size, delta_max, device) -> Tensor:
@@ -246,16 +253,16 @@ def nuts_window_kernel(info: dict, n_iters: int, steps_per_iter: int,
     _kernel_device(state.q)
     state = _distinct(state)
     n_chains, dim = state.q.shape
-    name = variant(state, inv_mass)
+    name = variant(state, inv_mass, info)
     from mcmc_tpu_torch.ops import _cuda
     lib = _cuda.load_library().lib
     fields = _pointers([getattr(state, f) for f in KERNEL_FIELDS])
     injected = None if draws is None else _pointers(draws)
-    params = (ctypes.c_float * 4)(*device_params(info))
+    params, data = target_args(info, state.q.device)
     code = lib.nuts_window_launch(
         FAMILY_IDS[info["family"]], dim, n_chains, n_iters, steps_per_iter,
         max_tree_depth, int(state.q_sub is not None), int(inv_mass.ndim == 2),
-        params, scalars.data_ptr(), inv_mass.data_ptr(), _ptr(l_inv), _ptr(key),
+        params, data, scalars.data_ptr(), inv_mass.data_ptr(), _ptr(l_inv), _ptr(key),
         call & _U32, fields, injected,
         torch.cuda.current_stream(state.q.device).cuda_stream)
     _raise_on_error(code, f"nuts_window_kernel ({name})")
@@ -267,7 +274,7 @@ def nuts_window_kernel(info: dict, n_iters: int, steps_per_iter: int,
 def reset_launches() -> None:
     """Set kernel 4's launch counts, total and per variant, to 0."""
     nuts_window_kernel.launches = 0
-    nuts_window_kernel.variant_launches = dict.fromkeys(VARIANTS.values(), 0)
+    nuts_window_kernel.variant_launches = dict.fromkeys(variant_names(VARIANTS.values()), 0)
 
 
 reset_launches()

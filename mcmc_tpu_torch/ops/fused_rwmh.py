@@ -7,9 +7,14 @@ random-walk Metropolis transitions per call with the chain state on chip
 target's log-density only, accept if log u < min(0, lp' - lp), select, and
 the accept and history writes.
 
+A data-carrying target (the hierarchical posterior) runs as the TPU
+kernel's ``data_arrays`` form (variant 3a): the log-density only
+(``padded_targets.device_lp``), its data set passed as device pointers.
+
 The wrapper takes its plain PyTorch version ONLY for tensors on the CPU; for
 CUDA tensors it launches the kernel or raises. It counts its launches in
-``.launches``.
+``.launches`` and per variant in ``.variant_launches`` (VARIANT, and with
+DATA_SUFFIX for a data-carrying target).
 
 Randomness: injected (``noise`` (T, C, D) and ``u`` (T, C)) or drawn in the
 kernel from the Philox stream of ``ops/fused_trajectory.py`` with the same
@@ -29,11 +34,14 @@ import torch
 
 from mcmc_tpu_torch.ops.fused_trajectory import (
     MAX_DIM, PhiloxStream, _f32, _kernel_device, _ptr, _raise_on_error, _U32,
-    check_tensors, philox_normal, philox_uniform)
-from mcmc_tpu_torch.ops.padded_targets import FAMILY_IDS, device_vag, kernel_info
+    check_tensors, philox_normal, philox_uniform, target_args, variant_name,
+    variant_names)
+from mcmc_tpu_torch.ops.padded_targets import FAMILY_IDS, device_lp, kernel_info
 from mcmc_tpu_torch.samplers.trajectory import as_scalar
 
 Tensor = torch.Tensor
+
+VARIANT = "rwmh"     # kernel 3 has no metric or scheme variants
 
 
 def rwmh_scale(scale, device) -> Tensor:
@@ -50,7 +58,7 @@ def rwmh_multistep_plain(info: dict, transitions: int, q: Tensor, lp: Tensor,
     """Plain PyTorch version of rwmh_multistep_kernel, on any device (same
     arguments and results)."""
     n_chains, dim = q.shape
-    vag = device_vag(info)
+    log_prob = device_lp(info)
     accs, hist_q, hist_lp = [], [], []
     for t in range(transitions):
         if noise is None:
@@ -59,7 +67,7 @@ def rwmh_multistep_plain(info: dict, transitions: int, q: Tensor, lp: Tensor,
         else:
             eps, u_t = noise[t], u[t]
         prop = q + scale * eps
-        lp1, _ = vag(prop)
+        lp1 = log_prob(prop)
         accept = torch.log(u_t) < torch.clamp(lp1 - lp, max=0.0)
         q = torch.where(accept[:, None], prop, q)
         lp = torch.where(accept, lp1, lp)
@@ -116,18 +124,26 @@ def rwmh_multistep_kernel(info: dict, transitions: int, q: Tensor, lp: Tensor,
     acc = torch.empty((transitions, n_chains), dtype=torch.bool, device=q.device)
     hist_q = q.new_empty((transitions, n_hist, dim))
     hist_lp = lp.new_empty((transitions, n_hist))
+    _params, data = target_args(info, q.device)
     code = lib.rwmh_multistep_launch(
-        FAMILY_IDS[info["family"]], dim, n_chains, transitions, n_hist,
+        FAMILY_IDS[info["family"]], dim, n_chains, transitions, n_hist, data,
         scale.data_ptr(), _ptr(key), call & _U32, q.data_ptr(), lp.data_ptr(),
         _ptr(noise), _ptr(u), q_out.data_ptr(), lp_out.data_ptr(),
         acc.data_ptr(), hist_q.data_ptr(), hist_lp.data_ptr(),
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on_error(code, "rwmh_multistep_kernel")
     rwmh_multistep_kernel.launches += 1
+    rwmh_multistep_kernel.variant_launches[variant_name(VARIANT, info)] += 1
     return q_out, lp_out, acc, hist_q, hist_lp
 
 
-rwmh_multistep_kernel.launches = 0
+def reset_launches() -> None:
+    """Set kernel 3's launch counts, total and per variant, to 0."""
+    rwmh_multistep_kernel.launches = 0
+    rwmh_multistep_kernel.variant_launches = dict.fromkeys(variant_names([VARIANT]), 0)
+
+
+reset_launches()
 
 
 def make_fused_rwmh_multistep(value_and_grad_fn, transitions: int,

@@ -31,10 +31,17 @@ constructors take a raw (D,) or (D, D) metric or a ``PreparedDenseMetric``,
 as the JAX ones do. The dense plain versions sum the products in the
 kernels' order (``trajectory.ordered_matmul``).
 
+A data-carrying target (``padded_targets.DATA_FAMILIES``, the hierarchical
+posterior) runs in every kernel and metric here: the TPU kernels' form with
+``data_arrays`` (variants 1d and 2b, and the same form of 1a, 1b, 1c and
+2a). Its data set goes to the kernels as device pointers
+(``padded_targets.device_data``).
+
 Each wrapper takes its plain PyTorch version ONLY for tensors on the CPU;
 for CUDA tensors it launches the kernel or raises. There is no fallback. Each
-counts its launches in plain int attributes, ``.launches`` (both metric
-variants) and ``.variant_launches[name]`` (VARIANTS); ``reset_launches``
+counts its launches in plain int attributes, ``.launches`` (every variant)
+and ``.variant_launches[name]`` (``variant_name``: the metric's VARIANTS
+name, with DATA_SUFFIX for a data-carrying target); ``reset_launches``
 zeroes them.
 
 Randomness: either injected (``p0`` and ``u``, the parity mode the tests use)
@@ -57,8 +64,8 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from mcmc_tpu_torch import precision
-from mcmc_tpu_torch.ops.padded_targets import (FAMILY_IDS, device_params,
-                                               device_vag, kernel_info)
+from mcmc_tpu_torch.ops.padded_targets import (DATA_FAMILIES, FAMILY_IDS, device_data,
+                                               device_params, device_vag, kernel_info)
 from mcmc_tpu_torch.samplers.grahmc import DIVERGENCE_DELTA_H, FRICTION_SCHEDULES
 from mcmc_tpu_torch.samplers.trajectory import (as_scalar, dense_unwhitening,
                                                 integrate_trajectory,
@@ -80,6 +87,19 @@ _SCHEDULE_FNS = {SCHEDULE_IDS[name]: fn for name, fn in FRICTION_SCHEDULES.items
 _SCHEDULE_FNS[0] = None
 # dense metric? -> variant name; the kernels' DENSE flag
 VARIANTS = {False: "diagonal", True: "dense"}
+# appended to a variant's name for a data-carrying target
+DATA_SUFFIX = "+data"
+
+
+def variant_name(base: str, info: dict) -> str:
+    """A kernel variant's name: `base` (its metric or scheme), with
+    DATA_SUFFIX for a target that carries a data set."""
+    return base + (DATA_SUFFIX if info["family"] in DATA_FAMILIES else "")
+
+
+def variant_names(bases) -> list:
+    """Every variant name over `bases`, without and with DATA_SUFFIX."""
+    return [b + s for b in bases for s in ("", DATA_SUFFIX)]
 
 
 def schedule_id(friction_schedule: Optional[Callable]) -> int:
@@ -473,15 +493,29 @@ def _step_outputs(q: Tensor, lp: Tensor):
     return out, [t.data_ptr() for t in out]
 
 
-def _count(kernel, inv_mass: Tensor) -> None:
+def _count(kernel, inv_mass: Tensor, info: dict) -> None:
     kernel.launches += 1
-    kernel.variant_launches[VARIANTS[inv_mass.ndim == 2]] += 1
+    kernel.variant_launches[variant_name(VARIANTS[inv_mass.ndim == 2], info)] += 1
+
+
+def target_args(info: dict, device):
+    """The launchers' host target arguments: the 4 floats of TargetParams
+    and a reference to the TargetData of the target's device data set (None
+    for a family without one). Both must live until the launch returns."""
+    from mcmc_tpu_torch.ops import _cuda
+    params = (ctypes.c_float * 4)(*device_params(info))
+    if info["family"] not in DATA_FAMILIES:
+        return params, None
+    X, xt, y = device_data(info, device)
+    return params, ctypes.byref(_cuda.TargetData(X.data_ptr(), xt.data_ptr(), y.data_ptr(),
+                                                 X.shape[0]))
 
 
 def _metric_args(info: dict, inv_mass: Tensor, l_inv: Optional[Tensor]):
-    """The launchers' (dense, host target params, inv_mass, l_inv) args."""
-    params = (ctypes.c_float * 4)(*device_params(info))
-    return int(inv_mass.ndim == 2), params, inv_mass.data_ptr(), _ptr(l_inv)
+    """The launchers' (dense, host target params, host TargetData, inv_mass,
+    l_inv) args."""
+    params, data = target_args(info, inv_mass.device)
+    return int(inv_mass.ndim == 2), params, data, inv_mass.data_ptr(), _ptr(l_inv)
 
 
 def grahmc_step_kernel(info: dict, num_steps: int, schedule: int, q: Tensor,
@@ -508,14 +542,14 @@ def grahmc_step_kernel(info: dict, num_steps: int, schedule: int, q: Tensor,
     from mcmc_tpu_torch.ops import _cuda
     lib = _cuda.load_library().lib
     out, ptrs = _step_outputs(q, lp)
-    dense, params, invm_ptr, l_inv_ptr = _metric_args(info, inv_mass, l_inv)
+    dense, params, data, invm_ptr, l_inv_ptr = _metric_args(info, inv_mass, l_inv)
     code = lib.grahmc_step_launch(
         FAMILY_IDS[info["family"]], dim, n_chains, num_steps, schedule, dense,
-        params, scalars.data_ptr(), _ptr(key), call & _U32,
+        params, data, scalars.data_ptr(), _ptr(key), call & _U32,
         q.data_ptr(), lp.data_ptr(), grad.data_ptr(), invm_ptr, l_inv_ptr,
         _ptr(p0), _ptr(u), *ptrs, torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on_error(code, "grahmc_step_kernel")
-    _count(grahmc_step_kernel, inv_mass)
+    _count(grahmc_step_kernel, inv_mass, info)
     return out
 
 
@@ -551,17 +585,17 @@ def grahmc_multistep_kernel(info: dict, num_steps: int, schedule: int,
     acc = torch.empty((transitions, n_chains), dtype=torch.bool, device=q.device)
     dh, hist_lp = (lp.new_empty((transitions, n_chains)) for _ in range(2))
     hist_q = q.new_empty((transitions, n_chains, dim))
-    dense, params, invm_ptr, l_inv_ptr = _metric_args(info, inv_mass, l_inv)
+    dense, params, data, invm_ptr, l_inv_ptr = _metric_args(info, inv_mass, l_inv)
     code = lib.grahmc_multistep_launch(
         FAMILY_IDS[info["family"]], dim, n_chains, num_steps, schedule,
-        transitions, dense, params, scalars.data_ptr(), _ptr(key), call & _U32,
+        transitions, dense, params, data, scalars.data_ptr(), _ptr(key), call & _U32,
         q.data_ptr(), lp.data_ptr(), grad.data_ptr(), invm_ptr, l_inv_ptr,
         _ptr(p0), _ptr(u),
         q_out.data_ptr(), lp_out.data_ptr(), grad_out.data_ptr(),
         acc.data_ptr(), dh.data_ptr(), hist_q.data_ptr(), hist_lp.data_ptr(),
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on_error(code, "grahmc_multistep_kernel")
-    _count(grahmc_multistep_kernel, inv_mass)
+    _count(grahmc_multistep_kernel, inv_mass, info)
     return q_out, lp_out, grad_out, acc, dh, hist_q, hist_lp
 
 
@@ -591,14 +625,14 @@ def grahmc_scaled_kernel(info: dict, num_steps: int, schedule: int, q: Tensor,
     from mcmc_tpu_torch.ops import _cuda
     lib = _cuda.load_library().lib
     out, ptrs = _step_outputs(q, lp)
-    dense, params, invm_ptr, l_inv_ptr = _metric_args(info, inv_mass, l_inv)
+    dense, params, data, invm_ptr, l_inv_ptr = _metric_args(info, inv_mass, l_inv)
     code = lib.grahmc_scaled_launch(
         FAMILY_IDS[info["family"]], q.shape[1], n_chains, n_chains // n_rungs, num_steps,
-        schedule, dense, params, rungs.data_ptr(), _ptr(key), call & _U32,
+        schedule, dense, params, data, rungs.data_ptr(), _ptr(key), call & _U32,
         q.data_ptr(), lp.data_ptr(), grad.data_ptr(), invm_ptr, l_inv_ptr, _ptr(p0),
         _ptr(u), *ptrs, torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on_error(code, "grahmc_scaled_kernel")
-    _count(grahmc_scaled_kernel, inv_mass)
+    _count(grahmc_scaled_kernel, inv_mass, info)
     return out
 
 
@@ -626,15 +660,15 @@ def grahmc_bridged_kernel(info: dict, num_steps: int, schedule: int, q: Tensor,
     from mcmc_tpu_torch.ops import _cuda
     lib = _cuda.load_library().lib
     out, ptrs = _step_outputs(q, lp)
-    dense, params, invm_ptr, l_inv_ptr = _metric_args(info, inv_mass, l_inv)
+    dense, params, data, invm_ptr, l_inv_ptr = _metric_args(info, inv_mass, l_inv)
     code = lib.grahmc_bridged_launch(
         FAMILY_IDS[info["family"]], q.shape[1], q.shape[0], num_steps, schedule, dense,
-        params, scalars.data_ptr(), base_mean.data_ptr(), base_inv_scale.data_ptr(),
+        params, data, scalars.data_ptr(), base_mean.data_ptr(), base_inv_scale.data_ptr(),
         _ptr(key), call & _U32, q.data_ptr(), lp.data_ptr(), grad.data_ptr(), invm_ptr,
         l_inv_ptr, _ptr(p0), _ptr(u), *ptrs,
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on_error(code, "grahmc_bridged_kernel")
-    _count(grahmc_bridged_kernel, inv_mass)
+    _count(grahmc_bridged_kernel, inv_mass, info)
     return out
 
 
@@ -644,10 +678,10 @@ KERNELS = (grahmc_step_kernel, grahmc_multistep_kernel, grahmc_scaled_kernel,
 
 def reset_launches() -> None:
     """Set the launch counts of kernels 1, 2, 1b and 1c, total and per
-    metric variant, to 0."""
+    variant (metric, with or without data), to 0."""
     for kernel in KERNELS:
         kernel.launches = 0
-        kernel.variant_launches = dict.fromkeys(VARIANTS.values(), 0)
+        kernel.variant_launches = dict.fromkeys(variant_names(VARIANTS.values()), 0)
 
 
 reset_launches()

@@ -1,8 +1,8 @@
 """Plain PyTorch versions of the kernels' target device functions.
 
-Port of four device functions of ``mcmc_tpu/ops/padded_targets.py``
-(``_standard_normal``, ``_neals_funnel``, ``_correlated`` and
-``_gaussian_mixture``). The TPU versions work on blocks
+Port of five device functions of ``mcmc_tpu/ops/padded_targets.py``
+(``_standard_normal``, ``_neals_funnel``, ``_correlated``,
+``_gaussian_mixture`` and ``_hierarchical_logistic``). The TPU versions work on blocks
 padded to the (8, 128) tiles, in a lane or a transposed layout; the CUDA
 kernels keep the public (chains, dim) row-major layout and mask lanes past
 ``dim`` themselves, so none of the padding, ``_mask_row`` or layout code is
@@ -11,7 +11,9 @@ ported. What remains is the float32 arithmetic of
 
 Families are keyed by the ``kernel_info`` tag the target factories attach;
 ``FAMILY_IDS`` is the enum the CUDA launchers switch on, and
-``KERNEL_FAMILIES`` the families each kernel's launcher dispatches on.
+``KERNEL_FAMILIES`` the families each kernel's launcher dispatches on. A
+family of ``DATA_FAMILIES`` carries a data set, which ``device_data`` puts
+on the device once and the kernels read from there (``struct TargetData``).
 """
 
 import math
@@ -23,17 +25,24 @@ from mcmc_tpu_torch.targets import LOG_2PI
 
 # Must match `enum Family` in csrc/targets.cuh.
 FAMILY_IDS = {"standard_normal": 0, "neals_funnel": 1, "correlated_gaussian": 2,
-              "gaussian_mixture": 3}
+              "gaussian_mixture": 3, "hierarchical_logistic": 4}
 # The families each kernel's launcher dispatches on. The correlated Gaussian's
 # functor masks coordinates in the warp-per-chain layout; kernels 1, 2 and 4
 # run it. The mixture runs in kernels 1 and 2 (and 1's scaled and bridged
-# variants) only so far.
+# variants) only so far. The hierarchical posterior runs everywhere: kernel
+# 3 through its log-density-only form.
 KERNEL_FAMILIES = {
     "grahmc": ("standard_normal", "neals_funnel", "correlated_gaussian",
-               "gaussian_mixture"),
-    "rwmh": ("standard_normal", "neals_funnel"),
-    "nuts": ("standard_normal", "neals_funnel", "correlated_gaussian"),
+               "gaussian_mixture", "hierarchical_logistic"),
+    "rwmh": ("standard_normal", "neals_funnel", "hierarchical_logistic"),
+    "nuts": ("standard_normal", "neals_funnel", "correlated_gaussian",
+             "hierarchical_logistic"),
 }
+# Families whose device function reads a data set from device memory.
+DATA_FAMILIES = ("hierarchical_logistic",)
+# Kernel 3 gives a chain 2^ceil(log2(ceil(D / 4))) lanes, lane j holding
+# coordinates 4j..4j+3 (csrc/fused_rwmh.cu).
+RWMH_COORDS_PER_LANE = 4
 
 
 def kernel_info(value_and_grad_fn, kernel: Optional[str] = None) -> dict:
@@ -65,6 +74,46 @@ def make_device_vag(value_and_grad_fn) -> Callable:
 def device_vag(info: dict) -> Callable:
     """make_device_vag from the kernel_info dict itself."""
     return _BUILDERS[info["family"]](info["dim"], info["params"])
+
+
+def device_lp(info: dict) -> Callable:
+    """(C, D) float32 -> lp (C,), the plain version of what kernel 3 (RWMH)
+    evaluates for this target: the log-density only, summed in kernel 3's
+    lane-group order where the family's device function has its own
+    log-density form (the hierarchical posterior), else the device
+    function's lp."""
+    if info["family"] == "hierarchical_logistic":
+        return _hierarchical_logistic(info["dim"], info["params"], rwmh_lanes(info["dim"]))
+    vag = device_vag(info)
+    return lambda q: vag(q)[0]
+
+
+def rwmh_lanes(dim: int) -> int:
+    """Lanes per chain in kernel 3: the power of two that holds dim
+    coordinates at RWMH_COORDS_PER_LANE per lane (csrc/fused_rwmh.cu:
+    dispatch_g)."""
+    lanes = -(-dim // RWMH_COORDS_PER_LANE)
+    return min(32, 1 << max(0, (lanes - 1).bit_length()))
+
+
+_DEVICE_DATA = {}    # (dim, n_data, data_seed, device) -> (X, xt, y)
+
+
+def device_data(info: dict, device) -> tuple:
+    """The data set of a DATA_FAMILIES target on `device`, as the kernels
+    read it: X (n_data, D) float32 with a zero column 0 (the hyperparameter
+    tau's, so X q picks out the coefficients and the likelihood's share of
+    tau's gradient is 0), its transpose xt (D, n_data) and y (n_data,), all
+    contiguous. Made once per data set and device: the factory makes the
+    data from (dim, n_data, data_seed) alone."""
+    p = info["params"]
+    key = (info["dim"], p["n_data"], p["data_seed"], str(torch.device(device)))
+    if key not in _DEVICE_DATA:
+        X = torch.zeros((p["n_data"], info["dim"]), dtype=torch.float32)
+        X[:, 1:] = torch.from_numpy(p["X"])
+        _DEVICE_DATA[key] = tuple(t.contiguous().to(device) for t in (
+            X, X.T, torch.from_numpy(p["y"]).to(torch.float32)))
+    return _DEVICE_DATA[key]
 
 
 def device_params(info: dict) -> tuple:
@@ -106,21 +155,29 @@ def _neals_funnel(dim, params):
     return vag
 
 
-def warp_order_sum(x: torch.Tensor) -> torch.Tensor:
-    """Row sums of x (C, D) in the order of csrc/targets.cuh's warp_sum over
-    the warp-per-chain layout: lane j adds its coordinates j, j + 32, ... in
-    turn, then a butterfly over the 32 lanes (offsets 16, 8, 4, 2, 1)."""
-    n_chains, dim = x.shape
-    k = -(-dim // 32)
-    lanes = torch.zeros((n_chains, 32 * k), dtype=x.dtype, device=x.device)
-    lanes[:, :dim] = x
-    lanes = lanes.reshape(n_chains, k, 32)
-    v = lanes[:, 0]
-    for r in range(1, k):
-        v = v + lanes[:, r]
-    idx = torch.arange(32, device=x.device)
-    for off in (16, 8, 4, 2, 1):
+def warp_order_sum(x: torch.Tensor, lanes: int = 32, blocked: int = 0) -> torch.Tensor:
+    """Row sums of x (C, N) in the order of csrc/targets.cuh's group_sum
+    over a group of `lanes` lanes: lane j adds its entries in turn, then a
+    butterfly over the lanes (offsets lanes / 2, ..., 2, 1). Lane j holds
+    entries j, j + lanes, ... (the warp-per-chain layout at lanes = 32, and
+    the data rows a lane owns), or with `blocked` = b entries b j .. b j +
+    b - 1 (kernel 3's layout)."""
+    n_chains, n = x.shape
+    per_lane = blocked or -(-n // lanes)
+    padded = torch.zeros((n_chains, lanes * per_lane), dtype=x.dtype, device=x.device)
+    padded[:, :n] = x
+    if blocked:
+        padded = padded.reshape(n_chains, lanes, per_lane).transpose(1, 2)
+    else:
+        padded = padded.reshape(n_chains, per_lane, lanes)
+    v = padded[:, 0]
+    for r in range(1, per_lane):
+        v = v + padded[:, r]
+    idx = torch.arange(lanes, device=x.device)
+    off = lanes // 2
+    while off:
         v = v + v[:, idx ^ off]
+        off //= 2
     return v[:, 0]
 
 
@@ -159,9 +216,54 @@ def _gaussian_mixture(dim, params):
     return vag
 
 
+def _hierarchical_logistic(dim, params, group=None):
+    """The logistic posterior's device function, in the kernels' order
+    (csrc/targets.cuh): z = X q summed over the coordinates in order, each
+    product rounded before its sum; per data row one exp(-|z|) for the
+    sigmoid and the softplus; the log-likelihood's row terms summed by the
+    lane owning the row (rows j, j + G, ... of G lanes), then a butterfly;
+    X^T (y - sigmoid z) summed over the rows in order. Both products are
+    elementwise loops, never torch.matmul, so no TF32 and no other order.
+
+    With `group` = G, the log-density only, in kernel 3's lane groups (G
+    lanes, coordinates 4j..4j+3 on lane j); otherwise (lp, grad) in the
+    warp-per-chain layout of kernels 1, 2 and 4."""
+    info = {"family": "hierarchical_logistic", "dim": dim, "params": params}
+    half_p = 0.5 * (dim - 1)
+    lanes, blocked = (group, RWMH_COORDS_PER_LANE) if group else (32, 0)
+
+    def evaluate(q, with_grad):
+        X, xt, y = device_data(info, q.device)
+        z = torch.zeros((q.shape[0], X.shape[0]), dtype=q.dtype, device=q.device)
+        for d in range(dim):
+            z = z + q[:, d:d + 1] * xt[d]
+        e = torch.exp(-torch.abs(z))
+        denom = 1.0 + e
+        term = y * z - (torch.clamp(z, min=0.0) + torch.log1p(e))
+        lik = warp_order_sum(term, lanes)
+        tau = q[:, 0]
+        inv_scale = torch.exp(-tau)
+        beta_sq = warp_order_sum(torch.cat([torch.zeros_like(q[:, :1]), q[:, 1:] * q[:, 1:]],
+                                           dim=1), lanes, blocked)
+        shrink = 0.5 * inv_scale * beta_sq
+        lp = lik - shrink - half_p * tau - 0.5 * tau * tau
+        if not with_grad:
+            return lp
+        resid = y - torch.where(z >= 0.0, 1.0 / denom, e / denom)
+        g = torch.zeros_like(q)
+        for n in range(X.shape[0]):
+            g = g + X[n] * resid[:, n:n + 1]
+        g = g - q * inv_scale[:, None]
+        g[:, 0] = shrink - half_p - tau
+        return lp, g
+
+    return lambda q: evaluate(q, not group)
+
+
 _BUILDERS = {
     "standard_normal": _standard_normal,
     "neals_funnel": _neals_funnel,
     "correlated_gaussian": _correlated,
     "gaussian_mixture": _gaussian_mixture,
+    "hierarchical_logistic": _hierarchical_logistic,
 }

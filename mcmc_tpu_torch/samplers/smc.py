@@ -90,17 +90,30 @@ def gaussian_base(dim: int, mean=None, scale=1.0, device="cuda"):
     return sampler, log_prob, value_and_grad
 
 
+def prefix_sum(x: Tensor) -> Tensor:
+    """Inclusive prefix sum of a 1-D tensor, summed in one fixed order on
+    every device: ceil(log2 n) rounds of x[k:] + x[:-k] (Hillis and
+    Steele). torch.cumsum of a floating CUDA tensor sums in an order that
+    can change between calls, and systematic resampling compares every
+    point with the CDF, so one seed would not give the same indices."""
+    k = 1
+    while k < x.shape[0]:
+        x = torch.cat([x[:k], x[k:] + x[:-k]])
+        k *= 2
+    return x
+
+
 def systematic_resample(generator: Optional[torch.Generator], log_weights: Tensor,
                         u: Optional[Tensor] = None) -> Tensor:
     """Systematic resampling: indices (P,) such that particle i is copied
-    floor(P w_i) or ceil(P w_i) times. One cumsum and one searchsorted.
+    floor(P w_i) or ceil(P w_i) times. One prefix sum and one searchsorted.
 
     log_weights need not be normalized. The single uniform is `u` when
     given (a test hands in the JAX package's), else drawn from
     `generator`."""
     n = log_weights.shape[0]
     lw = log_weights - torch.logsumexp(log_weights, dim=0)
-    cdf = torch.cumsum(torch.exp(lw), dim=0)
+    cdf = prefix_sum(torch.exp(lw))
     # guard the tail against rounding: cdf[-1] must dominate every point
     cdf[-1] = 1.0 + 1e-6
     if u is None:

@@ -7,10 +7,12 @@ counterpart of the JAX package's ``pallas_info``, and what the fused kernels
 dispatch on (``mcmc_tpu_torch.ops.padded_targets``).
 
 Ported so far: ``standard_normal``, ``neals_funnel``,
-``correlated_gaussian`` (the dense-metric NUTS row's target) and
-``gaussian_mixture`` (the tempered and SMC rows' target).
-``get_target`` raises for every other name; ``get_reference_sampler`` gives
-the correlated Gaussian's exact i.i.d. sampler.
+``correlated_gaussian`` (the dense-metric NUTS row's target),
+``gaussian_mixture`` (the tempered and SMC rows' target) and
+``hierarchical_logistic`` (BASELINE config 5, ``targets/hierarchical.py``;
+its tag carries the data set X and y). ``get_target`` raises for every other
+name; ``get_reference_sampler`` gives the exact i.i.d. samplers of the ported
+targets that have one.
 """
 
 import math
@@ -225,11 +227,14 @@ def gaussian_mixture(dim: int = 10, n_modes: int = 2,
     )
 
 
+from mcmc_tpu_torch.targets.hierarchical import hierarchical_logistic  # noqa: E402
+
 _TARGETS = {
     "standard_normal": standard_normal,
     "neals_funnel": neals_funnel,
     "correlated_gaussian": correlated_gaussian,
     "gaussian_mixture": gaussian_mixture,
+    "hierarchical_logistic": hierarchical_logistic,
 }
 
 
@@ -243,11 +248,44 @@ def get_target(name: str, dim: int = 10, **kwargs) -> TargetDistribution:
 
 
 def get_reference_sampler(name: str, dim: int = 10, **kwargs):
-    """Exact i.i.d. sampler (generator, n) -> (n, dim) float64 of a target,
-    or None; so far only the correlated Gaussian's."""
+    """Exact i.i.d. sampler (generator, n) -> (n, dim) float64 of a ported
+    target, or None where it has none (the hierarchical posterior, a mixture
+    of other than two modes), as the JAX package's get_reference_sampler
+    (`mcmc_tpu/targets/__init__.py:655`). The draws come from the
+    generator, so they are the JAX sampler's in distribution, not in value."""
+    def normal(g, shape):
+        return _randn(g, shape, torch.float64)
+
+    if name == "standard_normal":
+        return lambda g, n: normal(g, (n, dim))
     if name == "correlated_gaussian":
         rho = kwargs.get("correlation", 0.9)
         cov = (1.0 - rho) * torch.eye(dim, dtype=torch.float64) + rho
         chol = torch.linalg.cholesky(cov)
-        return lambda g, n: _randn(g, (n, dim), torch.float64) @ chol.to(g.device).T
+        return lambda g, n: normal(g, (n, dim)) @ chol.to(g.device).T
+    if name == "neals_funnel":
+        def funnel(g, n):
+            v = normal(g, (n,)) * 3.0
+            rest = normal(g, (n, dim - 1)) * torch.exp(v / 2.0)[:, None]
+            return torch.cat([v[:, None], rest], dim=1)
+        return funnel
+    if name == "gaussian_mixture":
+        if kwargs.get("n_modes", 2) != 2:
+            return None
+        half_sep = kwargs.get("separation", 5.0) / 2.0
+
+        def mixture(g, n):
+            right = torch.rand((n,), generator=g, device=g.device) < 0.5
+            x0 = normal(g, (n,)) + half_sep * (2.0 * right.to(torch.float64) - 1.0)
+            return torch.cat([x0[:, None], normal(g, (n, dim - 1))], dim=1)
+        return mixture
     return None
+
+
+def has_reference_sampler(name: str) -> bool:
+    """Whether get_reference_sampler(name) gives a sampler (with the
+    factory's default parameters): the JAX package's answer for every
+    ported target (`mcmc_tpu/targets/__init__.py:751`); False for names not
+    ported yet."""
+    return name in ("standard_normal", "correlated_gaussian", "neals_funnel",
+                    "gaussian_mixture")

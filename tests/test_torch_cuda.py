@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels (GRAHMC 1 and 2 with their dense variants
 1a and 2a and 1's scaled and bridged variants 1b and 1c, RWMH 3, persistent
-NUTS 4 with its multinomial and dense variants) against their plain
+NUTS 4 with its multinomial and dense variants, and each of them on the
+data-carrying hierarchical posterior: 1d, 2b, 3a, 4c) against their plain
 versions, on the card, and the dense warmup, tempered and SMC runs that
 run them.
 
@@ -148,7 +149,8 @@ def test_dense_warmup_on_the_card(dev, monkeypatch):
         adaptation_windows=[25, 50, 125], cooldown_steps=125, max_iter_step=100,
         gamma_samples_per_eval=25)
     # 1 + 1 + 1 + 2 + 2 batches of 100 steps, then 7 evaluations of 100 + 25
-    assert ft.grahmc_step_kernel.variant_launches == {"diagonal": 0, "dense": 700 + 875}
+    assert ft.grahmc_step_kernel.variant_launches == {"diagonal": 0, "dense": 700 + 875,
+                                                      "diagonal+data": 0, "dense+data": 0}
     corr = inv_mass / torch.sqrt(torch.outer(torch.diagonal(inv_mass),
                                              torch.diagonal(inv_mass)))
     assert float(corr[~torch.eye(10, dtype=torch.bool, device=dev)].min()) > 0.5
@@ -439,3 +441,203 @@ def test_tempered_and_smc_runs_on_the_card(dev):
     assert ft.grahmc_step_kernel.launches == 0
     assert abs(float(r.log_Z)) < 0.1
     assert 0.4 < float((r.particles[:, 0] > 0).float().mean()) < 0.6
+
+
+HIER = "hierarchical_logistic"
+
+
+def _hier(dev, dim, n_data, chains, seed):
+    """The hierarchical posterior's kernel_info, a state from its init
+    sampler spread twice as wide, and a generator."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    t = get_target(HIER, dim=dim, n_data=n_data)
+    q = t.init_sampler(g, chains) * 2.0
+    lp, grad = t.value_and_grad_fn(q)
+    return t.value_and_grad_fn.kernel_info, q, lp.contiguous(), grad.contiguous(), g
+
+
+@pytest.mark.parametrize("dense", [False, True])
+@pytest.mark.parametrize("dim,n_data", [(9, 20), (20, 64), (100, 256), (128, 33)])
+def test_hierarchical_kernels_1_and_2_match_plain(dev, dim, n_data, dense):
+    """Kernels 1d and 2b (and their dense forms) against their plain
+    versions on the hierarchical posterior, injected and Philox: accepts
+    equal away from the MH borderline, states within 1e-4 (kernel 1); each
+    chain's accept sequence and history within 1e-4 on >= 99% of chains
+    (kernel 2, T = 4); the data variants' launch counts."""
+    info, q, lp, grad, g = _hier(dev, dim, n_data, 1000, dim + n_data)
+    invm, l_inv = _dense_metric(dev, dim, g) if dense else (
+        torch.rand(dim, generator=g, device=dev) * 0.5 + 0.25, None)
+    eps = (0.2 if dim <= 20 else 0.1) if dense else (0.3 if dim <= 20 else 0.2)
+    args = (info, 8, ft.SCHEDULE_IDS["tanh"], q, lp, grad,
+            ft.kernel_scalars(eps, 0.5, 0.5, dev), invm)
+    name = "dense+data" if dense else "diagonal+data"
+    for rand, log_u in _rand(dev, g, 1000, dim, invm if dense else None, l_inv):
+        before = ft.grahmc_step_kernel.variant_launches[name]
+        kern = ft.grahmc_step_kernel(*args, l_inv=l_inv, **rand)
+        assert ft.grahmc_step_kernel.variant_launches[name] == before + 1
+        plain = ft.grahmc_step_plain(*args, l_inv=l_inv, **rand)
+        assert 0.05 < float(plain[3].float().mean()) < 0.99
+        _assert_close(kern, plain, log_u)
+    key = torch.tensor([9, 10], dtype=torch.int32, device=dev)
+    margs = args[:3] + (4,) + args[3:]
+    before = ft.grahmc_multistep_kernel.variant_launches[name]
+    kern = ft.grahmc_multistep_kernel(*margs, key=key, call=2, l_inv=l_inv)
+    assert ft.grahmc_multistep_kernel.variant_launches[name] == before + 1
+    plain = ft.grahmc_multistep_plain(*margs, key=key, call=2, l_inv=l_inv)
+    agree = (kern[3] == plain[3]).all(dim=0)
+    assert float(agree.float().mean()) >= 0.99
+    for a, b in zip(kern[5:], plain[5:]):
+        torch.testing.assert_close(a[:, agree], b[:, agree], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dense", [False, True])
+@pytest.mark.parametrize("dim", [20, 100])
+def test_hierarchical_scaled_and_bridged_match_plain(dev, dim, dense):
+    """Kernels 1b and 1c on the hierarchical posterior (its data-carrying
+    form, which tempering and SMC reach through "auto") against their plain
+    versions, injected and Philox."""
+    n_rungs, chains = 3, 400
+    n = n_rungs * chains
+    info, q, lp, grad, g = _hier(dev, dim, 64, n, dim + 5)
+    invm, l_inv = _dense_metric(dev, dim, g) if dense else (
+        torch.rand(dim, generator=g, device=dev) * 0.05 + 0.02, None)
+    eps = 0.02 if dense else 0.1
+    betas = torch.tensor([1.0, 0.3, 0.05], device=dev)
+    rungs = ft.rung_table(eps / torch.sqrt(betas), 0.1, 5.0, betas, dev)
+    beta_row = betas.repeat_interleave(chains)
+    sargs = (info, 8, ft.SCHEDULE_IDS["tanh"], q, (beta_row * lp).contiguous(),
+             (beta_row[:, None] * grad).contiguous(), rungs, invm)
+    name = "dense+data" if dense else "diagonal+data"
+    for rand, log_u in _rand(dev, g, n, dim, invm if dense else None, l_inv):
+        before = ft.grahmc_scaled_kernel.variant_launches[name]
+        kern = ft.grahmc_scaled_kernel(*sargs, l_inv=l_inv, **rand)
+        assert ft.grahmc_scaled_kernel.variant_launches[name] == before + 1
+        _assert_close(kern, ft.grahmc_scaled_plain(*sargs, l_inv=l_inv, **rand), log_u)
+    base = ft.bridge_base(0.0, 1.5, dim, dev)
+    for beta in (0.05, 1.0):
+        mixture = ft.bridged_vag(ft.device_vag(info), torch.tensor(beta, device=dev),
+                                 torch.tensor(base.log_norm, dtype=torch.float32, device=dev),
+                                 base.mean, base.inv_scale)
+        blp, bgrad = mixture(q)
+        bargs = (info, 8, 0, q, blp.contiguous(), bgrad.contiguous(),
+                 ft.bridge_scalars(eps, 0.0, 1.0, beta, base.log_norm, dev), base.mean,
+                 base.inv_scale, invm)
+        for rand, log_u in _rand(dev, g, n, dim, invm if dense else None, l_inv):
+            before = ft.grahmc_bridged_kernel.variant_launches[name]
+            kern = ft.grahmc_bridged_kernel(*bargs, l_inv=l_inv, **rand)
+            assert ft.grahmc_bridged_kernel.variant_launches[name] == before + 1
+            _assert_close(kern, ft.grahmc_bridged_plain(*bargs, l_inv=l_inv, **rand), log_u)
+
+
+@pytest.mark.parametrize("dim,n_data", [(5, 20), (9, 20), (20, 64), (100, 256), (128, 33)])
+def test_hierarchical_rwmh_kernel_matches_plain(dev, dim, n_data):
+    """Kernel 3a (the log-density-only form in kernel 3's lane groups: 2, 4,
+    8 and 32 lanes per chain here) against its plain version, injected and
+    Philox: accepts equal, states and histories within 1e-4."""
+    info, q, lp, _, g = _hier(dev, dim, n_data, 1000, dim)
+    scale = fr.rwmh_scale(0.3 / dim ** 0.5, dev)
+    noise = torch.randn((8, 1000, dim), generator=g, device=dev)
+    u = torch.rand((8, 1000), generator=g, device=dev).clamp_min(2.0 ** -25)
+    key = torch.tensor([7, -8], dtype=torch.int32, device=dev)
+    for rand in (dict(noise=noise, u=u), dict(key=key, call=3)):
+        before = fr.rwmh_multistep_kernel.variant_launches["rwmh+data"]
+        kern = fr.rwmh_multistep_kernel(info, 8, q, lp, scale, 37, **rand)
+        assert fr.rwmh_multistep_kernel.variant_launches["rwmh+data"] == before + 1
+        plain = fr.rwmh_multistep_plain(info, 8, q, lp, scale, 37, **rand)
+        assert 0.05 < float(plain[2].float().mean()) < 1.0
+        torch.testing.assert_close(kern[2], plain[2])
+        for a, b in zip(kern[:2] + kern[3:], plain[:2] + plain[3:]):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("multinomial,dense", [(False, False), (True, False), (False, True),
+                                               (True, True)])
+@pytest.mark.parametrize("dim", [20, 100])
+def test_hierarchical_nuts_window_matches_plain(dev, dim, multinomial, dense):
+    """Kernel 4c (and the multinomial and dense forms on the hierarchical
+    posterior) against its plain version, injected and Philox, W = 4 over 64
+    slots from a state one window in: window_agreement's split and drift
+    rule, each variant's own launch count."""
+    info, q, lp, grad, g = _hier(dev, dim, 64, 2048, dim)
+    scalars = fn.nuts_scalars(0.05 if dense else 0.15, 1000.0, dev)
+    metric = (_dense_metric(dev, dim, g)[0] * 0.1 if dense else
+              torch.rand(dim, generator=g, device=dev) * 0.05 + 0.02)
+    inv_mass, l_inv = ft.kernel_metric(metric)
+    key = torch.tensor([1, 2], dtype=torch.int32, device=dev)
+    args = (info, 16, 4, 10)
+    start = tn._init_pstate(q, lp, grad, torch.float32, multinomial=multinomial)
+    warm = fn.nuts_window_plain(*args, start, scalars, inv_mass, key=key, call=0, l_inv=l_inv)
+    n_slice = 64 if multinomial else 16
+    draws = (torch.randn((16, 2048, dim), generator=g, device=dev),
+             torch.rand((16, 2048), generator=g, device=dev) < 0.5,
+             torch.rand((16, 2048), generator=g, device=dev) < 0.5,
+             torch.rand((16, 2048), generator=g, device=dev),
+             torch.rand((n_slice, 2048), generator=g, device=dev).clamp_min(2.0 ** -25),
+             torch.rand((16, 2048), generator=g, device=dev))
+    name = fn.variant(warm, inv_mass, info)
+    assert name.endswith("+data")
+    for rand in (dict(draws=draws), dict(key=key, call=4)):
+        def clone():
+            return tn._PState(*(None if t is None else t.clone() for t in warm))
+        before = fn.nuts_window_kernel.variant_launches[name]
+        kern = fn.nuts_window_kernel(*args, clone(), scalars, inv_mass, l_inv=l_inv, **rand)
+        assert fn.nuts_window_kernel.variant_launches[name] == before + 1
+        plain = fn.nuts_window_plain(*args, clone(), scalars, inv_mass, l_inv=l_inv, **rand)
+        same, emitted, in_flight, err = fn.window_agreement(kern, plain)
+        kept = same & emitted
+        assert float(kept.float().mean()) >= 0.999, (float(same.float().mean()), err)
+        assert float((kept & ~in_flight).float().mean()) <= 0.01
+        assert int((kern.transitions - warm.transitions).sum()) > 0
+
+
+def test_hierarchical_runs_take_the_data_kernels(dev):
+    """On CUDA positions of the hierarchical posterior "auto" resolves to
+    the fused paths, and every launch is a data variant's: the windowed
+    warmup (kernel 1d), grahmc_run at <= 4,096 chains (2b), rwmh_run (3a),
+    nuts_run_persistent (4c)."""
+    from mcmc_tpu_torch import tuning
+    t = get_target(HIER, dim=20, n_data=64)
+    q = t.init_sampler(torch.Generator(device=dev).manual_seed(0), 1024)
+    ft.reset_launches()
+    fr.reset_launches()
+    fn.reset_launches()
+    step, inv_mass, pos, info = tuning.run_adaptive_warmup(
+        "grahmc", t.log_prob_fn, None, q, torch.Generator(device=dev).manual_seed(1),
+        num_warmup=425, learn_mass_matrix=True, num_steps=8, schedule_type="tanh",
+        value_and_grad_fn=t.value_and_grad_fn, exploration_steps=100,
+        adaptation_windows=[25, 50, 125], cooldown_steps=125, max_iter_step=100,
+        gamma_samples_per_eval=25)
+    assert ft.grahmc_step_kernel.variant_launches["diagonal+data"] == 700 + 875
+    res = tg.grahmc_run(torch.Generator(device=dev).manual_seed(2), t.log_prob_fn, pos, step,
+                        8, info["gamma"], info["steepness"], 64, inv_mass_matrix=inv_mass,
+                        friction_schedule=tg.tanh_schedule,
+                        value_and_grad_fn=t.value_and_grad_fn, backend="fused")
+    assert ft.grahmc_multistep_kernel.variant_launches["diagonal+data"] == 8
+    assert 0.5 < float(res.accept_rate.mean()) < 0.8
+    tr.rwmh_run(torch.Generator(device=dev).manual_seed(3), t.log_prob_fn, pos, 64,
+                0.1, value_and_grad_fn=t.value_and_grad_fn, backend="fused")
+    assert fr.rwmh_multistep_kernel.variant_launches == {"rwmh": 0, "rwmh+data": 2}
+    tn.nuts_run_persistent(torch.Generator(device=dev).manual_seed(4), t.log_prob_fn, pos,
+                           step_size=step, num_samples=8, steps_per_sample=16,
+                           inv_mass_matrix=inv_mass, value_and_grad_fn=t.value_and_grad_fn)
+    assert fn.nuts_window_kernel.variant_launches["endpoint+data"] == 8
+    assert fn.nuts_window_kernel.launches == 8
+
+
+def test_smc_draws_repeat(dev):
+    """smc_run calls with one seed on the card give the same log Z and
+    particles bit for bit (the resampling CDF is summed in a fixed order):
+    chip_smoke.py's SMC row, its five seeds, three runs each. With
+    torch.cumsum's CDF, runs of these seeds differed in three of four
+    processes on an H100 (chip_smoke.py --smc-repeat)."""
+    from mcmc_tpu_torch.samplers import smc_run
+    mt = get_target("gaussian_mixture", dim=10)
+    for seed in range(60, 65):
+        runs = [smc_run(torch.Generator(device=dev).manual_seed(seed), mt.log_prob_fn, 32768,
+                        10, 0.4, 8, move_steps=2, base_scale=6.0,
+                        value_and_grad_fn=mt.value_and_grad_fn, final_resample=True)
+                for _ in range(3)]
+        assert runs[0].info["n_resamples"] > 0
+        for r in runs[1:]:
+            assert torch.equal(runs[0].log_Z, r.log_Z), seed
+            assert torch.equal(runs[0].particles, r.particles), seed

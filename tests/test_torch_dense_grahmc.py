@@ -218,7 +218,8 @@ def test_dense_wrapper_contracts():
     ft.grahmc_multistep_kernel(*args[:3], 2, *args[3:], invm, key=key, l_inv=l_inv)
     for kernel in (ft.grahmc_step_kernel, ft.grahmc_multistep_kernel):
         assert kernel.launches == 0
-        assert kernel.variant_launches == {"diagonal": 0, "dense": 0}
+        assert kernel.variant_launches == {"diagonal": 0, "dense": 0, "diagonal+data": 0,
+                                           "dense+data": 0}
     meta = [a.to("meta") if isinstance(a, torch.Tensor) else a for a in args]
     with pytest.raises(ValueError, match="CUDA"):
         ft.grahmc_step_kernel(*meta, invm.to("meta"), key=key.to("meta"),

@@ -31,7 +31,8 @@ from mcmc_tpu_torch.targets import get_target as t_get_target  # noqa: E402
 
 F32 = jnp.float32
 C, N_ITERS, DEPTH = 16, 48, 6
-CASES = [("standard_normal", 7, 0.5), ("neals_funnel", 10, 0.2)]
+CASES = [("standard_normal", 7, 0.5), ("neals_funnel", 10, 0.2),
+         ("hierarchical_logistic", 20, 0.1)]
 
 # JAX kernel rows -> the port's field names (R_SUBTREE is 1 << depth there)
 _ROWS = {"lp": jfn.R_LP, "lp_prop": jfn.R_LP_PROP, "h0": jfn.R_H0,

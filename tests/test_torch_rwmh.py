@@ -32,7 +32,8 @@ def _t(a):
     return torch.from_numpy(np.array(a))
 
 
-@pytest.mark.parametrize("family,dim", [("standard_normal", 7), ("neals_funnel", 12)])
+@pytest.mark.parametrize("family,dim", [("standard_normal", 7), ("neals_funnel", 12),
+                                        ("hierarchical_logistic", 20)])
 def test_plain_matches_pallas_kernel(family, dim):
     """rwmh_multistep_plain == make_fused_rwmh_multistep(interpret=True) on
     the draws the JAX wrapper makes (tests/test_pallas_ops.py:509's recipe),

@@ -182,6 +182,7 @@ def test_port_never_imports_jax():
         "import mcmc_tpu_torch.tuning.welford, mcmc_tpu_torch.tuning.adaptation\n"
         "import mcmc_tpu_torch.tuning.sequential, mcmc_tpu_torch.tuning.ladder\n"
         "import mcmc_tpu_torch.samplers.tempered, mcmc_tpu_torch.samplers.smc\n"
+        "import mcmc_tpu_torch.targets.hierarchical\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'mcmc_tpu')\n"
         "             or m.startswith(('jax.', 'mcmc_tpu.')))\n"
         "assert not bad, bad\n"

@@ -259,3 +259,25 @@ def test_mixture_transport_and_evidence_fused():
     assert 0.35 < float((x0 > 0).double().mean()) < 0.65
     assert abs(float(x0.var()) - 7.25) < 0.8
     np.testing.assert_allclose(r.log_weights.numpy(), -np.log(4096), rtol=1e-6)
+
+
+def test_prefix_sum_is_the_cumsum_in_a_fixed_order():
+    """smc.prefix_sum equals torch.cumsum to rounding at every length
+    (powers of two and not), and systematic resampling through it still
+    copies particle i floor(P w_i) or ceil(P w_i) times at 32,768 particles;
+    two smc_run calls with one seed give the same log Z and particles."""
+    rng = np.random.default_rng(5)
+    for n in (1, 2, 3, 8, 257, 4096, 32769):
+        x = torch.from_numpy(rng.uniform(size=n))
+        torch.testing.assert_close(ts.prefix_sum(x), torch.cumsum(x, 0), rtol=1e-12, atol=1e-12)
+    lw = torch.from_numpy(rng.standard_normal(32768) * 3.0)
+    idx = ts.systematic_resample(torch.Generator().manual_seed(0), lw)
+    w = torch.softmax(lw, 0) * 32768
+    counts = torch.bincount(idx, minlength=32768).double()
+    assert bool(((counts >= torch.floor(w) - 1e-9) & (counts <= torch.ceil(w) + 1e-9)).all())
+    t = t_get_target("gaussian_mixture", dim=3)
+    runs = [ts.smc_run(torch.Generator().manual_seed(6), t.log_prob_fn, 512, 3, 0.4, 4,
+                       move_steps=1, base_scale=3.0, value_and_grad_fn=t.value_and_grad_fn,
+                       final_resample=True) for _ in range(2)]
+    assert torch.equal(runs[0].log_Z, runs[1].log_Z)
+    assert torch.equal(runs[0].particles, runs[1].particles)

@@ -141,3 +141,38 @@ def test_mixture_tag_params_and_init_sampler():
     np.testing.assert_allclose(x[:, 1:].std(dim=0).numpy(), 1.0, rtol=0.05)
     with pytest.raises(NotImplementedError):
         tt.gaussian_mixture(4, n_modes=3)
+
+
+@pytest.mark.parametrize("family", ["standard_normal", "correlated_gaussian", "neals_funnel",
+                                    "gaussian_mixture"])
+def test_reference_samplers_are_exact(family):
+    """get_reference_sampler of each ported target with an exact sampler:
+    200,000 draws whose moments pass z-gates (|z| < 5) against the target's
+    true mean and variance, with the funnel's rest rescaled by exp(x0 / 2)
+    to N(0, 1) and the mixture's mode share 1/2; has_reference_sampler
+    agrees with the JAX package's for every ported name."""
+    dim, n = 4, 200_000
+    sampler = tt.get_reference_sampler(family, dim)
+    x = sampler(torch.Generator().manual_seed(3), n)
+    assert x.shape == (n, dim) and x.dtype == torch.float64
+    target = tt.get_target(family, dim=dim)
+    if family == "neals_funnel":
+        x = torch.cat([x[:, :1] / 3.0, x[:, 1:] / torch.exp(x[:, :1] / 2.0)], dim=1)
+        mean, var = torch.zeros(dim), torch.ones(dim)
+    else:
+        mean, var = target.true_mean, torch.diagonal(target.true_cov)
+    z_mean = (x.mean(0) - mean) / torch.sqrt(var / n)
+    # Var of the sample variance: (m4 - var^2) / n, m4 from the draws
+    m4 = ((x - x.mean(0)) ** 4).mean(0)
+    z_var = (x.var(0) - var) / torch.sqrt((m4 - var ** 2) / n)
+    assert float(z_mean.abs().max()) < 5.0 and float(z_var.abs().max()) < 5.0
+    if family == "gaussian_mixture":
+        share = float((x[:, 0] > 0).double().mean())
+        assert abs(share - 0.5) < 5 * (0.25 / n) ** 0.5
+    if family == "correlated_gaussian":
+        corr = torch.corrcoef(x.T)[0, 1]
+        assert abs(float(corr) - 0.9) < 0.005
+    assert tt.has_reference_sampler(family) == jt.has_reference_sampler(family) is True
+    for name in ("hierarchical_logistic", "rosenbrock"):
+        assert not tt.has_reference_sampler(name)
+    assert tt.get_reference_sampler("gaussian_mixture", dim, n_modes=3) is None
