@@ -47,7 +47,18 @@ NUTS row and a dense-warmup GRAHMC row on the port:
   1,000-draw full-history GRAHMC run with its diagnostics (1d), a 4,096-chain
   run through the multistep dispatch (2b), persistent NUTS (4c) and RWMH
   (3a) on the same posterior; GRAHMC's posterior means must agree with
-  RWMH's, two kernels apart.
+  RWMH's, two kernels apart;
+- ChEES (bench.py:527-579): the 20-D non-centered funnel at 2,048 chains,
+  run_chees_warmup("hmc", 2,500 steps), then chees_run at the tuned step, T
+  and metric, 8,192 jittered draws a run (kernel 1, one launch per draw at
+  the draw's quantized level); the transformed draws' funnel moments;
+- the ChEES slice's families (the non-centered funnel, the ill-conditioned
+  Gaussian, Student-t, log-gamma and its unconstrained form) at the
+  canonical matrix's cell size (dim 10, 1,024 chains, 10,000 draws) under
+  GRAHMC (kernels 1, 2), RWMH (3) and persistent NUTS (4), held to their
+  exact samplers' means; before the rows, every kernel and variant on
+  them (and kernel 3 on the correlated Gaussian, kernels 3 and 4 on the
+  mixture) against the plain versions at D = 10 and 50.
 
 --multistep-switch adds a measurement that gates nothing: grahmc_run at
 1,024 and 4,096 chains through the multi-transition dispatch (T = 8)
@@ -199,6 +210,77 @@ HIER_ACCEPT_TOL = 0.07
 HIER_RHAT_MAX = 1.05
 HIER_ESS_MIN = 400.0
 HIER_MCSE_Z = 5.0            # GRAHMC and RWMH means within this many combined MCSE
+# the ChEES row (bench.py:527-579), uncut: 20-D non-centered funnel, 2,048
+# chains from N(0, 0.5^2), run_chees_warmup("hmc", 2,500 steps), then
+# chees_run at the tuned step, T and metric: a warm call and 4 timed reps of
+# 8,192 draws keeping 64 chains, at halton_offset 16,384 + 8,192 rep
+CHEES_DIM = 20
+CHEES_CHAINS = 2048
+CHEES_WARMUP = 2500
+CHEES_DRAWS = 8192
+CHEES_COLLECT = 64
+CHEES_REPS = 4
+CHEES_ACCEPT = 0.651         # run_chees_warmup's target
+# the families of the ChEES slice and the gap pairs it closes, against the
+# plain versions at D = 10 (K = 1) and D = 50 (K = 2), 16,384 chains [3g]
+NEW_FAMILIES = ("neals_funnel_noncentered", "ill_conditioned_gaussian", "student_t",
+                "log_gamma", "log_gamma_unconstrained")
+FAMILY_KERNELS = {f: ("grahmc", "rwmh", "nuts") for f in NEW_FAMILIES}
+FAMILY_KERNELS.update({"correlated_gaussian": ("rwmh",), "gaussian_mixture": ("rwmh", "nuts")})
+FAMILY_DIMS = (10, 50)
+FAMILY_CHAINS = 16384
+FAMILY_L = 16
+FAMILY_STEP = {"neals_funnel_noncentered": 0.3, "ill_conditioned_gaussian": 0.3,
+               "student_t": 0.3, "log_gamma": 0.1, "log_gamma_unconstrained": 0.2,
+               "correlated_gaussian": 0.1, "gaussian_mixture": 0.3}
+# families whose geometry amplifies rounding (near log_gamma's boundary the
+# gradient (shape - 1) / x kicks the momentum, past |x| = sqrt(df)
+# Student-t's log-density is convex, the mixture's barrier is a concave
+# ridge: there the leapfrog separates nearby trajectories), each with its
+# [3g] bounds as shares of the chains: kernels 1, 1a-1c, 2 and 2a's
+# proposals drifted (one trajectory diverging alone counts here), their
+# proposals diverged apart (|delta H| >= 1000 in both, rejected by both),
+# and kernel 4's trajectories in flight drifted. Set at ~4x the largest count this script read on an H100 at
+# 16,384 chains: log_gamma 8, 70 and 145 chains, Student-t 2, 0 and 0, the
+# mixture (kernels 3 and 4 only) 28 in flight. Any other family: 0, 0 and
+# SPLIT_MAX.
+FAMILY_DRIFT = {"log_gamma": (2e-3, 2e-2, 3.6e-2), "student_t": (5e-4, 0.0, SPLIT_MAX),
+                "gaussian_mixture": (0.0, 0.0, 7e-3)}
+# the family sweep at the canonical matrix's cell size
+# (results_full_matrix_native/README.md: dim 10, 1,024 chains, 2,500 warmup,
+# 10,000 draws) [5n]
+SWEEP_DIM = 10
+SWEEP_CHAINS = 1024
+SWEEP_DRAWS = 10000
+SWEEP_L = 16
+SWEEP_MULTI_T = 8            # grahmc_run's multistep T at 10,000 draws
+SWEEP_RWMH_T = 16            # rwmh_run's T at 10,000 draws
+SWEEP_RWMH_TUNE = 100        # DA iterations of 32 RWMH transitions (one kernel 3 call)
+SWEEP_RWMH_ACCEPT = 0.234    # the JAX package's TARGET_ACCEPT_RWMH
+SWEEP_REF_DRAWS = 1_000_000  # exact-sampler draws the means are held against
+SWEEP_RHAT_MAX = 1.05
+SWEEP_MCSE_Z = 5.0
+SWEEP_TAIL = 1e-3            # exact share outside the reference draws' central 99.9%
+# cells where the reference itself misses the gates, each with what stays
+# gated. The constrained log_gamma under gradient samplers diverges at its
+# support boundary (README above): finite draws only, the divergence rate
+# printed.
+SWEEP_FINITE_ONLY = {("log_gamma", "grahmc"), ("log_gamma", "nuts")}
+# Persistent NUTS on log_gamma's unconstrained form: the reference's own
+# rescue arm reads z 10.37 (learned metric) and 7.92 (identity) in this
+# cell (README above, the "LogGamma / nuts" rows, log-reparam + multinomial
+# NUTS; the window-emission bias, BASELINE.md bias audit #4): R-hat gated,
+# and the means' z within 1.5x of 10.37.
+SWEEP_Z_MAX = {("log_gamma_unconstrained", "nuts"): 1.5 * 10.37}
+# Persistent NUTS on Student-t(3): the reference's canonical cell fails
+# (results_full_matrix/benchmark_results.csv, nuts / StudentT10D_df3.0 /
+# learned metric: R-hat 1.0276, quality_pass False), and the JAX package's
+# machine leaves chains in the tails for thousands of draws as the port's
+# does (experiments/torch_student_t_nuts_witness.py). A trapped chain
+# moves its own mean, which the spread of the 1,024 chains' means sees and
+# sd / sqrt(bulk ESS) (printed) does not: R-hat gated, and the means' z by
+# the chains' spread alone.
+SWEEP_CHAINS_Z = {("student_t", "nuts")}
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 FLOP/s outside the
 # tensor cores; a kernel's bound is the larger of its bytes and its float
@@ -209,7 +291,7 @@ PEAK_F32 = 67e12
 # 10 kernel calls, longer than the host takes to enqueue them
 HOLD_CYCLES = 5_000_000
 
-NUTS_SRC = ("mcmc_tpu_torch/csrc/fused_nuts.cu", "mcmc_tpu/ops/fused_nuts.py:139")
+NUTS_SRC = ("mcmc_tpu_torch/csrc/nuts_window.cuh", "mcmc_tpu/ops/fused_nuts.py:139")
 STEP_SRC = ("mcmc_tpu_torch/csrc/fused_trajectory.cu", "mcmc_tpu/ops/fused_trajectory.py:280")
 MULTI_SRC = ("mcmc_tpu_torch/csrc/fused_trajectory.cu", "mcmc_tpu/ops/fused_trajectory.py:683")
 KERNELS = {   # name: (source, the TPU kernel it replaces)
@@ -234,10 +316,13 @@ KERNELS = {   # name: (source, the TPU kernel it replaces)
                                       "mcmc_tpu/ops/fused_trajectory.py:701"),    # 2b
     "rwmh_multistep_kernel[data]": ("mcmc_tpu_torch/csrc/fused_rwmh.cu",
                                     "mcmc_tpu/ops/fused_rwmh.py:52"),             # 3a
-    "nuts_window_kernel[data]": ("mcmc_tpu_torch/csrc/fused_nuts.cu",
+    "nuts_window_kernel[data]": ("mcmc_tpu_torch/csrc/nuts_window.cuh",
                                  "mcmc_tpu/ops/fused_nuts.py:569"),               # 4c
-    "nuts_window_kernel[multinomial+data]": ("mcmc_tpu_torch/csrc/fused_nuts.cu",
+    "nuts_window_kernel[multinomial+data]": ("mcmc_tpu_torch/csrc/nuts_window.cuh",
                                              "mcmc_tpu/ops/fused_nuts.py:569"),   # 4a + 4c
+    # kernel 1 on the ChEES row's non-centered funnel, one launch per draw
+    # at the draw's jitter level (launches: the ChEES row's own)
+    "grahmc_step_kernel (ChEES row)": STEP_SRC,
 }
 # kernels 1, 2, 1b and 1c's variants (ops/fused_trajectory.py:variant_name),
 # kernel 3's (ops/fused_rwmh.py) and kernel 4's (ops/fused_nuts.py:variant)
@@ -267,7 +352,10 @@ def ptxas_summary(log):
     name, spill = None, ""
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\w+)'", line)
-        if entry:
+        source = re.match(r"\[(\S+\.cu)\] nvcc ([\d.]+ s)", line)
+        if source:
+            yield f"{source.group(1)} compiled in {source.group(2)}"
+        elif entry:
             name, spill = entry.group(1), ""
         elif "spill" in line:
             spill = line.strip()
@@ -288,48 +376,121 @@ def require(cond, msg):
 # Phase 3: kernel against plain version
 # ---------------------------------------------------------------------------
 
-def _compare(label, torch, kern, plain, log_u, alive):
-    """Compare one transition of kernel and plain version on the chains in
-    `alive`. kern/plain: dicts with "accept" and "delta_h" (C,) and any of
-    "q", "lp", "grad". Accepts must agree except where
-    |log u - min(0, log alpha)| < 1e-4; q, lp and grad within rtol/atol 1e-4
-    on agreeing chains, delta H within rtol/atol 2e-3 on agreeing chains that
-    did not diverge (|dH| < 1000; a divergent trajectory's dH is chaotic).
-    Returns (max abs error of q/lp/grad, chains whose accepts agree)."""
+def _compare(label, torch, kern, plain, log_u, alive=None, potential=None,
+             vs_plain=("q", "lp", "grad"), away_max=0.0, border_max=None, flags=False,
+             drift_max=0.0, wild_max=None, dh_accepted_only=False):
+    """One transition of a kernel against its plain version, on the chains
+    in `alive` (default all). kern/plain: dicts (_fields) with "accept" and
+    "delta_h" (C,), any of "q", "lp", "grad" (the new state) and optionally
+    "prop_q", "prop_lp" (the proposal). Each phase picks its rule:
+    - an accept may differ away from the MH borderline (|log u - min(0,
+      log alpha)| >= 1e-4) on at most `away_max` of the chains, at it on at
+      most `border_max` (None: any);
+    - kept: the chains whose accepts agree and whose proposal q and lp lie
+      within 1e-4 (absolute plus relative; equal counts, as two -inf lp off
+      log_gamma's support). The others diverged apart where both
+      trajectories diverged (|delta H| >= 1000 in both: a diverged
+      trajectory is chaotic; each such chain must be rejected by both),
+      else drifted (one trajectory diverging alone counts here). At most
+      `drift_max` of the chains drifted and at most `wild_max` diverged
+      apart; with wild_max None, drift_max bounds both together;
+    - in step: kept chains and the rejected chains whose accepts agree (their
+      new state is the old one). On those, the `vs_plain` fields of the
+      new state within 1e-4 of the plain version's, and lp and grad within
+      1e-4 of `potential` (the plain (lp, grad) function) at the kernel's q
+      where it is given (near the mixture's barrier the gradient moves ~5x
+      as fast as x0, so a q within 1e-4 may carry a gradient beyond it:
+      [3e] holds lp and grad to the potential only);
+    - delta H within 2e-3 on kept chains whose plain trajectory did not
+      diverge (dh_accepted_only: on accepted ones; the multistep kernel
+      writes no proposal, so a rejected chain's delta H belongs to a
+      proposal unseen here, which may have drifted);
+    - flags: the divergence flags (|delta H| < 1000) agree wherever the
+      accepts do.
+    Returns (max |err| of the new state against the plain version on the
+    chains in step, the chains in step)."""
     acck, accp, dhp = kern["accept"], plain["accept"], plain["delta_h"]
+    n = acck.numel()
+    alive = torch.ones(n, dtype=torch.bool, device=acck.device) if alive is None else alive
+
+    def close(a, b, tol=1e-4):
+        ok = ((a - b).abs() <= tol + tol * b.abs()) | (a == b)
+        return ok.all(dim=1) if ok.ndim == 2 else ok
+
     borderline = (log_u - torch.clamp(-dhp, max=0.0)).abs() < 1e-4
     differ = (acck != accp) & alive
-    n_bad = int((differ & ~borderline).sum())
-    require(n_bad == 0, f"{label}: {n_bad} accept decisions differ away from "
-            f"the borderline")
-    same = alive & (acck == accp)
-    stable = same & (dhp.abs() < 1000.0)
-    require(bool(((kern["delta_h"].abs() < 1000.0) == (dhp.abs() < 1000.0))[same].all()),
-            f"{label}: divergence flags differ")
-    err = 0.0
-    for name in ("q", "lp", "grad", "delta_h"):
-        if name not in kern:
+    away, border = int((differ & ~borderline).sum()), int((differ & borderline).sum())
+    same = alive & ~differ
+    kept = same
+    if "prop_q" in kern:
+        kept = same & close(kern["prop_q"], plain["prop_q"]) & close(kern["prop_lp"],
+                                                                     plain["prop_lp"])
+    div_k, div_p = kern["delta_h"].abs() >= 1000.0, dhp.abs() >= 1000.0
+    apart = same & ~kept
+    wild_rows = apart & div_k & div_p
+    drifted, wild = int((apart & ~wild_rows).sum()), int(wild_rows.sum())
+    one_sided = int((apart & (div_k != div_p)).sum())
+    require(not bool((wild_rows & acck).any()), f"{label}: a diverged trajectory was accepted")
+    if flags:
+        require(bool((div_k == div_p)[same].all()), f"{label}: divergence flags differ")
+    in_step = kept | (same & ~acck)
+    err, residual = 0.0, None
+    for name in ("q", "lp", "grad"):
+        if kern.get(name) is None:
             continue
-        rows, tol = (stable, 2e-3) if name == "delta_h" else (same, 1e-4)
-        a, b = kern[name][rows], plain[name][rows]
-        bad = (a - b).abs() > tol + tol * b.abs()
-        require(not bool(bad.any()), f"{label}: {name} differs beyond {tol}")
-        if name != "delta_h" and a.numel():
-            err = max(err, float((a - b).abs().max()))
-    say(f"  {label}: accepts agree on {int(same.sum())}/{int(alive.sum())} "
-        f"(borderline {int((differ & borderline).sum())}), divergent "
-        f"{int((same & ~stable).sum())}, max |err| {err:.3g}")
-    return err, same
+        if name in vs_plain:
+            require(bool(close(kern[name], plain[name])[in_step].all()),
+                    f"{label}: {name} of the new state differs from the plain version's")
+        if in_step.any():
+            err = max(err, float((kern[name] - plain[name]).abs()[in_step].max()))
+    if potential is not None:
+        at_q = potential(kern["q"])
+        require(bool((close(kern["lp"], at_q[0]) & close(kern["grad"], at_q[1]))[in_step].all()),
+                f"{label}: lp or grad differs from the device function at the kernel's q")
+        residual = max((float((a - b).abs()[in_step].max()) if in_step.any() else 0.0)
+                       for a, b in ((kern["lp"], at_q[0]), (kern["grad"], at_q[1])))
+    stable = kept & (dhp.abs() < 1000.0)
+    seen = stable & acck if dh_accepted_only else stable
+    require(bool(close(kern["delta_h"], dhp, 2e-3)[seen].all()),
+            f"{label}: delta H differs beyond 2e-3")
+    prop = ""
+    if "prop_q" in kern:
+        size = (float((kern["prop_q"] - plain["prop_q"]).abs()[apart & ~wild_rows].max())
+                if drifted else 0.0)
+        prop = (f"; proposal within 1e-4 on {int(kept.sum())} ({drifted} drifted, {one_sided} "
+                f"of them with one trajectory diverged, max |dq| {size:.3g}; {wild} diverged "
+                f"apart, rejected by both)")
+    at = "" if residual is None else f" ({residual:.3g} with lp and grad at the kernel's q)"
+    say(f"  {label}: accepts agree on {int(same.sum())}/{int(alive.sum())} (split {away} away "
+        f"from the MH borderline, {border} at it){prop}; max |err| {err:.3g}{at}; divergent "
+        f"{int((kept & ~stable).sum())}")
+    require(away <= away_max * n, f"{label}: {away} accepts differ away from the MH borderline")
+    require(border_max is None or border <= border_max * n,
+            f"{label}: {border} chains split at the borderline")
+    if wild_max is None:
+        require(drifted + wild <= drift_max * n,
+                f"{label}: {drifted + wild} of {n} proposals drifted")
+    else:
+        require(drifted <= drift_max * n, f"{label}: {drifted} of {n} proposals drifted")
+        require(wild <= wild_max * n, f"{label}: {wild} of {n} proposals diverged apart")
+    return err, in_step
 
 
-def _fields(out, t=None):
+def _fields(out, t=None, proposal=False):
     """Named fields of a kernel/plain result tuple, at transition t for
-    the multistep layout."""
+    the multistep layout; with `proposal`, the proposal too (in the
+    multistep layout, which writes none, the new state: that of an
+    accepted chain is its proposal)."""
     if t is None:
-        q, lp, grad, acc, dh, _, _ = out
-        return {"q": q, "lp": lp, "grad": grad, "accept": acc, "delta_h": dh}
-    _, _, _, acc, dh, hist_q, hist_lp = out
-    return {"q": hist_q[t], "lp": hist_lp[t], "accept": acc[t], "delta_h": dh[t]}
+        q, lp, grad, acc, dh, prop_q, prop_lp = out
+        f = {"q": q, "lp": lp, "grad": grad, "accept": acc, "delta_h": dh}
+    else:
+        _, _, _, acc, dh, hist_q, hist_lp = out
+        f = {"q": hist_q[t], "lp": hist_lp[t], "accept": acc[t], "delta_h": dh[t]}
+        prop_q, prop_lp = f["q"], f["lp"]
+    if proposal:
+        f.update(prop_q=prop_q, prop_lp=prop_lp)
+    return f
 
 
 def phase_parity(torch, ft, targets, dev):
@@ -371,7 +532,7 @@ def phase_parity(torch, ft, targets, dev):
         plain = ft.grahmc_step_plain(*args, **rand)
         torch.cuda.synchronize()
         err, same = _compare(f"step {label}", torch, _fields(kern), _fields(plain),
-                             torch.log(u), torch.ones(CHAINS, dtype=torch.bool, device=dev))
+                             torch.log(u), flags=True)
         max_err["grahmc_step_kernel"] = max(max_err["grahmc_step_kernel"], err)
         ok = same & (plain[4].abs() < 1000.0)
         require(torch.allclose(kern[5][ok], plain[5][ok], rtol=1e-4, atol=1e-4),
@@ -397,7 +558,7 @@ def phase_parity(torch, ft, targets, dev):
         for t in range(MULTI_T):
             # a chain leaves the comparison after its first borderline split
             err, alive = _compare(f"multistep {mode} t={t}", torch, _fields(kern, t),
-                                  _fields(plain, t), torch.log(u_all[t]), alive)
+                                  _fields(plain, t), torch.log(u_all[t]), alive, flags=True)
             max_err["grahmc_multistep_kernel"] = max(
                 max_err["grahmc_multistep_kernel"], err)
         require(torch.allclose(kern[2][alive], plain[2][alive], rtol=1e-4, atol=1e-4),
@@ -548,54 +709,15 @@ def phase_parity_nuts(torch, ft, fn, tn, targets, dev):
             ("correlated_gaussian", False, True, DENSE_PARITY_STEP, SPLIT_MAX),
             ("correlated_gaussian", True, True, DENSE_PARITY_STEP, SPLIT_MAX)):
         t = _target(targets, family)
-        info = t.value_and_grad_fn.kernel_info
         g = _gen(torch, dev, 102)
         q = torch.randn((NUTS_CHAINS, DIM), generator=g, device=dev) * 0.5
         lp, grad = t.value_and_grad_fn(q)
-        scalars = fn.nuts_scalars(step, 1000.0, dev)
         inv_mass, l_inv = ft.kernel_metric((t.true_cov if dense else torch.ones(DIM)).to(dev))
         key = ft.PhiloxStream.from_generator(g, dev).key
-        args = (info, NUTS_ITERS, NUTS_W, NUTS_DEPTH)
-        start = tn._init_pstate(q, lp, grad, torch.float32, multinomial=multinomial,
-                                max_tree_depth=NUTS_DEPTH)
-        warm = fn.nuts_window_kernel(*args, start, scalars, inv_mass, key=key, call=0,
-                                     l_inv=l_inv)
-        shape = (NUTS_ITERS, NUTS_CHAINS)
-        n_slice = NUTS_ITERS * NUTS_W if multinomial else NUTS_ITERS
-        draws = (torch.randn(shape + (DIM,), generator=g, device=dev),
-                 torch.rand(shape, generator=g, device=dev) < 0.5,
-                 torch.rand(shape, generator=g, device=dev) < 0.5,
-                 torch.rand(shape, generator=g, device=dev),
-                 torch.rand((n_slice, NUTS_CHAINS), generator=g,
-                            device=dev).clamp_min(2.0 ** -25),
-                 torch.rand(shape, generator=g, device=dev))
-        name = NUTS_NAMES[fn.variant(warm, inv_mass)]
-        for mode, rand in (("injected", dict(draws=draws)),
-                           ("philox", dict(key=key, call=1))):
-            kern = fn.nuts_window_kernel(*args, _clone_state(warm), scalars, inv_mass,
-                                         l_inv=l_inv, **rand)
-            plain = fn.nuts_window_plain(*args, _clone_state(warm), scalars, inv_mass,
-                                         l_inv=l_inv, **rand)
-            torch.cuda.synchronize()
-            same, emitted, in_flight, err = fn.window_agreement(kern, plain)
-            n = NUTS_CHAINS
-            kept = same & emitted
-            split = n - int(kept.sum())
-            drift = int((kept & ~in_flight).sum())
-            done = int((kern.transitions - warm.transitions).sum())
-            executed = int((kern.n_exec - warm.n_exec).sum())
-            label = f"{name} {family} {mode}"
-            say(f"  {label}: discrete state identical on "
-                f"{int(same.sum())}/{n} chains, emitted state within 1e-4 on "
-                f"{n - split} ({split} split), trajectory in flight on "
-                f"{n - split - drift} ({drift} drifted); max |err| {err:.3g}; "
-                f"{done} transitions, {executed} of "
-                f"{n * NUTS_STEPS_PER_SAMPLE} slots executed")
-            require(split <= SPLIT_MAX * n, f"{label}: {split} chains split")
-            require(drift <= in_flight_max * n,
-                    f"{label}: {drift} trajectories in flight differ")
-            require(done > 0, f"{label}: no transition completed")
-            max_err[name] = max(max_err[name], err)
+        name, err = _nuts_window_check(torch, fn, tn, t.value_and_grad_fn.kernel_info,
+                                       (q, lp, grad), g, key, step, inv_mass, l_inv, multinomial,
+                                       family, in_flight_max, dev)
+        max_err[name] = max(max_err[name], err)
     return max_err
 
 def _mixture_state(torch, t, n, seed, dev, beta_row=None):
@@ -608,66 +730,16 @@ def _mixture_state(torch, t, n, seed, dev, beta_row=None):
     return q, lp.contiguous(), grad.contiguous()
 
 
-def _compare_drift(label, torch, kern, plain, log_u, potential, tol=1e-4):
-    """Kernel against plain version for one transition of kernel 1b or 1c,
-    with _compare's tolerances: accepts equal away from the MH borderline
-    on all but SPLIT_MAX of the chains; on the chains whose accepts agree and
-    whose proposal did not drift, the new q within tol of the plain
-    version's (element-wise, absolute plus relative), and the new lp and
-    grad within tol of `potential` (the plain version's (lp, grad) function)
-    at the kernel's own q. The last is the check of the kernel's
-    arithmetic: the mixture's gradient at its barrier moves ~5x as fast as
-    x0 (d g0 / d x0 = h^2 - 1 at x0 = 0), so a q within tol may carry a
-    gradient beyond it, which the direct error printed beside shows. A
-    trajectory may drift: across the barrier (a concave ridge) the leapfrog
-    is unstable at the hot rungs' long steps, so a rounding difference grows
-    along the trajectory, as kernel 4's trajectory in flight does on the
-    funnel's neck; the proposal q and lp must agree on all but IN_FLIGHT_MAX
-    of the chains, and delta H within 2e-3 on those that did not drift or
-    diverge. Returns the max abs error of q, lp and grad against the plain
-    version where they are compared."""
-    q, lp, grad, acc, dh, prop_q, prop_lp = range(7)
-    n = kern[acc].numel()
-    borderline = (log_u - torch.clamp(-plain[dh], max=0.0)).abs() < 1e-4
-    differ = kern[acc] != plain[acc]
-    n_split = int((differ & ~borderline).sum())
-    same = ~differ
-
-    def close(a, b):
-        diff = (a - b).abs()
-        ok = diff <= tol + tol * b.abs()
-        return (ok.all(dim=1) if ok.ndim == 2 else ok), diff
-
-    kept = same & close(kern[prop_q], plain[prop_q])[0] & close(kern[prop_lp], plain[prop_lp])[0]
-    drifted = int((same & ~kept).sum())
-    at_q = potential(kern[q])
-    err, residual = 0.0, 0.0
-    for i, ref in ((q, plain[q]), (lp, at_q[0]), (grad, at_q[1])):
-        ok, diff = close(kern[i], ref)
-        require(bool(ok[kept].all()), f"{label}: field {i} of the new state differs beyond "
-                f"{tol} (max |diff| {float(diff[kept].max()):.3g})")
-        residual = max(residual, float(diff[kept].max()))
-        err = max(err, float(close(kern[i], plain[i])[1][kept].max()))
-    stable = kept & (plain[dh].abs() < 1000.0)
-    require(bool(close(kern[dh], plain[dh])[1][stable]
-                 .le(2e-3 + 2e-3 * plain[dh][stable].abs()).all()),
-            f"{label}: delta H differs beyond 2e-3")
-    say(f"  {label}: accepts agree on {int(same.sum())}/{n} (borderline "
-        f"{int((differ & borderline).sum())}, split {n_split}); proposal within {tol} on "
-        f"{int(kept.sum())} ({drifted} drifted), the new state on all of those (max |err| "
-        f"{err:.3g} against the plain version; {residual:.3g} with lp and grad taken at the "
-        f"kernel's q), divergent {int((kept & ~stable).sum())}")
-    require(n_split <= SPLIT_MAX * n, f"{label}: {n_split} of {n} chains split")
-    require(drifted <= IN_FLIGHT_MAX * n, f"{label}: {drifted} of {n} proposals drifted")
-    return err
-
-
 def phase_parity_variants(torch, ft, targets, samplers, dev):
     """Kernels 1b and 1c against their plain versions at the rows' shapes:
     1b over the tempered row's 6 x 8,192 x 10 replicas with its rung table
     (eps_k = 0.5 / sqrt(beta_k), tanh gamma 0.1, steepness 5, L = 16); 1c at
     65,536 x 10, L = 16 for beta 0.05, 0.5 and 1 on the bridge to N(0, 6^2
-    I); injected draws, then Philox (_compare_drift). Then the beta = 1 identity:
+    I); injected draws, then Philox (_compare: at most SPLIT_MAX of the
+    chains split away from the MH borderline; the mixture's barrier is a
+    concave ridge where the leapfrog at the hot rungs' long steps is
+    unstable, so up to IN_FLIGHT_MAX of the proposals may drift; lp and grad
+    held at the kernel's q). Then the beta = 1 identity:
     1b (one rung) and 1c give kernel 1's results bit for bit."""
     say("[3e] kernels 1b (scaled) and 1c (bridged) vs plain versions on the card")
     t = targets.get_target("gaussian_mixture", dim=TEMP_DIM)
@@ -690,7 +762,9 @@ def phase_parity_variants(torch, ft, targets, samplers, dev):
             kern = kernel_fn(*args, **rand)
             plain = plain_fn(*args, **rand)
             torch.cuda.synchronize()
-            err = _compare_drift(f"{label} {mode}", torch, kern, plain, log_u, potential)
+            err, _ = _compare(f"{label} {mode}", torch, _fields(kern, proposal=True),
+                              _fields(plain, proposal=True), log_u, potential=potential,
+                              vs_plain=("q",), away_max=SPLIT_MAX, drift_max=IN_FLIGHT_MAX)
             max_err[name] = max(max_err[name], err)
 
     n = TEMP_K * TEMP_CHAINS
@@ -734,6 +808,227 @@ def phase_parity_variants(torch, ft, targets, samplers, dev):
         say(f"  beta = 1 ({mode}): 1b and 1c equal kernel 1 bit for bit on {MOVE_P} chains "
             f"(accept {float(plain[3].float().mean()):.4f})")
     return max_err
+
+
+def _family_state(torch, targets, family, dim, n, seed, dev):
+    """(target, q, lp, grad) of `family` at `dim`, q in the family's bulk:
+    log_gamma in [0.5, 2.5] (away from its support's boundary), the
+    ill-conditioned Gaussian at its scales, the mixture half in each mode,
+    the others N(0, 0.5^2) (shifted by 0.4 for the unconstrained gamma)."""
+    t = targets.get_target(family, dim=dim)
+    g = _gen(torch, dev, seed)
+    q = torch.randn((n, dim), generator=g, device=dev) * 0.5
+    if family == "log_gamma":
+        q = torch.rand((n, dim), generator=g, device=dev) * 2.0 + 0.5
+    elif family == "log_gamma_unconstrained":
+        q = q + 0.4
+    elif family == "ill_conditioned_gaussian":
+        q = q * torch.sqrt(torch.linspace(1.0, 100.0, dim, device=dev))
+    elif family == "gaussian_mixture":
+        q = t.init_sampler(g, n)
+    lp, grad = t.value_and_grad_fn(q)
+    return t, q.contiguous(), lp.contiguous(), grad.contiguous()
+
+
+def phase_parity_families(torch, ft, fr, fn, tn, targets, dev):
+    """The families of the ChEES slice in every kernel and variant that
+    dispatches on them, and the gap pairs it closes (the correlated
+    Gaussian in kernel 3, the mixture in kernels 3 and 4), against the
+    plain versions at D = 10 and 50 on 16,384 chains, injected draws and
+    Philox: kernel 1 with a random diagonal metric, 1a with a random dense
+    one, 1b over four rungs (betas 1, 0.5, 0.2, 0.05), 1c at beta 0.5 on
+    the bridge to N(0.5, 2^2 I), kernels 2 and 2a at T = 8 (_compare: no
+    split away from the MH borderline, SPLIT_MAX at it, proposals drifted
+    and diverged apart within FAMILY_DRIFT's bounds, chains leaving the
+    multistep comparison once split or drifted); kernel 3 at T = 32 (no
+    chain may split where the plain version sums in the kernel's order,
+    LANE_ORDER_FAMILIES; SPLIT_MAX on the mixture); kernel 4, 4a and 4b
+    over 16 iterations x W = 4 from a state one window in
+    (_nuts_window_check: SPLIT_MAX split, the trajectory in flight drifting
+    within FAMILY_DRIFT's bound). Returns the max |err| per kernel
+    entry."""
+    say("[3g] the ChEES slice's families (and the gap pairs) in every kernel vs plain versions")
+    from mcmc_tpu_torch.ops.padded_targets import LANE_ORDER_FAMILIES, device_lp
+    max_err = {}
+    n = FAMILY_CHAINS
+    tanh = ft.SCHEDULE_IDS["tanh"]
+
+    def note(name, err):
+        max_err[name] = max(max_err.get(name, 0.0), err)
+
+    for dim in FAMILY_DIMS:
+        for family, kernels in FAMILY_KERNELS.items():
+            t, q, lp, grad = _family_state(torch, targets, family, dim, n, 130 + dim, dev)
+            info = t.value_and_grad_fn.kernel_info
+            g = _gen(torch, dev, 131 + dim)
+            key = ft.PhiloxStream.from_generator(g, dev).key
+            eps = FAMILY_STEP[family]
+            drift, wild, in_flight_max = FAMILY_DRIFT.get(family, (0.0, 0.0, SPLIT_MAX))
+            tag = f"{family} D={dim}"
+            vag = ft.device_vag(info)
+            if "grahmc" in kernels:
+                diag = torch.rand(dim, generator=g, device=dev) + 0.5
+                a = torch.randn((dim, dim), generator=g, device=dev, dtype=torch.float64)
+                dense = ft.prepare_dense_metric(
+                    a @ a.T / dim + 0.5 * torch.eye(dim, device=dev, dtype=torch.float64))
+                betas = torch.tensor([1.0, 0.5, 0.2, 0.05], device=dev)
+                beta_row = betas.repeat_interleave(n // 4)
+                base = ft.bridge_base(0.5, 2.0, dim, dev)
+                half = torch.tensor(0.5, device=dev)
+                bridge = ft.bridged_vag(vag, half, torch.tensor(base.log_norm, device=dev),
+                                        base.mean, base.inv_scale)
+                blp, bgrad = bridge(q)
+                scalars = ft.kernel_scalars(eps, 0.3, 2.0, dev)
+                cases = [
+                    ("grahmc_step_kernel", ft.grahmc_step_kernel, ft.grahmc_step_plain,
+                     (info, FAMILY_L, tanh, q, lp, grad, scalars, diag), None, vag),
+                    ("grahmc_step_kernel[dense]", ft.grahmc_step_kernel, ft.grahmc_step_plain,
+                     (info, FAMILY_L, tanh, q, lp, grad, scalars, dense.invm), dense.l_inv, vag),
+                    ("grahmc_scaled_kernel", ft.grahmc_scaled_kernel, ft.grahmc_scaled_plain,
+                     (info, FAMILY_L, tanh, q, (beta_row * lp).contiguous(),
+                      (beta_row[:, None] * grad).contiguous(),
+                      ft.rung_table(eps / torch.sqrt(betas), 0.3, 2.0, betas, dev), diag),
+                     None, ft.scaled_vag(vag, beta_row)),
+                    ("grahmc_bridged_kernel", ft.grahmc_bridged_kernel, ft.grahmc_bridged_plain,
+                     (info, FAMILY_L, 0, q, blp.contiguous(), bgrad.contiguous(),
+                      ft.bridge_scalars(eps, 0.0, 1.0, 0.5, base.log_norm, dev), base.mean,
+                      base.inv_scale, diag), None, bridge)]
+                for name, kernel_fn, plain_fn, args, l_inv, potential in cases:
+                    for mode, rand, log_u in _family_randoms(torch, ft, g, key, n, dim,
+                                                             args[-1], l_inv, dev):
+                        kern = kernel_fn(*args, l_inv=l_inv, **rand)
+                        plain = plain_fn(*args, l_inv=l_inv, **rand)
+                        torch.cuda.synchronize()
+                        err, _ = _compare(f"{name} {tag} {mode}", torch,
+                                          _fields(kern, proposal=True),
+                                          _fields(plain, proposal=True), log_u,
+                                          potential=potential, border_max=SPLIT_MAX,
+                                          drift_max=drift, wild_max=wild)
+                        note(name, err)
+                for name, metric, l_inv in (("grahmc_multistep_kernel", diag, None),
+                                            ("grahmc_multistep_kernel[dense]", dense.invm,
+                                             dense.l_inv)):
+                    margs = (info, FAMILY_L, tanh, MULTI_T, q, lp, grad, scalars, metric)
+                    for mode, rand, log_us in _multi_randoms(torch, ft, g, key, n, dim, metric,
+                                                             l_inv, dev):
+                        kern = ft.grahmc_multistep_kernel(*margs, l_inv=l_inv, **rand)
+                        plain = ft.grahmc_multistep_plain(*margs, l_inv=l_inv, **rand)
+                        torch.cuda.synchronize()
+                        alive = None
+                        for s in range(MULTI_T):
+                            err, alive = _compare(
+                                f"{name} {tag} {mode} t={s}", torch,
+                                _fields(kern, s, proposal=True), _fields(plain, s, proposal=True),
+                                log_us[s], alive, border_max=SPLIT_MAX, drift_max=drift,
+                                wild_max=wild, dh_accepted_only=drift > 0)
+                            note(name, err)
+            if "rwmh" in kernels:
+                rlp = device_lp(info)(q).contiguous()
+                scale = fr.rwmh_scale(0.5 * eps, dev)
+                noise = torch.randn((RWMH_T, n, dim), generator=g, device=dev)
+                u = torch.rand((RWMH_T, n), generator=g, device=dev).clamp_min(2.0 ** -25)
+                max_split = 0.0 if family in LANE_ORDER_FAMILIES else SPLIT_MAX
+                for mode, rand in (("injected", dict(noise=noise, u=u)),
+                                   ("philox", dict(key=key, call=5))):
+                    rargs = (info, RWMH_T, q, rlp, scale, COLLECT)
+                    kern = fr.rwmh_multistep_kernel(*rargs, **rand)
+                    plain = fr.rwmh_multistep_plain(*rargs, **rand)
+                    torch.cuda.synchronize()
+                    agree = (kern[2] == plain[2]).all(dim=0)
+                    hist = agree[:COLLECT]
+                    err, within = _close_on([(kern[0][agree], plain[0][agree]),
+                                             (kern[1][agree], plain[1][agree]),
+                                             (kern[3][:, hist], plain[3][:, hist]),
+                                             (kern[4][:, hist], plain[4][:, hist])])
+                    _split_check(f"rwmh_multistep_kernel {tag} {mode}", agree, err, within,
+                                 max_split=max_split)
+                    note("rwmh_multistep_kernel", err)
+            if "nuts" in kernels:
+                nstep = 1.0 if family == "ill_conditioned_gaussian" else 1.5 * eps
+                for multinomial, dense_m in ((False, False), (True, False), (False, True)):
+                    if dense_m:
+                        a = torch.randn((dim, dim), generator=g, device=dev, dtype=torch.float64)
+                        inv_mass, l_inv = ft.kernel_metric(
+                            a @ a.T / dim + 0.5 * torch.eye(dim, device=dev, dtype=torch.float64))
+                    else:
+                        inv_mass, l_inv = torch.rand(dim, generator=g, device=dev) + 0.5, None
+                    name, err = _nuts_window_check(
+                        torch, fn, tn, info, (q, lp, grad), g, key,
+                        nstep * (0.5 if dense_m else 1.0), inv_mass, l_inv, multinomial, tag,
+                        in_flight_max, dev)
+                    note(name, err)
+    return max_err
+
+
+def _family_randoms(torch, ft, g, key, n, dim, metric, l_inv, dev):
+    """Kernel 1's injected draws (momentum unwhitened by `metric`) and its
+    Philox mode, each with its log u: [(mode, draws, log u)]."""
+    u = torch.rand(n, generator=g, device=dev).clamp_min(2.0 ** -25)
+    p0 = ft.unwhiten(torch.randn((n, dim), generator=g, device=dev), metric, l_inv)
+    return (("injected", dict(p0=p0.contiguous(), u=u), torch.log(u)),
+            ("philox", dict(key=key, call=7), torch.log(ft.philox_uniform(key, 7, 0, n, dev))))
+
+
+def _multi_randoms(torch, ft, g, key, n, dim, metric, l_inv, dev):
+    """Kernel 2's injected (T, C, D) draws and its Philox mode, each with
+    its T rows of log u."""
+    u = torch.rand((MULTI_T, n), generator=g, device=dev).clamp_min(2.0 ** -25)
+    z = torch.randn((MULTI_T * n, dim), generator=g, device=dev)
+    p0 = ft.unwhiten(z, metric, l_inv).reshape(MULTI_T, n, dim).contiguous()
+    philox_u = torch.stack([ft.philox_uniform(key, 3, s, n, dev) for s in range(MULTI_T)])
+    return (("injected", dict(p0=p0, u=u), torch.log(u)),
+            ("philox", dict(key=key, call=3), torch.log(philox_u)))
+
+
+def _nuts_window_check(torch, fn, tn, info, state, g, key, step, inv_mass, l_inv,
+                       multinomial, tag, in_flight_max, dev):
+    """Kernel 4 (the variant the scheme and metric pick) against its plain
+    version, 16 iterations x W = 4 from `state` one window in (the warm
+    window by the kernel, Philox call 0), injected draws from `g`, then
+    Philox: window_agreement; at most SPLIT_MAX of the chains split (the
+    discrete state or the emitted state apart), at most `in_flight_max`
+    whose trajectory in flight drifted. Returns the variant's entry name
+    and its max |err|."""
+    q, lp, grad = state
+    n, dim = q.shape
+    scalars = fn.nuts_scalars(step, 1000.0, dev)
+    args = (info, NUTS_ITERS, NUTS_W, NUTS_DEPTH)
+    start = tn._init_pstate(q, lp, grad, torch.float32, multinomial=multinomial,
+                            max_tree_depth=NUTS_DEPTH)
+    warm = fn.nuts_window_kernel(*args, start, scalars, inv_mass, key=key, call=0, l_inv=l_inv)
+    shape = (NUTS_ITERS, n)
+    n_slice = NUTS_ITERS * NUTS_W if multinomial else NUTS_ITERS
+    draws = (torch.randn(shape + (dim,), generator=g, device=dev),
+             torch.rand(shape, generator=g, device=dev) < 0.5,
+             torch.rand(shape, generator=g, device=dev) < 0.5,
+             torch.rand(shape, generator=g, device=dev),
+             torch.rand((n_slice, n), generator=g, device=dev).clamp_min(2.0 ** -25),
+             torch.rand(shape, generator=g, device=dev))
+    name = NUTS_NAMES[fn.variant(warm, inv_mass)]
+    max_err = 0.0
+    for mode, rand in (("injected", dict(draws=draws)), ("philox", dict(key=key, call=1))):
+        kern = fn.nuts_window_kernel(*args, _clone_state(warm), scalars, inv_mass, l_inv=l_inv,
+                                     **rand)
+        plain = fn.nuts_window_plain(*args, _clone_state(warm), scalars, inv_mass, l_inv=l_inv,
+                                     **rand)
+        torch.cuda.synchronize()
+        same, emitted, in_flight, err = fn.window_agreement(kern, plain)
+        kept = same & emitted
+        split = n - int(kept.sum())
+        drift = int((kept & ~in_flight).sum())
+        done = int((kern.transitions - warm.transitions).sum())
+        executed = int((kern.n_exec - warm.n_exec).sum())
+        label = f"{name} {tag} {mode}"
+        say(f"  {label}: discrete state identical on {int(same.sum())}/{n}, emitted within "
+            f"1e-4 on {n - split} ({split} split), in flight on {n - split - drift} ({drift} "
+            f"drifted); max |err| {err:.3g}; {done} transitions, {executed} of "
+            f"{n * NUTS_STEPS_PER_SAMPLE} slots executed, divergent "
+            f"{int((kern.divergences - warm.divergences).sum())}")
+        require(split <= SPLIT_MAX * n, f"{label}: {split} chains split")
+        require(drift <= in_flight_max * n, f"{label}: {drift} trajectories in flight differ")
+        require(done > 0, f"{label}: no transition completed")
+        max_err = max(max_err, err)
+    return name, max_err
 
 
 # ---------------------------------------------------------------------------
@@ -922,8 +1217,8 @@ def _da_tune_nuts(torch, tuning, samplers, dev, t, chains, init=None, **kw):
     """The NUTS row's step-size tune: NUTS_TUNE_CALLS one-window runs of
     NUTS_TUNE_SPS slots, each from the last one's final state (the first
     from `init`, default N(0, 0.5^2) draws), dual averaging on the
-    batch-mean accept with no host read inside; returns the smoothed step as
-    a device tensor."""
+    batch-mean accept with no host read inside. Returns (the smoothed step
+    as a device tensor, the last run's final positions)."""
     pos = init if init is not None else torch.randn(
         (chains, DIM), generator=_gen(torch, dev, 11), device=dev) * 0.5
     da = tuning.da_init(DA_INIT_STEP, device=dev)
@@ -936,7 +1231,7 @@ def _da_tune_nuts(torch, tuning, samplers, dev, t, chains, init=None, **kw):
         pos = res.final_state.position
         da = tuning.da_update(da, torch.nanmean(res.info["mean_accept_probs"]),
                               TARGET_ACCEPT)
-    return tuning.da_final_step_size(da)
+    return tuning.da_final_step_size(da), pos
 
 
 def _nuts_timed(torch, samplers, diagnostics, dev, t, label, seed, chains=NUTS_CHAINS,
@@ -1005,7 +1300,7 @@ def phase_nuts_row(torch, targets, samplers, tuning, diagnostics, dev):
     say("[5b] NUTS row: 50-D funnel, 65,536 chains, persistent NUTS (kernel 4)")
     t = targets.neals_funnel(DIM)
     t0 = time.perf_counter()
-    step_t = _da_tune_nuts(torch, tuning, samplers, dev, t, NUTS_CHAINS)
+    step_t, _ = _da_tune_nuts(torch, tuning, samplers, dev, t, NUTS_CHAINS)
     step = float(step_t)
     say(f"  tuned step {step:.6f} ({NUTS_TUNE_CALLS} runs of {NUTS_TUNE_SPS} slots, "
         f"{time.perf_counter() - t0:.2f} s)")
@@ -1044,7 +1339,7 @@ def phase_dense_row(torch, targets, samplers, tuning, diagnostics, dev):
     t = _target(targets, "correlated_gaussian")
     sigma = t.true_cov.to(dev)
     t0 = time.perf_counter()
-    step_t = _da_tune_nuts(torch, tuning, samplers, dev, t, NUTS_CHAINS,
+    step_t, _ = _da_tune_nuts(torch, tuning, samplers, dev, t, NUTS_CHAINS,
                            inv_mass_matrix=sigma)
     step = float(step_t)
     say(f"  tuned step {step:.6f} ({NUTS_TUNE_CALLS} runs of {NUTS_TUNE_SPS} slots, "
@@ -1066,7 +1361,7 @@ def phase_dense_row(torch, targets, samplers, tuning, diagnostics, dev):
         f"nuts_dense_multinomial_ess_per_sec {both['ess_rate']:.1f}")
     require(0.4 < both["accept"] <= 1.0, f"multinomial+dense accept {both['accept']}")
 
-    step_d = _da_tune_nuts(torch, tuning, samplers, dev, t, DENSE_CHECK_CHAINS,
+    step_d, _ = _da_tune_nuts(torch, tuning, samplers, dev, t, DENSE_CHECK_CHAINS,
                            inv_mass_matrix=torch.diagonal(sigma))
     check = {}
     for name, metric, s in (("dense", sigma, step_t),
@@ -1586,6 +1881,13 @@ def _mean_mcse(torch, diagnostics, samples, ess=None):
     return x.mean(dim=(0, 1)), sd / torch.sqrt(ess.double()), sd
 
 
+def _longest_run(torch, mask):
+    """Longest stretch of consecutive True along axis 0 of a (N, ...) mask."""
+    idx = torch.arange(mask.shape[0], device=mask.device).view(-1, *([1] * (mask.ndim - 1)))
+    last_out = torch.cummax(torch.where(mask, -1, idx.expand_as(mask)), dim=0).values
+    return int((idx - last_out).masked_fill(~mask, 0).max())
+
+
 def _mean_z(a, b):
     """|mean_a - mean_b| over the combined MCSE, per coordinate."""
     return (a[0] - b[0]).abs() / (a[1] ** 2 + b[1] ** 2).sqrt()
@@ -1690,7 +1992,7 @@ def phase_hier_row(torch, targets, samplers, tuning, diagnostics, dev):
     del multi
 
     t0 = time.perf_counter()
-    nuts_step = _da_tune_nuts(torch, tuning, samplers, dev, t, HIER_CHAINS, init=pos,
+    nuts_step, _ = _da_tune_nuts(torch, tuning, samplers, dev, t, HIER_CHAINS, init=pos,
                               inv_mass_matrix=inv_mass)
     say(f"  NUTS step {float(nuts_step):.6f} ({NUTS_TUNE_CALLS} runs of {NUTS_TUNE_SPS} slots, "
         f"{time.perf_counter() - t0:.2f} s)")
@@ -1796,7 +2098,7 @@ def phase_parity_hier(torch, ft, fr, fn, tn, targets, row, dev):
         plain = ft.grahmc_step_plain(*args, **rand)
         torch.cuda.synchronize()
         e, same = _compare(f"1d {mode}", torch, _fields(kern), _fields(plain), log_u,
-                           torch.ones(HIER_CHAINS, dtype=torch.bool, device=dev))
+                           flags=True)
         require(bool(same.all()), f"1d {mode}: {int((~same).sum())} chains split")
         ok = plain[4].abs() < 1000.0
         require(torch.allclose(kern[5][ok], plain[5][ok], rtol=1e-4, atol=1e-4),
@@ -1819,7 +2121,7 @@ def phase_parity_hier(torch, ft, fr, fn, tn, targets, row, dev):
         alive = torch.ones(n, dtype=torch.bool, device=dev)
         for s in range(MULTI_T):
             e, alive = _compare(f"2b {mode} t={s}", torch, _fields(kern, s), _fields(plain, s),
-                                torch.log(u_all[s]), alive)
+                                torch.log(u_all[s]), alive, flags=True)
             err = max(err, e)
         require(bool(alive.all()), f"2b {mode}: {int((~alive).sum())} chains split")
         require(torch.allclose(kern[2], plain[2], rtol=1e-4, atol=1e-4), f"2b {mode}: final grad")
@@ -1877,6 +2179,221 @@ def phase_parity_hier(torch, ft, fr, fn, tn, targets, row, dev):
             err = max(err, e)
         max_err[name] = err
     return max_err
+
+
+def phase_chees_row(torch, ft, targets, tuning, dev):
+    """bench.py's ChEES row on the port (bench.py:527-579), at its own
+    sizes: the 20-D non-centered funnel, 2,048 chains from N(0, 0.5^2),
+    run_chees_warmup("hmc", 2,500 steps; eager transitions); chees_run
+    (its "auto" backend: kernel 1 once per draw at the draw's quantized
+    jitter level) at the tuned step, T and metric: a warm call at its
+    default offset, then CHEES_REPS timed reps of 8,192 draws keeping 64
+    chains at halton_offset 16,384 + 8,192 rep; the rate from the median;
+    one rep profiled for the device-busy share. Gates: accept 0.651 +- 0.1,
+    finite draws, no max_steps_cap_hit, the transformed draws' Var x0
+    within 10% of 9 and the 19 z coordinates' variances within 0.1 of 1."""
+    say(f"[5m] ChEES row: {CHEES_DIM}-D non-centered funnel, {CHEES_CHAINS} chains, "
+        f"{CHEES_WARMUP}-step warmup, {CHEES_DRAWS} jittered draws (kernel 1)")
+    t = targets.get_target("neals_funnel_noncentered", dim=CHEES_DIM)
+    init = torch.randn((CHEES_CHAINS, CHEES_DIM), generator=_gen(torch, dev, 140),
+                       device=dev) * 0.5
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step, inv_mass, pos, info = tuning.run_chees_warmup(
+        "hmc", t.log_prob_fn, None, init, _gen(torch, dev, 141), num_warmup=CHEES_WARMUP,
+        value_and_grad_fn=t.value_and_grad_fn)
+    float(pos.sum())
+    warmup_sec = time.perf_counter() - t0
+    t_len, n_steps = info["trajectory_length"], info["num_steps"]
+    say(f"  chees_warmup_seconds {warmup_sec:.4f}; chees_T {t_len:.4f}, chees_L {n_steps}, "
+        f"step {step:.6f}, learned variance v {float(inv_mass[0]):.4f}, z mean "
+        f"{float(inv_mass[1:].mean()):.4f}; last batch accept {info['accept_history'][-1]:.4f}; "
+        f"max_steps_cap_hit {info['max_steps_cap_hit']}")
+    require(not info["max_steps_cap_hit"], "ChEES warmup hit max_steps")
+    require(bool(torch.isfinite(pos).all()) and 0.0 < step < 5.0, "ChEES warmup state")
+
+    kw = dict(inv_mass_matrix=inv_mass, collect_chains=CHEES_COLLECT,
+              value_and_grad_fn=t.value_and_grad_fn)
+
+    def run(seed, **extra):
+        return tuning.chees_run(_gen(torch, dev, seed), t.log_prob_fn, pos, step, t_len,
+                                CHEES_DRAWS, **kw, **extra)
+    res = run(142)                                  # warm call, offset 8,192
+    float(res.final_state.position.sum())
+    walls = []
+    for rep in range(CHEES_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run(143 + rep, halton_offset=16384 + 8192 * rep)
+        float(res.final_state.position.sum())
+        walls.append(time.perf_counter() - t0)
+    wall = statistics.median(walls)
+    rate = CHEES_CHAINS * CHEES_DRAWS / wall
+    accept = float(res.accept_rate.mean())
+    levels = res.info["jitter_level_steps"]
+    ns = res.info["num_steps_per_draw"]
+    weights = {n: float((ns == n).mean()) for n in levels}
+    busy = device_busy_seconds(torch, lambda: run(150, halton_offset=16384))
+    say(f"  chees_transitions_per_sec {rate:.1f} (reps {[round(w, 4) for w in walls]} s), "
+        f"chees_accept {accept:.4f}; backend {res.info['jitter_backend']}, jitter levels' L "
+        f"{levels} (shares {[round(weights[n], 4) for n in levels]}), mean L "
+        f"{res.info['mean_num_steps']:.4f}")
+    say_busy("ChEES sampling rep", busy, wall)
+    x = targets.funnel_transform(res.samples.double())
+    y = res.samples.double().reshape(-1, CHEES_DIM)
+    var_x0 = float(x[..., 0].var())
+    var_z = y[:, 1:].var(dim=0)
+    say(f"  transformed draws: Var x0 {var_x0:.4f} (9), z variances "
+        f"[{float(var_z.min()):.4f}, {float(var_z.max()):.4f}] (1); Var x1 "
+        f"{float(x[..., 1].var()):.2f} (e^4.5 = 90.02)")
+    require(res.info["jitter_backend"] == "fused", "ChEES sampling did not take kernel 1")
+    require(res.samples.shape == (CHEES_DRAWS, CHEES_COLLECT, CHEES_DIM), "ChEES history shape")
+    require(bool(torch.isfinite(res.samples).all()), "ChEES non-finite draws")
+    require(abs(accept - CHEES_ACCEPT) < 0.1, f"ChEES accept {accept}")
+    require(abs(var_x0 - 9.0) < 0.9, f"ChEES Var x0 {var_x0}")
+    require(float((var_z - 1.0).abs().max()) < 0.1, "ChEES z variances")
+    return dict(step=step, inv_mass=inv_mass, pos=pos, t_len=t_len, num_steps=n_steps,
+                warmup_sec=warmup_sec, rate=rate, accept=accept, levels=levels,
+                weights=weights, busy=busy, wall=wall)
+
+
+def _da_tune_rwmh(torch, tuning, samplers, dev, t, pos):
+    """RWMH's scale by dual averaging toward 0.234 (the JAX package's
+    dual_averaging_tune_rwmh target) from 2.38 / sqrt(D): SWEEP_RWMH_TUNE
+    fused runs of 32 transitions (one kernel 3 call each), each from the
+    last one's state, no host read inside. Returns (scale, positions)."""
+    da = tuning.da_init(2.38 / pos.shape[1] ** 0.5, device=dev)
+    for i in range(SWEEP_RWMH_TUNE):
+        res = samplers.rwmh_run(_gen(torch, dev, 200 + i), t.log_prob_fn, pos, num_samples=32,
+                                scale=tuning.da_step_size(da), collect_chains=1,
+                                value_and_grad_fn=t.value_and_grad_fn, backend="fused")
+        pos = res.final_state.position
+        da = tuning.da_update(da, res.accept_rate.mean(), SWEEP_RWMH_ACCEPT)
+    return float(tuning.da_final_step_size(da)), pos
+
+
+def phase_family_sweep(torch, targets, samplers, tuning, diagnostics, dev):
+    """Each family of the ChEES slice at the canonical matrix's cell size
+    (dim 10, 1,024 chains, 10,000 draws) under three samplers: GRAHMC
+    (run_adaptive_warmup("grahmc", constant schedule, L = 16, diagonal
+    metric, fused: kernel 1) then grahmc_run (kernel 2, T = 8); RWMH with a
+    DA-tuned scale (kernel 3); persistent NUTS from GRAHMC's warmed
+    positions with its learned diagonal metric, the step tuned as the NUTS
+    row's is (kernel 4), 64 slots a draw (with the identity metric at the
+    DA's first step, 0.1, the ill-conditioned Gaussian's trees outlast the
+    tune's windows and the DA reads no acceptance). Gates: finite draws
+    everywhere; split R-hat <= 1.05 and every posterior mean within 5
+    combined MCSE of 10^6 exact-sampler draws, the run's MCSE both as sd
+    / sqrt(bulk ESS) and from the spread of its chains' means, except the
+    cells where the reference misses them (SWEEP_FINITE_ONLY, SWEEP_Z_MAX,
+    SWEEP_CHAINS_Z). Each cell prints both z, the largest distance of a
+    chain's mean from the exact mean, and its time in the tails (outside
+    the exact draws' central 99.9%: the share against the exact 0.1%, the
+    longest stretch of consecutive draws there, one chain's largest
+    share)."""
+    say(f"[5n] family sweep: dim {SWEEP_DIM}, {SWEEP_CHAINS} chains, {SWEEP_DRAWS} draws; "
+        f"GRAHMC (kernels 1, 2), RWMH (3), persistent NUTS (4)")
+    out = {}
+    for i, family in enumerate(NEW_FAMILIES):
+        t = targets.get_target(family, dim=SWEEP_DIM)
+        g0 = _gen(torch, dev, 160 + i)
+        init = (t.init_sampler(g0, SWEEP_CHAINS) if t.init_sampler is not None else
+                torch.randn((SWEEP_CHAINS, SWEEP_DIM), generator=g0, device=dev) * 0.5)
+        ref = targets.get_reference_sampler(family, SWEEP_DIM)(_gen(torch, dev, 170 + i),
+                                                               SWEEP_REF_DRAWS)
+        ref_stats = (ref.mean(0), ref.std(0) / SWEEP_REF_DRAWS ** 0.5, ref.std(0))
+        tail_lo, tail_hi = torch.quantile(
+            ref, torch.tensor([SWEEP_TAIL / 2, 1 - SWEEP_TAIL / 2], dtype=ref.dtype,
+                              device=dev), dim=0)
+        del ref
+        rows = {}
+
+        def grade(sampler, res, wall, note=""):
+            samples = res.samples
+            finite = bool(torch.isfinite(samples).all())
+            require(finite, f"{family} {sampler}: non-finite draws")
+            ess = diagnostics.ess_bulk_chunked(samples, chain_chunk=SWEEP_CHAINS, dim_chunk=4)
+            rhat = float(diagnostics.split_rhat_chunked(samples, chain_chunk=SWEEP_CHAINS,
+                                                        dim_chunk=4).max())
+            # the grand mean's MCSE two ways: sd / sqrt(bulk ESS), and the
+            # spread of the 1,024 independent chains' means (which sees a
+            # chain that spends much of the run far out)
+            x = samples.double()
+            chain_means = x.mean(dim=0)
+            zs_chains = _mean_z((chain_means.mean(dim=0),
+                                 chain_means.std(dim=0) / SWEEP_CHAINS ** 0.5), ref_stats)
+            zs_ess = _mean_z(_mean_mcse(torch, diagnostics, samples, ess), ref_stats)
+            cell = (family, sampler)
+            zs = zs_chains if cell in SWEEP_CHAINS_Z else torch.maximum(zs_chains, zs_ess)
+            z, worst = float(zs.max()), int(zs.argmax())
+            # time in the tails: outside the exact draws' central 99.9%
+            tail = (x < tail_lo) | (x > tail_hi)
+            del x
+            share = float(tail.double().mean())
+            stretch = _longest_run(torch, tail)
+            chain_share = float(tail.double().mean(dim=(0, 2)).max())
+            far = float((chain_means - ref_stats[0]).abs().max())
+            div = float(res.info.get("divergence_rate", torch.zeros(())))
+            accept = float(torch.nanmean(res.info["mean_accept_probs"])
+                           if "mean_accept_probs" in res.info else res.accept_rate.mean())
+            gate = ("finite draws only" if cell in SWEEP_FINITE_ONLY else
+                    f"z <= {SWEEP_Z_MAX[cell]:.3f}" if cell in SWEEP_Z_MAX else
+                    "z by the chains' spread" if cell in SWEEP_CHAINS_Z else "full")
+            say(f"  {family} {sampler}{note}: {wall:.3f} s, accept {accept:.4f}, R-hat "
+                f"{rhat:.4f}, min bulk-ESS {float(ess.min()):.1f}; means' max z "
+                f"{float(zs_chains.max()):.3f} by the chains' spread, "
+                f"{float(zs_ess.max()):.3f} by sd / sqrt(bulk ESS); gated z {z:.3f} at "
+                f"coordinate {worst} ({float(chain_means.mean(dim=0)[worst]):.5f} vs "
+                f"{float(ref_stats[0][worst]):.5f}); largest |chain mean - exact mean| "
+                f"{far:.4f} (exact sd {float(ref_stats[2].max()):.4f}); tail share "
+                f"{share / SWEEP_TAIL:.3f} x exact, longest stretch there {stretch} draws, one "
+                f"chain's share there {chain_share:.5f}; divergence rate {div:.5f}; gates: {gate}")
+            if cell not in SWEEP_FINITE_ONLY:
+                require(rhat <= SWEEP_RHAT_MAX, f"{family} {sampler}: R-hat {rhat}")
+                require(z <= SWEEP_Z_MAX.get(cell, SWEEP_MCSE_Z),
+                        f"{family} {sampler}: means' z {z}")
+            rows[sampler] = dict(rhat=rhat, z=z, z_chains=float(zs_chains.max()),
+                                 z_ess=float(zs_ess.max()), div=div, accept=accept, wall=wall,
+                                 ess=float(ess.min()), tail=share / SWEEP_TAIL, stretch=stretch,
+                                 gate=gate)
+
+        t0 = time.perf_counter()
+        step, inv_mass, pos, info = tuning.run_adaptive_warmup(
+            "grahmc", t.log_prob_fn, None, init, _gen(torch, dev, 161 + i), num_warmup=WARMUP_STEPS,
+            learn_mass_matrix=True, backend="fused", num_steps=SWEEP_L, schedule_type="constant",
+            value_and_grad_fn=t.value_and_grad_fn)
+        res = samplers.grahmc_run(_gen(torch, dev, 162 + i), t.log_prob_fn, pos, step, SWEEP_L,
+                                  info["gamma"], info["steepness"], SWEEP_DRAWS,
+                                  inv_mass_matrix=inv_mass,
+                                  friction_schedule=samplers.constant_schedule,
+                                  value_and_grad_fn=t.value_and_grad_fn, backend="fused")
+        torch.cuda.synchronize()
+        grade("grahmc", res, time.perf_counter() - t0)
+        del res
+
+        t0 = time.perf_counter()
+        scale, rpos = _da_tune_rwmh(torch, tuning, samplers, dev, t, init)
+        res = samplers.rwmh_run(_gen(torch, dev, 163 + i), t.log_prob_fn, rpos,
+                                num_samples=SWEEP_DRAWS, scale=scale,
+                                value_and_grad_fn=t.value_and_grad_fn, backend="fused")
+        torch.cuda.synchronize()
+        grade("rwmh", res, time.perf_counter() - t0)
+        del res
+
+        t0 = time.perf_counter()
+        nstep, npos = _da_tune_nuts(torch, tuning, samplers, dev, t, SWEEP_CHAINS,
+                                    init=pos, inv_mass_matrix=inv_mass)
+        res = samplers.nuts_run_persistent(
+            _gen(torch, dev, 164 + i), t.log_prob_fn, npos, step_size=nstep,
+            num_samples=SWEEP_DRAWS, steps_per_sample=NUTS_STEPS_PER_SAMPLE,
+            inv_mass_matrix=inv_mass, value_and_grad_fn=t.value_and_grad_fn)
+        torch.cuda.synchronize()
+        grade("nuts", res, time.perf_counter() - t0,
+              f" (step {float(nstep):.5f}, inverse metric [{float(inv_mass.min()):.4f}, "
+              f"{float(inv_mass.max()):.4f}])")
+        del res
+        out[family] = rows
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2211,6 +2728,64 @@ def phase_timing_hier(torch, ft, fr, fn, tn, targets, row, dev, reps=6, burst=10
     return times, measured, vag_ms
 
 
+def phase_timing_chees(torch, ft, fr, targets, row, dev, reps=10, burst=10, plain_burst=1):
+    """Kernel 1 at the ChEES row's shape (2,048 x 20, no friction, the
+    tuned step and metric, from the warmed positions) at each jitter
+    level's L: held against its plain version (injected and Philox,
+    _compare), then timed against it (CUDA events, median over
+    `reps` samples, interleaved), the row's figure the draws' level shares
+    times the levels' times. Then kernel 3 on Student-t at the RWMH row's
+    shape (65,536 x 10, T = 32), its bound from kernel_bounds. Returns
+    ({name: (kernel ms, plain ms)}, max |err|, the draws' mean L)."""
+    say(f"[6g] kernel 1 at the ChEES row's shape and levels, kernel 3 on Student-t: CUDA "
+        f"events, median of {reps} bursts of {burst} kernel / {plain_burst} plain calls")
+    t = targets.get_target("neals_funnel_noncentered", dim=CHEES_DIM)
+    info = t.value_and_grad_fn.kernel_info
+    g = _gen(torch, dev, 47)
+    key = ft.PhiloxStream.from_generator(g, dev).key
+    q = row["pos"].float().contiguous()
+    lp, grad = (x.contiguous() for x in t.value_and_grad_fn(q))
+    inv_mass = row["inv_mass"].float().contiguous()
+    scalars = ft.kernel_scalars(row["step"], 0.0, 1.0, dev)
+    err, per_level = 0.0, {}
+    for n_steps in row["levels"]:
+        args = (info, n_steps, 0, q, lp, grad, scalars, inv_mass)
+        for mode, rand, log_u in _family_randoms(torch, ft, g, key, CHEES_CHAINS, CHEES_DIM,
+                                                 inv_mass, None, dev):
+            kern = ft.grahmc_step_kernel(*args, **rand)
+            plain = ft.grahmc_step_plain(*args, **rand)
+            torch.cuda.synchronize()
+            e, _ = _compare(f"kernel 1 ChEES L={n_steps} {mode}", torch,
+                            _fields(kern, proposal=True), _fields(plain, proposal=True), log_u,
+                            potential=ft.device_vag(info), border_max=SPLIT_MAX)
+            err = max(err, e)
+        ms = _interleaved(torch, {"kernel": lambda: ft.grahmc_step_kernel(*args, key=key, call=0),
+                                  "plain": lambda: ft.grahmc_step_plain(*args, key=key, call=0)},
+                          reps, {"kernel": burst, "plain": plain_burst})
+        per_level[n_steps] = (statistics.median(ms["kernel"]), statistics.median(ms["plain"]))
+        say(f"  L = {n_steps} (share {row['weights'][n_steps]:.4f}): kernel "
+            f"{per_level[n_steps][0]:.4f} ms, plain {per_level[n_steps][1]:.4f} ms")
+    w = row["weights"]
+    ms_k = sum(w[n] * per_level[n][0] for n in per_level)
+    ms_p = sum(w[n] * per_level[n][1] for n in per_level)
+    mean_l = sum(w[n] * n for n in per_level)
+    say(f"  grahmc_step_kernel (ChEES row): {ms_k:.4f} ms a draw, plain {ms_p:.4f} ms (level "
+        f"shares as the timed run's draws, mean L {mean_l:.4f})")
+
+    st = targets.get_target("student_t", dim=RWMH_DIM)
+    q = torch.randn((RWMH_CHAINS, RWMH_DIM), generator=g, device=dev)
+    args = (st.value_and_grad_fn.kernel_info, RWMH_T, q, st.log_prob_fn(q).contiguous(),
+            fr.rwmh_scale(RWMH_SCALE, dev), RWMH_COLLECT)
+    ms = _interleaved(torch, {"kernel": lambda: fr.rwmh_multistep_kernel(*args, key=key, call=0),
+                              "plain": lambda: fr.rwmh_multistep_plain(*args, key=key, call=0)},
+                      reps, {"kernel": burst, "plain": plain_burst})
+    r_k, r_p = statistics.median(ms["kernel"]), statistics.median(ms["plain"])
+    say(f"  rwmh_multistep_kernel on student_t ({RWMH_CHAINS} x {RWMH_DIM}, T = {RWMH_T}): "
+        f"kernel {r_k:.4f} ms, plain {r_p:.4f} ms")
+    return ({"grahmc_step_kernel (ChEES row)": (ms_k, ms_p),
+             "rwmh_multistep_kernel (student_t)": (r_k, r_p)}, err, mean_l)
+
+
 def live_stack_slots(state):
     """Checkpoint-stack slots (a q row and a p row each) that a window must
     carry across its boundary from this state: a chain n leaves into a
@@ -2230,7 +2805,7 @@ def live_stack_slots(state):
 # Float operations per coordinate: a target's value and gradient, a diagonal
 # leapfrog with its kinetic energy (two half kicks, the drift, p M^{-1} p).
 TARGET_FLOPS = {"standard_normal": 3, "neals_funnel": 5, "correlated_gaussian": 6,
-                "gaussian_mixture": 5}
+                "gaussian_mixture": 5, "neals_funnel_noncentered": 3, "student_t": 7}
 SCALED_FLOPS = 1         # 1b: the gradient times beta
 BRIDGED_FLOPS = 7        # 1c: z = (q - m) / S, z^2 and its sum, the mixed gradient
 LEAPFROG_FLOPS = 10
@@ -2302,7 +2877,9 @@ def kernel_bounds(measured):
            "grahmc_step_kernel[dense]": bound(step_io + metric_io, CHAINS * dense_chain),
            "grahmc_multistep_kernel[dense]": bound(multi_io + metric_io,
                                                    MULTI_T * MULTI_CHAINS * dense_chain),
-           "rwmh_multistep_kernel": bound(rwmh_io, rwmh_ops)}
+           "rwmh_multistep_kernel": bound(rwmh_io, rwmh_ops),
+           "rwmh_multistep_kernel (student_t)": bound(
+               rwmh_io, RWMH_T * RWMH_CHAINS * RWMH_DIM * (8 + TARGET_FLOPS["student_t"]))}
     # 1b and 1c at D = 10: kernel 1's reads and writes at their row counts
     # (the rung table, scalars and base rows are a few hundred bytes)
     mix = TARGET_FLOPS["gaussian_mixture"]
@@ -2335,6 +2912,14 @@ def kernel_bounds(measured):
         per_leaf = DIM * (LEAPFROG_FLOPS + TARGET_FLOPS[family]
                           + (4 * DIM if dense else 0) + (3 if multinomial else 0))
         out[name] = bound(nbytes, measured[name]["leapfrogs"] * per_leaf)
+
+    # kernel 1 at the ChEES row's shape: no friction (two scalings fewer per
+    # substep), the draws' mean L as phase_timing_chees weighed the levels
+    c_row = CHEES_DIM * 4
+    out["grahmc_step_kernel (ChEES row)"] = bound(
+        CHEES_CHAINS * (2 * c_row + chain) + CHEES_CHAINS * (3 * c_row + 3 * chain + 1),
+        CHEES_CHAINS * CHEES_DIM * (measured["chees_mean_l"] * (
+            SUBSTEP_FLOPS - 2 + TARGET_FLOPS["neals_funnel_noncentered"]) + TRANSITION_FLOPS))
 
     # 1d, 2b, 3a and 4c at config 5's shapes: kernels 1, 2, 3 and 4's reads
     # and writes at D = 100, X and y read once, and the likelihood's float
@@ -2403,6 +2988,7 @@ def main():
     max_err.update(phase_parity_rwmh(torch, ft, fr, targets, dev))
     max_err.update(phase_parity_nuts(torch, ft, fn, tn, targets, dev))
     max_err.update(phase_parity_variants(torch, ft, targets, samplers, dev))
+    family_err = phase_parity_families(torch, ft, fr, fn, tn, targets, dev)
     phase_philox_stats(torch, targets, samplers, dev)
     phase_stats_rwmh_nuts(torch, targets, samplers, dev)
     phase_multinomial_variance(torch, targets, samplers, dev)
@@ -2416,7 +3002,7 @@ def main():
         got.update({NUTS_NAMES[v]: n
                     for v, n in fn.nuts_window_kernel.variant_launches.items()})
         return got
-    launches = {}
+    launches, path_counts = {}, {}
 
     def drive(label, run, expected):
         """Run one main path with every count set to 0 just before it; each
@@ -2434,6 +3020,7 @@ def main():
         want = {name: expected.get(name, 0) for name in got}
         say(f"  launches on the {label}: {got} (expected {want})")
         require(got == want, f"{label}: launches {got}, expected {want}")
+        path_counts[label] = got
         for name in expected:
             launches[name] = launches.get(name, 0) + got[name]
         return out
@@ -2490,6 +3077,17 @@ def main():
                   "nuts_window_kernel[multinomial+data]": NUTS_SAMPLES,
                   "rwmh_multistep_kernel[data]": HIER_RWMH_DRAWS // RWMH_T + HIER_RWMH_KEEP})
     max_err.update(phase_parity_hier(torch, ft, fr, fn, tn, targets, hier, dev))
+    chees = drive("ChEES row", lambda: phase_chees_row(torch, ft, targets, tuning, dev),
+                  {"grahmc_step_kernel": CHEES_DRAWS * (2 + CHEES_REPS)})
+    launches["grahmc_step_kernel (ChEES row)"] = path_counts["ChEES row"]["grahmc_step_kernel"]
+    n_fam = len(NEW_FAMILIES)
+    sweep = drive("family sweep",
+                  lambda: phase_family_sweep(torch, targets, samplers, tuning, diagnostics, dev),
+                  {"grahmc_step_kernel": n_fam * (WARMUP_TRANSITIONS + TUNE_TRANSITIONS),
+                   "grahmc_multistep_kernel": n_fam * SWEEP_DRAWS // SWEEP_MULTI_T,
+                   "rwmh_multistep_kernel": n_fam * (SWEEP_RWMH_TUNE
+                                                     + SWEEP_DRAWS // SWEEP_RWMH_T),
+                   "nuts_window_kernel": n_fam * (NUTS_TUNE_CALLS + SWEEP_DRAWS)})
     require(all(n > 0 for n in launches.values()) and set(launches) == set(KERNELS),
             f"a kernel no main path launched: {launches}")
 
@@ -2503,6 +3101,11 @@ def main():
                                                           dev)
     times.update(hier_times)
     measured.update(hier_measured)
+    chees_times, max_err["grahmc_step_kernel (ChEES row)"], measured["chees_mean_l"] = (
+        phase_timing_chees(torch, ft, fr, targets, chees, dev))
+    times.update(chees_times)
+    for name, err in family_err.items():     # [3g]'s checks of the same kernels
+        max_err[name] = max(max_err[name], err)
     if "--multistep-switch" in sys.argv[1:]:
         phase_multistep_switch(torch, targets, samplers, dense_row, dev)
     bounds = kernel_bounds(measured)
@@ -2533,7 +3136,20 @@ def main():
         f"hier_nuts_useful_grads_per_sec {hier['nuts']['rate']:.1f}, "
         f"hier_nuts_ess_per_sec {hier['nuts']['ess_rate']:.1f}, "
         f"hier_rwmh_chain_steps_per_sec {hier['rwmh_rate']:.1f}, "
-        f"hier_eager_value_and_grad_ms {vag_ms:.4f}")
+        f"hier_eager_value_and_grad_ms {vag_ms:.4f}, "
+        f"chees_warmup_seconds {chees['warmup_sec']:.4f}, chees_T {chees['t_len']:.4f}, "
+        f"chees_L {chees['num_steps']}, chees_transitions_per_sec {chees['rate']:.1f}, "
+        f"chees_accept {chees['accept']:.4f}, chees_jitter_levels {chees['levels']}, "
+        f"chees_busy_share {chees['busy'] / chees['wall']:.4f}")
+    say("  family sweep (R-hat, means' max z by the chains' spread and by bulk ESS, divergence "
+        "rate): " + "; ".join(
+        f"{family} " + ", ".join(f"{s} {r['rhat']:.4f}/{r['z_chains']:.2f}/{r['z_ess']:.2f}/"
+                                 f"{r['div']:.4f}"
+                                 for s, r in rows.items())
+        for family, rows in sweep.items()))
+    st_name = "rwmh_multistep_kernel (student_t)"
+    say(f"  kernel 3 on student_t at the RWMH row's shape: {times[st_name][0]:.4f} ms, plain "
+        f"{times[st_name][1]:.4f} ms, bound {bounds[st_name][0]:.5f} ms, {bounds[st_name][1]}")
     say(f"  bound of 1c at the SMC row's shape: "
         f"{bounds['grahmc_bridged_kernel (SMC row)'][0]:.5f} ms, "
         f"{bounds['grahmc_bridged_kernel (SMC row)'][1]}")

@@ -39,6 +39,7 @@
 
 #include <cstddef>
 #include <cstdint>
+#include <cstring>
 #include <cuda_runtime.h>
 
 #include "philox.cuh"
@@ -53,6 +54,7 @@ static_assert(THREADS / 32 <= TARGET_MAX_WARPS, "targets.cuh stages one row per 
 
 struct Args {
   int dim, n_chains, transitions, n_hist;
+  TargetParams params;
   const float* scale;  // (1,) device
   const uint32_t* key;
   uint32_t call;
@@ -74,7 +76,7 @@ __global__ void __launch_bounds__(THREADS) rwmh_multistep_kernel(const Args a) {
   const bool active = c < a.n_chains;
   const int chain = active ? c : a.n_chains - 1;
 
-  const Target<FAMILY, K, G> target(a.dim, TargetParams{}, a.data);
+  const Target<FAMILY, K, G, true> target(a.dim, a.params, a.data);
   const float scale = a.scale[0];
   const int dim = a.dim;
   const size_t row = static_cast<size_t>(chain) * dim;
@@ -115,7 +117,8 @@ __global__ void __launch_bounds__(THREADS) rwmh_multistep_kernel(const Args a) {
 #pragma unroll
     for (int r = 0; r < K; ++r) {
       const int d = gl * K + r;
-      prop[r] = d < dim ? q[r] + scale * noise[r] : 0.f;
+      // rounded as the plain version's q + scale * eps (no FMA)
+      prop[r] = d < dim ? __fadd_rn(q[r], __fmul_rn(scale, noise[r])) : 0.f;
     }
     float lp1;
     if constexpr (FAMILY == HIERARCHICAL_LOGISTIC) {
@@ -178,32 +181,49 @@ cudaError_t dispatch_g(const Args& a, cudaStream_t stream) {
 }  // namespace mcmc
 
 // Plain C entry point, bound with ctypes by mcmc_tpu_torch/ops/_cuda.py.
-// Pointers are device pointers except `data`, a host TargetData of device
+// Pointers are device pointers except `target_params`, a host array of the
+// 4 floats of TargetParams, and `data`, a host TargetData of device
 // pointers (null for a family without data); noise/u null selects the
 // in-kernel Philox draws (then key must be non-null). Returns the launch's
 // cudaError_t.
 extern "C" int rwmh_multistep_launch(int family, int dim, int n_chains, int transitions,
-                                     int n_hist, const mcmc::TargetData* data,
+                                     int n_hist, const float* target_params,
+                                     const mcmc::TargetData* data,
                                      const float* scale, const uint32_t* key,
                                      unsigned int call, const float* q, const float* lp,
                                      const float* noise, const float* u, float* q_out,
                                      float* lp_out, bool* acc_out, float* hist_q,
                                      float* hist_lp, void* stream) {
   using namespace mcmc;
-  if (noise == nullptr && key == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if ((noise == nullptr && key == nullptr) || target_params == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (dim < 1 || dim > 32 * rwmh::K || n_chains < 1 || transitions < 1 || n_hist < 0 ||
       n_hist > n_chains || !valid_data(family, target_data(data))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const rwmh::Args a{dim,   n_chains, transitions, n_hist, scale,   key,    call,
-                     q,     lp,       noise,       u,      q_out,   lp_out, acc_out,
-                     hist_q, hist_lp, target_data(data)};
+  TargetParams params;
+  std::memcpy(params.v, target_params, sizeof(params.v));
+  const rwmh::Args a{dim,   n_chains, transitions, n_hist, params, scale,
+                     key,   call,     q,           lp,     noise,  u,
+                     q_out, lp_out,   acc_out,     hist_q, hist_lp, target_data(data)};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (family) {
     case STANDARD_NORMAL: return static_cast<int>(rwmh::dispatch_g<STANDARD_NORMAL>(a, s));
     case NEALS_FUNNEL: return static_cast<int>(rwmh::dispatch_g<NEALS_FUNNEL>(a, s));
+    case CORRELATED_GAUSSIAN:
+      return static_cast<int>(rwmh::dispatch_g<CORRELATED_GAUSSIAN>(a, s));
+    case GAUSSIAN_MIXTURE: return static_cast<int>(rwmh::dispatch_g<GAUSSIAN_MIXTURE>(a, s));
     case HIERARCHICAL_LOGISTIC:
       return static_cast<int>(rwmh::dispatch_g<HIERARCHICAL_LOGISTIC>(a, s));
+    case NEALS_FUNNEL_NONCENTERED:
+      return static_cast<int>(rwmh::dispatch_g<NEALS_FUNNEL_NONCENTERED>(a, s));
+    case ILL_CONDITIONED_GAUSSIAN:
+      return static_cast<int>(rwmh::dispatch_g<ILL_CONDITIONED_GAUSSIAN>(a, s));
+    case STUDENT_T: return static_cast<int>(rwmh::dispatch_g<STUDENT_T>(a, s));
+    case LOG_GAMMA: return static_cast<int>(rwmh::dispatch_g<LOG_GAMMA>(a, s));
+    case LOG_GAMMA_UNCONSTRAINED:
+      return static_cast<int>(rwmh::dispatch_g<LOG_GAMMA_UNCONSTRAINED>(a, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -22,7 +22,7 @@
 // grows along a trajectory, and this order is the one the plain version
 // (samplers/trajectory.py:ordered_matmul) repeats bit for bit.
 //
-// Kernels 1, 2 (fused_trajectory.cu) and 4 (fused_nuts.cu) take the metric
+// Kernels 1, 2 (fused_trajectory.cu) and 4 (nuts_window.cuh) take the metric
 // as a template flag DENSE: Metric<K, DENSE> is the type, make_metric builds
 // it (the dense one after the block has loaded its shared memory), and
 // add_scaled<DENSE> is the leapfrog's y + a x, rounded as the dense

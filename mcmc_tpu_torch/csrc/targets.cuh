@@ -1,15 +1,23 @@
 // Target device functions inlined into the fused kernels.
 //
 // Replace mcmc_tpu/ops/padded_targets.py:_standard_normal, _neals_funnel,
-// _correlated, _gaussian_mixture and _hierarchical_logistic.
+// _correlated, _gaussian_mixture, _hierarchical_logistic,
+// _neals_funnel_noncentered, _ill_conditioned, _student_t, _log_gamma and
+// _log_gamma_unconstrained.
 // A group of G lanes (G a power of two, 32 = a whole warp) holds one chain:
 // each lane owns K coordinates (zeros past dim), and coordinate 0 is register
-// 0 of the group's lane 0. The GRAHMC and NUTS kernels use G = 32 with lane j
-// owning j, j+32, ...; the RWMH kernel packs 32 / G chains into a warp, lane
-// j of a group owning 4j..4j+3. Each functor maps this lane's q to its
-// gradient entries and returns the chain's log-density, identical on every
-// lane of the group. The float arithmetic follows the plain PyTorch version
-// in mcmc_tpu_torch/ops/padded_targets.py term for term.
+// 0 of the group's lane 0. Two layouts, the template flag BLOCKED: the
+// GRAHMC and NUTS kernels use G = 32 with lane j owning j, j+32, ...
+// (BLOCKED false); the RWMH kernel packs 32 / G chains into a warp, lane j
+// of a group owning 4j..4j+3 (BLOCKED true, K = 4). Each functor maps this
+// lane's q to its gradient entries and returns the chain's log-density,
+// identical on every lane of the group. The float arithmetic follows the
+// plain PyTorch version in mcmc_tpu_torch/ops/padded_targets.py term for
+// term; the functors ported with the ChEES slice (families 5-9) and the
+// correlated Gaussian also round each product before its sum (__fmul_rn,
+// __fadd_rn: no FMA) and sum in the plain version's lane order
+// (warp_order_sum), so their lp and gradient equal the plain version's bit
+// for bit where the two libraries' expf/logf/log1pf agree.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -22,7 +30,12 @@ enum Family {
   NEALS_FUNNEL = 1,
   CORRELATED_GAUSSIAN = 2,
   GAUSSIAN_MIXTURE = 3,
-  HIERARCHICAL_LOGISTIC = 4
+  HIERARCHICAL_LOGISTIC = 4,
+  NEALS_FUNNEL_NONCENTERED = 5,
+  ILL_CONDITIONED_GAUSSIAN = 6,
+  STUDENT_T = 7,
+  LOG_GAMMA = 8,
+  LOG_GAMMA_UNCONSTRAINED = 9
 };
 
 // A family's float parameters, computed on the host in double and rounded
@@ -78,12 +91,19 @@ __device__ __forceinline__ float group_sum(float v) {
 // Sum over the 32 lanes of a warp; every lane gets the total.
 __device__ __forceinline__ float warp_sum(float v) { return group_sum<32>(v); }
 
-template <int FAMILY, int K, int G = 32>
+// The coordinate register r of a group's lane `lane` holds: lane + G r in
+// the warp-per-chain layout (G = 32), K lane + r in kernel 3's blocked one.
+template <int K, int G, bool BLOCKED>
+__device__ __forceinline__ int coord_of(int lane, int r) {
+  return BLOCKED ? K * lane + r : lane + G * r;
+}
+
+template <int FAMILY, int K, int G = 32, bool BLOCKED = false>
 struct Target;
 
 // N(0, I): lp = -0.5 (sum q^2 + D log 2pi), grad = -q.
-template <int K, int G>
-struct Target<STANDARD_NORMAL, K, G> {
+template <int K, int G, bool BLOCKED>
+struct Target<STANDARD_NORMAL, K, G, BLOCKED> {
   float c;
   __device__ explicit Target(int dim, const TargetParams& = TargetParams{},
                              const TargetData& = TargetData{})
@@ -104,8 +124,8 @@ struct Target<STANDARD_NORMAL, K, G> {
 // Neal's funnel: x0 ~ N(0, 9), x_i | x0 ~ N(0, exp(x0)). The neck x0 is
 // coordinate 0, the group's lane 0's first register; it is broadcast with
 // one shuffle. `lane` is the lane's index within its group.
-template <int K, int G>
-struct Target<NEALS_FUNNEL, K, G> {
+template <int K, int G, bool BLOCKED>
+struct Target<NEALS_FUNNEL, K, G, BLOCKED> {
   float d_rest, c_rest, c_neck;
   __device__ explicit Target(int dim, const TargetParams& = TargetParams{},
                              const TargetData& = TargetData{})
@@ -137,15 +157,14 @@ struct Target<NEALS_FUNNEL, K, G> {
 // siv = a q + b s, grad = -siv, lp = -0.5 (siv . q + log|Sigma| + D log 2pi).
 // Two group sums, O(D). The b s term would leak into the zero coordinates
 // past dim, so it is masked there; that mask is the warp-per-chain layout's
-// (lane j owns j + 32 r), the only one this functor serves. Params: a, b and
+// by the coordinate each register holds in either layout. Params: a, b and
 // the constant log|Sigma| + D log 2pi. Its sums and products are rounded as
 // the plain version's (ops/padded_targets.py:_correlated, warp_order_sum)
 // are: under the dense oracle metric the sum s moves the trajectory along
 // the metric's largest eigenvector (45x the others at D = 50), so a
 // rounding difference there would grow along every trajectory.
-template <int K, int G>
-struct Target<CORRELATED_GAUSSIAN, K, G> {
-  static_assert(G == 32, "the correlated Gaussian serves the warp-per-chain layout");
+template <int K, int G, bool BLOCKED>
+struct Target<CORRELATED_GAUSSIAN, K, G, BLOCKED> {
   float a, b, c;
   int dim;
   __device__ explicit Target(int dim_, const TargetParams& p, const TargetData& = TargetData{})
@@ -161,7 +180,8 @@ struct Target<CORRELATED_GAUSSIAN, K, G> {
     float m = 0.f;
 #pragma unroll
     for (int r = 0; r < K; ++r) {
-      const float siv = lane + 32 * r < dim ? __fadd_rn(__fmul_rn(a, q[r]), bs) : 0.f;
+      const float siv =
+          coord_of<K, G, BLOCKED>(lane, r) < dim ? __fadd_rn(__fmul_rn(a, q[r]), bs) : 0.f;
       m = __fadd_rn(m, __fmul_rn(siv, q[r]));
       g[r] = -siv;
     }
@@ -173,8 +193,8 @@ struct Target<CORRELATED_GAUSSIAN, K, G> {
 // other coordinates N(0, 1). x0 is coordinate 0, broadcast from the group's
 // lane 0 with one shuffle as the funnel's neck is; two expf, one logf and one
 // group sum of the other coordinates' squares. Params: h.
-template <int K, int G>
-struct Target<GAUSSIAN_MIXTURE, K, G> {
+template <int K, int G, bool BLOCKED>
+struct Target<GAUSSIAN_MIXTURE, K, G, BLOCKED> {
   float half_sep, c_rest;
   __device__ explicit Target(int dim, const TargetParams& p, const TargetData& = TargetData{})
       : half_sep(p.v[0]), c_rest(static_cast<float>((dim - 1) * LOG_2PI)) {}
@@ -240,8 +260,8 @@ struct Target<GAUSSIAN_MIXTURE, K, G> {
 // groups (log_prob, the log-density only; lane j of G holds 4 j + r).
 // X and y are read with __ldg from device memory: 100 kB at dim 100, n_data
 // 256, which every chain reads, so they stay in L1 and L2.
-template <int K, int G>
-struct Target<HIERARCHICAL_LOGISTIC, K, G> {
+template <int K, int G, bool LAYOUT>
+struct Target<HIERARCHICAL_LOGISTIC, K, G, LAYOUT> {
   const float *X, *xt, *y;
   int n_data, dim;
   float half_p;
@@ -343,6 +363,143 @@ struct Target<HIERARCHICAL_LOGISTIC, K, G> {
       }
     }
     return lp;
+  }
+};
+
+// Neal's funnel, non-centered: N(0, diag(9, 1, ..., 1)), the funnel's
+// curvature left to funnel_transform. siv = q / var (1/9 on coordinate 0),
+// grad = -siv, lp = -0.5 (siv . q + log 9 + D log 2pi). Params: the
+// constant.
+template <int K, int G, bool BLOCKED>
+struct Target<NEALS_FUNNEL_NONCENTERED, K, G, BLOCKED> {
+  float c;
+  __device__ explicit Target(int, const TargetParams& p, const TargetData& = TargetData{})
+      : c(p.v[0]) {}
+
+  __device__ __forceinline__ float operator()(const float (&q)[K], float (&g)[K],
+                                              int lane) const {
+    float s = 0.f;
+#pragma unroll
+    for (int r = 0; r < K; ++r) {
+      const float siv = coord_of<K, G, BLOCKED>(lane, r) == 0 ? __fmul_rn(q[r], 1.f / 9.f) : q[r];
+      s = __fadd_rn(s, __fmul_rn(siv, q[r]));
+      g[r] = -siv;
+    }
+    return -0.5f * (group_sum<G>(s) + c);
+  }
+};
+
+// Ill-conditioned Gaussian, N(0, diag(linspace(1, kappa, D))): eig_i = 1 +
+// slope i in float32 from the integer i, siv = q / eig (0 past dim), grad =
+// -siv, lp = -0.5 (siv . q + log|Sigma| + D log 2pi). Params: slope and the
+// constant.
+template <int K, int G, bool BLOCKED>
+struct Target<ILL_CONDITIONED_GAUSSIAN, K, G, BLOCKED> {
+  float slope, c;
+  int dim;
+  __device__ explicit Target(int dim_, const TargetParams& p, const TargetData& = TargetData{})
+      : slope(p.v[0]), c(p.v[1]), dim(dim_) {}
+
+  __device__ __forceinline__ float operator()(const float (&q)[K], float (&g)[K],
+                                              int lane) const {
+    float s = 0.f;
+#pragma unroll
+    for (int r = 0; r < K; ++r) {
+      const int i = coord_of<K, G, BLOCKED>(lane, r);
+      const float eig = __fadd_rn(1.f, __fmul_rn(static_cast<float>(i), slope));
+      const float siv = i < dim ? __fmul_rn(q[r], __fdiv_rn(1.f, eig)) : 0.f;
+      s = __fadd_rn(s, __fmul_rn(siv, q[r]));
+      g[r] = -siv;
+    }
+    return -0.5f * (group_sum<G>(s) + c);
+  }
+};
+
+// Independent Student-t(df): lp = D log_norm - (df + 1) / 2 sum log1p(q^2 /
+// df), grad = -(df + 1) q / (df + q^2), in the plain version's order (one
+// log1pf and one division each per coordinate). Zeros past dim add 0 to
+// both. Params: df, (df + 1) / 2, D log_norm, -(df + 1).
+template <int K, int G, bool BLOCKED>
+struct Target<STUDENT_T, K, G, BLOCKED> {
+  float df, half_df1, c, neg_df1;
+  __device__ explicit Target(int, const TargetParams& p, const TargetData& = TargetData{})
+      : df(p.v[0]), half_df1(p.v[1]), c(p.v[2]), neg_df1(p.v[3]) {}
+
+  __device__ __forceinline__ float operator()(const float (&q)[K], float (&g)[K],
+                                              int /*lane*/) const {
+    float s = 0.f;
+#pragma unroll
+    for (int r = 0; r < K; ++r) {
+      const float x2 = __fmul_rn(q[r], q[r]);
+      s = __fadd_rn(s, log1pf(__fdiv_rn(x2, df)));
+      g[r] = __fdiv_rn(__fmul_rn(neg_df1, q[r]), __fadd_rn(df, x2));
+    }
+    return __fsub_rn(c, __fmul_rn(half_df1, group_sum<G>(s)));
+  }
+};
+
+// Independent Gamma(shape, rate) on x > 0: per coordinate (shape - 1)
+// log max(x, 1e-10) - rate x - log Z, gradient (shape - 1) / max(x, 1e-10)
+// (0 at x <= 1e-10) - rate. Any real coordinate <= 0 makes lp -inf and the
+// whole gradient 0; the coordinates past dim (zeros) are left out of both
+// the sum and that test. A -inf lp makes the kernels' energy non-finite, so
+// the guard rejects the proposal as the plain version's does. Params:
+// shape - 1, rate, log Z.
+template <int K, int G, bool BLOCKED>
+struct Target<LOG_GAMMA, K, G, BLOCKED> {
+  float sm1, rate, log_norm;
+  int dim;
+  __device__ explicit Target(int dim_, const TargetParams& p, const TargetData& = TargetData{})
+      : sm1(p.v[0]), rate(p.v[1]), log_norm(p.v[2]), dim(dim_) {}
+
+  __device__ __forceinline__ float operator()(const float (&q)[K], float (&g)[K],
+                                              int lane) const {
+    constexpr float EPS = 1e-10f;
+    float s = 0.f, bad = 0.f;
+#pragma unroll
+    for (int r = 0; r < K; ++r) {
+      g[r] = 0.f;
+      if (coord_of<K, G, BLOCKED>(lane, r) >= dim) continue;
+      const float qc = fmaxf(q[r], EPS);
+      const float term =
+          __fsub_rn(__fsub_rn(__fmul_rn(sm1, logf(qc)), __fmul_rn(rate, q[r])), log_norm);
+      s = __fadd_rn(s, term);
+      bad += q[r] > 0.f ? 0.f : 1.f;
+      g[r] = __fsub_rn(__fmul_rn(sm1, q[r] > EPS ? __fdiv_rn(1.f, qc) : 0.f), rate);
+    }
+    const float lp = group_sum<G>(s);
+    if (group_sum<G>(bad) > 0.f) {
+#pragma unroll
+      for (int r = 0; r < K; ++r) g[r] = 0.f;
+      return -INFINITY;
+    }
+    return lp;
+  }
+};
+
+// expGamma, log-gamma's log-transformed form on R^D: per coordinate shape y
+// - rate e^y, gradient shape - rate e^y, lp the sum less D log Z. A zero
+// past dim would add -rate and a gradient shape - rate, so those
+// coordinates are masked. Params: shape, rate, D log Z.
+template <int K, int G, bool BLOCKED>
+struct Target<LOG_GAMMA_UNCONSTRAINED, K, G, BLOCKED> {
+  float shape, rate, c;
+  int dim;
+  __device__ explicit Target(int dim_, const TargetParams& p, const TargetData& = TargetData{})
+      : shape(p.v[0]), rate(p.v[1]), c(p.v[2]), dim(dim_) {}
+
+  __device__ __forceinline__ float operator()(const float (&q)[K], float (&g)[K],
+                                              int lane) const {
+    float s = 0.f;
+#pragma unroll
+    for (int r = 0; r < K; ++r) {
+      g[r] = 0.f;
+      if (coord_of<K, G, BLOCKED>(lane, r) >= dim) continue;
+      const float rey = __fmul_rn(rate, expf(q[r]));
+      s = __fadd_rn(s, __fsub_rn(__fmul_rn(shape, q[r]), rey));
+      g[r] = __fsub_rn(shape, rey);
+    }
+    return __fsub_rn(group_sum<G>(s), c);
   }
 };
 

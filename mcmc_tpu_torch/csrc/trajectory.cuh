@@ -238,6 +238,14 @@ cudaError_t dispatch(int family, bool dense, const Args& a, cudaStream_t stream)
     case GAUSSIAN_MIXTURE: return dispatch_metric<Launch, GAUSSIAN_MIXTURE>(dense, a, stream);
     case HIERARCHICAL_LOGISTIC:
       return dispatch_metric<Launch, HIERARCHICAL_LOGISTIC>(dense, a, stream);
+    case NEALS_FUNNEL_NONCENTERED:
+      return dispatch_metric<Launch, NEALS_FUNNEL_NONCENTERED>(dense, a, stream);
+    case ILL_CONDITIONED_GAUSSIAN:
+      return dispatch_metric<Launch, ILL_CONDITIONED_GAUSSIAN>(dense, a, stream);
+    case STUDENT_T: return dispatch_metric<Launch, STUDENT_T>(dense, a, stream);
+    case LOG_GAMMA: return dispatch_metric<Launch, LOG_GAMMA>(dense, a, stream);
+    case LOG_GAMMA_UNCONSTRAINED:
+      return dispatch_metric<Launch, LOG_GAMMA_UNCONSTRAINED>(dense, a, stream);
     default: return cudaErrorInvalidValue;
   }
 }

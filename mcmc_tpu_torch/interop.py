@@ -2,8 +2,9 @@
 
 MCMC has no weights: what moves between the two packages is the target's
 parameters, the chain state (and the persistent-NUTS machine state), the
-mass matrix (a factored dense one too), the dual-averaging state and the
-warmup's Welford and dense-moment accumulators.
+mass matrix (a factored dense one too), the dual-averaging, ChEES and
+friction-SPSA states and the warmup's Welford and dense-moment
+accumulators.
 Everything here takes numpy arrays (``np.asarray`` of the JAX arrays), so this
 module, like the rest of the port, never imports ``jax``.
 """
@@ -20,6 +21,7 @@ from mcmc_tpu_torch.ops.fused_trajectory import PreparedDenseMetric
 from mcmc_tpu_torch.samplers.base import ChainState
 from mcmc_tpu_torch.samplers.nuts_persistent import _PState
 from mcmc_tpu_torch.targets import TargetDistribution, get_target
+from mcmc_tpu_torch.tuning.chees import ChEESState, GammaSPSAState
 from mcmc_tpu_torch.tuning.dual_averaging import DualAveragingState
 from mcmc_tpu_torch.tuning.welford import DenseMomentState, WelfordState
 
@@ -38,6 +40,9 @@ def target_from_tag(info: dict) -> TargetDistribution:
         kwargs["separation"] = params["separation"]
     if info["family"] == "hierarchical_logistic":
         kwargs.update({k: int(params[k]) for k in ("n_data", "data_seed") if k in params})
+    if info["family"] in ("ill_conditioned_gaussian", "student_t", "log_gamma",
+                          "log_gamma_unconstrained"):
+        kwargs.update(params)           # the factory's own keyword arguments
     target = get_target(info["family"], dim=int(info["dim"]), **kwargs)
     ours = target.value_and_grad_fn.kernel_info["params"]
     if set(params) != set(ours):
@@ -82,6 +87,20 @@ def da_state_from_numpy(log_step, log_step_bar, h_bar, mu, count,
     return DualAveragingState(*(_tensor(v, device).reshape(())
                                 for v in (log_step, log_step_bar, h_bar, mu,
                                           count)))
+
+
+def chees_state_from_numpy(log_t, m, v, count, device="cuda") -> ChEESState:
+    """ChEESState from the four scalars of a JAX one, dtypes kept, on the
+    card unless `device` names another."""
+    return ChEESState(*(_tensor(x, device).reshape(()) for x in (log_t, m, v, count)))
+
+
+def gamma_spsa_state_from_numpy(log_gamma, sum_p, sum_m, n_p, n_m,
+                                device="cuda") -> GammaSPSAState:
+    """GammaSPSAState from the five scalars of a JAX one, dtypes kept, on
+    the card unless `device` names another."""
+    return GammaSPSAState(*(_tensor(x, device).reshape(())
+                            for x in (log_gamma, sum_p, sum_m, n_p, n_m)))
 
 
 def nuts_state_from_numpy(device="cuda", **fields) -> _PState:

@@ -43,9 +43,9 @@ _SIGNATURES = {
     # params, host TargetData, scalars, base mean and 1/scale rows, key,
     # call, seven inputs, seven outputs, stream
     "grahmc_bridged_launch": [_I] * 6 + [_P] * 6 + [_U] + [_P] * 7 + [_P] * 7 + [_P],
-    # (family, dim, n_chains, transitions, n_hist), host TargetData, scale,
-    # key, call, q, lp, noise, u, five outputs, stream
-    "rwmh_multistep_launch": [_I] * 5 + [_P, _P, _P, _U] + [_P] * 4 + [_P] * 5
+    # (family, dim, n_chains, transitions, n_hist), host target params, host
+    # TargetData, scale, key, call, q, lp, noise, u, five outputs, stream
+    "rwmh_multistep_launch": [_I] * 5 + [_P, _P, _P, _P, _U] + [_P] * 4 + [_P] * 5
                              + [_P],
     # (family, dim, n_chains, n_iters, slots, max_tree_depth, multinomial,
     # dense), host target params, host TargetData, scalars, inv_mass, l_inv,
@@ -95,18 +95,29 @@ def _digest() -> str:
 
 def _compile(nvcc: str, out: Path) -> str:
     """Compile every csrc/*.cu to an object, one nvcc process per source, all
-    running at once, then link them into the shared library `out`. Returns
-    the compilers' output (ptxas registers and spills per kernel)."""
+    running at once, then link them into the shared library `out`. Each
+    process writes its output to a file, so none waits on a full pipe.
+    Returns the compilers' output (ptxas registers and spills per kernel)
+    and each source's compile seconds."""
     sources = sorted(CSRC.glob("*.cu"))
     objs = [out.with_name(f"{out.name}.{src.stem}.o") for src in sources]
-    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                              text=True)
-             for src, obj in zip(sources, objs)]
+    texts = [out.with_name(f"{out.name}.{src.stem}.log") for src in sources]
+    t0 = time.perf_counter()
+    procs = []
+    for src, obj, text in zip(sources, objs, texts):
+        with open(text, "w") as sink:
+            procs.append(subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                                          stdout=sink, stderr=subprocess.STDOUT))
+    seconds = {}
+    while len(seconds) < len(procs):
+        for src, proc in zip(sources, procs):
+            if src.name not in seconds and proc.poll() is not None:
+                seconds[src.name] = time.perf_counter() - t0
+        time.sleep(0.05)
     logs, failed = [], []
-    for src, proc in zip(sources, procs):
-        text = proc.communicate()[0]
-        logs.append(f"[{src.name}]\n{text}")
+    for src, proc, text in zip(sources, procs, texts):
+        logs.append(f"[{src.name}] nvcc {seconds[src.name]:.1f} s\n{text.read_text()}")
+        text.unlink(missing_ok=True)
         if proc.returncode != 0:
             failed.append(src.name)
     log = "".join(logs)

@@ -2,8 +2,8 @@
 
 Port of ``mcmc_tpu/ops/fused_nuts.py``: both proposal schemes (endpoint,
 multinomial) and both metrics (diagonal, dense), four variants of one
-kernel. One kernel, in ``mcmc_tpu_torch/csrc/fused_nuts.cu``:
-``nuts_window_kernel`` runs one snapshot window -- `n_iters` machine
+kernel. One kernel, in ``mcmc_tpu_torch/csrc/nuts_window.cuh`` (launched
+from ``fused_nuts.cu``): ``nuts_window_kernel`` runs one snapshot window -- `n_iters` machine
 iterations of up to W leapfrog slots each -- of the persistent-NUTS state
 machine with each chain's state in registers, so device memory sees the
 state once per window instead of once per leapfrog (the TPU
@@ -64,7 +64,7 @@ FLAGS_DRAW = 32   # words: dir, dir2, swap, slice
 RES_DRAW = 33     # word x0: the snapshot reservoir uniform
 SLICE_DRAW = 34   # multinomial: slot k's leaf uniform, word k % 4 of draw 34 + k // 4
 
-# Field order of `struct State` in csrc/fused_nuts.cu: the endpoint machine's
+# Field order of `struct State` in csrc/nuts_window.cuh: the endpoint machine's
 # 33 fields, then the multinomial scheme's 9 (null under the endpoint scheme).
 FULL_FIELDS = ("q", "grad", "q_l", "p_l", "g_l", "q_r", "p_r", "g_r",
                "q_prop", "g_prop", "q_c", "p_c", "g_c", "q_res")

@@ -124,9 +124,9 @@ def rwmh_multistep_kernel(info: dict, transitions: int, q: Tensor, lp: Tensor,
     acc = torch.empty((transitions, n_chains), dtype=torch.bool, device=q.device)
     hist_q = q.new_empty((transitions, n_hist, dim))
     hist_lp = lp.new_empty((transitions, n_hist))
-    _params, data = target_args(info, q.device)
+    params, data = target_args(info, q.device)
     code = lib.rwmh_multistep_launch(
-        FAMILY_IDS[info["family"]], dim, n_chains, transitions, n_hist, data,
+        FAMILY_IDS[info["family"]], dim, n_chains, transitions, n_hist, params, data,
         scale.data_ptr(), _ptr(key), call & _U32, q.data_ptr(), lp.data_ptr(),
         _ptr(noise), _ptr(u), q_out.data_ptr(), lp_out.data_ptr(),
         acc.data_ptr(), hist_q.data_ptr(), hist_lp.data_ptr(),

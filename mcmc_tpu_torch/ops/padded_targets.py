@@ -1,8 +1,10 @@
 """Plain PyTorch versions of the kernels' target device functions.
 
-Port of five device functions of ``mcmc_tpu/ops/padded_targets.py``
-(``_standard_normal``, ``_neals_funnel``, ``_correlated``,
-``_gaussian_mixture`` and ``_hierarchical_logistic``). The TPU versions work on blocks
+Port of ten device functions of ``mcmc_tpu/ops/padded_targets.py``
+(``_standard_normal``, ``_neals_funnel``, ``_neals_funnel_noncentered``,
+``_ill_conditioned``, ``_student_t``, ``_log_gamma``,
+``_log_gamma_unconstrained``, ``_correlated``, ``_gaussian_mixture`` and
+``_hierarchical_logistic``). The TPU versions work on blocks
 padded to the (8, 128) tiles, in a lane or a transposed layout; the CUDA
 kernels keep the public (chains, dim) row-major layout and mask lanes past
 ``dim`` themselves, so none of the padding, ``_mask_row`` or layout code is
@@ -21,23 +23,25 @@ from typing import Callable, Optional
 
 import torch
 
-from mcmc_tpu_torch.targets import LOG_2PI
+from mcmc_tpu_torch.targets import LOG_2PI, gamma_log_norm, student_t_log_norm
 
 # Must match `enum Family` in csrc/targets.cuh.
 FAMILY_IDS = {"standard_normal": 0, "neals_funnel": 1, "correlated_gaussian": 2,
-              "gaussian_mixture": 3, "hierarchical_logistic": 4}
-# The families each kernel's launcher dispatches on. The correlated Gaussian's
-# functor masks coordinates in the warp-per-chain layout; kernels 1, 2 and 4
-# run it. The mixture runs in kernels 1 and 2 (and 1's scaled and bridged
-# variants) only so far. The hierarchical posterior runs everywhere: kernel
-# 3 through its log-density-only form.
-KERNEL_FAMILIES = {
-    "grahmc": ("standard_normal", "neals_funnel", "correlated_gaussian",
-               "gaussian_mixture", "hierarchical_logistic"),
-    "rwmh": ("standard_normal", "neals_funnel", "hierarchical_logistic"),
-    "nuts": ("standard_normal", "neals_funnel", "correlated_gaussian",
-             "hierarchical_logistic"),
-}
+              "gaussian_mixture": 3, "hierarchical_logistic": 4,
+              "neals_funnel_noncentered": 5, "ill_conditioned_gaussian": 6,
+              "student_t": 7, "log_gamma": 8, "log_gamma_unconstrained": 9}
+# The families each kernel's launcher dispatches on: every ported family in
+# every kernel (kernel 3 runs a family's log-density in its lane groups; the
+# hierarchical posterior through its log-density-only form). The launchers
+# instantiate exactly these pairs.
+_ALL_FAMILIES = tuple(FAMILY_IDS)
+KERNEL_FAMILIES = {"grahmc": _ALL_FAMILIES, "rwmh": _ALL_FAMILIES, "nuts": _ALL_FAMILIES}
+# Families whose plain device function sums in the kernels' lane order in
+# both layouts (warp_order_sum), so kernel 3's log-density takes its own
+# lane-group order (device_lp).
+LANE_ORDER_FAMILIES = ("correlated_gaussian", "neals_funnel_noncentered",
+                       "ill_conditioned_gaussian", "student_t", "log_gamma",
+                       "log_gamma_unconstrained")
 # Families whose device function reads a data set from device memory.
 DATA_FAMILIES = ("hierarchical_logistic",)
 # Kernel 3 gives a chain 2^ceil(log2(ceil(D / 4))) lanes, lane j holding
@@ -84,6 +88,9 @@ def device_lp(info: dict) -> Callable:
     function's lp."""
     if info["family"] == "hierarchical_logistic":
         return _hierarchical_logistic(info["dim"], info["params"], rwmh_lanes(info["dim"]))
+    if info["family"] in LANE_ORDER_FAMILIES:
+        vag = _BUILDERS[info["family"]](info["dim"], info["params"], rwmh_lanes(info["dim"]))
+        return lambda q: vag(q)[0]
     vag = device_vag(info)
     return lambda q: vag(q)[0]
 
@@ -118,14 +125,33 @@ def device_data(info: dict, device) -> tuple:
 
 def device_params(info: dict) -> tuple:
     """The four floats of `struct TargetParams` (csrc/targets.cuh) for this
-    target, computed in double as the plain version computes them: (a, b,
-    log|Sigma| + D log 2pi, 0) for the correlated Gaussian, (sep / 2, 0, 0,
-    0) for the mixture, zeros for the families without parameters."""
-    p = info["params"]
-    if info["family"] == "correlated_gaussian":
-        return (p["a"], p["b"], p["log_det_cov"] + info["dim"] * LOG_2PI, 0.0)
-    if info["family"] == "gaussian_mixture":
+    target, computed in double as the plain version computes them and
+    rounded once: (a, b, log|Sigma| + D log 2pi, 0) for the correlated
+    Gaussian, (sep / 2, 0, 0, 0) for the mixture, (log 9 + D log 2pi, 0, 0,
+    0) for the non-centered funnel, (slope (kappa - 1) / (D - 1),
+    log|Sigma| + D log 2pi, 0, 0) for the ill-conditioned Gaussian, (df,
+    (df + 1) / 2, D log_norm, -(df + 1)) for Student-t, (shape - 1, rate,
+    log Z, 0) for log-gamma and (shape, rate, D log Z, 0) for its
+    unconstrained form (log Z = gammaln(shape) + shape log(rate)), zeros for
+    the families without parameters."""
+    p, dim, family = info["params"], info["dim"], info["family"]
+    if family == "correlated_gaussian":
+        return (p["a"], p["b"], p["log_det_cov"] + dim * LOG_2PI, 0.0)
+    if family == "gaussian_mixture":
         return (p["separation"] / 2.0, 0.0, 0.0, 0.0)
+    if family == "neals_funnel_noncentered":
+        return (math.log(9.0) + dim * LOG_2PI, 0.0, 0.0, 0.0)
+    if family == "ill_conditioned_gaussian":
+        kappa = p["condition_number"]
+        log_det = sum(math.log(1.0 + (kappa - 1.0) * i / max(dim - 1, 1)) for i in range(dim))
+        return ((kappa - 1.0) / max(dim - 1, 1), log_det + dim * LOG_2PI, 0.0, 0.0)
+    if family == "student_t":
+        df = p["df"]
+        return (df, (df + 1.0) / 2.0, dim * student_t_log_norm(df), -(df + 1.0))
+    if family == "log_gamma":
+        return (p["shape"] - 1.0, p["rate"], gamma_log_norm(p["shape"], p["rate"]), 0.0)
+    if family == "log_gamma_unconstrained":
+        return (p["shape"], p["rate"], dim * gamma_log_norm(p["shape"], p["rate"]), 0.0)
     return (0.0, 0.0, 0.0, 0.0)
 
 
@@ -181,16 +207,103 @@ def warp_order_sum(x: torch.Tensor, lanes: int = 32, blocked: int = 0) -> torch.
     return v[:, 0]
 
 
-def _correlated(dim, params):
+def _order(group):
+    """warp_order_sum's (lanes, blocked) for a layout: the warp-per-chain
+    one of kernels 1, 2 and 4 (group None), or kernel 3's lane groups of
+    `group` lanes holding RWMH_COORDS_PER_LANE coordinates each."""
+    return (group, RWMH_COORDS_PER_LANE) if group else (32, 0)
+
+
+def _correlated(dim, params, group=None):
     a, b = params["a"], params["b"]
     const = params["log_det_cov"] + dim * LOG_2PI
+    order = _order(group)
 
     def vag(q):
         # the kernel's summation order: see csrc/targets.cuh
-        s = warp_order_sum(q)[:, None]
+        s = warp_order_sum(q, *order)[:, None]
         siv = a * q + b * s
-        lp = -0.5 * (warp_order_sum(siv * q) + const)
+        lp = -0.5 * (warp_order_sum(siv * q, *order) + const)
         return lp, -siv
+    return vag
+
+
+# The five families below sum in the kernels' lane order in either layout
+# (`group`, as _correlated's) and round each product before its sum in the
+# functors' order (csrc/targets.cuh), so a kernel and its plain version
+# differ only where the leapfrog itself contracts to FMA.
+
+def _neals_funnel_noncentered(dim, params, group=None):
+    """N(0, diag(9, 1, ..., 1)): the funnel's curvature lives in
+    funnel_transform, not in the sampled density."""
+    const = math.log(9.0) + dim * LOG_2PI
+    order = _order(group)
+
+    def vag(q):
+        inv_var = torch.ones(dim, dtype=q.dtype, device=q.device)
+        inv_var[0] = 1.0 / 9.0
+        siv = q * inv_var
+        return -0.5 * (warp_order_sum(siv * q, *order) + const), -siv
+    return vag
+
+
+def _ill_conditioned(dim, params, group=None):
+    """N(0, diag(linspace(1, kappa, D))): eig_i = 1 + slope i in float32
+    from the integer i, as the TPU kernel rebuilds it."""
+    slope, const = device_params({"family": "ill_conditioned_gaussian", "dim": dim,
+                                  "params": params})[:2]
+    order = _order(group)
+
+    def vag(q):
+        ids = torch.arange(dim, dtype=q.dtype, device=q.device)
+        inv_eig = 1.0 / (1.0 + ids * slope)
+        siv = q * inv_eig
+        return -0.5 * (warp_order_sum(siv * q, *order) + const), -siv
+    return vag
+
+
+def _student_t(dim, params, group=None):
+    df, half_df1, const, neg_df1 = device_params({"family": "student_t", "dim": dim,
+                                                  "params": params})
+    order = _order(group)
+
+    def vag(q):
+        x2 = q * q
+        lp = const - half_df1 * warp_order_sum(torch.log1p(x2 / df), *order)
+        return lp, (neg_df1 * q) / (df + x2)
+    return vag
+
+
+def _log_gamma(dim, params, group=None):
+    """Gamma(shape, rate) per coordinate: lp -inf and gradient 0 when any
+    coordinate is <= 0 (the clamp at 1e-10 keeps the log finite)."""
+    sm1, rate, log_norm = device_params({"family": "log_gamma", "dim": dim,
+                                         "params": params})[:3]
+    eps = 1e-10
+    order = _order(group)
+
+    def vag(q):
+        valid = torch.all(q > 0, dim=1)
+        qc = torch.clamp(q, min=eps)
+        terms = sm1 * torch.log(qc) - rate * q - log_norm
+        lp = torch.where(valid, warp_order_sum(terms, *order),
+                         torch.full_like(q[:, 0], -math.inf))
+        g = sm1 * torch.where(q > eps, 1.0 / qc, torch.zeros_like(q)) - rate
+        return lp, torch.where(valid[:, None], g, torch.zeros_like(g))
+    return vag
+
+
+def _log_gamma_unconstrained(dim, params, group=None):
+    """expGamma, log-gamma's log-transformed form: lp = sum(shape y - rate
+    e^y) - D log Z, grad = shape - rate e^y."""
+    shape, rate, const = device_params({"family": "log_gamma_unconstrained", "dim": dim,
+                                        "params": params})[:3]
+    order = _order(group)
+
+    def vag(q):
+        ey = torch.exp(q)
+        return (warp_order_sum(shape * q - rate * ey, *order) - const,
+                shape - rate * ey)
     return vag
 
 
@@ -263,6 +376,11 @@ def _hierarchical_logistic(dim, params, group=None):
 _BUILDERS = {
     "standard_normal": _standard_normal,
     "neals_funnel": _neals_funnel,
+    "neals_funnel_noncentered": _neals_funnel_noncentered,
+    "ill_conditioned_gaussian": _ill_conditioned,
+    "student_t": _student_t,
+    "log_gamma": _log_gamma,
+    "log_gamma_unconstrained": _log_gamma_unconstrained,
     "correlated_gaussian": _correlated,
     "gaussian_mixture": _gaussian_mixture,
     "hierarchical_logistic": _hierarchical_logistic,

@@ -19,7 +19,9 @@ lax.while_loop with lax.cond). The next b comes from a fixed schedule or
 the adaptive conditional-ESS bisection (30 steps, on the device). Moves run
 through `grahmc_step` on the mixture value-and-grad (move_backend "eager")
 or through kernel 1c, one launch per move, the bridge evaluated in the
-kernel (move_backend "fused"). Log-weights and log Z are in the energy
+kernel (move_backend "fused"); with tune_trajectory, through the jittered
+ChEES-tuned `mh_transition_dynamic`, eager, one host read of each move's
+leapfrog count. Log-weights and log Z are in the energy
 dtype of the particles' dtype (float64 particles on the CPU tests, float32
 on the card, as on the TPU).
 """
@@ -219,11 +221,17 @@ def smc_run(
     acceptance (the adaptive-SMC regime; pass a fixed `betas` schedule with
     adapt_step_size=False for the exactly unbiased estimator).
     final_resample: return an unweighted (uniform-weight) population.
-    tune_trajectory: ChEES tuning of the move length is not ported yet
-    (ROADMAP Queue 1 item 12, ChEES); True raises NotImplementedError.
-    Without it, info["trajectory_length"] and "final_trajectory_length"
-    hold T0 = max(step_size num_steps, 1e-6), as the JAX package's.
-    max_leapfrogs: the ChEES path's cap; unused without it.
+    tune_trajectory: adapt the move's trajectory length alongside the step
+    size with the ChEES criterion on the particle population (Millard et
+    al. 2025): each move draws a jitter h ~ U(0, 1) from `generator`, runs
+    n = ceil(h T / eps) leapfrogs (read to the host, at most max_leapfrogs)
+    through mh_transition_dynamic, and takes one Adam step on log T from
+    chees_log_t_grad at the unflipped endpoint momentum. T starts at T0 =
+    max(step_size num_steps, 1e-6); info["trajectory_length"] holds each
+    stage's T before its moves, "final_trajectory_length" the last one, and
+    "n_leapfrogs" the realized count per particle. Without it both hold T0.
+    max_leapfrogs: the cap on a tuned move's count (default max(4
+    num_steps, 16)); unused without tune_trajectory.
     move_backend: "eager" (grahmc_step on the mixture value-and-grad, any
     log-prob and metric), "fused" (kernel 1c, one launch per move: a tagged
     target, a named or no friction schedule) or "auto" (resolve_move_backend).
@@ -246,10 +254,11 @@ def smc_run(
             base_scale.detach().cpu() if isinstance(base_scale, Tensor) else base_scale)
             <= 0.0)):
         raise ValueError("base_scale must be strictly positive")
-    if tune_trajectory:
-        raise NotImplementedError(
-            "smc_run(tune_trajectory=True) needs the ChEES tuner, not ported yet "
-            "(ROADMAP Queue 1 item 12, ChEES)")
+    from mcmc_tpu_torch.samplers.trajectory import mh_transition_dynamic
+    from mcmc_tpu_torch.tuning.chees import (chees_init, chees_log_t_grad, chees_update,
+                                             num_leapfrog_steps)
+    if max_leapfrogs is None:
+        max_leapfrogs = max(4 * num_steps, 16)
     dev = generator.device
     move_backend = resolve_move_backend(move_backend, value_and_grad_fn, tune_trajectory,
                                         inv_mass_matrix, dev)
@@ -276,8 +285,9 @@ def smc_run(
     log_z = torch.zeros((), dtype=e_dtype, device=dev)
     beta = torch.zeros((), dtype=torch.float32, device=dev)
     eps = torch.as_tensor(step_size, dtype=torch.float32).to(dev).reshape(())
-    # the ChEES state's initial T0, exp(log T0) in float32 as chees_init gives it
-    t0 = torch.exp(torch.log(torch.clamp(eps * num_steps, min=1e-6)))
+    # the ChEES state at T0 (constant unless tune_trajectory)
+    chees = chees_init(torch.clamp(eps * num_steps, min=1e-6), torch.float32, dev)
+    n_leapfrogs = 0
     fixed = betas is not None
     if fixed:
         sched = torch.as_tensor(betas, dtype=torch.float32).to(dev)
@@ -310,12 +320,26 @@ def smc_run(
         # minimal progress so the loop cannot stall below max_stages
         return beta + torch.where(meets_at_full, full, torch.maximum(lo, full / max_stages))
 
-    def move(mstate, eps, mixture_vag, b_new):
+    def move(mstate, eps, mixture_vag, b_new, chees):
+        """One pi_{b_new}-invariant transition: (state, ChEES state, its
+        leapfrog count)."""
+        if tune_trajectory:
+            q0 = mstate.position
+            h = torch.rand((), generator=generator, device=dev)
+            t_len = torch.exp(chees.log_t)
+            n_lf = int(num_leapfrog_steps(h * t_len, eps, max_leapfrogs))    # the host read
+            mstate, _acc, q1, p1, log_alpha, _div = mh_transition_dynamic(
+                generator, mstate, mixture_vag, eps, n_lf, inv_mass,
+                friction_schedule=friction_schedule, gamma_max=gamma, steepness=steepness)
+            # the criterion's gradient needs the unflipped endpoint momentum
+            g = chees_log_t_grad(q0, q1, p1, h, t_len,
+                                 torch.exp(log_alpha).to(torch.float32), inv_mass)
+            return mstate, chees_update(chees, g), n_lf
         if move_backend == "fused":
             return fused_move(stream, mstate, eps, gamma, steepness, inv_mass,
-                              bridge=(b_new, base))[0]
+                              bridge=(b_new, base))[0], chees, num_steps
         return grahmc_step(generator, mstate, mixture_vag, eps, num_steps, gamma,
-                           steepness, inv_mass, friction_schedule)[0]
+                           steepness, inv_mass, friction_schedule)[0], chees, num_steps
 
     stage, n_resamples = 0, 0
     n_divergences = torch.zeros((), dtype=torch.int64, device=dev)
@@ -356,11 +380,12 @@ def smc_run(
             grad_log_prob=bp * g_t + (1.0 - bp) * g_b.to(dtype),
             accept_count=torch.zeros(n, dtype=torch.int32, device=dev),
             divergence_count=torch.zeros(n, dtype=torch.int32, device=dev))
-        step_in = eps
+        step_in, t_in = eps, torch.exp(chees.log_t)
         accs = []
         for _ in range(move_steps):
             prev = mstate.accept_count
-            mstate = move(mstate, eps, mixture_vag, b_new)
+            mstate, chees, n_lf = move(mstate, eps, mixture_vag, b_new, chees)
+            n_leapfrogs += n_lf
             acc_t = (mstate.accept_count - prev).to(torch.float32).mean()
             accs.append(acc_t)
             if adapt_step_size:
@@ -383,7 +408,7 @@ def smc_run(
         hist["accept"][stage] = accept
         hist["resampled"][stage] = do_res
         hist["step_size"][stage] = step_in
-        hist["trajectory_length"][stage] = t0
+        hist["trajectory_length"][stage] = t_in
         n_divergences = n_divergences + torch.sum(mstate.divergence_count)
         beta = b_new
         stage += 1
@@ -403,8 +428,8 @@ def smc_run(
         "ess": _rel_ess(logw) * n,
         "final_step_size": eps,
         # leapfrogs PER PARTICLE: every particle integrates the same count
-        "n_leapfrogs": stage * move_steps * num_steps,
-        "final_trajectory_length": t0,
+        "n_leapfrogs": n_leapfrogs,
+        "final_trajectory_length": torch.exp(chees.log_t),
         **hist,
     }
     return SMCResult(q, logw, log_z, final_state, info)

@@ -137,3 +137,54 @@ def integrate_trajectory(
         if friction_schedule is not None:
             p = p * scale
     return q, p, lp, grad
+
+
+# The JAX package's integrate_trajectory_dynamic takes a traced leapfrog
+# count (a while loop); here the count is a host int shared by all chains,
+# so it is integrate_trajectory itself. The friction schedule sees T =
+# num_steps eps, so its switch stays centered on the realized trajectory.
+integrate_trajectory_dynamic = integrate_trajectory
+
+
+def mh_transition_dynamic(generator: Optional[torch.Generator], state, value_and_grad,
+                          step_size, n_leapfrogs: int, inv_mass_matrix: Tensor,
+                          friction_schedule: Optional[Callable] = None, gamma_max=0.0,
+                          steepness=1.0, p0: Optional[Tensor] = None,
+                          u: Optional[Tensor] = None):
+    """One MH transition of `n_leapfrogs` (a host int) leapfrogs: the
+    transition shared by the ChEES warmup and sampler (tuning/chees.py) and
+    the ChEES-tuned SMC moves (samplers/smc.py).
+
+    Draws the momentum, then the accept uniforms, from `generator` (on the
+    state's device), unless p0 (C, D) and u (C,) are injected. Returns
+    (new_state, accept, q1, p1, log_alpha, divergent): q1 and p1 the
+    trajectory's endpoint, p1 the momentum before the reversibility flip
+    (the ChEES criterion needs dq/dt there), log_alpha = min(0, H0 - H1)
+    per chain (non-finite H1 guarded to a forced reject), divergent the
+    |dH| > 1000 flag, already counted into the new state."""
+    from mcmc_tpu_torch import precision
+    from mcmc_tpu_torch.samplers.grahmc import DIVERGENCE_DELTA_H
+
+    pos = state.position
+    e_dtype = state.log_prob.dtype
+    if p0 is None:
+        p0 = sample_momentum(generator, pos.shape, inv_mass_matrix, pos.dtype)
+    h0 = -state.log_prob + kinetic_energy(p0, inv_mass_matrix).to(e_dtype)
+    q1, p1, lp1, grad1 = integrate_trajectory(
+        pos, p0, state.log_prob, state.grad_log_prob, value_and_grad, step_size,
+        int(n_leapfrogs), inv_mass_matrix, friction_schedule=friction_schedule,
+        gamma_max=gamma_max, steepness=steepness)
+    h1 = precision.guard_energy(-lp1 + kinetic_energy(p1, inv_mass_matrix).to(e_dtype))
+    log_alpha = torch.clamp(h0 - h1, max=0.0)
+    divergent = torch.abs(h1 - h0) > DIVERGENCE_DELTA_H
+    if u is None:
+        u = torch.rand(pos.shape[0], generator=generator, device=generator.device,
+                       dtype=e_dtype)
+    accept = torch.log(u) < log_alpha
+    new_state = state._replace(
+        position=torch.where(accept[:, None], q1, pos),
+        log_prob=torch.where(accept, lp1, state.log_prob),
+        grad_log_prob=torch.where(accept[:, None], grad1, state.grad_log_prob),
+        accept_count=state.accept_count + accept.to(torch.int32),
+        divergence_count=state.divergence_count + divergent.to(torch.int32))
+    return new_state, accept, q1, p1, log_alpha, divergent

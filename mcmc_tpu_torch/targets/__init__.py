@@ -7,12 +7,18 @@ counterpart of the JAX package's ``pallas_info``, and what the fused kernels
 dispatch on (``mcmc_tpu_torch.ops.padded_targets``).
 
 Ported so far: ``standard_normal``, ``neals_funnel``,
-``correlated_gaussian`` (the dense-metric NUTS row's target),
-``gaussian_mixture`` (the tempered and SMC rows' target) and
-``hierarchical_logistic`` (BASELINE config 5, ``targets/hierarchical.py``;
-its tag carries the data set X and y). ``get_target`` raises for every other
-name; ``get_reference_sampler`` gives the exact i.i.d. samplers of the ported
-targets that have one.
+``neals_funnel_noncentered`` (the ChEES row's target, with
+``funnel_transform``), ``ill_conditioned_gaussian``, ``student_t``,
+``log_gamma`` (support "positive"), ``correlated_gaussian`` (the
+dense-metric NUTS row's target), ``gaussian_mixture`` (the tempered and SMC
+rows' target) and ``hierarchical_logistic`` (BASELINE config 5,
+``targets/hierarchical.py``; its tag carries the data set X and y), and the
+``unconstrain_target`` layer: ``<name>_unconstrained`` is the
+log-transformed reparameterization of a positive-support target
+(``log_gamma_unconstrained``, tagged for the kernels, or a generic
+chain-rule wrapper without a tag). ``get_target`` raises for every other
+name; ``get_reference_sampler`` gives the exact i.i.d. samplers of the
+ported targets that have one.
 """
 
 import math
@@ -24,8 +30,16 @@ LOG_2PI = math.log(2.0 * math.pi)
 
 
 class TargetDistribution(NamedTuple):
-    """Target specification; the field names of the JAX package's
-    TargetDistribution that this slice needs."""
+    """Target specification, with the JAX package's TargetDistribution
+    fields and defaults.
+
+    transform: an optional map from the sampled coordinates to the
+    coordinates of interest (a non-centered or unconstrained
+    parameterization), transform_target the registered target whose exact
+    sampler lives in the transformed coordinates. support: "real" or
+    "positive" (x > 0 coordinate-wise; unconstrain_target builds the
+    log-transformed target from it). transform_true_mean/cov: the analytic
+    moments of transform(samples), set by reparameterized targets."""
     log_prob_fn: Callable[[torch.Tensor], torch.Tensor]
     dim: int
     true_mean: Optional[torch.Tensor]
@@ -36,6 +50,11 @@ class TargetDistribution(NamedTuple):
     value_and_grad_fn: Optional[Callable] = None  # x (..., dim) -> (lp (...,), grad (..., dim))
     family: str = ""
     params: Dict[str, Any] = {}
+    transform: Optional[Callable] = None
+    transform_target: Optional[str] = None
+    support: str = "real"
+    transform_true_mean: Optional[torch.Tensor] = None
+    transform_true_cov: Optional[torch.Tensor] = None
 
 
 def _tag(fn, family, dim, **params):
@@ -122,6 +141,292 @@ def neals_funnel(dim: int = 10) -> TargetDistribution:
         value_and_grad_fn=value_and_grad_fn,
         family="neals_funnel",
         params={},
+    )
+
+
+def funnel_transform(y: torch.Tensor) -> torch.Tensor:
+    """Map non-centered funnel draws y = (v, z) to centered funnel
+    coordinates x = (v, z exp(v / 2)); batched over leading axes."""
+    v = y[..., :1]
+    return torch.cat([v, y[..., 1:] * torch.exp(v / 2.0)], dim=-1)
+
+
+def neals_funnel_noncentered(dim: int = 10) -> TargetDistribution:
+    """Neal's funnel, non-centered: sample v ~ N(0, 9) and z_i ~ N(0, 1)
+    i.i.d. (a diagonal Gaussian) and recover funnel draws with
+    funnel_transform (x0 = v, x_i = z_i exp(v / 2)), which has the funnel's
+    exact moments. Gradients: d/dv = -v / 9, d/dz_i = -z_i."""
+    d_rest = dim - 1
+    log_2pi9 = math.log(2.0 * math.pi * 9.0)
+
+    def value_and_grad_fn(y):
+        v = y[..., 0]
+        z = y[..., 1:]
+        lp = (-0.5 * (v * v / 9.0 + log_2pi9)
+              - 0.5 * (torch.sum(z * z, dim=-1) + d_rest * LOG_2PI))
+        return lp, torch.cat([(-v / 9.0)[..., None], -z], dim=-1)
+
+    def log_prob_fn(y):
+        return value_and_grad_fn(y)[0]
+
+    true_cov_diag = torch.cat([torch.tensor([9.0], dtype=torch.float64),
+                               torch.ones(dim - 1, dtype=torch.float64)])
+    _tag(value_and_grad_fn, "neals_funnel_noncentered", dim)
+    return TargetDistribution(
+        log_prob_fn=log_prob_fn,
+        dim=dim,
+        true_mean=torch.zeros(dim, dtype=torch.float64),
+        true_cov=torch.diag(true_cov_diag),
+        name=f"NealsFunnelNonCentered{dim}D",
+        description=(f"{dim}D Neal's funnel, non-centered parameterization - "
+                     f"same funnel moments via funnel_transform"),
+        value_and_grad_fn=value_and_grad_fn,
+        family="neals_funnel_noncentered",
+        params={},
+        transform=funnel_transform,
+        transform_target="neals_funnel",
+    )
+
+
+def ill_conditioned_gaussian(dim: int = 10,
+                             condition_number: float = 100.0) -> TargetDistribution:
+    """Diagonal Gaussian with eigenvalues linspace(1, kappa, D):
+    grad = -x / lambda."""
+    eigenvalues = torch.linspace(1.0, condition_number, dim, dtype=torch.float64)
+    inv_eig = 1.0 / eigenvalues
+    log_det_cov = float(torch.sum(torch.log(eigenvalues)))
+
+    def value_and_grad_fn(x):
+        sigma_inv_x = x * inv_eig.to(device=x.device, dtype=x.dtype)
+        mahal = torch.sum(sigma_inv_x * x, dim=-1)
+        lp = -0.5 * (mahal + log_det_cov + x.shape[-1] * LOG_2PI)
+        return lp, -sigma_inv_x
+
+    def log_prob_fn(x):
+        return value_and_grad_fn(x)[0]
+
+    _tag(value_and_grad_fn, "ill_conditioned_gaussian", dim,
+         condition_number=condition_number)
+    return TargetDistribution(
+        log_prob_fn=log_prob_fn,
+        dim=dim,
+        true_mean=torch.zeros(dim, dtype=torch.float64),
+        true_cov=torch.diag(eigenvalues),
+        name=f"IllConditioned{dim}D_kappa{int(condition_number)}",
+        description=f"{dim}D Gaussian with kappa={condition_number} - tests ill-conditioning",
+        value_and_grad_fn=value_and_grad_fn,
+        family="ill_conditioned_gaussian",
+        params={"condition_number": condition_number},
+    )
+
+
+def student_t_log_norm(df: float) -> float:
+    """log of the Student-t(df) density's normalizer, in double."""
+    return (math.lgamma((df + 1.0) / 2.0) - math.lgamma(df / 2.0)
+            - 0.5 * math.log(df * math.pi))
+
+
+def student_t(dim: int = 10, df: float = 3.0) -> TargetDistribution:
+    """Independent Student-t(df) per coordinate:
+    grad_i = -(df + 1) x_i / (df + x_i^2)."""
+    log_norm = student_t_log_norm(df)
+
+    def value_and_grad_fn(x):
+        lp = (x.shape[-1] * log_norm
+              - ((df + 1.0) / 2.0) * torch.sum(torch.log1p(x * x / df), dim=-1))
+        return lp, -(df + 1.0) * x / (df + x * x)
+
+    def log_prob_fn(x):
+        return value_and_grad_fn(x)[0]
+
+    def init_sampler(generator, n_chains, dtype=torch.float32):
+        # overdispersed (sd 2) to cover the heavy tails, as the JAX package's
+        return _randn(generator, (n_chains, dim), dtype) * 2.0
+
+    true_cov = (torch.eye(dim, dtype=torch.float64) * (df / (df - 2.0))
+                if df > 2 else None)
+    _tag(value_and_grad_fn, "student_t", dim, df=df)
+    return TargetDistribution(
+        log_prob_fn=log_prob_fn,
+        dim=dim,
+        true_mean=torch.zeros(dim, dtype=torch.float64),
+        true_cov=true_cov,
+        name=f"StudentT{dim}D_df{df}",
+        description=(f"{dim}D independent Student-t(df={df}) - tests heavy tails "
+                     f"and non-Gaussian geometry"),
+        init_sampler=init_sampler,
+        value_and_grad_fn=value_and_grad_fn,
+        family="student_t",
+        params={"df": df},
+    )
+
+
+def gamma_log_norm(shape: float, rate: float) -> float:
+    """log Z of the Gamma(shape, rate) density as the JAX package writes it,
+    gammaln(shape) + shape log(rate), in double."""
+    return math.lgamma(shape) + shape * math.log(rate)
+
+
+def standard_gamma(generator: torch.Generator, shape: float, size,
+                   dtype=torch.float64) -> torch.Tensor:
+    """Gamma(shape, 1) draws from `generator` on its device (Marsaglia and
+    Tsang's squeeze-free rejection, in float64; shape < 1 through
+    Gamma(shape + 1) U^(1 / shape)). The rounds of the rejection loop read
+    one count back to the host each."""
+    boost = shape < 1.0
+    d = (shape + 1.0 if boost else shape) - 1.0 / 3.0
+    c = 1.0 / math.sqrt(9.0 * d)
+    dev = generator.device
+    out = torch.empty(size, dtype=torch.float64, device=dev).reshape(-1)
+    todo = torch.arange(out.numel(), device=dev)
+    while todo.numel():
+        z = torch.randn(todo.numel(), generator=generator, device=dev, dtype=torch.float64)
+        u = torch.rand(todo.numel(), generator=generator, device=dev, dtype=torch.float64)
+        v = (1.0 + c * z) ** 3
+        ok = (v > 0) & (torch.log(u) < 0.5 * z * z + d - d * v
+                        + d * torch.log(torch.clamp(v, min=1e-300)))
+        out[todo[ok]] = d * v[ok]
+        todo = todo[~ok]
+    if boost:
+        u = torch.rand(out.shape, generator=generator, device=dev, dtype=torch.float64)
+        out = out * u ** (1.0 / shape)
+    return out.reshape(size).to(dtype)
+
+
+def log_gamma(dim: int = 10, shape: float = 2.0, rate: float = 1.0) -> TargetDistribution:
+    """Independent Gamma(shape, rate) per coordinate, -inf outside x > 0
+    (the log(max(x, 1e-10)) clamp of the JAX package): grad_i = (shape - 1)
+    1{x_i > eps} / max(x_i, eps) - rate, zero when any coordinate is
+    non-positive."""
+    eps = 1e-10
+    log_normalizer = gamma_log_norm(shape, rate)
+
+    def value_and_grad_fn(x):
+        valid = torch.all(x > 0, dim=-1)
+        xc = torch.clamp(x, min=eps)
+        log_pdf = (shape - 1.0) * torch.log(xc) - rate * x - log_normalizer
+        lp = torch.where(valid, torch.sum(log_pdf, dim=-1),
+                         torch.full_like(log_pdf[..., 0], -math.inf))
+        g = (shape - 1.0) * torch.where(x > eps, 1.0 / xc, torch.zeros_like(x)) - rate
+        return lp, torch.where(valid[..., None], g, torch.zeros_like(g))
+
+    def log_prob_fn(x):
+        return value_and_grad_fn(x)[0]
+
+    def init_sampler(generator, n_chains, dtype=torch.float32):
+        return standard_gamma(generator, shape, (n_chains, dim), dtype) / rate
+
+    _tag(value_and_grad_fn, "log_gamma", dim, shape=shape, rate=rate)
+    return TargetDistribution(
+        log_prob_fn=log_prob_fn,
+        dim=dim,
+        true_mean=torch.full((dim,), shape / rate, dtype=torch.float64),
+        true_cov=torch.eye(dim, dtype=torch.float64) * (shape / rate ** 2),
+        name=f"LogGamma{dim}D_shape{shape}_rate{rate}",
+        description=f"{dim}D independent Gamma - tests heavy tails and asymmetry",
+        init_sampler=init_sampler,
+        value_and_grad_fn=value_and_grad_fn,
+        family="log_gamma",
+        params={"shape": shape, "rate": rate},
+        support="positive",
+    )
+
+
+def _digamma_trigamma(x: float):
+    """(digamma(x), trigamma(x)) for x > 0 in double: the recurrences up to
+    x >= 20, then the asymptotic series (error below 1e-16 there)."""
+    psi, psi1 = 0.0, 0.0
+    while x < 20.0:
+        psi -= 1.0 / x
+        psi1 += 1.0 / (x * x)
+        x += 1.0
+    z2 = 1.0 / (x * x)
+    psi += (math.log(x) - 0.5 / x
+            - z2 * (1.0 / 12 - z2 * (1.0 / 120 - z2 * (1.0 / 252 - z2 * (1.0 / 240
+                                                                      - z2 / 132)))))
+    psi1 += (1.0 / x + 0.5 * z2
+             + z2 / x * (1.0 / 6 - z2 * (1.0 / 30 - z2 * (1.0 / 42 - z2 * (1.0 / 30
+                                                                         - z2 * 5.0 / 66)))))
+    return psi, psi1
+
+
+def exp_transform(y: torch.Tensor) -> torch.Tensor:
+    """Map unconstrained draws y back to the positive orthant, x = e^y."""
+    return torch.exp(y)
+
+
+def unconstrain_target(target: TargetDistribution,
+                       registry_name: Optional[str] = None) -> TargetDistribution:
+    """The log-transformed reparameterization of a positive-support target
+    (Stan's transform layer): sample y = log x over R^D with log p_y(y) =
+    log p_x(e^y) + sum(y), and map draws back with exp. A support="real"
+    target comes back unchanged.
+
+    For log_gamma the density is analytic (expGamma): lp = sum(shape y -
+    rate e^y) - D log Z, E[y] = digamma(shape) - log(rate), Var[y] =
+    trigamma(shape), tagged "log_gamma_unconstrained" for the fused
+    kernels. Any other positive-support target gets a chain-rule wrapper
+    (grad_y = grad_x(e^y) e^y + 1) with no tag, so it runs eager.
+    registry_name: the registry key of `target`, whose exact sampler lives
+    in the transformed coordinates."""
+    if target.support == "real":
+        return target
+    if target.support != "positive":
+        raise ValueError(f"No unconstraining transform for support="
+                         f"{target.support!r} (target {target.name})")
+    dim = target.dim
+    if target.family == "log_gamma":
+        shape, rate = target.params["shape"], target.params["rate"]
+        log_normalizer = gamma_log_norm(shape, rate)
+
+        def value_and_grad_fn(y):
+            ey = torch.exp(y)
+            lp = torch.sum(shape * y - rate * ey, dim=-1) - dim * log_normalizer
+            return lp, shape - rate * ey
+
+        _tag(value_and_grad_fn, "log_gamma_unconstrained", dim, shape=shape, rate=rate)
+        psi, psi1 = _digamma_trigamma(shape)
+        true_mean = torch.full((dim,), psi - math.log(rate), dtype=torch.float64)
+        true_cov = torch.eye(dim, dtype=torch.float64) * psi1
+        family = "log_gamma_unconstrained"
+    else:
+        base_vag = target.value_and_grad_fn
+
+        def value_and_grad_fn(y):
+            x = torch.exp(y)
+            lp_x, g_x = base_vag(x)
+            return lp_x + torch.sum(y, dim=-1), g_x * x + 1.0
+
+        true_mean = true_cov = None
+        family = f"{target.family}_unconstrained"
+
+    def log_prob_fn(y):
+        return value_and_grad_fn(y)[0]
+
+    init_sampler = None
+    if target.init_sampler is not None:
+        base_init = target.init_sampler
+
+        def init_sampler(generator, n_chains, dtype=torch.float32):
+            return torch.log(torch.clamp(base_init(generator, n_chains, dtype), min=1e-12))
+
+    return TargetDistribution(
+        log_prob_fn=log_prob_fn,
+        dim=dim,
+        true_mean=true_mean,
+        true_cov=true_cov,
+        name=f"{target.name}_log",
+        description=(f"log-transformed (unconstrained) reparameterization "
+                     f"of {target.name}; draws map back via exp"),
+        init_sampler=init_sampler,
+        value_and_grad_fn=value_and_grad_fn,
+        family=family,
+        params=dict(target.params),
+        transform=exp_transform,
+        transform_target=registry_name,
+        support="real",
+        transform_true_mean=target.true_mean,
+        transform_true_cov=target.true_cov,
     )
 
 
@@ -232,6 +537,10 @@ from mcmc_tpu_torch.targets.hierarchical import hierarchical_logistic  # noqa: E
 _TARGETS = {
     "standard_normal": standard_normal,
     "neals_funnel": neals_funnel,
+    "neals_funnel_noncentered": neals_funnel_noncentered,
+    "ill_conditioned_gaussian": ill_conditioned_gaussian,
+    "student_t": student_t,
+    "log_gamma": log_gamma,
     "correlated_gaussian": correlated_gaussian,
     "gaussian_mixture": gaussian_mixture,
     "hierarchical_logistic": hierarchical_logistic,
@@ -240,7 +549,11 @@ _TARGETS = {
 
 def get_target(name: str, dim: int = 10, **kwargs) -> TargetDistribution:
     """A ported target by name (keyword parameters go to its factory);
-    raises ValueError for any other name."""
+    '<name>_unconstrained' is unconstrain_target of the target <name>.
+    Raises ValueError for any other name."""
+    if name.endswith("_unconstrained"):
+        base = name[:-len("_unconstrained")]
+        return unconstrain_target(get_target(base, dim=dim, **kwargs), registry_name=base)
     if name not in _TARGETS:
         raise ValueError(f"Unknown or not yet ported target '{name}'. "
                          f"Available: {sorted(_TARGETS)}")
@@ -252,10 +565,22 @@ def get_reference_sampler(name: str, dim: int = 10, **kwargs):
     target, or None where it has none (the hierarchical posterior, a mixture
     of other than two modes), as the JAX package's get_reference_sampler
     (`mcmc_tpu/targets/__init__.py:655`). The draws come from the
-    generator, so they are the JAX sampler's in distribution, not in value."""
+    generator, so they are the JAX sampler's in distribution, not in value.
+    '<name>_unconstrained' samples log x from the base target's exact draws,
+    clamped at finfo(float64).tiny (the JAX package's 1e-300 clamp, which
+    does nothing in float32, is a known fault there)."""
     def normal(g, shape):
         return _randn(g, shape, torch.float64)
 
+    if name.endswith("_unconstrained"):
+        inner = get_reference_sampler(name[:-len("_unconstrained")], dim, **kwargs)
+        if inner is None:
+            return None
+
+        def logged(g, n):
+            x = inner(g, n)
+            return torch.log(torch.clamp(x, min=torch.finfo(x.dtype).tiny))
+        return logged
     if name == "standard_normal":
         return lambda g, n: normal(g, (n, dim))
     if name == "correlated_gaussian":
@@ -263,12 +588,32 @@ def get_reference_sampler(name: str, dim: int = 10, **kwargs):
         cov = (1.0 - rho) * torch.eye(dim, dtype=torch.float64) + rho
         chol = torch.linalg.cholesky(cov)
         return lambda g, n: normal(g, (n, dim)) @ chol.to(g.device).T
+    if name == "ill_conditioned_gaussian":
+        kappa = kwargs.get("condition_number", 100.0)
+        scales = torch.sqrt(torch.linspace(1.0, kappa, dim, dtype=torch.float64))
+        return lambda g, n: normal(g, (n, dim)) * scales.to(g.device)
+    if name == "student_t":
+        df = kwargs.get("df", 3.0)
+
+        def student(g, n):
+            z = normal(g, (n, dim))
+            chi2 = standard_gamma(g, df / 2.0, (n, 1)) * 2.0
+            return z / torch.sqrt(chi2 / df)
+        return student
+    if name == "log_gamma":
+        shape, rate = kwargs.get("shape", 2.0), kwargs.get("rate", 1.0)
+        return lambda g, n: standard_gamma(g, shape, (n, dim)) / rate
     if name == "neals_funnel":
         def funnel(g, n):
             v = normal(g, (n,)) * 3.0
             rest = normal(g, (n, dim - 1)) * torch.exp(v / 2.0)[:, None]
             return torch.cat([v[:, None], rest], dim=1)
         return funnel
+    if name == "neals_funnel_noncentered":
+        def noncentered(g, n):
+            v = normal(g, (n, 1)) * 3.0
+            return torch.cat([v, normal(g, (n, dim - 1))], dim=1)
+        return noncentered
     if name == "gaussian_mixture":
         if kwargs.get("n_modes", 2) != 2:
             return None
@@ -285,7 +630,10 @@ def get_reference_sampler(name: str, dim: int = 10, **kwargs):
 def has_reference_sampler(name: str) -> bool:
     """Whether get_reference_sampler(name) gives a sampler (with the
     factory's default parameters): the JAX package's answer for every
-    ported target (`mcmc_tpu/targets/__init__.py:751`); False for names not
-    ported yet."""
-    return name in ("standard_normal", "correlated_gaussian", "neals_funnel",
+    ported target (`mcmc_tpu/targets/__init__.py:751`), '<name>_unconstrained'
+    included; False for names not ported yet."""
+    if name.endswith("_unconstrained"):
+        return has_reference_sampler(name[:-len("_unconstrained")])
+    return name in ("standard_normal", "correlated_gaussian", "ill_conditioned_gaussian",
+                    "student_t", "log_gamma", "neals_funnel", "neals_funnel_noncentered",
                     "gaussian_mixture")

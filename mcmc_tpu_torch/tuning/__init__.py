@@ -1,10 +1,16 @@
 """Adaptive warmup: dual averaging, Welford mass-matrix learning, windowed
-adaptation, sequential ESJD friction tuning, tempering-ladder tuning (port
-of ``mcmc_tpu.tuning``;
+adaptation, sequential ESJD friction tuning, ChEES trajectory-length
+adaptation and jittered sampling, tempering-ladder tuning (port of
+``mcmc_tpu.tuning``;
 the per-sampler convergence-driven DA tuners and the deprecated joint GRAHMC
 tuner are not ported yet)."""
 
 from mcmc_tpu_torch.tuning.adaptation import build_schedule, run_adaptive_warmup
+from mcmc_tpu_torch.tuning.chees import (
+    CHEES_ADAM_LR, DEFAULT_MAX_STEPS, ChEESState, GammaSPSAState, chees_init,
+    chees_log_t_grad, chees_run, chees_update, gamma_spsa_batch_update, gamma_spsa_init,
+    halton_sequence, num_leapfrog_steps, run_chees_warmup, scale_default_schedule,
+)
 from mcmc_tpu_torch.tuning.dual_averaging import (
     TARGET_ACCEPT_GRAHMC, TARGET_ACCEPT_HMC, DualAveragingState,
     da_final_step_size, da_init, da_reset, da_step_size, da_update,
@@ -24,4 +30,8 @@ __all__ = [
     "da_final_step_size", "TARGET_ACCEPT_HMC", "TARGET_ACCEPT_GRAHMC",
     "build_schedule", "run_adaptive_warmup", "sequential_tune_grahmc",
     "DEFAULT_SWAP_TARGET", "geometric_spacings", "spacings_to_betas", "tune_ladder",
+    "CHEES_ADAM_LR", "DEFAULT_MAX_STEPS", "ChEESState", "GammaSPSAState", "chees_init",
+    "chees_update", "chees_log_t_grad", "chees_run", "run_chees_warmup", "gamma_spsa_init",
+    "gamma_spsa_batch_update", "halton_sequence", "num_leapfrog_steps",
+    "scale_default_schedule",
 ]

@@ -19,6 +19,7 @@ torch.set_num_threads(1)
 from mcmc_tpu_torch.ops import fused_nuts as fn  # noqa: E402
 from mcmc_tpu_torch.ops import fused_rwmh as fr  # noqa: E402
 from mcmc_tpu_torch.ops import fused_trajectory as ft  # noqa: E402
+from mcmc_tpu_torch.ops import padded_targets as pt  # noqa: E402
 from mcmc_tpu_torch.samplers import grahmc as tg  # noqa: E402
 from mcmc_tpu_torch.samplers import nuts_persistent as tn  # noqa: E402
 from mcmc_tpu_torch.samplers import rwmh as tr  # noqa: E402
@@ -641,3 +642,204 @@ def test_smc_draws_repeat(dev):
         for r in runs[1:]:
             assert torch.equal(runs[0].log_Z, r.log_Z), seed
             assert torch.equal(runs[0].particles, r.particles), seed
+
+
+NEW_FAMILIES = ["neals_funnel_noncentered", "ill_conditioned_gaussian", "student_t",
+                "log_gamma", "log_gamma_unconstrained"]
+# the families' bounds at these tests' sizes: kernels 1, 1b, 1c's drifted
+# proposals and proposals diverged apart (each rejected by both) of 1,200
+# chains, kernel 4's drifted trajectories in flight of 2,048; ~4x the
+# largest count read on an H100 (log_gamma 1, 5 and 8; the unconstrained
+# gamma's 1b with a dense metric at D 50-128, whose hot rungs' leapfrog
+# diverges in both versions, 0, 181 and 0; every other family 0, 0 and 0)
+FAMILY_DRIFT = {"log_gamma": (4, 20, 32), "log_gamma_unconstrained": (0, 724, 2)}
+FAMILY_STEP = {"neals_funnel_noncentered": 0.3, "ill_conditioned_gaussian": 0.3,
+               "student_t": 0.3, "log_gamma": 0.1, "log_gamma_unconstrained": 0.2,
+               "correlated_gaussian": 0.1, "gaussian_mixture": 0.3, "standard_normal": 0.3}
+
+
+def _family_inputs(dev, family, dim, chains, seed):
+    """(info, q, lp, grad, generator) with q in the family's bulk: log_gamma
+    away from its support's boundary, the ill-conditioned Gaussian at its
+    scales, the mixture half in each mode."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    t = get_target(family, dim=dim)
+    q = torch.randn((chains, dim), generator=g, device=dev) * 0.5
+    if family == "log_gamma":
+        q = torch.rand((chains, dim), generator=g, device=dev) * 2.0 + 0.5
+    elif family == "log_gamma_unconstrained":
+        q = q + 0.4
+    elif family == "ill_conditioned_gaussian":
+        q = q * torch.sqrt(torch.linspace(1.0, 100.0, dim, device=dev))
+    elif family == "gaussian_mixture":
+        q = t.init_sampler(g, chains)
+    lp, grad = t.value_and_grad_fn(q)
+    return t.value_and_grad_fn.kernel_info, q, lp.contiguous(), grad.contiguous(), g
+
+
+def _assert_close_or_drift(kern, plain, log_u, max_drift, max_wild):
+    """_assert_close where the geometry may amplify rounding (log_gamma's
+    (shape - 1) / x near its boundary, Student-t's convex tails): accepts
+    equal away from the MH borderline; a proposal apart from the plain
+    version's (beyond 1e-4) drifted, on at most `max_drift` chains (one
+    trajectory diverging alone counts here), or diverged apart where both
+    trajectories diverged (|delta H| >= 1000), on at most `max_wild`
+    chains, each rejected by both; the new state within 1e-4 wherever the
+    accepts agree but on accepted drifted chains."""
+    acc_k, acc_p, dh_p = kern[3], plain[3], plain[4]
+    border = (log_u - torch.clamp(-dh_p, max=0.0)).abs() < 1e-4
+    assert not bool(((acc_k != acc_p) & ~border).any())
+    same = acc_k == acc_p
+    close = ((kern[5] - plain[5]).abs() <= 1e-4 + 1e-4 * plain[5].abs()).all(dim=1)
+    apart = same & ~close
+    both = (kern[4].abs() >= 1000.0) & (dh_p.abs() >= 1000.0)
+    drifted, wild = int((apart & ~both).sum()), int((apart & both).sum())
+    assert drifted <= max_drift and wild <= max_wild, (drifted, wild)
+    assert not bool((apart & both & acc_k).any())
+    in_step = same & (close | ~acc_k)
+    for a, b in zip(kern[:3], plain[:3]):
+        torch.testing.assert_close(a[in_step], b[in_step], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dense", [False, True])
+@pytest.mark.parametrize("dim", [1, 10, 50, 128])
+@pytest.mark.parametrize("family", NEW_FAMILIES)
+def test_new_families_in_kernel_1_2_and_variants(dev, family, dim, dense):
+    """Each family of the ChEES slice in kernel 1 (1a dense), 1b (three
+    rungs), 1c (beta 0.5) and kernel 2 (2a; T = 4) against the plain
+    versions, injected and Philox, with each variant's launch count."""
+    n = 1200
+    info, q, lp, grad, g = _family_inputs(dev, family, dim, n, dim + 11)
+    invm, l_inv = _dense_metric(dev, dim, g) if dense else (
+        torch.rand(dim, generator=g, device=dev) + 0.5, None)
+    eps, variant = FAMILY_STEP[family], "dense" if dense else "diagonal"
+    drift, wild, _ = FAMILY_DRIFT.get(family, (0, 0, 2))
+    args = (info, 8, ft.SCHEDULE_IDS["tanh"], q, lp, grad, ft.kernel_scalars(eps, 0.3, 2.0, dev),
+            invm)
+    betas = torch.tensor([1.0, 0.3, 0.05], device=dev)
+    beta_row = betas.repeat_interleave(n // 3)
+    sargs = args[:4] + ((beta_row * lp).contiguous(), (beta_row[:, None] * grad).contiguous(),
+                        ft.rung_table(eps / torch.sqrt(betas), 0.3, 2.0, betas, dev), invm)
+    base = ft.bridge_base(0.5, 2.0, dim, dev)
+    mixture = ft.bridged_vag(ft.device_vag(info), torch.tensor(0.5, device=dev),
+                             torch.tensor(base.log_norm, dtype=torch.float32, device=dev),
+                             base.mean, base.inv_scale)
+    blp, bgrad = mixture(q)
+    bargs = (info, 8, 0, q, blp.contiguous(), bgrad.contiguous(),
+             ft.bridge_scalars(eps, 0.0, 1.0, 0.5, base.log_norm, dev), base.mean,
+             base.inv_scale, invm)
+    cases = ((ft.grahmc_step_kernel, ft.grahmc_step_plain, args),
+             (ft.grahmc_scaled_kernel, ft.grahmc_scaled_plain, sargs),
+             (ft.grahmc_bridged_kernel, ft.grahmc_bridged_plain, bargs))
+    for kernel, plain_fn, a in cases:
+        for rand, log_u in _rand(dev, g, n, dim, invm if dense else None, l_inv):
+            before = kernel.variant_launches[variant]
+            kern = kernel(*a, l_inv=l_inv, **rand)
+            assert kernel.variant_launches[variant] == before + 1
+            _assert_close_or_drift(kern, plain_fn(*a, l_inv=l_inv, **rand), log_u, drift, wild)
+    key = torch.tensor([9, 10], dtype=torch.int32, device=dev)
+    margs = args[:3] + (4,) + args[3:]
+    before = ft.grahmc_multistep_kernel.variant_launches[variant]
+    kern = ft.grahmc_multistep_kernel(*margs, key=key, call=2, l_inv=l_inv)
+    assert ft.grahmc_multistep_kernel.variant_launches[variant] == before + 1
+    plain = ft.grahmc_multistep_plain(*margs, key=key, call=2, l_inv=l_inv)
+    agree = (kern[3] == plain[3]).all(dim=0)
+    close = ((kern[5] - plain[5]).abs() <= 1e-4 + 1e-4 * plain[5].abs()).all(dim=2).all(dim=0)
+    calm = ((kern[4].abs() < 1000.0) & (plain[4].abs() < 1000.0)).all(dim=0)
+    split, drifted = int((~agree).sum()), int((agree & ~close & calm).sum())
+    assert split <= 2 and drifted <= drift, (split, drifted)
+    torch.testing.assert_close(kern[6][:, agree & close], plain[6][:, agree & close],
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dim", [1, 10, 50, 128])
+@pytest.mark.parametrize("family", NEW_FAMILIES + ["correlated_gaussian", "gaussian_mixture"])
+def test_new_families_in_kernel_3(dev, family, dim):
+    """Kernel 3's log-density in its lane groups for the ChEES slice's
+    families and the two it gains (the correlated Gaussian, the mixture)
+    against the plain version, injected and Philox: accepts equal, states
+    and histories within 1e-4."""
+    info, q, lp, _, g = _family_inputs(dev, family, dim, 1000, dim + 2)
+    lp = pt.device_lp(info)(q).contiguous()
+    scale = fr.rwmh_scale(0.5 * FAMILY_STEP[family], dev)
+    noise = torch.randn((8, 1000, dim), generator=g, device=dev)
+    u = torch.rand((8, 1000), generator=g, device=dev).clamp_min(2.0 ** -25)
+    key = torch.tensor([7, -8], dtype=torch.int32, device=dev)
+    for rand in (dict(noise=noise, u=u), dict(key=key, call=3)):
+        before = fr.rwmh_multistep_kernel.launches
+        kern = fr.rwmh_multistep_kernel(info, 8, q, lp, scale, 37, **rand)
+        assert fr.rwmh_multistep_kernel.launches == before + 1
+        plain = fr.rwmh_multistep_plain(info, 8, q, lp, scale, 37, **rand)
+        torch.testing.assert_close(kern[2], plain[2])
+        for a, b in zip(kern[:2] + kern[3:], plain[:2] + plain[3:]):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("multinomial,dense", [(False, False), (True, False), (False, True),
+                                               (True, True)])
+@pytest.mark.parametrize("family", NEW_FAMILIES + ["gaussian_mixture"])
+def test_new_families_in_kernel_4(dev, family, multinomial, dense):
+    """Kernel 4 and its variants on the ChEES slice's families and the
+    mixture, D = 10, W = 4 over 64 slots from a state one window in, Philox:
+    window_agreement as test_nuts_window_variants_match_plain's."""
+    dim, n = 10, 2048
+    info, q, lp, grad, g = _family_inputs(dev, family, dim, n, 3)
+    step = 1.0 if family == "ill_conditioned_gaussian" else FAMILY_STEP[family]
+    scalars = fn.nuts_scalars(step, 1000.0, dev)
+    if dense:
+        metric = _dense_metric(dev, dim, g)
+        inv_mass, l_inv = metric
+    else:
+        inv_mass, l_inv = torch.rand(dim, generator=g, device=dev) + 0.5, None
+    key = torch.tensor([1, 2], dtype=torch.int32, device=dev)
+    args = (info, 16, 4, 10)
+    start = tn._init_pstate(q, lp, grad, torch.float32, multinomial=multinomial)
+    warm = fn.nuts_window_plain(*args, start, scalars, inv_mass, key=key, call=0, l_inv=l_inv)
+    name = fn.VARIANTS[(multinomial, dense)]
+
+    def clone():
+        return tn._PState(*(None if t is None else t.clone() for t in warm))
+    before = fn.nuts_window_kernel.variant_launches[name]
+    kern = fn.nuts_window_kernel(*args, clone(), scalars, inv_mass, l_inv=l_inv, key=key, call=4)
+    assert fn.nuts_window_kernel.variant_launches[name] == before + 1
+    plain = fn.nuts_window_plain(*args, clone(), scalars, inv_mass, l_inv=l_inv, key=key, call=4)
+    same, emitted, in_flight, err = fn.window_agreement(kern, plain)
+    kept = same & emitted
+    assert int((~kept).sum()) <= 2, (float(same.float().mean()), err)
+    assert int((kept & ~in_flight).sum()) <= FAMILY_DRIFT.get(family, (0, 0, 2))[2]
+    assert int((kern.transitions - warm.transitions).sum()) > 0
+
+
+def test_chees_on_the_card(dev):
+    """ChEES on CUDA positions: the warmup (eager transitions), then
+    chees_run's "auto" backend, which is kernel 1 once per draw (1a for a
+    dense metric) at the draw's jitter level, and the ChEES-tuned SMC
+    moves (eager); the noncentered funnel's moments."""
+    from mcmc_tpu_torch import tuning
+    from mcmc_tpu_torch.samplers import smc_run
+    t = get_target("neals_funnel_noncentered", dim=20)
+    q = torch.randn((2048, 20), generator=torch.Generator(device=dev).manual_seed(0),
+                    device=dev) * 0.5
+    step, inv_mass, pos, info = tuning.run_chees_warmup(
+        "hmc", t.log_prob_fn, None, q, torch.Generator(device=dev).manual_seed(1),
+        num_warmup=400, value_and_grad_fn=t.value_and_grad_fn)
+    assert not info["max_steps_cap_hit"] and 1.0 < info["trajectory_length"] < 20.0
+    ft.reset_launches()
+    res = tuning.chees_run(torch.Generator(device=dev).manual_seed(2), t.log_prob_fn, pos, step,
+                           info["trajectory_length"], 256, burn_in=64, inv_mass_matrix=inv_mass,
+                           value_and_grad_fn=t.value_and_grad_fn, collect_chains=256)
+    assert res.info["jitter_backend"] == "fused"
+    assert ft.grahmc_step_kernel.variant_launches["diagonal"] == 320
+    assert ft.grahmc_step_kernel.launches == 320
+    assert 0.5 < float(res.accept_rate.mean()) < 0.9
+    var = res.samples.reshape(-1, 20).double().var(0)
+    assert abs(float(var[0]) - 9.0) < 2.0 and float((var[1:] - 1.0).abs().max()) < 0.25
+    ft.reset_launches()
+    tuning.chees_run(torch.Generator(device=dev).manual_seed(3), t.log_prob_fn, pos, step,
+                     info["trajectory_length"], 16, inv_mass_matrix=torch.diag(inv_mass),
+                     value_and_grad_fn=t.value_and_grad_fn)
+    assert ft.grahmc_step_kernel.variant_launches["dense"] == 16
+    mt = get_target("gaussian_mixture", dim=4)
+    r = smc_run(torch.Generator(device=dev).manual_seed(4), mt.log_prob_fn, 4096, 4, 0.3, 4,
+                base_scale=6.0, value_and_grad_fn=mt.value_and_grad_fn, tune_trajectory=True)
+    assert abs(float(r.log_Z)) < 0.2 and r.info["n_leapfrogs"] > 0

@@ -62,8 +62,8 @@ def test_correlated_device_function_matches_jax_padded_vag(dim):
 def test_correlated_tag_kernel_families_and_reference_sampler():
     """The tag holds a, b and log|Sigma| as the JAX package computes them;
     target_from_tag carries a JAX tag across; kernels 1, 2 and 4 dispatch
-    on the family, kernel 3 does not; the exact sampler has covariance
-    Sigma."""
+    on the family, and kernel 3 too (its lane-group order); the exact
+    sampler has covariance Sigma."""
     t = tt.get_target("correlated_gaussian", dim=7)
     info = kernel_info(t.value_and_grad_fn, "nuts")
     theirs = jt.get_target("correlated_gaussian", dim=7).value_and_grad_fn.pallas_info
@@ -72,9 +72,8 @@ def test_correlated_tag_kernel_families_and_reference_sampler():
     assert interop.target_from_tag(theirs).params == {"correlation": pytest.approx(0.9)}
     assert device_params(info)[:2] == (info["params"]["a"], info["params"]["b"])
     assert kernel_info(t.value_and_grad_fn, "grahmc") is info
-    assert "correlated_gaussian" not in KERNEL_FAMILIES["rwmh"]
-    with pytest.raises(KeyError):
-        kernel_info(t.value_and_grad_fn, "rwmh")
+    assert "correlated_gaussian" in KERNEL_FAMILIES["rwmh"]
+    assert kernel_info(t.value_and_grad_fn, "rwmh") is info
     with pytest.raises(ValueError):
         interop.target_from_tag(dict(theirs, params=dict(theirs["params"], a=3.0)))
     draws = tt.get_reference_sampler("correlated_gaussian", 7)(

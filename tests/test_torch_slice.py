@@ -92,8 +92,8 @@ def test_state_carried_across_gives_the_same_transition():
 
 def test_target_from_tag_rejects_unported_and_bad_params():
     with pytest.raises(ValueError):
-        interop.target_from_tag({"family": "student_t", "dim": 5,
-                                 "params": {"df": 3.0}})
+        interop.target_from_tag({"family": "rosenbrock", "dim": 5,
+                                 "params": {"scale": 0.1}})
     with pytest.raises(ValueError):
         interop.target_from_tag({"family": "neals_funnel", "dim": 5,
                                  "params": {"scale": 2.0}})

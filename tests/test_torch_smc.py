@@ -146,7 +146,7 @@ def test_weight_reductions_and_weighted_moments_match_jax():
 
 def test_schedule_validation_and_refusals():
     """Bad schedules and arguments raise with the JAX package's messages;
-    tune_trajectory raises until ChEES is ported."""
+    tune_trajectory refuses the fused (fixed-length) move backend."""
     t = t_get_target("standard_normal", dim=2)
     kw = dict(n_particles=64, dim=2, step_size=0.5, num_steps=4)
     for betas, match in (([0.3, 0.9], r"betas\[-1\] must be 1"),
@@ -159,8 +159,8 @@ def test_schedule_validation_and_refusals():
         _smc(t, base_scale=-1.0, **kw)
     with pytest.raises(ValueError, match="n_particles"):
         _smc(t, **dict(kw, n_particles=1))
-    with pytest.raises(NotImplementedError, match="ChEES"):
-        _smc(t, tune_trajectory=True, **kw)
+    with pytest.raises(ValueError, match="tune_trajectory"):
+        _smc(t, tune_trajectory=True, move_backend="fused", **kw)
 
 
 def test_resolve_move_backend():
@@ -281,3 +281,45 @@ def test_prefix_sum_is_the_cumsum_in_a_fixed_order():
                        final_resample=True) for _ in range(2)]
     assert torch.equal(runs[0].log_Z, runs[1].log_Z)
     assert torch.equal(runs[0].particles, runs[1].particles)
+
+
+def test_chees_tuned_moves_match_jax_statistically():
+    """tune_trajectory=True against the JAX package on its own test's
+    problem (tests/test_smc.py:253): N(0, 4 I) in 4-D from N(0, 2^2 I), 25
+    fixed stages of 4 moves, T0 = 2 x 0.3, at most 32 leapfrogs. T climbs
+    toward the sigma = 2 quarter period (~3.1); the port's final T and
+    realized leapfrog count land within the JAX runs' range over three keys
+    widened by the larger of 25% of their mean and three of their standard
+    deviations; the evidence stays exact (|log Z| < 0.15) and one seed
+    repeats bit for bit."""
+    dim = 4
+
+    def lp_j(x):
+        return -0.125 * jnp.sum(x * x, axis=-1) - 0.5 * dim * jnp.log(2 * jnp.pi * 4.0)
+
+    def vag(x):
+        return (-0.125 * torch.sum(x * x, dim=-1) - 0.5 * dim * np.log(2 * np.pi * 4.0),
+                -0.25 * x)
+    betas = np.linspace(0.05, 1.0, 25)
+    kw = dict(n_particles=2048, dim=dim, step_size=0.3, num_steps=2, move_steps=4,
+              tune_trajectory=True, max_leapfrogs=32, base_scale=2.0)
+    jax_runs = []
+    for seed in range(3):
+        r = jsmc.smc_run(random.PRNGKey(seed), lp_j, betas=jnp.asarray(betas), **kw)
+        jax_runs.append((float(r.info["final_trajectory_length"]),
+                         int(r.info["n_leapfrogs"])))
+        assert abs(float(r.log_Z)) < 0.15
+    runs = [ts.smc_run(torch.Generator().manual_seed(seed), lambda x: vag(x)[0],
+                       betas=torch.tensor(betas), value_and_grad_fn=vag, dtype=torch.float64,
+                       **kw) for seed in (0, 0, 1)]
+    assert float(runs[0].log_Z) == float(runs[1].log_Z)
+    assert runs[0].info["n_leapfrogs"] == runs[1].info["n_leapfrogs"]
+    for r in runs[1:]:
+        assert r.info["n_stages"] == 25 and abs(float(r.log_Z)) < 0.15
+        np.testing.assert_allclose(float(r.info["trajectory_length"][0]), 0.6, rtol=1e-6)
+        assert 0 < r.info["n_leapfrogs"] < 25 * 4 * 32
+        for value, column in ((float(r.info["final_trajectory_length"]), 0),
+                              (r.info["n_leapfrogs"], 1)):
+            ref = np.asarray([run[column] for run in jax_runs], np.float64)
+            pad = max(0.25 * ref.mean(), 3.0 * ref.std())
+            assert ref.min() - pad < value < ref.max() + pad, (value, jax_runs)
