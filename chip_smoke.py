@@ -58,7 +58,21 @@ NUTS row and a dense-warmup GRAHMC row on the port:
   GRAHMC (kernels 1, 2), RWMH (3) and persistent NUTS (4), held to their
   exact samplers' means; before the rows, every kernel and variant on
   them (and kernel 3 on the correlated Gaussian, kernels 3 and 4 on the
-  mixture) against the plain versions at D = 10 and 50.
+  mixture) against the plain versions at D = 10 and 50;
+- Rosenbrock and the RAHMC paper's targets at the same cell size [5o]:
+  the 10-D Rosenbrock under GRAHMC with the dense learned metric at L = 64
+  (kernels 1a, 2a), RWMH (dual_averaging_tune_rwmh, kernel 3) and
+  persistent NUTS (the persistent warmup's kernel-4 windows, kernel 4b), a
+  20-D GRAHMC run whose means are held against the JAX package's shipped
+  long-NUTS draws (read as data), and the bimodal funnel and the
+  concentric and nested L1 shells under all three (kernels 1-4), gated
+  where the JAX package passes through the same protocol
+  (experiments/torch_rahmc_witness.py); every kernel on the four families
+  against its plain version first [3g], and each (kernel, family) pair
+  timed at its cell's shape [6h];
+- classic NUTS (samplers.nuts, eager) at 1,024 chains on the 10-D
+  standard normal and Student-t [5p], and generate_rosenbrock_reference at
+  a cut [5q].
 
 --multistep-switch adds a measurement that gates nothing: grahmc_run at
 1,024 and 4,096 chains through the multi-transition dispatch (T = 8)
@@ -73,9 +87,10 @@ and the SMC row's warm run repeated with each, printing log Z's bits so
 that two processes can be compared. It exits 0 whatever it finds.
 
 Every phase passes or raises; there is no CPU path. The last two lines are a
-JSON object describing each kernel and kernel variant (its launches on the
-main paths, error against its plain version, time, the plain version's
-time and the least time the card could take) and {"ok": true, "device": {...}}.
+JSON object describing each kernel and kernel variant, and each (kernel,
+family) pair of the new families (its launches on the main paths, error
+against its plain version, time, the plain version's time and the least
+time the card could take) and {"ok": true, "device": {...}}.
 """
 
 import json
@@ -233,6 +248,18 @@ FAMILY_L = 16
 FAMILY_STEP = {"neals_funnel_noncentered": 0.3, "ill_conditioned_gaussian": 0.3,
                "student_t": 0.3, "log_gamma": 0.1, "log_gamma_unconstrained": 0.2,
                "correlated_gaussian": 0.1, "gaussian_mixture": 0.3}
+# Rosenbrock and the RAHMC paper's families, in every kernel and
+# variant [3g]: at the D of each of their [5o] cells (the shapes the main
+# path gives the kernels; a (kernel, family) pair's max |err| in the
+# kernels line is read at its timed cell's D, phase_timing_rahmc's) and at
+# D = 10 and 50 (the L1 shells' centres, Rosenbrock's neighbour exchange
+# within a lane and across registers); the bimodal funnel at its own D = 2
+RAHMC_FAMILIES = ("rosenbrock", "multimodal_funnel_2d", "concentric_l1_balls", "nested_l1_balls")
+FAMILY_KERNELS.update({f: ("grahmc", "rwmh", "nuts") for f in RAHMC_FAMILIES})
+RAHMC_PARITY_DIMS = {"rosenbrock": (10, 20, 50), "multimodal_funnel_2d": (2,),
+                     "concentric_l1_balls": (2, 10, 50), "nested_l1_balls": (2, 10, 50)}
+FAMILY_STEP.update({"rosenbrock": 0.02, "multimodal_funnel_2d": 0.3,
+                    "concentric_l1_balls": 0.1, "nested_l1_balls": 0.1})
 # families whose geometry amplifies rounding (near log_gamma's boundary the
 # gradient (shape - 1) / x kicks the momentum, past |x| = sqrt(df)
 # Student-t's log-density is convex, the mixture's barrier is a concave
@@ -245,7 +272,11 @@ FAMILY_STEP = {"neals_funnel_noncentered": 0.3, "ill_conditioned_gaussian": 0.3,
 # mixture (kernels 3 and 4 only) 28 in flight. Any other family: 0, 0 and
 # SPLIT_MAX.
 FAMILY_DRIFT = {"log_gamma": (2e-3, 2e-2, 3.6e-2), "student_t": (5e-4, 0.0, SPLIT_MAX),
-                "gaussian_mixture": (0.0, 0.0, 7e-3)}
+                "gaussian_mixture": (0.0, 0.0, 7e-3),
+                # the bimodal funnel's neck: 3 of 16,384 kernel-1
+                # proposals diverged in both versions (0 drifted, 0 in flight);
+                # the other new families read 0 everywhere
+                "multimodal_funnel_2d": (0.0, 8e-4, SPLIT_MAX)}
 # the family sweep at the canonical matrix's cell size
 # (results_full_matrix_native/README.md: dim 10, 1,024 chains, 2,500 warmup,
 # 10,000 draws) [5n]
@@ -281,6 +312,61 @@ SWEEP_Z_MAX = {("log_gamma_unconstrained", "nuts"): 1.5 * 10.37}
 # sd / sqrt(bulk ESS) (printed) does not: R-hat gated, and the means' z by
 # the chains' spread alone.
 SWEEP_CHAINS_Z = {("student_t", "nuts")}
+
+# Rosenbrock and the RAHMC paper's cells [5o]: the canonical matrix's
+# protocol (results_full_matrix_native/README.md: 1,024 chains, the 2,500-step
+# windowed warmup, 10,000 draws) through the library's entry points:
+# GRAHMC (run_adaptive_warmup("grahmc", fused): kernel 1, or 1a with the
+# dense learned metric; grahmc_run: kernel 2 or 2a, T = 8), RWMH
+# (dual_averaging_tune_rwmh: kernel 3, 100 transitions a DA iteration, four
+# calls of T = 4; rwmh_run from the initial positions, as the JAX runner
+# does: T = 16) and persistent NUTS (run_adaptive_warmup("nuts",
+# "persistent"), depth 15: one kernel-4 window per warmup step;
+# nuts_run_persistent, 64 slots a draw, depth 10). Each cell: (get_target
+# name, dim, samplers, learned metric, friction schedule, L); Rosenbrock's
+# GRAHMC arm is the matrix's passing one (linear, L = 64, dense).
+RAHMC_CELLS = {
+    "rosenbrock10": ("rosenbrock", 10, ("grahmc", "rwmh", "nuts"), "dense", "linear", 64),
+    "rosenbrock20": ("rosenbrock", 20, ("grahmc",), "dense", "linear", 64),
+    "multimodal": ("multimodal_funnel_2d", 2, ("grahmc", "rwmh", "nuts"), True, "constant", 16),
+    "concentric": ("concentric_l1_2d", 2, ("grahmc", "rwmh", "nuts"), True, "constant", 16),
+    "nested": ("nested_l1_2d", 2, ("grahmc", "rwmh", "nuts"), True, "constant", 16),
+}
+RAHMC_CHAINS = 1024
+RAHMC_DRAWS = 10000
+RAHMC_RWMH_T = 16            # rwmh_run's T at 10,000 draws
+RAHMC_TUNE_T = 4             # the RWMH tuner's T: the largest dividing its 100 transitions
+# The gates, where the witness (experiments/torch_rahmc_witness.py: the JAX
+# package on the CPU through the same protocol at 64 chains x 2,000 draws)
+# passes them with a margin for the card's 16x chains (R-hat <= 1.03, z <=
+# 3): "rhat" R-hat <= 1.05, "z" every mean within 5 combined MCSE (both
+# MCSEs) of the reference (10^6 exact draws for the bimodal funnel, 0 by
+# symmetry for the L1 shells). Every other cell prints its readings: the
+# witness reads R-hat 2.73 (RWMH) and 1.47 (NUTS) on the 10-D Rosenbrock
+# (the canonical matrix's NUTS cell 1.374), R-hat 1.195 and z 22 for the
+# 20-D GRAHMC run against the shipped long-NUTS draws, R-hat 1.06-1.34 on
+# the funnel, the concentric RWMH and NUTS and every nested cell, and z 33
+# for persistent NUTS on the funnel (its mode share 0.82, not 0.5).
+RAHMC_GATES = {("rosenbrock10", "grahmc"): ("rhat",),
+               ("multimodal", "grahmc"): ("z",), ("multimodal", "rwmh"): ("z",),
+               ("concentric", "grahmc"): ("rhat", "z"), ("concentric", "rwmh"): ("z",),
+               ("concentric", "nuts"): ("z",), ("nested", "grahmc"): ("z",),
+               ("nested", "rwmh"): ("z",), ("nested", "nuts"): ("z",)}
+ROSENBROCK_20D_REF = "mcmc_tpu/targets/reference_samples/rosenbrock_20d.npy"
+# classic NUTS on the card [5p]: 1,024 chains, depth 10, a 150-step warmup
+# (50 + 25 + 50 + 25, DA batches of 25) and 200 draws. The batch runs until
+# its deepest tree ends, ~0.33 s a transition on Student-t on an H100, so
+# the cut is short.
+CLASSIC_DIM = 10
+CLASSIC_CHAINS = 1024
+CLASSIC_DEPTH = 10
+CLASSIC_WARMUP = dict(exploration_steps=50, adaptation_windows=[25, 50], cooldown_steps=25,
+                      update_freq=25)
+CLASSIC_DRAWS = 200
+# generate_rosenbrock_reference at a cut [5q]: dim 10, 32 chains, the
+# classic warmup above, depth 10 (the function's default 12 took 0.43 s a
+# transition), 1,024 draws thinned by 2 (32 per chain)
+REF_DIM, REF_CHAINS, REF_DRAWS, REF_THIN, REF_DEPTH = 10, 32, 1024, 2, 10
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 FLOP/s outside the
 # tensor cores; a kernel's bound is the larger of its bytes and its float
@@ -810,15 +896,30 @@ def phase_parity_variants(torch, ft, targets, samplers, dev):
     return max_err
 
 
+def _family_target(targets, family, dim):
+    """The kernel family's target at `dim`: get_target's, or the RAHMC
+    paper's factories at the JAX package's parameters for the L1 shells
+    (their get_target names fix D at 2 or 3)."""
+    if family in ("concentric_l1_balls", "nested_l1_balls"):
+        return getattr(targets.rahmc_paper, family)(dim=dim)
+    return targets.get_target(family, dim=dim)
+
+
 def _family_state(torch, targets, family, dim, n, seed, dev):
     """(target, q, lp, grad) of `family` at `dim`, q in the family's bulk:
     log_gamma in [0.5, 2.5] (away from its support's boundary), the
     ill-conditioned Gaussian at its scales, the mixture half in each mode,
-    the others N(0, 0.5^2) (shifted by 0.4 for the unconstrained gamma)."""
-    t = targets.get_target(family, dim=dim)
+    Rosenbrock within N(1, 0.05^2) of its mode, the RAHMC families from
+    their init samplers, the others N(0, 0.5^2) (shifted by 0.4 for the
+    unconstrained gamma)."""
+    t = _family_target(targets, family, dim)
     g = _gen(torch, dev, seed)
     q = torch.randn((n, dim), generator=g, device=dev) * 0.5
-    if family == "log_gamma":
+    if family == "rosenbrock":
+        q = 1.0 + 0.1 * q
+    elif family in RAHMC_FAMILIES:
+        q = t.init_sampler(g, n)
+    elif family == "log_gamma":
         q = torch.rand((n, dim), generator=g, device=dev) * 2.0 + 0.5
     elif family == "log_gamma_unconstrained":
         q = q + 0.4
@@ -831,10 +932,12 @@ def _family_state(torch, targets, family, dim, n, seed, dev):
 
 
 def phase_parity_families(torch, ft, fr, fn, tn, targets, dev):
-    """The families of the ChEES slice in every kernel and variant that
-    dispatches on them, and the gap pairs it closes (the correlated
-    Gaussian in kernel 3, the mixture in kernels 3 and 4), against the
-    plain versions at D = 10 and 50 on 16,384 chains, injected draws and
+    """The families of the ChEES slice, Rosenbrock and the RAHMC paper's
+    three in every kernel and variant that dispatches on them, and the gap
+    pairs the ChEES slice closed (the correlated Gaussian in kernel 3, the
+    mixture in kernels 3 and 4), against the plain versions at D = 10 and
+    50 (the RAHMC families at RAHMC_PARITY_DIMS, which must hold the D of
+    each of their [5o] cells) on 16,384 chains, injected draws and
     Philox: kernel 1 with a random diagonal metric, 1a with a random dense
     one, 1b over four rungs (betas 1, 0.5, 0.2, 0.05), 1c at beta 0.5 on
     the bridge to N(0.5, 2^2 I), kernels 2 and 2a at T = 8 (_compare: no
@@ -846,117 +949,133 @@ def phase_parity_families(torch, ft, fr, fn, tn, targets, dev):
     over 16 iterations x W = 4 from a state one window in
     (_nuts_window_check: SPLIT_MAX split, the trajectory in flight drifting
     within FAMILY_DRIFT's bound). Returns the max |err| per kernel
-    entry."""
-    say("[3g] the ChEES slice's families (and the gap pairs) in every kernel vs plain versions")
+    entry, and per (kernel, family) pair of the RAHMC families at the D of
+    the family's first [5o] cell, the one [6h] times."""
+    say("[3g] the ChEES slice's families, Rosenbrock and the RAHMC families (and the gap "
+        "pairs) in every kernel vs plain versions")
     from mcmc_tpu_torch.ops.padded_targets import LANE_ORDER_FAMILIES, device_lp
     max_err = {}
     n = FAMILY_CHAINS
     tanh = ft.SCHEDULE_IDS["tanh"]
 
-    def note(name, err):
-        max_err[name] = max(max_err.get(name, 0.0), err)
+    pair_dim = {}
+    for cell, (name, dim, *_) in RAHMC_CELLS.items():
+        family = targets.get_target(name, dim=dim).value_and_grad_fn.kernel_info["family"]
+        require(dim in RAHMC_PARITY_DIMS[family],
+                f"[3g] holds {family} at no D = {dim}, the shape of [5o]'s {cell} cell")
+        pair_dim.setdefault(family, dim)
 
-    for dim in FAMILY_DIMS:
-        for family, kernels in FAMILY_KERNELS.items():
-            t, q, lp, grad = _family_state(torch, targets, family, dim, n, 130 + dim, dev)
-            info = t.value_and_grad_fn.kernel_info
-            g = _gen(torch, dev, 131 + dim)
-            key = ft.PhiloxStream.from_generator(g, dev).key
-            eps = FAMILY_STEP[family]
-            drift, wild, in_flight_max = FAMILY_DRIFT.get(family, (0.0, 0.0, SPLIT_MAX))
-            tag = f"{family} D={dim}"
-            vag = ft.device_vag(info)
-            if "grahmc" in kernels:
-                diag = torch.rand(dim, generator=g, device=dev) + 0.5
-                a = torch.randn((dim, dim), generator=g, device=dev, dtype=torch.float64)
-                dense = ft.prepare_dense_metric(
-                    a @ a.T / dim + 0.5 * torch.eye(dim, device=dev, dtype=torch.float64))
-                betas = torch.tensor([1.0, 0.5, 0.2, 0.05], device=dev)
-                beta_row = betas.repeat_interleave(n // 4)
-                base = ft.bridge_base(0.5, 2.0, dim, dev)
-                half = torch.tensor(0.5, device=dev)
-                bridge = ft.bridged_vag(vag, half, torch.tensor(base.log_norm, device=dev),
-                                        base.mean, base.inv_scale)
-                blp, bgrad = bridge(q)
-                scalars = ft.kernel_scalars(eps, 0.3, 2.0, dev)
-                cases = [
-                    ("grahmc_step_kernel", ft.grahmc_step_kernel, ft.grahmc_step_plain,
-                     (info, FAMILY_L, tanh, q, lp, grad, scalars, diag), None, vag),
-                    ("grahmc_step_kernel[dense]", ft.grahmc_step_kernel, ft.grahmc_step_plain,
-                     (info, FAMILY_L, tanh, q, lp, grad, scalars, dense.invm), dense.l_inv, vag),
-                    ("grahmc_scaled_kernel", ft.grahmc_scaled_kernel, ft.grahmc_scaled_plain,
-                     (info, FAMILY_L, tanh, q, (beta_row * lp).contiguous(),
-                      (beta_row[:, None] * grad).contiguous(),
-                      ft.rung_table(eps / torch.sqrt(betas), 0.3, 2.0, betas, dev), diag),
-                     None, ft.scaled_vag(vag, beta_row)),
-                    ("grahmc_bridged_kernel", ft.grahmc_bridged_kernel, ft.grahmc_bridged_plain,
-                     (info, FAMILY_L, 0, q, blp.contiguous(), bgrad.contiguous(),
-                      ft.bridge_scalars(eps, 0.0, 1.0, 0.5, base.log_norm, dev), base.mean,
-                      base.inv_scale, diag), None, bridge)]
-                for name, kernel_fn, plain_fn, args, l_inv, potential in cases:
-                    for mode, rand, log_u in _family_randoms(torch, ft, g, key, n, dim,
-                                                             args[-1], l_inv, dev):
-                        kern = kernel_fn(*args, l_inv=l_inv, **rand)
-                        plain = plain_fn(*args, l_inv=l_inv, **rand)
-                        torch.cuda.synchronize()
-                        err, _ = _compare(f"{name} {tag} {mode}", torch,
-                                          _fields(kern, proposal=True),
-                                          _fields(plain, proposal=True), log_u,
-                                          potential=potential, border_max=SPLIT_MAX,
-                                          drift_max=drift, wild_max=wild)
-                        note(name, err)
-                for name, metric, l_inv in (("grahmc_multistep_kernel", diag, None),
-                                            ("grahmc_multistep_kernel[dense]", dense.invm,
-                                             dense.l_inv)):
-                    margs = (info, FAMILY_L, tanh, MULTI_T, q, lp, grad, scalars, metric)
-                    for mode, rand, log_us in _multi_randoms(torch, ft, g, key, n, dim, metric,
-                                                             l_inv, dev):
-                        kern = ft.grahmc_multistep_kernel(*margs, l_inv=l_inv, **rand)
-                        plain = ft.grahmc_multistep_plain(*margs, l_inv=l_inv, **rand)
-                        torch.cuda.synchronize()
-                        alive = None
-                        for s in range(MULTI_T):
-                            err, alive = _compare(
-                                f"{name} {tag} {mode} t={s}", torch,
-                                _fields(kern, s, proposal=True), _fields(plain, s, proposal=True),
-                                log_us[s], alive, border_max=SPLIT_MAX, drift_max=drift,
-                                wild_max=wild, dh_accepted_only=drift > 0)
-                            note(name, err)
-            if "rwmh" in kernels:
-                rlp = device_lp(info)(q).contiguous()
-                scale = fr.rwmh_scale(0.5 * eps, dev)
-                noise = torch.randn((RWMH_T, n, dim), generator=g, device=dev)
-                u = torch.rand((RWMH_T, n), generator=g, device=dev).clamp_min(2.0 ** -25)
-                max_split = 0.0 if family in LANE_ORDER_FAMILIES else SPLIT_MAX
-                for mode, rand in (("injected", dict(noise=noise, u=u)),
-                                   ("philox", dict(key=key, call=5))):
-                    rargs = (info, RWMH_T, q, rlp, scale, COLLECT)
-                    kern = fr.rwmh_multistep_kernel(*rargs, **rand)
-                    plain = fr.rwmh_multistep_plain(*rargs, **rand)
+    def note(name, err, family, dim):
+        """The kernel's max |err|, and the new families' per (kernel, family)
+        pair as the kernels line lists them, at the pair's timed shape."""
+        max_err[name] = max(max_err.get(name, 0.0), err)
+        if pair_dim.get(family) == dim:
+            pair = f"{name} ({family})"
+            max_err[pair] = max(max_err.get(pair, 0.0), err)
+
+    cases = [(f, d) for d in FAMILY_DIMS for f in FAMILY_KERNELS if f not in RAHMC_PARITY_DIMS]
+    cases += [(f, d) for f, dims in RAHMC_PARITY_DIMS.items() for d in dims]
+    for family, dim in cases:
+        kernels = FAMILY_KERNELS[family]
+        t, q, lp, grad = _family_state(torch, targets, family, dim, n, 130 + dim, dev)
+        info = t.value_and_grad_fn.kernel_info
+        g = _gen(torch, dev, 131 + dim)
+        key = ft.PhiloxStream.from_generator(g, dev).key
+        eps = FAMILY_STEP[family]
+        drift, wild, in_flight_max = FAMILY_DRIFT.get(family, (0.0, 0.0, SPLIT_MAX))
+        tag = f"{family} D={dim}"
+        vag = ft.device_vag(info)
+        if "grahmc" in kernels:
+            diag = torch.rand(dim, generator=g, device=dev) + 0.5
+            a = torch.randn((dim, dim), generator=g, device=dev, dtype=torch.float64)
+            dense = ft.prepare_dense_metric(
+                a @ a.T / dim + 0.5 * torch.eye(dim, device=dev, dtype=torch.float64))
+            betas = torch.tensor([1.0, 0.5, 0.2, 0.05], device=dev)
+            beta_row = betas.repeat_interleave(n // 4)
+            base = ft.bridge_base(0.5, 2.0, dim, dev)
+            half = torch.tensor(0.5, device=dev)
+            bridge = ft.bridged_vag(vag, half, torch.tensor(base.log_norm, device=dev),
+                                    base.mean, base.inv_scale)
+            blp, bgrad = bridge(q)
+            scalars = ft.kernel_scalars(eps, 0.3, 2.0, dev)
+            cases = [
+                ("grahmc_step_kernel", ft.grahmc_step_kernel, ft.grahmc_step_plain,
+                 (info, FAMILY_L, tanh, q, lp, grad, scalars, diag), None, vag),
+                ("grahmc_step_kernel[dense]", ft.grahmc_step_kernel, ft.grahmc_step_plain,
+                 (info, FAMILY_L, tanh, q, lp, grad, scalars, dense.invm), dense.l_inv, vag),
+                ("grahmc_scaled_kernel", ft.grahmc_scaled_kernel, ft.grahmc_scaled_plain,
+                 (info, FAMILY_L, tanh, q, (beta_row * lp).contiguous(),
+                  (beta_row[:, None] * grad).contiguous(),
+                  ft.rung_table(eps / torch.sqrt(betas), 0.3, 2.0, betas, dev), diag),
+                 None, ft.scaled_vag(vag, beta_row)),
+                ("grahmc_bridged_kernel", ft.grahmc_bridged_kernel, ft.grahmc_bridged_plain,
+                 (info, FAMILY_L, 0, q, blp.contiguous(), bgrad.contiguous(),
+                  ft.bridge_scalars(eps, 0.0, 1.0, 0.5, base.log_norm, dev), base.mean,
+                  base.inv_scale, diag), None, bridge)]
+            for name, kernel_fn, plain_fn, args, l_inv, potential in cases:
+                for mode, rand, log_u in _family_randoms(torch, ft, g, key, n, dim,
+                                                         args[-1], l_inv, dev):
+                    kern = kernel_fn(*args, l_inv=l_inv, **rand)
+                    plain = plain_fn(*args, l_inv=l_inv, **rand)
                     torch.cuda.synchronize()
-                    agree = (kern[2] == plain[2]).all(dim=0)
-                    hist = agree[:COLLECT]
-                    err, within = _close_on([(kern[0][agree], plain[0][agree]),
-                                             (kern[1][agree], plain[1][agree]),
-                                             (kern[3][:, hist], plain[3][:, hist]),
-                                             (kern[4][:, hist], plain[4][:, hist])])
-                    _split_check(f"rwmh_multistep_kernel {tag} {mode}", agree, err, within,
-                                 max_split=max_split)
-                    note("rwmh_multistep_kernel", err)
-            if "nuts" in kernels:
-                nstep = 1.0 if family == "ill_conditioned_gaussian" else 1.5 * eps
-                for multinomial, dense_m in ((False, False), (True, False), (False, True)):
-                    if dense_m:
-                        a = torch.randn((dim, dim), generator=g, device=dev, dtype=torch.float64)
-                        inv_mass, l_inv = ft.kernel_metric(
-                            a @ a.T / dim + 0.5 * torch.eye(dim, device=dev, dtype=torch.float64))
-                    else:
-                        inv_mass, l_inv = torch.rand(dim, generator=g, device=dev) + 0.5, None
-                    name, err = _nuts_window_check(
-                        torch, fn, tn, info, (q, lp, grad), g, key,
-                        nstep * (0.5 if dense_m else 1.0), inv_mass, l_inv, multinomial, tag,
-                        in_flight_max, dev)
-                    note(name, err)
+                    err, _ = _compare(f"{name} {tag} {mode}", torch,
+                                      _fields(kern, proposal=True),
+                                      _fields(plain, proposal=True), log_u,
+                                      potential=potential, border_max=SPLIT_MAX,
+                                      drift_max=drift, wild_max=wild)
+                    note(name, err, family, dim)
+            for name, metric, l_inv in (("grahmc_multistep_kernel", diag, None),
+                                        ("grahmc_multistep_kernel[dense]", dense.invm,
+                                         dense.l_inv)):
+                margs = (info, FAMILY_L, tanh, MULTI_T, q, lp, grad, scalars, metric)
+                for mode, rand, log_us in _multi_randoms(torch, ft, g, key, n, dim, metric,
+                                                         l_inv, dev):
+                    kern = ft.grahmc_multistep_kernel(*margs, l_inv=l_inv, **rand)
+                    plain = ft.grahmc_multistep_plain(*margs, l_inv=l_inv, **rand)
+                    torch.cuda.synchronize()
+                    alive = None
+                    for s in range(MULTI_T):
+                        err, alive = _compare(
+                            f"{name} {tag} {mode} t={s}", torch,
+                            _fields(kern, s, proposal=True), _fields(plain, s, proposal=True),
+                            log_us[s], alive, border_max=SPLIT_MAX, drift_max=drift,
+                            wild_max=wild, dh_accepted_only=drift > 0)
+                        note(name, err, family, dim)
+        if "rwmh" in kernels:
+            rlp = device_lp(info)(q).contiguous()
+            scale = fr.rwmh_scale(0.5 * eps, dev)
+            noise = torch.randn((RWMH_T, n, dim), generator=g, device=dev)
+            u = torch.rand((RWMH_T, n), generator=g, device=dev).clamp_min(2.0 ** -25)
+            max_split = 0.0 if family in LANE_ORDER_FAMILIES else SPLIT_MAX
+            for mode, rand in (("injected", dict(noise=noise, u=u)),
+                               ("philox", dict(key=key, call=5))):
+                rargs = (info, RWMH_T, q, rlp, scale, COLLECT)
+                kern = fr.rwmh_multistep_kernel(*rargs, **rand)
+                plain = fr.rwmh_multistep_plain(*rargs, **rand)
+                torch.cuda.synchronize()
+                agree = (kern[2] == plain[2]).all(dim=0)
+                hist = agree[:COLLECT]
+                err, within = _close_on([(kern[0][agree], plain[0][agree]),
+                                         (kern[1][agree], plain[1][agree]),
+                                         (kern[3][:, hist], plain[3][:, hist]),
+                                         (kern[4][:, hist], plain[4][:, hist])])
+                _split_check(f"rwmh_multistep_kernel {tag} {mode}", agree, err, within,
+                             max_split=max_split)
+                note("rwmh_multistep_kernel", err, family, dim)
+        if "nuts" in kernels:
+            nstep = 1.0 if family == "ill_conditioned_gaussian" else 1.5 * eps
+            for multinomial, dense_m in ((False, False), (True, False), (False, True)):
+                if dense_m:
+                    a = torch.randn((dim, dim), generator=g, device=dev, dtype=torch.float64)
+                    inv_mass, l_inv = ft.kernel_metric(
+                        a @ a.T / dim + 0.5 * torch.eye(dim, device=dev, dtype=torch.float64))
+                else:
+                    inv_mass, l_inv = torch.rand(dim, generator=g, device=dev) + 0.5, None
+                name, err = _nuts_window_check(
+                    torch, fn, tn, info, (q, lp, grad), g, key,
+                    nstep * (0.5 if dense_m else 1.0), inv_mass, l_inv, multinomial, tag,
+                    in_flight_max, dev)
+                note(name, err, family, dim)
     return max_err
 
 
@@ -2396,6 +2515,420 @@ def phase_family_sweep(torch, targets, samplers, tuning, diagnostics, dev):
     return out
 
 
+def _occupancy(torch, info, x):
+    """The family's mode shares of draws x (draws, chains, dim), from the
+    target's kernel_info: the bimodal funnel's share with v > 0; the L1
+    shells' share on each shell (nearest |x - c_k|_1 - r_k, the radii from
+    device_shells, the nested target's centres by the plain version's rule:
+    centre k > 0 at +-mu_norm on axis (k - 1) // 2 % dim); overall, and the
+    first mode's least and largest share in one chain. None for a unimodal
+    target."""
+    from mcmc_tpu_torch.ops.padded_targets import device_shells
+    family = info["family"]
+    if family == "multimodal_funnel_2d":
+        mode = (x[..., 0] > 0).double()[..., None]
+    elif family in ("concentric_l1_balls", "nested_l1_balls"):
+        radii = device_shells(info)
+        dim = x.shape[-1]
+        centres = torch.zeros((len(radii), dim), dtype=x.dtype, device=x.device)
+        if family == "nested_l1_balls":
+            mu = float(info["params"]["mu_norm"])
+            for k in range(1, len(radii)):
+                centres[k, (k - 1) // 2 % dim] = mu if (k - 1) % 2 == 0 else -mu
+        which = torch.zeros(x.shape[:2], dtype=torch.long, device=x.device)
+        best = None
+        for k, r in enumerate(radii):
+            dist = ((x - centres[k]).abs().sum(-1) - r).abs()
+            which = which if best is None else torch.where(dist < best, k, which)
+            best = dist if best is None else torch.minimum(best, dist)
+        mode = torch.nn.functional.one_hot(which, len(radii)).double()
+    else:
+        return None
+    per_chain = mode.mean(dim=0)
+    return ([round(float(v), 4) for v in mode.mean(dim=(0, 1))], float(per_chain[:, 0].min()),
+            float(per_chain[:, 0].max()))
+
+
+def _rahmc_reference(torch, targets, name, dim, dev):
+    """(mean, MCSE) of a cell's reference, or None: 10^6 exact draws of the
+    bimodal funnel, 0 for the L1 shells (symmetric), the JAX package's
+    shipped long-NUTS draws for the 20-D Rosenbrock (read as data through
+    the port's loader; 32 chains thinned by 4, rows draw-major: their MCSE
+    from bulk ESS), none for the 10-D Rosenbrock."""
+    from mcmc_tpu_torch.diagnostics import ess_bulk_chunked
+    from mcmc_tpu_torch.targets.rosenbrock_reference import load_rosenbrock_reference
+    if name == "rosenbrock":
+        if dim != 20:
+            return None
+        path = os.path.join(os.path.dirname(os.path.abspath(__file__)), ROSENBROCK_20D_REF)
+        draws = load_rosenbrock_reference(20, path=path)
+        n = draws.shape[0] // 32 * 32
+        x = draws[:n].to(dev, torch.float64).reshape(-1, 32, dim)
+        ess = ess_bulk_chunked(x, chain_chunk=32, dim_chunk=4)
+        return x.mean(dim=(0, 1)), x.std(dim=(0, 1)) / torch.sqrt(ess.double())
+    if name == "multimodal_funnel_2d":
+        x = targets.get_reference_sampler(name)(_gen(torch, dev, 180), SWEEP_REF_DRAWS)
+        return x.mean(0), x.std(0) / SWEEP_REF_DRAWS ** 0.5
+    zero = torch.zeros(dim, dtype=torch.float64, device=dev)
+    return zero, zero
+
+
+def phase_rahmc_cells(torch, targets, samplers, tuning, diagnostics, dev, cell):
+    """One cell of RAHMC_CELLS [5o] (the docstring of the constants says
+    the protocol and the gates): every sampler of the cell through the
+    library's entry points, graded by split R-hat, the means' z against the
+    cell's reference by the chains' spread and by sd / sqrt(bulk ESS), the
+    largest |chain mean - reference mean|, the mode occupancy; finite draws
+    everywhere, RAHMC_GATES where the witness passes. Returns {"rows":
+    {sampler: readings}, "expected": each kernel's launches by the protocol
+    (the RWMH tune's from its iterations), "state": {sampler: (step, metric,
+    positions)} for the timing phase}."""
+    name, dim, which, metric, schedule, n_steps = RAHMC_CELLS[cell]
+    t = targets.get_target(name, dim=dim)
+    seed = 300 + 10 * list(RAHMC_CELLS).index(cell)
+    init = t.init_sampler(_gen(torch, dev, seed), RAHMC_CHAINS)
+    ref = _rahmc_reference(torch, targets, name, dim, dev)
+    dense = metric == "dense"
+    rows, state, expected = {}, {}, {}
+
+    def add(kernel, n):
+        expected[kernel] = expected.get(kernel, 0) + n
+
+    def grade(sampler, res, wall, note):
+        samples = res.samples
+        require(bool(torch.isfinite(samples).all()), f"{cell} {sampler}: non-finite draws")
+        ess = diagnostics.ess_bulk_chunked(samples, chain_chunk=RAHMC_CHAINS, dim_chunk=4)
+        rhat = float(diagnostics.split_rhat_chunked(samples, chain_chunk=RAHMC_CHAINS,
+                                                    dim_chunk=4).max())
+        x = samples.double()
+        chain_means = x.mean(dim=0)
+        gates = RAHMC_GATES.get((cell, sampler), ())
+        line = (f"  {cell} {sampler}{note}: {wall:.3f} s, R-hat {rhat:.4f}, min bulk-ESS "
+                f"{float(ess.min()):.1f}")
+        row = dict(rhat=rhat, wall=wall, ess=float(ess.min()), gates=gates)
+        if ref is not None:
+            z_chains = float(_mean_z((chain_means.mean(dim=0),
+                                      chain_means.std(dim=0) / RAHMC_CHAINS ** 0.5), ref).max())
+            z_ess = float(_mean_z(_mean_mcse(torch, diagnostics, samples, ess), ref).max())
+            far = float((chain_means - ref[0]).abs().max())
+            line += (f"; means' max z {z_chains:.3f} by the chains' spread, {z_ess:.3f} by sd / "
+                     f"sqrt(bulk ESS); largest |chain mean - reference| {far:.4f}")
+            row.update(z_chains=z_chains, z_ess=z_ess, far=far)
+        occ = _occupancy(torch, t.value_and_grad_fn.kernel_info, x)
+        if occ is not None:
+            line += (f"; mode shares {occ[0]}, one chain's first-mode share "
+                     f"{occ[1]:.4f}..{occ[2]:.4f}")
+            row["modes"] = occ
+        say(line + f"; gates: {', '.join(gates) or 'finite draws only'}")
+        if "rhat" in gates:
+            require(rhat <= SWEEP_RHAT_MAX, f"{cell} {sampler}: R-hat {rhat}")
+        if "z" in gates:
+            require(max(row["z_chains"], row["z_ess"]) <= SWEEP_MCSE_Z,
+                    f"{cell} {sampler}: means' z {row['z_chains']}, {row['z_ess']}")
+        rows[sampler] = row
+
+    for k, sampler in enumerate(which):
+        gen = _gen(torch, dev, seed + 1 + k)
+        t0 = time.perf_counter()
+        if sampler == "grahmc":
+            step, inv_mass, pos, info = tuning.run_adaptive_warmup(
+                "grahmc", t.log_prob_fn, None, init, gen, num_warmup=WARMUP_STEPS,
+                learn_mass_matrix=metric, backend="fused", num_steps=n_steps,
+                schedule_type=schedule, gamma=1.0,
+                steepness=samplers.default_steepness(schedule),
+                value_and_grad_fn=t.value_and_grad_fn)
+            res = samplers.grahmc_run(gen, t.log_prob_fn, pos, step, n_steps, info["gamma"],
+                                      info["steepness"], RAHMC_DRAWS, inv_mass_matrix=inv_mass,
+                                      friction_schedule=samplers.get_friction_schedule(schedule),
+                                      value_and_grad_fn=t.value_and_grad_fn, backend="fused")
+            v = "[dense]" if dense else ""
+            add(f"grahmc_step_kernel{v}", WARMUP_TRANSITIONS + TUNE_TRANSITIONS)
+            add(f"grahmc_multistep_kernel{v}", RAHMC_DRAWS // MULTI_T)
+            note = f" (step {step:.5f}, gamma {info['gamma']:.4f})"
+            state[sampler] = (step, inv_mass, pos, info)
+        elif sampler == "rwmh":
+            scale, hist = tuning.dual_averaging_tune_rwmh(
+                gen, t.log_prob_fn, init, max_iter=1000, value_and_grad_fn=t.value_and_grad_fn)
+            res = samplers.rwmh_run(gen, t.log_prob_fn, init, RAHMC_DRAWS, scale,
+                                    value_and_grad_fn=t.value_and_grad_fn, backend="fused")
+            add("rwmh_multistep_kernel", len(hist["step_size_history"]) * 100 // RAHMC_TUNE_T
+                + RAHMC_DRAWS // RAHMC_RWMH_T)
+            note = f" (scale {scale:.5f}, {hist['converged_iter']} DA iterations)"
+            state[sampler] = (scale, None, init, None)
+        else:
+            step, inv_mass, pos, info = tuning.run_adaptive_warmup(
+                "nuts", t.log_prob_fn, None, init, gen, num_warmup=WARMUP_STEPS,
+                learn_mass_matrix=metric, backend="persistent", max_tree_depth=15,
+                nuts_proposal="endpoint", value_and_grad_fn=t.value_and_grad_fn)
+            res = samplers.nuts_run_persistent(
+                gen, t.log_prob_fn, pos, step, RAHMC_DRAWS,
+                steps_per_sample=NUTS_STEPS_PER_SAMPLE, inv_mass_matrix=inv_mass,
+                max_tree_depth=10, value_and_grad_fn=t.value_and_grad_fn)
+            add("nuts_window_kernel[dense]" if dense else "nuts_window_kernel",
+                WARMUP_TRANSITIONS + RAHMC_DRAWS)
+            note = (f" (step {step:.5f}, accept "
+                    f"{float(torch.nanmean(res.info['mean_accept_probs'])):.4f})")
+            state[sampler] = (step, inv_mass, pos, info)
+        torch.cuda.synchronize()
+        grade(sampler, res, time.perf_counter() - t0, note)
+        del res
+    return {"rows": rows, "expected": expected, "state": state, "family": t.family,
+            "info": t.value_and_grad_fn.kernel_info}
+
+
+def _tail_stats(torch, x, lo, hi):
+    """(share of draws outside [lo, hi] per coordinate, the longest stretch
+    of consecutive draws a chain coordinate spent there)."""
+    tail = (x < lo) | (x > hi)
+    return float(tail.double().mean()), _longest_run(torch, tail)
+
+
+def phase_classic_nuts(torch, targets, samplers, tuning, diagnostics, dev):
+    """Classic NUTS (samplers.nuts, plain batched PyTorch: no kernel) on
+    the card [5p]: the 10-D standard normal and Student-t(3), 1,024 chains,
+    run_adaptive_warmup("nuts") over CLASSIC_WARMUP at depth 10, then
+    nuts_run for CLASSIC_DRAWS draws. Gates on the standard normal: finite,
+    R-hat <= 1.05, means within 5 MCSE of 0 (both MCSEs). Prints the
+    seconds per transition, the mean tree depth and, on Student-t, the
+    share of draws outside the exact central 99.9% against the exact 0.1%
+    and the longest stretch a chain coordinate spent there, beside [5n]'s
+    persistent-NUTS reading."""
+    say(f"[5p] classic NUTS: dim {CLASSIC_DIM}, {CLASSIC_CHAINS} chains, depth {CLASSIC_DEPTH}, "
+        f"{sum(CLASSIC_WARMUP['adaptation_windows']) + CLASSIC_WARMUP['exploration_steps'] + CLASSIC_WARMUP['cooldown_steps']}"
+        f"-step warmup, {CLASSIC_DRAWS} draws")
+    out = {}
+    for k, family in enumerate(("standard_normal", "student_t")):
+        t = targets.get_target(family, dim=CLASSIC_DIM)
+        gen = _gen(torch, dev, 400 + k)
+        init = torch.randn((CLASSIC_CHAINS, CLASSIC_DIM), generator=gen, device=dev) * 0.5
+        t0 = time.perf_counter()
+        step, inv_mass, pos, _ = tuning.run_adaptive_warmup(
+            "nuts", t.log_prob_fn, None, init, gen, max_tree_depth=CLASSIC_DEPTH,
+            value_and_grad_fn=t.value_and_grad_fn, **CLASSIC_WARMUP)
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res = samplers.nuts_run(gen, t.log_prob_fn, pos, step, CLASSIC_DRAWS,
+                                inv_mass_matrix=inv_mass, max_tree_depth=CLASSIC_DEPTH,
+                                value_and_grad_fn=t.value_and_grad_fn)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        samples = res.samples
+        require(bool(torch.isfinite(samples).all()), f"classic NUTS {family}: non-finite draws")
+        rhat = float(diagnostics.split_rhat(samples).max())
+        ess = diagnostics.ess_bulk(samples)
+        x = samples.double()
+        chain_means = x.mean(dim=0)
+        exact = targets.get_reference_sampler(family, CLASSIC_DIM)(_gen(torch, dev, 410 + k),
+                                                                  SWEEP_REF_DRAWS)
+        ref = (exact.mean(0), exact.std(0) / SWEEP_REF_DRAWS ** 0.5)
+        z_chains = float(_mean_z((chain_means.mean(dim=0),
+                                  chain_means.std(dim=0) / CLASSIC_CHAINS ** 0.5), ref).max())
+        z_ess = float(_mean_z(_mean_mcse(torch, diagnostics, samples, ess), ref).max())
+        lo, hi = torch.quantile(exact[:200_000], torch.tensor(
+            [SWEEP_TAIL / 2, 1 - SWEEP_TAIL / 2], dtype=exact.dtype, device=dev), dim=0)
+        share, stretch = _tail_stats(torch, x, lo, hi)
+        depth = float(res.info["tree_depths"].double().mean())
+        per = wall / CLASSIC_DRAWS
+        say(f"  {family}: warmup {warm:.2f} s (step {step:.5f}), {CLASSIC_DRAWS} draws in "
+            f"{wall:.2f} s = {per * 1e3:.2f} ms per transition of all {CLASSIC_CHAINS} chains "
+            f"(mean tree depth {depth:.3f}, max {int(res.info['tree_depths'].max())}); R-hat "
+            f"{rhat:.4f}, min bulk-ESS {float(ess.min()):.1f}; means' max z {z_chains:.3f} by "
+            f"the chains' spread, {z_ess:.3f} by bulk ESS; tail share {share / SWEEP_TAIL:.3f} "
+            f"x exact, longest stretch there {stretch} draws; divergences "
+            f"{int(res.info['total_divergences'])}")
+        if family == "standard_normal":
+            require(rhat <= SWEEP_RHAT_MAX, f"classic NUTS: R-hat {rhat}")
+            require(max(z_chains, z_ess) <= SWEEP_MCSE_Z,
+                    f"classic NUTS: means' z {z_chains}, {z_ess}")
+        out[family] = dict(rhat=rhat, z_chains=z_chains, z_ess=z_ess, tail=share / SWEEP_TAIL,
+                           stretch=stretch, sec_per_transition=per, depth=depth, warmup=warm)
+    return out
+
+
+def phase_rosenbrock_reference(torch, targets, dev):
+    """generate_rosenbrock_reference at a cut [5q] (REF_*: dim 10, 32
+    chains, the classic warmup of [5p], depth 10, 32 draws per chain after
+    thinning)
+    into a temporary directory: its seconds and split R-hat, and the cache
+    read back through load_rosenbrock_reference."""
+    import tempfile
+
+    from mcmc_tpu_torch.diagnostics import split_rhat
+    from mcmc_tpu_torch.targets import rosenbrock_reference as rr
+    say(f"[5q] generate_rosenbrock_reference: dim {REF_DIM}, {REF_CHAINS} chains, "
+        f"{REF_DRAWS} draws thinned by {REF_THIN}")
+    warm = {k: v for k, v in CLASSIC_WARMUP.items() if k != "update_freq"}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, f"rosenbrock_{REF_DIM}d.npy")
+        t0 = time.perf_counter()
+        flat = rr.generate_rosenbrock_reference(REF_DIM, n_samples=REF_DRAWS,
+                                                n_chains=REF_CHAINS, thin=REF_THIN, path=path,
+                                                device=dev, max_tree_depth=REF_DEPTH,
+                                                update_freq=CLASSIC_WARMUP["update_freq"], **warm)
+        seconds = time.perf_counter() - t0
+        back = rr.load_rosenbrock_reference(REF_DIM, path=path)
+    require(back.shape == (REF_DRAWS, REF_DIM) and bool(torch.isfinite(back).all()),
+            "generate_rosenbrock_reference: bad cache")
+    x = back.double().reshape(-1, REF_CHAINS, REF_DIM)
+    rhat = float(split_rhat(x).max())
+    say(f"  {seconds:.2f} s; split R-hat of the cached draws {rhat:.4f}; means "
+        f"{[round(float(m), 3) for m in x.mean(dim=(0, 1))]}")
+    return {"seconds": seconds, "rhat": rhat}
+
+
+def phase_timing_rahmc(torch, ft, fr, fn, tn, rahmc, dev, reps=6, burst=10, plain_burst=1):
+    """Each (kernel, family) pair the [5o] cells launched, at its cell's
+    shape (1,024 chains; Rosenbrock's 10-D cell), kernel against plain
+    version, Philox mode, CUDA events (_event_ms, _interleaved): kernel 1
+    or 1a and kernel 2 or 2a (T = 8) from GRAHMC's warmed positions at its
+    tuned step, friction and metric; kernel 3 (T = 16, every chain's
+    history) from the initial positions at the tuned scale; kernel 4 or 4b
+    (16 iterations x W = 4) from NUTS's warmed positions at its tuned step
+    and metric, two windows in, its executed leapfrogs counted for the
+    bound. Returns ({pair: (kernel ms, plain ms)}, {pair: {"leapfrogs": per
+    call}}, {pair: (chains, dim, L, T)} the shapes for the bounds)."""
+    from mcmc_tpu_torch.ops.padded_targets import device_lp
+    say(f"[6h] the new families' kernels at their cells' shapes: CUDA events, median of {reps} "
+        f"bursts of {burst} kernel / {plain_burst} plain calls")
+    g = _gen(torch, dev, 49)
+    key = ft.PhiloxStream.from_generator(g, dev).key
+    times, measured, shapes = {}, {}, {}
+    done = set()
+    for cell, out in rahmc.items():
+        family, info = out["family"], out["info"]
+        if family in done:          # Rosenbrock: its 10-D cell
+            continue
+        done.add(family)
+        _, dim, _, metric, schedule, n_steps = RAHMC_CELLS[cell]
+        vag = ft.device_vag(info)
+        runs = []
+        step, inv_mass, pos, info_g = out["state"]["grahmc"]
+        q = pos.float().contiguous()
+        lp, grad = (x.contiguous() for x in vag(q))
+        invm, l_inv = ft.kernel_metric(inv_mass.to(dev))
+        v = "[dense]" if metric == "dense" else ""
+        scalars = ft.kernel_scalars(step, info_g["gamma"], info_g["steepness"], dev)
+        sched = ft.SCHEDULE_IDS[schedule]
+        a1 = (info, n_steps, sched, q, lp, grad, scalars, invm)
+        runs.append((f"grahmc_step_kernel{v}", (n_steps, 1),
+                     lambda a=a1: ft.grahmc_step_kernel(*a, key=key, call=0, l_inv=l_inv),
+                     lambda a=a1: ft.grahmc_step_plain(*a, key=key, call=0, l_inv=l_inv)))
+        a2 = (info, n_steps, sched, MULTI_T, q, lp, grad, scalars, invm)
+        runs.append((f"grahmc_multistep_kernel{v}", (n_steps, MULTI_T),
+                     lambda a=a2: ft.grahmc_multistep_kernel(*a, key=key, call=0, l_inv=l_inv),
+                     lambda a=a2: ft.grahmc_multistep_plain(*a, key=key, call=0, l_inv=l_inv)))
+        if "rwmh" in out["state"]:
+            scale, _, init, _ = out["state"]["rwmh"]
+            qr = init.float().contiguous()
+            a3 = (info, RAHMC_RWMH_T, qr, device_lp(info)(qr).contiguous(),
+                  fr.rwmh_scale(scale, dev), RAHMC_CHAINS)
+            runs.append(("rwmh_multistep_kernel", (0, RAHMC_RWMH_T),
+                         lambda a=a3: fr.rwmh_multistep_kernel(*a, key=key, call=0),
+                         lambda a=a3: fr.rwmh_multistep_plain(*a, key=key, call=0)))
+        for name, (L, T), kern_fn, plain_fn in runs:
+            pair = f"{name} ({family})"
+            ms = _interleaved(torch, {"kernel": kern_fn, "plain": plain_fn}, reps,
+                              {"kernel": burst, "plain": plain_burst})
+            times[pair] = (statistics.median(ms["kernel"]), statistics.median(ms["plain"]))
+            shapes[pair] = (RAHMC_CHAINS, dim, L, T)
+            say(f"  {pair} ({RAHMC_CHAINS} x {dim}, L = {L}, T = {T}): kernel "
+                f"{times[pair][0]:.4f} ms, plain {times[pair][1]:.4f} ms")
+        if "nuts" in out["state"]:
+            step, inv_mass, pos, _ = out["state"]["nuts"]
+            q = pos.float().contiguous()
+            lp, grad = (x.contiguous() for x in vag(q))
+            invm, l_inv = ft.kernel_metric(inv_mass.to(dev))
+            scalars = fn.nuts_scalars(step, 1000.0, dev)
+            args = (info, NUTS_ITERS, NUTS_W, NUTS_DEPTH)
+            st = tn._init_pstate(q, lp, grad, torch.float32, max_tree_depth=NUTS_DEPTH)
+            for call in range(2):
+                st = fn.nuts_window_kernel(*args, st, scalars, invm, key=key, call=call,
+                                           l_inv=l_inv)
+            states = {"kernel": st, "plain": _clone_state(st)}
+            before = int(st.n_exec.sum())
+            fns = {"kernel": lambda: fn.nuts_window_kernel(*args, states["kernel"], scalars, invm,
+                                                           key=key, call=2, l_inv=l_inv),
+                   "plain": lambda: fn.nuts_window_plain(*args, states["plain"], scalars, invm,
+                                                         key=key, call=2, l_inv=l_inv)}
+            ms = _interleaved(torch, fns, reps, {"kernel": burst, "plain": plain_burst})
+            pair = f"{NUTS_NAMES[fn.variant(st, invm)]} ({family})"
+            times[pair] = (statistics.median(ms["kernel"]), statistics.median(ms["plain"]))
+            measured[pair] = {"leapfrogs": (int(states["kernel"].n_exec.sum()) - before)
+                              / (1 + reps * burst)}
+            shapes[pair] = (RAHMC_CHAINS, dim, 0, NUTS_ITERS)
+            say(f"  {pair} ({RAHMC_CHAINS} x {dim}, {NUTS_ITERS} iterations x W = {NUTS_W}): "
+                f"kernel {times[pair][0]:.4f} ms, plain {times[pair][1]:.4f} ms; "
+                f"{measured[pair]['leapfrogs']:.0f} leapfrogs executed per call")
+    return times, measured, shapes
+
+
+def rahmc_eval_flops(info):
+    """Float operations of one evaluation (lp and gradient) of Rosenbrock's
+    or a RAHMC family's device function for one chain, counted as
+    csrc/targets.cuh writes it (an exp, log, division or sign one each):
+    Rosenbrock 14 per coordinate (the residual, its square and the
+    (1 - q)^2 term, the forward and backward gradient terms); the bimodal
+    funnel ~32 in all (two shell terms, their logsumexp, the conditional,
+    two gradient entries). Concentric L1: one group sum u = |q|_1 (|.| and
+    an add, 2 per coordinate) shared by every shell; per shell the max pass
+    (shell_term's 4 and a max) and the sum pass (shell_term again, the
+    subtraction, exp and add, shell_slope's 3, a product and an add): 17;
+    the division, log and add: 3; the gradient's sign and product, 2 per
+    coordinate. Nested L1: per shell a group sum of |q - c_k| (3 per
+    coordinate), the max pass (5), the sum pass (shell_term, subtraction,
+    exp, add, shell_slope, product: 11) and the gradient's q - c_k, sign,
+    product and add (4 per coordinate); then a division per coordinate, the
+    log and an add."""
+    dim, family = info["dim"], info["family"]
+    if family == "rosenbrock":
+        return 14 * dim
+    if family == "multimodal_funnel_2d":
+        return 32
+    from mcmc_tpu_torch.ops.padded_targets import device_shells
+    shells = len(device_shells(info))
+    if family == "concentric_l1_balls":
+        return 4 * dim + 17 * shells + 3
+    return shells * (7 * dim + 16) + dim + 2
+
+
+def rahmc_bounds(rahmc, measured, shapes):
+    """Each (kernel, family) pair's bound at its [6h] shape, as
+    kernel_bounds counts them: every input read once and every output
+    written once; the leapfrogs' float operations with the family's
+    evaluation (rahmc_eval_flops) in place of a target's per-coordinate
+    count, the dense products of 1a/2a/4b, kernel 4's measured leapfrogs."""
+    infos = {out["family"]: out["info"] for out in rahmc.values()}
+    out = {}
+    chain = 4
+    for pair, (C, D, L, T) in shapes.items():
+        name, family = pair.split(" (")
+        info = {**infos[family[:-1]], "dim": D}
+        ev = rahmc_eval_flops(info)
+        row = D * 4
+        dense = "[dense]" in name
+        metric_io = 2 * D * row if dense else row
+        if name.startswith("grahmc"):
+            if dense:
+                per = (D * (L * DENSE_SUBSTEP_FLOPS + DENSE_TRANSITION_FLOPS) + L * ev
+                       + (L + 2) * 2 * D * D + D * (D + 1))
+            else:
+                per = D * (L * SUBSTEP_FLOPS + TRANSITION_FLOPS) + L * ev
+            if T == 1:
+                io = C * (2 * row + chain) + C * (3 * row + 3 * chain + 1)
+            else:
+                io = C * (2 * row + chain) * 2 + T * C * (1 + chain + row + chain)
+            out[pair] = bound(io + metric_io, T * C * per)
+        elif name.startswith("rwmh"):
+            io = C * (row + 4) * 2 + T * C + T * C * (row + 4)
+            out[pair] = bound(io, T * C * (D * 8 + ev))
+        else:
+            state = C * (14 * row + 17 * chain + 2)
+            per_leaf = D * (LEAPFROG_FLOPS + (4 * D if dense else 0)) + ev
+            out[pair] = bound(2 * state + metric_io, measured[pair]["leapfrogs"] * per_leaf)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Phase 6: kernel and plain times at the main-path shapes
 # ---------------------------------------------------------------------------
@@ -3088,6 +3621,20 @@ def main():
                    "rwmh_multistep_kernel": n_fam * (SWEEP_RWMH_TUNE
                                                      + SWEEP_DRAWS // SWEEP_RWMH_T),
                    "nuts_window_kernel": n_fam * (NUTS_TUNE_CALLS + SWEEP_DRAWS)})
+    rahmc = {cell: drive(f"{cell} cell",
+                         lambda cell=cell: phase_rahmc_cells(torch, targets, samplers, tuning,
+                                                             diagnostics, dev, cell),
+                         lambda out: out["expected"]) for cell in RAHMC_CELLS}
+    pairs = {}     # (kernel, family) -> its launches on the new families' cells
+    for cell, out in rahmc.items():
+        for name, n in path_counts[f"{cell} cell"].items():
+            if n:
+                pair = f"{name} ({out['family']})"
+                pairs[pair] = pairs.get(pair, 0) + n
+    classic = drive("classic NUTS path", lambda: phase_classic_nuts(
+        torch, targets, samplers, tuning, diagnostics, dev), {})
+    reference = drive("Rosenbrock reference run",
+                      lambda: phase_rosenbrock_reference(torch, targets, dev), {})
     require(all(n > 0 for n in launches.values()) and set(launches) == set(KERNELS),
             f"a kernel no main path launched: {launches}")
 
@@ -3105,10 +3652,17 @@ def main():
         phase_timing_chees(torch, ft, fr, targets, chees, dev))
     times.update(chees_times)
     for name, err in family_err.items():     # [3g]'s checks of the same kernels
-        max_err[name] = max(max_err[name], err)
+        max_err[name] = max(max_err.get(name, 0.0), err)
+    pair_times, pair_measured, pair_shapes = phase_timing_rahmc(torch, ft, fr, fn, tn, rahmc,
+                                                                dev)
+    require(set(pair_times) == set(pairs), f"timed pairs {sorted(pair_times)}, launched "
+                                           f"{sorted(pairs)}")
+    times.update(pair_times)
+    pair_bounds = rahmc_bounds(rahmc, pair_measured, pair_shapes)
     if "--multistep-switch" in sys.argv[1:]:
         phase_multistep_switch(torch, targets, samplers, dense_row, dev)
     bounds = kernel_bounds(measured)
+    bounds.update(pair_bounds)
     say(f"[7] done in {time.perf_counter() - t_start:.1f} s")
     say(f"  rows: nuts_useful_grads_per_sec {nuts['endpoint']['rate']:.1f}, "
         f"nuts_ess_per_sec {nuts['endpoint']['ess_rate']:.1f}, "
@@ -3147,6 +3701,19 @@ def main():
                                  f"{r['div']:.4f}"
                                  for s, r in rows.items())
         for family, rows in sweep.items()))
+    say("  new families' cells (R-hat, means' max z by the chains' spread and by bulk ESS, "
+        "gates): " + "; ".join(
+            f"{cell} " + ", ".join(
+                f"{sampler} {r['rhat']:.4f}/{r.get('z_chains', float('nan')):.2f}/"
+                f"{r.get('z_ess', float('nan')):.2f}/{'+'.join(r['gates']) or 'none'}"
+                for sampler, r in out["rows"].items())
+            for cell, out in rahmc.items()))
+    say("  classic NUTS (seconds per transition, mean depth, R-hat, tail share x exact, "
+        "longest tail stretch): " + "; ".join(
+            f"{family} {r['sec_per_transition']:.5f}/{r['depth']:.3f}/{r['rhat']:.4f}/"
+            f"{r['tail']:.3f}/{r['stretch']}" for family, r in classic.items())
+        + f"; generate_rosenbrock_reference {reference['seconds']:.2f} s, R-hat "
+          f"{reference['rhat']:.4f}")
     st_name = "rwmh_multistep_kernel (student_t)"
     say(f"  kernel 3 on student_t at the RWMH row's shape: {times[st_name][0]:.4f} ms, plain "
         f"{times[st_name][1]:.4f} ms, bound {bounds[st_name][0]:.5f} ms, {bounds[st_name][1]}")
@@ -3158,7 +3725,12 @@ def main():
          "replaces": KERNELS[name][1], "launches": launches[name],
          "max_abs_err": max_err[name], "ms": times[name][0], "plain_ms": times[name][1],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1], "library_ms": None}
-        for name in KERNELS]}))
+        for name in KERNELS] + [
+        {"name": pair, "route": "cuda", "source": KERNELS[pair.split(" (")[0]][0],
+         "replaces": KERNELS[pair.split(" (")[0]][1], "launches": pairs[pair],
+         "max_abs_err": max_err[pair], "ms": times[pair][0], "plain_ms": times[pair][1],
+         "bound_ms": bounds[pair][0], "bound_by": bounds[pair][1], "library_ms": None}
+        for pair in sorted(pairs)]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

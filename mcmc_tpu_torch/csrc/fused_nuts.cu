@@ -2,8 +2,8 @@
 // point. The kernel, its launch and its dispatch over K, scheme and metric
 // are in nuts_window.cuh, which says what the kernel replaces and how it is
 // built. This file instantiates them for the standard normal, Neal's funnel,
-// the correlated Gaussian and the mixture; fused_nuts_families_1.cu and
-// _2.cu instantiate the other families, so the three compile in parallel.
+// the correlated Gaussian and the mixture; fused_nuts_families_1.cu, _2.cu
+// and _3.cu instantiate the other families, so the four compile in parallel.
 
 #include <cstdint>
 #include <cstring>
@@ -16,13 +16,14 @@ namespace nuts {
 #define MCMC_NUTS_EXTERN(F) extern template MCMC_NUTS_DISPATCH(F)
 MCMC_NUTS_FAMILIES_1(MCMC_NUTS_EXTERN)
 MCMC_NUTS_FAMILIES_2(MCMC_NUTS_EXTERN)
+MCMC_NUTS_FAMILIES_3(MCMC_NUTS_EXTERN)
 #undef MCMC_NUTS_EXTERN
 }  // namespace nuts
 }  // namespace mcmc
 
 // Plain C entry point, bound with ctypes by mcmc_tpu_torch/ops/_cuda.py.
 // `multinomial` and `dense` pick the variant. `target_params` is a host
-// array of the 4 floats of TargetParams, `data` a host TargetData of device
+// TargetParams, `data` a host TargetData of device
 // pointers (null for a family without data). `state` is a host array of the 42
 // device pointers of struct State, in its order (the last 9 null without
 // `multinomial`); `draws` a host array of the 6 injected draw pointers, or
@@ -31,7 +32,8 @@ MCMC_NUTS_FAMILIES_2(MCMC_NUTS_EXTERN)
 // launch's cudaError_t.
 extern "C" int nuts_window_launch(int family, int dim, int n_chains, int n_iters, int slots,
                                   int max_tree_depth, int multinomial, int dense,
-                                  const float* target_params, const mcmc::TargetData* data,
+                                  const mcmc::TargetParams* target_params,
+                                  const mcmc::TargetData* data,
                                   const float* scalars, const float* inv_mass,
                                   const float* l_inv, const uint32_t* key,
                                   unsigned int call, void* const* state, void* const* draws,
@@ -49,7 +51,7 @@ extern "C" int nuts_window_launch(int family, int dim, int n_chains, int n_iters
   a.dim = dim, a.n_chains = n_chains, a.n_iters = n_iters, a.slots = slots;
   a.max_tree_depth = max_tree_depth, a.scalars = scalars, a.inv_mass = inv_mass;
   a.l_inv = l_inv, a.key = key, a.call = call;
-  std::memcpy(a.params.v, target_params, sizeof(a.params.v));
+  a.params = *target_params;
   a.data = target_data(data);
   std::memcpy(&a.s, state, sizeof(nuts::State));
   if (draws != nullptr) std::memcpy(&a.d, draws, sizeof(nuts::Draws));
@@ -59,26 +61,10 @@ extern "C" int nuts_window_launch(int family, int dim, int n_chains, int n_iters
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool multi = multinomial != 0, dns = dense != 0;
   switch (family) {
-    case STANDARD_NORMAL:
-      return static_cast<int>(nuts::dispatch_variant<STANDARD_NORMAL>(a, multi, dns, s));
-    case NEALS_FUNNEL:
-      return static_cast<int>(nuts::dispatch_variant<NEALS_FUNNEL>(a, multi, dns, s));
-    case CORRELATED_GAUSSIAN:
-      return static_cast<int>(nuts::dispatch_variant<CORRELATED_GAUSSIAN>(a, multi, dns, s));
-    case GAUSSIAN_MIXTURE:
-      return static_cast<int>(nuts::dispatch_variant<GAUSSIAN_MIXTURE>(a, multi, dns, s));
-    case HIERARCHICAL_LOGISTIC:
-      return static_cast<int>(nuts::dispatch_variant<HIERARCHICAL_LOGISTIC>(a, multi, dns, s));
-    case NEALS_FUNNEL_NONCENTERED:
-      return static_cast<int>(nuts::dispatch_variant<NEALS_FUNNEL_NONCENTERED>(a, multi, dns, s));
-    case ILL_CONDITIONED_GAUSSIAN:
-      return static_cast<int>(nuts::dispatch_variant<ILL_CONDITIONED_GAUSSIAN>(a, multi, dns, s));
-    case STUDENT_T:
-      return static_cast<int>(nuts::dispatch_variant<STUDENT_T>(a, multi, dns, s));
-    case LOG_GAMMA:
-      return static_cast<int>(nuts::dispatch_variant<LOG_GAMMA>(a, multi, dns, s));
-    case LOG_GAMMA_UNCONSTRAINED:
-      return static_cast<int>(nuts::dispatch_variant<LOG_GAMMA_UNCONSTRAINED>(a, multi, dns, s));
+#define MCMC_CASE(F) \
+  case F: return static_cast<int>(nuts::dispatch_variant<F>(a, multi, dns, s));
+    MCMC_FAMILIES(MCMC_CASE)
+#undef MCMC_CASE
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -39,7 +39,6 @@
 
 #include <cstddef>
 #include <cstdint>
-#include <cstring>
 #include <cuda_runtime.h>
 
 #include "philox.cuh"
@@ -181,13 +180,13 @@ cudaError_t dispatch_g(const Args& a, cudaStream_t stream) {
 }  // namespace mcmc
 
 // Plain C entry point, bound with ctypes by mcmc_tpu_torch/ops/_cuda.py.
-// Pointers are device pointers except `target_params`, a host array of the
-// 4 floats of TargetParams, and `data`, a host TargetData of device
+// Pointers are device pointers except `target_params`, a host
+// TargetParams, and `data`, a host TargetData of device
 // pointers (null for a family without data); noise/u null selects the
 // in-kernel Philox draws (then key must be non-null). Returns the launch's
 // cudaError_t.
 extern "C" int rwmh_multistep_launch(int family, int dim, int n_chains, int transitions,
-                                     int n_hist, const float* target_params,
+                                     int n_hist, const mcmc::TargetParams* target_params,
                                      const mcmc::TargetData* data,
                                      const float* scale, const uint32_t* key,
                                      unsigned int call, const float* q, const float* lp,
@@ -202,28 +201,15 @@ extern "C" int rwmh_multistep_launch(int family, int dim, int n_chains, int tran
       n_hist > n_chains || !valid_data(family, target_data(data))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  TargetParams params;
-  std::memcpy(params.v, target_params, sizeof(params.v));
-  const rwmh::Args a{dim,   n_chains, transitions, n_hist, params, scale,
+  const rwmh::Args a{dim,   n_chains, transitions, n_hist, *target_params, scale,
                      key,   call,     q,           lp,     noise,  u,
                      q_out, lp_out,   acc_out,     hist_q, hist_lp, target_data(data)};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (family) {
-    case STANDARD_NORMAL: return static_cast<int>(rwmh::dispatch_g<STANDARD_NORMAL>(a, s));
-    case NEALS_FUNNEL: return static_cast<int>(rwmh::dispatch_g<NEALS_FUNNEL>(a, s));
-    case CORRELATED_GAUSSIAN:
-      return static_cast<int>(rwmh::dispatch_g<CORRELATED_GAUSSIAN>(a, s));
-    case GAUSSIAN_MIXTURE: return static_cast<int>(rwmh::dispatch_g<GAUSSIAN_MIXTURE>(a, s));
-    case HIERARCHICAL_LOGISTIC:
-      return static_cast<int>(rwmh::dispatch_g<HIERARCHICAL_LOGISTIC>(a, s));
-    case NEALS_FUNNEL_NONCENTERED:
-      return static_cast<int>(rwmh::dispatch_g<NEALS_FUNNEL_NONCENTERED>(a, s));
-    case ILL_CONDITIONED_GAUSSIAN:
-      return static_cast<int>(rwmh::dispatch_g<ILL_CONDITIONED_GAUSSIAN>(a, s));
-    case STUDENT_T: return static_cast<int>(rwmh::dispatch_g<STUDENT_T>(a, s));
-    case LOG_GAMMA: return static_cast<int>(rwmh::dispatch_g<LOG_GAMMA>(a, s));
-    case LOG_GAMMA_UNCONSTRAINED:
-      return static_cast<int>(rwmh::dispatch_g<LOG_GAMMA_UNCONSTRAINED>(a, s));
+#define MCMC_CASE(F) \
+  case F: return static_cast<int>(rwmh::dispatch_g<F>(a, s));
+    MCMC_FAMILIES(MCMC_CASE)
+#undef MCMC_CASE
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

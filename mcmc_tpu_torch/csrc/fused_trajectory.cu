@@ -15,14 +15,16 @@
 //   and 2a): M^{-1} is a (D, D) matrix, the momentum is z @ L^{-1} with
 //   M^{-1} = L L^T, and every velocity and kinetic energy is a D x D product
 //   (metric.cuh).
-//   targets.cuh             <- mcmc_tpu/ops/padded_targets.py:_standard_normal,
-//                              _neals_funnel, _correlated, _gaussian_mixture,
-//                              _hierarchical_logistic (inlined).
+//   targets.cuh             <- mcmc_tpu/ops/padded_targets.py:_BUILDERS, all 14
+//                              families (inlined).
 //   The family HIERARCHICAL_LOGISTIC is the TPU kernels' data-carrying form
 //   (variants 1d and 2b: the target's `data_arrays` refs): its functor reads
 //   the design matrix and labels from device memory (struct TargetData).
 //   That target's likelihood, two products with X per evaluation, not the
 //   state traffic, sets those variants' time (targets.cuh).
+// The kernels and their launchers are in fused_trajectory.cuh; this file
+// holds the entry points, and fused_trajectory_families_{1,2,3}.cu
+// instantiate ten of the families so that nvcc compiles four sources at once.
 // Both kernels share one __device__ transition (trajectory.cuh) with the
 // scaled and bridged variants of kernel 1 (fused_trajectory_scaled.cu,
 // fused_trajectory_bridged.cu). Plain PyTorch versions of everything here
@@ -68,107 +70,28 @@
 // -Xcompiler -fPIC, without --use_fast_math (the isfinite guard and the
 // agreement of expf/logf/sinf/cosf with PyTorch depend on IEEE math).
 
-#include <cstddef>
 #include <cstdint>
-#include <cstring>
 #include <cuda_runtime.h>
 
-#include "trajectory.cuh"
+#include "fused_trajectory.cuh"
 
 namespace mcmc {
-
-struct MultiArgs {
-  int dim, n_chains, num_steps, schedule, transitions;
-  TargetParams params;
-  TargetData data;
-  const float* scalars;
-  const uint32_t* key;
-  uint32_t call;
-  const float *q, *lp, *grad, *inv_mass, *l_inv, *p0, *u;
-  float *q_out, *lp_out, *grad_out;
-  bool* acc_out;
-  float *dh_out, *hist_q, *hist_lp;
-};
-
-template <int FAMILY, int K, bool DENSE>
-__global__ void __launch_bounds__(WARPS_PER_BLOCK * 32) grahmc_step_kernel(const StepArgs a) {
-  const int warp = threadIdx.x >> 5;
-  const int chain = blockIdx.x * WARPS_PER_BLOCK + warp;
-  const int lane = threadIdx.x & 31;
-  extern __shared__ float smem[];
-  const Metric<K, DENSE> metric =
-      make_metric<K, DENSE>(a.inv_mass, a.l_inv, a.dim, smem, warp, lane);
-  if (chain >= a.n_chains) return;  // uniform across the warp
-
-  const Scalars sc{a.scalars[0], a.scalars[1], a.scalars[2]};
-  step_chain<K>(a, Target<FAMILY, K>(a.dim, a.params, a.data), metric, sc, chain, lane);
-}
-
-template <int FAMILY, int K, bool DENSE>
-__global__ void __launch_bounds__(WARPS_PER_BLOCK * 32)
-    grahmc_multistep_kernel(const MultiArgs a) {
-  const int warp = threadIdx.x >> 5;
-  const int chain = blockIdx.x * WARPS_PER_BLOCK + warp;
-  const int lane = threadIdx.x & 31;
-  extern __shared__ float smem[];
-  const Metric<K, DENSE> metric =
-      make_metric<K, DENSE>(a.inv_mass, a.l_inv, a.dim, smem, warp, lane);
-  if (chain >= a.n_chains) return;
-
-  const Scalars sc{a.scalars[0], a.scalars[1], a.scalars[2]};
-  const Target<FAMILY, K> target(a.dim, a.params, a.data);
-  const size_t row = static_cast<size_t>(chain) * a.dim;
-  float q[K], g[K];
-  load_row(a.q, row, lane, a.dim, q);
-  load_row(a.grad, row, lane, a.dim, g);
-  float lp = a.lp[chain];
-
-  for (int t = 0; t < a.transitions; ++t) {
-    const size_t slot = static_cast<size_t>(t) * a.n_chains + chain;  // (T, C) index
-    const size_t trow = slot * a.dim;                                  // (T, C, D) row
-    float p0[K], u;
-    randoms(a.p0, a.u, trow, slot, metric, lane, a.dim, chain, a.call,
-            static_cast<uint32_t>(t), a.key, p0, u);
-    float q1[K], lp1, dh;
-    const bool accept = transition(target, metric, sc, a.num_steps, a.schedule, lane, p0, u,
-                                   q, g, lp, q1, lp1, dh);
-    store_row(a.hist_q, trow, lane, a.dim, q);
-    if (lane == 0) {
-      a.hist_lp[slot] = lp;
-      a.acc_out[slot] = accept;
-      a.dh_out[slot] = dh;
-    }
-  }
-  store_row(a.q_out, row, lane, a.dim, q);
-  store_row(a.grad_out, row, lane, a.dim, g);
-  if (lane == 0) a.lp_out[chain] = lp;
-}
-
-template <int FAMILY, int K, bool DENSE>
-struct StepLaunch {
-  static cudaError_t run(const StepArgs& a, cudaStream_t stream) {
-    return launch<K, DENSE>(grahmc_step_kernel<FAMILY, K, DENSE>, a, stream);
-  }
-};
-
-template <int FAMILY, int K, bool DENSE>
-struct MultiLaunch {
-  static cudaError_t run(const MultiArgs& a, cudaStream_t stream) {
-    return launch<K, DENSE>(grahmc_multistep_kernel<FAMILY, K, DENSE>, a, stream);
-  }
-};
-
+#define MCMC_TRAJECTORY_EXTERN(F) MCMC_TRAJECTORY_DISPATCH(extern template, F)
+MCMC_TRAJECTORY_FAMILIES_1(MCMC_TRAJECTORY_EXTERN)
+MCMC_TRAJECTORY_FAMILIES_2(MCMC_TRAJECTORY_EXTERN)
+MCMC_TRAJECTORY_FAMILIES_3(MCMC_TRAJECTORY_EXTERN)
+#undef MCMC_TRAJECTORY_EXTERN
 }  // namespace mcmc
 
 // Plain C entry points, bound with ctypes by mcmc_tpu_torch/ops/_cuda.py.
-// Pointers are device pointers except `target_params`, a host array of the 4
-// floats of TargetParams, and `data`, a host TargetData of device pointers
+// Pointers are device pointers except `target_params`, a host TargetParams,
+// and `data`, a host TargetData of device pointers
 // (null for a family without data). p0/u null selects the in-kernel Philox
 // draws (then key must be non-null). `dense` selects the dense metric: inv_mass is then
 // (dim, dim) and l_inv its (dim, dim) factor L^{-1}, required. Each returns
 // the launch's cudaError_t.
 extern "C" int grahmc_step_launch(int family, int dim, int n_chains, int num_steps,
-                                  int schedule, int dense, const float* target_params,
+                                  int schedule, int dense, const mcmc::TargetParams* target_params,
                                   const mcmc::TargetData* data, const float* scalars,
                                   const uint32_t* key, unsigned int call,
                                   const float* q, const float* lp, const float* grad,
@@ -182,7 +105,7 @@ extern "C" int grahmc_step_launch(int family, int dim, int n_chains, int num_ste
   }
   mcmc::StepArgs a{};
   a.dim = dim, a.n_chains = n_chains, a.num_steps = num_steps, a.schedule = schedule;
-  std::memcpy(a.params.v, target_params, sizeof(a.params.v));
+  a.params = *target_params;
   a.data = mcmc::target_data(data);
   a.scalars = scalars, a.key = key, a.call = call;
   a.q = q, a.lp = lp, a.grad = grad, a.inv_mass = inv_mass, a.l_inv = l_inv;
@@ -195,7 +118,7 @@ extern "C" int grahmc_step_launch(int family, int dim, int n_chains, int num_ste
 
 extern "C" int grahmc_multistep_launch(int family, int dim, int n_chains, int num_steps,
                                        int schedule, int transitions, int dense,
-                                       const float* target_params,
+                                       const mcmc::TargetParams* target_params,
                                        const mcmc::TargetData* data, const float* scalars,
                                        const uint32_t* key, unsigned int call,
                                        const float* q, const float* lp, const float* grad,
@@ -211,7 +134,7 @@ extern "C" int grahmc_multistep_launch(int family, int dim, int n_chains, int nu
   mcmc::MultiArgs a{};
   a.dim = dim, a.n_chains = n_chains, a.num_steps = num_steps, a.schedule = schedule;
   a.transitions = transitions;
-  std::memcpy(a.params.v, target_params, sizeof(a.params.v));
+  a.params = *target_params;
   a.data = mcmc::target_data(data);
   a.scalars = scalars, a.key = key, a.call = call;
   a.q = q, a.lp = lp, a.grad = grad, a.inv_mass = inv_mass, a.l_inv = l_inv;

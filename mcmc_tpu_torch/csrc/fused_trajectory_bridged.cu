@@ -35,7 +35,10 @@
 
 namespace mcmc {
 
-// beta * target + (1 - beta) * log N(mean, diag(1 / inv_scale^2)).
+// beta * target + (1 - beta) * log N(mean, diag(1 / inv_scale^2)). For a
+// family of ROUNDED_LEAPFROG the gradient's products are rounded before
+// their difference, as the plain version's (ops/fused_trajectory.py:
+// bridged_vag) are.
 template <typename T, int K>
 struct Bridged {
   T target;
@@ -54,10 +57,20 @@ struct Bridged {
     }
     const float lb = -0.5f * warp_sum(s) + base_log_norm;
 #pragma unroll
-    for (int r = 0; r < K; ++r) g[r] = beta * g[r] - one_minus_beta * (z[r] * inv_scale[r]);
+    for (int r = 0; r < K; ++r) {
+      if constexpr (ROUNDED_LEAPFROG<family_of<T>::value>) {
+        g[r] = __fsub_rn(__fmul_rn(beta, g[r]),
+                         __fmul_rn(one_minus_beta, __fmul_rn(z[r], inv_scale[r])));
+      } else {
+        g[r] = beta * g[r] - one_minus_beta * (z[r] * inv_scale[r]);
+      }
+    }
     return beta * lt + one_minus_beta * lb;
   }
 };
+
+template <typename T, int K>
+struct family_of<Bridged<T, K>> : family_of<T> {};
 
 template <int FAMILY, int K, bool DENSE>
 __global__ void __launch_bounds__(WARPS_PER_BLOCK * 32)
@@ -93,7 +106,7 @@ struct BridgedLaunch {
 // other arguments as grahmc_step_launch's (fused_trajectory.cu). Returns the
 // launch's cudaError_t.
 extern "C" int grahmc_bridged_launch(int family, int dim, int n_chains, int num_steps,
-                                     int schedule, int dense, const float* target_params,
+                                     int schedule, int dense, const mcmc::TargetParams* target_params,
                                      const mcmc::TargetData* data, const float* scalars,
                                      const float* base_mean,
                                      const float* base_inv_scale, const uint32_t* key,
@@ -109,7 +122,7 @@ extern "C" int grahmc_bridged_launch(int family, int dim, int n_chains, int num_
   }
   mcmc::StepArgs a{};
   a.dim = dim, a.n_chains = n_chains, a.num_steps = num_steps, a.schedule = schedule;
-  std::memcpy(a.params.v, target_params, sizeof(a.params.v));
+  a.params = *target_params;
   a.data = mcmc::target_data(data);
   a.scalars = scalars, a.base_mean = base_mean, a.base_inv_scale = base_inv_scale;
   a.key = key, a.call = call;

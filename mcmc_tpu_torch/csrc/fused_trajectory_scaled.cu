@@ -49,6 +49,9 @@ struct Scaled {
   }
 };
 
+template <typename T>
+struct family_of<Scaled<T>> : family_of<T> {};
+
 template <int FAMILY, int K, bool DENSE>
 __global__ void __launch_bounds__(WARPS_PER_BLOCK * 32) grahmc_scaled_kernel(const StepArgs a) {
   const int warp = threadIdx.x >> 5;
@@ -82,7 +85,7 @@ struct ScaledLaunch {
 // the launch's cudaError_t.
 extern "C" int grahmc_scaled_launch(int family, int dim, int n_chains, int rung_chains,
                                     int num_steps, int schedule, int dense,
-                                    const float* target_params,
+                                    const mcmc::TargetParams* target_params,
                                     const mcmc::TargetData* data, const float* rungs,
                                     const uint32_t* key, unsigned int call, const float* q,
                                     const float* lp, const float* grad,
@@ -98,7 +101,7 @@ extern "C" int grahmc_scaled_launch(int family, int dim, int n_chains, int rung_
   mcmc::StepArgs a{};
   a.dim = dim, a.n_chains = n_chains, a.num_steps = num_steps, a.schedule = schedule;
   a.rung_chains = rung_chains;
-  std::memcpy(a.params.v, target_params, sizeof(a.params.v));
+  a.params = *target_params;
   a.data = mcmc::target_data(data);
   a.scalars = rungs, a.key = key, a.call = call;
   a.q = q, a.lp = lp, a.grad = grad, a.inv_mass = inv_mass, a.l_inv = l_inv;

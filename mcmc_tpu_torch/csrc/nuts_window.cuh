@@ -306,18 +306,19 @@ __global__ void __launch_bounds__(WARPS_PER_BLOCK<DENSE> * 32)
     // is open (a closed subtree's remaining slots are skipped) -------------
     const float eps = direction * step;
     const float half = 0.5f * eps;
+    constexpr bool ROUNDED = DENSE || ROUNDED_LEAPFROG<FAMILY>;
     float lp_c = lp, h_c = h0;
     for (int k = 0; k < a.slots; ++k) {
       if (k > 0 && steps_left <= 0) break;
       float p[K], qn[K], gn[K], v[K];
 #pragma unroll
-      for (int r = 0; r < K; ++r) p[r] = add_scaled<DENSE>(p_c[r], half, g_c[r]);
+      for (int r = 0; r < K; ++r) p[r] = add_scaled<ROUNDED>(p_c[r], half, g_c[r]);
       metric.velocity(p, v);
 #pragma unroll
-      for (int r = 0; r < K; ++r) qn[r] = add_scaled<DENSE>(q_c[r], eps, v[r]);
+      for (int r = 0; r < K; ++r) qn[r] = add_scaled<ROUNDED>(q_c[r], eps, v[r]);
       lp_c = target(qn, gn, lane);
 #pragma unroll
-      for (int r = 0; r < K; ++r) p[r] = add_scaled<DENSE>(p[r], half, gn[r]);
+      for (int r = 0; r < K; ++r) p[r] = add_scaled<ROUNDED>(p[r], half, gn[r]);
       h_c = -lp_c + metric.kinetic(p);
       const float dh = h0 - h_c;
       sum_alpha += expf(dh > 0.f ? 0.f : dh);  // min(0, dh), NaN kept
@@ -517,11 +518,13 @@ cudaError_t dispatch_variant(const Args& a, bool multi, bool dense, cudaStream_t
 }
 
 // Families whose dispatch_variant the launcher takes from the other
-// translation units (fused_nuts_families_1.cu, _2.cu), each instantiating
-// its share there so the three sources compile in parallel.
+// translation units (fused_nuts_families_1.cu, _2.cu, _3.cu), each
+// instantiating its share there so the four sources compile in parallel.
 #define MCMC_NUTS_FAMILIES_1(X) X(HIERARCHICAL_LOGISTIC) X(NEALS_FUNNEL_NONCENTERED) \
   X(ILL_CONDITIONED_GAUSSIAN)
 #define MCMC_NUTS_FAMILIES_2(X) X(STUDENT_T) X(LOG_GAMMA) X(LOG_GAMMA_UNCONSTRAINED)
+#define MCMC_NUTS_FAMILIES_3(X) X(ROSENBROCK) X(MULTIMODAL_FUNNEL_2D) X(CONCENTRIC_L1) \
+  X(NESTED_L1)
 #define MCMC_NUTS_DISPATCH(F) \
   cudaError_t dispatch_variant<F>(const Args&, bool, bool, cudaStream_t);
 

@@ -1,9 +1,10 @@
 // Target device functions inlined into the fused kernels.
 //
-// Replace mcmc_tpu/ops/padded_targets.py:_standard_normal, _neals_funnel,
-// _correlated, _gaussian_mixture, _hierarchical_logistic,
-// _neals_funnel_noncentered, _ill_conditioned, _student_t, _log_gamma and
-// _log_gamma_unconstrained.
+// Replace the 14 device functions of mcmc_tpu/ops/padded_targets.py:_BUILDERS:
+// _standard_normal, _neals_funnel, _correlated, _gaussian_mixture,
+// _hierarchical_logistic, _neals_funnel_noncentered, _ill_conditioned,
+// _student_t, _log_gamma, _log_gamma_unconstrained, _rosenbrock,
+// _multimodal_funnel_2d, _concentric_l1 and _nested_l1.
 // A group of G lanes (G a power of two, 32 = a whole warp) holds one chain:
 // each lane owns K coordinates (zeros past dim), and coordinate 0 is register
 // 0 of the group's lane 0. Two layouts, the template flag BLOCKED: the
@@ -13,11 +14,11 @@
 // lane's q to its gradient entries and returns the chain's log-density,
 // identical on every lane of the group. The float arithmetic follows the
 // plain PyTorch version in mcmc_tpu_torch/ops/padded_targets.py term for
-// term; the functors ported with the ChEES slice (families 5-9) and the
-// correlated Gaussian also round each product before its sum (__fmul_rn,
-// __fadd_rn: no FMA) and sum in the plain version's lane order
-// (warp_order_sum), so their lp and gradient equal the plain version's bit
-// for bit where the two libraries' expf/logf/log1pf agree.
+// term; the functors of families 5-13 and the correlated Gaussian also
+// round each product before its sum (__fmul_rn, __fadd_rn: no FMA) and sum
+// in the plain version's lane order (warp_order_sum), so their lp and
+// gradient equal the plain version's bit for bit where the two libraries'
+// expf/logf/log1pf agree.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -35,14 +36,34 @@ enum Family {
   ILL_CONDITIONED_GAUSSIAN = 6,
   STUDENT_T = 7,
   LOG_GAMMA = 8,
-  LOG_GAMMA_UNCONSTRAINED = 9
+  LOG_GAMMA_UNCONSTRAINED = 9,
+  ROSENBROCK = 10,
+  MULTIMODAL_FUNNEL_2D = 11,
+  CONCENTRIC_L1 = 12,
+  NESTED_L1 = 13
 };
 
+// Every family, for the launchers' switches: X(FAMILY) once each.
+#define MCMC_FAMILIES(X)                                                              \
+  X(STANDARD_NORMAL) X(NEALS_FUNNEL) X(CORRELATED_GAUSSIAN) X(GAUSSIAN_MIXTURE)       \
+  X(HIERARCHICAL_LOGISTIC) X(NEALS_FUNNEL_NONCENTERED) X(ILL_CONDITIONED_GAUSSIAN)    \
+  X(STUDENT_T) X(LOG_GAMMA) X(LOG_GAMMA_UNCONSTRAINED) X(ROSENBROCK)                  \
+  X(MULTIMODAL_FUNNEL_2D) X(CONCENTRIC_L1) X(NESTED_L1)
+
+// The most L1 shells a target of the two L1 families may carry (the radii
+// of concentric_l1_balls; nested_l1_balls' n_inner + 1). A target with more
+// is refused by the Python wrappers (padded_targets.MAX_SHELLS); it is
+// never truncated.
+constexpr int MAX_SHELLS = 8;
+
 // A family's float parameters, computed on the host in double and rounded
-// once (mcmc_tpu_torch/ops/padded_targets.py:device_params); zeros for the
-// families that take none.
+// once (mcmc_tpu_torch/ops/padded_targets.py:device_params and
+// device_shells); zeros for the families that take none. The L1 families'
+// shell radii go in `shell`, their count in `n_shells`.
 struct TargetParams {
-  float v[4];
+  float v[8];
+  float shell[MAX_SHELLS];
+  int n_shells;
 };
 
 // A data-carrying family's data set in device memory
@@ -100,6 +121,31 @@ __device__ __forceinline__ int coord_of(int lane, int r) {
 
 template <int FAMILY, int K, int G = 32, bool BLOCKED = false>
 struct Target;
+
+// Families whose kernels round the leapfrog's products before their sums
+// (metric.cuh:add_scaled<true>) in the diagonal variants too, as every
+// dense variant does: where a rounding difference in q would grow, the
+// kernel repeats the plain version's trajectory. The L1 shells' gradient
+// jumps where a coordinate changes sign, Rosenbrock's moves ~1,000x as
+// fast as q (a = 100) and the bimodal funnel's neck amplifies it: with an
+// FMA's ulp of difference, [3g] read drifted proposals on up to 4% of
+// 16,384 chains after 8 transitions. The other families keep the FMA:
+// rounding them too made kernel 1 3.9%, kernel 2 3.5% and kernel 4 1.7%
+// slower on the 50-D funnel (H100 80GB HBM3 at 700 W,
+// experiments/torch_leapfrog_rounding_timing.py), and [3g] bounds their
+// few drifted chains (chip_smoke.py:FAMILY_DRIFT).
+template <int FAMILY>
+constexpr bool ROUNDED_LEAPFROG = FAMILY == ROSENBROCK || FAMILY == MULTIMODAL_FUNNEL_2D ||
+                                  FAMILY == CONCENTRIC_L1 || FAMILY == NESTED_L1;
+
+// The family of a potential: a Target's own, a wrapper's (Scaled, Bridged)
+// that of the target it wraps.
+template <typename P>
+struct family_of;
+template <int FAMILY, int K, int G, bool BLOCKED>
+struct family_of<Target<FAMILY, K, G, BLOCKED>> {
+  static constexpr int value = FAMILY;
+};
 
 // N(0, I): lp = -0.5 (sum q^2 + D log 2pi), grad = -q.
 template <int K, int G, bool BLOCKED>
@@ -500,6 +546,240 @@ struct Target<LOG_GAMMA_UNCONSTRAINED, K, G, BLOCKED> {
       g[r] = __fsub_rn(shape, rey);
     }
     return __fsub_rn(group_sum<G>(s), c);
+  }
+};
+
+// The sign of x as jnp.sign gives it: 0 at 0 (never copysignf's +-1).
+__device__ __forceinline__ float sign_of(float x) {
+  return static_cast<float>((x > 0.f) - (x < 0.f));
+}
+
+// Rosenbrock: lp = -sum_{i < D-1} [(1 - q_i)^2 + a (q_{i+1} - q_i^2)^2],
+// grad_i = -[-2 (1 - q_i) - 4 a q_i r_i] (i < D - 1) - 2 a r_{i-1} (i > 0)
+// with r_i = q_{i+1} - q_i^2. The first functor that couples neighbouring
+// coordinates: each lane needs q_{i+1} of its coordinates and r_{i-1}.
+// Warp-per-chain layout (coordinate lane + 32 r): coordinate i + 1 is
+// lane + 1's register r, lane 31's is lane 0's register r + 1
+// (__shfl_down_sync, then lane 31 from lane 0); r_{i-1} is lane - 1's
+// register r, lane 0's is lane 31's register r - 1 (__shfl_up_sync).
+// Kernel 3's lane groups (coordinate K lane + r): registers 0..K-2 find
+// their neighbour in the lane, register K-1 reads the next lane's register
+// 0 with __shfl_down_sync over the group's width G, and register 0 takes
+// r_{i-1} from the previous lane's register K-1 with __shfl_up_sync. At
+// every G (1 included) the group's last coordinate, K G - 1 >= dim - 1, has
+// no pair, so the value a shuffle returns past the group is never used.
+// Pairs past dim - 1 contribute nothing (the plain version's pair mask).
+// Params: a = 1 / scale^2, 2 a, 4 a.
+template <int K, int G, bool BLOCKED>
+struct Target<ROSENBROCK, K, G, BLOCKED> {
+  float a, a2, a4;
+  int dim;
+  __device__ explicit Target(int dim_, const TargetParams& p, const TargetData& = TargetData{})
+      : a(p.v[0]), a2(p.v[1]), a4(p.v[2]), dim(dim_) {}
+
+  __device__ __forceinline__ float operator()(const float (&q)[K], float (&g)[K],
+                                              int lane) const {
+    float nxt[K];  // q_{i+1} of each register's coordinate i
+#pragma unroll
+    for (int r = 0; r < K; ++r) {
+      if constexpr (BLOCKED) {
+        nxt[r] = r + 1 < K ? q[r + 1 < K ? r + 1 : r] : __shfl_down_sync(FULL_MASK, q[0], 1, G);
+      } else {
+        const float down = __shfl_down_sync(FULL_MASK, q[r], 1);
+        const float wrap = __shfl_sync(FULL_MASK, r + 1 < K ? q[r + 1 < K ? r + 1 : r] : 0.f, 0);
+        nxt[r] = lane == 31 ? wrap : down;
+      }
+    }
+    float s = 0.f, resid[K], fwd[K];
+#pragma unroll
+    for (int r = 0; r < K; ++r) {
+      resid[r] = 0.f;
+      fwd[r] = 0.f;
+      if (coord_of<K, G, BLOCKED>(lane, r) < dim - 1) {
+        resid[r] = __fsub_rn(nxt[r], __fmul_rn(q[r], q[r]));
+        const float om = __fsub_rn(1.f, q[r]);
+        s = __fadd_rn(s, __fadd_rn(__fmul_rn(om, om), __fmul_rn(__fmul_rn(a, resid[r]), resid[r])));
+        fwd[r] = __fsub_rn(__fmul_rn(-2.f, om), __fmul_rn(__fmul_rn(a4, q[r]), resid[r]));
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < K; ++r) {
+      float prev;  // r_{i-1}, 0 at coordinate 0
+      if constexpr (BLOCKED) {
+        const float up = __shfl_up_sync(FULL_MASK, resid[K - 1], 1, G);
+        prev = r > 0 ? resid[r > 0 ? r - 1 : 0] : (lane == 0 ? 0.f : up);
+      } else {
+        const float up = __shfl_up_sync(FULL_MASK, resid[r], 1);
+        const float wrap = __shfl_sync(FULL_MASK, r > 0 ? resid[r > 0 ? r - 1 : 0] : 0.f, 31);
+        prev = lane == 0 ? wrap : up;
+      }
+      g[r] = -__fadd_rn(fwd[r], __fmul_rn(a2, prev));
+    }
+    return -group_sum<G>(s);
+  }
+};
+
+// The RAHMC paper's bimodal funnel on R^2: v ~ (N(mu, s^2) + N(-mu, s^2)) / 2,
+// x | v ~ N(0, c e^v). v and x are coordinates 0 and 1 (registers 0 of
+// lanes 0 and 1 in the warp-per-chain layout, registers 0 and 1 of lane 0 in
+// the lane groups), broadcast with __shfl_sync; every other gradient entry
+// is 0. Params: mu, s^2, c, log(1/2) - log(2 pi s^2) / 2, log(2 pi c).
+template <int K, int G, bool BLOCKED>
+struct Target<MULTIMODAL_FUNNEL_2D, K, G, BLOCKED> {
+  float mu, sig2, c, log_norm_prior, log_2pi_c;
+  __device__ explicit Target(int, const TargetParams& p, const TargetData& = TargetData{})
+      : mu(p.v[0]), sig2(p.v[1]), c(p.v[2]), log_norm_prior(p.v[3]), log_2pi_c(p.v[4]) {}
+
+  __device__ __forceinline__ float operator()(const float (&q)[K], float (&g)[K],
+                                              int lane) const {
+    // coordinate 1: lane 0's register 1, or lane 1's register 0
+    constexpr int R1 = BLOCKED && K > 1 ? 1 : 0;
+    const float v = __shfl_sync(FULL_MASK, q[0], 0, G);
+    const float x = __shfl_sync(FULL_MASK, q[R1], R1 == 1 ? 0 : 1, G);
+    const float dm = __fsub_rn(v, mu), dp = __fadd_rn(v, mu);
+    const float a1 = __fdiv_rn(__fmul_rn(-0.5f, __fmul_rn(dm, dm)), sig2);
+    const float a2 = __fdiv_rn(__fmul_rn(-0.5f, __fmul_rn(dp, dp)), sig2);
+    const float mx = fmaxf(a1, a2);
+    const float e1 = expf(__fsub_rn(a1, mx));
+    const float e2 = expf(__fsub_rn(a2, mx));
+    const float lse = __fadd_rn(e1, e2);
+    const float log_prior = __fadd_rn(__fadd_rn(log_norm_prior, mx), logf(lse));
+    const float inv_var = __fdiv_rn(expf(-v), c);
+    const float log_cond =
+        __fmul_rn(-0.5f, __fadd_rn(__fadd_rn(__fmul_rn(__fmul_rn(x, x), inv_var), v), log_2pi_c));
+    const float w1 = __fdiv_rn(e1, lse), w2 = __fdiv_rn(e2, lse);
+    const float gv = __fsub_rn(
+        __fadd_rn(__fdiv_rn(-__fadd_rn(__fmul_rn(w1, dm), __fmul_rn(w2, dp)), sig2),
+                  __fmul_rn(__fmul_rn(__fmul_rn(0.5f, x), x), inv_var)),
+        0.5f);
+    const float gx = __fmul_rn(-x, inv_var);
+#pragma unroll
+    for (int r = 0; r < K; ++r) {
+      const int i = coord_of<K, G, BLOCKED>(lane, r);
+      g[r] = i == 0 ? gv : (i == 1 ? gx : 0.f);
+    }
+    return __fadd_rn(log_prior, log_cond);
+  }
+};
+
+// One L1 shell's log-weight and its d/du: -(u - r)^2 / (2 s^2) and
+// -(u - r) / s^2, rounded as the plain version's (ops/padded_targets.py).
+__device__ __forceinline__ float shell_term(float u, float r, float sig2) {
+  const float d = __fsub_rn(u, r);
+  return __fdiv_rn(__fmul_rn(-0.5f, __fmul_rn(d, d)), sig2);
+}
+__device__ __forceinline__ float shell_slope(float u, float r, float sig2) {
+  return __fdiv_rn(-__fsub_rn(u, r), sig2);
+}
+
+// Concentric L1 shells: p ∝ sum_k exp(-(|q|_1 - r_k)^2 / (2 s^2)). One
+// group sum for u = |q|_1, then the shells' logsumexp unrolled in the JAX
+// builder's order (the max, the exps, their sum), lp = max + log(sum), and
+// grad = (sum_k e_k (-(u - r_k) / s^2)) / sum * sign(q), the sign 0 at 0.
+// Up to MAX_SHELLS shells from the params (`shell`, `n_shells`). Params: s^2.
+template <int K, int G, bool BLOCKED>
+struct Target<CONCENTRIC_L1, K, G, BLOCKED> {
+  float sig2;
+  float radius[MAX_SHELLS];
+  int n;
+  __device__ explicit Target(int, const TargetParams& p, const TargetData& = TargetData{})
+      : sig2(p.v[0]), n(p.n_shells) {
+#pragma unroll
+    for (int k = 0; k < MAX_SHELLS; ++k) radius[k] = p.shell[k];
+  }
+
+  __device__ __forceinline__ float operator()(const float (&q)[K], float (&g)[K],
+                                              int /*lane*/) const {
+    float s = 0.f;
+#pragma unroll
+    for (int r = 0; r < K; ++r) s = __fadd_rn(s, fabsf(q[r]));
+    const float u = group_sum<G>(s);
+    float mx = shell_term(u, radius[0], sig2);
+#pragma unroll
+    for (int k = 1; k < MAX_SHELLS; ++k) {
+      if (k < n) mx = fmaxf(mx, shell_term(u, radius[k], sig2));
+    }
+    float lse = 0.f, du = 0.f;
+#pragma unroll
+    for (int k = 0; k < MAX_SHELLS; ++k) {
+      if (k < n) {
+        const float e = expf(__fsub_rn(shell_term(u, radius[k], sig2), mx));
+        lse = __fadd_rn(lse, e);
+        du = __fadd_rn(du, __fmul_rn(e, shell_slope(u, radius[k], sig2)));
+      }
+    }
+    const float coef = __fdiv_rn(du, lse);
+#pragma unroll
+    for (int r = 0; r < K; ++r) g[r] = __fmul_rn(coef, sign_of(q[r]));
+    return __fadd_rn(mx, logf(lse));
+  }
+};
+
+// Nested L1 shells: an outer shell of radius r_outer about the origin and
+// n_inner shells of radius r_inner about the axis points c_k (k = 1 ..
+// n_inner), whose one nonzero coordinate is axis (k - 1) / 2 % dim with
+// +mu_norm for odd k and -mu_norm for even k. n_inner + 1 group sums u_k =
+// |q - c_k|_1, the shells' logsumexp in the JAX builder's order, and grad =
+// (sum_k e_k (-(u_k - r_k) / s^2) sign(q - c_k)) / sum. Shell k's radius is
+// shell[k] (r_outer, then r_inner n_inner times), n_shells = n_inner + 1 <=
+// MAX_SHELLS. Params: s^2, mu_norm.
+template <int K, int G, bool BLOCKED>
+struct Target<NESTED_L1, K, G, BLOCKED> {
+  float sig2, mu;
+  float radius[MAX_SHELLS];
+  int n, dim;
+  __device__ explicit Target(int dim_, const TargetParams& p, const TargetData& = TargetData{})
+      : sig2(p.v[0]), mu(p.v[1]), n(p.n_shells), dim(dim_) {
+#pragma unroll
+    for (int k = 0; k < MAX_SHELLS; ++k) radius[k] = p.shell[k];
+  }
+
+  // q - c_k at coordinate i
+  __device__ __forceinline__ float diff(float qi, int i, int k) const {
+    if (k == 0 || i != (k - 1) / 2 % dim) return qi;
+    return __fsub_rn(qi, (k - 1) % 2 == 0 ? mu : -mu);
+  }
+
+  __device__ __forceinline__ float operator()(const float (&q)[K], float (&g)[K],
+                                              int lane) const {
+    float u[MAX_SHELLS];
+#pragma unroll
+    for (int k = 0; k < MAX_SHELLS; ++k) {
+      if (k < n) {
+        float s = 0.f;
+#pragma unroll
+        for (int r = 0; r < K; ++r) {
+          s = __fadd_rn(s, fabsf(diff(q[r], coord_of<K, G, BLOCKED>(lane, r), k)));
+        }
+        u[k] = group_sum<G>(s);
+      } else {
+        u[k] = 0.f;
+      }
+    }
+    float mx = shell_term(u[0], radius[0], sig2);
+#pragma unroll
+    for (int k = 1; k < MAX_SHELLS; ++k) {
+      if (k < n) mx = fmaxf(mx, shell_term(u[k], radius[k], sig2));
+    }
+    float lse = 0.f;
+#pragma unroll
+    for (int r = 0; r < K; ++r) g[r] = 0.f;
+#pragma unroll
+    for (int k = 0; k < MAX_SHELLS; ++k) {
+      if (k < n) {
+        const float e = expf(__fsub_rn(shell_term(u[k], radius[k], sig2), mx));
+        lse = __fadd_rn(lse, e);
+        const float coef = __fmul_rn(e, shell_slope(u[k], radius[k], sig2));
+#pragma unroll
+        for (int r = 0; r < K; ++r) {
+          const int i = coord_of<K, G, BLOCKED>(lane, r);
+          g[r] = __fadd_rn(g[r], __fmul_rn(coef, sign_of(diff(q[r], i, k))));
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < K; ++r) g[r] = __fdiv_rn(g[r], lse);
+    return __fadd_rn(mx, logf(lse));
   }
 };
 

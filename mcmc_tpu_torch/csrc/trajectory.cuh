@@ -68,6 +68,7 @@ __device__ __forceinline__ bool transition(const P& potential, const M& metric,
                                            int lane, const float (&p0)[K], float u,
                                            float (&q)[K], float (&g)[K], float& lp,
                                            float (&q1)[K], float& lp1, float& dh) {
+  constexpr bool ROUNDED = M::DENSE || ROUNDED_LEAPFROG<family_of<P>::value>;
   float p[K], g1[K], v[K];
 #pragma unroll
   for (int r = 0; r < K; ++r) {
@@ -91,14 +92,14 @@ __device__ __forceinline__ bool transition(const P& potential, const M& metric,
       for (int r = 0; r < K; ++r) p[r] *= scale;
     }
 #pragma unroll
-    for (int r = 0; r < K; ++r) p[r] = add_scaled<M::DENSE>(p[r], half, g1[r]);
+    for (int r = 0; r < K; ++r) p[r] = add_scaled<ROUNDED>(p[r], half, g1[r]);
     metric.velocity(p, v);
 #pragma unroll
-    for (int r = 0; r < K; ++r) q1[r] = add_scaled<M::DENSE>(q1[r], sc.eps, v[r]);
+    for (int r = 0; r < K; ++r) q1[r] = add_scaled<ROUNDED>(q1[r], sc.eps, v[r]);
     lp1 = potential(q1, g1, lane);
 #pragma unroll
     for (int r = 0; r < K; ++r) {
-      p[r] = add_scaled<M::DENSE>(p[r], half, g1[r]);
+      p[r] = add_scaled<ROUNDED>(p[r], half, g1[r]);
       if (schedule != NO_FRICTION) p[r] *= scale;
     }
   }
@@ -231,21 +232,10 @@ cudaError_t dispatch(int family, bool dense, const Args& a, cudaStream_t stream)
     return cudaErrorInvalidValue;
   }
   switch (family) {
-    case STANDARD_NORMAL: return dispatch_metric<Launch, STANDARD_NORMAL>(dense, a, stream);
-    case NEALS_FUNNEL: return dispatch_metric<Launch, NEALS_FUNNEL>(dense, a, stream);
-    case CORRELATED_GAUSSIAN:
-      return dispatch_metric<Launch, CORRELATED_GAUSSIAN>(dense, a, stream);
-    case GAUSSIAN_MIXTURE: return dispatch_metric<Launch, GAUSSIAN_MIXTURE>(dense, a, stream);
-    case HIERARCHICAL_LOGISTIC:
-      return dispatch_metric<Launch, HIERARCHICAL_LOGISTIC>(dense, a, stream);
-    case NEALS_FUNNEL_NONCENTERED:
-      return dispatch_metric<Launch, NEALS_FUNNEL_NONCENTERED>(dense, a, stream);
-    case ILL_CONDITIONED_GAUSSIAN:
-      return dispatch_metric<Launch, ILL_CONDITIONED_GAUSSIAN>(dense, a, stream);
-    case STUDENT_T: return dispatch_metric<Launch, STUDENT_T>(dense, a, stream);
-    case LOG_GAMMA: return dispatch_metric<Launch, LOG_GAMMA>(dense, a, stream);
-    case LOG_GAMMA_UNCONSTRAINED:
-      return dispatch_metric<Launch, LOG_GAMMA_UNCONSTRAINED>(dense, a, stream);
+#define MCMC_CASE(F) \
+  case F: return dispatch_metric<Launch, F>(dense, a, stream);
+    MCMC_FAMILIES(MCMC_CASE)
+#undef MCMC_CASE
     default: return cudaErrorInvalidValue;
   }
 }

@@ -28,11 +28,23 @@ from mcmc_tpu_torch.tuning.welford import DenseMomentState, WelfordState
 
 def target_from_tag(info: dict) -> TargetDistribution:
     """The port's target for a JAX target's ``pallas_info`` tag
-    ``{"family", "dim", "params"}``. Raises for families not yet ported and
-    for parameters that differ from the port target's own tag: numbers must
-    agree to 1e-12, arrays (the hierarchical posterior's data set X, y)
-    exactly in shape and value."""
+    ``{"family", "dim", "params"}``. Raises for unknown families and for
+    parameters that differ from the port target's own tag: numbers must
+    agree to 1e-12; arrays (the hierarchical posterior's data set X, y),
+    tuples (the concentric shells' radii) and integers (the nested shells'
+    n_inner) exactly."""
+    from mcmc_tpu_torch.targets import rahmc_paper
     params = dict(info.get("params", {}))
+    factories = {"multimodal_funnel_2d": rahmc_paper.multimodal_funnel_2d,
+                 "concentric_l1_balls": rahmc_paper.concentric_l1_balls,
+                 "nested_l1_balls": rahmc_paper.nested_l1_balls}
+    if info["family"] in factories:
+        dim = {} if info["family"] == "multimodal_funnel_2d" else {"dim": int(info["dim"])}
+        try:
+            target = factories[info["family"]](**dim, **params)
+        except TypeError as err:        # a parameter the factory does not take
+            raise ValueError(f"{info['family']}: params {sorted(params)}: {err}") from err
+        return _checked(info, params, target)
     kwargs = {}
     if info["family"] == "correlated_gaussian" and "a" in params:
         kwargs["correlation"] = 1.0 - 1.0 / params["a"]    # a = 1 / (1 - rho)
@@ -41,10 +53,22 @@ def target_from_tag(info: dict) -> TargetDistribution:
     if info["family"] == "hierarchical_logistic":
         kwargs.update({k: int(params[k]) for k in ("n_data", "data_seed") if k in params})
     if info["family"] in ("ill_conditioned_gaussian", "student_t", "log_gamma",
-                          "log_gamma_unconstrained"):
+                          "log_gamma_unconstrained", "rosenbrock"):
         kwargs.update(params)           # the factory's own keyword arguments
-    target = get_target(info["family"], dim=int(info["dim"]), **kwargs)
-    ours = target.value_and_grad_fn.kernel_info["params"]
+    try:
+        target = get_target(info["family"], dim=int(info["dim"]), **kwargs)
+    except TypeError as err:            # a parameter the factory does not take
+        raise ValueError(f"{info['family']}: params {sorted(params)}: {err}") from err
+    return _checked(info, params, target)
+
+
+def _checked(info: dict, params: dict, target: TargetDistribution) -> TargetDistribution:
+    """`target` if its tag has the dim and exactly the params of `info`
+    (_same), else ValueError."""
+    tag = target.value_and_grad_fn.kernel_info
+    if tag["dim"] != int(info["dim"]):
+        raise ValueError(f"{info['family']} has dim {tag['dim']}, the tag {info['dim']}")
+    ours = tag["params"]
     if set(params) != set(ours):
         raise ValueError(f"{info['family']} takes params {sorted(ours)}, got {sorted(params)}")
     differ = sorted(k for k in ours if not _same(params[k], ours[k]))
@@ -54,11 +78,15 @@ def target_from_tag(info: dict) -> TargetDistribution:
 
 
 def _same(theirs, ours) -> bool:
-    """A tag parameter equal to the port's: arrays exactly, numbers to
-    1e-12."""
+    """A tag parameter equal to the port's: arrays, tuples and integers
+    exactly, other numbers to 1e-12."""
     if isinstance(ours, np.ndarray):
         theirs = np.asarray(theirs)
         return theirs.shape == ours.shape and bool(np.array_equal(theirs, ours))
+    if isinstance(ours, tuple):
+        return tuple(theirs) == ours
+    if isinstance(ours, int):
+        return theirs == ours
     return math.isclose(theirs, ours, rel_tol=1e-12)
 
 

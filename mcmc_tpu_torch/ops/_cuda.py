@@ -54,6 +54,13 @@ _SIGNATURES = {
 }
 
 
+class TargetParams(ctypes.Structure):
+    """`struct TargetParams` of csrc/targets.cuh: a family's float
+    parameters v, and the L1 families' shell radii and count."""
+    _fields_ = [("v", ctypes.c_float * 8), ("shell", ctypes.c_float * 8),
+                ("n_shells", ctypes.c_int)]
+
+
 class TargetData(ctypes.Structure):
     """`struct TargetData` of csrc/targets.cuh: a data-carrying target's
     device pointers X (n_data, dim), xt (dim, n_data), y (n_data,)."""

@@ -333,19 +333,22 @@ def make_fused_nuts_window(value_and_grad_fn, generator: torch.Generator,
                            step_size, inv_mass_matrix: Tensor,
                            max_tree_depth: int, delta_max, steps_per_iter: int,
                            device):
-    """Build window(state, n_slots) -> state: one kernel 4 call running
-    n_slots // steps_per_iter machine iterations, its Philox key drawn once
-    from `generator` and its call index the window's number. The state is
-    the float32 _PState (its fields choose the scheme); inv_mass_matrix is
-    (D,) or (D, D); the step size may be a device tensor."""
+    """Build window(state, n_slots, step_size=None) -> state: one kernel 4
+    call running n_slots // steps_per_iter machine iterations, its Philox
+    key drawn once from `generator` and its call index the window's number.
+    The state is the float32 _PState (its fields choose the scheme);
+    inv_mass_matrix is (D,) or (D, D); the step size may be a device tensor,
+    and a window's own `step_size` (the warmup's dual averaging) replaces
+    it for that window."""
     info = kernel_info(value_and_grad_fn, "nuts")
     stream = PhiloxStream.from_generator(generator, device)
     scalars = nuts_scalars(step_size, delta_max, device)
     inv_mass, l_inv = kernel_metric(inv_mass_matrix.to(device))
 
-    def window(ps: _PState, n_slots: int) -> _PState:
+    def window(ps: _PState, n_slots: int, step_size=None) -> _PState:
+        own = scalars if step_size is None else nuts_scalars(step_size, delta_max, device)
         return nuts_window_kernel(info, n_slots // steps_per_iter, steps_per_iter,
-                                  max_tree_depth, ps, scalars, inv_mass,
+                                  max_tree_depth, ps, own, inv_mass,
                                   key=stream.key, call=stream.next_call(),
                                   l_inv=l_inv)
     return window

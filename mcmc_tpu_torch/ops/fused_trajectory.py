@@ -64,8 +64,9 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from mcmc_tpu_torch import precision
-from mcmc_tpu_torch.ops.padded_targets import (DATA_FAMILIES, FAMILY_IDS, device_data,
-                                               device_params, device_vag, kernel_info)
+from mcmc_tpu_torch.ops.padded_targets import (DATA_FAMILIES, FAMILY_IDS, MAX_SHELLS,
+                                               N_PARAMS, device_data, device_params,
+                                               device_shells, device_vag, kernel_info)
 from mcmc_tpu_torch.samplers.grahmc import DIVERGENCE_DELTA_H, FRICTION_SCHEDULES
 from mcmc_tpu_torch.samplers.trajectory import (as_scalar, dense_unwhitening,
                                                 integrate_trajectory,
@@ -499,11 +500,16 @@ def _count(kernel, inv_mass: Tensor, info: dict) -> None:
 
 
 def target_args(info: dict, device):
-    """The launchers' host target arguments: the 4 floats of TargetParams
-    and a reference to the TargetData of the target's device data set (None
-    for a family without one). Both must live until the launch returns."""
+    """The launchers' host target arguments: a reference to the
+    TargetParams (device_params, and device_shells for an L1 family, which
+    raises past the kernels' MAX_SHELLS) and one to the TargetData of the
+    target's device data set (None for a family without one). Both must
+    live until the launch returns."""
     from mcmc_tpu_torch.ops import _cuda
-    params = (ctypes.c_float * 4)(*device_params(info))
+    values, shells = device_params(info), device_shells(info)
+    params = ctypes.byref(_cuda.TargetParams(
+        (ctypes.c_float * N_PARAMS)(*values), (ctypes.c_float * MAX_SHELLS)(*shells),
+        len(shells)))
     if info["family"] not in DATA_FAMILIES:
         return params, None
     X, xt, y = device_data(info, device)

@@ -1,10 +1,12 @@
 """Plain PyTorch versions of the kernels' target device functions.
 
-Port of ten device functions of ``mcmc_tpu/ops/padded_targets.py``
-(``_standard_normal``, ``_neals_funnel``, ``_neals_funnel_noncentered``,
-``_ill_conditioned``, ``_student_t``, ``_log_gamma``,
-``_log_gamma_unconstrained``, ``_correlated``, ``_gaussian_mixture`` and
-``_hierarchical_logistic``). The TPU versions work on blocks
+Port of the 14 device functions of ``mcmc_tpu/ops/padded_targets.py``
+(``_BUILDERS``: ``_standard_normal``, ``_neals_funnel``,
+``_neals_funnel_noncentered``, ``_ill_conditioned``, ``_student_t``,
+``_log_gamma``, ``_log_gamma_unconstrained``, ``_correlated``,
+``_gaussian_mixture``, ``_hierarchical_logistic``, ``_rosenbrock``,
+``_multimodal_funnel_2d``, ``_concentric_l1`` and ``_nested_l1``). The TPU
+versions work on blocks
 padded to the (8, 128) tiles, in a lane or a transposed layout; the CUDA
 kernels keep the public (chains, dim) row-major layout and mask lanes past
 ``dim`` themselves, so none of the padding, ``_mask_row`` or layout code is
@@ -29,7 +31,9 @@ from mcmc_tpu_torch.targets import LOG_2PI, gamma_log_norm, student_t_log_norm
 FAMILY_IDS = {"standard_normal": 0, "neals_funnel": 1, "correlated_gaussian": 2,
               "gaussian_mixture": 3, "hierarchical_logistic": 4,
               "neals_funnel_noncentered": 5, "ill_conditioned_gaussian": 6,
-              "student_t": 7, "log_gamma": 8, "log_gamma_unconstrained": 9}
+              "student_t": 7, "log_gamma": 8, "log_gamma_unconstrained": 9,
+              "rosenbrock": 10, "multimodal_funnel_2d": 11, "concentric_l1_balls": 12,
+              "nested_l1_balls": 13}
 # The families each kernel's launcher dispatches on: every ported family in
 # every kernel (kernel 3 runs a family's log-density in its lane groups; the
 # hierarchical posterior through its log-density-only form). The launchers
@@ -41,7 +45,15 @@ KERNEL_FAMILIES = {"grahmc": _ALL_FAMILIES, "rwmh": _ALL_FAMILIES, "nuts": _ALL_
 # lane-group order (device_lp).
 LANE_ORDER_FAMILIES = ("correlated_gaussian", "neals_funnel_noncentered",
                        "ill_conditioned_gaussian", "student_t", "log_gamma",
-                       "log_gamma_unconstrained")
+                       "log_gamma_unconstrained", "rosenbrock", "concentric_l1_balls",
+                       "nested_l1_balls")
+# The L1 families carry their shells' radii in `struct TargetParams`
+# (csrc/targets.cuh), at most MAX_SHELLS of them; a target with more is
+# refused (device_shells), never truncated.
+L1_FAMILIES = ("concentric_l1_balls", "nested_l1_balls")
+MAX_SHELLS = 8
+# Floats of TargetParams.v.
+N_PARAMS = 8
 # Families whose device function reads a data set from device memory.
 DATA_FAMILIES = ("hierarchical_logistic",)
 # Kernel 3 gives a chain 2^ceil(log2(ceil(D / 4))) lanes, lane j holding
@@ -55,7 +67,8 @@ def kernel_info(value_and_grad_fn, kernel: Optional[str] = None) -> dict:
     Raises TypeError when the closure carries no tag and KeyError for
     families without a device function (a Python callable cannot be
     compiled into the CUDA kernel), or, with `kernel` (a KERNEL_FAMILIES
-    key), for families that kernel does not dispatch on."""
+    key), for families that kernel does not dispatch on; ValueError for an
+    L1 target with more shells than the kernels carry (device_shells)."""
     info = getattr(value_and_grad_fn, "kernel_info", None)
     if info is None:
         raise TypeError(
@@ -66,6 +79,7 @@ def kernel_info(value_and_grad_fn, kernel: Optional[str] = None) -> dict:
         where = "" if kernel is None else f" in the {kernel} kernel"
         raise KeyError(f"target family {info['family']!r} has no device "
                        f"function{where} yet; ported: {sorted(families)}")
+    device_shells(info)
     return info
 
 
@@ -124,16 +138,20 @@ def device_data(info: dict, device) -> tuple:
 
 
 def device_params(info: dict) -> tuple:
-    """The four floats of `struct TargetParams` (csrc/targets.cuh) for this
-    target, computed in double as the plain version computes them and
-    rounded once: (a, b, log|Sigma| + D log 2pi, 0) for the correlated
-    Gaussian, (sep / 2, 0, 0, 0) for the mixture, (log 9 + D log 2pi, 0, 0,
-    0) for the non-centered funnel, (slope (kappa - 1) / (D - 1),
-    log|Sigma| + D log 2pi, 0, 0) for the ill-conditioned Gaussian, (df,
-    (df + 1) / 2, D log_norm, -(df + 1)) for Student-t, (shape - 1, rate,
-    log Z, 0) for log-gamma and (shape, rate, D log Z, 0) for its
-    unconstrained form (log Z = gammaln(shape) + shape log(rate)), zeros for
-    the families without parameters."""
+    """The leading floats of `struct TargetParams`'s v (csrc/targets.cuh)
+    for this target, computed in double as the plain version computes them
+    and rounded once (the rest of v is 0): (a, b, log|Sigma| + D log 2pi, 0)
+    for the correlated Gaussian, (sep / 2, 0, 0, 0) for the mixture, (log 9
+    + D log 2pi, 0, 0, 0) for the non-centered funnel, (slope (kappa - 1) /
+    (D - 1), log|Sigma| + D log 2pi, 0, 0) for the ill-conditioned Gaussian,
+    (df, (df + 1) / 2, D log_norm, -(df + 1)) for Student-t, (shape - 1,
+    rate, log Z, 0) for log-gamma and (shape, rate, D log Z, 0) for its
+    unconstrained form (log Z = gammaln(shape) + shape log(rate)), (a, 2 a,
+    4 a, 0) with a = 1 / scale^2 for Rosenbrock, (mu, sigma^2, c, log(1/2)
+    - log(2 pi sigma^2) / 2, log(2 pi c)) for the bimodal funnel, (sigma^2,
+    0, 0, 0) for the concentric and (sigma^2, mu_norm, 0, 0) for the nested
+    L1 shells (their radii: device_shells), zeros for the families without
+    parameters."""
     p, dim, family = info["params"], info["dim"], info["family"]
     if family == "correlated_gaussian":
         return (p["a"], p["b"], p["log_det_cov"] + dim * LOG_2PI, 0.0)
@@ -152,7 +170,37 @@ def device_params(info: dict) -> tuple:
         return (p["shape"] - 1.0, p["rate"], gamma_log_norm(p["shape"], p["rate"]), 0.0)
     if family == "log_gamma_unconstrained":
         return (p["shape"], p["rate"], dim * gamma_log_norm(p["shape"], p["rate"]), 0.0)
+    if family == "rosenbrock":
+        a = 1.0 / (p["scale"] ** 2)
+        return (a, 2.0 * a, 4.0 * a, 0.0)
+    if family == "multimodal_funnel_2d":
+        sig2 = p["sigma"] * p["sigma"]
+        return (p["mu"], sig2, p["c"], math.log(0.5) - 0.5 * math.log(2.0 * math.pi * sig2),
+                math.log(2.0 * math.pi * p["c"]))
+    if family == "concentric_l1_balls":
+        return (p["sigma"] ** 2, 0.0, 0.0, 0.0)
+    if family == "nested_l1_balls":
+        return (p["sigma"] ** 2, p["mu_norm"], 0.0, 0.0)
     return (0.0, 0.0, 0.0, 0.0)
+
+
+def device_shells(info: dict) -> tuple:
+    """The shell radii of an L1 family in `struct TargetParams`'s shell
+    array: the concentric target's radii, the nested one's r_outer then
+    r_inner n_inner times; () for the other families. Raises ValueError for
+    more than MAX_SHELLS shells, the kernels' cap: a target is never
+    truncated and never run eagerly in the kernel's place."""
+    p, family = info["params"], info["family"]
+    if family == "concentric_l1_balls":
+        shells = tuple(float(r) for r in p["radii"])
+    elif family == "nested_l1_balls":
+        shells = (float(p["r_outer"]),) + (float(p["r_inner"]),) * int(p["n_inner"])
+    else:
+        return ()
+    if not 1 <= len(shells) <= MAX_SHELLS:
+        raise ValueError(f"{family} has {len(shells)} L1 shells; the CUDA kernels carry "
+                         f"1 to MAX_SHELLS = {MAX_SHELLS} (csrc/targets.cuh)")
+    return shells
 
 
 def _standard_normal(dim, params):
@@ -307,6 +355,116 @@ def _log_gamma_unconstrained(dim, params, group=None):
     return vag
 
 
+def _rosenbrock(dim, params, group=None):
+    """-sum_{i < D-1} [(1 - q_i)^2 + a r_i^2], r_i = q_{i+1} - q_i^2, with
+    the forward term -2 (1 - q_i) - 4 a q_i r_i and the backward term
+    2 a r_{i-1} of the gradient; the pairs past dim - 1 masked to 0."""
+    a, a2, a4 = device_params({"family": "rosenbrock", "dim": dim, "params": params})[:3]
+    order = _order(group)
+
+    def vag(q):
+        pair = torch.arange(dim, device=q.device) < dim - 1
+        zero = torch.zeros_like(q[:, :1])
+        resid = torch.where(pair, torch.cat([q[:, 1:], zero], dim=1) - q * q, 0.0)
+        om = 1.0 - q
+        term = torch.where(pair, om * om + (a * resid) * resid, 0.0)
+        fwd = torch.where(pair, -2.0 * om - (a4 * q) * resid, 0.0)
+        bwd = torch.cat([zero, (a2 * resid)[:, :-1]], dim=1)
+        return -warp_order_sum(term, *order), -(fwd + bwd)
+    return vag
+
+
+def _multimodal_funnel_2d(dim, params, group=None):
+    """v ~ (N(mu, s^2) + N(-mu, s^2)) / 2, x | v ~ N(0, c e^v) on
+    coordinates 0 and 1; no sum, so both layouts are one formula."""
+    mu, sig2, c, log_norm_prior, log_2pi_c = device_params(
+        {"family": "multimodal_funnel_2d", "dim": dim, "params": params})
+
+    def vag(q):
+        v, x = q[:, 0], q[:, 1]
+        dm, dp = v - mu, v + mu
+        a1 = (-0.5 * (dm * dm)) / sig2
+        a2 = (-0.5 * (dp * dp)) / sig2
+        mx = torch.maximum(a1, a2)
+        e1, e2 = torch.exp(a1 - mx), torch.exp(a2 - mx)
+        lse = e1 + e2
+        log_prior = (log_norm_prior + mx) + torch.log(lse)
+        inv_var = torch.exp(-v) / c
+        log_cond = -0.5 * (((x * x) * inv_var + v) + log_2pi_c)
+        w1, w2 = e1 / lse, e2 / lse
+        gv = (-(w1 * dm + w2 * dp)) / sig2 + ((0.5 * x) * x) * inv_var - 0.5
+        grad = torch.zeros_like(q)
+        grad[:, 0] = gv
+        grad[:, 1] = (-x) * inv_var
+        return log_prior + log_cond, grad
+    return vag
+
+
+def _sign(x):
+    """jnp.sign: 0 at 0."""
+    return (x > 0).to(x.dtype) - (x < 0).to(x.dtype)
+
+
+def _shell_logsumexp(us, radii, sig2):
+    """The shells' log-weights -(u_k - r_k)^2 / (2 s^2) and their
+    logsumexp, unrolled in the JAX builder's order (the max, the exps, their
+    sum): (lp, exps, lse, slopes -(u_k - r_k) / s^2)."""
+    terms = [(-0.5 * ((u - r) * (u - r))) / sig2 for u, r in zip(us, radii)]
+    mx = terms[0]
+    for t in terms[1:]:
+        mx = torch.maximum(mx, t)
+    exps = [torch.exp(t - mx) for t in terms]
+    lse = exps[0]
+    for e in exps[1:]:
+        lse = lse + e
+    slopes = [(-(u - r)) / sig2 for u, r in zip(us, radii)]
+    return mx + torch.log(lse), exps, lse, slopes
+
+
+def _concentric_l1(dim, params, group=None):
+    """p ∝ sum_k exp(-(|q|_1 - r_k)^2 / (2 s^2)): one sum for u = |q|_1,
+    grad = (sum_k e_k slope_k) / lse * sign(q)."""
+    info = {"family": "concentric_l1_balls", "dim": dim, "params": params}
+    sig2 = device_params(info)[0]
+    radii = device_shells(info)
+    order = _order(group)
+
+    def vag(q):
+        u = warp_order_sum(torch.abs(q), *order)
+        lp, exps, lse, slopes = _shell_logsumexp([u] * len(radii), radii, sig2)
+        du = exps[0] * slopes[0]
+        for e, sl in zip(exps[1:], slopes[1:]):
+            du = du + e * sl
+        return lp, (du / lse)[:, None] * _sign(q)
+    return vag
+
+
+def _nested_l1(dim, params, group=None):
+    """An outer L1 shell about the origin and n_inner about the axis points
+    c_k (k >= 1: +-mu_norm on axis (k - 1) // 2 % dim, + for odd k): one
+    sum u_k = |q - c_k|_1 per shell, grad = sum_k e_k slope_k sign(q - c_k)
+    / lse."""
+    info = {"family": "nested_l1_balls", "dim": dim, "params": params}
+    sig2, mu_norm = device_params(info)[:2]
+    radii = device_shells(info)
+    order = _order(group)
+
+    def vag(q):
+        diffs = [q]
+        for k in range(1, len(radii)):
+            d = q.clone()
+            axis = (k - 1) // 2 % dim
+            d[:, axis] = q[:, axis] - (mu_norm if (k - 1) % 2 == 0 else -mu_norm)
+            diffs.append(d)
+        us = [warp_order_sum(torch.abs(d), *order) for d in diffs]
+        lp, exps, lse, slopes = _shell_logsumexp(us, radii, sig2)
+        grad = torch.zeros_like(q)
+        for e, sl, d in zip(exps, slopes, diffs):
+            grad = grad + (e * sl)[:, None] * _sign(d)
+        return lp, grad / lse[:, None]
+    return vag
+
+
 def _gaussian_mixture(dim, params):
     half_sep = params["separation"] / 2.0
     c_rest = (dim - 1) * LOG_2PI
@@ -384,4 +542,8 @@ _BUILDERS = {
     "correlated_gaussian": _correlated,
     "gaussian_mixture": _gaussian_mixture,
     "hierarchical_logistic": _hierarchical_logistic,
+    "rosenbrock": _rosenbrock,
+    "multimodal_funnel_2d": _multimodal_funnel_2d,
+    "concentric_l1_balls": _concentric_l1,
+    "nested_l1_balls": _nested_l1,
 }

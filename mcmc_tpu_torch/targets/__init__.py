@@ -6,13 +6,18 @@ taking a ``torch.Generator``, and a ``kernel_info`` tag
 counterpart of the JAX package's ``pallas_info``, and what the fused kernels
 dispatch on (``mcmc_tpu_torch.ops.padded_targets``).
 
-Ported so far: ``standard_normal``, ``neals_funnel``,
+Ported: every target of the JAX package. ``standard_normal``, ``neals_funnel``,
 ``neals_funnel_noncentered`` (the ChEES row's target, with
 ``funnel_transform``), ``ill_conditioned_gaussian``, ``student_t``,
 ``log_gamma`` (support "positive"), ``correlated_gaussian`` (the
 dense-metric NUTS row's target), ``gaussian_mixture`` (the tempered and SMC
 rows' target) and ``hierarchical_logistic`` (BASELINE config 5,
-``targets/hierarchical.py``; its tag carries the data set X and y), and the
+``targets/hierarchical.py``; its tag carries the data set X and y),
+``rosenbrock`` (its ground truth a cached classic-NUTS run,
+``targets/rosenbrock_reference.py``), the RAHMC paper's
+``multimodal_funnel_2d``, ``concentric_l1_balls`` and ``nested_l1_balls``
+(``targets/rahmc_paper.py``; ``get_target`` names ``multimodal_funnel_2d``,
+``concentric_l1_{2,3}d`` and ``nested_l1_{2,3}d``), and the
 ``unconstrain_target`` layer: ``<name>_unconstrained`` is the
 log-transformed reparameterization of a positive-support target
 (``log_gamma_unconstrained``, tagged for the kernels, or a generic
@@ -532,7 +537,51 @@ def gaussian_mixture(dim: int = 10, n_modes: int = 2,
     )
 
 
+def rosenbrock(dim: int = 10, scale: float = 0.1) -> TargetDistribution:
+    """Rosenbrock density: log p = -sum[(1 - x_i)^2 + a (x_{i+1} - x_i^2)^2],
+    a = 1 / scale^2.
+
+    dU/dx_i = -2 (1 - x_i) - 4 a x_i (x_{i+1} - x_i^2)   for i < D - 1
+              + 2 a (x_i - x_{i-1}^2)                     for i > 0.
+    No exact sampler: its ground truth is a long classic-NUTS run
+    (targets/rosenbrock_reference.py)."""
+    a = 1.0 / (scale ** 2)
+
+    def value_and_grad_fn(x):
+        x_cur, x_next = x[..., :-1], x[..., 1:]
+        resid = x_next - x_cur ** 2
+        u = torch.sum((1.0 - x_cur) ** 2 + a * resid ** 2, dim=-1)
+        zeros = torch.zeros_like(x[..., :1])
+        du_fwd = torch.cat([-2.0 * (1.0 - x_cur) - 4.0 * a * x_cur * resid, zeros], dim=-1)
+        du_bwd = torch.cat([zeros, 2.0 * a * resid], dim=-1)
+        return -u, -(du_fwd + du_bwd)
+
+    def log_prob_fn(x):
+        return value_and_grad_fn(x)[0]
+
+    def init_sampler(generator, n_chains, dtype=torch.float32):
+        # near the mode (1, ..., 1), as the JAX package starts
+        return 1.0 + _randn(generator, (n_chains, dim), dtype) * 0.5
+
+    _tag(value_and_grad_fn, "rosenbrock", dim, scale=scale)
+    return TargetDistribution(
+        log_prob_fn=log_prob_fn,
+        dim=dim,
+        true_mean=torch.ones(dim, dtype=torch.float64),   # the mode as a proxy
+        true_cov=None,
+        name=f"Rosenbrock{dim}D_scale{scale}",
+        description=f"{dim}D Rosenbrock(scale={scale}) - tests curved valleys and "
+                    f"non-linear geometry",
+        init_sampler=init_sampler,
+        value_and_grad_fn=value_and_grad_fn,
+        family="rosenbrock",
+        params={"scale": scale},
+    )
+
+
 from mcmc_tpu_torch.targets.hierarchical import hierarchical_logistic  # noqa: E402
+from mcmc_tpu_torch.targets.rahmc_paper import (  # noqa: E402
+    concentric_l1_balls, multimodal_funnel_2d, multimodal_funnel_2d_sampler, nested_l1_balls)
 
 _TARGETS = {
     "standard_normal": standard_normal,
@@ -544,6 +593,18 @@ _TARGETS = {
     "correlated_gaussian": correlated_gaussian,
     "gaussian_mixture": gaussian_mixture,
     "hierarchical_logistic": hierarchical_logistic,
+    "rosenbrock": rosenbrock,
+    # the RAHMC paper's targets, at the JAX package's fixed parameters
+    # (mcmc_tpu/targets/__init__.py:625-629)
+    "multimodal_funnel_2d": lambda dim=2, **kw: multimodal_funnel_2d(mu=3.0, sigma=1.0, c=1.0),
+    "concentric_l1_2d": lambda dim=2, **kw: concentric_l1_balls(
+        dim=2, radii=(4.0, 8.0, 16.0), sigma=0.5),
+    "concentric_l1_3d": lambda dim=3, **kw: concentric_l1_balls(
+        dim=3, radii=(4.0, 8.0, 16.0), sigma=0.5),
+    "nested_l1_2d": lambda dim=2, **kw: nested_l1_balls(
+        dim=2, r_outer=20.0, r_inner=2.0, mu_norm=2.0, sigma=0.5, n_inner=4),
+    "nested_l1_3d": lambda dim=3, **kw: nested_l1_balls(
+        dim=3, r_outer=20.0, r_inner=2.0, mu_norm=2.0, sigma=0.5, n_inner=4),
 }
 
 
@@ -555,7 +616,7 @@ def get_target(name: str, dim: int = 10, **kwargs) -> TargetDistribution:
         base = name[:-len("_unconstrained")]
         return unconstrain_target(get_target(base, dim=dim, **kwargs), registry_name=base)
     if name not in _TARGETS:
-        raise ValueError(f"Unknown or not yet ported target '{name}'. "
+        raise ValueError(f"Unknown target '{name}'. "
                          f"Available: {sorted(_TARGETS)}")
     return _TARGETS[name](dim=dim, **kwargs)
 
@@ -563,7 +624,9 @@ def get_target(name: str, dim: int = 10, **kwargs) -> TargetDistribution:
 def get_reference_sampler(name: str, dim: int = 10, **kwargs):
     """Exact i.i.d. sampler (generator, n) -> (n, dim) float64 of a ported
     target, or None where it has none (the hierarchical posterior, a mixture
-    of other than two modes), as the JAX package's get_reference_sampler
+    of other than two modes, the L1 shells; Rosenbrock without a cached
+    reference run, whose sampler draws from that run), as the JAX package's
+    get_reference_sampler
     (`mcmc_tpu/targets/__init__.py:655`). The draws come from the
     generator, so they are the JAX sampler's in distribution, not in value.
     '<name>_unconstrained' samples log x from the base target's exact draws,
@@ -624,16 +687,33 @@ def get_reference_sampler(name: str, dim: int = 10, **kwargs):
             x0 = normal(g, (n,)) + half_sep * (2.0 * right.to(torch.float64) - 1.0)
             return torch.cat([x0[:, None], normal(g, (n, dim - 1))], dim=1)
         return mixture
+    if name == "multimodal_funnel_2d":
+        return multimodal_funnel_2d_sampler(mu=kwargs.get("mu", 3.0),
+                                            sigma=kwargs.get("sigma", 1.0),
+                                            c=kwargs.get("c", 1.0))
+    if name == "rosenbrock":
+        # no exact sampler: draws without replacement from the cached
+        # long classic-NUTS run, where one exists for this dim and scale
+        from mcmc_tpu_torch.targets.rosenbrock_reference import load_rosenbrock_reference
+        reference = load_rosenbrock_reference(dim, scale=kwargs.get("scale", 0.1))
+        if reference is None:
+            return None
+
+        def cached(g, n):
+            idx = torch.randperm(reference.shape[0], generator=g, device=g.device)[:n]
+            return reference.to(g.device)[idx]
+        return cached
     return None
 
 
 def has_reference_sampler(name: str) -> bool:
     """Whether get_reference_sampler(name) gives a sampler (with the
     factory's default parameters): the JAX package's answer for every
-    ported target (`mcmc_tpu/targets/__init__.py:751`), '<name>_unconstrained'
-    included; False for names not ported yet."""
+    target (`mcmc_tpu/targets/__init__.py:751`), '<name>_unconstrained'
+    included; True for `rosenbrock`, whose sampler exists only where its
+    cached reference run does, as in the JAX package."""
     if name.endswith("_unconstrained"):
         return has_reference_sampler(name[:-len("_unconstrained")])
     return name in ("standard_normal", "correlated_gaussian", "ill_conditioned_gaussian",
                     "student_t", "log_gamma", "neals_funnel", "neals_funnel_noncentered",
-                    "gaussian_mixture")
+                    "gaussian_mixture", "rosenbrock", "multimodal_funnel_2d")

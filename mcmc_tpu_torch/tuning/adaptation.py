@@ -18,6 +18,16 @@
   exploration window runs the dense kernel;
 - GRAHMC: gamma tuned after the mass matrix by sequential ESJD tuning
   (tuning/sequential.py);
+- NUTS: the accept statistic is the mean trajectory alpha. Classic NUTS
+  (samplers/nuts.py) runs one transition a step. The persistent machine
+  (backend="persistent") runs `steps_per_warmup_step` (G, 32) leapfrog
+  slots a step and takes the statistic from its accumulators' deltas over
+  the chains that completed a transition (_persistent_accept_stat); for
+  CUDA positions and a target kernel 4 dispatches on, a step is ONE kernel-4
+  window of G slots at W = 4, 2 or 1 (the largest dividing G), the packed
+  state carried from step to step, else the eager machine's G iterations;
+  `nuts_proposal` ("endpoint", "multinomial") and a dense metric pick
+  kernel 4a and 4b as in sampling;
 - initial step 0.5/sqrt(d), final step exp(log_step_bar).
 
 The DA state and the batch statistics stay on the device: the host reads
@@ -25,8 +35,7 @@ the accept trace once, after the loop, as the JAX package does. With the
 fused backend (kernel 1; 1a for the dense metric) a dense metric is
 factored when it changes, at window ends, without waiting for the device.
 
-Not ported yet (they raise NotImplementedError): classic NUTS and the
-persistent-NUTS branch (`backend="persistent"`), and `mesh=`.
+Not ported yet (it raises NotImplementedError): `mesh=`.
 """
 
 import math
@@ -91,17 +100,38 @@ def fixed_width_batches(window_len: int, batch_width: int):
         yield n_real, torch.arange(B) < n_real
 
 
+def _persistent_accept_stat(d_alpha: torch.Tensor, d_transitions: torch.Tensor,
+                            fallback: float = 0.65) -> torch.Tensor:
+    """A persistent-NUTS warmup step's accept statistic from the per-chain
+    accumulator deltas: the mean over the chains that completed a
+    transition of their mean alpha, `fallback` when none did (the JAX
+    package's statistic, shared by its machine and fused backends)."""
+    valid = d_transitions > 0
+    per_chain = torch.where(valid, d_alpha / torch.clamp(d_transitions, min=1.0),
+                            torch.zeros_like(d_alpha))
+    num = torch.sum(per_chain)
+    den = torch.sum(valid.to(per_chain.dtype))
+    stat = num / torch.clamp(den, min=1.0)
+    return torch.where(den > 0, stat, torch.full_like(stat, fallback))
+
+
 def _resolve_backend(sampler: str, backend: str, value_and_grad_fn,
                      device) -> str:
     """"auto" -> "fused" for GRAHMC with CUDA positions and a target kernel
-    1 dispatches on, else "eager". No other path is taken than the one asked
+    1 dispatches on, else "eager". NUTS: "persistent" runs the persistent
+    machine (kernel 4 or the eager machine, _make_step_fn), "auto" and
+    "eager" classic NUTS, eager. No other path is taken than the one asked
     for: an explicit "fused" runs the kernel or raises."""
     from mcmc_tpu_torch.ops.padded_targets import KERNEL_FAMILIES
-    if sampler == "nuts" or backend == "persistent":
-        raise NotImplementedError(
-            "the NUTS warmups (classic NUTS, and the persistent-NUTS branch "
-            "of backend='persistent') are not ported yet (ROADMAP Queue 1, "
-            "item 6)")
+    if sampler == "nuts":
+        if backend in ("auto", "eager"):
+            return "eager"
+        if backend == "persistent":
+            return backend
+        raise ValueError(f"the NUTS warmup takes backend 'auto' or 'eager' (classic "
+                         f"NUTS) or 'persistent', got {backend!r}")
+    if backend == "persistent":
+        raise ValueError("backend='persistent' is the NUTS warmup's")
     if sampler not in ("hmc", "grahmc", "rahmc"):
         raise ValueError(f"Unknown sampler: {sampler}")
     if backend == "auto":
@@ -118,6 +148,80 @@ def _resolve_backend(sampler: str, backend: str, value_and_grad_fn,
     return backend
 
 
+def _persistent_step_fn(generator: torch.Generator, log_prob_fn, value_and_grad_fn,
+                        kwargs, device):
+    """The persistent-NUTS warmup's (step, make_state, get_position): one
+    step advances every chain's machine by G = steps_per_warmup_step
+    leapfrog slots. For CUDA positions and a target kernel 4 dispatches on
+    (or kwargs["fused_warmup"] True, which on CPU positions runs the
+    kernel's plain version), ONE kernel-4 window of G slots at W = 4, 2 or
+    1, the largest dividing G, on the float32 machine state carried from
+    step to step; its Philox key is drawn from `generator` whenever the
+    metric changes. Otherwise the eager machine's G iterations, its draws
+    from `generator`."""
+    from mcmc_tpu_torch.ops.padded_targets import KERNEL_FAMILIES
+    from mcmc_tpu_torch.samplers.nuts_persistent import (_init_pstate, _make_window_step,
+                                                         draw_window)
+    max_tree_depth = kwargs.get("max_tree_depth", 10)
+    G = kwargs.get("steps_per_warmup_step", 32)
+    # warmup runs the sampling's proposal scheme, so the step and metric
+    # adapt to the dynamics sampling will run
+    scheme = kwargs.get("nuts_proposal", "endpoint")
+    multinomial = scheme == "multinomial"
+    use_fused = kwargs.get("fused_warmup")
+    if use_fused is None:
+        info = getattr(value_and_grad_fn, "kernel_info", None)
+        use_fused = (torch.device(device).type == "cuda" and info is not None
+                     and info["family"] in KERNEL_FAMILIES["nuts"])
+
+    def chain_state(pos):
+        return init_chain_state(pos, log_prob_fn, value_and_grad_fn, needs_grad=True)
+
+    if use_fused:
+        from mcmc_tpu_torch.ops.fused_nuts import make_fused_nuts_window
+        W = next(w for w in (4, 2, 1) if G % w == 0)
+        built = {}
+
+        def make_state(pos):
+            built["dtype"] = pos.dtype
+            cs = chain_state(pos)
+            return _init_pstate(cs.position.to(torch.float32), cs.log_prob,
+                                cs.grad_log_prob.to(torch.float32), torch.float32,
+                                multinomial=multinomial, max_tree_depth=max_tree_depth)
+
+        def step(ps, step_size, metric):
+            if built.get("metric") is not metric:
+                built["metric"] = metric
+                built["window"] = make_fused_nuts_window(
+                    value_and_grad_fn, generator, step_size, metric, max_tree_depth, 1000.0,
+                    W, ps.q.device)
+            a0, t0 = ps.alpha_acc.clone(), ps.transitions.clone()
+            ps = built["window"](ps, G, step_size)
+            return ps, _persistent_accept_stat(ps.alpha_acc - a0,
+                                               (ps.transitions - t0).to(torch.float32))
+        return step, make_state, lambda ps: ps.q.to(built["dtype"])
+
+    vag = make_value_and_grad(log_prob_fn, value_and_grad_fn)
+
+    def make_state(pos):
+        cs = chain_state(pos)
+        return _init_pstate(cs.position, cs.log_prob, cs.grad_log_prob,
+                            precision.energy_dtype(cs.position.dtype),
+                            multinomial=multinomial, max_tree_depth=max_tree_depth)
+
+    def step(ps, step_size, inv_mass):
+        e_dtype = ps.sum_alpha.dtype
+        wstep = _make_window_step(vag, step_size, inv_mass.to(ps.q.dtype), max_tree_depth,
+                                  1000.0, proposal_scheme=scheme)
+        C, D = ps.q.shape
+        a0, t0 = ps.alpha_acc, ps.transitions
+        for xs in zip(*draw_window(generator, G, C, D, ps.q.dtype)):
+            ps = wstep(ps, xs)
+        return ps, _persistent_accept_stat((ps.alpha_acc - a0).to(e_dtype),
+                                           (ps.transitions - t0).to(e_dtype))
+    return step, make_state, lambda ps: ps.q
+
+
 def _make_step_fn(sampler: str, generator: torch.Generator, log_prob_fn,
                   value_and_grad_fn, kwargs, schedule_type, gamma, steepness,
                   backend: str):
@@ -127,6 +231,9 @@ def _make_step_fn(sampler: str, generator: torch.Generator, log_prob_fn,
     make_state(initial_position) -> the chain state; get_position(state) ->
     (n_chains, dim) for the moments and the returned position. The accept
     statistic is a float32 device tensor (sequential.accept_rate)."""
+    if backend == "persistent":
+        return _persistent_step_fn(generator, log_prob_fn, value_and_grad_fn, kwargs,
+                                   generator.device)
     num_steps = kwargs.get("num_steps", 20)
 
     def make_state(pos):
@@ -134,6 +241,17 @@ def _make_step_fn(sampler: str, generator: torch.Generator, log_prob_fn,
 
     def get_position(state):
         return state.position
+
+    if sampler == "nuts":
+        from mcmc_tpu_torch.samplers.nuts import nuts_step
+        max_tree_depth = kwargs.get("max_tree_depth", 10)
+        vag = make_value_and_grad(log_prob_fn, value_and_grad_fn)
+
+        def step(state, step_size, inv_mass):
+            state, (_depths, mean_alpha) = nuts_step(generator, state, vag, step_size,
+                                                     inv_mass, max_tree_depth)
+            return state, torch.mean(mean_alpha)     # the mean trajectory alpha
+        return step, make_state, get_position
 
     if sampler == "hmc":
         from mcmc_tpu_torch.samplers.hmc import hmc_step
@@ -188,11 +306,16 @@ def run_adaptive_warmup(
 ) -> Tuple[float, torch.Tensor, torch.Tensor, Dict]:
     """Windowed warmup. Returns (step_size, inv_mass_matrix, position, info).
 
-    sampler: "hmc" (eager), "grahmc" or "rahmc". learn_mass_matrix: False
-    (identity), True (diagonal) or "dense" (full covariance, Stan's
+    sampler: "hmc" (eager), "grahmc", "rahmc" or "nuts". learn_mass_matrix:
+    False (identity), True (diagonal) or "dense" (full covariance, Stan's
     dense_e). backend: "eager", "fused" (GRAHMC through kernel 1, or 1a for
     the dense metric; the counterpart of the JAX package's "pallas") or
-    "auto" (fused for GRAHMC on CUDA positions and a tagged target).
+    "auto" (fused for GRAHMC on CUDA positions and a tagged target); for
+    NUTS "auto"/"eager" (classic NUTS) or "persistent" (the persistent
+    machine: kernel 4 windows on CUDA positions and a tagged target, see
+    _persistent_step_fn; kwargs max_tree_depth, steps_per_warmup_step,
+    nuts_proposal, fused_warmup). The returned position is in the initial
+    position's dtype.
     `generator` lives on the positions' device and drives every draw,
     the sequential gamma tune's included. kwargs as in the JAX package:
     num_steps, gamma, steepness, exploration_steps, adaptation_windows,
@@ -294,7 +417,7 @@ def run_adaptive_warmup(
 
     accept_trace = torch.stack(accept_trace).tolist()
     final_step_size = float(da_final_step_size(da_state))
-    position = get_position(chain_state)
+    position = get_position(chain_state).to(pos_dtype)
     if verbose:
         print(f"Warmup complete. Final step_size: {final_step_size:.5f}")
 

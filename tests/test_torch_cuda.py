@@ -2,8 +2,9 @@
 1a and 2a and 1's scaled and bridged variants 1b and 1c, RWMH 3, persistent
 NUTS 4 with its multinomial and dense variants, and each of them on the
 data-carrying hierarchical posterior: 1d, 2b, 3a, 4c) against their plain
-versions, on the card, and the dense warmup, tempered and SMC runs that
-run them.
+versions, on the card, for every target family (Rosenbrock and the RAHMC
+paper's among them, with the L1 shell cap), and the dense warmup,
+tempered, SMC and persistent-NUTS-warmup runs that run them.
 
 Marked `cuda`; each test skips without a CUDA device. This file imports no
 JAX, so it runs on a GPU host without the JAX package's dependencies:
@@ -677,7 +678,7 @@ def _family_inputs(dev, family, dim, chains, seed):
     return t.value_and_grad_fn.kernel_info, q, lp.contiguous(), grad.contiguous(), g
 
 
-def _assert_close_or_drift(kern, plain, log_u, max_drift, max_wild):
+def _assert_close_or_drift(kern, plain, log_u, max_drift, max_wild, label=""):
     """_assert_close where the geometry may amplify rounding (log_gamma's
     (shape - 1) / x near its boundary, Student-t's convex tails): accepts
     equal away from the MH borderline; a proposal apart from the plain
@@ -685,7 +686,8 @@ def _assert_close_or_drift(kern, plain, log_u, max_drift, max_wild):
     trajectory diverging alone counts here), or diverged apart where both
     trajectories diverged (|delta H| >= 1000), on at most `max_wild`
     chains, each rejected by both; the new state within 1e-4 wherever the
-    accepts agree but on accepted drifted chains."""
+    accepts agree but on accepted drifted chains. With a `label`, prints
+    the counts."""
     acc_k, acc_p, dh_p = kern[3], plain[3], plain[4]
     border = (log_u - torch.clamp(-dh_p, max=0.0)).abs() < 1e-4
     assert not bool(((acc_k != acc_p) & ~border).any())
@@ -694,6 +696,8 @@ def _assert_close_or_drift(kern, plain, log_u, max_drift, max_wild):
     apart = same & ~close
     both = (kern[4].abs() >= 1000.0) & (dh_p.abs() >= 1000.0)
     drifted, wild = int((apart & ~both).sum()), int((apart & both).sum())
+    if label:
+        print(f"READING {label}: drifted {drifted}, diverged apart {wild}")
     assert drifted <= max_drift and wild <= max_wild, (drifted, wild)
     assert not bool((apart & both & acc_k).any())
     in_step = same & (close | ~acc_k)
@@ -843,3 +847,224 @@ def test_chees_on_the_card(dev):
     r = smc_run(torch.Generator(device=dev).manual_seed(4), mt.log_prob_fn, 4096, 4, 0.3, 4,
                 base_scale=6.0, value_and_grad_fn=mt.value_and_grad_fn, tune_trajectory=True)
     assert abs(float(r.log_Z)) < 0.2 and r.info["n_leapfrogs"] > 0
+
+
+# Rosenbrock and the RAHMC paper's three families, each at dims that cross
+# its layouts: Rosenbrock's neighbour exchange within a lane, across lanes
+# and across registers (D 1, 2, 5, 33, 65), the 2-D funnel, the L1 shells
+# at D 2, 3 and 50
+RAHMC_DIMS = {"rosenbrock": (1, 2, 5, 33, 65), "multimodal_funnel_2d": (2,),
+              "concentric_l1_balls": (2, 3, 50), "nested_l1_balls": (2, 3, 50)}
+RAHMC_STEP = {"rosenbrock": 0.02, "multimodal_funnel_2d": 0.3, "concentric_l1_balls": 0.1,
+              "nested_l1_balls": 0.1}
+# Every kernel rounds these families' leapfrog as their plain version does
+# (csrc/targets.cuh:ROUNDED_LEAPFROG), so none may drift: an H100 read 0
+# drifted and 0 diverged-apart proposals and 0 drifted trajectories in
+# flight on every case below
+RAHMC_CASES = [(f, d) for f, dims in RAHMC_DIMS.items() for d in dims]
+
+
+def _rahmc_inputs(dev, family, dim, chains, seed):
+    """(info, q, lp, grad, generator): Rosenbrock near its mode (1, ..., 1),
+    the others from their init samplers."""
+    from mcmc_tpu_torch.targets import rahmc_paper, rosenbrock
+    g = torch.Generator(device=dev).manual_seed(seed)
+    t = {"rosenbrock": lambda: rosenbrock(dim),
+         "multimodal_funnel_2d": rahmc_paper.multimodal_funnel_2d,
+         "concentric_l1_balls": lambda: rahmc_paper.concentric_l1_balls(dim=dim),
+         "nested_l1_balls": lambda: rahmc_paper.nested_l1_balls(dim=dim)}[family]()
+    if family == "rosenbrock":
+        q = 1.0 + 0.05 * torch.randn((chains, dim), generator=g, device=dev)
+    else:
+        q = t.init_sampler(g, chains)
+    lp, grad = t.value_and_grad_fn(q)
+    return t.value_and_grad_fn.kernel_info, q, lp.contiguous(), grad.contiguous(), g
+
+
+@pytest.mark.parametrize("dense", [False, True])
+@pytest.mark.parametrize("family,dim", RAHMC_CASES)
+def test_rahmc_families_in_kernel_1_2_and_variants(dev, family, dim, dense):
+    """Rosenbrock and the RAHMC families in kernel 1 (1a dense), 1b (three
+    rungs), 1c (beta 0.5) and kernel 2 (2a; T = 4) against the plain
+    versions, injected and Philox, with each variant's launch count."""
+    n = 1200
+    info, q, lp, grad, g = _rahmc_inputs(dev, family, dim, n, dim + 21)
+    invm, l_inv = _dense_metric(dev, dim, g) if dense else (
+        torch.rand(dim, generator=g, device=dev) + 0.5, None)
+    eps, variant = RAHMC_STEP[family], "dense" if dense else "diagonal"
+    args = (info, 8, ft.SCHEDULE_IDS["tanh"], q, lp, grad, ft.kernel_scalars(eps, 0.3, 2.0, dev),
+            invm)
+    betas = torch.tensor([1.0, 0.3, 0.05], device=dev)
+    beta_row = betas.repeat_interleave(n // 3)
+    sargs = args[:4] + ((beta_row * lp).contiguous(), (beta_row[:, None] * grad).contiguous(),
+                        ft.rung_table(eps / torch.sqrt(betas), 0.3, 2.0, betas, dev), invm)
+    base = ft.bridge_base(0.5, 2.0, dim, dev)
+    bridge = ft.bridged_vag(ft.device_vag(info), torch.tensor(0.5, device=dev),
+                            torch.tensor(base.log_norm, dtype=torch.float32, device=dev),
+                            base.mean, base.inv_scale)
+    blp, bgrad = bridge(q)
+    bargs = (info, 8, 0, q, blp.contiguous(), bgrad.contiguous(),
+             ft.bridge_scalars(eps, 0.0, 1.0, 0.5, base.log_norm, dev), base.mean,
+             base.inv_scale, invm)
+    for kernel, plain_fn, a in ((ft.grahmc_step_kernel, ft.grahmc_step_plain, args),
+                                (ft.grahmc_scaled_kernel, ft.grahmc_scaled_plain, sargs),
+                                (ft.grahmc_bridged_kernel, ft.grahmc_bridged_plain, bargs)):
+        for rand, log_u in _rand(dev, g, n, dim, invm if dense else None, l_inv):
+            before = kernel.variant_launches[variant]
+            kern = kernel(*a, l_inv=l_inv, **rand)
+            assert kernel.variant_launches[variant] == before + 1
+            _assert_close_or_drift(kern, plain_fn(*a, l_inv=l_inv, **rand), log_u, 0, 0,
+                                   f"{kernel.__name__} {family} D={dim} {variant} "
+                                   f"{'injected' if 'p0' in rand else 'philox'}")
+    key = torch.tensor([9, 10], dtype=torch.int32, device=dev)
+    margs = args[:3] + (4,) + args[3:]
+    before = ft.grahmc_multistep_kernel.variant_launches[variant]
+    kern = ft.grahmc_multistep_kernel(*margs, key=key, call=2, l_inv=l_inv)
+    assert ft.grahmc_multistep_kernel.variant_launches[variant] == before + 1
+    plain = ft.grahmc_multistep_plain(*margs, key=key, call=2, l_inv=l_inv)
+    agree = (kern[3] == plain[3]).all(dim=0)
+    close = ((kern[5] - plain[5]).abs() <= 1e-4 + 1e-4 * plain[5].abs()).all(dim=2).all(dim=0)
+    calm = ((kern[4].abs() < 1000.0) & (plain[4].abs() < 1000.0)).all(dim=0)
+    split, drifted = int((~agree).sum()), int((agree & ~close & calm).sum())
+    print(f"READING grahmc_multistep_kernel {family} D={dim} {variant}: split {split}, "
+          f"drifted {drifted}")
+    assert split <= 2 and drifted == 0, (split, drifted)
+    torch.testing.assert_close(kern[6][:, agree & close], plain[6][:, agree & close],
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("family,dim", RAHMC_CASES + [("rosenbrock", 10), ("rosenbrock", 128)])
+def test_rahmc_families_in_kernel_3(dev, family, dim):
+    """Kernel 3's log-density in its lane groups (G = 1 at D <= 4, where
+    Rosenbrock's neighbours all sit in one lane) against the plain version,
+    injected and Philox: accepts equal, states and histories within 1e-4."""
+    info, q, lp, _, g = _rahmc_inputs(dev, family, dim, 1000, dim + 5)
+    lp = pt.device_lp(info)(q).contiguous()
+    scale = fr.rwmh_scale(0.5 * RAHMC_STEP[family], dev)
+    noise = torch.randn((8, 1000, dim), generator=g, device=dev)
+    u = torch.rand((8, 1000), generator=g, device=dev).clamp_min(2.0 ** -25)
+    key = torch.tensor([7, -8], dtype=torch.int32, device=dev)
+    for rand in (dict(noise=noise, u=u), dict(key=key, call=3)):
+        before = fr.rwmh_multistep_kernel.launches
+        kern = fr.rwmh_multistep_kernel(info, 8, q, lp, scale, 37, **rand)
+        assert fr.rwmh_multistep_kernel.launches == before + 1
+        plain = fr.rwmh_multistep_plain(info, 8, q, lp, scale, 37, **rand)
+        torch.testing.assert_close(kern[2], plain[2])
+        for a, b in zip(kern[:2] + kern[3:], plain[:2] + plain[3:]):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("multinomial,dense", [(False, False), (True, False), (False, True),
+                                               (True, True)])
+@pytest.mark.parametrize("family,dim", [("rosenbrock", 10), ("multimodal_funnel_2d", 2),
+                                        ("concentric_l1_balls", 3), ("nested_l1_balls", 2)])
+def test_rahmc_families_in_kernel_4(dev, family, dim, multinomial, dense):
+    """Kernel 4 and its variants on Rosenbrock and the RAHMC families, W =
+    4 over 64 slots from a state one window in, Philox: window_agreement as
+    test_new_families_in_kernel_4's."""
+    n = 2048
+    info, q, lp, grad, g = _rahmc_inputs(dev, family, dim, n, 4)
+    scalars = fn.nuts_scalars(RAHMC_STEP[family], 1000.0, dev)
+    inv_mass, l_inv = _dense_metric(dev, dim, g) if dense else (
+        torch.rand(dim, generator=g, device=dev) + 0.5, None)
+    key = torch.tensor([1, 2], dtype=torch.int32, device=dev)
+    args = (info, 16, 4, 10)
+    start = tn._init_pstate(q, lp, grad, torch.float32, multinomial=multinomial)
+    warm = fn.nuts_window_plain(*args, start, scalars, inv_mass, key=key, call=0, l_inv=l_inv)
+    name = fn.VARIANTS[(multinomial, dense)]
+
+    def clone():
+        return tn._PState(*(None if t is None else t.clone() for t in warm))
+    before = fn.nuts_window_kernel.variant_launches[name]
+    kern = fn.nuts_window_kernel(*args, clone(), scalars, inv_mass, l_inv=l_inv, key=key, call=4)
+    assert fn.nuts_window_kernel.variant_launches[name] == before + 1
+    plain = fn.nuts_window_plain(*args, clone(), scalars, inv_mass, l_inv=l_inv, key=key, call=4)
+    same, emitted, in_flight, err = fn.window_agreement(kern, plain)
+    kept = same & emitted
+    split, drifted = int((~kept).sum()), int((kept & ~in_flight).sum())
+    print(f"READING nuts_window_kernel[{name}] {family} D={dim}: split {split}, in flight "
+          f"drifted {drifted}, max |err| {err:.3g}")
+    assert split <= 2, (float(same.float().mean()), err)
+    assert drifted == 0, drifted
+    assert int((kern.transitions - warm.transitions).sum()) > 0
+
+
+def test_shells_past_the_cap_raise_before_a_launch(dev):
+    """An L1 target with more shells than TargetParams carries
+    (padded_targets.MAX_SHELLS) is refused by every fused entry point
+    with ValueError naming the cap; nothing launches and nothing runs
+    eagerly in its place."""
+    from mcmc_tpu_torch.targets import rahmc_paper
+    t = rahmc_paper.concentric_l1_balls(dim=3, radii=tuple(range(1, pt.MAX_SHELLS + 2)))
+    q = t.init_sampler(torch.Generator(device=dev).manual_seed(0), 64)
+    ft.reset_launches()
+    fr.reset_launches()
+    fn.reset_launches()
+    runs = (lambda: tg.grahmc_run(torch.Generator(device=dev), t.log_prob_fn, q, 0.1, 4, 0.5,
+                                  1.0, 8, value_and_grad_fn=t.value_and_grad_fn, backend="fused"),
+            lambda: tr.rwmh_run(torch.Generator(device=dev), t.log_prob_fn, q, 32, 0.1,
+                                value_and_grad_fn=t.value_and_grad_fn, backend="fused"),
+            lambda: tn.nuts_run_persistent(torch.Generator(device=dev), t.log_prob_fn, q, 0.1,
+                                           2, steps_per_sample=8,
+                                           value_and_grad_fn=t.value_and_grad_fn,
+                                           backend="fused"))
+    for run in runs:
+        with pytest.raises(ValueError, match="MAX_SHELLS"):
+            run()
+    assert ft.grahmc_step_kernel.launches == ft.grahmc_multistep_kernel.launches == 0
+    assert fr.rwmh_multistep_kernel.launches == fn.nuts_window_kernel.launches == 0
+
+
+@pytest.mark.parametrize("family,dim", [("rosenbrock", 10), ("multimodal_funnel_2d", 2),
+                                        ("concentric_l1_balls", 2), ("nested_l1_balls", 2)])
+def test_rahmc_family_runs_take_the_kernels(dev, family, dim):
+    """grahmc_run, rwmh_run and nuts_run_persistent with backend="fused"
+    on the four families launch kernels 2, 3 and 4 (no KeyError, no eager
+    path), their draws finite."""
+    info, q, lp, grad, g = _rahmc_inputs(dev, family, dim, 256, 6)
+    from mcmc_tpu_torch.interop import target_from_tag
+    t = target_from_tag(dict(info))
+    ft.reset_launches()
+    fr.reset_launches()
+    fn.reset_launches()
+    eps = RAHMC_STEP[family]
+    res = [tg.grahmc_run(torch.Generator(device=dev).manual_seed(1), t.log_prob_fn, q, eps, 8,
+                         0.3, 2.0, 64, value_and_grad_fn=t.value_and_grad_fn, backend="fused"),
+           tr.rwmh_run(torch.Generator(device=dev).manual_seed(2), t.log_prob_fn, q, 64,
+                       0.5 * eps, value_and_grad_fn=t.value_and_grad_fn, backend="fused"),
+           tn.nuts_run_persistent(torch.Generator(device=dev).manual_seed(3), t.log_prob_fn, q,
+                                  eps, 8, steps_per_sample=16,
+                                  value_and_grad_fn=t.value_and_grad_fn, backend="fused")]
+    assert ft.grahmc_multistep_kernel.launches == 8
+    assert fr.rwmh_multistep_kernel.launches == 2
+    assert fn.nuts_window_kernel.launches == 8
+    for r in res:
+        assert bool(torch.isfinite(r.samples).all())
+
+
+def test_persistent_warmup_kernel_4_against_its_eager_machine(dev, monkeypatch):
+    """run_adaptive_warmup("nuts", backend="persistent") on CUDA positions
+    runs one kernel-4 window per warmup step; the same warmup on CPU
+    positions with fused_warmup=True runs the window's plain version, the
+    eager machine's iteration at W slots, and with one Philox key
+    (PhiloxStream.from_generator patched) both draw the same numbers: the
+    tuned step, the learned metric and the chains agree to rounding, but
+    for chains whose U-turn sign split."""
+    from mcmc_tpu_torch.tuning import adaptation
+    t = get_target("standard_normal", dim=10)
+    q = torch.randn((256, 10), generator=torch.Generator().manual_seed(0)) * 0.5
+    monkeypatch.setattr(ft.PhiloxStream, "from_generator", classmethod(
+        lambda cls, g, device: cls(torch.tensor([5, -6], dtype=torch.int32, device=device))))
+    kw = dict(exploration_steps=40, adaptation_windows=[40], cooldown_steps=20, update_freq=20,
+              steps_per_warmup_step=16, value_and_grad_fn=t.value_and_grad_fn,
+              backend="persistent")
+    fn.reset_launches()
+    s_k, m_k, p_k, _ = adaptation.run_adaptive_warmup(
+        "nuts", t.log_prob_fn, None, q.to(dev), torch.Generator(device=dev), **kw)
+    assert fn.nuts_window_kernel.launches == 100
+    s_p, m_p, p_p, _ = adaptation.run_adaptive_warmup(
+        "nuts", t.log_prob_fn, None, q, torch.Generator(), fused_warmup=True, **kw)
+    assert abs(s_k - s_p) <= 1e-3 * s_p, (s_k, s_p)
+    torch.testing.assert_close(m_k.cpu(), m_p, rtol=0.02, atol=0.02)
+    close = ((p_k.cpu() - p_p).abs() <= 1e-3).all(dim=1)
+    assert float(close.float().mean()) >= 0.95, float(close.float().mean())

@@ -206,7 +206,7 @@ def test_unknown_schedule_family_or_metric_raises():
 
     def other_family(x):
         return x.sum(-1), -x
-    other_family.kernel_info = {"family": "rosenbrock", "dim": 5, "params": {}}
+    other_family.kernel_info = {"family": "no_such_family", "dim": 5, "params": {}}
     with pytest.raises(KeyError):
         ft.make_fused_grahmc_step(other_family, 4, tg.tanh_schedule)
 

@@ -92,7 +92,7 @@ def test_state_carried_across_gives_the_same_transition():
 
 def test_target_from_tag_rejects_unported_and_bad_params():
     with pytest.raises(ValueError):
-        interop.target_from_tag({"family": "rosenbrock", "dim": 5,
+        interop.target_from_tag({"family": "no_such_family", "dim": 5,
                                  "params": {"scale": 0.1}})
     with pytest.raises(ValueError):
         interop.target_from_tag({"family": "neals_funnel", "dim": 5,

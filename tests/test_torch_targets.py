@@ -69,13 +69,13 @@ def test_kernel_tag_and_registry():
         assert info == jt.get_target(family, dim=7).value_and_grad_fn.pallas_info
         assert family in FAMILY_IDS
     with pytest.raises(ValueError):
-        tt.get_target("rosenbrock", dim=5)
+        tt.get_target("no_such_target", dim=5)
     with pytest.raises(TypeError):
         kernel_info(lambda x: (x.sum(-1), x))
 
     def untagged_family(x):
         return x.sum(-1), x
-    untagged_family.kernel_info = {"family": "rosenbrock", "dim": 3, "params": {}}
+    untagged_family.kernel_info = {"family": "no_such_family", "dim": 3, "params": {}}
     with pytest.raises(KeyError):
         make_device_vag(untagged_family)
 
@@ -173,6 +173,7 @@ def test_reference_samplers_are_exact(family):
         corr = torch.corrcoef(x.T)[0, 1]
         assert abs(float(corr) - 0.9) < 0.005
     assert tt.has_reference_sampler(family) == jt.has_reference_sampler(family) is True
-    for name in ("hierarchical_logistic", "rosenbrock"):
+    for name in ("hierarchical_logistic", "concentric_l1_2d", "nested_l1_3d"):
         assert not tt.has_reference_sampler(name)
+        assert not jt.has_reference_sampler(name)
     assert tt.get_reference_sampler("gaussian_mixture", dim, n_modes=3) is None

@@ -227,11 +227,20 @@ def test_warmup_refuses_what_is_not_ported():
     t = tt.standard_normal(3)
     q = torch.zeros(4, 3)
     g = torch.Generator()
-    for kw in (dict(sampler="nuts"), dict(sampler="nuts", backend="persistent"),
+    # the NUTS warmups are ported (tests/test_torch_nuts_warmup.py): classic
+    # under "auto"/"eager", the persistent machine under "persistent"; the
+    # mesh warmup is not
+    for kw in (dict(sampler="nuts", mesh=object()),
+               dict(sampler="nuts", backend="persistent", mesh=object()),
                dict(sampler="grahmc", mesh=object())):
         with pytest.raises(NotImplementedError):
             t_adapt.run_adaptive_warmup(kw.pop("sampler"), t.log_prob_fn, None, q, g,
                                         value_and_grad_fn=t.value_and_grad_fn, **kw)
+    assert t_adapt._resolve_backend("nuts", "auto", t.value_and_grad_fn, "cuda") == "eager"
+    assert t_adapt._resolve_backend("nuts", "persistent", None, "cpu") == "persistent"
+    with pytest.raises(ValueError):
+        t_adapt.run_adaptive_warmup("nuts", t.log_prob_fn, None, q, g, backend="fused",
+                                    value_and_grad_fn=t.value_and_grad_fn)
     with pytest.raises(ValueError):
         t_adapt.run_adaptive_warmup("hmc", t.log_prob_fn, None, q, g, backend="fused",
                                     value_and_grad_fn=t.value_and_grad_fn)
