@@ -86,11 +86,20 @@ torch.cumsum and by samplers.smc.prefix_sum, each repeated on one input,
 and the SMC row's warm run repeated with each, printing log Z's bits so
 that two processes can be compared. It exits 0 whatever it finds.
 
-Every phase passes or raises; there is no CPU path. The last two lines are a
-JSON object describing each kernel and kernel variant, and each (kernel,
-family) pair of the new families (its launches on the main paths, error
-against its plain version, time, the plain version's time and the least
-time the card could take) and {"ok": true, "device": {...}}.
+Every phase passes or raises; there is no CPU path. After the rows every
+kernel is timed at the shapes the paths ran it at ([6]-[6i]; kernel 1 and
+1a also at the dense-warmup row's 4,096-chain warmups, kernels 1-4 at the
+family sweep's 1,024 x 10), and [8] prints, largest first, each (kernel,
+shape)'s launches x (time - bound), with 1a's yardstick (its products as
+torch.matmul calls) and 1d's time per gradient evaluation beside the eager
+value_and_grad. The last two lines are a JSON object describing each
+kernel and kernel variant at its main shape, each split row (ChEES, the
+4,096-chain warmups) and each (kernel, family) pair of the sweep's and
+[5o]'s cells (its launches at that shape -- a kernel's launches at the
+shapes left untimed, the crossing check's, the ladder tune's, the SMC
+row's and the dense NUTS row's 4,096-chain check, stay in its main row --
+error against its plain version, time, the plain version's time and the
+least time the card could take) and {"ok": true, "device": {...}}.
 """
 
 import json
@@ -373,6 +382,9 @@ REF_DIM, REF_CHAINS, REF_DRAWS, REF_THIN, REF_DEPTH = 10, 32, 1024, 2, 10
 # operations over these.
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
+# 1a's D x D products per transition: a velocity per substep, two kinetic
+# energies and the unwhitening
+DENSE_PRODUCTS = NUM_STEPS + 3
 # device clock cycles (~2.5 ms) the device sleeps before a timed burst of
 # 10 kernel calls, longer than the host takes to enqueue them
 HOLD_CYCLES = 5_000_000
@@ -380,9 +392,11 @@ HOLD_CYCLES = 5_000_000
 NUTS_SRC = ("mcmc_tpu_torch/csrc/nuts_window.cuh", "mcmc_tpu/ops/fused_nuts.py:139")
 STEP_SRC = ("mcmc_tpu_torch/csrc/fused_trajectory.cu", "mcmc_tpu/ops/fused_trajectory.py:280")
 MULTI_SRC = ("mcmc_tpu_torch/csrc/fused_trajectory.cu", "mcmc_tpu/ops/fused_trajectory.py:683")
+# kernel 1's block-tiled variants 1a and 1d
+TILED_SRC = ("mcmc_tpu_torch/csrc/tiled_step.cuh", "mcmc_tpu/ops/fused_trajectory.py:280")
 KERNELS = {   # name: (source, the TPU kernel it replaces)
     "grahmc_step_kernel": STEP_SRC,                     # diagonal
-    "grahmc_step_kernel[dense]": STEP_SRC,
+    "grahmc_step_kernel[dense]": TILED_SRC,
     "grahmc_multistep_kernel": MULTI_SRC,
     "grahmc_multistep_kernel[dense]": MULTI_SRC,
     "rwmh_multistep_kernel": ("mcmc_tpu_torch/csrc/fused_rwmh.cu",
@@ -396,7 +410,7 @@ KERNELS = {   # name: (source, the TPU kernel it replaces)
     "grahmc_bridged_kernel": ("mcmc_tpu_torch/csrc/fused_trajectory_bridged.cu",
                               "mcmc_tpu/ops/fused_trajectory.py:344"),
     # the data-carrying forms on config 5's posterior
-    "grahmc_step_kernel[data]": ("mcmc_tpu_torch/csrc/fused_trajectory.cu",
+    "grahmc_step_kernel[data]": ("mcmc_tpu_torch/csrc/tiled_step.cuh",
                                  "mcmc_tpu/ops/fused_trajectory.py:300"),         # 1d
     "grahmc_multistep_kernel[data]": ("mcmc_tpu_torch/csrc/fused_trajectory.cu",
                                       "mcmc_tpu/ops/fused_trajectory.py:701"),    # 2b
@@ -409,7 +423,15 @@ KERNELS = {   # name: (source, the TPU kernel it replaces)
     # kernel 1 on the ChEES row's non-centered funnel, one launch per draw
     # at the draw's jitter level (launches: the ChEES row's own)
     "grahmc_step_kernel (ChEES row)": STEP_SRC,
+    # kernel 1 and 1a at the dense-warmup row's 4,096-chain warmups
+    "grahmc_step_kernel (4,096 chains)": STEP_SRC,
+    "grahmc_step_kernel[dense] (4,096 chains)": TILED_SRC,
 }
+# rows split from a kernel's main-shape row: entry -> the kernel's entry (the
+# family sweep's and [5o]'s "kernel (family)" pairs are split the same way)
+SPLITS = {"grahmc_step_kernel (ChEES row)": "grahmc_step_kernel",
+          "grahmc_step_kernel (4,096 chains)": "grahmc_step_kernel",
+          "grahmc_step_kernel[dense] (4,096 chains)": "grahmc_step_kernel[dense]"}
 # kernels 1, 2, 1b and 1c's variants (ops/fused_trajectory.py:variant_name),
 # kernel 3's (ops/fused_rwmh.py) and kernel 4's (ops/fused_nuts.py:variant)
 # -> the names above (1b's and 1c's dense variants, and the data-carrying
@@ -715,9 +737,10 @@ def phase_parity_rwmh(torch, ft, fr, targets, dev):
 
 def phase_parity_dense(torch, ft, targets, row, dev):
     """Kernels 1a and 2a against their plain versions at the dense-warmup
-    row's shapes (65,536 x 50, L = 16; 4,096 x 50, T = 8), with the learned
-    metric at the tuned step and gamma, from the warmed positions: injected
-    draws, then Philox. A chain whose accept decisions differ has split (at
+    row's shapes (65,536 x 50, L = 16; 4,096 x 50, T = 8), and 1a and
+    kernel 1 (the metric's diagonal) at its 4,096-chain warmups' shape, with
+    the learned metric at the tuned step and gamma, from the warmed
+    positions: injected draws, then Philox. A chain whose accept decisions differ has split (at
     most SPLIT_MAX of them); the rest agree within 1e-4 (delta H within
     2e-3, a difference of two energies of magnitude ~100)."""
     say("[3d] kernels 1a and 2a (dense metric) vs plain versions: the learned metric "
@@ -725,25 +748,30 @@ def phase_parity_dense(torch, ft, targets, row, dev):
     t = _target(targets, "correlated_gaussian")
     info = t.value_and_grad_fn.kernel_info
     invm, l_inv = ft.prepare_dense_metric(row["inv_mass"])
+    diag = torch.diagonal(invm).contiguous()
     scalars = ft.kernel_scalars(row["step"], row["gamma"], row["steepness"], dev)
     sid = ft.SCHEDULE_IDS["constant"]
     g = _gen(torch, dev, 103)
     key = ft.PhiloxStream.from_generator(g, dev).key
-    max_err = {"grahmc_step_kernel[dense]": 0.0, "grahmc_multistep_kernel[dense]": 0.0}
-    for name, n, lead in (("grahmc_step_kernel[dense]", CHAINS, ()),
-                          ("grahmc_multistep_kernel[dense]", MULTI_CHAINS, (MULTI_T,))):
+    max_err = {}
+    for name, n, lead, metric, factor in (
+            ("grahmc_step_kernel[dense]", CHAINS, (), invm, l_inv),
+            ("grahmc_multistep_kernel[dense]", MULTI_CHAINS, (MULTI_T,), invm, l_inv),
+            ("grahmc_step_kernel[dense] (4,096 chains)", MULTI_CHAINS, (), invm, l_inv),
+            ("grahmc_step_kernel (4,096 chains)", MULTI_CHAINS, (), diag, None)):
+        max_err[name] = 0.0
         q = row["pos"][:n].contiguous()
         lp, grad = t.value_and_grad_fn(q)
         args = (info, NUM_STEPS, sid, *lead, q, lp.contiguous(), grad.contiguous(), scalars,
-                invm)
-        p0 = ft.unwhiten(torch.randn(lead + (n, DIM), generator=g, device=dev), invm, l_inv)
+                metric)
+        p0 = ft.unwhiten(torch.randn(lead + (n, DIM), generator=g, device=dev), metric, factor)
         u = torch.rand(lead + (n,), generator=g, device=dev).clamp_min(2.0 ** -25)
         kernel_fn, plain_fn = ((ft.grahmc_multistep_kernel, ft.grahmc_multistep_plain) if lead
                                else (ft.grahmc_step_kernel, ft.grahmc_step_plain))
         for mode, rand in (("injected", dict(p0=p0.contiguous(), u=u)),
                            ("philox", dict(key=key, call=7))):
-            kern = kernel_fn(*args, l_inv=l_inv, **rand)
-            plain = plain_fn(*args, l_inv=l_inv, **rand)
+            kern = kernel_fn(*args, l_inv=factor, **rand)
+            plain = plain_fn(*args, l_inv=factor, **rand)
             torch.cuda.synchronize()
             if lead:      # (q, lp, grad, accept (T, C), dh (T, C), hist_q, hist_lp)
                 agree = (kern[3] == plain[3]).all(dim=0)
@@ -950,7 +978,8 @@ def phase_parity_families(torch, ft, fr, fn, tn, targets, dev):
     (_nuts_window_check: SPLIT_MAX split, the trajectory in flight drifting
     within FAMILY_DRIFT's bound). Returns the max |err| per kernel
     entry, and per (kernel, family) pair of the RAHMC families at the D of
-    the family's first [5o] cell, the one [6h] times."""
+    the family's first [5o] cell, the one [6h] times, and of the sweep's
+    families at its D, the one [6i] times."""
     say("[3g] the ChEES slice's families, Rosenbrock and the RAHMC families (and the gap "
         "pairs) in every kernel vs plain versions")
     from mcmc_tpu_torch.ops.padded_targets import LANE_ORDER_FAMILIES, device_lp
@@ -964,6 +993,8 @@ def phase_parity_families(torch, ft, fr, fn, tn, targets, dev):
         require(dim in RAHMC_PARITY_DIMS[family],
                 f"[3g] holds {family} at no D = {dim}, the shape of [5o]'s {cell} cell")
         pair_dim.setdefault(family, dim)
+    require(SWEEP_DIM in FAMILY_DIMS, f"[3g] holds the sweep's families at no D = {SWEEP_DIM}")
+    pair_dim.update(dict.fromkeys(NEW_FAMILIES, SWEEP_DIM))
 
     def note(name, err, family, dim):
         """The kernel's max |err|, and the new families' per (kernel, family)
@@ -2409,10 +2440,12 @@ def phase_family_sweep(torch, targets, samplers, tuning, diagnostics, dev):
     chain's mean from the exact mean, and its time in the tails (outside
     the exact draws' central 99.9%: the share against the exact 0.1%, the
     longest stretch of consecutive draws there, one chain's largest
-    share)."""
+    share). Returns {"rows": {family: {sampler: row}}, "states": {family:
+    the target's kernel_info and each sampler's tuned state}} ([6i] times the
+    kernels at them)."""
     say(f"[5n] family sweep: dim {SWEEP_DIM}, {SWEEP_CHAINS} chains, {SWEEP_DRAWS} draws; "
         f"GRAHMC (kernels 1, 2), RWMH (3), persistent NUTS (4)")
-    out = {}
+    out, states = {}, {}
     for i, family in enumerate(NEW_FAMILIES):
         t = targets.get_target(family, dim=SWEEP_DIM)
         g0 = _gen(torch, dev, 160 + i)
@@ -2512,7 +2545,10 @@ def phase_family_sweep(torch, targets, samplers, tuning, diagnostics, dev):
               f"{float(inv_mass.max()):.4f}])")
         del res
         out[family] = rows
-    return out
+        states[family] = {"info": t.value_and_grad_fn.kernel_info,
+                          "grahmc": (step, inv_mass, pos, info), "rwmh": (scale, None, rpos, None),
+                          "nuts": (nstep, inv_mass, npos, None)}
+    return {"rows": out, "states": states}
 
 
 def _occupancy(torch, info, x):
@@ -2777,89 +2813,115 @@ def phase_rosenbrock_reference(torch, targets, dev):
     return {"seconds": seconds, "rhat": rhat}
 
 
+def _time_family(torch, ft, fr, fn, tn, dev, key, family, info, state, dim, metric, schedule,
+                 n_steps, rwmh_t, chains, reps, burst, plain_burst, times, measured, shapes):
+    """Time each kernel a cell of `family` launched at the cell's shape,
+    kernel against plain version (Philox mode, _interleaved): kernel 1 or
+    1a and kernel 2 or 2a (T = 8) from GRAHMC's warmed positions at its
+    tuned step, friction and metric; kernel 3 (T = rwmh_t, every chain's
+    history) from its positions at the tuned scale; kernel 4 or 4b (16
+    iterations x W = 4) from NUTS's warmed positions at its tuned step and
+    metric, two windows in, its executed leapfrogs counted for the bound.
+    Fills times {pair: (kernel ms, plain ms)}, measured {pair: {"leapfrogs":
+    per call}} and shapes {pair: (chains, dim, L, T)}; a pair is "kernel
+    (family)"."""
+    from mcmc_tpu_torch.ops.padded_targets import device_lp
+    vag = ft.device_vag(info)
+    runs = []
+    step, inv_mass, pos, info_g = state["grahmc"]
+    q = pos.float().contiguous()
+    lp, grad = (x.contiguous() for x in vag(q))
+    invm, l_inv = ft.kernel_metric(inv_mass.to(dev))
+    v = "[dense]" if metric == "dense" else ""
+    scalars = ft.kernel_scalars(step, info_g["gamma"], info_g["steepness"], dev)
+    sched = ft.SCHEDULE_IDS[schedule]
+    a1 = (info, n_steps, sched, q, lp, grad, scalars, invm)
+    runs.append((f"grahmc_step_kernel{v}", (n_steps, 1),
+                 lambda a=a1: ft.grahmc_step_kernel(*a, key=key, call=0, l_inv=l_inv),
+                 lambda a=a1: ft.grahmc_step_plain(*a, key=key, call=0, l_inv=l_inv)))
+    a2 = (info, n_steps, sched, MULTI_T, q, lp, grad, scalars, invm)
+    runs.append((f"grahmc_multistep_kernel{v}", (n_steps, MULTI_T),
+                 lambda a=a2: ft.grahmc_multistep_kernel(*a, key=key, call=0, l_inv=l_inv),
+                 lambda a=a2: ft.grahmc_multistep_plain(*a, key=key, call=0, l_inv=l_inv)))
+    if "rwmh" in state:
+        scale, _, init, _ = state["rwmh"]
+        qr = init.float().contiguous()
+        a3 = (info, rwmh_t, qr, device_lp(info)(qr).contiguous(), fr.rwmh_scale(scale, dev),
+              chains)
+        runs.append(("rwmh_multistep_kernel", (0, rwmh_t),
+                     lambda a=a3: fr.rwmh_multistep_kernel(*a, key=key, call=0),
+                     lambda a=a3: fr.rwmh_multistep_plain(*a, key=key, call=0)))
+    for name, (L, T), kern_fn, plain_fn in runs:
+        pair = f"{name} ({family})"
+        ms = _interleaved(torch, {"kernel": kern_fn, "plain": plain_fn}, reps,
+                          {"kernel": burst, "plain": plain_burst})
+        times[pair] = (statistics.median(ms["kernel"]), statistics.median(ms["plain"]))
+        shapes[pair] = (chains, dim, L, T)
+        say(f"  {pair} ({chains} x {dim}, L = {L}, T = {T}): kernel "
+            f"{times[pair][0]:.4f} ms, plain {times[pair][1]:.4f} ms")
+    if "nuts" in state:
+        step, inv_mass, pos, _ = state["nuts"]
+        q = pos.float().contiguous()
+        lp, grad = (x.contiguous() for x in vag(q))
+        invm, l_inv = ft.kernel_metric(inv_mass.to(dev))
+        scalars = fn.nuts_scalars(step, 1000.0, dev)
+        args = (info, NUTS_ITERS, NUTS_W, NUTS_DEPTH)
+        st = tn._init_pstate(q, lp, grad, torch.float32, max_tree_depth=NUTS_DEPTH)
+        for call in range(2):
+            st = fn.nuts_window_kernel(*args, st, scalars, invm, key=key, call=call,
+                                       l_inv=l_inv)
+        states = {"kernel": st, "plain": _clone_state(st)}
+        before = int(st.n_exec.sum())
+        fns = {"kernel": lambda: fn.nuts_window_kernel(*args, states["kernel"], scalars, invm,
+                                                       key=key, call=2, l_inv=l_inv),
+               "plain": lambda: fn.nuts_window_plain(*args, states["plain"], scalars, invm,
+                                                     key=key, call=2, l_inv=l_inv)}
+        ms = _interleaved(torch, fns, reps, {"kernel": burst, "plain": plain_burst})
+        pair = f"{NUTS_NAMES[fn.variant(st, invm)]} ({family})"
+        times[pair] = (statistics.median(ms["kernel"]), statistics.median(ms["plain"]))
+        measured[pair] = {"leapfrogs": (int(states["kernel"].n_exec.sum()) - before)
+                          / (1 + reps * burst)}
+        shapes[pair] = (chains, dim, 0, NUTS_ITERS)
+        say(f"  {pair} ({chains} x {dim}, {NUTS_ITERS} iterations x W = {NUTS_W}): "
+            f"kernel {times[pair][0]:.4f} ms, plain {times[pair][1]:.4f} ms; "
+            f"{measured[pair]['leapfrogs']:.0f} leapfrogs executed per call")
+
+
 def phase_timing_rahmc(torch, ft, fr, fn, tn, rahmc, dev, reps=6, burst=10, plain_burst=1):
     """Each (kernel, family) pair the [5o] cells launched, at its cell's
-    shape (1,024 chains; Rosenbrock's 10-D cell), kernel against plain
-    version, Philox mode, CUDA events (_event_ms, _interleaved): kernel 1
-    or 1a and kernel 2 or 2a (T = 8) from GRAHMC's warmed positions at its
-    tuned step, friction and metric; kernel 3 (T = 16, every chain's
-    history) from the initial positions at the tuned scale; kernel 4 or 4b
-    (16 iterations x W = 4) from NUTS's warmed positions at its tuned step
-    and metric, two windows in, its executed leapfrogs counted for the
-    bound. Returns ({pair: (kernel ms, plain ms)}, {pair: {"leapfrogs": per
+    shape (1,024 chains; Rosenbrock's 10-D cell), as _time_family times
+    them. Returns ({pair: (kernel ms, plain ms)}, {pair: {"leapfrogs": per
     call}}, {pair: (chains, dim, L, T)} the shapes for the bounds)."""
-    from mcmc_tpu_torch.ops.padded_targets import device_lp
     say(f"[6h] the new families' kernels at their cells' shapes: CUDA events, median of {reps} "
         f"bursts of {burst} kernel / {plain_burst} plain calls")
-    g = _gen(torch, dev, 49)
-    key = ft.PhiloxStream.from_generator(g, dev).key
+    key = ft.PhiloxStream.from_generator(_gen(torch, dev, 49), dev).key
     times, measured, shapes = {}, {}, {}
     done = set()
     for cell, out in rahmc.items():
-        family, info = out["family"], out["info"]
+        family = out["family"]
         if family in done:          # Rosenbrock: its 10-D cell
             continue
         done.add(family)
         _, dim, _, metric, schedule, n_steps = RAHMC_CELLS[cell]
-        vag = ft.device_vag(info)
-        runs = []
-        step, inv_mass, pos, info_g = out["state"]["grahmc"]
-        q = pos.float().contiguous()
-        lp, grad = (x.contiguous() for x in vag(q))
-        invm, l_inv = ft.kernel_metric(inv_mass.to(dev))
-        v = "[dense]" if metric == "dense" else ""
-        scalars = ft.kernel_scalars(step, info_g["gamma"], info_g["steepness"], dev)
-        sched = ft.SCHEDULE_IDS[schedule]
-        a1 = (info, n_steps, sched, q, lp, grad, scalars, invm)
-        runs.append((f"grahmc_step_kernel{v}", (n_steps, 1),
-                     lambda a=a1: ft.grahmc_step_kernel(*a, key=key, call=0, l_inv=l_inv),
-                     lambda a=a1: ft.grahmc_step_plain(*a, key=key, call=0, l_inv=l_inv)))
-        a2 = (info, n_steps, sched, MULTI_T, q, lp, grad, scalars, invm)
-        runs.append((f"grahmc_multistep_kernel{v}", (n_steps, MULTI_T),
-                     lambda a=a2: ft.grahmc_multistep_kernel(*a, key=key, call=0, l_inv=l_inv),
-                     lambda a=a2: ft.grahmc_multistep_plain(*a, key=key, call=0, l_inv=l_inv)))
-        if "rwmh" in out["state"]:
-            scale, _, init, _ = out["state"]["rwmh"]
-            qr = init.float().contiguous()
-            a3 = (info, RAHMC_RWMH_T, qr, device_lp(info)(qr).contiguous(),
-                  fr.rwmh_scale(scale, dev), RAHMC_CHAINS)
-            runs.append(("rwmh_multistep_kernel", (0, RAHMC_RWMH_T),
-                         lambda a=a3: fr.rwmh_multistep_kernel(*a, key=key, call=0),
-                         lambda a=a3: fr.rwmh_multistep_plain(*a, key=key, call=0)))
-        for name, (L, T), kern_fn, plain_fn in runs:
-            pair = f"{name} ({family})"
-            ms = _interleaved(torch, {"kernel": kern_fn, "plain": plain_fn}, reps,
-                              {"kernel": burst, "plain": plain_burst})
-            times[pair] = (statistics.median(ms["kernel"]), statistics.median(ms["plain"]))
-            shapes[pair] = (RAHMC_CHAINS, dim, L, T)
-            say(f"  {pair} ({RAHMC_CHAINS} x {dim}, L = {L}, T = {T}): kernel "
-                f"{times[pair][0]:.4f} ms, plain {times[pair][1]:.4f} ms")
-        if "nuts" in out["state"]:
-            step, inv_mass, pos, _ = out["state"]["nuts"]
-            q = pos.float().contiguous()
-            lp, grad = (x.contiguous() for x in vag(q))
-            invm, l_inv = ft.kernel_metric(inv_mass.to(dev))
-            scalars = fn.nuts_scalars(step, 1000.0, dev)
-            args = (info, NUTS_ITERS, NUTS_W, NUTS_DEPTH)
-            st = tn._init_pstate(q, lp, grad, torch.float32, max_tree_depth=NUTS_DEPTH)
-            for call in range(2):
-                st = fn.nuts_window_kernel(*args, st, scalars, invm, key=key, call=call,
-                                           l_inv=l_inv)
-            states = {"kernel": st, "plain": _clone_state(st)}
-            before = int(st.n_exec.sum())
-            fns = {"kernel": lambda: fn.nuts_window_kernel(*args, states["kernel"], scalars, invm,
-                                                           key=key, call=2, l_inv=l_inv),
-                   "plain": lambda: fn.nuts_window_plain(*args, states["plain"], scalars, invm,
-                                                         key=key, call=2, l_inv=l_inv)}
-            ms = _interleaved(torch, fns, reps, {"kernel": burst, "plain": plain_burst})
-            pair = f"{NUTS_NAMES[fn.variant(st, invm)]} ({family})"
-            times[pair] = (statistics.median(ms["kernel"]), statistics.median(ms["plain"]))
-            measured[pair] = {"leapfrogs": (int(states["kernel"].n_exec.sum()) - before)
-                              / (1 + reps * burst)}
-            shapes[pair] = (RAHMC_CHAINS, dim, 0, NUTS_ITERS)
-            say(f"  {pair} ({RAHMC_CHAINS} x {dim}, {NUTS_ITERS} iterations x W = {NUTS_W}): "
-                f"kernel {times[pair][0]:.4f} ms, plain {times[pair][1]:.4f} ms; "
-                f"{measured[pair]['leapfrogs']:.0f} leapfrogs executed per call")
+        _time_family(torch, ft, fr, fn, tn, dev, key, family, out["info"], out["state"], dim,
+                     metric, schedule, n_steps, RAHMC_RWMH_T, RAHMC_CHAINS, reps, burst,
+                     plain_burst, times, measured, shapes)
+    return times, measured, shapes
+
+
+def phase_timing_sweep(torch, ft, fr, fn, tn, sweep, dev, reps=6, burst=10, plain_burst=1):
+    """Kernels 1, 2, 3 and 4 on each family of the sweep at its cell's shape
+    (1,024 x 10: L = 16, T = 8; RWMH T = 16; NUTS 16 iterations x W = 4) from
+    the sweep's tuned states, as _time_family times them; returns as
+    phase_timing_rahmc."""
+    say(f"[6i] the family sweep's kernels at its shape: CUDA events, median of {reps} "
+        f"bursts of {burst} kernel / {plain_burst} plain calls")
+    key = ft.PhiloxStream.from_generator(_gen(torch, dev, 51), dev).key
+    times, measured, shapes = {}, {}, {}
+    for family, state in sweep["states"].items():
+        _time_family(torch, ft, fr, fn, tn, dev, key, family, state["info"], state, SWEEP_DIM,
+                     "diagonal", "constant", SWEEP_L, SWEEP_RWMH_T, SWEEP_CHAINS, reps, burst,
+                     plain_burst, times, measured, shapes)
     return times, measured, shapes
 
 
@@ -2892,19 +2954,27 @@ def rahmc_eval_flops(info):
     return shells * (7 * dim + 16) + dim + 2
 
 
-def rahmc_bounds(rahmc, measured, shapes):
-    """Each (kernel, family) pair's bound at its [6h] shape, as
+def family_eval_flops(info):
+    """Float operations of one evaluation of a family's device function for
+    one chain: TARGET_FLOPS per coordinate, or rahmc_eval_flops."""
+    if info["family"] in TARGET_FLOPS:
+        return TARGET_FLOPS[info["family"]] * info["dim"]
+    return rahmc_eval_flops(info)
+
+
+def pair_bounds(infos, measured, shapes):
+    """Each (kernel, family) pair's bound at its [6h] or [6i] shape, as
     kernel_bounds counts them: every input read once and every output
     written once; the leapfrogs' float operations with the family's
-    evaluation (rahmc_eval_flops) in place of a target's per-coordinate
-    count, the dense products of 1a/2a/4b, kernel 4's measured leapfrogs."""
-    infos = {out["family"]: out["info"] for out in rahmc.values()}
+    evaluation (family_eval_flops) in place of a target's per-coordinate
+    count, the dense products of 1a/2a/4b, kernel 4's measured leapfrogs.
+    `infos` maps each family to its kernel_info."""
     out = {}
     chain = 4
     for pair, (C, D, L, T) in shapes.items():
         name, family = pair.split(" (")
         info = {**infos[family[:-1]], "dim": D}
-        ev = rahmc_eval_flops(info)
+        ev = family_eval_flops(info)
         row = D * 4
         dense = "[dense]" in name
         metric_io = 2 * D * row if dense else row
@@ -3005,32 +3075,53 @@ def phase_timing_dense(torch, ft, targets, row, dev, reps=10, burst=10, plain_bu
     """Kernels 1a (65,536 x 50, L = 16) and 2a (4,096 x 50, T = 8, L = 16)
     against their plain versions with the learned metric at the tuned step,
     Philox mode, from the warmed positions: median over `reps` samples,
-    interleaved, `burst` kernel or `plain_burst` plain calls per sample."""
+    interleaved, `burst` kernel or `plain_burst` plain calls per sample. Then
+    1a and kernel 1 at the row's 4,096-chain warmups' shape (4,096 x 50; kernel
+    1 with the learned metric's diagonal), and 1a's yardstick on no path:
+    DENSE_PRODUCTS torch.matmul(p, M^{-1}) calls at 65,536 x 50 by 50 x 50
+    (cuBLAS float32, TF32 off), 1a's products per transition. Returns
+    ({name: (kernel ms, plain ms)}, the yardstick's ms)."""
     say(f"[6c] kernels 1a and 2a vs plain versions: CUDA events, median of {reps} bursts "
         f"of {burst} kernel / {plain_burst} plain calls, Philox mode")
     t = _target(targets, "correlated_gaussian")
     info = t.value_and_grad_fn.kernel_info
     invm, l_inv = ft.prepare_dense_metric(row["inv_mass"])
+    diag = torch.diagonal(invm).contiguous()
     scalars = ft.kernel_scalars(row["step"], row["gamma"], row["steepness"], dev)
     key = ft.PhiloxStream.from_generator(_gen(torch, dev, 42), dev).key
     times = {}
-    for name, n, kernel_fn, plain_fn, lead in (
+    for name, n, kernel_fn, plain_fn, lead, metric, factor in (
             ("grahmc_step_kernel[dense]", CHAINS, ft.grahmc_step_kernel,
-             ft.grahmc_step_plain, ()),
+             ft.grahmc_step_plain, (), invm, l_inv),
             ("grahmc_multistep_kernel[dense]", MULTI_CHAINS, ft.grahmc_multistep_kernel,
-             ft.grahmc_multistep_plain, (MULTI_T,))):
+             ft.grahmc_multistep_plain, (MULTI_T,), invm, l_inv),
+            ("grahmc_step_kernel[dense] (4,096 chains)", MULTI_CHAINS, ft.grahmc_step_kernel,
+             ft.grahmc_step_plain, (), invm, l_inv),
+            ("grahmc_step_kernel (4,096 chains)", MULTI_CHAINS, ft.grahmc_step_kernel,
+             ft.grahmc_step_plain, (), diag, None)):
         q = row["pos"][:n].contiguous()
         lp, grad = t.value_and_grad_fn(q)
         args = (info, NUM_STEPS, ft.SCHEDULE_IDS["constant"], *lead, q, lp.contiguous(),
-                grad.contiguous(), scalars, invm)
-        fns = {"kernel": lambda: kernel_fn(*args, key=key, call=0, l_inv=l_inv),
-               "plain": lambda: plain_fn(*args, key=key, call=0, l_inv=l_inv)}
+                grad.contiguous(), scalars, metric)
+        fns = {"kernel": lambda: kernel_fn(*args, key=key, call=0, l_inv=factor),
+               "plain": lambda: plain_fn(*args, key=key, call=0, l_inv=factor)}
         ms = _interleaved(torch, fns, reps, {"kernel": burst, "plain": plain_burst})
         times[name] = (statistics.median(ms["kernel"]), statistics.median(ms["plain"]))
         say(f"  {name} ({n} x {DIM}{', T = %d' % MULTI_T if lead else ''}, L = {NUM_STEPS}): "
             f"kernel {times[name][0]:.4f} ms, plain {times[name][1]:.4f} ms; kernel "
             f"quartiles {[round(x, 4) for x in statistics.quantiles(ms['kernel'], n=4)]}")
-    return times
+    torch.backends.cuda.matmul.allow_tf32 = False
+    p = torch.randn((CHAINS, DIM), generator=_gen(torch, dev, 43), device=dev)
+
+    def products():
+        for _ in range(DENSE_PRODUCTS):
+            torch.matmul(p, invm)
+    products()
+    yard_ms = statistics.median(_event_ms(torch, products, burst) for _ in range(reps))
+    say(f"  1a's yardstick, on no path: {DENSE_PRODUCTS} torch.matmul(p, M^-1) at {CHAINS} x "
+        f"{DIM} by {DIM} x {DIM} (cuBLAS float32, TF32 off) {yard_ms:.4f} ms; 1a "
+        f"{times['grahmc_step_kernel[dense]'][0]:.4f} ms a transition")
+    return times, yard_ms
 
 
 def phase_multistep_switch(torch, targets, samplers, row, dev, chain_counts=(1024, 4096)):
@@ -3338,7 +3429,8 @@ def live_stack_slots(state):
 # Float operations per coordinate: a target's value and gradient, a diagonal
 # leapfrog with its kinetic energy (two half kicks, the drift, p M^{-1} p).
 TARGET_FLOPS = {"standard_normal": 3, "neals_funnel": 5, "correlated_gaussian": 6,
-                "gaussian_mixture": 5, "neals_funnel_noncentered": 3, "student_t": 7}
+                "gaussian_mixture": 5, "neals_funnel_noncentered": 3, "student_t": 7,
+                "ill_conditioned_gaussian": 7, "log_gamma": 10, "log_gamma_unconstrained": 6}
 SCALED_FLOPS = 1         # 1b: the gradient times beta
 BRIDGED_FLOPS = 7        # 1c: z = (q - m) / S, z^2 and its sum, the mixed gradient
 LEAPFROG_FLOPS = 10
@@ -3405,14 +3497,23 @@ def kernel_bounds(measured):
                           + DENSE_TRANSITION_FLOPS)
                    + (NUM_STEPS + 2) * 2 * DIM * DIM + DIM * (DIM + 1))
     metric_io = 2 * DIM * row
-    out = {"grahmc_step_kernel": bound(step_io, step_ops),
+    # kernel 1 and 1a at the dense-warmup row's 4,096-chain shape (the
+    # correlated Gaussian; kernel 1 with a diagonal metric)
+    small_io = MULTI_CHAINS * (2 * row + chain) + MULTI_CHAINS * (3 * row + 3 * chain + 1)
+    small_ops = MULTI_CHAINS * DIM * (NUM_STEPS * (SUBSTEP_FLOPS
+                                                   + TARGET_FLOPS["correlated_gaussian"])
+                                      + TRANSITION_FLOPS)
+    out = {"grahmc_step_kernel (4,096 chains)": bound(small_io + row, small_ops),
+           "grahmc_step_kernel[dense] (4,096 chains)": bound(small_io + metric_io,
+                                                             MULTI_CHAINS * dense_chain)}
+    out.update({"grahmc_step_kernel": bound(step_io, step_ops),
            "grahmc_multistep_kernel": bound(multi_io, multi_ops),
            "grahmc_step_kernel[dense]": bound(step_io + metric_io, CHAINS * dense_chain),
            "grahmc_multistep_kernel[dense]": bound(multi_io + metric_io,
                                                    MULTI_T * MULTI_CHAINS * dense_chain),
            "rwmh_multistep_kernel": bound(rwmh_io, rwmh_ops),
            "rwmh_multistep_kernel (student_t)": bound(
-               rwmh_io, RWMH_T * RWMH_CHAINS * RWMH_DIM * (8 + TARGET_FLOPS["student_t"]))}
+               rwmh_io, RWMH_T * RWMH_CHAINS * RWMH_DIM * (8 + TARGET_FLOPS["student_t"]))})
     # 1b and 1c at D = 10: kernel 1's reads and writes at their row counts
     # (the rung table, scalars and base rows are a few hundred bytes)
     mix = TARGET_FLOPS["gaussian_mixture"]
@@ -3613,6 +3714,9 @@ def main():
     chees = drive("ChEES row", lambda: phase_chees_row(torch, ft, targets, tuning, dev),
                   {"grahmc_step_kernel": CHEES_DRAWS * (2 + CHEES_REPS)})
     launches["grahmc_step_kernel (ChEES row)"] = path_counts["ChEES row"]["grahmc_step_kernel"]
+    launches["grahmc_step_kernel (4,096 chains)"] = (
+        path_counts["dense-warmup GRAHMC row"]["grahmc_step_kernel"])
+    launches["grahmc_step_kernel[dense] (4,096 chains)"] = warmed
     n_fam = len(NEW_FAMILIES)
     sweep = drive("family sweep",
                   lambda: phase_family_sweep(torch, targets, samplers, tuning, diagnostics, dev),
@@ -3621,11 +3725,14 @@ def main():
                    "rwmh_multistep_kernel": n_fam * (SWEEP_RWMH_TUNE
                                                      + SWEEP_DRAWS // SWEEP_RWMH_T),
                    "nuts_window_kernel": n_fam * (NUTS_TUNE_CALLS + SWEEP_DRAWS)})
+    pairs = {}     # (kernel, family) -> its launches on the sweep's and [5o]'s cells
+    for name, n in path_counts["family sweep"].items():
+        require(n % n_fam == 0, f"family sweep: {name} launched {n} times")
+        pairs.update({f"{name} ({family})": n // n_fam for family in NEW_FAMILIES if n})
     rahmc = {cell: drive(f"{cell} cell",
                          lambda cell=cell: phase_rahmc_cells(torch, targets, samplers, tuning,
                                                              diagnostics, dev, cell),
                          lambda out: out["expected"]) for cell in RAHMC_CELLS}
-    pairs = {}     # (kernel, family) -> its launches on the new families' cells
     for cell, out in rahmc.items():
         for name, n in path_counts[f"{cell} cell"].items():
             if n:
@@ -3642,12 +3749,15 @@ def main():
     nuts_times, measured = phase_timing_rwmh_nuts(torch, ft, fr, fn, tn, targets,
                                                   nuts["step"], dense["step"], dev)
     times.update(nuts_times)
-    times.update(phase_timing_dense(torch, ft, targets, dense_row, dev))
+    dense_times, yard_ms = phase_timing_dense(torch, ft, targets, dense_row, dev)
+    times.update(dense_times)
     times.update(phase_timing_variants(torch, ft, targets, samplers, dev))
     hier_times, hier_measured, vag_ms = phase_timing_hier(torch, ft, fr, fn, tn, targets, hier,
                                                           dev)
     times.update(hier_times)
     measured.update(hier_measured)
+    say(f"  1d per gradient evaluation: {hier_times['grahmc_step_kernel[data]'][0] / HIER_L:.4f} "
+        f"ms ({HIER_L} a transition); the eager value_and_grad {vag_ms:.4f} ms")
     chees_times, max_err["grahmc_step_kernel (ChEES row)"], measured["chees_mean_l"] = (
         phase_timing_chees(torch, ft, fr, targets, chees, dev))
     times.update(chees_times)
@@ -3655,14 +3765,35 @@ def main():
         max_err[name] = max(max_err.get(name, 0.0), err)
     pair_times, pair_measured, pair_shapes = phase_timing_rahmc(torch, ft, fr, fn, tn, rahmc,
                                                                 dev)
+    sweep_times, sweep_measured, sweep_shapes = phase_timing_sweep(torch, ft, fr, fn, tn, sweep,
+                                                                   dev)
+    pair_times.update(sweep_times)
     require(set(pair_times) == set(pairs), f"timed pairs {sorted(pair_times)}, launched "
                                            f"{sorted(pairs)}")
     times.update(pair_times)
-    pair_bounds = rahmc_bounds(rahmc, pair_measured, pair_shapes)
+    pair_bound = pair_bounds({out["family"]: out["info"] for out in rahmc.values()},
+                             pair_measured, pair_shapes)
+    pair_bound.update(pair_bounds({f: st["info"] for f, st in sweep["states"].items()},
+                                  sweep_measured, sweep_shapes))
     if "--multistep-switch" in sys.argv[1:]:
         phase_multistep_switch(torch, targets, samplers, dense_row, dev)
     bounds = kernel_bounds(measured)
-    bounds.update(pair_bounds)
+    bounds.update(pair_bound)
+    # each row's launches at its own shape: a kernel's main row less its
+    # split rows and (kernel, family) pairs
+    own = dict(launches)
+    for split, base in list(SPLITS.items()) + [(p, p.split(" (")[0]) for p in pairs]:
+        own[base] -= launches.get(split, pairs.get(split, 0))
+    own.update(pairs)
+    require(all(n > 0 for n in own.values()), f"a row without launches at its shape: {own}")
+    loss = {name: own[name] * (times[name][0] - bounds[name][0]) / 1e3 for name in own}
+    say("[8] launches x (ms - bound) by (kernel, shape), largest first (s):")
+    for name in sorted(loss, key=loss.get, reverse=True):
+        say(f"  {name}: {own[name]} launches x ({times[name][0]:.4f} - {bounds[name][0]:.5f} ms) "
+            f"= {loss[name]:.2f} s")
+    one_a, one_d = times["grahmc_step_kernel[dense]"][0], times["grahmc_step_kernel[data]"][0]
+    say(f"  1a's yardstick {yard_ms:.4f} ms against 1a's {one_a:.4f} ms; 1d per evaluation "
+        f"{one_d / HIER_L:.4f} ms against the eager value_and_grad's {vag_ms:.4f} ms")
     say(f"[7] done in {time.perf_counter() - t_start:.1f} s")
     say(f"  rows: nuts_useful_grads_per_sec {nuts['endpoint']['rate']:.1f}, "
         f"nuts_ess_per_sec {nuts['endpoint']['ess_rate']:.1f}, "
@@ -3700,7 +3831,7 @@ def main():
         f"{family} " + ", ".join(f"{s} {r['rhat']:.4f}/{r['z_chains']:.2f}/{r['z_ess']:.2f}/"
                                  f"{r['div']:.4f}"
                                  for s, r in rows.items())
-        for family, rows in sweep.items()))
+        for family, rows in sweep["rows"].items()))
     say("  new families' cells (R-hat, means' max z by the chains' spread and by bulk ESS, "
         "gates): " + "; ".join(
             f"{cell} " + ", ".join(
@@ -3722,7 +3853,7 @@ def main():
         f"{bounds['grahmc_bridged_kernel (SMC row)'][1]}")
     say(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
-         "replaces": KERNELS[name][1], "launches": launches[name],
+         "replaces": KERNELS[name][1], "launches": own[name],
          "max_abs_err": max_err[name], "ms": times[name][0], "plain_ms": times[name][1],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1], "library_ms": None}
         for name in KERNELS] + [

@@ -14,14 +14,16 @@
 //   The template flag DENSE is the TPU kernels' `dense` flag (variants 1a
 //   and 2a): M^{-1} is a (D, D) matrix, the momentum is z @ L^{-1} with
 //   M^{-1} = L L^T, and every velocity and kinetic energy is a D x D product
-//   (metric.cuh).
+//   (metric.cuh; for 1a the block-tiled products of tiled_step.cuh).
 //   targets.cuh             <- mcmc_tpu/ops/padded_targets.py:_BUILDERS, all 14
 //                              families (inlined).
 //   The family HIERARCHICAL_LOGISTIC is the TPU kernels' data-carrying form
-//   (variants 1d and 2b: the target's `data_arrays` refs): its functor reads
-//   the design matrix and labels from device memory (struct TargetData).
-//   That target's likelihood, two products with X per evaluation, not the
-//   state traffic, sets those variants' time (targets.cuh).
+//   (variants 1d and 2b: the target's `data_arrays` refs): the design matrix
+//   and labels in device memory (struct TargetData). That target's
+//   likelihood, two products with X per evaluation, not the state traffic,
+//   sets those variants' time: kernel 1 (1d, and 1a's data form) computes
+//   it for a block of chains at once (tiled_step.cuh:TiledHierarchical),
+//   kernel 2 with the warp-per-chain functor (targets.cuh).
 // The kernels and their launchers are in fused_trajectory.cuh; this file
 // holds the entry points, and fused_trajectory_families_{1,2,3}.cu
 // instantiate ten of the families so that nvcc compiles four sources at once.
@@ -41,7 +43,7 @@
 // add L + 3 D x D products per transition (the unwhitening, two kinetic
 // energies, a velocity per substep), 2 D^2 flops each per chain, every
 // multiply-add reading one word of shared memory: those products set their
-// time.
+// time (kernel 1's 1a and 1d compute them block-tiled, tiled_step.cuh).
 //
 // Design: one warp per chain. Lane j holds coordinates j, j+32, j+64, j+96
 // (K = ceil(D / 32) <= 4 registers each of q, p and grad; the diagonal of
@@ -53,7 +55,7 @@
 // written as is: a warp touches one contiguous row, nothing is padded or
 // transposed, and lanes past D hold zeros that no sum sees. 65,536 chains
 // are 65,536 warps, enough to keep every SM's schedulers fed while each warp
-// waits on its shuffles. Under DENSE the block's 8 warps share one copy of
+// waits on its shuffles. Under DENSE the block's warps share one copy of
 // M^{-1} and L^{-1} in shared memory (20 kB at D = 50, 128 kB at D = 128),
 // and the leapfrog's products are rounded before their sums (add_scaled):
 // under an ill-conditioned metric a rounding difference would grow along
@@ -143,4 +145,16 @@ extern "C" int grahmc_multistep_launch(int family, int dim, int n_chains, int nu
   a.dh_out = dh_out, a.hist_q = hist_q, a.hist_lp = hist_lp;
   return static_cast<int>(mcmc::dispatch<mcmc::MultiLaunch>(family, dense != 0, a,
                                                             static_cast<cudaStream_t>(stream)));
+}
+
+// The block-tiled kernel 1's geometry for (dim, n_data) under the metric and
+// data flags: returns its dynamic shared memory in bytes (0: no row tile
+// fits) and writes the chains per block and the data rows per tile; the
+// wrapper's tile_geometry must agree.
+extern "C" int grahmc_tile_geometry(int dim, int n_data, int dense, int data, int* chains,
+                                    int* rows) {
+  const mcmc::TileGeometry g = mcmc::tile_geometry(dim, n_data, dense != 0, data != 0);
+  *chains = mcmc::tile_chains(data != 0);
+  *rows = g.rows;
+  return g.bytes;
 }

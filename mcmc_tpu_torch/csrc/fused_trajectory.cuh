@@ -3,12 +3,16 @@
 // they replace and how they are built; it holds the plain C entry points and
 // instantiates the families outside MCMC_TRAJECTORY_FAMILIES_{1,2,3}, whose
 // instances fused_trajectory_families_{1,2,3}.cu compile in parallel.
+// Kernel 1's dense variant 1a and its data-carrying variant 1d launch the
+// block-tiled grahmc_tiled_step_kernel (tiled_step.cuh); its diagonal
+// instances without data, and every kernel 2 instance, are warp-per-chain.
 #pragma once
 
 #include <cstddef>
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "tiled_step.cuh"
 #include "trajectory.cuh"
 
 namespace mcmc {
@@ -80,10 +84,16 @@ __global__ void __launch_bounds__(WARPS_PER_BLOCK * 32)
   if (lane == 0) a.lp_out[chain] = lp;
 }
 
+// Kernel 1: 1a (DENSE) and 1d (the data-carrying family) block-tiled, the
+// rest warp-per-chain.
 template <int FAMILY, int K, bool DENSE>
 struct StepLaunch {
   static cudaError_t run(const StepArgs& a, cudaStream_t stream) {
-    return launch<K, DENSE>(grahmc_step_kernel<FAMILY, K, DENSE>, a, stream);
+    if constexpr (DENSE || FAMILY == HIERARCHICAL_LOGISTIC) {
+      return launch_tiled<FAMILY, K, DENSE>(a, stream);
+    } else {
+      return launch<K, DENSE>(grahmc_step_kernel<FAMILY, K, DENSE>, a, stream);
+    }
   }
 };
 

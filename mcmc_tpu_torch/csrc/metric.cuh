@@ -12,7 +12,10 @@
 // M^{-1} and L^{-1} (M^{-1} = L L^T) from shared memory, where the block
 // loads them once (load_dense_metric), and computes each row-vector-matrix
 // product x @ A by writing x to a per-warp shared row; lane j then sums
-// x[i] A[i][d] over i for its coordinates d = j + 32 r. Lanes read
+// x[i] A[i][d] over i for its coordinates d = j + 32 r. This warp-per-chain
+// DenseMetric serves kernels 2a, 4b and 4a+4b and the dense forms of 1b and
+// 1c; kernel 1's dense variant 1a computes the same sums for a block of
+// chains at once (tiled_step.cuh:TiledDenseMetric). Lanes read
 // consecutive words of A's row i, so the reads are free of bank conflicts,
 // and x[i] is a broadcast. The products are this body's own, as the TPU
 // kernel's MXU matmuls were; no library is called. The sum runs over i in
@@ -23,7 +26,8 @@
 // (samplers/trajectory.py:ordered_matmul) repeats bit for bit.
 //
 // Kernels 1, 2 (fused_trajectory.cu) and 4 (nuts_window.cuh) take the metric
-// as a template flag DENSE: Metric<K, DENSE> is the type, make_metric builds
+// as a template flag DENSE: Metric<K, DENSE> is the type (kernel 1's
+// block-tiled variants take tiled_step.cuh:TileMetric), make_metric builds
 // it (the dense one after the block has loaded its shared memory), and
 // add_scaled<DENSE> is the leapfrog's y + a x, rounded as the dense
 // variants need.

@@ -51,6 +51,8 @@ _SIGNATURES = {
     # dense), host target params, host TargetData, scalars, inv_mass, l_inv,
     # key, call, host arrays of the state and draw pointers, stream
     "nuts_window_launch": [_I] * 8 + [_P] * 6 + [_U, _P, _P, _P],
+    # (dim, n_data, dense, data), out chains a block, out rows a tile
+    "grahmc_tile_geometry": [_I] * 4 + [_P, _P],
 }
 
 

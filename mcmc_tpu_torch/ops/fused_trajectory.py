@@ -37,6 +37,15 @@ posterior) runs in every kernel and metric here: the TPU kernels' form with
 2a). Its data set goes to the kernels as device pointers
 (``padded_targets.device_data``).
 
+Kernel 1's variants 1a (dense metric) and 1d (a data-carrying target) are
+block-tiled (``csrc/tiled_step.cuh``): a block of DENSE_TILE_CHAINS (1a) or
+HIER_TILE_CHAINS (1d) chains computes the products its chains take with
+the shared M^{-1}, L^{-1} or X together, X streamed through shared memory
+in row tiles.
+``tile_geometry`` is their geometry (blocks, row tile, shared memory); the
+wrapper raises ValueError for a shape it does not take, before any launch.
+Their outputs equal the warp-per-chain kernels' bit for bit.
+
 Each wrapper takes its plain PyTorch version ONLY for tensors on the CPU;
 for CUDA tensors it launches the kernel or raises. There is no fallback. Each
 counts its launches in plain int attributes, ``.launches`` (every variant)
@@ -77,6 +86,11 @@ Tensor = torch.Tensor
 
 ENERGY_OVERFLOW = precision.ENERGY_OVERFLOW
 MAX_DIM = 128            # 32 lanes x 4 registers per lane
+# the block-tiled kernel 1 (csrc/tiled_step.cuh, constants of the same names)
+DENSE_TILE_CHAINS = 8    # chains a block, one warp each: 1a
+HIER_TILE_CHAINS = 32    # 1d and 1a's data form
+TILE_ROWS = (64, 32, 16)  # data rows a tile: the largest that fits
+MAX_TILE_SMEM = 232_448  # dynamic shared memory of an H100 block
 ACCEPT_DRAW = 32         # Philox draw index of the accept uniform; momentum
                          # coordinate d uses draw d // 4 < 32
 TWO_PI = 2.0 * math.pi
@@ -114,6 +128,59 @@ def schedule_id(friction_schedule: Optional[Callable]) -> int:
             return SCHEDULE_IDS[name]
     raise KeyError(f"friction schedule {friction_schedule!r} has no kernel "
                    f"counterpart; use one of {sorted(FRICTION_SCHEDULES)}")
+
+
+class TileGeometry(NamedTuple):
+    """The block-tiled kernel 1's geometry for one call (1a, 1d)."""
+    chains: int        # chains a block, one warp each
+    blocks: int        # ceil(n_chains / chains); a warp past n_chains stores nothing
+    row_tile: int      # data rows a tile of X (0 without data)
+    row_tiles: int     # ceil(n_data / row_tile)
+    smem_bytes: int    # dynamic shared memory a block
+
+
+def _round4(n: int) -> int:
+    return (n + 3) // 4 * 4
+
+
+def _tile_bytes(dim: int, dense: bool, rows: int, chains: int) -> int:
+    """csrc/tiled_step.cuh:tile_layout's bytes: M^{-1} and L^{-1} (dense),
+    the rows transposed, the products' rows, and for data two X^T and two X
+    row tiles and the residuals."""
+    dp, ps = _round4(dim), chains + 4
+    floats = ((2 * dim * dp if dense else 0) + dim * ps + chains * max(dp, rows)
+              + 2 * dim * rows + 2 * rows * dp + rows * ps)
+    return 4 * floats
+
+
+def tile_geometry(n_chains: int, dim: int, n_data: int = 0,
+                  dense: bool = False) -> TileGeometry:
+    """The geometry of kernel 1's block-tiled variants for n_chains chains of
+    dimension dim, with a data set of n_data rows (0: none; HIER_TILE_CHAINS
+    chains a block with data, DENSE_TILE_CHAINS without) and a dense or
+    diagonal metric. Raises ValueError naming the limit for a shape the
+    kernel does not take."""
+    chains = HIER_TILE_CHAINS if n_data else DENSE_TILE_CHAINS
+    if n_chains < 1:
+        raise ValueError("need at least one chain")
+    if not 1 <= dim <= MAX_DIM:
+        raise ValueError(f"the tiled kernel takes 1 <= dim <= {MAX_DIM}, got {dim}")
+    if n_data < 0:
+        raise ValueError(f"n_data must be >= 0, got {n_data}")
+    blocks = -(-n_chains // chains)
+    for rows in (TILE_ROWS if n_data else (0,)):
+        smem = _tile_bytes(dim, dense, rows, chains)
+        if smem <= MAX_TILE_SMEM:
+            return TileGeometry(chains, blocks, rows, -(-n_data // rows) if rows else 0, smem)
+    raise ValueError(f"the tiled kernel's shared memory at dim {dim} with "
+                     f"{'a dense' if dense else 'a diagonal'} metric and data needs "
+                     f"{smem} bytes at the smallest row tile ({rows} rows), above the "
+                     f"{MAX_TILE_SMEM}-byte limit of a block")
+
+
+def is_tiled(info: dict, inv_mass: Tensor) -> bool:
+    """Whether kernel 1 runs this target and metric block-tiled (1a, 1d)."""
+    return inv_mass.ndim == 2 or info["family"] in DATA_FAMILIES
 
 
 # ============================================================================
@@ -531,7 +598,7 @@ def grahmc_step_kernel(info: dict, num_steps: int, schedule: int, q: Tensor,
                        u: Optional[Tensor] = None,
                        l_inv: Optional[Tensor] = None):
     """One fused transition of every chain (kernel 1; 1a with a dense
-    metric).
+    metric, 1d with a data-carrying target: block-tiled, tile_geometry).
 
     q, grad (C, D), lp (C,), scalars (3,) = (eps, gamma, steepness),
     inv_mass (D,) or (D, D) with its l_inv (D, D), injected momentum p0
@@ -545,6 +612,9 @@ def grahmc_step_kernel(info: dict, num_steps: int, schedule: int, q: Tensor,
                                  scalars, inv_mass, key, call, p0, u, l_inv)
     _kernel_device(q)
     n_chains, dim = q.shape
+    if is_tiled(info, inv_mass):
+        tile_geometry(n_chains, dim, info["params"]["n_data"] if info["family"] in DATA_FAMILIES
+                      else 0, inv_mass.ndim == 2)
     from mcmc_tpu_torch.ops import _cuda
     lib = _cuda.load_library().lib
     out, ptrs = _step_outputs(q, lp)

@@ -1068,3 +1068,158 @@ def test_persistent_warmup_kernel_4_against_its_eager_machine(dev, monkeypatch):
     torch.testing.assert_close(m_k.cpu(), m_p, rtol=0.02, atol=0.02)
     close = ((p_k.cpu() - p_p).abs() <= 1e-3).all(dim=1)
     assert float(close.float().mean()) >= 0.95, float(close.float().mean())
+
+
+# Kernel 1's block-tiled variants (csrc/tiled_step.cuh): 1a, the dense
+# metric on every family, and 1d, the hierarchical posterior under either
+# metric. Under the dense metric the leapfrog and the D x D products round
+# each product in the plain version's order, and these families' functors
+# do too (padded_targets.LANE_ORDER_FAMILIES, the hierarchical posterior):
+# with injected draws the trajectory -- the new q, its gradient and the
+# proposal -- equals the plain version's bit for bit wherever the accepts
+# agree (the energies' sums are taken in another order, so an accept may
+# differ at the MH borderline). lp passes through log1p, log and exp, which
+# PyTorch's CUDA kernels and the card's math library round apart, so lp is
+# held within 1e-4. The other families and the Philox draws (the card's sin
+# and cos against PyTorch's) are held within 1e-4; 1d's diagonal leapfrog
+# (nvcc's FMA) against its own device function: its proposal within 1e-4 of
+# the plain trajectory, its lp and gradient within 1e-4 of the potential
+# at its own q.
+TILED_EXACT = set(pt.LANE_ORDER_FAMILIES) | {HIER}
+TILED_FAMILIES = ([(f, d) for f in ["standard_normal", "neals_funnel", "correlated_gaussian",
+                                    "gaussian_mixture"] + NEW_FAMILIES for d in (10, 50)]
+                  + [("rosenbrock", 10), ("rosenbrock", 50), ("multimodal_funnel_2d", 2),
+                     ("concentric_l1_balls", 2), ("concentric_l1_balls", 3),
+                     ("nested_l1_balls", 2), ("nested_l1_balls", 3)])
+
+
+def _assert_bits(a, b, label):
+    """a and b equal bit for bit (any NaN equal to any NaN)."""
+    same = (a.view(torch.int32) == b.view(torch.int32)) | (a.isnan() & b.isnan())
+    bad = (~same).nonzero()
+    assert not len(bad), (f"{label}: {len(bad)} entries differ, e.g. at {bad[0].tolist()} "
+                          f"{a[tuple(bad[0])].item()!r} against {b[tuple(bad[0])].item()!r}")
+
+
+def _tiled_check(args, l_inv, rands, exact, drift=(0, 0), potential=None):
+    """Kernel 1 (tiled) against its plain version on each of `rands`
+    (injected first): accepts equal away from the MH borderline; where they
+    agree, with injected draws and `exact`, the trajectory (new q, its
+    gradient, the proposal q) bit for bit and lp within 1e-4; with a
+    `potential` (lp, grad) function, the proposal within 1e-4 of the plain
+    version's, a rejected chain's state its input bit for bit, an accepted
+    chain's its proposal with lp and gradient within 1e-4 of the potential
+    there; else _assert_close_or_drift within `drift`. Counts one launch of
+    the variant per call."""
+    info, q_in, lp_in, grad_in = args[0], args[3], args[4], args[5]
+    name = ft.variant_name(ft.VARIANTS[args[-1].ndim == 2], info)
+    for i, (rand, log_u) in enumerate(rands):
+        before = ft.grahmc_step_kernel.variant_launches[name]
+        kern = ft.grahmc_step_kernel(*args, l_inv=l_inv, **rand)
+        assert ft.grahmc_step_kernel.variant_launches[name] == before + 1
+        plain = ft.grahmc_step_plain(*args, l_inv=l_inv, **rand)
+        if not (exact and i == 0) and potential is None:
+            _assert_close_or_drift(kern, plain, log_u, *drift)
+            continue
+        border = (log_u - torch.clamp(-plain[4], max=0.0)).abs() < 1e-4
+        same = kern[3] == plain[3]
+        assert not bool((~same & ~border).any())
+        if exact and i == 0:
+            for k, label in ((0, "q"), (2, "grad"), (5, "proposal q")):
+                _assert_bits(kern[k][same], plain[k][same], label)
+            for k in (1, 6):
+                torch.testing.assert_close(kern[k][same], plain[k][same], rtol=1e-4, atol=1e-4)
+            continue
+        torch.testing.assert_close(kern[5][same], plain[5][same], rtol=1e-4, atol=1e-4)
+        acc = kern[3]
+        for k, x in ((0, q_in), (1, lp_in), (2, grad_in)):
+            _assert_bits(kern[k][~acc], x[~acc], f"rejected chains' output {k}")
+        _assert_bits(kern[0][acc], kern[5][acc], "accepted q")
+        lp_at, grad_at = potential(kern[0])
+        torch.testing.assert_close(kern[1][acc], lp_at[acc], rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(kern[2][acc], grad_at[acc], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("n", [1, 7, 9, 31, 33, 8191])
+@pytest.mark.parametrize("variant", ["1a", "1d", "1a+data"])
+def test_tiled_kernel_1_at_ragged_chain_counts(dev, variant, n):
+    """The last block's warps past n_chains take part in its products and
+    store nothing: every chain of a ragged count (on both sides of 1a's 8
+    chains a block and 1d's 32) matches the plain version."""
+    if variant == "1a":
+        info, q, lp, grad, g = _inputs(dev, "correlated_gaussian", 50, n, n)
+    else:
+        info, q, lp, grad, g = _hier(dev, 100, 256, n, n)
+    dense = variant != "1d"
+    invm, l_inv = _dense_metric(dev, q.shape[1], g) if dense else (
+        torch.rand(q.shape[1], generator=g, device=dev) * 0.5 + 0.25, None)
+    args = (info, 8, ft.SCHEDULE_IDS["constant"], q, lp, grad,
+            ft.kernel_scalars(0.05, 0.5, 0.5, dev), invm)
+    _tiled_check(args, l_inv, _rand(dev, g, n, q.shape[1], invm if dense else None, l_inv),
+                 exact=dense, potential=None if dense else ft.device_vag(info))
+
+
+@pytest.mark.parametrize("dim", [1, 32, 33, 50, 100, 128])
+def test_tiled_dense_kernel_at_register_edges(dev, dim):
+    """1a at D on both sides of K's steps (32 coordinates a register) and
+    of the products' float4 columns."""
+    info, q, lp, grad, g = _inputs(dev, "correlated_gaussian", dim, 1000, dim + 5)
+    invm, l_inv = _dense_metric(dev, dim, g)
+    args = (info, 8, ft.SCHEDULE_IDS["constant"], q, lp, grad,
+            ft.kernel_scalars(0.05, 0.7, 3.0, dev), invm)
+    _tiled_check(args, l_inv, _rand(dev, g, 1000, dim, invm, l_inv), exact=True)
+
+
+@pytest.mark.parametrize("dense", [False, True])
+@pytest.mark.parametrize("n_data", [50, 256, 1000])
+@pytest.mark.parametrize("dim", [9, 20, 100])
+def test_tiled_hierarchical_kernel(dev, dim, n_data, dense):
+    """1d (and 1a's data form) over X's row tiles: n_data 50 and 1,000 are
+    no multiple of the tile, 1,000 spans 16 tiles through both buffers."""
+    info, q, lp, grad, g = _hier(dev, dim, n_data, 1000, dim * n_data)
+    invm, l_inv = _dense_metric(dev, dim, g) if dense else (
+        torch.rand(dim, generator=g, device=dev) * 0.5 + 0.25, None)
+    eps = 0.08 * min(1.0, 256 / n_data)      # the posterior narrows with n_data
+    args = (info, 8, ft.SCHEDULE_IDS["constant"], q, lp, grad,
+            ft.kernel_scalars(eps, 0.5, 0.5, dev), invm)
+    plain_accept = ft.grahmc_step_plain(*args, l_inv=l_inv, **_rand(dev, g, 1000, dim)[0][0])[3]
+    assert 0.05 < float(plain_accept.float().mean())
+    _tiled_check(args, l_inv, _rand(dev, g, 1000, dim, invm if dense else None, l_inv),
+                 exact=dense, potential=None if dense else ft.device_vag(info))
+
+
+@pytest.mark.parametrize("family,dim", TILED_FAMILIES)
+def test_tiled_dense_kernel_on_every_family(dev, family, dim):
+    """1a on each family (the hierarchical posterior's form in the tests
+    above) at D 10 and 50, the 2- and 3-D families at theirs."""
+    n = 1200
+    if family in RAHMC_STEP:
+        info, q, lp, grad, g = _rahmc_inputs(dev, family, dim, n, dim + 13)
+        eps = RAHMC_STEP[family]
+    else:
+        info, q, lp, grad, g = _family_inputs(dev, family, dim, n, dim + 13)
+        eps = FAMILY_STEP.get(family, 0.05)
+    invm, l_inv = _dense_metric(dev, dim, g)
+    drift, wild, _ = FAMILY_DRIFT.get(family, (0, 0, 2))
+    args = (info, 8, ft.SCHEDULE_IDS["constant"], q, lp, grad,
+            ft.kernel_scalars(eps, 0.3, 2.0, dev), invm)
+    _tiled_check(args, l_inv, _rand(dev, g, n, dim, invm, l_inv),
+                 exact=info["family"] in TILED_EXACT, drift=(drift, wild))
+
+
+def test_tiled_geometry_agrees_with_the_kernel(dev):
+    """The wrapper's tile_geometry against csrc/tiled_step.cuh's, through
+    the library's grahmc_tile_geometry: chains a block, rows a tile and
+    shared memory for every D, metric and data flag."""
+    import ctypes
+    from mcmc_tpu_torch.ops import _cuda
+    lib = _cuda.load_library().lib
+    chains, rows = ctypes.c_int(), ctypes.c_int()
+    for dim in range(1, ft.MAX_DIM + 1):
+        for dense in (0, 1):
+            for n_data in (0, 33, 256):
+                geo = ft.tile_geometry(100, dim, n_data, bool(dense))
+                nbytes = lib.grahmc_tile_geometry(dim, n_data, dense, int(n_data > 0),
+                                                  ctypes.byref(chains), ctypes.byref(rows))
+                assert (nbytes, chains.value, rows.value) == (geo.smem_bytes, geo.chains,
+                                                              geo.row_tile), (dim, dense, n_data)
