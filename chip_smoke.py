@@ -427,11 +427,18 @@ KERNELS = {   # name: (source, the TPU kernel it replaces)
     "grahmc_step_kernel (4,096 chains)": STEP_SRC,
     "grahmc_step_kernel[dense] (4,096 chains)": TILED_SRC,
 }
-# rows split from a kernel's main-shape row: entry -> the kernel's entry (the
-# family sweep's and [5o]'s "kernel (family)" pairs are split the same way)
-SPLITS = {"grahmc_step_kernel (ChEES row)": "grahmc_step_kernel",
-          "grahmc_step_kernel (4,096 chains)": "grahmc_step_kernel",
-          "grahmc_step_kernel[dense] (4,096 chains)": "grahmc_step_kernel[dense]"}
+# rows split from a kernel's main-shape row: entry -> (the kernel's entry,
+# the path whose launches it takes, and their chains, None for every shape).
+# The family sweep's and [5o]'s launches go to "kernel (family)" pairs
+# (PAIR_PATHS); a row's launches are read from the counts by shape
+# (ops/fused_trajectory.py:count_launch).
+SPLITS = {"grahmc_step_kernel (ChEES row)": ("grahmc_step_kernel", "ChEES row", None),
+          "grahmc_step_kernel (4,096 chains)": ("grahmc_step_kernel", "dense-warmup GRAHMC row",
+                                                MULTI_CHAINS),
+          "grahmc_step_kernel[dense] (4,096 chains)": ("grahmc_step_kernel[dense]",
+                                                       "dense-warmup GRAHMC row",
+                                                       MULTI_CHAINS)}
+PAIR_PATHS = ("family sweep",) + tuple(f"{cell} cell" for cell in RAHMC_CELLS)
 # kernels 1, 2, 1b and 1c's variants (ops/fused_trajectory.py:variant_name),
 # kernel 3's (ops/fused_rwmh.py) and kernel 4's (ops/fused_nuts.py:variant)
 # -> the names above (1b's and 1c's dense variants, and the data-carrying
@@ -3585,6 +3592,51 @@ def kernel_bounds(measured):
     return out
 
 
+def launch_counts(ft, fr, fn):
+    """Each kernel's and kernel variant's launch count (the modules
+    ops.fused_trajectory, ops.fused_rwmh and ops.fused_nuts)."""
+    got = {f"{k.__name__}{GRAHMC_NAMES[v]}": n for k in ft.KERNELS
+           for v, n in k.variant_launches.items()}
+    got.update({RWMH_NAMES[v]: n for v, n in fr.rwmh_multistep_kernel.variant_launches.items()})
+    got.update({NUTS_NAMES[v]: n for v, n in fn.nuts_window_kernel.variant_launches.items()})
+    return got
+
+
+def shape_counts(ft, fr, fn):
+    """Each (kernel variant's name, family, n_chains, dim) launched, and its
+    launch count."""
+    got = {(f"{k.__name__}{GRAHMC_NAMES[v]}", *shape): n for k in ft.KERNELS
+           for (v, *shape), n in k.shape_launches.items()}
+    got.update({(RWMH_NAMES[v], *shape): n
+                for (v, *shape), n in fr.rwmh_multistep_kernel.shape_launches.items()})
+    got.update({(NUTS_NAMES[v], *shape): n
+                for (v, *shape), n in fn.nuts_window_kernel.shape_launches.items()})
+    return got
+
+
+def row_launches(path_shapes):
+    """Each row of the kernels line and its launches, read from every main
+    path's counts by shape ({path: {(kernel, family, n_chains, dim):
+    launches}}): a split row (SPLITS) takes its path's launches of its
+    kernel at its chains, a path of PAIR_PATHS gives "kernel (family)"
+    pairs, and every other launch goes to its kernel's own row. Returns
+    ({row of KERNELS: launches}, {pair: launches}, {row or pair:
+    {(n_chains, dim, family): launches}})."""
+    own, pairs, shapes = {}, {}, {}
+    for path, counts in path_shapes.items():
+        for (name, family, n, d), c in counts.items():
+            if path in PAIR_PATHS:
+                row, table = f"{name} ({family})", pairs
+            else:
+                row = next((split for split, (base, at, chains) in SPLITS.items()
+                            if (base, at) == (name, path) and chains in (None, n)), name)
+                table = own
+            table[row] = table.get(row, 0) + c
+            at_shape = shapes.setdefault(row, {})
+            at_shape[(n, d, family)] = at_shape.get((n, d, family), 0) + c
+    return own, pairs, shapes
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3627,16 +3679,7 @@ def main():
     phase_stats_rwmh_nuts(torch, targets, samplers, dev)
     phase_multinomial_variance(torch, targets, samplers, dev)
 
-    def counts():
-        """Each kernel's and kernel variant's launch count."""
-        got = {f"{k.__name__}{GRAHMC_NAMES[v]}": n for k in ft.KERNELS
-               for v, n in k.variant_launches.items()}
-        got.update({RWMH_NAMES[v]: n
-                    for v, n in fr.rwmh_multistep_kernel.variant_launches.items()})
-        got.update({NUTS_NAMES[v]: n
-                    for v, n in fn.nuts_window_kernel.variant_launches.items()})
-        return got
-    launches, path_counts = {}, {}
+    launches, path_counts, path_shapes = {}, {}, {}
 
     def drive(label, run, expected):
         """Run one main path with every count set to 0 just before it; each
@@ -3648,13 +3691,17 @@ def main():
         fr.reset_launches()
         fn.reset_launches()
         out = run()
-        got = counts()
+        got = launch_counts(ft, fr, fn)
         if callable(expected):
             expected = expected(out)
         want = {name: expected.get(name, 0) for name in got}
         say(f"  launches on the {label}: {got} (expected {want})")
         require(got == want, f"{label}: launches {got}, expected {want}")
+        shapes = shape_counts(ft, fr, fn)
+        by_name = {name: sum(n for key, n in shapes.items() if key[0] == name) for name in got}
+        require(by_name == got, f"{label}: launches by shape {shapes}, in all {got}")
         path_counts[label] = got
+        path_shapes[label] = shapes
         for name in expected:
             launches[name] = launches.get(name, 0) + got[name]
         return out
@@ -3713,10 +3760,6 @@ def main():
     max_err.update(phase_parity_hier(torch, ft, fr, fn, tn, targets, hier, dev))
     chees = drive("ChEES row", lambda: phase_chees_row(torch, ft, targets, tuning, dev),
                   {"grahmc_step_kernel": CHEES_DRAWS * (2 + CHEES_REPS)})
-    launches["grahmc_step_kernel (ChEES row)"] = path_counts["ChEES row"]["grahmc_step_kernel"]
-    launches["grahmc_step_kernel (4,096 chains)"] = (
-        path_counts["dense-warmup GRAHMC row"]["grahmc_step_kernel"])
-    launches["grahmc_step_kernel[dense] (4,096 chains)"] = warmed
     n_fam = len(NEW_FAMILIES)
     sweep = drive("family sweep",
                   lambda: phase_family_sweep(torch, targets, samplers, tuning, diagnostics, dev),
@@ -3725,25 +3768,20 @@ def main():
                    "rwmh_multistep_kernel": n_fam * (SWEEP_RWMH_TUNE
                                                      + SWEEP_DRAWS // SWEEP_RWMH_T),
                    "nuts_window_kernel": n_fam * (NUTS_TUNE_CALLS + SWEEP_DRAWS)})
-    pairs = {}     # (kernel, family) -> its launches on the sweep's and [5o]'s cells
-    for name, n in path_counts["family sweep"].items():
-        require(n % n_fam == 0, f"family sweep: {name} launched {n} times")
-        pairs.update({f"{name} ({family})": n // n_fam for family in NEW_FAMILIES if n})
     rahmc = {cell: drive(f"{cell} cell",
                          lambda cell=cell: phase_rahmc_cells(torch, targets, samplers, tuning,
                                                              diagnostics, dev, cell),
                          lambda out: out["expected"]) for cell in RAHMC_CELLS}
-    for cell, out in rahmc.items():
-        for name, n in path_counts[f"{cell} cell"].items():
-            if n:
-                pair = f"{name} ({out['family']})"
-                pairs[pair] = pairs.get(pair, 0) + n
     classic = drive("classic NUTS path", lambda: phase_classic_nuts(
         torch, targets, samplers, tuning, diagnostics, dev), {})
     reference = drive("Rosenbrock reference run",
                       lambda: phase_rosenbrock_reference(torch, targets, dev), {})
-    require(all(n > 0 for n in launches.values()) and set(launches) == set(KERNELS),
+    require(all(n > 0 for n in launches.values()) and set(launches) == set(KERNELS) - set(SPLITS),
             f"a kernel no main path launched: {launches}")
+    own, pairs, own_shapes = row_launches(path_shapes)
+    require(sum(own.values()) + sum(pairs.values()) == sum(launches.values())
+            and all(n > 0 for n in own.values()) and set(own) == set(KERNELS),
+            f"launches by row {own}, {pairs}; by kernel {launches}")
 
     times = phase_timing(torch, ft, targets, g_step, dev)
     nuts_times, measured = phase_timing_rwmh_nuts(torch, ft, fr, fn, tn, targets,
@@ -3779,18 +3817,15 @@ def main():
         phase_multistep_switch(torch, targets, samplers, dense_row, dev)
     bounds = kernel_bounds(measured)
     bounds.update(pair_bound)
-    # each row's launches at its own shape: a kernel's main row less its
-    # split rows and (kernel, family) pairs
-    own = dict(launches)
-    for split, base in list(SPLITS.items()) + [(p, p.split(" (")[0]) for p in pairs]:
-        own[base] -= launches.get(split, pairs.get(split, 0))
-    own.update(pairs)
-    require(all(n > 0 for n in own.values()), f"a row without launches at its shape: {own}")
-    loss = {name: own[name] * (times[name][0] - bounds[name][0]) / 1e3 for name in own}
-    say("[8] launches x (ms - bound) by (kernel, shape), largest first (s):")
+    rows = {**own, **pairs}
+    loss = {name: rows[name] * (times[name][0] - bounds[name][0]) / 1e3 for name in rows}
+    say("[8] launches x (ms - bound) by (kernel, shape), largest first (s); the launches' "
+        "chains x dim (family): count:")
     for name in sorted(loss, key=loss.get, reverse=True):
-        say(f"  {name}: {own[name]} launches x ({times[name][0]:.4f} - {bounds[name][0]:.5f} ms) "
-            f"= {loss[name]:.2f} s")
+        say(f"  {name}: {rows[name]} launches x ({times[name][0]:.4f} - {bounds[name][0]:.5f} "
+            f"ms) = {loss[name]:.2f} s; " + ", ".join(
+                f"{n:,} x {d} ({family}): {c}"
+                for (n, d, family), c in sorted(own_shapes[name].items())))
     one_a, one_d = times["grahmc_step_kernel[dense]"][0], times["grahmc_step_kernel[data]"][0]
     say(f"  1a's yardstick {yard_ms:.4f} ms against 1a's {one_a:.4f} ms; 1d per evaluation "
         f"{one_d / HIER_L:.4f} ms against the eager value_and_grad's {vag_ms:.4f} ms")

@@ -2,20 +2,12 @@
 kernels they replace, on one CUDA card.
 
     python experiments/torch_tiled_kernel_timing.py [--parent DIR] [--tree .]
-        [--variants LABEL=NAME:VALUE[,NAME:VALUE...] ...]
         [--out _archive/tiled_out] [--work _archive/tiled] [--skip-timing]
 
 DIR is an unpacked tree of the commit before the redesign (`git archive`);
---tree the tree under test. A variant is a copy of the tree with constants
-of csrc/tiled_step.cuh set anew (DENSE_TILE_CHAINS, HIER_TILE_CHAINS,
-TILE_MAX_ROWS, MAC_UNROLL, METRIC_RC, METRIC_RJ, Z_RC, Z_RJ, G_RC, G_RJ;
-the wrapper's copies follow), e.g. d16=DENSE_TILE_CHAINS:16 or
-m22=METRIC_RC:2,METRIC_RJ:2; SKIP:metric, SKIP:z or SKIP:g drops the
-arithmetic of 1a's products, of 1d's Z = Q X^T or of its G = R X (an
-ablation: its outputs are wrong, its time says what the
-rest costs). A variant builds kernel 1's sources only. The script
+--tree the tree under test. The script
 
-1. builds every tree's kernel library, one process per tree, all at once;
+1. builds both trees' kernel libraries, one process per tree, at once;
 2. prints each kernel instance's ptxas line (registers, shared memory,
    spills) that differs between the parent and the tree, and every
    instance the tree adds or drops;
@@ -27,11 +19,15 @@ rest costs). A variant builds kernel 1's sources only. The script
    posterior, diagonal and dense) at dim 9, 20, 100 and 128 with n_data
    50, 256, 33 and 1,000, at 8,191 and at 8,192 x 100 x 256; injected draws
    and Philox;
-4. times 1a (65,536 x 50, L = 16), 1d (8,192 x 100 x 256, L = 16) and, as
-   a control whose code neither tree changes, kernel 1 (65,536 x 50 on the
-   funnel, L = 16), CUDA events around bursts enqueued while the card
-   sleeps (as chip_smoke.py's _event_ms), in turns: parent, tree, tree,
-   parent; then the tree beside each variant, in turns.
+4. times 1a at the three shapes chip_smoke.py's main paths launch it at
+   (the dense-warmup row's 65,536 x 50 and 4,096 x 50, L = 16; Rosenbrock's
+   1,024 x 10 cell, L = 64), 1d (8,192 x 100 x 256, L = 16) and, as
+   controls whose code neither tree changes, kernel 1 (65,536 x 50 on the
+   funnel, L = 16), 2a (4,096 x 50, T = 8, L = 16), kernel 4 (the funnel)
+   and 4b (the correlated Gaussian's dense metric; both 65,536 x 50, 16
+   iterations x W = 4, depth 10), CUDA events around bursts enqueued while
+   the card sleeps (as chip_smoke.py's _event_ms), in turns: parent, tree,
+   tree, parent.
 
 Steps 2 and 3 need --parent.
 
@@ -45,7 +41,6 @@ differs.
 import argparse
 import json
 import re
-import shutil
 import statistics
 import subprocess
 import sys
@@ -141,9 +136,12 @@ def _event_ms(torch, fn, burst):
 
 
 def worker_time(torch, reps=10, burst=10):
-    """Per-call ms of `reps` bursts of 1a, 1d and kernel 1 at their main
-    shapes, Philox mode; prints one JSON line."""
+    """Per-call ms of `reps` bursts of each timed kernel and shape (1a at
+    three shapes, 1d, and the controls 1, 2a, 4 and 4b), Philox mode;
+    prints one JSON line."""
+    from mcmc_tpu_torch.ops import fused_nuts as fn
     from mcmc_tpu_torch.ops import fused_trajectory as ft
+    from mcmc_tpu_torch.samplers import nuts_persistent as tn
     from mcmc_tpu_torch.targets import get_target
     dev = torch.device("cuda", 0)
     key = torch.tensor([5, 6], dtype=torch.int32, device=dev)
@@ -152,8 +150,20 @@ def worker_time(torch, reps=10, burst=10):
     q = torch.randn((65536, 50), generator=g, device=dev) * 0.5
     lp, grad = t.value_and_grad_fn(q)
     invm, l_inv = ft.prepare_dense_metric(t.true_cov.to(dev, torch.float64))
-    a_args = (t.value_and_grad_fn.kernel_info, 16, ft.SCHEDULE_IDS["constant"], q,
-              lp.contiguous(), grad.contiguous(), ft.kernel_scalars(0.3, 1.0, 1.0, dev), invm)
+    a_scalars = ft.kernel_scalars(0.3, 1.0, 1.0, dev)
+
+    def a_args(n, *lead):
+        return (t.value_and_grad_fn.kernel_info, 16, ft.SCHEDULE_IDS["constant"], *lead,
+                q[:n].contiguous(), lp[:n].contiguous(), grad[:n].contiguous(), a_scalars, invm)
+    r = get_target("rosenbrock", dim=10)
+    rq = (torch.randn((1024, 10), generator=g, device=dev) * 0.3 + 1.0).contiguous()
+    rlp, rgrad = r.value_and_grad_fn(rq)
+    m = torch.randn((10, 10), generator=g, device=dev, dtype=torch.float64)
+    r_invm, r_linv = ft.prepare_dense_metric(m @ m.T / 10 + 0.5 * torch.eye(10, device=dev,
+                                                                             dtype=torch.float64))
+    r_args = (r.value_and_grad_fn.kernel_info, 64, ft.SCHEDULE_IDS["linear"], rq,
+              rlp.contiguous(), rgrad.contiguous(), ft.kernel_scalars(0.02, 1.0, 1.0, dev),
+              r_invm)
     h = get_target("hierarchical_logistic", dim=100, n_data=256, data_seed=0)
     hq = h.init_sampler(g, 8192).float().contiguous()
     hlp, hgrad = h.value_and_grad_fn(hq)
@@ -166,13 +176,35 @@ def worker_time(torch, reps=10, burst=10):
     k_args = (f.value_and_grad_fn.kernel_info, 16, ft.SCHEDULE_IDS["constant"], fq,
               flp.contiguous(), fgrad.contiguous(), ft.kernel_scalars(0.024, 1.0, 1.0, dev),
               torch.ones(50, device=dev))
-    fns = {"1a": lambda: ft.grahmc_step_kernel(*a_args, key=key, call=0, l_inv=l_inv),
+    windows = {}
+    for name, target, dense in (("4", f, False), ("4b", t, True)):
+        wq = torch.randn((65536, 50), generator=g, device=dev) * 0.5
+        wlp, wgrad = target.value_and_grad_fn(wq)
+        w_invm, w_linv = (invm, l_inv) if dense else (torch.ones(50, device=dev), None)
+        state = tn._init_pstate(wq, wlp, wgrad, torch.float32, multinomial=False,
+                                max_tree_depth=10)
+        windows[name] = ((target.value_and_grad_fn.kernel_info, 16, 4, 10, state,
+                          fn.nuts_scalars(0.2, 1000.0, dev), w_invm), w_linv)
+    fns = {"1a": lambda: ft.grahmc_step_kernel(*a_args(65536), key=key, call=0, l_inv=l_inv),
+           "1a 4,096 x 50": lambda: ft.grahmc_step_kernel(*a_args(4096), key=key, call=0,
+                                                          l_inv=l_inv),
+           "1a 1,024 x 10": lambda: ft.grahmc_step_kernel(*r_args, key=key, call=0,
+                                                          l_inv=r_linv),
            "1d": lambda: ft.grahmc_step_kernel(*d_args, key=key, call=0),
-           "1": lambda: ft.grahmc_step_kernel(*k_args, key=key, call=0)}
+           "1": lambda: ft.grahmc_step_kernel(*k_args, key=key, call=0),
+           "2a": lambda: ft.grahmc_multistep_kernel(*a_args(4096, 8), key=key, call=0,
+                                                    l_inv=l_inv),
+           "4": lambda: fn.nuts_window_kernel(*windows["4"][0], key=key, call=2,
+                                              l_inv=windows["4"][1]),
+           "4b": lambda: fn.nuts_window_kernel(*windows["4b"][0], key=key, call=2,
+                                               l_inv=windows["4b"][1])}
+    for name in ("4", "4b"):        # two windows in, as chip_smoke.py times them
+        for call in range(2):
+            fn.nuts_window_kernel(*windows[name][0], key=key, call=call, l_inv=windows[name][1])
     ms = {}
-    for name, fn in fns.items():
-        fn()
-        ms[name] = [_event_ms(torch, fn, burst) for _ in range(reps)]
+    for name, run in fns.items():
+        run()
+        ms[name] = [_event_ms(torch, run, burst) for _ in range(reps)]
     print("TIMES " + json.dumps(ms))
 
 
@@ -247,58 +279,10 @@ def compare_parent(trees, lines, work):
     return differ, changed
 
 
-def variant_patches(values):
-    """The patches of a variant setting tiled_step.cuh's constants to
-    `values` ({name: value}), the wrapper's copies of them, and _cuda.py's
-    build to kernel 1's sources."""
-    cuh = "mcmc_tpu_torch/csrc/tiled_step.cuh"
-    skips = {"metric": "mac_rows<METRIC_RC, METRIC_RJ, LOWER>(acc, in + c0, ps, A + j0, dp, "
-                       "LOWER ? j0 : 0, dim);",
-             "z": "mac_rows<Z_RC, Z_RJ, false>(acc, in + c0, ps, ts + j0, rows, 0, dim);",
-             "g": "if (g_owner) mac_rows<G_RC, G_RJ, false>(gacc, rt + g_c0, ps, xs + g_j0, dp, "
-                  "0, valid);"}
-    skip = values.pop("SKIP", None)
-    patches = [(cuh, skips[skip], "(void)A;" if skip == "metric" else ";")] if skip else []
-    patches += [(cuh, re.compile(rf"\b{name} = \d+"), f"{name} = {value}")
-                for name, value in values.items()]
-    patches += [("mcmc_tpu_torch/ops/fused_trajectory.py", re.compile(rf"\b{name} = \d+"),
-                 f"{name} = {values[name]}")
-                for name in ("DENSE_TILE_CHAINS", "HIER_TILE_CHAINS") if name in values]
-    if "TILE_MAX_ROWS" in values:
-        rows = tuple(r for r in (64, 32, 16) if r <= int(values["TILE_MAX_ROWS"]))
-        patches.append(("mcmc_tpu_torch/ops/fused_trajectory.py", "TILE_ROWS = (64, 32, 16)",
-                        f"TILE_ROWS = {rows}"))
-    patches += [
-        ("mcmc_tpu_torch/ops/_cuda.py", "sources = sorted(CSRC.glob(\"*.cu\"))",
-         "sources = sorted(p for p in CSRC.glob(\"*.cu\") if p.name.startswith("
-         "\"fused_trajectory\") and \"scaled\" not in p.name and \"bridged\" not in p.name)"),
-        ("mcmc_tpu_torch/ops/_cuda.py", "        fn = getattr(lib, name)\n",
-         "        if not hasattr(lib, name):\n            continue\n"
-         "        fn = getattr(lib, name)\n")]
-    return patches
-
-
-def copy_tree(tree, dest, patches):
-    """The tree's package with each (file, old, new) patch applied once."""
-    if dest.exists():
-        shutil.rmtree(dest)
-    shutil.copytree(tree / "mcmc_tpu_torch", dest / "mcmc_tpu_torch",
-                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
-    for rel, old, new in patches:
-        path = dest / rel
-        text = path.read_text()
-        pattern = old if isinstance(old, re.Pattern) else re.compile(re.escape(old))
-        text, n = pattern.subn(lambda m: new, text)
-        if n != 1:
-            sys.exit(f"patch {pattern.pattern!r} matches {rel} {n} times, not once")
-        path.write_text(text)
-
-
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent")
     ap.add_argument("--tree", default=".")
-    ap.add_argument("--variants", nargs="*", default=[])
     ap.add_argument("--out", default="_archive/tiled_out")
     ap.add_argument("--work", default="_archive/tiled")
     ap.add_argument("--skip-timing", action="store_true")
@@ -318,11 +302,6 @@ def main():
     tree = Path(args.tree).resolve()
     trees = {"parent": Path(args.parent).resolve()} if args.parent else {}
     trees["tree"] = tree
-    for spec in args.variants:
-        label, assigns = spec.split("=")
-        trees[label] = work / label
-        copy_tree(tree, trees[label], variant_patches(
-            dict(a.split(":") for a in assigns.split(","))))
     t0 = time.perf_counter()
     procs = {label: subprocess.Popen(
         [sys.executable, __file__, "--worker", "build", "--root", str(root), "--save",
@@ -336,12 +315,10 @@ def main():
     print(f"[build] all trees in {time.perf_counter() - t0:.1f} s", flush=True)
 
     lines = {label: ptxas_lines((out / f"build_{label}.log").read_text()) for label in trees}
-    for label in trees:
-        if label != "parent":
-            spills = sorted(v for k, v in lines[label].items() if "tiled_step" in k)
-            print(f"[ptxas] {label}: {len(spills)} tiled instances; registers and spill stores: "
-                  + ", ".join(sorted({re.sub(r"Used (\d+) registers.*?(\d+) bytes spill stores.*",
-                                            r"\1/\2", v) for v in spills})))
+    spills = sorted(v for k, v in lines["tree"].items() if "tiled_step" in k)
+    print(f"[ptxas] tree: {len(spills)} tiled instances; registers and spill stores: "
+          + ", ".join(sorted({re.sub(r"Used (\d+) registers.*?(\d+) bytes spill stores.*",
+                                    r"\1/\2", v) for v in spills})))
     differ, changed = [], []
     if "parent" in trees:
         differ, changed = compare_parent(trees, lines, work)
@@ -351,14 +328,12 @@ def main():
     def times(label):
         text = run_worker("time", trees[label])
         return json.loads(text.split("TIMES ", 1)[1].splitlines()[0])
-    results = {label: {"1a": [], "1d": [], "1": []} for label in trees}
-    turns = ["parent", "tree", "tree", "parent"] if "parent" in trees else []
-    for label in [x for x in trees if x not in ("parent", "tree")]:
-        turns += ["tree", label, label, "tree"]
+    results = {label: {} for label in trees}
+    turns = ["parent", "tree", "tree", "parent"] if "parent" in trees else ["tree"]
     for label in turns:
         got = times(label)
         for k in got:
-            results[label][k] += got[k]
+            results[label].setdefault(k, []).extend(got[k])
         print(f"[time] {label}: " + ", ".join(
             f"{k} median {statistics.median(v):.4f} ms (reps {min(v):.4f}-{max(v):.4f})"
             for k, v in got.items()), flush=True)

@@ -20,17 +20,15 @@
 // X^T (y - sigmoid z), 2 n_data D multiply-adds each per chain; warp-per-
 // chain, every chain read all of X twice per evaluation from L1. The
 // tiling: the block stages its chains' rows in shared memory, and each
-// thread computes a register tile of RC chains x RJ columns of the product
-// (4 x 1: one float4 of the rows and one word of the matrix per 4
-// multiply-adds), so a load of the matrix serves RC chains and a load of
-// the rows RJ columns (block_times, mac_rows). X is streamed through
-// shared memory in row tiles, double-buffered with cp.async, and each of
-// its loads from L2 serves the block's 32 chains (TiledHierarchical).
-// Tiled, the products' in-order sums still bound both: each output is a
-// chain of D (1a) or n_data (1d) dependent adds, which no tile shortens
-// (the products' share of each kernel's time, measured by dropping their
-// arithmetic: experiments/torch_tiled_kernel_timing.py SKIP:*, PERF.md
-// section 6).
+// thread computes a register tile of RC chains x 1 column of the product
+// (RC = 4: one float4 of the rows and one word of the matrix per 4
+// multiply-adds), so a load of the matrix serves RC chains (block_times,
+// mac_rows). X is streamed through shared memory in row tiles, double-
+// buffered with cp.async, and each of its loads from L2 serves the block's
+// 32 chains (TiledHierarchical). Tiled, the products' in-order sums still
+// bound both: each output is a chain of D (1a) or n_data (1d) dependent
+// adds, which no tile shortens (the products' share of each kernel's time:
+// PERF.md section 6).
 //
 // Exactness: every output's sum runs over its index in the plain version's
 // order with each product rounded before it is added (__fmul_rn,
@@ -61,8 +59,8 @@ namespace mcmc {
 // take that latency however many threads share them. 1a keeps several
 // small blocks on an SM, whose products overlap; 1d's blocks are as large
 // as a block can be, each load of X serving 32 chains. Measured on an H100
-// (experiments/torch_tiled_kernel_timing.py; PERF.md section 6): 1a at 4,
-// 8, 16 and 32 chains a block, 1d at 8, 16 and 32.
+// (PERF.md section 6): 1a at 4, 8, 16 and 32 chains a block, 1d at 8, 16
+// and 32.
 constexpr int DENSE_TILE_CHAINS = 8;
 constexpr int HIER_TILE_CHAINS = 32;
 template <int FAMILY>
@@ -77,17 +75,14 @@ static_assert(DENSE_TILE_CHAINS >= 4 && HIER_TILE_CHAINS >= 4 && HIER_TILE_CHAIN
                   DENSE_TILE_CHAINS <= 32,
               "one warp per chain: 4 to 32 chains a block (a block holds 1024 threads; "
               "the X tile's copy needs at least 128)");
-// Register tiles (chains x columns) of a thread: 1a's D x D products, and
-// 1d's Z = Q X^T and G = R X. Chains and columns are loaded as vectors of
-// RC and RJ floats (1, 2 or 4). 4 x 1 beat 1 x 2, 1 x 4, 2 x 2, 2 x 4, 4 x 2
-// and 4 x 4 on both (the same measurements).
-constexpr int METRIC_RC = 4, METRIC_RJ = 1;
-constexpr int Z_RC = 4, Z_RJ = 1;
-constexpr int G_RC = 4, G_RJ = 1;
-static_assert(DENSE_TILE_CHAINS % METRIC_RC == 0 && HIER_TILE_CHAINS % METRIC_RC == 0 &&
-                  HIER_TILE_CHAINS % Z_RC == 0 && HIER_TILE_CHAINS % G_RC == 0,
+// A thread's register tile: RC chains x 1 column of 1a's D x D products and
+// of 1d's Z = Q X^T and G = R X, its chains loaded as one float4. 4 x 1 beat
+// 1 x 2, 1 x 4, 2 x 2, 2 x 4, 4 x 2 and 4 x 4 on both (the same
+// measurements).
+constexpr int RC = 4;  // mac_rows: one float4 a row of the tile
+static_assert(DENSE_TILE_CHAINS % RC == 0 && HIER_TILE_CHAINS % RC == 0,
               "chain tiles split the block's chains");
-static_assert(HIER_TILE_CHAINS / G_RC * (128 / G_RJ) <= 32 * HIER_TILE_CHAINS,
+static_assert(HIER_TILE_CHAINS / RC * 32 * MAX_K <= 32 * HIER_TILE_CHAINS,
               "every G tile has its own thread at D = 128");
 // mac_rows' iterations a loop trip: loads run ahead of the dependent adds.
 // 16 beat 1, 2, 4 and 8 on both variants (the same measurements).
@@ -96,7 +91,7 @@ constexpr int TILE_MAX_ROWS = 64;               // data rows per tile: 64, 32 or
 constexpr int TILE_MIN_ROWS = 16;
 constexpr int MAX_TILE_SMEM = 232448;           // an H100 block's dynamic shared memory
 
-__host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
+__host__ __device__ constexpr int round4(int n) { return (n + 3) & ~3; }
 
 // The block's dynamic shared memory, in floats from its base; every region
 // starts on 16 bytes. dp: the padded row length (D rounded up to 4); ps:
@@ -113,7 +108,8 @@ struct TileGeometry {
   int bytes;
 };
 
-__host__ __device__ inline TileGeometry tile_layout(int dim, bool dense, int rows, int chains) {
+__host__ __device__ constexpr TileGeometry tile_layout(int dim, bool dense, int rows,
+                                                      int chains) {
   TileGeometry g{};
   g.dim = dim;
   g.dp = round4(dim);
@@ -138,6 +134,9 @@ __host__ __device__ inline TileGeometry tile_layout(int dim, bool dense, int row
   g.bytes = at * static_cast<int>(sizeof(float));
   return g;
 }
+static_assert(tile_layout(32 * MAX_K, true, TILE_MIN_ROWS, HIER_TILE_CHAINS).bytes <=
+                  MAX_TILE_SMEM,
+              "the smallest row tile fits at the largest D, with the dense metric");
 
 // The geometry of a call: the largest row tile that fits (ops/
 // fused_trajectory.py:tile_geometry mirrors it).
@@ -151,84 +150,29 @@ __host__ __device__ inline TileGeometry tile_geometry(int dim, int n_data, bool 
   return TileGeometry{};
 }
 
-// N floats (1, 2 or 4) at an N-aligned address, as one load.
-template <int N>
-__device__ __forceinline__ void load_vec(const float* p, float (&v)[N]) {
-  if constexpr (N == 4) {
-    const float4 x = *reinterpret_cast<const float4*>(p);
-    v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
-  } else if constexpr (N == 2) {
-    const float2 x = *reinterpret_cast<const float2*>(p);
-    v[0] = x.x, v[1] = x.y;
-  } else {
-    static_assert(N == 1, "vectors of 1, 2 or 4 floats");
-    v[0] = *p;
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void store_vec(float* p, const float (&v)[N]) {
-  if constexpr (N == 4) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  } else if constexpr (N == 2) {
-    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
-  } else {
-    *p = v[0];
-  }
-}
-
-// acc[c][j] += L[i][c] * R[i][j] for i in [i0, i1), in order, each product
+// acc[c] += L[i][c] * R[i] for i in [i0, i1), in order, each product
 // rounded before its sum: L points at the tile's first chain of a
-// transposed row block (stride ls), R at its first column (stride rs).
-// LOWER (R lower triangular, i0 the tile's first column): column j's sum
-// starts at row i0 + j, as row_times<true> skips the zero triangle.
-template <int RC, int RJ, bool LOWER>
-__device__ __forceinline__ void mac_rows(float (&acc)[RC][RJ], const float* L, int ls,
+// transposed row block (stride ls, RC floats 16-byte aligned), R at its
+// column (stride rs). For a lower-triangular R, i0 is the column, as
+// row_times<true> skips the zero triangle.
+__device__ __forceinline__ void mac_rows(float (&acc)[RC], const float* L, int ls,
                                          const float* R, int rs, int i0, int i1) {
-  int i = i0;
-  if constexpr (LOWER) {
-#pragma unroll
-    for (int s = 0; s < RJ; ++s, ++i) {
-      if (i < i1) {
-        float l[RC], r[RJ];
-        load_vec(L + static_cast<size_t>(i) * ls, l);
-        load_vec(R + static_cast<size_t>(i) * rs, r);
-#pragma unroll
-        for (int c = 0; c < RC; ++c) {
-#pragma unroll
-          for (int j = 0; j <= s; ++j) acc[c][j] = __fadd_rn(acc[c][j], __fmul_rn(l[c], r[j]));
-        }
-      }
-    }
-  }
 #pragma unroll MAC_UNROLL
-  for (; i < i1; ++i) {
-    float l[RC], r[RJ];
-    load_vec(L + static_cast<size_t>(i) * ls, l);
-    load_vec(R + static_cast<size_t>(i) * rs, r);
-#pragma unroll
-    for (int c = 0; c < RC; ++c) {
-#pragma unroll
-      for (int j = 0; j < RJ; ++j) acc[c][j] = __fadd_rn(acc[c][j], __fmul_rn(l[c], r[j]));
-    }
+  for (int i = i0; i < i1; ++i) {
+    const float4 l = *reinterpret_cast<const float4*>(L + static_cast<size_t>(i) * ls);
+    const float r = R[static_cast<size_t>(i) * rs];
+    acc[0] = __fadd_rn(acc[0], __fmul_rn(l.x, r));
+    acc[1] = __fadd_rn(acc[1], __fmul_rn(l.y, r));
+    acc[2] = __fadd_rn(acc[2], __fmul_rn(l.z, r));
+    acc[3] = __fadd_rn(acc[3], __fmul_rn(l.w, r));
   }
 }
 
-template <int RC, int RJ>
-__device__ __forceinline__ void fill(float (&acc)[RC][RJ], float v) {
+// Rows c0.. of `out` (stride os), column j, from a register tile.
+__device__ __forceinline__ void store_tile(float* out, int os, int c0, int j,
+                                           const float (&acc)[RC]) {
 #pragma unroll
-  for (int c = 0; c < RC; ++c) {
-#pragma unroll
-    for (int j = 0; j < RJ; ++j) acc[c][j] = v;
-  }
-}
-
-// Rows c0.. of `out` (stride os), columns j0.., from a register tile.
-template <int RC, int RJ>
-__device__ __forceinline__ void store_tile(float* out, int os, int c0, int j0,
-                                           const float (&acc)[RC][RJ]) {
-#pragma unroll
-  for (int c = 0; c < RC; ++c) store_vec(out + (c0 + c) * os + j0, acc[c]);
+  for (int c = 0; c < RC; ++c) out[(c0 + c) * os + j] = acc[c];
 }
 
 // This warp's row (coordinates lane + 32 r < dim) into column `warp` of a
@@ -258,11 +202,10 @@ __device__ __forceinline__ void get_row(const float* t, int os, int dim, int war
 // Replaces the dense _metric_ops and unwhiten_op of mcmc_tpu/ops/
 // fused_trajectory.py:_make_kernel (dense=True). Every warp of the block
 // must call each method together. What bounds it: the D x D product per
-// chain, 2 D^2 flops; a register tile of METRIC_RC chains x METRIC_RJ
-// columns reads METRIC_RC words of the rows and METRIC_RJ of A for its
-// METRIC_RC x METRIC_RJ multiply-adds (row_times read 1.5 words per
-// multiply-add), and the block's M^{-1} and L^{-1} are loaded once per
-// launch. Dense-metric shared memory, see TileGeometry.
+// chain, 2 D^2 flops; a register tile of RC chains x 1 column reads RC
+// words of the rows and one of A for its RC multiply-adds (row_times read
+// 1.5 words per multiply-add), and the block's M^{-1} and L^{-1} are loaded
+// once per launch. Dense-metric shared memory, see TileGeometry.
 template <int K, int C>
 struct TiledDenseMetric {
   static constexpr bool DENSE = true;
@@ -279,15 +222,13 @@ struct TiledDenseMetric {
                                               float (&o)[K]) const {
     put_column(in, ps, dim, warp, lane, x);
     __syncthreads();
-    const int groups = dp / METRIC_RJ;
-    const int tiles = (C / METRIC_RC) * groups;
+    const int tiles = (C / RC) * dp;
     for (int t = threadIdx.x; t < tiles; t += 32 * C) {
-      const int c0 = (t / groups) * METRIC_RC;
-      const int j0 = (t % groups) * METRIC_RJ;
-      float acc[METRIC_RC][METRIC_RJ];
-      fill(acc, -0.f);
-      mac_rows<METRIC_RC, METRIC_RJ, LOWER>(acc, in + c0, ps, A + j0, dp, LOWER ? j0 : 0, dim);
-      store_tile(out, dp, c0, j0, acc);
+      const int c0 = (t / dp) * RC;
+      const int j = t % dp;
+      float acc[RC] = {-0.f, -0.f, -0.f, -0.f};
+      mac_rows(acc, in + c0, ps, A + j, dp, LOWER ? j : 0, dim);
+      store_tile(out, dp, c0, j, acc);
     }
     __syncthreads();
     get_row(out, dp, dim, warp, lane, o);
@@ -348,20 +289,20 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // in variant 1d and in 1a's data form.
 //
 // Per row tile of `rows` data rows (n0 = k rows):
-//   Z = Q X^T:  thread tiles of Z_RC chains x Z_RJ rows, sum over d in order
+//   Z = Q X^T:  thread tiles of RC chains x 1 row, sum over d in order
 //               from the X^T tile and the block's q (transposed in `in`);
 //   rows:       each chain's warp, lane j taking rows n = j (mod 32) in
 //               order (the functor's lanes), computes exp(-|z|), the row's
 //               log-likelihood term, added to the lane's sum, and the
 //               residual y - sigmoid z, written transposed to `rt`;
-//   G += R X:   thread tiles of G_RC chains x G_RJ coordinates, the tile's
+//   G += R X:   thread tiles of RC chains x 1 coordinate, the tile's
 //               rows in order, the accumulators in registers across tiles.
 // Tile k + 1 is copied (cp.async) into the other buffer while tile k is
 // computed. Then the gradient rows go through `out` to their warps, each
 // warp sums its lanes' likelihood terms (group_sum<32>) and adds the tau
 // terms as the functor does. What bounds it on an H100: 4 n_data D flops
 // per chain per evaluation; X's loads from L2 serve the block's chains and
-// each shared load of X a thread's Z_RC or G_RC chains.
+// each shared load of X a thread's RC chains.
 template <int K>
 struct TiledHierarchical {
   static constexpr int C = HIER_TILE_CHAINS, THREADS = 32 * HIER_TILE_CHAINS;
@@ -371,7 +312,7 @@ struct TiledHierarchical {
   float half_p;
   // this thread's share of the tile copies and its G tile
   int cx_d, cx_n, cx_step, ct_n, ct_d, ct_step;
-  int g_c0, g_j0;
+  int g_c0, g_j;
   bool g_owner;
 
   __device__ TiledHierarchical(const TargetData& data, const TileGeometry& geo, float* smem,
@@ -387,10 +328,9 @@ struct TiledHierarchical {
     ct_step = THREADS / rows;        // X^T tile: thread -> (coordinate, row)
     ct_n = t % rows;
     ct_d = t / rows;
-    const int groups = dp / G_RJ;
-    g_owner = t < (C / G_RC) * groups;
-    g_c0 = (t / groups) * G_RC;
-    g_j0 = (t % groups) * G_RJ;
+    g_owner = t < (C / RC) * dp;
+    g_c0 = (t / dp) * RC;
+    g_j = t % dp;
   }
 
   // Start copying row tile k into buffer b.
@@ -415,10 +355,8 @@ struct TiledHierarchical {
     put_column(in, ps, dim, warp, lane, q);
     prefetch(0, 0);
     const int n_tiles = (n_data + rows - 1) / rows;
-    const int z_groups = rows / Z_RJ;
-    const int z_tiles = (C / Z_RC) * z_groups;
-    float gacc[G_RC][G_RJ];
-    fill(gacc, 0.f);
+    const int z_tiles = (C / RC) * rows;
+    float gacc[RC] = {0.f, 0.f, 0.f, 0.f};
     float lik = 0.f;
     for (int k = 0; k < n_tiles; ++k) {
       const int n0 = k * rows;
@@ -429,12 +367,11 @@ struct TiledHierarchical {
       __syncthreads();  // tile k landed; every thread is past tile k - 1
       if (k + 1 < n_tiles) prefetch(k + 1, (k + 1) & 1);
       for (int t = threadIdx.x; t < z_tiles; t += THREADS) {
-        const int c0 = (t / z_groups) * Z_RC;
-        const int j0 = (t % z_groups) * Z_RJ;
-        float acc[Z_RC][Z_RJ];
-        fill(acc, 0.f);
-        mac_rows<Z_RC, Z_RJ, false>(acc, in + c0, ps, ts + j0, rows, 0, dim);
-        store_tile(out, rows, c0, j0, acc);
+        const int c0 = (t / rows) * RC;
+        const int j = t % rows;
+        float acc[RC] = {0.f, 0.f, 0.f, 0.f};
+        mac_rows(acc, in + c0, ps, ts + j, rows, 0, dim);
+        store_tile(out, rows, c0, j, acc);
       }
       __syncthreads();
       for (int nl = (lane - n0) & 31; nl < valid; nl += 32) {
@@ -448,9 +385,9 @@ struct TiledHierarchical {
             __fsub_rn(yn, z >= 0.f ? __fdiv_rn(1.f, denom) : __fdiv_rn(e, denom));
       }
       __syncthreads();
-      if (g_owner) mac_rows<G_RC, G_RJ, false>(gacc, rt + g_c0, ps, xs + g_j0, dp, 0, valid);
+      if (g_owner) mac_rows(gacc, rt + g_c0, ps, xs + g_j, dp, 0, valid);
     }
-    if (g_owner) store_tile(out, dp, g_c0, g_j0, gacc);
+    if (g_owner) store_tile(out, dp, g_c0, g_j, gacc);
     __syncthreads();
     float gl[K];
     get_row(out, dp, dim, warp, lane, gl);

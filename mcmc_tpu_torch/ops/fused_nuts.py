@@ -41,8 +41,9 @@ the diagonal metric), its data set passed as device pointers.
 
 The wrapper takes the plain version ONLY for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises, and counts ``.launches`` (all
-variants) and ``.variant_launches[name]`` (per variant: VARIANTS, and each
-with DATA_SUFFIX for a data-carrying target).
+variants), ``.variant_launches[name]`` (per variant: VARIANTS, and each
+with DATA_SUFFIX for a data-carrying target) and ``.shape_launches`` (per
+(variant, family, n_chains, dim)).
 """
 
 import ctypes
@@ -52,7 +53,7 @@ import torch
 
 from mcmc_tpu_torch.ops.fused_trajectory import (
     MAX_DIM, PhiloxStream, _bits_to_uniform, _kernel_device, _philox_words,
-    _ptr, _raise_on_error, _U32, check_tensors, kernel_metric, philox_normal,
+    _ptr, _raise_on_error, _U32, check_tensors, count_launch, kernel_metric, philox_normal,
     target_args, variant_name, variant_names)
 from mcmc_tpu_torch.ops.padded_targets import FAMILY_IDS, device_vag, kernel_info
 from mcmc_tpu_torch.samplers.nuts_persistent import _machine_iteration, _PState
@@ -266,15 +267,15 @@ def nuts_window_kernel(info: dict, n_iters: int, steps_per_iter: int,
         call & _U32, fields, injected,
         torch.cuda.current_stream(state.q.device).cuda_stream)
     _raise_on_error(code, f"nuts_window_kernel ({name})")
-    nuts_window_kernel.launches += 1
-    nuts_window_kernel.variant_launches[name] += 1
+    count_launch(nuts_window_kernel, name, info, state.q)
     return state
 
 
 def reset_launches() -> None:
-    """Set kernel 4's launch counts, total and per variant, to 0."""
+    """Set kernel 4's launch counts, total, per variant and per shape, to 0."""
     nuts_window_kernel.launches = 0
     nuts_window_kernel.variant_launches = dict.fromkeys(variant_names(VARIANTS.values()), 0)
+    nuts_window_kernel.shape_launches = {}
 
 
 reset_launches()

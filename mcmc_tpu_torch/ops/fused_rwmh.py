@@ -13,8 +13,9 @@ kernel's ``data_arrays`` form (variant 3a): the log-density only
 
 The wrapper takes its plain PyTorch version ONLY for tensors on the CPU; for
 CUDA tensors it launches the kernel or raises. It counts its launches in
-``.launches`` and per variant in ``.variant_launches`` (VARIANT, and with
-DATA_SUFFIX for a data-carrying target).
+``.launches``, per variant in ``.variant_launches`` (VARIANT, and with
+DATA_SUFFIX for a data-carrying target) and per (variant, family, n_chains,
+dim) in ``.shape_launches``.
 
 Randomness: injected (``noise`` (T, C, D) and ``u`` (T, C)) or drawn in the
 kernel from the Philox stream of ``ops/fused_trajectory.py`` with the same
@@ -34,8 +35,8 @@ import torch
 
 from mcmc_tpu_torch.ops.fused_trajectory import (
     MAX_DIM, PhiloxStream, _f32, _kernel_device, _ptr, _raise_on_error, _U32,
-    check_tensors, philox_normal, philox_uniform, target_args, variant_name,
-    variant_names)
+    check_tensors, count_launch, philox_normal, philox_uniform, target_args,
+    variant_name, variant_names)
 from mcmc_tpu_torch.ops.padded_targets import FAMILY_IDS, device_lp, kernel_info
 from mcmc_tpu_torch.samplers.trajectory import as_scalar
 
@@ -132,15 +133,15 @@ def rwmh_multistep_kernel(info: dict, transitions: int, q: Tensor, lp: Tensor,
         acc.data_ptr(), hist_q.data_ptr(), hist_lp.data_ptr(),
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on_error(code, "rwmh_multistep_kernel")
-    rwmh_multistep_kernel.launches += 1
-    rwmh_multistep_kernel.variant_launches[variant_name(VARIANT, info)] += 1
+    count_launch(rwmh_multistep_kernel, variant_name(VARIANT, info), info, q)
     return q_out, lp_out, acc, hist_q, hist_lp
 
 
 def reset_launches() -> None:
-    """Set kernel 3's launch counts, total and per variant, to 0."""
+    """Set kernel 3's launch counts, total, per variant and per shape, to 0."""
     rwmh_multistep_kernel.launches = 0
     rwmh_multistep_kernel.variant_launches = dict.fromkeys(variant_names([VARIANT]), 0)
+    rwmh_multistep_kernel.shape_launches = {}
 
 
 reset_launches()

@@ -42,16 +42,17 @@ block-tiled (``csrc/tiled_step.cuh``): a block of DENSE_TILE_CHAINS (1a) or
 HIER_TILE_CHAINS (1d) chains computes the products its chains take with
 the shared M^{-1}, L^{-1} or X together, X streamed through shared memory
 in row tiles.
-``tile_geometry`` is their geometry (blocks, row tile, shared memory); the
-wrapper raises ValueError for a shape it does not take, before any launch.
+``tile_geometry`` is their geometry (blocks, row tile, shared memory) as the
+launcher picks it; the card tests hold the two equal.
 Their outputs equal the warp-per-chain kernels' bit for bit.
 
 Each wrapper takes its plain PyTorch version ONLY for tensors on the CPU;
 for CUDA tensors it launches the kernel or raises. There is no fallback. Each
-counts its launches in plain int attributes, ``.launches`` (every variant)
-and ``.variant_launches[name]`` (``variant_name``: the metric's VARIANTS
-name, with DATA_SUFFIX for a data-carrying target); ``reset_launches``
-zeroes them.
+counts its launches in plain int attributes, ``.launches`` (every variant),
+``.variant_launches[name]`` (``variant_name``: the metric's VARIANTS name,
+with DATA_SUFFIX for a data-carrying target) and ``.shape_launches[(name,
+family, n_chains, dim)]`` (``count_launch``); ``reset_launches`` zeroes
+them.
 
 Randomness: either injected (``p0`` and ``u``, the parity mode the tests use)
 or drawn in the kernel from Philox4x32-10. The Philox key is two 32-bit words
@@ -158,8 +159,10 @@ def tile_geometry(n_chains: int, dim: int, n_data: int = 0,
     """The geometry of kernel 1's block-tiled variants for n_chains chains of
     dimension dim, with a data set of n_data rows (0: none; HIER_TILE_CHAINS
     chains a block with data, DENSE_TILE_CHAINS without) and a dense or
-    diagonal metric. Raises ValueError naming the limit for a shape the
-    kernel does not take."""
+    diagonal metric, as csrc/tiled_step.cuh:tile_geometry picks it (the
+    largest row tile that fits; the smallest fits at MAX_DIM, which a
+    static_assert there checks). Raises ValueError naming the limit for a
+    shape the kernel does not take."""
     chains = HIER_TILE_CHAINS if n_data else DENSE_TILE_CHAINS
     if n_chains < 1:
         raise ValueError("need at least one chain")
@@ -167,20 +170,10 @@ def tile_geometry(n_chains: int, dim: int, n_data: int = 0,
         raise ValueError(f"the tiled kernel takes 1 <= dim <= {MAX_DIM}, got {dim}")
     if n_data < 0:
         raise ValueError(f"n_data must be >= 0, got {n_data}")
-    blocks = -(-n_chains // chains)
-    for rows in (TILE_ROWS if n_data else (0,)):
-        smem = _tile_bytes(dim, dense, rows, chains)
-        if smem <= MAX_TILE_SMEM:
-            return TileGeometry(chains, blocks, rows, -(-n_data // rows) if rows else 0, smem)
-    raise ValueError(f"the tiled kernel's shared memory at dim {dim} with "
-                     f"{'a dense' if dense else 'a diagonal'} metric and data needs "
-                     f"{smem} bytes at the smallest row tile ({rows} rows), above the "
-                     f"{MAX_TILE_SMEM}-byte limit of a block")
-
-
-def is_tiled(info: dict, inv_mass: Tensor) -> bool:
-    """Whether kernel 1 runs this target and metric block-tiled (1a, 1d)."""
-    return inv_mass.ndim == 2 or info["family"] in DATA_FAMILIES
+    rows = next(r for r in (TILE_ROWS if n_data else (0,))
+                if _tile_bytes(dim, dense, r, chains) <= MAX_TILE_SMEM)
+    return TileGeometry(chains, -(-n_chains // chains), rows, -(-n_data // rows) if rows else 0,
+                        _tile_bytes(dim, dense, rows, chains))
 
 
 # ============================================================================
@@ -561,9 +554,18 @@ def _step_outputs(q: Tensor, lp: Tensor):
     return out, [t.data_ptr() for t in out]
 
 
-def _count(kernel, inv_mass: Tensor, info: dict) -> None:
+def count_launch(kernel, name: str, info: dict, q: Tensor) -> None:
+    """Count one launch of `kernel`'s variant `name` on the target `info`
+    with positions q (n_chains, dim): in total, per variant, and per
+    (variant, family, n_chains, dim) in ``.shape_launches``."""
     kernel.launches += 1
-    kernel.variant_launches[variant_name(VARIANTS[inv_mass.ndim == 2], info)] += 1
+    kernel.variant_launches[name] += 1
+    shape = (name, info["family"], *q.shape)
+    kernel.shape_launches[shape] = kernel.shape_launches.get(shape, 0) + 1
+
+
+def _count(kernel, inv_mass: Tensor, info: dict, q: Tensor) -> None:
+    count_launch(kernel, variant_name(VARIANTS[inv_mass.ndim == 2], info), info, q)
 
 
 def target_args(info: dict, device):
@@ -612,9 +614,6 @@ def grahmc_step_kernel(info: dict, num_steps: int, schedule: int, q: Tensor,
                                  scalars, inv_mass, key, call, p0, u, l_inv)
     _kernel_device(q)
     n_chains, dim = q.shape
-    if is_tiled(info, inv_mass):
-        tile_geometry(n_chains, dim, info["params"]["n_data"] if info["family"] in DATA_FAMILIES
-                      else 0, inv_mass.ndim == 2)
     from mcmc_tpu_torch.ops import _cuda
     lib = _cuda.load_library().lib
     out, ptrs = _step_outputs(q, lp)
@@ -625,7 +624,7 @@ def grahmc_step_kernel(info: dict, num_steps: int, schedule: int, q: Tensor,
         q.data_ptr(), lp.data_ptr(), grad.data_ptr(), invm_ptr, l_inv_ptr,
         _ptr(p0), _ptr(u), *ptrs, torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on_error(code, "grahmc_step_kernel")
-    _count(grahmc_step_kernel, inv_mass, info)
+    _count(grahmc_step_kernel, inv_mass, info, q)
     return out
 
 
@@ -671,7 +670,7 @@ def grahmc_multistep_kernel(info: dict, num_steps: int, schedule: int,
         acc.data_ptr(), dh.data_ptr(), hist_q.data_ptr(), hist_lp.data_ptr(),
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on_error(code, "grahmc_multistep_kernel")
-    _count(grahmc_multistep_kernel, inv_mass, info)
+    _count(grahmc_multistep_kernel, inv_mass, info, q)
     return q_out, lp_out, grad_out, acc, dh, hist_q, hist_lp
 
 
@@ -708,7 +707,7 @@ def grahmc_scaled_kernel(info: dict, num_steps: int, schedule: int, q: Tensor,
         q.data_ptr(), lp.data_ptr(), grad.data_ptr(), invm_ptr, l_inv_ptr, _ptr(p0),
         _ptr(u), *ptrs, torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on_error(code, "grahmc_scaled_kernel")
-    _count(grahmc_scaled_kernel, inv_mass, info)
+    _count(grahmc_scaled_kernel, inv_mass, info, q)
     return out
 
 
@@ -744,7 +743,7 @@ def grahmc_bridged_kernel(info: dict, num_steps: int, schedule: int, q: Tensor,
         l_inv_ptr, _ptr(p0), _ptr(u), *ptrs,
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on_error(code, "grahmc_bridged_kernel")
-    _count(grahmc_bridged_kernel, inv_mass, info)
+    _count(grahmc_bridged_kernel, inv_mass, info, q)
     return out
 
 
@@ -753,11 +752,12 @@ KERNELS = (grahmc_step_kernel, grahmc_multistep_kernel, grahmc_scaled_kernel,
 
 
 def reset_launches() -> None:
-    """Set the launch counts of kernels 1, 2, 1b and 1c, total and per
-    variant (metric, with or without data), to 0."""
+    """Set the launch counts of kernels 1, 2, 1b and 1c, total, per variant
+    (metric, with or without data) and per shape, to 0."""
     for kernel in KERNELS:
         kernel.launches = 0
         kernel.variant_launches = dict.fromkeys(variant_names(VARIANTS.values()), 0)
+        kernel.shape_launches = {}
 
 
 reset_launches()

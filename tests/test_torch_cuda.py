@@ -1223,3 +1223,29 @@ def test_tiled_geometry_agrees_with_the_kernel(dev):
                                                   ctypes.byref(chains), ctypes.byref(rows))
                 assert (nbytes, chains.value, rows.value) == (geo.smem_bytes, geo.chains,
                                                               geo.row_tile), (dim, dense, n_data)
+
+
+def test_each_launch_counts_at_its_shape(dev):
+    """Every wrapper adds one launch at (variant, family, n_chains, dim)
+    where it launches: kernel 1 and 1a, kernel 3 and kernel 4."""
+    info, q, lp, grad, g = _inputs(dev, "neals_funnel", 10, 33, 5)
+    key = torch.tensor([1, 2], dtype=torch.int32, device=dev)
+    scalars = ft.kernel_scalars(0.05, 0.7, 3.0, dev)
+    invm, l_inv = _dense_metric(dev, 10, g)
+    for metric, factor, name in ((torch.ones(10, device=dev), None, "diagonal"),
+                                 (invm, l_inv, "dense")):
+        shape = (name, "neals_funnel", 33, 10)
+        before = ft.grahmc_step_kernel.shape_launches.get(shape, 0)
+        ft.grahmc_step_kernel(info, 4, 0, q, lp, grad, scalars, metric, key=key, call=0,
+                              l_inv=factor)
+        assert ft.grahmc_step_kernel.shape_launches[shape] == before + 1
+    shape = ("rwmh", "neals_funnel", 33, 10)
+    before = fr.rwmh_multistep_kernel.shape_launches.get(shape, 0)
+    fr.rwmh_multistep_kernel(info, 2, q, lp, fr.rwmh_scale(0.5, dev), 4, key=key, call=0)
+    assert fr.rwmh_multistep_kernel.shape_launches[shape] == before + 1
+    state = tn._init_pstate(q, lp, grad, torch.float32, multinomial=False, max_tree_depth=4)
+    shape = ("endpoint", "neals_funnel", 33, 10)
+    before = fn.nuts_window_kernel.shape_launches.get(shape, 0)
+    fn.nuts_window_kernel(info, 2, 2, 4, state, fn.nuts_scalars(0.1, 1000.0, dev),
+                          torch.ones(10, device=dev), key=key, call=0)
+    assert fn.nuts_window_kernel.shape_launches[shape] == before + 1

@@ -77,20 +77,11 @@ def test_shapes_past_a_limit_raise(kwargs, limit):
         ft.tile_geometry(**kwargs)
 
 
-def test_shared_memory_past_the_limit_raises(monkeypatch):
-    """A shape whose smallest row tile does not fit raises, naming the
-    limit (below it at D = 128 with the dense metric and data: 200,960
-    bytes at 16 rows)."""
-    assert ft.tile_geometry(1, 128, 33, True).smem_bytes == 200_960
-    monkeypatch.setattr(ft, "MAX_TILE_SMEM", 200_000)
-    with pytest.raises(ValueError, match="200000-byte limit of a block"):
-        ft.tile_geometry(1, 128, 33, True)
-
-
-def test_tiled_variants_are_1a_and_1d():
-    normal = {"family": "standard_normal"}
-    hier = {"family": "hierarchical_logistic"}
-    assert ft.is_tiled(normal, torch.ones(3, 3))
-    assert not ft.is_tiled(normal, torch.ones(3))
-    assert ft.is_tiled(hier, torch.ones(3))
-    assert ft.is_tiled(hier, torch.ones(3, 3))
+def test_the_smallest_row_tile_fits_at_the_largest_dim():
+    """tiled_step.cuh's static_assert: at D = 128 with the dense metric and
+    data, 16 rows need 200,960 bytes, under the 232,448 of a block, and the
+    larger tiles do not fit."""
+    geo = ft.tile_geometry(1, ft.MAX_DIM, 33, True)
+    assert (geo.row_tile, geo.smem_bytes) == (min(ft.TILE_ROWS), 200_960)
+    assert ft._tile_bytes(ft.MAX_DIM, True, min(ft.TILE_ROWS), ft.HIER_TILE_CHAINS) \
+        <= ft.MAX_TILE_SMEM
