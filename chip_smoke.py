@@ -90,9 +90,9 @@ Every phase passes or raises; there is no CPU path. After the rows every
 kernel is timed at the shapes the paths ran it at ([6]-[6i]; kernel 1 and
 1a also at the dense-warmup row's 4,096-chain warmups, kernels 1-4 at the
 family sweep's 1,024 x 10), and [8] prints, largest first, each (kernel,
-shape)'s launches x (time - bound), with 1a's yardstick (its products as
-torch.matmul calls) and 1d's time per gradient evaluation beside the eager
-value_and_grad. The last two lines are a JSON object describing each
+shape)'s launches x (time - bound), with 1a's and 4b's yardsticks (their
+products as torch.matmul calls) and 1d's and 4c's time per gradient
+evaluation beside the eager value_and_grad. The last two lines are a JSON object describing each
 kernel and kernel variant at its main shape, each split row (ChEES, the
 4,096-chain warmups) and each (kernel, family) pair of the sweep's and
 [5o]'s cells (its launches at that shape -- a kernel's launches at the
@@ -3177,8 +3177,14 @@ def phase_timing_rwmh_nuts(torch, ft, fr, fn, tn, targets, nuts_step, dense_step
     on from a state that two windows have already advanced, as in a run;
     for its bound, the kernel's executed leapfrogs per call are counted and
     its live checkpoint-stack slots read before and after the timed calls.
-    Returns {name: (kernel ms, plain ms)} and {name: {"leapfrogs": per call,
-    "stack_slots": live slots carried into a window and out of it}}."""
+    Then 4b's yardstick, on no path: its window's dense products as
+    full-batch torch.matmul(p, M^{-1}) calls (cuBLAS float32, TF32 off), a
+    velocity and a kinetic energy a leapfrog and an unwhitening and a
+    kinetic energy a start (starts counted as the transitions the window
+    completes), as many batches as the window ran rows of them. Returns
+    {name: (kernel ms, plain ms)} and {name: {"leapfrogs": per call,
+    "stack_slots": live slots carried into a window and out of it}}, with
+    "yardstick_ms" and "products" beside 4b's."""
     say(f"[6b] kernels 3 and 4 vs plain versions: CUDA events, median of {reps} "
         f"bursts of {burst} kernel / {plain_burst} plain calls, Philox mode")
     g = _gen(torch, dev, 41)
@@ -3216,6 +3222,7 @@ def phase_timing_rwmh_nuts(torch, ft, fr, fn, tn, targets, nuts_step, dense_step
                                           call=call, l_inv=l_inv)
         states = {"kernel": state, "plain": _clone_state(state)}
         before = int(state.n_exec.sum())
+        done_before = int(state.transitions.sum())
         slots_before = live_stack_slots(state)
         fns = {"kernel": lambda: fn.nuts_window_kernel(*args, states["kernel"], scalars,
                                                        inv_mass, key=key, call=2,
@@ -3225,14 +3232,32 @@ def phase_timing_rwmh_nuts(torch, ft, fr, fn, tn, targets, nuts_step, dense_step
                                                      l_inv=l_inv)}
         ms = _interleaved(torch, fns, reps, {"kernel": burst, "plain": plain_burst})
         name = NUTS_NAMES[fn.variant(state, inv_mass)]
+        calls = 1 + reps * burst
         measured[name] = {
-            "leapfrogs": (int(states["kernel"].n_exec.sum()) - before) / (1 + reps * burst),
+            "leapfrogs": (int(states["kernel"].n_exec.sum()) - before) / calls,
             "stack_slots": slots_before + live_stack_slots(states["kernel"])}
         times[name] = (statistics.median(ms["kernel"]), statistics.median(ms["plain"]))
         say(f"  {name} ({family}, {NUTS_CHAINS} x {DIM}, {NUTS_ITERS} iterations x W = "
             f"{NUTS_W}, step {float(step):.4f}): kernel {times[name][0]:.4f} ms, plain "
             f"{times[name][1]:.4f} ms; {measured[name]['leapfrogs']:.0f} leapfrogs executed "
             f"per call; live stack slots in and out {measured[name]['stack_slots']}")
+        if name == NUTS_NAMES["dense"]:
+            starts = (int(states["kernel"].transitions.sum()) - done_before) / calls
+            n_mm = max(1, round(2 * (measured[name]["leapfrogs"] + starts) / NUTS_CHAINS))
+            torch.backends.cuda.matmul.allow_tf32 = False
+            p = torch.randn((NUTS_CHAINS, DIM), generator=_gen(torch, dev, 48), device=dev)
+
+            def products():
+                for _ in range(n_mm):
+                    torch.matmul(p, inv_mass)
+            products()
+            measured[name]["products"] = n_mm
+            measured[name]["yardstick_ms"] = statistics.median(
+                _event_ms(torch, products, 1) for _ in range(reps))
+            say(f"  4b's yardstick, on no path: {n_mm} torch.matmul(p, M^-1) at {NUTS_CHAINS} "
+                f"x {DIM} by {DIM} x {DIM} (cuBLAS float32, TF32 off; the window's "
+                f"{measured[name]['leapfrogs']:.0f} leapfrogs and {starts:.0f} starts, two "
+                f"products each) {measured[name]['yardstick_ms']:.4f} ms")
     return times, measured
 
 
@@ -3829,6 +3854,12 @@ def main():
     one_a, one_d = times["grahmc_step_kernel[dense]"][0], times["grahmc_step_kernel[data]"][0]
     say(f"  1a's yardstick {yard_ms:.4f} ms against 1a's {one_a:.4f} ms; 1d per evaluation "
         f"{one_d / HIER_L:.4f} ms against the eager value_and_grad's {vag_ms:.4f} ms")
+    four_b, four_c = NUTS_NAMES["dense"], NUTS_NAMES["endpoint+data"]
+    evals = measured[four_c]["leapfrogs"] / HIER_CHAINS
+    say(f"  4b's yardstick {measured[four_b]['yardstick_ms']:.4f} ms ({measured[four_b]['products']} "
+        f"matmuls) against 4b's {times[four_b][0]:.4f} ms; 4c per evaluation "
+        f"{times[four_c][0] / evals:.4f} ms ({evals:.2f} a chain a window) against the eager "
+        f"value_and_grad's {vag_ms:.4f} ms")
     say(f"[7] done in {time.perf_counter() - t_start:.1f} s")
     say(f"  rows: nuts_useful_grads_per_sec {nuts['endpoint']['rate']:.1f}, "
         f"nuts_ess_per_sec {nuts['endpoint']['ess_rate']:.1f}, "

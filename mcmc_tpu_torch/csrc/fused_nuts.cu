@@ -1,6 +1,7 @@
 // Fused persistent-NUTS window for NVIDIA Hopper (sm_90a): the plain C entry
-// point. The kernel, its launch and its dispatch over K, scheme and metric
-// are in nuts_window.cuh, which says what the kernel replaces and how it is
+// points. The kernels (warp-per-chain, and block-tiled for the dense metric
+// and data), their launch and their dispatch over K, scheme and metric are
+// in nuts_window.cuh, which says what the kernels replace and how they are
 // built. This file instantiates them for the standard normal, Neal's funnel,
 // the correlated Gaussian and the mixture; fused_nuts_families_1.cu, _2.cu
 // and _3.cu instantiate the other families, so the four compile in parallel.
@@ -43,7 +44,7 @@ extern "C" int nuts_window_launch(int family, int dim, int n_chains, int n_iters
       (dense && l_inv == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (dim < 1 || dim > 32 * nuts::MAX_K || n_chains < 1 || n_iters < 1 || slots < 1 ||
+  if (dim < 1 || dim > 32 * MAX_K || n_chains < 1 || n_iters < 1 || slots < 1 ||
       max_tree_depth < 1 || max_tree_depth > 30 || !valid_data(family, target_data(data))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -67,4 +68,15 @@ extern "C" int nuts_window_launch(int family, int dim, int n_chains, int n_iters
 #undef MCMC_CASE
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The tiled window's geometry (nuts_window.cuh:window_tile_geometry) for dim
+// under the metric and data flags: returns its dynamic shared memory in
+// bytes (0: no row tile fits) and writes the chains per block and the data
+// rows per tile; the wrapper's tile_geometry must agree.
+extern "C" int nuts_tile_geometry(int dim, int dense, int data, int* chains, int* rows) {
+  const mcmc::TileGeometry g = mcmc::nuts::window_tile_geometry(dim, dense != 0, data != 0);
+  *chains = mcmc::nuts::window_tile_chains(data != 0);
+  *rows = g.rows;
+  return g.bytes;
 }

@@ -13,9 +13,10 @@
 // loads them once (load_dense_metric), and computes each row-vector-matrix
 // product x @ A by writing x to a per-warp shared row; lane j then sums
 // x[i] A[i][d] over i for its coordinates d = j + 32 r. This warp-per-chain
-// DenseMetric serves kernels 2a, 4b and 4a+4b and the dense forms of 1b and
-// 1c; kernel 1's dense variant 1a computes the same sums for a block of
-// chains at once (tiled_step.cuh:TiledDenseMetric). Lanes read
+// DenseMetric serves kernel 2a, kernel 4's 4b and 4a+4b at D <= 64 and the
+// dense forms of 1b and 1c; kernel 1's dense variant 1a, and 4b past D = 64
+// and in its data form, compute the same sums for a block of chains at
+// once (tiled_step.cuh:TiledDenseMetric). Lanes read
 // consecutive words of A's row i, so the reads are free of bank conflicts,
 // and x[i] is a broadcast. The products are this body's own, as the TPU
 // kernel's MXU matmuls were; no library is called. The sum runs over i in
@@ -26,8 +27,8 @@
 // (samplers/trajectory.py:ordered_matmul) repeats bit for bit.
 //
 // Kernels 1, 2 (fused_trajectory.cu) and 4 (nuts_window.cuh) take the metric
-// as a template flag DENSE: Metric<K, DENSE> is the type (kernel 1's
-// block-tiled variants take tiled_step.cuh:TileMetric), make_metric builds
+// as a template flag DENSE: Metric<K, DENSE> is the type (the block-tiled
+// kernels 1a, 1d, 4b and 4c take tiled_step.cuh:TileMetric), make_metric builds
 // it (the dense one after the block has loaded its shared memory), and
 // add_scaled<DENSE> is the leapfrog's y + a x, rounded as the dense
 // variants need.
@@ -53,6 +54,14 @@ __device__ __forceinline__ float add_scaled(float y, float a, float x) {
     return y + a * x;
   }
 }
+
+// A warp's place in a block-wide product over the chains that are live in
+// it (the tiled persistent-NUTS window, nuts_window.cuh): `col`, this
+// chain's column among them in warp order, -1 when its chain is not live;
+// `n`, their count. tiled_step.cuh:live_tile computes it.
+struct LiveTile {
+  int col, n;
+};
 
 template <int K>
 struct DiagMetric {
@@ -84,6 +93,20 @@ struct DiagMetric {
   __device__ __forceinline__ void unwhiten(float (&z)[K]) const {
 #pragma unroll
     for (int r = 0; r < K; ++r) z[r] = z[r] / sqrtf(invm[r]);
+  }
+
+  // The interface of tiled_step.cuh:TiledDenseMetric's live-chain products,
+  // which every warp calls: per chain here, so a chain that is not live
+  // skips them.
+  __device__ __forceinline__ void velocity(const float (&p)[K], float (&v)[K],
+                                           const LiveTile& t) const {
+    if (t.col >= 0) velocity(p, v);
+  }
+  __device__ __forceinline__ float kinetic(const float (&p)[K], const LiveTile& t) const {
+    return t.col >= 0 ? kinetic(p) : 0.f;
+  }
+  __device__ __forceinline__ void unwhiten(float (&z)[K], const LiveTile& t) const {
+    if (t.col >= 0) unwhiten(z);
   }
 };
 

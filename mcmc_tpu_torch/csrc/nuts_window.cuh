@@ -22,13 +22,24 @@
 // odd checks slots popcount(i >> 1) - trailing_ones(i) + 1 .. popcount(i >> 1)
 // (two warp-reduced dot products each). At the subtree's end a valid
 // subtree replaces the proposal w.p. min(1, W_sub / W_tree).
-// Dense metric (DENSE): v = M^{-1} p and p0 = z @ L^{-1} from M^{-1} and
-// L^{-1} in shared memory (metric.cuh). The U-turn test uses the raw
-// momentum for both metrics. The family HIERARCHICAL_LOGISTIC is the TPU
-// kernel's data-carrying form (variant 4c, the `data_arrays` refs): its
-// functor reads X and y from device memory (struct TargetData), and its two
-// products with X per leapfrog, not the state traffic, set the time
-// (targets.cuh).
+// Dense metric (DENSE, variant 4b): v = M^{-1} p and p0 = z @ L^{-1}. The
+// U-turn test uses the raw momentum for both metrics. The family
+// HIERARCHICAL_LOGISTIC is the TPU kernel's data-carrying form (variant 4c, the
+// `data_arrays` refs): the posterior reads X and y from device memory (struct
+// TargetData), and its two products with X per leapfrog, not the state traffic,
+// set the time.
+//
+// Two kernels (WARP_WINDOW picks). nuts_window_kernel, warp per chain,
+// runs the diagonal variants without data (4, 4a) and the dense ones at D
+// <= 64 (4b, 4a+4b), M^{-1} and L^{-1} in shared memory (metric.cuh:
+// DenseMetric). nuts_tiled_window_kernel runs the data-carrying target in
+// either scheme and metric (4c, 4a's and 4b's data forms) and the dense
+// metric past D = 64: its products with a matrix every chain shares
+// (M^{-1}, L^{-1}, X) are block-tiled as kernel 1's 1a and 1d are
+// (tiled_step.cuh). At D = 50 the tiled 4b, a warp-per-chain 4b with
+// M^{-1} in registers and one with M^{-1} transposed for 16-byte loads were
+// all slower than the warp kernel on an H100; at D = 100 the tiled one is
+// faster (PERF.md section 6).
 //
 // What bounds it on an H100: each chain's state (14 position-like rows and
 // 19 scalars, ~5.8 kB at D = 50; +2 rows and 5 scalars under MULTI) crosses
@@ -40,26 +51,53 @@
 // latency of those dependent shuffles, not device memory, set the time.
 // MULTI adds per leaf a log1pf/expf pair, a stack store or up to depth
 // checks of two reductions each. DENSE adds per leapfrog two D x D
-// products (velocity and kinetic energy), 2 D^2 multiply-adds per chain,
-// each reading one shared word: at D = 50 these, not the target, set the
-// time.
+// products (velocity and kinetic energy), 2 D^2 multiply-adds per chain:
+// at D = 50 these, not the target, set the time. Warp per chain each
+// multiply-add reads two shared words, and the load/store unit sets the
+// pace; tiled, one word serves four multiply-adds, but each output is a
+// chain of D dependent adds behind two barriers, which D = 50 does not
+// amortise.
 //
-// Design: one warp per chain, as kernels 1 and 2. Lane j holds coordinates
-// j, j+32, ... of all rows (K = ceil(D / 32) registers each), which stay in
-// registers for the whole window; the per-chain scalars sit in every lane's
-// registers, identical across the warp. Every per-chain mask of the TPU
-// kernel (jnp.where on needs_start, a live slot, a boundary, term or cont)
-// is a warp-uniform branch here, so a chain skips what it does not need:
+// Design of nuts_window_kernel: one warp per chain, as kernels 1 and 2. Lane j
+// holds coordinates j, j+32, ... of all rows (K = ceil(D / 32) registers each),
+// which stay in registers for the whole window; the per-chain scalars sit in
+// every lane's registers, identical across the warp. Every per-chain mask of
+// the TPU kernel (jnp.where on needs_start, a live slot, a boundary, term or
+// cont) is a warp-uniform branch here, so a chain skips what it does not need:
 // masked slots are not computed at all, and a chain draws its momentum and
-// flags only when it starts or reaches a boundary. Counters are int32, not
-// the TPU kernel's f32 rows. The public (C, D) row-major layout is read and
-// written as is. The checkpoint stacks (C, max_tree_depth, D) x 2, 4 kB per
-// chain at D = 50, are state that outlives the window: the kernel stores and
-// checks them in place in device memory rather than in registers (a
-// data-dependent slot would make every access an unrolled select over all
-// slots, 2 S K more registers) or in shared memory (a copy in and out of
-// the whole stacks every window). A lane touches only its own coordinates;
-// the stacks of the resident chains, ~2,000 x 4 kB, stay in the 50 MB L2.
+// flags only when it starts or reaches a boundary. Counters are int32, not the
+// TPU kernel's f32 rows. The public (C, D) row-major layout is read and written
+// as is. The checkpoint stacks (C, max_tree_depth, D) x 2, 4 kB per chain at D
+// = 50, are state that outlives the window: the kernel stores and checks them
+// in place in device memory rather than in registers (a data-dependent slot
+// would make every access an unrolled select over all slots, 2 S K more
+// registers) or in shared memory (a copy in and out of the whole stacks every
+// window). A lane touches only its own coordinates; the stacks of the resident
+// chains, ~2,000 x 4 kB, stay in the 50 MB L2.
+//
+// Design of nuts_tiled_window_kernel: a block owns C chains
+// (window_tile_chains: 8 for the dense metric, 32 with data), one warp each,
+// and runs the machine above with block-uniform control and per-chain state.
+// Each iteration the block decides together whether any chain starts
+// (live_tile, one barrier) and runs the start's unwhitening and kinetic
+// products for the starting chains only; then, slot by slot, whether any chain
+// is live in slot k, runs that slot's velocity, target and kinetic products for
+// the live chains only (their rows compacted into the tile's first columns:
+// ceil(live / 4) chain tiles), and leaves the slot loop when none is. A warp
+// whose chain is not live does no arithmetic of its own (its threads still take
+// their share of the live chains' product tiles) and waits at the barriers, so
+// the lockstep costs latency, not issue slots. Everything per chain stays in
+// its warp with no barrier: Philox, flags, the MH sums, the reservoir, the
+// stacks, the subtree-boundary bookkeeping and the U-turn dot products. A warp
+// past n_chains is never live and stores nothing. Registers (at 32 chains a
+// block a thread has 64): only the trajectory's current state q_c, p_c, g_c
+// stays in registers across the window; the rows that only starts and subtree
+// ends touch (q, grad, q_l, p_l, g_l, q_r, p_r, g_r, q_prop, g_prop, q_res, and
+// under MULTI q_sub, g_sub) are read and written in place in device memory at
+// those points, as the checkpoint stacks are. Every sum runs in the warp
+// kernel's order, each product rounded before it is added, so the outputs equal
+// the warp kernel's bit for bit (tiled_step.cuh: the tile only decides which
+// thread computes which output).
 //
 // Randomness: injected (draws non-null: p0 (n_iters, C, D), dir, dir2 bool,
 // swap, res float (n_iters, C), slice (n_iters, C), or (n_iters * W, C)
@@ -82,11 +120,11 @@
 #include "metric.cuh"
 #include "philox.cuh"
 #include "targets.cuh"
+#include "tiled_step.cuh"
 
 namespace mcmc {
 namespace nuts {
 
-constexpr int MAX_K = 4;  // dim <= 128
 constexpr uint32_t FLAGS_DRAW = 32;
 constexpr uint32_t RES_DRAW = 33;
 constexpr uint32_t SLICE_DRAW = 34;
@@ -96,6 +134,39 @@ constexpr float NAN_ACCEPT_FALLBACK = 0.65f;
 template <bool DENSE>
 constexpr int WARPS_PER_BLOCK = DENSE ? 8 : 4;
 static_assert(WARPS_PER_BLOCK<true> <= TARGET_MAX_WARPS, "targets.cuh stages one row per warp");
+
+// Chains a block of the tiled window (one warp each): 4b's products with
+// M^{-1} and L^{-1} are short sums, and small blocks keep more of them on
+// an SM; 4c's blocks are as large as a block can be, each load of X from L2
+// serving 32 chains (as kernel 1's 1a and 1d, tiled_step.cuh).
+constexpr int WINDOW_DENSE_TILE_CHAINS = 8;
+constexpr int WINDOW_HIER_TILE_CHAINS = 32;
+__host__ __device__ constexpr int window_tile_chains(bool data) {
+  return data ? WINDOW_HIER_TILE_CHAINS : WINDOW_DENSE_TILE_CHAINS;
+}
+static_assert(WINDOW_DENSE_TILE_CHAINS % RC == 0 && WINDOW_HIER_TILE_CHAINS % RC == 0 &&
+                  WINDOW_DENSE_TILE_CHAINS >= 4 && WINDOW_HIER_TILE_CHAINS <= 32,
+              "one warp a chain, 4 to 32 chains a block in chain tiles of RC");
+// the live-chain flags (live_tile's two buffers), static shared memory
+__host__ __device__ constexpr int window_flag_bytes(int chains) {
+  return 2 * chains * static_cast<int>(sizeof(int));
+}
+static_assert(tile_layout(32 * MAX_K, true, TILE_MIN_ROWS, WINDOW_HIER_TILE_CHAINS).bytes +
+                      window_flag_bytes(WINDOW_HIER_TILE_CHAINS) <= MAX_TILE_SMEM,
+              "the smallest row tile fits at the largest D, with the dense metric and data");
+
+// The tiled window's geometry: kernel 1's tile layout (tiled_step.cuh) at
+// the window's chains a block, with data the largest row tile that fits
+// beside the live-chain flags. ops/fused_nuts.py:tile_geometry mirrors it.
+__host__ __device__ inline TileGeometry window_tile_geometry(int dim, bool dense, bool data) {
+  const int chains = window_tile_chains(data);
+  if (!data) return tile_layout(dim, dense, 0, chains);
+  for (int rows = TILE_MAX_ROWS; rows >= TILE_MIN_ROWS; rows /= 2) {
+    const TileGeometry g = tile_layout(dim, dense, rows, chains);
+    if (g.bytes + window_flag_bytes(chains) <= MAX_TILE_SMEM) return g;
+  }
+  return TileGeometry{};
+}
 
 // Field order must match KERNEL_FIELDS in mcmc_tpu_torch/ops/fused_nuts.py.
 struct State {
@@ -193,9 +264,20 @@ __device__ __forceinline__ float log_add_exp(float a, float b) {
   return mx == -INFINITY ? mx : mx + log1pf(expf(mn - mx));
 }
 
+// Which kernel runs a variant (the design notes at the top of this file):
+// nuts_window_kernel, warp per chain, the diagonal metric without data (4,
+// 4a) and the dense metric without data at D <= 64 (4b, 4a+4b; K <= 2);
+// nuts_tiled_window_kernel a data set (4c, 4a's and 4b's data forms) and
+// the dense metric past D = 64.
+template <int FAMILY, int K, bool DENSE>
+constexpr bool WARP_WINDOW = FAMILY != HIERARCHICAL_LOGISTIC && (!DENSE || K <= 2);
+
+// The warp-per-chain window (WARP_WINDOW): 4, 4a, and 4b and 4a+4b at D <= 64.
 template <int FAMILY, int K, bool MULTI, bool DENSE>
 __global__ void __launch_bounds__(WARPS_PER_BLOCK<DENSE> * 32)
     nuts_window_kernel(const Args a) {
+  static_assert(WARP_WINDOW<FAMILY, K, DENSE>,
+                "4c and 4b past D = 64 run nuts_tiled_window_kernel");
   constexpr int WARPS = WARPS_PER_BLOCK<DENSE>;
   const int warp = threadIdx.x >> 5;
   const int chain = blockIdx.x * WARPS + warp;
@@ -480,19 +562,373 @@ __global__ void __launch_bounds__(WARPS_PER_BLOCK<DENSE> * 32)
   }
 }
 
+// A row of a chain's state in device memory, copied in place (the tiled
+// window's rows that only starts and subtree ends touch).
+template <int K>
+__device__ __forceinline__ void copy_row(float* dst, const float* src, size_t row, int lane,
+                                         int dim) {
+  float v[K];
+  load_row(src, row, lane, dim, v);
+  store_row(dst, row, lane, dim, v);
+}
+
+// The tiled window's potential: the hierarchical posterior block-wide over
+// the live chains (tiled_step.cuh:TiledHierarchical), every other family
+// per chain (targets.cuh), which only a live chain's warp evaluates.
+template <int FAMILY, int K, int C>
+struct WindowTarget {
+  const Target<FAMILY, K> f;
+  __device__ WindowTarget(const Args& a, const TileGeometry&, float*, int)
+      : f(a.dim, a.params, a.data) {}
+  __device__ __forceinline__ float operator()(const float (&q)[K], float (&g)[K], int lane,
+                                              const LiveTile& t) const {
+    return t.col >= 0 ? f(q, g, lane) : 0.f;
+  }
+};
+
+template <int K, int C>
+struct WindowTarget<HIERARCHICAL_LOGISTIC, K, C> {
+  const TiledHierarchical<K, C> f;
+  __device__ WindowTarget(const Args& a, const TileGeometry& geo, float* smem, int warp)
+      : f(a.data, geo, smem, warp) {}
+  __device__ __forceinline__ float operator()(const float (&q)[K], float (&g)[K], int lane,
+                                              const LiveTile& t) const {
+    return f(q, g, lane, t);
+  }
+};
+
+// Variants 4b (DENSE, every family) and 4c (the hierarchical family, either
+// metric), in either scheme: C chains a block, one warp each (the design
+// at the top of this file). The machine is nuts_window_kernel's, step for
+// step; the block-wide calls (live_tile, the metric's products, the
+// target) are made by every warp at block-uniform points.
+template <int FAMILY, int K, bool MULTI, bool DENSE>
+__global__ void __launch_bounds__(32 * window_tile_chains(FAMILY == HIERARCHICAL_LOGISTIC))
+    nuts_tiled_window_kernel(const Args a, const TileGeometry geo) {
+  constexpr int C = window_tile_chains(FAMILY == HIERARCHICAL_LOGISTIC);
+  static_assert(!WARP_WINDOW<FAMILY, K, DENSE>, "4 and 4a run nuts_window_kernel");
+  extern __shared__ float4 tile_smem[];
+  __shared__ int live_flags[2][C];
+  float* smem = reinterpret_cast<float*>(tile_smem);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int chain = blockIdx.x * C + warp;
+  const bool real = chain < a.n_chains;  // a warp past n_chains is never live
+  const int dim = a.dim;
+  const TileMetric<K, DENSE, C> metric = make_tile_metric<K, DENSE, C>(a, geo, smem, warp, lane);
+  const WindowTarget<FAMILY, K, C> target(a, geo, smem, warp);
+
+  const size_t row = static_cast<size_t>(real ? chain : 0) * dim;
+  const float step = a.scalars[0];
+  const float delta_max = a.scalars[1];
+  const bool philox = a.d.p0 == nullptr;
+  const uint32_t k0 = philox ? a.key[0] : 0u, k1 = philox ? a.key[1] : 0u;
+
+  const State& S = a.s;
+  float q_c[K], p_c[K], g_c[K];
+#pragma unroll
+  for (int r = 0; r < K; ++r) q_c[r] = p_c[r] = g_c[r] = 0.f;
+  float lp = 0.f, lp_prop = 0.f, h0 = 0.f, log_u = 0.f, sum_alpha = 0.f, direction = 1.f,
+        alpha_acc = 0.f, lp_res = 0.f;
+  int n_valid = 0, n_steps = 0, depth = 0, steps_left = 0, transitions = 0, divergences = 0,
+      depth_acc = 0, n_exec = 0, k_res = 0;
+  bool diverged = false, needs_start = false;
+  // multinomial scheme: the subtree's reservoir weights and this chain's stacks
+  float lp_sub = 0.f, lw_tree = 0.f, lw_sub = 0.f;
+  bool div_sub = false, turn_sub = false;
+  float *q_stk = nullptr, *p_stk = nullptr;
+  if (real) {
+    load_row(S.q_c, row, lane, dim, q_c);
+    load_row(S.p_c, row, lane, dim, p_c);
+    load_row(S.g_c, row, lane, dim, g_c);
+    lp = S.lp[chain], lp_prop = S.lp_prop[chain], h0 = S.h0[chain], log_u = S.log_u[chain];
+    sum_alpha = S.sum_alpha[chain], direction = S.direction[chain];
+    alpha_acc = S.alpha_acc[chain], lp_res = S.lp_res[chain];
+    n_valid = S.n_valid[chain], n_steps = S.n_steps[chain], depth = S.depth[chain];
+    steps_left = S.steps_left[chain], transitions = S.transitions[chain];
+    divergences = S.divergences[chain], depth_acc = S.depth_acc[chain];
+    n_exec = S.n_exec[chain], k_res = S.k_res[chain];
+    diverged = S.diverged[chain], needs_start = S.needs_start[chain];
+    if constexpr (MULTI) {
+      lp_sub = S.lp_sub[chain], lw_tree = S.lw_tree[chain], lw_sub = S.lw_sub[chain];
+      div_sub = S.div_sub[chain], turn_sub = S.turn_sub[chain];
+      const size_t stk = static_cast<size_t>(chain) * a.max_tree_depth * dim;
+      q_stk = S.q_stk + stk;
+      p_stk = S.p_stk + stk;
+    }
+  }
+
+  int calls = 0;  // live_tile calls so far: their buffers take turns
+  for (int it = 0; it < a.n_iters; ++it) {
+    const size_t slot = static_cast<size_t>(it) * a.n_chains + chain;  // (n_iters, C) index
+    const uint32_t uit = static_cast<uint32_t>(it);
+    Flags f{};
+    bool have_flags = false;
+    SliceStream slices;
+
+    // --- 1. fresh-transition start, its products over the starting chains
+    const bool starting = real && needs_start;
+    const LiveTile st = live_tile<C>(starting, live_flags[calls++ & 1], warp, lane);
+    if (st.n > 0) {
+      float p0[K];
+#pragma unroll
+      for (int r = 0; r < K; ++r) p0[r] = 0.f;
+      if (starting) {
+        if (philox) {
+          philox_normal_row(p0, lane, dim, chain, a.call, uit, k0, k1);
+        } else {
+          load_row(a.d.p0, slot * dim, lane, dim, p0);
+        }
+      }
+      metric.unwhiten(p0, st);
+      const float ke = metric.kinetic(p0, st);
+      if (starting) {
+        f = load_flags(a, slot, chain, uit, k0, k1);
+        have_flags = true;
+        h0 = -lp + ke;
+        const float slice_u = MULTI ? slices.get(a, 0, chain, uit, k0, k1) : f.slice;
+        log_u = logf(slice_u) - h0;
+        load_row(S.q, row, lane, dim, q_c);
+        load_row(S.grad, row, lane, dim, g_c);
+        copy(p_c, p0);
+        store_row(S.q_l, row, lane, dim, q_c), store_row(S.p_l, row, lane, dim, p_c);
+        store_row(S.g_l, row, lane, dim, g_c);
+        store_row(S.q_r, row, lane, dim, q_c), store_row(S.p_r, row, lane, dim, p_c);
+        store_row(S.g_r, row, lane, dim, g_c);
+        store_row(S.q_prop, row, lane, dim, q_c), store_row(S.g_prop, row, lane, dim, g_c);
+        lp_prop = lp;
+        n_valid = 1;
+        sum_alpha = 0.f;
+        n_steps = 0;
+        depth = 0;
+        steps_left = 1;
+        direction = f.dir ? 1.f : -1.f;
+        diverged = false;
+        needs_start = false;
+        if constexpr (MULTI) {
+          // the root tree: the initial state with weight e^0 = 1; the
+          // subtree reservoir starts empty
+          store_row(S.q_sub, row, lane, dim, q_c), store_row(S.g_sub, row, lane, dim, g_c);
+          lp_sub = lp;
+          lw_tree = 0.f;
+          lw_sub = -INFINITY;
+          div_sub = false;
+          turn_sub = false;
+        }
+      }
+    }
+
+    // --- 2. leapfrog slots: slot 0 of every chain, a later one while the
+    // chain's subtree is open; the block runs a slot while any chain is live
+    const float eps = direction * step;
+    const float half = 0.5f * eps;
+    constexpr bool ROUNDED = DENSE || ROUNDED_LEAPFROG<FAMILY>;
+    float lp_c = lp, h_c = h0;
+    for (int k = 0; k < a.slots; ++k) {
+      const bool live = real && (k == 0 || steps_left > 0);
+      const LiveTile lt = live_tile<C>(live, live_flags[calls++ & 1], warp, lane);
+      if (lt.n == 0) break;  // uniform across the block
+      float p[K], qn[K], gn[K], v[K];
+      if (live) {
+#pragma unroll
+        for (int r = 0; r < K; ++r) p[r] = add_scaled<ROUNDED>(p_c[r], half, g_c[r]);
+      }
+      metric.velocity(p, v, lt);
+      if (live) {
+#pragma unroll
+        for (int r = 0; r < K; ++r) qn[r] = add_scaled<ROUNDED>(q_c[r], eps, v[r]);
+      }
+      const float lp_n = target(qn, gn, lane, lt);
+      if (live) {
+#pragma unroll
+        for (int r = 0; r < K; ++r) p[r] = add_scaled<ROUNDED>(p[r], half, gn[r]);
+      }
+      const float ke = metric.kinetic(p, lt);
+      if (!live) continue;
+      lp_c = lp_n;
+      h_c = -lp_c + ke;
+      const float dh = h0 - h_c;
+      sum_alpha += expf(dh > 0.f ? 0.f : dh);  // min(0, dh), NaN kept
+      copy(q_c, qn), copy(p_c, p), copy(g_c, gn);
+      ++n_steps;
+      ++n_exec;
+      --steps_left;
+
+      if constexpr (MULTI) {
+        // the leaf's weighted reservoir; both weights -inf: no take
+        const float su = slices.get(a, k, chain, uit, k0, k1);
+        const bool fin = isfinite(h_c);
+        const float lw_leaf = fin ? h0 - h_c : -INFINITY;
+        const float lse = log_add_exp(lw_sub, lw_leaf);
+        const bool dead = lw_leaf == -INFINITY && lw_sub == -INFINITY;
+        if (!dead && su < expf(lw_leaf - lse)) {
+          store_row(S.q_sub, row, lane, dim, q_c), store_row(S.g_sub, row, lane, dim, g_c);
+          lp_sub = lp_c;
+        }
+        lw_sub = lse;
+        div_sub = div_sub || !fin || (h_c - h0) > delta_max;
+
+        // checkpoint stacks: even leaves store, odd leaves check
+        const int i_leaf = (1 << depth) - steps_left - 1;
+        const int sslot = __popc(i_leaf >> 1);
+        if ((i_leaf & 1) == 0) {
+          const size_t at = static_cast<size_t>(sslot) * dim;
+          store_row(q_stk, at, lane, dim, q_c);
+          store_row(p_stk, at, lane, dim, p_c);
+        } else if (!turn_sub) {  // a set flag stays set: the checks would change nothing
+          const int lo = sslot - (__popc(i_leaf ^ (i_leaf + 1)) - 1) + 1;
+          for (int si = sslot; si >= lo; --si) {
+            float qs[K], ps[K], dq[K];
+            const size_t at = static_cast<size_t>(si) * dim;
+            load_row(q_stk, at, lane, dim, qs);
+            load_row(p_stk, at, lane, dim, ps);
+#pragma unroll
+            for (int r = 0; r < K; ++r) dq[r] = (q_c[r] - qs[r]) * direction;
+            if (dot(dq, ps) < 0.f || dot(dq, p_c) < 0.f) {
+              turn_sub = true;
+              break;
+            }
+          }
+        }
+      }
+    }
+
+    // --- 3. subtree-boundary bookkeeping, per chain ------------------------
+    if (!real || steps_left > 0) continue;
+    if (direction > 0.f) {
+      store_row(S.q_r, row, lane, dim, q_c), store_row(S.p_r, row, lane, dim, p_c);
+      store_row(S.g_r, row, lane, dim, g_c);
+    } else {
+      store_row(S.q_l, row, lane, dim, q_c), store_row(S.p_l, row, lane, dim, p_c);
+      store_row(S.g_l, row, lane, dim, g_c);
+    }
+    if (!have_flags) f = load_flags(a, slot, chain, uit, k0, k1);
+    if constexpr (MULTI) {
+      // biased progressive subtree merge (Stan): a valid subtree replaces
+      // the proposal w.p. min(1, W_sub / W_tree)
+      const bool sub_ok = !div_sub && !turn_sub && isfinite(lw_sub);
+      const float dl = lw_sub - lw_tree;
+      if (sub_ok && f.swap < expf(dl > 0.f ? 0.f : dl)) {
+        copy_row<K>(S.q_prop, S.q_sub, row, lane, dim);
+        copy_row<K>(S.g_prop, S.g_sub, row, lane, dim);
+        lp_prop = lp_sub;
+      }
+      if (sub_ok) lw_tree = log_add_exp(lw_tree, lw_sub);
+      diverged = diverged || div_sub;
+    } else {
+      // endpoint-validity proposal swap (reference NUTS.py:319-336)
+      const bool div_new = (h_c - h0) > delta_max;
+      const bool valid = (log_u <= -h_c) && !div_new;
+      const int n_new = valid ? (1 << depth) : 0;
+      const int total = n_valid + n_new;
+      const float swap_prob =
+          (valid && total > 0) ? static_cast<float>(n_new) / static_cast<float>(max(total, 1))
+                               : 0.f;
+      if (f.swap < swap_prob) {
+        store_row(S.q_prop, row, lane, dim, q_c), store_row(S.g_prop, row, lane, dim, g_c);
+        lp_prop = lp_c;
+      }
+      n_valid = total;
+      diverged = diverged || div_new;
+    }
+
+    // termination, evaluated after the doubling (reference while cond); a
+    // subtree with an internal U-turn ends the trajectory as well
+    float q_l[K], p_l[K], q_r[K], p_r[K], dq[K];
+    load_row(S.q_l, row, lane, dim, q_l), load_row(S.p_l, row, lane, dim, p_l);
+    load_row(S.q_r, row, lane, dim, q_r), load_row(S.p_r, row, lane, dim, p_r);
+#pragma unroll
+    for (int r = 0; r < K; ++r) dq[r] = q_r[r] - q_l[r];
+    const bool u_turn = (dot(dq, p_l) < 0.f) || (dot(dq, p_r) < 0.f);
+    if (depth + 1 >= a.max_tree_depth || u_turn || diverged || (MULTI && turn_sub)) {
+      // the transition completes: adopt the proposal, log its statistics
+      float mean_alpha = sum_alpha / static_cast<float>(max(n_steps, 1));
+      if (!isfinite(mean_alpha)) mean_alpha = NAN_ACCEPT_FALLBACK;
+      copy_row<K>(S.q, S.q_prop, row, lane, dim);
+      copy_row<K>(S.grad, S.g_prop, row, lane, dim);
+      lp = lp_prop;
+      ++transitions;
+      divergences += diverged ? 1 : 0;
+      alpha_acc += mean_alpha;
+      depth_acc += depth + 1;
+      needs_start = true;
+      // the k-th completion of the window replaces the reservoir w.p. 1/k
+      ++k_res;
+      const float res_u =
+          philox ? bits_to_uniform(philox4x32_10(make_uint4(chain, a.call, uit, RES_DRAW), k0, k1).x)
+                 : a.d.res[slot];
+      if (res_u * static_cast<float>(k_res) < 1.f) {
+        copy_row<K>(S.q_res, S.q_prop, row, lane, dim);
+        lp_res = lp_prop;
+      }
+    } else {
+      // the trajectory continues: next doubling from the chosen end
+      ++depth;
+      steps_left = 1 << depth;
+      direction = f.dir2 ? 1.f : -1.f;
+      if (f.dir2) {
+        copy(q_c, q_r), copy(p_c, p_r);
+        load_row(S.g_r, row, lane, dim, g_c);
+      } else {
+        copy(q_c, q_l), copy(p_c, p_l);
+        load_row(S.g_l, row, lane, dim, g_c);
+      }
+      if constexpr (MULTI) {  // a fresh subtree: an empty reservoir
+        lw_sub = -INFINITY;
+        div_sub = false;
+        turn_sub = false;
+      }
+    }
+  }
+
+  if (!real) return;
+  store_row(S.q_c, row, lane, dim, q_c);
+  store_row(S.p_c, row, lane, dim, p_c);
+  store_row(S.g_c, row, lane, dim, g_c);
+  if (lane == 0) {
+    S.lp[chain] = lp, S.lp_prop[chain] = lp_prop, S.h0[chain] = h0, S.log_u[chain] = log_u;
+    S.sum_alpha[chain] = sum_alpha, S.direction[chain] = direction;
+    S.alpha_acc[chain] = alpha_acc, S.lp_res[chain] = lp_res;
+    S.n_valid[chain] = n_valid, S.n_steps[chain] = n_steps, S.depth[chain] = depth;
+    S.steps_left[chain] = steps_left, S.transitions[chain] = transitions;
+    S.divergences[chain] = divergences, S.depth_acc[chain] = depth_acc;
+    S.n_exec[chain] = n_exec, S.k_res[chain] = k_res;
+    S.diverged[chain] = diverged, S.needs_start[chain] = needs_start;
+    if constexpr (MULTI) {
+      S.lp_sub[chain] = lp_sub, S.lw_tree[chain] = lw_tree, S.lw_sub[chain] = lw_sub;
+      S.div_sub[chain] = div_sub, S.turn_sub[chain] = turn_sub;
+    }
+  }
+}
+
 template <int FAMILY, int K, bool MULTI, bool DENSE>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  constexpr int WARPS = WARPS_PER_BLOCK<DENSE>;
-  const unsigned blocks = static_cast<unsigned>((a.n_chains + WARPS - 1) / WARPS);
-  const size_t smem = metric_smem_bytes<K, DENSE>(a.dim, WARPS);
-  if constexpr (DENSE) {
-    // above 48 kB only after opting in (D > 74); up to 139 kB at D = 128
-    const cudaError_t err = cudaFuncSetAttribute(nuts_window_kernel<FAMILY, K, MULTI, DENSE>,
-                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                 static_cast<int>(smem));
+  if constexpr (WARP_WINDOW<FAMILY, K, DENSE>) {
+    constexpr int WARPS = WARPS_PER_BLOCK<DENSE>;
+    const unsigned blocks = static_cast<unsigned>((a.n_chains + WARPS - 1) / WARPS);
+    const size_t smem = metric_smem_bytes<K, DENSE>(a.dim, WARPS);
+    if constexpr (DENSE) {
+      // above 48 kB only after opting in (D > 74); up to 139 kB at D = 128
+      const cudaError_t err = cudaFuncSetAttribute(nuts_window_kernel<FAMILY, K, MULTI, DENSE>,
+                                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                   static_cast<int>(smem));
+      if (err != cudaSuccess) return err;
+    }
+    nuts_window_kernel<FAMILY, K, MULTI, DENSE><<<blocks, WARPS * 32, smem, stream>>>(a);
+  } else {
+    // ceil(n_chains / C) blocks, the geometry's shared memory (above 48 kB
+    // after opting in)
+    constexpr int C = window_tile_chains(FAMILY == HIERARCHICAL_LOGISTIC);
+    const TileGeometry geo = window_tile_geometry(a.dim, DENSE, FAMILY == HIERARCHICAL_LOGISTIC);
+    if (geo.bytes == 0) return cudaErrorInvalidValue;
+    const cudaError_t err =
+        cudaFuncSetAttribute(nuts_tiled_window_kernel<FAMILY, K, MULTI, DENSE>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, geo.bytes);
     if (err != cudaSuccess) return err;
+    const unsigned blocks = static_cast<unsigned>((a.n_chains + C - 1) / C);
+    nuts_tiled_window_kernel<FAMILY, K, MULTI, DENSE><<<blocks, 32 * C, geo.bytes, stream>>>(
+        a, geo);
   }
-  nuts_window_kernel<FAMILY, K, MULTI, DENSE><<<blocks, WARPS * 32, smem, stream>>>(a);
   return cudaGetLastError();
 }
 

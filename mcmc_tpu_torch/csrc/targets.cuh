@@ -295,9 +295,10 @@ struct Target<GAUSSIAN_MIXTURE, K, G, BLOCKED> {
 // evaluation from L1 (~230 kB at dim 100, n_data 256, 32 K coordinates a
 // row in the backward product), so the L1 load rate, not device memory or
 // the f32 units, sets the time. This warp-per-chain form serves kernels 2
-// (2b), 3 (3a) and 4 (4c) and kernel 1's scaled and bridged variants (1b,
-// 1c); kernel 1 itself (1d, and 1a's data form) evaluates the posterior
-// for a block of chains at once, each X load shared by the block's chains
+// (2b) and 3 (3a) and kernel 1's scaled and bridged variants (1b, 1c);
+// kernels 1 (1d, and 1a's data form) and 4 (4c, and 4b's data form)
+// evaluate the posterior for a block of chains at once, each X load shared
+// by the block's chains
 // (tiled_step.cuh:TiledHierarchical, the same sums in the same order).
 // Products are rounded before their sums (__fmul_rn / __fadd_rn) in the
 // plain version's order (ops/padded_targets.py:_hierarchical_logistic), as

@@ -1,9 +1,12 @@
 // Kernel 1's block-tiled form for NVIDIA Hopper (sm_90a): the dense-metric
 // variant 1a (every family) and the data-carrying variant 1d (the
-// hierarchical posterior, either metric). Kernel 1's other instances
-// (fused_trajectory.cuh:grahmc_step_kernel, diagonal metric, no data) and
-// kernels 2, 1b, 1c and 4 keep the warp-per-chain forms of metric.cuh and
-// targets.cuh.
+// hierarchical posterior, either metric). Its building blocks
+// (TiledDenseMetric, TiledHierarchical, with live_tile's LiveTile for the
+// chains live in a call) also serve kernel 4's tiled window
+// (nuts_window.cuh: 4c in either scheme and metric, and 4b past D = 64).
+// Kernel 1's other instances (fused_trajectory.cuh:grahmc_step_kernel,
+// diagonal metric, no data), kernels 2, 1b and 1c, and kernel 4's other
+// instances keep the warp-per-chain forms of metric.cuh and targets.cuh.
 //
 // Replaces mcmc_tpu/ops/fused_trajectory.py:_make_kernel with dense=True
 // (variant 1a) and with data_arrays (variant 1d), one MH transition per
@@ -216,13 +219,18 @@ struct TiledDenseMetric {
   int dim, dp, ps, warp, lane;
 
   // out = x @ A for every chain of the block (metric.cuh:row_times, same
-  // sums); zeros past dim.
-  template <bool LOWER>
+  // sums); zeros past dim. LIVE: for the chains live in the call only
+  // (LiveTile), their rows compacted into the first columns, so the
+  // products take ceil(n / RC) chain tiles; a warp that is not live only
+  // meets the barriers.
+  template <bool LOWER, bool LIVE = false>
   __device__ __forceinline__ void block_times(const float (&x)[K], const float* A,
-                                              float (&o)[K]) const {
-    put_column(in, ps, dim, warp, lane, x);
+                                              float (&o)[K],
+                                              const LiveTile& live = LiveTile{}) const {
+    const int col = LIVE ? live.col : warp;
+    if (!LIVE || col >= 0) put_column(in, ps, dim, col, lane, x);
     __syncthreads();
-    const int tiles = (C / RC) * dp;
+    const int tiles = (LIVE ? (live.n + RC - 1) / RC : C / RC) * dp;
     for (int t = threadIdx.x; t < tiles; t += 32 * C) {
       const int c0 = (t / dp) * RC;
       const int j = t % dp;
@@ -231,7 +239,7 @@ struct TiledDenseMetric {
       store_tile(out, dp, c0, j, acc);
     }
     __syncthreads();
-    get_row(out, dp, dim, warp, lane, o);
+    if (!LIVE || col >= 0) get_row(out, dp, dim, col, lane, o);
   }
 
   __device__ __forceinline__ void velocity(const float (&p)[K], float (&v)[K]) const {
@@ -253,7 +261,46 @@ struct TiledDenseMetric {
 #pragma unroll
     for (int r = 0; r < K; ++r) z[r] = p[r];
   }
+
+  // The same for the chains live in the call only (the persistent-NUTS
+  // window); every warp calls them, a warp that is not live gets nothing.
+  __device__ __forceinline__ void velocity(const float (&p)[K], float (&v)[K],
+                                           const LiveTile& t) const {
+    block_times<false, true>(p, minv, v, t);
+  }
+
+  __device__ __forceinline__ float kinetic(const float (&p)[K], const LiveTile& t) const {
+    float v[K];
+    velocity(p, v, t);
+    if (t.col < 0) return 0.f;
+    float s = 0.f;
+#pragma unroll
+    for (int r = 0; r < K; ++r) s += p[r] * v[r];
+    return 0.5f * warp_sum(s);
+  }
+
+  __device__ __forceinline__ void unwhiten(float (&z)[K], const LiveTile& t) const {
+    float p[K];
+    block_times<true, true>(z, linv, p, t);
+    if (t.col < 0) return;
+#pragma unroll
+    for (int r = 0; r < K; ++r) z[r] = p[r];
+  }
 };
+
+// This warp's LiveTile among the block's C chains whose `flag` is set
+// (warp-uniform): their columns in warp order. Every warp of the block
+// calls it together; one barrier. `buf` is C ints of shared memory, and
+// consecutive calls take turns between two such buffers, so that a call's
+// writes never overtake a warp still reading the last call's (a barrier
+// lies between any call and the next but one).
+template <int C>
+__device__ __forceinline__ LiveTile live_tile(bool flag, int* buf, int warp, int lane) {
+  if (lane == 0) buf[warp] = flag ? 1 : 0;
+  __syncthreads();
+  const unsigned mask = __ballot_sync(FULL_MASK, lane < C && buf[lane] != 0);
+  return LiveTile{flag ? __popc(mask & ((1u << warp) - 1u)) : -1, __popc(mask)};
+}
 
 // Copy M^{-1} and L^{-1} into the block's shared memory with rows padded to
 // dp (zeros past D). Every thread calls it; it ends with __syncthreads().
@@ -282,11 +329,16 @@ __device__ __forceinline__ void cp_async_wait_all() {
 }
 
 // The hierarchical posterior (targets.cuh:Target<HIERARCHICAL_LOGISTIC>)
-// for the block's HIER_TILE_CHAINS chains at once: lp and gradient, the same
-// functor interface, called by every warp of the block together.
-// Replaces the target device function of mcmc_tpu/ops/fused_trajectory.py:
-// _make_kernel with data_arrays (padded_targets.py:_hierarchical_logistic)
-// in variant 1d and in 1a's data form.
+// for the block's C chains at once (HIER_TILE_CHAINS in kernel 1): lp and
+// gradient, the same functor interface, called by every warp of the block
+// together; with a LiveTile, for the chains live in the call only (the
+// persistent-NUTS window 4c, nuts_window.cuh): their rows compacted into
+// the first columns, ceil(n / RC) chain tiles of Z and G, and only their
+// warps take rows. Replaces the target device function of
+// mcmc_tpu/ops/fused_trajectory.py:_make_kernel and mcmc_tpu/ops/
+// fused_nuts.py:_make_kernel with data_arrays (padded_targets.py:
+// _hierarchical_logistic) in variants 1d and 4c and in 1a's and 4b's data
+// forms.
 //
 // Per row tile of `rows` data rows (n0 = k rows):
 //   Z = Q X^T:  thread tiles of RC chains x 1 row, sum over d in order
@@ -303,9 +355,9 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // terms as the functor does. What bounds it on an H100: 4 n_data D flops
 // per chain per evaluation; X's loads from L2 serve the block's chains and
 // each shared load of X a thread's RC chains.
-template <int K>
+template <int K, int C = HIER_TILE_CHAINS>
 struct TiledHierarchical {
-  static constexpr int C = HIER_TILE_CHAINS, THREADS = 32 * HIER_TILE_CHAINS;
+  static constexpr int THREADS = 32 * C;
   const float *X, *xt, *y;
   float *in, *out, *xt_s, *x_s, *rt;
   int n_data, dim, dp, ps, rows, warp;
@@ -352,10 +404,25 @@ struct TiledHierarchical {
   }
 
   __device__ float operator()(const float (&q)[K], float (&g)[K], int lane) const {
-    put_column(in, ps, dim, warp, lane, q);
+    return evaluate<false>(q, g, lane, LiveTile{});
+  }
+
+  // The chains live in the call only; a warp that is not live gets 0.
+  __device__ float operator()(const float (&q)[K], float (&g)[K], int lane,
+                              const LiveTile& live) const {
+    return evaluate<true>(q, g, lane, live);
+  }
+
+  template <bool LIVE>
+  __device__ __forceinline__ float evaluate(const float (&q)[K], float (&g)[K], int lane,
+                                            const LiveTile& live) const {
+    const int col = LIVE ? live.col : warp;
+    const bool mine = !LIVE || col >= 0;
+    const bool g_tile = g_owner && (!LIVE || g_c0 < live.n);
+    if (mine) put_column(in, ps, dim, col, lane, q);
     prefetch(0, 0);
     const int n_tiles = (n_data + rows - 1) / rows;
-    const int z_tiles = (C / RC) * rows;
+    const int z_tiles = (LIVE ? (live.n + RC - 1) / RC : C / RC) * rows;
     float gacc[RC] = {0.f, 0.f, 0.f, 0.f};
     float lik = 0.f;
     for (int k = 0; k < n_tiles; ++k) {
@@ -374,23 +441,24 @@ struct TiledHierarchical {
         store_tile(out, rows, c0, j, acc);
       }
       __syncthreads();
-      for (int nl = (lane - n0) & 31; nl < valid; nl += 32) {
-        const float z = out[warp * rows + nl];
+      for (int nl = (lane - n0) & 31; mine && nl < valid; nl += 32) {
+        const float z = out[col * rows + nl];
         const float e = expf(-fabsf(z));
         const float yn = __ldg(y + n0 + nl);
         const float softplus = __fadd_rn(fmaxf(z, 0.f), log1pf(e));
         lik = __fadd_rn(lik, __fsub_rn(__fmul_rn(yn, z), softplus));
         const float denom = 1.f + e;
-        rt[nl * ps + warp] =
+        rt[nl * ps + col] =
             __fsub_rn(yn, z >= 0.f ? __fdiv_rn(1.f, denom) : __fdiv_rn(e, denom));
       }
       __syncthreads();
-      if (g_owner) mac_rows(gacc, rt + g_c0, ps, xs + g_j, dp, 0, valid);
+      if (g_tile) mac_rows(gacc, rt + g_c0, ps, xs + g_j, dp, 0, valid);
     }
-    if (g_owner) store_tile(out, dp, g_c0, g_j, gacc);
+    if (g_tile) store_tile(out, dp, g_c0, g_j, gacc);
     __syncthreads();
+    if (!mine) return 0.f;
     float gl[K];
-    get_row(out, dp, dim, warp, lane, gl);
+    get_row(out, dp, dim, col, lane, gl);
 
     const float tau = __shfl_sync(FULL_MASK, q[0], 0, 32);
     const float inv_scale = expf(-tau);
@@ -413,8 +481,8 @@ struct TiledHierarchical {
   }
 };
 
-template <int K>
-struct family_of<TiledHierarchical<K>> {
+template <int K, int C>
+struct family_of<TiledHierarchical<K, C>> {
   static constexpr int value = HIERARCHICAL_LOGISTIC;
 };
 
@@ -464,10 +532,11 @@ __device__ __forceinline__ void tiled_step(const StepArgs& a, const P& potential
 template <int K, bool DENSE, int C>
 using TileMetric = typename std::conditional<DENSE, TiledDenseMetric<K, C>, DiagMetric<K>>::type;
 
-// The tiled kernel's metric; DENSE: the block loads M^{-1} and L^{-1}, so
-// every thread of the block calls this.
-template <int K, bool DENSE, int C>
-__device__ __forceinline__ TileMetric<K, DENSE, C> make_tile_metric(const StepArgs& a,
+// The tiled kernels' metric from their arguments' inv_mass, l_inv and dim
+// (kernel 1's StepArgs, kernel 4's nuts::Args); DENSE: the block loads
+// M^{-1} and L^{-1}, so every thread of the block calls this.
+template <int K, bool DENSE, int C, typename A>
+__device__ __forceinline__ TileMetric<K, DENSE, C> make_tile_metric(const A& a,
                                                                  const TileGeometry& geo,
                                                                  float* smem, int warp,
                                                                  int lane) {

@@ -2,12 +2,21 @@
 
 Port of ``mcmc_tpu/ops/fused_nuts.py``: both proposal schemes (endpoint,
 multinomial) and both metrics (diagonal, dense), four variants of one
-kernel. One kernel, in ``mcmc_tpu_torch/csrc/nuts_window.cuh`` (launched
-from ``fused_nuts.cu``): ``nuts_window_kernel`` runs one snapshot window -- `n_iters` machine
+kernel. ``nuts_window_kernel`` runs one snapshot window -- `n_iters` machine
 iterations of up to W leapfrog slots each -- of the persistent-NUTS state
-machine with each chain's state in registers, so device memory sees the
-state once per window instead of once per leapfrog (the TPU
-``_make_kernel``). Its plain version, ``nuts_window_plain``, is
+machine with each chain's trajectory in registers, so device memory sees
+the state once per window instead of once per leapfrog (the TPU
+``_make_kernel``), in ``mcmc_tpu_torch/csrc/nuts_window.cuh`` (launched
+from ``fused_nuts.cu``) in one of two forms (``window_form``): warp per
+chain for the diagonal metric without data (4, 4a) and the dense metric at
+D <= WARP_DENSE_MAX_DIM (4b, 4a+4b); block-tiled for a data-carrying target
+(4c, 4a's data form) and the dense metric beyond, in either scheme: a
+block of WINDOW_HIER_TILE_CHAINS or WINDOW_DENSE_TILE_CHAINS chains
+computes the products its live chains take with the shared X, M^{-1} or
+L^{-1} together (``tile_geometry``; the card tests hold it to the
+kernel's). Both forms sum in the same order, so the tiled form's outputs
+are bit for bit the warp kernel's. ``lockstep_counts`` counts what the
+tiles' block-uniform control costs. Its plain version, ``nuts_window_plain``, is
 ``samplers.nuts_persistent._machine_iteration`` with `slots` = W, the same
 arithmetic as the eager machine (the dense products summed in the kernel's
 order, ``trajectory.ordered_matmul``).
@@ -47,19 +56,26 @@ with DATA_SUFFIX for a data-carrying target) and ``.shape_launches`` (per
 """
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from mcmc_tpu_torch.ops.fused_trajectory import (
-    MAX_DIM, PhiloxStream, _bits_to_uniform, _kernel_device, _philox_words,
-    _ptr, _raise_on_error, _U32, check_tensors, count_launch, kernel_metric, philox_normal,
-    target_args, variant_name, variant_names)
-from mcmc_tpu_torch.ops.padded_targets import FAMILY_IDS, device_vag, kernel_info
+    MAX_DIM, MAX_TILE_SMEM, TILE_ROWS, PhiloxStream, TileGeometry, _bits_to_uniform,
+    _kernel_device, _philox_words, _ptr, _raise_on_error, _tile_bytes, _U32, check_tensors,
+    count_launch, kernel_metric, philox_normal, target_args, variant_name, variant_names)
+from mcmc_tpu_torch.ops.padded_targets import DATA_FAMILIES, FAMILY_IDS, device_vag, kernel_info
 from mcmc_tpu_torch.samplers.nuts_persistent import _machine_iteration, _PState
 from mcmc_tpu_torch.samplers.trajectory import as_scalar, ordered_matmul
 
 Tensor = torch.Tensor
+
+# csrc/nuts_window.cuh's forms (WARP_WINDOW, window_tile_chains): the dense
+# metric without data runs warp per chain up to D = WARP_DENSE_MAX_DIM (K <=
+# 2), tiled beyond; the tiled form's chains a block, one warp each
+WARP_DENSE_MAX_DIM = 64
+WINDOW_DENSE_TILE_CHAINS = 8   # 4b past WARP_DENSE_MAX_DIM
+WINDOW_HIER_TILE_CHAINS = 32   # 4c, and 4b's data form
 
 FLAGS_DRAW = 32   # words: dir, dir2, swap, slice
 RES_DRAW = 33     # word x0: the snapshot reservoir uniform
@@ -93,6 +109,70 @@ def variant(state: _PState, inv_mass: Tensor, info: Optional[dict] = None) -> st
     the target of `info`: with DATA_SUFFIX for a data-carrying one)."""
     base = VARIANTS[(state.q_sub is not None, inv_mass.ndim == 2)]
     return base if info is None else variant_name(base, info)
+
+
+def window_form(info: dict, inv_mass: Tensor) -> str:
+    """The form a window of the target of `info` under `inv_mass` runs
+    (csrc/nuts_window.cuh:WARP_WINDOW): "warp" (no data set, the diagonal
+    metric or the dense one at D <= WARP_DENSE_MAX_DIM) or "tiled" (a
+    data-carrying target, or the dense metric past it)."""
+    tiled = info["family"] in DATA_FAMILIES or (inv_mass.ndim == 2
+                                                and info["dim"] > WARP_DENSE_MAX_DIM)
+    return "tiled" if tiled else "warp"
+
+
+def tile_geometry(n_chains: int, dim: int, n_data: int = 0,
+                  dense: bool = False) -> TileGeometry:
+    """The tiled form's geometry for n_chains chains of dimension dim,
+    with a data set of n_data rows (0: none; WINDOW_HIER_TILE_CHAINS chains a
+    block with data, WINDOW_DENSE_TILE_CHAINS without) and a dense or
+    diagonal metric, as csrc/nuts_window.cuh:window_tile_geometry picks it:
+    kernel 1's tile layout at the window's chains, with data the largest row
+    tile that fits beside the live-chain flags (2 C ints of static shared
+    memory). Raises ValueError naming the limit for a shape the kernel does
+    not take."""
+    chains = WINDOW_HIER_TILE_CHAINS if n_data else WINDOW_DENSE_TILE_CHAINS
+    if n_chains < 1:
+        raise ValueError("need at least one chain")
+    if not 1 <= dim <= MAX_DIM:
+        raise ValueError(f"the tiled window takes 1 <= dim <= {MAX_DIM}, got {dim}")
+    if n_data < 0:
+        raise ValueError(f"n_data must be >= 0, got {n_data}")
+    flags = 2 * chains * 4
+    rows = next(r for r in (TILE_ROWS if n_data else (0,))
+                if _tile_bytes(dim, dense, r, chains) + flags <= MAX_TILE_SMEM)
+    return TileGeometry(chains, -(-n_chains // chains), rows, -(-n_data // rows) if rows else 0,
+                        _tile_bytes(dim, dense, rows, chains))
+
+
+class LockstepCounts(NamedTuple):
+    """What blocks of C chains in lockstep run against what their chains
+    need (lockstep_counts)."""
+    chain_slots: int    # leapfrog slots the chains ran
+    block_slots: int    # C x, per block and iteration, the most any chain ran
+    chain_starts: int   # transitions started
+    start_blocks: int   # (block, iteration) pairs in which a chain started
+
+    @property
+    def slot_share(self) -> float:
+        """The share of the blocks' warp-slots whose chain was live."""
+        return self.chain_slots / max(self.block_slots, 1)
+
+
+def lockstep_counts(live_slots: Tensor, starts: Tensor, chains: int) -> LockstepCounts:
+    """Blocks of `chains` consecutive chains run each iteration's slot k
+    while any of their chains is live in it, and the start's products while
+    any starts. From the slots each chain ran per iteration (live_slots,
+    (n_iters, C) int) and whether it started (starts, (n_iters, C) bool),
+    count both sides; a ragged last block's missing chains run nothing."""
+    n_iters, n = live_slots.shape
+    pad = -n % chains
+    live = torch.nn.functional.pad(live_slots.to(torch.int64), (0, pad))
+    start = torch.nn.functional.pad(starts.to(torch.int64), (0, pad))
+    blocks = live.reshape(n_iters, -1, chains)
+    return LockstepCounts(int(live.sum()), chains * int(blocks.amax(dim=2).sum()),
+                          int(start.sum()),
+                          int((start.reshape(n_iters, -1, chains).amax(dim=2) > 0).sum()))
 
 
 def nuts_scalars(step_size, delta_max, device) -> Tensor:
@@ -255,6 +335,9 @@ def nuts_window_kernel(info: dict, n_iters: int, steps_per_iter: int,
     state = _distinct(state)
     n_chains, dim = state.q.shape
     name = variant(state, inv_mass, info)
+    if window_form(info, inv_mass) == "tiled":
+        tile_geometry(n_chains, dim, info["params"]["n_data"] if info["family"] in DATA_FAMILIES
+                      else 0, inv_mass.ndim == 2)
     from mcmc_tpu_torch.ops import _cuda
     lib = _cuda.load_library().lib
     fields = _pointers([getattr(state, f) for f in KERNEL_FIELDS])
