@@ -1,15 +1,22 @@
-"""Kernel 4's block-tiled variants 4b and 4c (and their multinomial forms
-4a+4b and 4a's data form) against the warp-per-chain kernels they replace,
-on one CUDA card.
+"""Kernel 4's block-tiled data-carrying variant 4c (and its multinomial
+form, 4a's data form) against the warp-per-chain kernel it replaces, with
+the dense variants 4b and 4a+4b (warp per chain in every tree since the
+redesign) beside it, on one CUDA card.
 
     python experiments/torch_tiled_nuts_timing.py [--parent DIR] [--tree .]
-        [--variant LABEL=DIR ...] [--out _archive/tiled_nuts_out]
+        [--variant LABEL=DIR ...] [--tile-skip] [--out _archive/tiled_nuts_out]
         [--work _archive/tiled_nuts] [--skip-timing]
 
 DIR is an unpacked tree of the commit before the redesign (`git archive`);
 --tree the tree under test; each --variant another tree (a copy of the tree
-with another constant, say chains a block) timed in the same turns. The
-script
+with another constant, say chains a block) timed in the same turns.
+--tile-skip adds the variant "tile-skip": a copy of the tree under --work
+whose tiled products keep each chain in its own column and skip the chain
+tiles of RC chains with no live chain, instead of compacting the live
+chains' rows into the first tiles (TILE_SKIP below: the two ways a slot's
+products can take only the live chains). Every tree's kernel-4 outputs are
+compared bit for bit with the parent's, or without --parent with the
+tree's. The script
 
 1. builds every tree's kernel library, one process per tree, at once;
 2. prints each kernel instance's ptxas line (registers, shared memory,
@@ -27,9 +34,9 @@ script
    lockstep_counts);
 4. runs kernel 4 in the parent and in the tree on the same inputs, two
    windows (8 iterations x W = 4) from a fresh state, and compares every
-   output bit for bit: 4b and 4a+4b on each family at D 10 (warp per chain
-   in both trees) and 100 (tiled in the tree; the 2- and 3-D families at
-   theirs), at D 1, 32, 33, 64, 65 and 128 at ragged chain counts (1, 7, 9,
+   output bit for bit: 4b and 4a+4b on each family at D 10 and 100 (the
+   2- and 3-D families at theirs), at D 1, 32, 33, 64, 65 and 128 at ragged
+   chain counts (1, 7, 9,
    31, 33, 8,191), at 65,536 x 50 (the correlated Gaussian with its oracle
    metric) and 65,536 x 100; 4c and 4a's data form with either metric
    at dim 9, 20 and 100 x n_data 50, 256 and 1,000, and at 8,192 x 100 x
@@ -40,15 +47,15 @@ script
    (step 0.02, a random dense metric) and at 65,536 x 100 (the rho = 0.9
    Gaussian's oracle metric at the [5c] step), and as controls that no tree
    changes kernel 4 (the 50-D funnel, 65,536 chains) and kernel 1 (the same,
-   L = 16) -- 4b and 4a+4b at D 50 and 10 run the warp kernel in both trees
-   (PERF.md section 6) --: CUDA events around bursts enqueued while the
+   L = 16) -- 4b and 4a+4b run the warp kernel in every tree (PERF.md
+   section 6) --: CUDA events around bursts enqueued while the
    card sleeps, as
    chip_smoke.py's _event_ms; with the yardsticks: the window's dense
    products as torch.matmul(p, M^{-1}) calls (TF32 off), as many full
    batches as the window ran rows of them, and config 5's eager
    value_and_grad.
 
-Steps 2 and 4 need --parent. Each measurement runs in a process of its own,
+Step 2 needs --parent. Each measurement runs in a process of its own,
 in the tree it measures. Prints the card's name and power limit; writes
 the build logs, the lockstep counts and the times under --out, the trees'
 compared outputs and the tuned inputs under --work (both gitignored).
@@ -65,6 +72,31 @@ import time
 from pathlib import Path
 
 HOLD_CYCLES = 5_000_000
+# The tile-skipping form of the tiled products, as (file, text, replacement)
+# on a copy of the tree: live_tile leaves each live chain in its own column
+# and returns the mask of chain tiles (RC chains each) holding a live chain;
+# TiledDenseMetric's and TiledHierarchical's live loops run over those tiles
+# only (nth_tile maps the i-th of them to its chains), and a G tile is
+# computed when its chains' tile is live.
+TILE_SKIP = (
+    ("metric.cuh", "struct LiveTile {\n  int col, n;\n};",
+     "struct LiveTile {\n  int col, n;\n  unsigned tiles;\n};"),
+    ("tiled_step.cuh",
+     "  return LiveTile{flag ? __popc(mask & ((1u << warp) - 1u)) : -1, __popc(mask)};",
+     "  unsigned tiles = 0;\n"
+     "  for (int t = 0; t < C / RC; ++t) tiles |= ((mask >> (t * RC)) & 15u) ? 1u << t : 0u;\n"
+     "  return LiveTile{flag ? warp : -1, RC * __popc(tiles), tiles};"),
+    ("tiled_step.cuh", "// Rows c0.. of `out` (stride os), column j, from a register tile.",
+     "__device__ __forceinline__ int nth_tile(unsigned m, int i) {\n"
+     "  for (; i > 0; --i) m &= m - 1u;\n  return __ffs(m) - 1;\n}\n\n"
+     "// Rows c0.. of `out` (stride os), column j, from a register tile."),
+    ("tiled_step.cuh", "      const int c0 = (t / dp) * RC;",
+     "      const int c0 = (LIVE ? nth_tile(live.tiles, t / dp) : t / dp) * RC;"),
+    ("tiled_step.cuh", "        const int c0 = (t / rows) * RC;",
+     "        const int c0 = (LIVE ? nth_tile(live.tiles, t / rows) : t / rows) * RC;"),
+    ("tiled_step.cuh", "    const bool g_tile = g_owner && (!LIVE || g_c0 < live.n);",
+     "    const bool g_tile = g_owner && (!LIVE || ((live.tiles >> (g_c0 / RC)) & 1u));"),
+)
 BLOCK_CHAINS = (8, 16, 32)
 FAMILIES_2D = {"multimodal_funnel_2d": (2,), "concentric_l1_2d": (2,), "concentric_l1_3d": (3,),
                "nested_l1_2d": (2,), "nested_l1_3d": (3,)}
@@ -391,6 +423,21 @@ def run_worker(kind, root, save="", inputs=""):
     return proc.stdout
 
 
+def make_tile_skip(tree, dst):
+    """A copy of tree's mcmc_tpu_torch under dst with TILE_SKIP applied."""
+    import shutil
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(Path(tree) / "mcmc_tpu_torch", dst / "mcmc_tpu_torch",
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    for name, old, new in TILE_SKIP:
+        path = dst / "mcmc_tpu_torch" / "csrc" / name
+        text = path.read_text()
+        if text.count(old) != 1:
+            sys.exit(f"TILE_SKIP: {old!r} is not once in {name}")
+        path.write_text(text.replace(old, new))
+    return dst
+
+
 def ptxas_lines(log):
     """{kernel's mangled name: its ptxas resource line and spill line}."""
     out, name, spill = {}, None, ""
@@ -406,10 +453,9 @@ def ptxas_lines(log):
     return out
 
 
-def compare_parent(trees, lines, work):
-    """Print the ptxas lines the parent and the tree disagree on and compare
-    kernel 4's outputs of both bit for bit; returns (differing outputs,
-    changed instances)."""
+def compare_ptxas(lines):
+    """Print the ptxas lines the parent and the tree disagree on; returns
+    the changed instances."""
     old, new = lines["parent"], lines["tree"]
     changed = sorted(k for k in set(old) & set(new) if old[k] != new[k])
     print(f"[ptxas] parent {len(old)} instances, tree {len(new)}; {len(set(old) & set(new))} in "
@@ -417,16 +463,21 @@ def compare_parent(trees, lines, work):
     for k in changed:
         print(f"  changed {k}: {old[k]} -> {new[k]}")
     print(f"  dropped {len(set(old) - set(new))} instances, all of nuts_window_kernel (the "
-          f"data family, and the dense metric past D = 64): "
-          f"{all('nuts_window_kernel' in k for k in set(old) - set(new))}")
+          f"data family): {all('nuts_window_kernel' in k for k in set(old) - set(new))}")
     for k in sorted(set(new) - set(old)):
         print(f"  adds {k}: {new[k]}")
+    return changed
+
+
+def compare_outputs(trees, work):
+    """Kernel 4's outputs of every tree against the parent's (the tree's
+    without one), bit for bit; returns the differing (tree, window)s."""
     t0 = time.perf_counter()
-    for label in ("parent", "tree"):
-        run_worker("outputs", trees[label], work / f"outputs_{label}.pt")
+    for label, root in trees.items():
+        run_worker("outputs", root, work / f"outputs_{label}.pt")
     import torch
-    a = torch.load(work / "outputs_parent.pt")
-    b = torch.load(work / "outputs_tree.pt")
+    ref = "parent" if "parent" in trees else "tree"
+    a = torch.load(work / f"outputs_{ref}.pt")
 
     def same(x, y):
         if x is None:
@@ -435,13 +486,19 @@ def compare_parent(trees, lines, work):
             return bool(((x.view(torch.int32) == y.view(torch.int32))
                          | (x.isnan() & y.isnan())).all())
         return torch.equal(x, y)
-    differ = [k for k in a if not all(same(x, y) for x, y in zip(a[k], b[k]))]
-    print(f"[outputs] {len(a)} kernel-4 windows compared bit for bit in "
-          f"{time.perf_counter() - t0:.1f} s: {len(a) - len(differ)} equal, {len(differ)} differ",
-          flush=True)
-    for k in differ:
-        print(f"  differs: {k}")
-    return differ, changed
+    differ = []
+    for label in trees:
+        if label == ref:
+            continue
+        b = torch.load(work / f"outputs_{label}.pt")
+        bad = [k for k in a if not all(same(x, y) for x, y in zip(a[k], b[k]))]
+        print(f"[outputs] {label} against {ref}: {len(a)} kernel-4 windows compared bit for "
+              f"bit: {len(a) - len(bad)} equal, {len(bad)} differ", flush=True)
+        differ += [(label, k) for k in bad]
+        for k in bad:
+            print(f"  differs: {k}")
+    print(f"[outputs] compared in {time.perf_counter() - t0:.1f} s", flush=True)
+    return differ
 
 
 def main():
@@ -451,6 +508,7 @@ def main():
     ap.add_argument("--variant", action="append", default=[])
     ap.add_argument("--out", default="_archive/tiled_nuts_out")
     ap.add_argument("--work", default="_archive/tiled_nuts")
+    ap.add_argument("--tile-skip", action="store_true")
     ap.add_argument("--skip-timing", action="store_true")
     ap.add_argument("--worker", choices=("build", "outputs", "inputs", "lockstep", "time"))
     ap.add_argument("--root")
@@ -471,6 +529,8 @@ def main():
     for v in args.variant:
         label, root = v.split("=", 1)
         trees[label] = Path(root).resolve()
+    if args.tile_skip:
+        trees["tile-skip"] = make_tile_skip(trees["tree"], work / "tile_skip")
     t0 = time.perf_counter()
     procs = {label: subprocess.Popen(
         [sys.executable, __file__, "--worker", "build", "--root", str(root), "--save",
@@ -495,9 +555,8 @@ def main():
     inputs = work / "inputs.pt"
     print(run_worker("inputs", trees["tree"], inputs).strip(), flush=True)
     print(run_worker("lockstep", trees["tree"], out / "lockstep.json", inputs).strip(), flush=True)
-    differ, changed = [], []
-    if "parent" in trees:
-        differ, changed = compare_parent(trees, lines, work)
+    changed = compare_ptxas(lines) if "parent" in trees else []
+    differ = compare_outputs(trees, work) if len(trees) > 1 else []
     if args.skip_timing:
         return 1 if differ or changed else 0
 

@@ -1,6 +1,6 @@
 // Fused persistent-NUTS window for NVIDIA Hopper (sm_90a): the plain C entry
-// points. The kernels (warp-per-chain, and block-tiled for the dense metric
-// and data), their launch and their dispatch over K, scheme and metric are
+// points. The kernels (warp-per-chain, and block-tiled for the data-carrying
+// target), their launch and their dispatch over K, scheme and metric are
 // in nuts_window.cuh, which says what the kernels replace and how they are
 // built. This file instantiates them for the standard normal, Neal's funnel,
 // the correlated Gaussian and the mixture; fused_nuts_families_1.cu, _2.cu
@@ -71,12 +71,12 @@ extern "C" int nuts_window_launch(int family, int dim, int n_chains, int n_iters
 }
 
 // The tiled window's geometry (nuts_window.cuh:window_tile_geometry) for dim
-// under the metric and data flags: returns its dynamic shared memory in
-// bytes (0: no row tile fits) and writes the chains per block and the data
-// rows per tile; the wrapper's tile_geometry must agree.
-extern "C" int nuts_tile_geometry(int dim, int dense, int data, int* chains, int* rows) {
-  const mcmc::TileGeometry g = mcmc::nuts::window_tile_geometry(dim, dense != 0, data != 0);
-  *chains = mcmc::nuts::window_tile_chains(data != 0);
+// under the metric flag: returns its dynamic shared memory in bytes (0: no
+// row tile fits) and writes the chains per block and the data rows per
+// tile; the wrapper's tile_geometry must agree.
+extern "C" int nuts_tile_geometry(int dim, int dense, int* chains, int* rows) {
+  const mcmc::TileGeometry g = mcmc::nuts::window_tile_geometry(dim, dense != 0);
+  *chains = mcmc::nuts::WINDOW_TILE_CHAINS;
   *rows = g.rows;
   return g.bytes;
 }

@@ -13,10 +13,10 @@
 // loads them once (load_dense_metric), and computes each row-vector-matrix
 // product x @ A by writing x to a per-warp shared row; lane j then sums
 // x[i] A[i][d] over i for its coordinates d = j + 32 r. This warp-per-chain
-// DenseMetric serves kernel 2a, kernel 4's 4b and 4a+4b at D <= 64 and the
-// dense forms of 1b and 1c; kernel 1's dense variant 1a, and 4b past D = 64
-// and in its data form, compute the same sums for a block of chains at
-// once (tiled_step.cuh:TiledDenseMetric). Lanes read
+// DenseMetric serves kernel 2a, kernel 4's 4b and 4a+4b and the dense
+// forms of 1b and 1c; kernel 1's dense variant 1a, and 1a's and 4b's data
+// forms, compute the same sums for a block of chains at once
+// (tiled_step.cuh:TiledDenseMetric). Lanes read
 // consecutive words of A's row i, so the reads are free of bank conflicts,
 // and x[i] is a broadcast. The products are this body's own, as the TPU
 // kernel's MXU matmuls were; no library is called. The sum runs over i in

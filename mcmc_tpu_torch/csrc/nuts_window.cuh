@@ -29,17 +29,15 @@
 // TargetData), and its two products with X per leapfrog, not the state traffic,
 // set the time.
 //
-// Two kernels (WARP_WINDOW picks). nuts_window_kernel, warp per chain,
-// runs the diagonal variants without data (4, 4a) and the dense ones at D
-// <= 64 (4b, 4a+4b), M^{-1} and L^{-1} in shared memory (metric.cuh:
-// DenseMetric). nuts_tiled_window_kernel runs the data-carrying target in
-// either scheme and metric (4c, 4a's and 4b's data forms) and the dense
-// metric past D = 64: its products with a matrix every chain shares
-// (M^{-1}, L^{-1}, X) are block-tiled as kernel 1's 1a and 1d are
-// (tiled_step.cuh). At D = 50 the tiled 4b, a warp-per-chain 4b with
+// Two kernels (WARP_WINDOW picks by family). nuts_window_kernel, warp per
+// chain, runs every family without data in either metric (4, 4a, 4b,
+// 4a+4b), M^{-1} and L^{-1} in shared memory (metric.cuh:DenseMetric).
+// nuts_tiled_window_kernel runs the data-carrying target in either scheme
+// and metric (4c, 4a's and 4b's data forms): its products with a matrix
+// every chain shares (X, M^{-1}, L^{-1}) are block-tiled as kernel 1's 1d
+// is (tiled_step.cuh). At D = 50 a tiled 4b, a warp-per-chain 4b with
 // M^{-1} in registers and one with M^{-1} transposed for 16-byte loads were
-// all slower than the warp kernel on an H100; at D = 100 the tiled one is
-// faster (PERF.md section 6).
+// all slower than the warp kernel on an H100 (PERF.md section 6).
 //
 // What bounds it on an H100: each chain's state (14 position-like rows and
 // 19 scalars, ~5.8 kB at D = 50; +2 rows and 5 scalars under MULTI) crosses
@@ -52,11 +50,8 @@
 // MULTI adds per leaf a log1pf/expf pair, a stack store or up to depth
 // checks of two reductions each. DENSE adds per leapfrog two D x D
 // products (velocity and kinetic energy), 2 D^2 multiply-adds per chain:
-// at D = 50 these, not the target, set the time. Warp per chain each
-// multiply-add reads two shared words, and the load/store unit sets the
-// pace; tiled, one word serves four multiply-adds, but each output is a
-// chain of D dependent adds behind two barriers, which D = 50 does not
-// amortise.
+// at D = 50 these, not the target, set the time. Each multiply-add reads
+// two shared words, and the load/store unit sets the pace.
 //
 // Design of nuts_window_kernel: one warp per chain, as kernels 1 and 2. Lane j
 // holds coordinates j, j+32, ... of all rows (K = ceil(D / 32) registers each),
@@ -75,9 +70,8 @@
 // window). A lane touches only its own coordinates; the stacks of the resident
 // chains, ~2,000 x 4 kB, stay in the 50 MB L2.
 //
-// Design of nuts_tiled_window_kernel: a block owns C chains
-// (window_tile_chains: 8 for the dense metric, 32 with data), one warp each,
-// and runs the machine above with block-uniform control and per-chain state.
+// Design of nuts_tiled_window_kernel: a block owns WINDOW_TILE_CHAINS
+// chains, one warp each, and runs the machine above with block-uniform control and per-chain state.
 // Each iteration the block decides together whether any chain starts
 // (live_tile, one barrier) and runs the start's unwhitening and kinetic
 // products for the starting chains only; then, slot by slot, whether any chain
@@ -135,35 +129,23 @@ template <bool DENSE>
 constexpr int WARPS_PER_BLOCK = DENSE ? 8 : 4;
 static_assert(WARPS_PER_BLOCK<true> <= TARGET_MAX_WARPS, "targets.cuh stages one row per warp");
 
-// Chains a block of the tiled window (one warp each): 4b's products with
-// M^{-1} and L^{-1} are short sums, and small blocks keep more of them on
-// an SM; 4c's blocks are as large as a block can be, each load of X from L2
-// serving 32 chains (as kernel 1's 1a and 1d, tiled_step.cuh).
-constexpr int WINDOW_DENSE_TILE_CHAINS = 8;
-constexpr int WINDOW_HIER_TILE_CHAINS = 32;
-__host__ __device__ constexpr int window_tile_chains(bool data) {
-  return data ? WINDOW_HIER_TILE_CHAINS : WINDOW_DENSE_TILE_CHAINS;
-}
-static_assert(WINDOW_DENSE_TILE_CHAINS % RC == 0 && WINDOW_HIER_TILE_CHAINS % RC == 0 &&
-                  WINDOW_DENSE_TILE_CHAINS >= 4 && WINDOW_HIER_TILE_CHAINS <= 32,
-              "one warp a chain, 4 to 32 chains a block in chain tiles of RC");
+// Chains a block of the tiled window (one warp each): as many as a block
+// can hold, each load of X from L2 serving 32 chains, as in kernel 1's 1d
+// (tiled_step.cuh:TiledHierarchical, whose chains these are).
+constexpr int WINDOW_TILE_CHAINS = HIER_TILE_CHAINS;
 // the live-chain flags (live_tile's two buffers), static shared memory
-__host__ __device__ constexpr int window_flag_bytes(int chains) {
-  return 2 * chains * static_cast<int>(sizeof(int));
-}
-static_assert(tile_layout(32 * MAX_K, true, TILE_MIN_ROWS, WINDOW_HIER_TILE_CHAINS).bytes +
-                      window_flag_bytes(WINDOW_HIER_TILE_CHAINS) <= MAX_TILE_SMEM,
-              "the smallest row tile fits at the largest D, with the dense metric and data");
+constexpr int WINDOW_FLAG_BYTES = 2 * WINDOW_TILE_CHAINS * static_cast<int>(sizeof(int));
+static_assert(tile_layout(32 * MAX_K, true, TILE_MIN_ROWS, WINDOW_TILE_CHAINS).bytes +
+                      WINDOW_FLAG_BYTES <= MAX_TILE_SMEM,
+              "the smallest row tile fits at the largest D, with the dense metric");
 
 // The tiled window's geometry: kernel 1's tile layout (tiled_step.cuh) at
-// the window's chains a block, with data the largest row tile that fits
-// beside the live-chain flags. ops/fused_nuts.py:tile_geometry mirrors it.
-__host__ __device__ inline TileGeometry window_tile_geometry(int dim, bool dense, bool data) {
-  const int chains = window_tile_chains(data);
-  if (!data) return tile_layout(dim, dense, 0, chains);
+// the window's chains a block, the largest row tile that fits beside the
+// live-chain flags. ops/fused_nuts.py:tile_geometry mirrors it.
+__host__ __device__ inline TileGeometry window_tile_geometry(int dim, bool dense) {
   for (int rows = TILE_MAX_ROWS; rows >= TILE_MIN_ROWS; rows /= 2) {
-    const TileGeometry g = tile_layout(dim, dense, rows, chains);
-    if (g.bytes + window_flag_bytes(chains) <= MAX_TILE_SMEM) return g;
+    const TileGeometry g = tile_layout(dim, dense, rows, WINDOW_TILE_CHAINS);
+    if (g.bytes + WINDOW_FLAG_BYTES <= MAX_TILE_SMEM) return g;
   }
   return TileGeometry{};
 }
@@ -264,20 +246,18 @@ __device__ __forceinline__ float log_add_exp(float a, float b) {
   return mx == -INFINITY ? mx : mx + log1pf(expf(mn - mx));
 }
 
-// Which kernel runs a variant (the design notes at the top of this file):
-// nuts_window_kernel, warp per chain, the diagonal metric without data (4,
-// 4a) and the dense metric without data at D <= 64 (4b, 4a+4b; K <= 2);
-// nuts_tiled_window_kernel a data set (4c, 4a's and 4b's data forms) and
-// the dense metric past D = 64.
-template <int FAMILY, int K, bool DENSE>
-constexpr bool WARP_WINDOW = FAMILY != HIERARCHICAL_LOGISTIC && (!DENSE || K <= 2);
+// Which kernel runs a family (the design notes at the top of this file):
+// nuts_window_kernel, warp per chain, every family without data (4, 4a, 4b,
+// 4a+4b); nuts_tiled_window_kernel the data set (4c, 4a's and 4b's data
+// forms).
+template <int FAMILY>
+constexpr bool WARP_WINDOW = FAMILY != HIERARCHICAL_LOGISTIC;
 
-// The warp-per-chain window (WARP_WINDOW): 4, 4a, and 4b and 4a+4b at D <= 64.
+// The warp-per-chain window (WARP_WINDOW): 4, 4a, 4b and 4a+4b.
 template <int FAMILY, int K, bool MULTI, bool DENSE>
 __global__ void __launch_bounds__(WARPS_PER_BLOCK<DENSE> * 32)
     nuts_window_kernel(const Args a) {
-  static_assert(WARP_WINDOW<FAMILY, K, DENSE>,
-                "4c and 4b past D = 64 run nuts_tiled_window_kernel");
+  static_assert(WARP_WINDOW<FAMILY>, "4c runs nuts_tiled_window_kernel");
   constexpr int WARPS = WARPS_PER_BLOCK<DENSE>;
   const int warp = threadIdx.x >> 5;
   const int chain = blockIdx.x * WARPS + warp;
@@ -572,41 +552,15 @@ __device__ __forceinline__ void copy_row(float* dst, const float* src, size_t ro
   store_row(dst, row, lane, dim, v);
 }
 
-// The tiled window's potential: the hierarchical posterior block-wide over
-// the live chains (tiled_step.cuh:TiledHierarchical), every other family
-// per chain (targets.cuh), which only a live chain's warp evaluates.
-template <int FAMILY, int K, int C>
-struct WindowTarget {
-  const Target<FAMILY, K> f;
-  __device__ WindowTarget(const Args& a, const TileGeometry&, float*, int)
-      : f(a.dim, a.params, a.data) {}
-  __device__ __forceinline__ float operator()(const float (&q)[K], float (&g)[K], int lane,
-                                              const LiveTile& t) const {
-    return t.col >= 0 ? f(q, g, lane) : 0.f;
-  }
-};
-
-template <int K, int C>
-struct WindowTarget<HIERARCHICAL_LOGISTIC, K, C> {
-  const TiledHierarchical<K, C> f;
-  __device__ WindowTarget(const Args& a, const TileGeometry& geo, float* smem, int warp)
-      : f(a.data, geo, smem, warp) {}
-  __device__ __forceinline__ float operator()(const float (&q)[K], float (&g)[K], int lane,
-                                              const LiveTile& t) const {
-    return f(q, g, lane, t);
-  }
-};
-
-// Variants 4b (DENSE, every family) and 4c (the hierarchical family, either
-// metric), in either scheme: C chains a block, one warp each (the design
-// at the top of this file). The machine is nuts_window_kernel's, step for
-// step; the block-wide calls (live_tile, the metric's products, the
-// target) are made by every warp at block-uniform points.
-template <int FAMILY, int K, bool MULTI, bool DENSE>
-__global__ void __launch_bounds__(32 * window_tile_chains(FAMILY == HIERARCHICAL_LOGISTIC))
+// Variant 4c (the hierarchical family, either metric) in either scheme: C
+// chains a block, one warp each (the design at the top of this file). The
+// machine is nuts_window_kernel's, step for step; the block-wide calls
+// (live_tile, the metric's products, the target) are made by every warp at
+// block-uniform points.
+template <int K, bool MULTI, bool DENSE>
+__global__ void __launch_bounds__(32 * WINDOW_TILE_CHAINS)
     nuts_tiled_window_kernel(const Args a, const TileGeometry geo) {
-  constexpr int C = window_tile_chains(FAMILY == HIERARCHICAL_LOGISTIC);
-  static_assert(!WARP_WINDOW<FAMILY, K, DENSE>, "4 and 4a run nuts_window_kernel");
+  constexpr int C = WINDOW_TILE_CHAINS;
   extern __shared__ float4 tile_smem[];
   __shared__ int live_flags[2][C];
   float* smem = reinterpret_cast<float*>(tile_smem);
@@ -616,7 +570,7 @@ __global__ void __launch_bounds__(32 * window_tile_chains(FAMILY == HIERARCHICAL
   const bool real = chain < a.n_chains;  // a warp past n_chains is never live
   const int dim = a.dim;
   const TileMetric<K, DENSE, C> metric = make_tile_metric<K, DENSE, C>(a, geo, smem, warp, lane);
-  const WindowTarget<FAMILY, K, C> target(a, geo, smem, warp);
+  const TiledHierarchical<K> target(a.data, geo, smem, warp);
 
   const size_t row = static_cast<size_t>(real ? chain : 0) * dim;
   const float step = a.scalars[0];
@@ -722,7 +676,7 @@ __global__ void __launch_bounds__(32 * window_tile_chains(FAMILY == HIERARCHICAL
     // chain's subtree is open; the block runs a slot while any chain is live
     const float eps = direction * step;
     const float half = 0.5f * eps;
-    constexpr bool ROUNDED = DENSE || ROUNDED_LEAPFROG<FAMILY>;
+    constexpr bool ROUNDED = DENSE || ROUNDED_LEAPFROG<HIERARCHICAL_LOGISTIC>;
     float lp_c = lp, h_c = h0;
     for (int k = 0; k < a.slots; ++k) {
       const bool live = real && (k == 0 || steps_left > 0);
@@ -903,7 +857,7 @@ __global__ void __launch_bounds__(32 * window_tile_chains(FAMILY == HIERARCHICAL
 
 template <int FAMILY, int K, bool MULTI, bool DENSE>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  if constexpr (WARP_WINDOW<FAMILY, K, DENSE>) {
+  if constexpr (WARP_WINDOW<FAMILY>) {
     constexpr int WARPS = WARPS_PER_BLOCK<DENSE>;
     const unsigned blocks = static_cast<unsigned>((a.n_chains + WARPS - 1) / WARPS);
     const size_t smem = metric_smem_bytes<K, DENSE>(a.dim, WARPS);
@@ -918,16 +872,15 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   } else {
     // ceil(n_chains / C) blocks, the geometry's shared memory (above 48 kB
     // after opting in)
-    constexpr int C = window_tile_chains(FAMILY == HIERARCHICAL_LOGISTIC);
-    const TileGeometry geo = window_tile_geometry(a.dim, DENSE, FAMILY == HIERARCHICAL_LOGISTIC);
+    constexpr int C = WINDOW_TILE_CHAINS;
+    const TileGeometry geo = window_tile_geometry(a.dim, DENSE);
     if (geo.bytes == 0) return cudaErrorInvalidValue;
     const cudaError_t err =
-        cudaFuncSetAttribute(nuts_tiled_window_kernel<FAMILY, K, MULTI, DENSE>,
+        cudaFuncSetAttribute(nuts_tiled_window_kernel<K, MULTI, DENSE>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, geo.bytes);
     if (err != cudaSuccess) return err;
     const unsigned blocks = static_cast<unsigned>((a.n_chains + C - 1) / C);
-    nuts_tiled_window_kernel<FAMILY, K, MULTI, DENSE><<<blocks, 32 * C, geo.bytes, stream>>>(
-        a, geo);
+    nuts_tiled_window_kernel<K, MULTI, DENSE><<<blocks, 32 * C, geo.bytes, stream>>>(a, geo);
   }
   return cudaGetLastError();
 }

@@ -3,7 +3,7 @@
 // hierarchical posterior, either metric). Its building blocks
 // (TiledDenseMetric, TiledHierarchical, with live_tile's LiveTile for the
 // chains live in a call) also serve kernel 4's tiled window
-// (nuts_window.cuh: 4c in either scheme and metric, and 4b past D = 64).
+// (nuts_window.cuh: 4c in either scheme and metric).
 // Kernel 1's other instances (fused_trajectory.cuh:grahmc_step_kernel,
 // diagonal metric, no data), kernels 2, 1b and 1c, and kernel 4's other
 // instances keep the warp-per-chain forms of metric.cuh and targets.cuh.
@@ -329,9 +329,9 @@ __device__ __forceinline__ void cp_async_wait_all() {
 }
 
 // The hierarchical posterior (targets.cuh:Target<HIERARCHICAL_LOGISTIC>)
-// for the block's C chains at once (HIER_TILE_CHAINS in kernel 1): lp and
-// gradient, the same functor interface, called by every warp of the block
-// together; with a LiveTile, for the chains live in the call only (the
+// for the block's HIER_TILE_CHAINS chains at once: lp and gradient, the
+// same functor interface, called by every warp of the block together; with
+// a LiveTile, for the chains live in the call only (the
 // persistent-NUTS window 4c, nuts_window.cuh): their rows compacted into
 // the first columns, ceil(n / RC) chain tiles of Z and G, and only their
 // warps take rows. Replaces the target device function of
@@ -355,9 +355,9 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // terms as the functor does. What bounds it on an H100: 4 n_data D flops
 // per chain per evaluation; X's loads from L2 serve the block's chains and
 // each shared load of X a thread's RC chains.
-template <int K, int C = HIER_TILE_CHAINS>
+template <int K>
 struct TiledHierarchical {
-  static constexpr int THREADS = 32 * C;
+  static constexpr int C = HIER_TILE_CHAINS, THREADS = 32 * HIER_TILE_CHAINS;
   const float *X, *xt, *y;
   float *in, *out, *xt_s, *x_s, *rt;
   int n_data, dim, dp, ps, rows, warp;
@@ -481,8 +481,8 @@ struct TiledHierarchical {
   }
 };
 
-template <int K, int C>
-struct family_of<TiledHierarchical<K, C>> {
+template <int K>
+struct family_of<TiledHierarchical<K>> {
   static constexpr int value = HIERARCHICAL_LOGISTIC;
 };
 

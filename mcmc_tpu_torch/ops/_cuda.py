@@ -53,8 +53,8 @@ _SIGNATURES = {
     "nuts_window_launch": [_I] * 8 + [_P] * 6 + [_U, _P, _P, _P],
     # (dim, n_data, dense, data), out chains a block, out rows a tile
     "grahmc_tile_geometry": [_I] * 4 + [_P, _P],
-    # (dim, dense, data), out chains a block, out rows a tile
-    "nuts_tile_geometry": [_I] * 3 + [_P, _P],
+    # (dim, dense), out chains a block, out rows a tile
+    "nuts_tile_geometry": [_I] * 2 + [_P, _P],
 }
 
 

@@ -8,15 +8,14 @@ machine with each chain's trajectory in registers, so device memory sees
 the state once per window instead of once per leapfrog (the TPU
 ``_make_kernel``), in ``mcmc_tpu_torch/csrc/nuts_window.cuh`` (launched
 from ``fused_nuts.cu``) in one of two forms (``window_form``): warp per
-chain for the diagonal metric without data (4, 4a) and the dense metric at
-D <= WARP_DENSE_MAX_DIM (4b, 4a+4b); block-tiled for a data-carrying target
-(4c, 4a's data form) and the dense metric beyond, in either scheme: a
-block of WINDOW_HIER_TILE_CHAINS or WINDOW_DENSE_TILE_CHAINS chains
-computes the products its live chains take with the shared X, M^{-1} or
-L^{-1} together (``tile_geometry``; the card tests hold it to the
-kernel's). Both forms sum in the same order, so the tiled form's outputs
-are bit for bit the warp kernel's. ``lockstep_counts`` counts what the
-tiles' block-uniform control costs. Its plain version, ``nuts_window_plain``, is
+chain for every family without data (4, 4a, 4b, 4a+4b); block-tiled for a
+data-carrying target in either scheme and metric (4c, 4a's and 4b's data
+forms): a block of WINDOW_TILE_CHAINS chains computes the products its
+live chains take with the shared X, M^{-1} or L^{-1} together
+(``tile_geometry``; the card tests hold it to the kernel's). Both forms sum
+in the same order, so the tiled form's outputs are bit for bit the warp
+kernel's. ``lockstep_counts`` counts what the tiles' block-uniform control
+costs. Its plain version, ``nuts_window_plain``, is
 ``samplers.nuts_persistent._machine_iteration`` with `slots` = W, the same
 arithmetic as the eager machine (the dense products summed in the kernel's
 order, ``trajectory.ordered_matmul``).
@@ -70,12 +69,9 @@ from mcmc_tpu_torch.samplers.trajectory import as_scalar, ordered_matmul
 
 Tensor = torch.Tensor
 
-# csrc/nuts_window.cuh's forms (WARP_WINDOW, window_tile_chains): the dense
-# metric without data runs warp per chain up to D = WARP_DENSE_MAX_DIM (K <=
-# 2), tiled beyond; the tiled form's chains a block, one warp each
-WARP_DENSE_MAX_DIM = 64
-WINDOW_DENSE_TILE_CHAINS = 8   # 4b past WARP_DENSE_MAX_DIM
-WINDOW_HIER_TILE_CHAINS = 32   # 4c, and 4b's data form
+# csrc/nuts_window.cuh:WINDOW_TILE_CHAINS, the tiled form's chains a block,
+# one warp each
+WINDOW_TILE_CHAINS = 32
 
 FLAGS_DRAW = 32   # words: dir, dir2, swap, slice
 RES_DRAW = 33     # word x0: the snapshot reservoir uniform
@@ -111,37 +107,33 @@ def variant(state: _PState, inv_mass: Tensor, info: Optional[dict] = None) -> st
     return base if info is None else variant_name(base, info)
 
 
-def window_form(info: dict, inv_mass: Tensor) -> str:
-    """The form a window of the target of `info` under `inv_mass` runs
-    (csrc/nuts_window.cuh:WARP_WINDOW): "warp" (no data set, the diagonal
-    metric or the dense one at D <= WARP_DENSE_MAX_DIM) or "tiled" (a
-    data-carrying target, or the dense metric past it)."""
-    tiled = info["family"] in DATA_FAMILIES or (inv_mass.ndim == 2
-                                                and info["dim"] > WARP_DENSE_MAX_DIM)
-    return "tiled" if tiled else "warp"
+def window_form(info: dict) -> str:
+    """The form a window of the target of `info` runs (csrc/
+    nuts_window.cuh:WARP_WINDOW): "tiled" for a data-carrying target, else
+    "warp", in either metric."""
+    return "tiled" if info["family"] in DATA_FAMILIES else "warp"
 
 
-def tile_geometry(n_chains: int, dim: int, n_data: int = 0,
+def tile_geometry(n_chains: int, dim: int, n_data: int,
                   dense: bool = False) -> TileGeometry:
     """The tiled form's geometry for n_chains chains of dimension dim,
-    with a data set of n_data rows (0: none; WINDOW_HIER_TILE_CHAINS chains a
-    block with data, WINDOW_DENSE_TILE_CHAINS without) and a dense or
-    diagonal metric, as csrc/nuts_window.cuh:window_tile_geometry picks it:
-    kernel 1's tile layout at the window's chains, with data the largest row
-    tile that fits beside the live-chain flags (2 C ints of static shared
-    memory). Raises ValueError naming the limit for a shape the kernel does
-    not take."""
-    chains = WINDOW_HIER_TILE_CHAINS if n_data else WINDOW_DENSE_TILE_CHAINS
+    with a data set of n_data rows and a dense or diagonal metric, as
+    csrc/nuts_window.cuh:window_tile_geometry picks it: kernel 1's tile
+    layout at WINDOW_TILE_CHAINS chains a block, the largest row tile that
+    fits beside the live-chain flags (2 C ints of static shared memory).
+    Raises ValueError naming the limit for a shape the kernel does not
+    take."""
+    chains = WINDOW_TILE_CHAINS
     if n_chains < 1:
         raise ValueError("need at least one chain")
     if not 1 <= dim <= MAX_DIM:
         raise ValueError(f"the tiled window takes 1 <= dim <= {MAX_DIM}, got {dim}")
-    if n_data < 0:
-        raise ValueError(f"n_data must be >= 0, got {n_data}")
+    if n_data < 1:
+        raise ValueError(f"the tiled window carries a data set: n_data >= 1, got {n_data}")
     flags = 2 * chains * 4
-    rows = next(r for r in (TILE_ROWS if n_data else (0,))
+    rows = next(r for r in TILE_ROWS
                 if _tile_bytes(dim, dense, r, chains) + flags <= MAX_TILE_SMEM)
-    return TileGeometry(chains, -(-n_chains // chains), rows, -(-n_data // rows) if rows else 0,
+    return TileGeometry(chains, -(-n_chains // chains), rows, -(-n_data // rows),
                         _tile_bytes(dim, dense, rows, chains))
 
 
@@ -335,9 +327,8 @@ def nuts_window_kernel(info: dict, n_iters: int, steps_per_iter: int,
     state = _distinct(state)
     n_chains, dim = state.q.shape
     name = variant(state, inv_mass, info)
-    if window_form(info, inv_mass) == "tiled":
-        tile_geometry(n_chains, dim, info["params"]["n_data"] if info["family"] in DATA_FAMILIES
-                      else 0, inv_mass.ndim == 2)
+    if window_form(info) == "tiled":
+        tile_geometry(n_chains, dim, info["params"]["n_data"], inv_mass.ndim == 2)
     from mcmc_tpu_torch.ops import _cuda
     lib = _cuda.load_library().lib
     fields = _pointers([getattr(state, f) for f in KERNEL_FIELDS])

@@ -1251,20 +1251,19 @@ def test_each_launch_counts_at_its_shape(dev):
     assert fn.nuts_window_kernel.shape_launches[shape] == before + 1
 
 
-# Kernel 4's redesigned variants (csrc/nuts_window.cuh:nuts_tiled_window_
-# kernel): 4c and 4a's data form with either metric, 4b and 4a+4b past D =
-# 64 on every family (at D <= 64 they stay warp per chain, checked beside
-# them), at D and chain counts on both sides of the forms' and tiles'
-# edges, against
-# the plain window under window_agreement's rules (a chain split by a
-# near-zero U-turn sign, a trajectory drifted in flight where the geometry
-# amplifies rounding).
-def _tiled_nuts_check(args, q, lp, grad, g, step, inv_mass, l_inv, multinomial,
-                      max_drift=0, moved=True):
+# Kernel 4's redesigned variant (csrc/nuts_window.cuh:nuts_tiled_window_
+# kernel): 4c and 4a's data form with either metric, at dims, data sizes
+# and chain counts on both sides of the tiles' edges, against the plain
+# window under chip_smoke.py [3f]'s rules: no chain split or drifted in
+# flight, or at most one in 1,000 (SPLIT_MAX, [3f]'s rule for 4a's data
+# form) where the case says why.
+def _tiled_nuts_check(args, q, lp, grad, g, step, inv_mass, l_inv, multinomial, moved=True,
+                      max_off=0):
     """Injected and Philox windows of 16 iterations x W = 4 from a state one
-    plain window in: one launch of the variant each, at most 2 + 1% of the
-    chains split, at most `max_drift` drifted in flight, and (`moved`)
-    transitions completed."""
+    plain window in: one launch of the variant each; every chain's discrete
+    state equal to the plain version's and its emitted and in-flight state
+    within window_agreement's 1e-4, but for at most `max_off` chains split
+    or drifted; and (`moved`) transitions completed."""
     info, n_iters, slots, depth = args
     n, dim = q.shape
     scalars = fn.nuts_scalars(step, 1000.0, q.device)
@@ -1282,7 +1281,7 @@ def _tiled_nuts_check(args, q, lp, grad, g, step, inv_mass, l_inv, multinomial,
 
     def clone():
         return tn._PState(*(None if t is None else t.clone() for t in warm))
-    for rand in (dict(draws=draws), dict(key=key, call=4)):
+    for mode, rand in (("injected", dict(draws=draws)), ("philox", dict(key=key, call=4))):
         before = fn.nuts_window_kernel.variant_launches[name]
         kern = fn.nuts_window_kernel(*args, clone(), scalars, inv_mass, l_inv=l_inv, **rand)
         assert fn.nuts_window_kernel.variant_launches[name] == before + 1
@@ -1290,56 +1289,11 @@ def _tiled_nuts_check(args, q, lp, grad, g, step, inv_mass, l_inv, multinomial,
         same, emitted, in_flight, err = fn.window_agreement(kern, plain)
         kept = same & emitted
         split, drifted = int((~kept).sum()), int((kept & ~in_flight).sum())
-        assert split <= 2 + n // 100, (split, err)
-        assert drifted <= max_drift, drifted
+        print(f"READING {name} {n} x {dim} {mode}: split {split}, in flight drifted "
+              f"{drifted}, max |err| {err:.3g}")
+        assert split + drifted <= max_off, (split, drifted, err)
         if moved:
             assert int((kern.transitions - warm.transitions).sum()) > 0
-
-
-def _family_drift(family, n):
-    """Drifted trajectories in flight allowed: kernel 4's family bounds
-    (test_new_families_in_kernel_4), the funnel's neck 5% and 1% elsewhere
-    (test_nuts_window_variants_match_plain), none where the leapfrog is
-    rounded as the plain version's (RAHMC_CASES)."""
-    if family in FAMILY_DRIFT:
-        return FAMILY_DRIFT[family][2]
-    if family in RAHMC_STEP:
-        return 0
-    return n // 20 if family == "neals_funnel" else n // 100
-
-
-TILED_NUTS_FAMILIES = ([(f, d) for f, d in TILED_FAMILIES if d == 10]
-                       + [(f, 100) for f, d in TILED_FAMILIES if d == 10]
-                       + [(f, d) for f, d in TILED_FAMILIES if d < 10])
-
-
-@pytest.mark.parametrize("multinomial", [False, True])
-@pytest.mark.parametrize("family,dim", TILED_NUTS_FAMILIES)
-def test_tiled_nuts_dense_on_every_family(dev, family, dim, multinomial):
-    """4b and 4a+4b on each family at D 100 (tiled) and 10 (warp per chain),
-    the 2- and 3-D families at theirs."""
-    n = 1024
-    if family in RAHMC_STEP:
-        info, q, lp, grad, g = _rahmc_inputs(dev, family, dim, n, dim + 17)
-        step = RAHMC_STEP[family]
-    else:
-        info, q, lp, grad, g = _family_inputs(dev, family, dim, n, dim + 17)
-        step = 0.1 if family == "neals_funnel" else FAMILY_STEP.get(family, 0.2)
-    inv_mass, l_inv = _dense_metric(dev, dim, g)
-    _tiled_nuts_check((info, 16, 4, 10), q, lp, grad, g, step, inv_mass, l_inv, multinomial,
-                      max_drift=_family_drift(family, n))
-
-
-@pytest.mark.parametrize("multinomial", [False, True])
-@pytest.mark.parametrize("dim", [1, 10, 32, 33, 50, 64, 65, 128])
-def test_tiled_nuts_dense_at_register_edges(dev, dim, multinomial):
-    """4b and 4a+4b on the correlated Gaussian at D on both sides of K's
-    steps (32 coordinates a register), of the products' float4 columns and
-    of the two forms (warp per chain to D = 64, tiled past it)."""
-    info, q, lp, grad, g = _inputs(dev, "correlated_gaussian", dim, 1000, dim + 29)
-    inv_mass, l_inv = _dense_metric(dev, dim, g)
-    _tiled_nuts_check((info, 16, 4, 10), q, lp, grad, g, 0.2, inv_mass, l_inv, multinomial,
-                      max_drift=10)
 
 
 @pytest.mark.parametrize("multinomial", [False, True])
@@ -1349,7 +1303,14 @@ def test_tiled_nuts_dense_at_register_edges(dev, dim, multinomial):
 def test_tiled_nuts_hierarchical(dev, dim, n_data, dense, multinomial):
     """4c and 4a's data form, with either metric, over X's row tiles: n_data
     50 and 1,000 are no multiple of the tile, 1,000 spans 16 tiles through
-    both buffers."""
+    both buffers. At most one chain in 1,000 may split or drift: the
+    posterior's expf and log1pf on the card and PyTorch's CUDA exp and
+    log1p differ by an ulp (the lp within 1e-4,
+    test_tiled_hierarchical_kernel), so a chain whose slice, swap or U-turn
+    test lies within an ulp of its edge takes the other branch in one of
+    the two. On an H100 four of these 36 cases have one such chain, under
+    the warp-per-chain kernel as under the tiled one (their outputs are
+    equal bit for bit)."""
     n = 1000
     info, q, lp, grad, g = _hier(dev, dim, n_data, n, dim * n_data + multinomial)
     metric = (_dense_metric(dev, dim, g)[0] * 0.1 if dense else
@@ -1357,42 +1318,36 @@ def test_tiled_nuts_hierarchical(dev, dim, n_data, dense, multinomial):
     inv_mass, l_inv = ft.kernel_metric(metric)
     step = (0.05 if dense else 0.15) * min(1.0, (64 / n_data) ** 0.5)
     _tiled_nuts_check((info, 16, 4, 10), q, lp, grad, g, step, inv_mass, l_inv, multinomial,
-                      max_drift=n // 100)
+                      max_off=n // 1000)
 
 
 @pytest.mark.parametrize("n", [1, 7, 9, 31, 33, 8191])
-@pytest.mark.parametrize("variant", ["4b", "4b D 100", "4c"])
-def test_tiled_nuts_at_ragged_chain_counts(dev, variant, n):
+@pytest.mark.parametrize("dense", [False, True])
+def test_tiled_nuts_at_ragged_chain_counts(dev, dense, n):
     """The last block's warps past n_chains are never live, meet every
     barrier and store nothing: every chain of a ragged count (on both sides
-    of the tiled 4b's 8 chains a block and 4c's 32, and of the warp 4b's 8)
-    matches the plain version."""
-    if variant.startswith("4b"):
-        dim = 100 if variant == "4b D 100" else 50
-        info, q, lp, grad, g = _inputs(dev, "correlated_gaussian", dim, n, n)
-        inv_mass, l_inv = _dense_metric(dev, dim, g)
-        step = 0.2
-    else:
-        info, q, lp, grad, g = _hier(dev, 100, 256, n, n)
-        inv_mass, l_inv = torch.rand(100, generator=g, device=dev) * 0.05 + 0.02, None
-        step = 0.08
-    _tiled_nuts_check((info, 16, 4, 10), q, lp, grad, g, step, inv_mass, l_inv,
-                      multinomial=n % 2 == 1, max_drift=n // 100, moved=n >= 31)
+    of the tile's 32 chains a block; at 1 and 33 one chain past the full
+    blocks, alone in its block) matches the plain version, with either
+    metric."""
+    info, q, lp, grad, g = _hier(dev, 100, 256, n, n)
+    metric = (_dense_metric(dev, 100, g)[0] * 0.1 if dense else
+              torch.rand(100, generator=g, device=dev) * 0.05 + 0.02)
+    inv_mass, l_inv = ft.kernel_metric(metric)
+    _tiled_nuts_check((info, 16, 4, 10), q, lp, grad, g, 0.025 if dense else 0.08, inv_mass,
+                      l_inv, multinomial=n % 2 == 1, moved=n >= 31)
 
 
 def test_tiled_nuts_geometry_agrees_with_the_kernel(dev):
     """The wrapper's tile_geometry against csrc/nuts_window.cuh's, through
     the library's nuts_tile_geometry: chains a block, rows a tile and shared
-    memory for every D, metric and data flag."""
+    memory for every D and metric."""
     import ctypes
     from mcmc_tpu_torch.ops import _cuda
     lib = _cuda.load_library().lib
     chains, rows = ctypes.c_int(), ctypes.c_int()
     for dim in range(1, ft.MAX_DIM + 1):
         for dense in (0, 1):
-            for n_data in (0, 33, 256):
-                geo = fn.tile_geometry(100, dim, n_data, bool(dense))
-                nbytes = lib.nuts_tile_geometry(dim, dense, int(n_data > 0),
-                                                ctypes.byref(chains), ctypes.byref(rows))
-                assert (nbytes, chains.value, rows.value) == (geo.smem_bytes, geo.chains,
-                                                              geo.row_tile), (dim, dense, n_data)
+            geo = fn.tile_geometry(100, dim, 256, bool(dense))
+            nbytes = lib.nuts_tile_geometry(dim, dense, ctypes.byref(chains), ctypes.byref(rows))
+            assert (nbytes, chains.value, rows.value) == (geo.smem_bytes, geo.chains,
+                                                          geo.row_tile), (dim, dense)

@@ -1,5 +1,5 @@
-"""Kernel 4's redesigned forms (csrc/nuts_window.cuh) on the CPU: which
-variant takes which form (ops/fused_nuts.py:window_form), the tiled form's
+"""Kernel 4's redesigned form (csrc/nuts_window.cuh) on the CPU: which
+target takes which form (ops/fused_nuts.py:window_form), the tiled form's
 geometry (tile_geometry) -- blocks for
 ragged chain counts, shared memory under an H100 block's limit for every D
 the kernel takes, X's row tiles, a ValueError past each limit --, the
@@ -24,52 +24,48 @@ from mcmc_tpu_torch.ops import fused_trajectory as ft  # noqa: E402
 from mcmc_tpu_torch.samplers import nuts_persistent as tn  # noqa: E402
 from mcmc_tpu_torch.targets import get_target  # noqa: E402
 
-FLAG_BYTES = {c: 2 * c * 4 for c in (fn.WINDOW_DENSE_TILE_CHAINS, fn.WINDOW_HIER_TILE_CHAINS)}
+FLAG_BYTES = 2 * fn.WINDOW_TILE_CHAINS * 4   # live_tile's two buffers of C ints
 
 
-@pytest.mark.parametrize("n_data,chains", [(0, fn.WINDOW_DENSE_TILE_CHAINS),
-                                           (256, fn.WINDOW_HIER_TILE_CHAINS)])
+@pytest.mark.parametrize("dense", [False, True])
 @pytest.mark.parametrize("n_chains", [1, 7, 9, 31, 33, 8191])
-def test_blocks_cover_ragged_chain_counts(n_chains, n_data, chains):
-    """4b's blocks hold WINDOW_DENSE_TILE_CHAINS chains, 4c's
-    WINDOW_HIER_TILE_CHAINS; the last block may be ragged."""
-    geo = fn.tile_geometry(n_chains, 50, n_data, dense=True)
-    assert geo.chains == chains
-    assert geo.blocks == math.ceil(n_chains / chains)
+def test_blocks_cover_ragged_chain_counts(n_chains, dense):
+    """4c's blocks hold WINDOW_TILE_CHAINS chains under either metric; the
+    last block may be ragged."""
+    geo = fn.tile_geometry(n_chains, 50, 256, dense=dense)
+    assert geo.chains == fn.WINDOW_TILE_CHAINS == 32
+    assert geo.blocks == math.ceil(n_chains / geo.chains)
     assert (geo.blocks - 1) * geo.chains < n_chains <= geo.blocks * geo.chains
 
 
 @pytest.mark.parametrize("dense", [False, True])
-@pytest.mark.parametrize("n_data", [0, 1, 50, 256, 1000])
+@pytest.mark.parametrize("n_data", [1, 33, 50, 256, 1000])
 def test_shared_memory_fits_a_block_for_every_dim(dense, n_data):
     """Dynamic shared memory and the live-chain flags within 232,448 bytes
-    for every D <= 128, with and without data and the dense metric; with
-    data the largest row tile that fits is taken."""
+    for every D <= 128, with either metric; the largest row tile that fits
+    is taken."""
     for dim in range(1, ft.MAX_DIM + 1):
         geo = fn.tile_geometry(8192, dim, n_data, dense)
         assert 0 < geo.smem_bytes
-        assert geo.smem_bytes + FLAG_BYTES[geo.chains] <= ft.MAX_TILE_SMEM == 232_448
+        assert geo.smem_bytes + FLAG_BYTES <= ft.MAX_TILE_SMEM == 232_448
         assert geo.smem_bytes % 16 == 0
-        if n_data:
-            assert geo.row_tile in ft.TILE_ROWS
-            bigger = [r for r in ft.TILE_ROWS if r > geo.row_tile]
-            assert all(ft._tile_bytes(dim, dense, r, geo.chains) + FLAG_BYTES[geo.chains]
-                       > ft.MAX_TILE_SMEM for r in bigger)
-        else:
-            assert geo.row_tile == geo.row_tiles == 0
+        assert geo.row_tile in ft.TILE_ROWS
+        bigger = [r for r in ft.TILE_ROWS if r > geo.row_tile]
+        assert all(ft._tile_bytes(dim, dense, r, geo.chains) + FLAG_BYTES > ft.MAX_TILE_SMEM
+                   for r in bigger)
 
 
 def test_the_rows_shapes():
-    """4c at config 5 (8,192 x 100, 256 rows: four tiles of 64) and 4b at
-    the dense NUTS row (65,536 x 50), byte for byte as tiled_step.cuh:
-    tile_layout counts them at the window's chains."""
+    """4c at config 5 (8,192 x 100, 256 rows: four tiles of 64) under either
+    metric, byte for byte as tiled_step.cuh:tile_layout counts them at the
+    window's chains."""
     hier = fn.tile_geometry(8192, 100, 256, dense=False)
     assert (hier.chains, hier.blocks, hier.row_tile, hier.row_tiles) == (32, 256, 64, 4)
     dp, ps = 100, 32 + 4
     assert hier.smem_bytes == 4 * (100 * ps + 32 * dp + 2 * 100 * 64 + 2 * 64 * dp + 64 * ps)
-    dense = fn.tile_geometry(65536, 50, 0, dense=True)
-    assert (dense.chains, dense.blocks) == (8, 8192)
-    assert dense.smem_bytes == 4 * (2 * 50 * 52 + 50 * (8 + 4) + 8 * 52)
+    dense = fn.tile_geometry(8192, 100, 256, dense=True)
+    assert (dense.chains, dense.blocks, dense.row_tile, dense.row_tiles) == (32, 256, 64, 4)
+    assert dense.smem_bytes == hier.smem_bytes + 4 * 2 * 100 * dp == 218_816
 
 
 @pytest.mark.parametrize("dim,n_data,dense,rows,tiles", [
@@ -89,14 +85,15 @@ def test_the_smallest_row_tile_fits_at_the_largest_dim():
     geo = fn.tile_geometry(1, ft.MAX_DIM, 33, True)
     assert (geo.row_tile, geo.smem_bytes) == (min(ft.TILE_ROWS), 200_960)
     for rows in ft.TILE_ROWS[:-1]:
-        assert ft._tile_bytes(ft.MAX_DIM, True, rows, 32) + FLAG_BYTES[32] > ft.MAX_TILE_SMEM
+        assert ft._tile_bytes(ft.MAX_DIM, True, rows, 32) + FLAG_BYTES > ft.MAX_TILE_SMEM
 
 
 @pytest.mark.parametrize("kwargs,limit", [
-    (dict(n_chains=1, dim=129), "dim <= 128"),
-    (dict(n_chains=1, dim=0), "dim <= 128"),
-    (dict(n_chains=0, dim=10), "at least one chain"),
-    (dict(n_chains=8, dim=10, n_data=-1), "n_data must be >= 0"),
+    (dict(n_chains=1, dim=129, n_data=256), "dim <= 128"),
+    (dict(n_chains=1, dim=0, n_data=256), "dim <= 128"),
+    (dict(n_chains=0, dim=10, n_data=256), "at least one chain"),
+    (dict(n_chains=8, dim=10, n_data=-1), "n_data >= 1"),
+    (dict(n_chains=8, dim=10, n_data=0), "n_data >= 1"),
 ])
 def test_shapes_past_a_limit_raise(kwargs, limit):
     with pytest.raises(ValueError, match=limit):
@@ -106,18 +103,17 @@ def test_shapes_past_a_limit_raise(kwargs, limit):
 @pytest.mark.parametrize("family,dim,dense,form", [
     ("standard_normal", 10, False, "warp"), ("neals_funnel", 128, False, "warp"),
     ("standard_normal", 10, True, "warp"), ("rosenbrock", 64, True, "warp"),
-    ("correlated_gaussian", 65, True, "tiled"), ("standard_normal", 128, True, "tiled"),
+    ("correlated_gaussian", 65, True, "warp"), ("standard_normal", 128, True, "warp"),
     ("hierarchical_logistic", 10, False, "tiled"), ("hierarchical_logistic", 10, True, "tiled")])
 def test_each_variant_takes_its_form(family, dim, dense, form):
-    """The diagonal metric without data (4, 4a) and the dense one up to D =
-    64 (4b, 4a+4b) run warp per chain; the dense metric past it and the
-    data-carrying target (4c, 4a's and 4b's data forms) block-tiled."""
+    """Every family without data runs warp per chain under either metric
+    and at every D (4, 4a, 4b, 4a+4b); the data-carrying target (4c, 4a's
+    and 4b's data forms) block-tiled. The form follows the family alone,
+    so `dense` only names the variant."""
     kw = {"n_data": 20} if family == "hierarchical_logistic" else {}
     t = get_target(family, dim=dim, **kw)
-    inv_mass = torch.eye(dim) if dense else torch.ones(dim)
-    assert fn.window_form(t.value_and_grad_fn.kernel_info, inv_mass) == form
-    assert (form == "tiled") == (family == "hierarchical_logistic"
-                                 or (dense and dim > fn.WARP_DENSE_MAX_DIM))
+    assert fn.window_form(t.value_and_grad_fn.kernel_info) == form
+    assert (form == "tiled") == (family == "hierarchical_logistic")
 
 
 def test_lockstep_counts_lockstep_blocks():
@@ -205,11 +201,11 @@ def _rows(state, lo, hi):
                                           ("hierarchical_logistic", False),
                                           ("hierarchical_logistic", True)])
 def test_blocks_of_chains_give_the_whole_window(family, dense, multinomial):
-    """The plain window on 20 chains split into blocks of 8 (the last
-    ragged), each block with its rows of the injected draws, concatenated:
-    the whole window's state bit for bit (4b, 4c and 4c's dense form, both
-    schemes)."""
-    n, c = 20, fn.WINDOW_DENSE_TILE_CHAINS
+    """The plain window on 70 chains split into blocks of WINDOW_TILE_CHAINS
+    (the last ragged), each block with its rows of the injected draws,
+    concatenated: the whole window's state bit for bit (4b, 4c and 4c's
+    dense form, both schemes)."""
+    n, c = 70, fn.WINDOW_TILE_CHAINS
     info, warm, scalars, inv_mass, l_inv, draws, (it, slots) = _window_inputs(
         family, dense, multinomial, n, seed=11 + 2 * dense + multinomial)
     whole = fn.nuts_window_plain(info, it, slots, 10, _rows(warm, 0, n), scalars, inv_mass,
