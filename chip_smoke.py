@@ -90,8 +90,8 @@ Every phase passes or raises; there is no CPU path. After the rows every
 kernel is timed at the shapes the paths ran it at ([6]-[6i]; kernel 1 and
 1a also at the dense-warmup row's 4,096-chain warmups, kernels 1-4 at the
 family sweep's 1,024 x 10), and [8] prints, largest first, each (kernel,
-shape)'s launches x (time - bound), with 1a's and 4b's yardsticks (their
-products as torch.matmul calls) and 1d's and 4c's time per gradient
+shape)'s launches x (time - bound), with 1a's, 4b's and 3a's yardsticks
+(their products as torch.matmul calls) and 1d's and 4c's time per gradient
 evaluation beside the eager value_and_grad. The last two lines are a JSON object describing each
 kernel and kernel variant at its main shape, each split row (ChEES, the
 4,096-chain warmups) and each (kernel, family) pair of the sweep's and
@@ -3314,9 +3314,12 @@ def phase_timing_hier(torch, ft, fr, fn, tn, targets, row, dev, reps=6, burst=10
     and kernel 4's multinomial variant on the same data (the row's
     multinomial runs launch it), from a state two windows in. Then the target's share for reference: the eager
     value_and_grad (two cuBLAS float32 products, TF32 off) at 8,192 x 100 x
-    256, on no path. Returns ({name: (kernel ms, plain ms)}, kernel 4's data
-    variants' leapfrogs per call and live stack slots as
-    phase_timing_rwmh_nuts counts them, the eager value_and_grad's ms)."""
+    256, on no path; and 3a's yardstick, on no path: its call's RWMH_T
+    products z = q X^T as full-batch torch.matmul of (8,192 x 100) by (100 x
+    256), cuBLAS float32, TF32 off. Returns ({name: (kernel ms, plain ms)},
+    kernel 4's data variants' leapfrogs per call and live stack slots as
+    phase_timing_rwmh_nuts counts them, with "yardstick_ms" and "products"
+    under 3a's name, the eager value_and_grad's ms)."""
     say(f"[6f] kernels 1d, 2b, 3a and 4c vs plain versions: CUDA events, median of {reps} "
         f"bursts of {burst} kernel / {plain_burst} plain calls, Philox mode")
     t = _hier_target(targets)
@@ -3381,6 +3384,19 @@ def phase_timing_hier(torch, ft, fr, fn, tn, targets, row, dev, reps=6, burst=10
                                for _ in range(reps))
     say(f"  eager value_and_grad ({HIER_CHAINS} x {HIER_DIM}, n_data {HIER_N_DATA}, cuBLAS "
         f"float32, TF32 off; the target's share, on no path): {vag_ms:.4f} ms")
+    from mcmc_tpu_torch.ops.padded_targets import device_data
+    xt = device_data(info, dev)[1]
+
+    def z_products():
+        for _ in range(RWMH_T):
+            torch.matmul(q, xt)
+    z_products()
+    three_a = RWMH_NAMES["rwmh+data"]
+    measured[three_a] = {"products": RWMH_T, "yardstick_ms": statistics.median(
+        _event_ms(torch, z_products, 1) for _ in range(reps))}
+    say(f"  3a's yardstick, on no path: {RWMH_T} torch.matmul(q, X^T) at {HIER_CHAINS} x "
+        f"{HIER_DIM} by {HIER_DIM} x {HIER_N_DATA} (cuBLAS float32, TF32 off; a z-product a "
+        f"transition) {measured[three_a]['yardstick_ms']:.4f} ms")
     return times, measured, vag_ms
 
 
@@ -3860,6 +3876,9 @@ def main():
         f"matmuls) against 4b's {times[four_b][0]:.4f} ms; 4c per evaluation "
         f"{times[four_c][0] / evals:.4f} ms ({evals:.2f} a chain a window) against the eager "
         f"value_and_grad's {vag_ms:.4f} ms")
+    three_a = RWMH_NAMES["rwmh+data"]
+    say(f"  3a's yardstick {measured[three_a]['yardstick_ms']:.4f} ms ({RWMH_T} matmuls) "
+        f"against 3a's {times[three_a][0]:.4f} ms")
     say(f"[7] done in {time.perf_counter() - t_start:.1f} s")
     say(f"  rows: nuts_useful_grads_per_sec {nuts['endpoint']['rate']:.1f}, "
         f"nuts_ess_per_sec {nuts['endpoint']['ess_rate']:.1f}, "

@@ -9,10 +9,11 @@
 // post-transition q and lp. The plain PyTorch version is
 // mcmc_tpu_torch/ops/fused_rwmh.py:rwmh_multistep_plain. The family
 // HIERARCHICAL_LOGISTIC is the TPU kernel's data-carrying form (variant 3a,
-// the `data_arrays` refs): lp' through the functor's log-density-only form,
-// z = X q and the softplus sum with no X^T product, reading X and y from
-// device memory (struct TargetData); that product, dim n_data multiply-adds
-// per chain and transition, then sets the time (targets.cuh).
+// the `data_arrays` refs): lp' through the log-density alone, z = X q and
+// the softplus sum with no X^T product, reading X and y from device memory
+// (struct TargetData); that product, dim n_data multiply-adds per chain and
+// transition, then sets the time. 3a runs block-tiled (rwmh_tiled_kernel,
+// below), the other families in lane groups (rwmh_multistep_kernel).
 //
 // What bounds it on an H100: per transition a chain costs one Philox block
 // per four coordinates plus one for the accept uniform, two Box-Muller pairs
@@ -32,6 +33,23 @@
 // compute on a clamped index and store nothing, so every shuffle sees the
 // full warp.
 //
+// Design of rwmh_tiled_kernel (3a): in lane groups every chain read all of
+// X from L1 for each transition, n_data x D multiply-adds with no load
+// shared across chains. RWMH chains evaluate in lockstep, one log-density
+// a transition each, as kernel 1's 1d chains do, so 3a takes 1d's
+// evaluator (tiled_step.cuh:TiledHierarchical::log_prob): a block of
+// HIER_TILE_CHAINS chains, one warp each, streams X^T through shared
+// memory in tiles of LP_TILE_ROWS rows (cp.async, double-buffered), and
+// each thread computes 4 chains x 1 row of Z = Q X^T, so each load of X
+// from L2 serves the block's chains and each shared load of it 4 chains.
+// Inside a chain's warp the layout stays kernel 3's: lane j < G (G =
+// rwmh_lanes(D) of ops/padded_targets.py, the lane group's size) holds
+// coordinates 4j..4j+3, the four normals of Philox draw j, sums the rows n
+// = j (mod G) in order and joins them in a butterfly over G lanes; a lane
+// past G holds zeros. So every draw and sum is the lane-group kernel's,
+// and 3a's outputs equal it bit for bit. A warp past n_chains runs a
+// clamped chain and stores nothing.
+//
 // Randomness: injected (noise, u non-null; noise (T, C, D), u (T, C)) or
 // Philox4x32-10 with counter (chain, call, t, draw): noise coordinate d from
 // draw d / 4 (the layout of philox.cuh), the accept uniform word x0 of draw
@@ -43,6 +61,7 @@
 
 #include "philox.cuh"
 #include "targets.cuh"
+#include "tiled_step.cuh"
 
 namespace mcmc {
 namespace rwmh {
@@ -64,25 +83,20 @@ struct Args {
   TargetData data;
 };
 
-template <int FAMILY, int G>
-__global__ void __launch_bounds__(THREADS) rwmh_multistep_kernel(const Args a) {
-  constexpr int CHAINS_PER_WARP = 32 / G;
-  const int warp = static_cast<int>((blockIdx.x * blockDim.x + threadIdx.x) >> 5);
-  if (warp * CHAINS_PER_WARP >= a.n_chains) return;  // uniform across the warp
-  const int lane = static_cast<int>(threadIdx.x & 31);
-  const int gl = lane % G;  // lane within the chain's group
-  const int c = warp * CHAINS_PER_WARP + lane / G;
-  const bool active = c < a.n_chains;
-  const int chain = active ? c : a.n_chains - 1;
-
-  const Target<FAMILY, K, G, true> target(a.dim, a.params, a.data);
+// T transitions of one chain; `gl` is the lane's place in its group (lane
+// gl holds coordinates 4 gl .. 4 gl + 3) and `log_density(prop)` the
+// proposal's lp, which every lane of the group (and, tiled, of the block)
+// calls together. `active`: the chain is no clamped stand-in, so it stores.
+template <typename LogDensity>
+__device__ __forceinline__ void run_chain(const Args& a, const LogDensity& log_density,
+                                          int chain, bool active, int gl) {
   const float scale = a.scale[0];
   const int dim = a.dim;
   const size_t row = static_cast<size_t>(chain) * dim;
   const bool philox = a.noise == nullptr;
   const uint32_t k0 = philox ? a.key[0] : 0u, k1 = philox ? a.key[1] : 0u;
 
-  float q[K], prop[K], g[K];
+  float q[K], prop[K];
 #pragma unroll
   for (int r = 0; r < K; ++r) {
     const int d = gl * K + r;
@@ -119,12 +133,7 @@ __global__ void __launch_bounds__(THREADS) rwmh_multistep_kernel(const Args a) {
       // rounded as the plain version's q + scale * eps (no FMA)
       prop[r] = d < dim ? __fadd_rn(q[r], __fmul_rn(scale, noise[r])) : 0.f;
     }
-    float lp1;
-    if constexpr (FAMILY == HIERARCHICAL_LOGISTIC) {
-      lp1 = target.log_prob(prop, gl);  // this kernel's lane groups
-    } else {
-      lp1 = target(prop, g, gl);
-    }
+    const float lp1 = log_density(prop);
     const float log_u = logf(u);
     // log u < min(0, lp' - lp); a NaN lp' rejects, as in PyTorch
     const bool accept = (log_u < 0.f) && (log_u < lp1 - lp);
@@ -156,12 +165,62 @@ __global__ void __launch_bounds__(THREADS) rwmh_multistep_kernel(const Args a) {
   }
 }
 
+// Lane groups of G lanes, 32 / G chains a warp: every family but the data
+// set's.
+template <int FAMILY, int G>
+__global__ void __launch_bounds__(THREADS) rwmh_multistep_kernel(const Args a) {
+  constexpr int CHAINS_PER_WARP = 32 / G;
+  const int warp = static_cast<int>((blockIdx.x * blockDim.x + threadIdx.x) >> 5);
+  if (warp * CHAINS_PER_WARP >= a.n_chains) return;  // uniform across the warp
+  const int lane = static_cast<int>(threadIdx.x & 31);
+  const int gl = lane % G;  // lane within the chain's group
+  const int c = warp * CHAINS_PER_WARP + lane / G;
+  const bool active = c < a.n_chains;
+  const Target<FAMILY, K, G, true> target(a.dim, a.params, a.data);
+  run_chain(a, [&](const float (&prop)[K]) {
+    float g[K];
+    return target(prop, g, gl);
+  }, active ? c : a.n_chains - 1, active, gl);
+}
+
+// 3a: HIER_TILE_CHAINS chains a block, one warp each, lanes past G idle in
+// the sums (the design above). One block an SM: without that bound ptxas
+// gave the G < 32 instances 32 registers and spilled.
+template <int G>
+__global__ void __launch_bounds__(32 * HIER_TILE_CHAINS, 1)
+    rwmh_tiled_kernel(const Args a, const TileGeometry geo) {
+  extern __shared__ float4 tile_smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int c = blockIdx.x * HIER_TILE_CHAINS + warp;
+  const bool active = c < a.n_chains;
+  const TiledHierarchical<K, G, true> target(a.data, geo, reinterpret_cast<float*>(tile_smem),
+                                             warp);
+  run_chain(a, [&](const float (&prop)[K]) { return target.log_prob(prop, lane); },
+            active ? c : a.n_chains - 1, active, lane);
+}
+
+// 3a's geometry: HIER_TILE_CHAINS chains a block, LP_TILE_ROWS rows a tile
+// of X^T, no X tile (ops/fused_rwmh.py:tile_geometry mirrors it).
+inline TileGeometry tiled_geometry(int dim) {
+  return tile_layout(dim, false, LP_TILE_ROWS, HIER_TILE_CHAINS, false);
+}
+
 template <int FAMILY, int G>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  const long long chains_per_block = (THREADS / 32) * (32 / G);
-  const unsigned blocks = static_cast<unsigned>((a.n_chains + chains_per_block - 1) /
-                                                chains_per_block);
-  rwmh_multistep_kernel<FAMILY, G><<<blocks, THREADS, 0, stream>>>(a);
+  if constexpr (FAMILY == HIERARCHICAL_LOGISTIC) {
+    const TileGeometry geo = tiled_geometry(a.dim);
+    const cudaError_t err = cudaFuncSetAttribute(
+        rwmh_tiled_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize, geo.bytes);
+    if (err != cudaSuccess) return err;
+    const unsigned blocks =
+        static_cast<unsigned>((a.n_chains + HIER_TILE_CHAINS - 1) / HIER_TILE_CHAINS);
+    rwmh_tiled_kernel<G><<<blocks, 32 * HIER_TILE_CHAINS, geo.bytes, stream>>>(a, geo);
+  } else {
+    const long long chains_per_block = (THREADS / 32) * (32 / G);
+    const unsigned blocks = static_cast<unsigned>((a.n_chains + chains_per_block - 1) /
+                                                  chains_per_block);
+    rwmh_multistep_kernel<FAMILY, G><<<blocks, THREADS, 0, stream>>>(a);
+  }
   return cudaGetLastError();
 }
 
@@ -212,4 +271,14 @@ extern "C" int rwmh_multistep_launch(int family, int dim, int n_chains, int tran
 #undef MCMC_CASE
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// 3a's geometry for dim (rwmh::tiled_geometry): returns its dynamic shared
+// memory in bytes and sets the chains a block and the rows a tile; the
+// wrapper's tile_geometry must agree.
+extern "C" int rwmh_tile_geometry(int dim, int* chains, int* rows) {
+  const mcmc::TileGeometry g = mcmc::rwmh::tiled_geometry(dim);
+  *chains = g.chains;
+  *rows = g.rows;
+  return g.bytes;
 }

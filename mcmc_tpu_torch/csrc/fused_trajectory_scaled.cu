@@ -57,7 +57,7 @@ __global__ void __launch_bounds__(WARPS_PER_BLOCK * 32) grahmc_scaled_kernel(con
   const int warp = threadIdx.x >> 5;
   const int chain = blockIdx.x * WARPS_PER_BLOCK + warp;
   const int lane = threadIdx.x & 31;
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const Metric<K, DENSE> metric =
       make_metric<K, DENSE>(a.inv_mass, a.l_inv, a.dim, smem, warp, lane);
   if (chain >= a.n_chains) return;  // uniform across the warp

@@ -26,6 +26,17 @@
 // grows along a trajectory, and this order is the one the plain version
 // (samplers/trajectory.py:ordered_matmul) repeats bit for bit.
 //
+// What bounds a product on an H100 is shared memory, not the chain of D
+// dependent adds: a lane reads one word of A per multiply-add, and S
+// interleaved partial sums did not make the products faster at a fixed
+// occupancy (PERF.md section 6, experiments/torch_dense_product_timing.py).
+// So at K >= 2 the loop over i is outside the loop over the K registers:
+// one 16-byte broadcast load of the row serves four i and all K outputs,
+// where a loop over the registers outside read row[i] once a term and
+// register. At K = 1 nothing is shared, and the plain loop over i stays
+// (the four-term steps were slower there). Every output keeps its order,
+// so the products are the same bits either way.
+//
 // Kernels 1, 2 (fused_trajectory.cu) and 4 (nuts_window.cuh) take the metric
 // as a template flag DENSE: Metric<K, DENSE> is the type (the block-tiled
 // kernels 1a, 1d, 4b and 4c take tiled_step.cuh:TileMetric), make_metric builds
@@ -123,18 +134,25 @@ __device__ __forceinline__ void load_dense_metric(float* smem, const float* inv_
   __syncthreads();
 }
 
+// Floats of the dense metric's shared memory before the warps' rows:
+// M^{-1} and L^{-1}, rounded up to 4 so that each row starts on 16 bytes.
+__host__ __device__ constexpr size_t dense_rows_at(int dim) {
+  return (2 * static_cast<size_t>(dim) * dim + 3) & ~static_cast<size_t>(3);
+}
+
 template <int K>
 struct DenseMetric {
   static constexpr bool DENSE = true;
   const float* minv;  // shared (dim, dim) M^{-1}, symmetric
   const float* linv;  // shared (dim, dim) L^{-1}, row-major
-  float* row;         // this warp's shared row of 32 K floats
+  float* row;         // this warp's shared row of 32 K floats, on 16 bytes
   int dim, lane;
 
   // out = x @ A for a (dim, dim) row-major A in shared memory; zeros past
   // dim. All 32 lanes take part. LOWER: A is lower triangular, so column d
   // sums from row i = d; the terms skipped are +-0 and leave the rounded sum
-  // of the full order (the plain version's) unchanged.
+  // of the full order (the plain version's) unchanged. Each sum starts from
+  // -0, so its first term enters unrounded.
   template <bool LOWER = false>
   __device__ __forceinline__ void row_times(const float (&x)[K], const float* A,
                                             float (&out)[K]) const {
@@ -144,18 +162,50 @@ struct DenseMetric {
       if (d < dim) row[d] = x[r];
     }
     __syncwarp();
+    float acc[K];
 #pragma unroll
-    for (int r = 0; r < K; ++r) {
-      const int d = lane + 32 * r;
-      float acc = 0.f;
-      if (d < dim) {
-        const int i0 = LOWER ? d : 0;
-        acc = __fmul_rn(row[i0], A[i0 * dim + d]);
-        for (int i = i0 + 1; i < dim; ++i) acc = __fadd_rn(acc, __fmul_rn(row[i], A[i * dim + d]));
+    for (int r = 0; r < K; ++r) acc[r] = -0.f;
+    if constexpr (K == 1) {
+      // one register: no row load to share between registers, and the
+      // four-term steps below made these products slower (D <= 32)
+      if (lane < dim) {
+        const int i0 = LOWER ? lane : 0;
+        acc[0] = __fmul_rn(row[i0], A[i0 * dim + lane]);
+        for (int i = i0 + 1; i < dim; ++i) {
+          acc[0] = __fadd_rn(acc[0], __fmul_rn(row[i], A[i * dim + lane]));
+        }
       }
-      out[r] = acc;
+    } else {
+      // four terms a step, from a multiple of 4; under LOWER this lane's
+      // first term is i = lane, its smallest column
+      const int first = LOWER ? lane : 0;
+      int ib = first & ~3;
+      for (; ib + 4 <= dim; ib += 4) terms<LOWER, false>(ib, A, acc);
+      if (ib < dim) terms<LOWER, true>(ib, A, acc);
     }
+#pragma unroll
+    for (int r = 0; r < K; ++r) out[r] = lane + 32 * r < dim ? acc[r] : 0.f;
     __syncwarp();
+  }
+
+  // Terms i = ib .. ib + 3 of every register's sum (TAIL: those below dim),
+  // the row's four entries in one broadcast load.
+  template <bool LOWER, bool TAIL>
+  __device__ __forceinline__ void terms(int ib, const float* A, float (&acc)[K]) const {
+    const float4 x4 = *reinterpret_cast<const float4*>(row + ib);
+    const float xs[4] = {x4.x, x4.y, x4.z, x4.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int i = ib + j;
+      if (TAIL && i >= dim) break;
+#pragma unroll
+      for (int r = 0; r < K; ++r) {
+        const int d = lane + 32 * r;
+        if (d < dim && (!LOWER || i >= d)) {
+          acc[r] = __fadd_rn(acc[r], __fmul_rn(xs[j], A[i * dim + d]));
+        }
+      }
+    }
   }
 
   // M^{-1} p (= p @ M^{-1}, M^{-1} symmetric).
@@ -190,14 +240,13 @@ using Metric = typename std::conditional<DENSE, DenseMetric<K>, DiagMetric<K>>::
 template <int K, bool DENSE>
 inline size_t metric_smem_bytes(int dim, int warps) {
   if (!DENSE) return 0;
-  return (2 * static_cast<size_t>(dim) * dim + static_cast<size_t>(warps) * 32 * K) *
-         sizeof(float);
+  return (dense_rows_at(dim) + static_cast<size_t>(warps) * 32 * K) * sizeof(float);
 }
 
 // The chain's metric: inv_mass is (dim,) for the diagonal metric, (dim, dim)
 // with its factor l_inv for the dense one. DENSE: the whole block loads
 // M^{-1} and L^{-1} into `smem` (metric_smem_bytes), so every thread of the
-// block must call this before any returns.
+// block must call this before any returns. `smem` lies on 16 bytes.
 template <int K, bool DENSE>
 __device__ __forceinline__ Metric<K, DENSE> make_metric(const float* inv_mass,
                                                         const float* l_inv, int dim,
@@ -205,7 +254,7 @@ __device__ __forceinline__ Metric<K, DENSE> make_metric(const float* inv_mass,
   if constexpr (DENSE) {
     const int n = dim * dim;
     load_dense_metric(smem, inv_mass, l_inv, dim);
-    return DenseMetric<K>{smem, smem + n, smem + 2 * n + warp * 32 * K, dim, lane};
+    return DenseMetric<K>{smem, smem + n, smem + dense_rows_at(dim) + warp * 32 * K, dim, lane};
   } else {
     return DiagMetric<K>(inv_mass, lane, dim);
   }

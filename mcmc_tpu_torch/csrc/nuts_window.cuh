@@ -31,7 +31,9 @@
 //
 // Two kernels (WARP_WINDOW picks by family). nuts_window_kernel, warp per
 // chain, runs every family without data in either metric (4, 4a, 4b,
-// 4a+4b), M^{-1} and L^{-1} in shared memory (metric.cuh:DenseMetric).
+// 4a+4b; 4b at D <= 32 under its own launch bound,
+// nuts_window_k1_dense_kernel), M^{-1} and L^{-1} in shared memory
+// (metric.cuh:DenseMetric).
 // nuts_tiled_window_kernel runs the data-carrying target in either scheme
 // and metric (4c, 4a's and 4b's data forms): its products with a matrix
 // every chain shares (X, M^{-1}, L^{-1}) are block-tiled as kernel 1's 1d
@@ -253,10 +255,10 @@ __device__ __forceinline__ float log_add_exp(float a, float b) {
 template <int FAMILY>
 constexpr bool WARP_WINDOW = FAMILY != HIERARCHICAL_LOGISTIC;
 
-// The warp-per-chain window (WARP_WINDOW): 4, 4a, 4b and 4a+4b.
+// The warp-per-chain window (WARP_WINDOW): 4, 4a, 4b and 4a+4b, the body of
+// nuts_window_kernel and nuts_window_k1_dense_kernel (below).
 template <int FAMILY, int K, bool MULTI, bool DENSE>
-__global__ void __launch_bounds__(WARPS_PER_BLOCK<DENSE> * 32)
-    nuts_window_kernel(const Args a) {
+__device__ __forceinline__ void warp_window(const Args& a) {
   static_assert(WARP_WINDOW<FAMILY>, "4c runs nuts_tiled_window_kernel");
   constexpr int WARPS = WARPS_PER_BLOCK<DENSE>;
   const int warp = threadIdx.x >> 5;
@@ -264,7 +266,7 @@ __global__ void __launch_bounds__(WARPS_PER_BLOCK<DENSE> * 32)
   const int lane = threadIdx.x & 31;
   const int dim = a.dim;
 
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const Metric<K, DENSE> metric =
       make_metric<K, DENSE>(a.inv_mass, a.l_inv, dim, smem, warp, lane);
   if (chain >= a.n_chains) return;  // uniform across the warp
@@ -539,6 +541,34 @@ __global__ void __launch_bounds__(WARPS_PER_BLOCK<DENSE> * 32)
       S.lp_sub[chain] = lp_sub, S.lw_tree[chain] = lw_tree, S.lw_sub[chain] = lw_sub;
       S.div_sub[chain] = div_sub, S.turn_sub[chain] = turn_sub;
     }
+  }
+}
+
+template <int FAMILY, int K, bool MULTI, bool DENSE>
+__global__ void __launch_bounds__(WARPS_PER_BLOCK<DENSE> * 32)
+    nuts_window_kernel(const Args a) {
+  warp_window<FAMILY, K, MULTI, DENSE>(a);
+}
+
+// 4b at K = 1 (D <= 32), asking the compiler for 3 blocks of 8 warps an SM
+// (85 registers a thread). Its own choice, 64, made Rosenbrock's 1,024 x
+// 10 window 14% slower after the products' reorder; 80 registers under
+// this bound took it back below its time before (PERF.md section 6). Few
+// blocks run at such a shape, so occupancy does not bind; at K = 2 the
+// bound gained nothing, and at K = 4 it spilled.
+template <int FAMILY>
+__global__ void __launch_bounds__(WARPS_PER_BLOCK<true> * 32, 3)
+    nuts_window_k1_dense_kernel(const Args a) {
+  warp_window<FAMILY, 1, false, true>(a);
+}
+
+// The warp window's kernel for an instance.
+template <int FAMILY, int K, bool MULTI, bool DENSE>
+auto warp_window_kernel() {
+  if constexpr (DENSE && !MULTI && K == 1) {
+    return nuts_window_k1_dense_kernel<FAMILY>;
+  } else {
+    return nuts_window_kernel<FAMILY, K, MULTI, DENSE>;
   }
 }
 
@@ -861,14 +891,15 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
     constexpr int WARPS = WARPS_PER_BLOCK<DENSE>;
     const unsigned blocks = static_cast<unsigned>((a.n_chains + WARPS - 1) / WARPS);
     const size_t smem = metric_smem_bytes<K, DENSE>(a.dim, WARPS);
+    const auto kernel = warp_window_kernel<FAMILY, K, MULTI, DENSE>();
     if constexpr (DENSE) {
       // above 48 kB only after opting in (D > 74); up to 139 kB at D = 128
-      const cudaError_t err = cudaFuncSetAttribute(nuts_window_kernel<FAMILY, K, MULTI, DENSE>,
+      const cudaError_t err = cudaFuncSetAttribute(kernel,
                                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                    static_cast<int>(smem));
       if (err != cudaSuccess) return err;
     }
-    nuts_window_kernel<FAMILY, K, MULTI, DENSE><<<blocks, WARPS * 32, smem, stream>>>(a);
+    kernel<<<blocks, WARPS * 32, smem, stream>>>(a);
   } else {
     // ceil(n_chains / C) blocks, the geometry's shared memory (above 48 kB
     // after opting in)

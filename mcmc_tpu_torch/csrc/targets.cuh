@@ -294,20 +294,17 @@ struct Target<GAUSSIAN_MIXTURE, K, G, BLOCKED> {
 // What bounds it on an H100: every chain reads all of X twice per
 // evaluation from L1 (~230 kB at dim 100, n_data 256, 32 K coordinates a
 // row in the backward product), so the L1 load rate, not device memory or
-// the f32 units, sets the time. This warp-per-chain form serves kernels 2
-// (2b) and 3 (3a) and kernel 1's scaled and bridged variants (1b, 1c);
-// kernels 1 (1d, and 1a's data form) and 4 (4c, and 4b's data form)
-// evaluate the posterior for a block of chains at once, each X load shared
-// by the block's chains
-// (tiled_step.cuh:TiledHierarchical, the same sums in the same order).
+// the f32 units, sets the time. This warp-per-chain form serves kernel 2
+// (2b) and kernel 1's scaled and bridged variants (1b, 1c); kernels 1 (1d,
+// and 1a's data form), 3 (3a) and 4 (4c, and 4b's data form) evaluate the
+// posterior for a block of chains at once, each X load shared by the
+// block's chains (tiled_step.cuh:TiledHierarchical, the same sums in the
+// same order; 3a's in kernel 3's lane groups).
 // Products are rounded before their sums (__fmul_rn / __fadd_rn) in the
 // plain version's order (ops/padded_targets.py:_hierarchical_logistic), as
 // the correlated Gaussian's are. X's zero column 0 makes the likelihood's
 // share of tau's gradient 0; tau's gradient is the prior's alone.
-//
-// Layouts: the warp-per-chain one of kernels 1, 2 and 4 (operator(), lp and
-// gradient; G = 32, lane j holds coordinates j + 32 r) and kernel 3's lane
-// groups (log_prob, the log-density only; lane j of G holds 4 j + r).
+// The warp-per-chain layout (G = 32, lane j holds coordinates j + 32 r).
 // X and y are read with __ldg from device memory: 100 kB at dim 100, n_data
 // 256, which every chain reads, so they stay in L1 and L2.
 template <int K, int G, bool LAYOUT>
@@ -319,41 +316,21 @@ struct Target<HIERARCHICAL_LOGISTIC, K, G, LAYOUT> {
       : X(data.X), xt(data.xt), y(data.y), n_data(data.n_data), dim(dim_),
         half_p(0.5f * static_cast<float>(dim_ - 1)) {}
 
-  // lp and gradient in the warp-per-chain layout.
   __device__ __forceinline__ float operator()(const float (&q)[K], float (&g)[K],
                                               int lane) const {
-    static_assert(G == 32, "the gradient form serves the warp-per-chain layout");
-    return evaluate<false, true>(q, g, lane);
-  }
-
-  // lp only, in kernel 3's layout (lane j holds 4 j + r, K = 4).
-  __device__ __forceinline__ float log_prob(const float (&q)[K], int lane) const {
-    float unused[K];
-    return evaluate<true, false>(q, unused, lane);
-  }
-
- private:
-  template <bool BLOCKED>
-  static __device__ __forceinline__ int coord(int lane, int r) {
-    return BLOCKED ? K * lane + r : lane + G * r;
-  }
-
-  template <bool BLOCKED, bool GRAD>
-  __device__ __forceinline__ float evaluate(const float (&q)[K], float (&g)[K],
-                                            int lane) const {
-    // this group's staging row: 32 K floats per warp, G K per group
+    static_assert(G == 32 && !LAYOUT, "the warp-per-chain layout (3a runs tiled)");
+    // this warp's staging row: 32 K floats
     __shared__ __align__(16) float rows[TARGET_MAX_WARPS][32 * K];
-    const int warp_lane = static_cast<int>(threadIdx.x & 31);
-    float* row = &rows[threadIdx.x >> 5][(warp_lane / G) * G * K];
+    float* row = rows[threadIdx.x >> 5];
 #pragma unroll
-    for (int r = 0; r < K; ++r) row[coord<BLOCKED>(lane, r)] = q[r];  // zeros past dim
+    for (int r = 0; r < K; ++r) row[lane + 32 * r] = q[r];  // zeros past dim
     __syncwarp();
 
     float gl[K];
 #pragma unroll
     for (int r = 0; r < K; ++r) gl[r] = 0.f;
     float lik = 0.f;
-    for (int c0 = 0; c0 < n_data; c0 += G) {
+    for (int c0 = 0; c0 < n_data; c0 += 32) {
       const int n = c0 + lane;
       float resid = 0.f;
       if (n < n_data) {
@@ -373,44 +350,37 @@ struct Target<HIERARCHICAL_LOGISTIC, K, G, LAYOUT> {
         const float yn = __ldg(y + n);
         const float softplus = __fadd_rn(fmaxf(z, 0.f), log1pf(e));
         lik = __fadd_rn(lik, __fsub_rn(__fmul_rn(yn, z), softplus));
-        if constexpr (GRAD) {
-          const float denom = 1.f + e;
-          resid = __fsub_rn(yn, z >= 0.f ? __fdiv_rn(1.f, denom) : __fdiv_rn(e, denom));
-        }
+        const float denom = 1.f + e;
+        resid = __fsub_rn(yn, z >= 0.f ? __fdiv_rn(1.f, denom) : __fdiv_rn(e, denom));
       }
-      if constexpr (GRAD) {
-        for (int k = 0; k < G && c0 + k < n_data; ++k) {  // uniform across the warp
-          const float rk = __shfl_sync(FULL_MASK, resid, k, G);
-          const float* xr = X + static_cast<size_t>(c0 + k) * dim;
+      for (int k = 0; k < 32 && c0 + k < n_data; ++k) {  // uniform across the warp
+        const float rk = __shfl_sync(FULL_MASK, resid, k, 32);
+        const float* xr = X + static_cast<size_t>(c0 + k) * dim;
 #pragma unroll
-          for (int r = 0; r < K; ++r) {
-            const int d = coord<BLOCKED>(lane, r);
-            if (d < dim) gl[r] = __fadd_rn(gl[r], __fmul_rn(__ldg(xr + d), rk));
-          }
+        for (int r = 0; r < K; ++r) {
+          const int d = lane + 32 * r;
+          if (d < dim) gl[r] = __fadd_rn(gl[r], __fmul_rn(__ldg(xr + d), rk));
         }
       }
     }
     __syncwarp();  // every lane has read the staging row
 
-    const float tau = __shfl_sync(FULL_MASK, q[0], 0, G);
+    const float tau = __shfl_sync(FULL_MASK, q[0], 0, 32);
     const float inv_scale = expf(-tau);
     float s = 0.f;
 #pragma unroll
     for (int r = 0; r < K; ++r) {
-      const float v = coord<BLOCKED>(lane, r) == 0 ? 0.f : q[r];
+      const float v = lane + 32 * r == 0 ? 0.f : q[r];
       s = __fadd_rn(s, __fmul_rn(v, v));
     }
-    const float shrink = __fmul_rn(__fmul_rn(0.5f, inv_scale), group_sum<G>(s));
-    float lp = __fsub_rn(group_sum<G>(lik), shrink);
+    const float shrink = __fmul_rn(__fmul_rn(0.5f, inv_scale), group_sum<32>(s));
+    float lp = __fsub_rn(group_sum<32>(lik), shrink);
     lp = __fsub_rn(lp, __fmul_rn(half_p, tau));
     lp = __fsub_rn(lp, __fmul_rn(__fmul_rn(0.5f, tau), tau));
-    if constexpr (GRAD) {
-      const float g_tau = __fsub_rn(__fsub_rn(shrink, half_p), tau);
+    const float g_tau = __fsub_rn(__fsub_rn(shrink, half_p), tau);
 #pragma unroll
-      for (int r = 0; r < K; ++r) {
-        g[r] = coord<BLOCKED>(lane, r) == 0 ? g_tau
-                                            : __fsub_rn(gl[r], __fmul_rn(q[r], inv_scale));
-      }
+    for (int r = 0; r < K; ++r) {
+      g[r] = lane + 32 * r == 0 ? g_tau : __fsub_rn(gl[r], __fmul_rn(q[r], inv_scale));
     }
     return lp;
   }

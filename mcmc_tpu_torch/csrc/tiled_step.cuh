@@ -3,7 +3,8 @@
 // hierarchical posterior, either metric). Its building blocks
 // (TiledDenseMetric, TiledHierarchical, with live_tile's LiveTile for the
 // chains live in a call) also serve kernel 4's tiled window
-// (nuts_window.cuh: 4c in either scheme and metric).
+// (nuts_window.cuh: 4c in either scheme and metric) and, the log-density
+// alone in kernel 3's lane layout, kernel 3's tiled 3a (fused_rwmh.cu).
 // Kernel 1's other instances (fused_trajectory.cuh:grahmc_step_kernel,
 // diagonal metric, no data), kernels 2, 1b and 1c, and kernel 4's other
 // instances keep the warp-per-chain forms of metric.cuh and targets.cuh.
@@ -92,6 +93,10 @@ static_assert(HIER_TILE_CHAINS / RC * 32 * MAX_K <= 32 * HIER_TILE_CHAINS,
 constexpr int MAC_UNROLL = 16;
 constexpr int TILE_MAX_ROWS = 64;               // data rows per tile: 64, 32 or 16
 constexpr int TILE_MIN_ROWS = 16;
+// The log-density alone (kernel 3's 3a) needs no X tile and no residuals:
+// a tile of 128 rows fits at every D and gives each of the block's 1,024
+// threads one output of Z = Q X^T (HIER_TILE_CHAINS / RC x 128).
+constexpr int LP_TILE_ROWS = 128;
 constexpr int MAX_TILE_SMEM = 232448;           // an H100 block's dynamic shared memory
 
 __host__ __device__ constexpr int round4(int n) { return (n + 3) & ~3; }
@@ -104,7 +109,9 @@ __host__ __device__ constexpr int round4(int n) { return (n + 3) & ~3; }
 // transposed (D x ps), `out` the products' rows (chains x max(dp, rows)),
 // and for data two X^T
 // tiles (D x rows), two X tiles (rows x dp) and the residuals transposed
-// (rows x ps). bytes 0: no row tile fits.
+// (rows x ps); without the gradient (`grad` false: the log-density alone)
+// `out` holds Z only (chains x rows), and there are no X tiles and no
+// residuals. bytes 0: no row tile fits.
 struct TileGeometry {
   int dim, dp, ps, rows, chains;
   int minv, linv, in, out, xt, x, rt;
@@ -112,7 +119,7 @@ struct TileGeometry {
 };
 
 __host__ __device__ constexpr TileGeometry tile_layout(int dim, bool dense, int rows,
-                                                      int chains) {
+                                                      int chains, bool grad = true) {
   TileGeometry g{};
   g.dim = dim;
   g.dp = round4(dim);
@@ -127,19 +134,23 @@ __host__ __device__ constexpr TileGeometry tile_layout(int dim, bool dense, int 
   g.in = at;
   at += dim * g.ps;
   g.out = at;
-  at += chains * (g.dp > rows ? g.dp : rows);
+  at += chains * (grad && g.dp > rows ? g.dp : rows);
   g.xt = at;
   at += 2 * dim * rows;
   g.x = at;
-  at += 2 * rows * g.dp;
+  at += grad ? 2 * rows * g.dp : 0;
   g.rt = at;
-  at += rows * g.ps;
+  at += grad ? rows * g.ps : 0;
   g.bytes = at * static_cast<int>(sizeof(float));
   return g;
 }
 static_assert(tile_layout(32 * MAX_K, true, TILE_MIN_ROWS, HIER_TILE_CHAINS).bytes <=
                   MAX_TILE_SMEM,
               "the smallest row tile fits at the largest D, with the dense metric");
+
+static_assert(tile_layout(32 * MAX_K, false, LP_TILE_ROWS, HIER_TILE_CHAINS, false).bytes <=
+                  MAX_TILE_SMEM,
+              "the log-density's row tile fits at the largest D");
 
 // The geometry of a call: the largest row tile that fits (ops/
 // fused_trajectory.py:tile_geometry mirrors it).
@@ -178,14 +189,15 @@ __device__ __forceinline__ void store_tile(float* out, int os, int c0, int j,
   for (int c = 0; c < RC; ++c) out[(c0 + c) * os + j] = acc[c];
 }
 
-// This warp's row (coordinates lane + 32 r < dim) into column `warp` of a
-// transposed tile (stride ps), and back out of row `warp` of a row tile.
-template <int K>
+// This warp's row (coordinates lane + 32 r < dim, or K lane + r in kernel
+// 3's BLOCKED layout) into column `warp` of a transposed tile (stride ps),
+// and back out of row `warp` of a row tile.
+template <int K, bool BLOCKED = false>
 __device__ __forceinline__ void put_column(float* t, int ps, int dim, int warp, int lane,
                                            const float (&x)[K]) {
 #pragma unroll
   for (int r = 0; r < K; ++r) {
-    const int d = lane + 32 * r;
+    const int d = coord_of<K, 32, BLOCKED>(lane, r);
     if (d < dim) t[d * ps + warp] = x[r];
   }
 }
@@ -334,16 +346,26 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // a LiveTile, for the chains live in the call only (the
 // persistent-NUTS window 4c, nuts_window.cuh): their rows compacted into
 // the first columns, ceil(n / RC) chain tiles of Z and G, and only their
-// warps take rows. Replaces the target device function of
-// mcmc_tpu/ops/fused_trajectory.py:_make_kernel and mcmc_tpu/ops/
-// fused_nuts.py:_make_kernel with data_arrays (padded_targets.py:
-// _hierarchical_logistic) in variants 1d and 4c and in 1a's and 4b's data
-// forms.
+// warps take rows; log_prob, the log-density alone (kernel 3's 3a,
+// fused_rwmh.cu): Z and the row terms, no residuals, no G, no X tile.
+// Replaces the target device function of
+// mcmc_tpu/ops/fused_trajectory.py:_make_kernel, mcmc_tpu/ops/
+// fused_nuts.py:_make_kernel and mcmc_tpu/ops/fused_rwmh.py:
+// _make_rwmh_kernel with data_arrays (padded_targets.py:
+// _hierarchical_logistic) in variants 1d, 4c and 3a and in 1a's and 4b's
+// data forms.
+//
+// G and BLOCKED: the lanes of a chain's warp that hold its coordinates and
+// sum its rows: G = 32 with lane j holding j + 32 r (kernels 1 and 4, the
+// layout of targets.cuh's functor), or kernel 3's lane group of G =
+// rwmh_lanes(D) lanes with lane j holding 4 j + r (BLOCKED, the layout of
+// fused_rwmh.cu's lane groups), so that every sum runs in the order of the
+// kernel the tile replaces.
 //
 // Per row tile of `rows` data rows (n0 = k rows):
 //   Z = Q X^T:  thread tiles of RC chains x 1 row, sum over d in order
 //               from the X^T tile and the block's q (transposed in `in`);
-//   rows:       each chain's warp, lane j taking rows n = j (mod 32) in
+//   rows:       each chain's warp, lane j < G taking rows n = j (mod G) in
 //               order (the functor's lanes), computes exp(-|z|), the row's
 //               log-likelihood term, added to the lane's sum, and the
 //               residual y - sigmoid z, written transposed to `rt`;
@@ -351,12 +373,13 @@ __device__ __forceinline__ void cp_async_wait_all() {
 //               rows in order, the accumulators in registers across tiles.
 // Tile k + 1 is copied (cp.async) into the other buffer while tile k is
 // computed. Then the gradient rows go through `out` to their warps, each
-// warp sums its lanes' likelihood terms (group_sum<32>) and adds the tau
+// warp sums its lanes' likelihood terms (group_sum<G>) and adds the tau
 // terms as the functor does. What bounds it on an H100: 4 n_data D flops
 // per chain per evaluation; X's loads from L2 serve the block's chains and
 // each shared load of X a thread's RC chains.
-template <int K>
+template <int K, int G = 32, bool BLOCKED = false>
 struct TiledHierarchical {
+  static_assert(G == 32 || BLOCKED, "the warp-per-chain layout spans the warp");
   static constexpr int C = HIER_TILE_CHAINS, THREADS = 32 * HIER_TILE_CHAINS;
   const float *X, *xt, *y;
   float *in, *out, *xt_s, *x_s, *rt;
@@ -385,7 +408,8 @@ struct TiledHierarchical {
     g_j = t % dp;
   }
 
-  // Start copying row tile k into buffer b.
+  // Start copying row tile k into buffer b (GRAD: the X tile too).
+  template <bool GRAD>
   __device__ __forceinline__ void prefetch(int k, int b) const {
     const int n0 = k * rows;
     float* ts = xt_s + b * dim * rows;
@@ -394,33 +418,44 @@ struct TiledHierarchical {
       cp_async4(ts + d * rows + ct_n, n < n_data ? xt + static_cast<size_t>(d) * n_data + n : xt,
                 n < n_data);
     }
-    float* xs = x_s + b * rows * dp;
-    for (int nl = cx_n; nl < rows; nl += cx_step) {
-      const int n = n0 + nl;
-      const bool valid = n < n_data && cx_d < dim;
-      cp_async4(xs + nl * dp + cx_d, valid ? X + static_cast<size_t>(n) * dim + cx_d : X, valid);
+    if constexpr (GRAD) {
+      float* xs = x_s + b * rows * dp;
+      for (int nl = cx_n; nl < rows; nl += cx_step) {
+        const int n = n0 + nl;
+        const bool valid = n < n_data && cx_d < dim;
+        cp_async4(xs + nl * dp + cx_d, valid ? X + static_cast<size_t>(n) * dim + cx_d : X,
+                  valid);
+      }
     }
     cp_async_commit();
   }
 
   __device__ float operator()(const float (&q)[K], float (&g)[K], int lane) const {
-    return evaluate<false>(q, g, lane, LiveTile{});
+    return evaluate<false, true>(q, g, lane, LiveTile{});
   }
 
   // The chains live in the call only; a warp that is not live gets 0.
   __device__ float operator()(const float (&q)[K], float (&g)[K], int lane,
                               const LiveTile& live) const {
-    return evaluate<true>(q, g, lane, live);
+    return evaluate<true, true>(q, g, lane, live);
   }
 
-  template <bool LIVE>
+  // The log-density alone, every chain of the block (a geometry of
+  // tile_layout with grad false suffices).
+  __device__ float log_prob(const float (&q)[K], int lane) const {
+    float unused[K];
+    return evaluate<false, false>(q, unused, lane, LiveTile{});
+  }
+
+  template <bool LIVE, bool GRAD>
   __device__ __forceinline__ float evaluate(const float (&q)[K], float (&g)[K], int lane,
                                             const LiveTile& live) const {
+    static_assert(GRAD || !LIVE, "the log-density alone serves every chain");
     const int col = LIVE ? live.col : warp;
     const bool mine = !LIVE || col >= 0;
-    const bool g_tile = g_owner && (!LIVE || g_c0 < live.n);
-    if (mine) put_column(in, ps, dim, col, lane, q);
-    prefetch(0, 0);
+    const bool g_tile = GRAD && g_owner && (!LIVE || g_c0 < live.n);
+    if (mine) put_column<K, BLOCKED>(in, ps, dim, col, lane, q);
+    prefetch<GRAD>(0, 0);
     const int n_tiles = (n_data + rows - 1) / rows;
     const int z_tiles = (LIVE ? (live.n + RC - 1) / RC : C / RC) * rows;
     float gacc[RC] = {0.f, 0.f, 0.f, 0.f};
@@ -432,7 +467,7 @@ struct TiledHierarchical {
       const float* xs = x_s + (k & 1) * rows * dp;
       cp_async_wait_all();
       __syncthreads();  // tile k landed; every thread is past tile k - 1
-      if (k + 1 < n_tiles) prefetch(k + 1, (k + 1) & 1);
+      if (k + 1 < n_tiles) prefetch<GRAD>(k + 1, (k + 1) & 1);
       for (int t = threadIdx.x; t < z_tiles; t += THREADS) {
         const int c0 = (t / rows) * RC;
         const int j = t % rows;
@@ -441,48 +476,58 @@ struct TiledHierarchical {
         store_tile(out, rows, c0, j, acc);
       }
       __syncthreads();
-      for (int nl = (lane - n0) & 31; mine && nl < valid; nl += 32) {
+      // a lane past G holds no coordinates and sums no rows (G < 32: kernel
+      // 3's lane groups at small D)
+      for (int nl = (lane - n0) & (G - 1); mine && lane < G && nl < valid; nl += G) {
         const float z = out[col * rows + nl];
         const float e = expf(-fabsf(z));
         const float yn = __ldg(y + n0 + nl);
         const float softplus = __fadd_rn(fmaxf(z, 0.f), log1pf(e));
         lik = __fadd_rn(lik, __fsub_rn(__fmul_rn(yn, z), softplus));
-        const float denom = 1.f + e;
-        rt[nl * ps + col] =
-            __fsub_rn(yn, z >= 0.f ? __fdiv_rn(1.f, denom) : __fdiv_rn(e, denom));
+        if constexpr (GRAD) {
+          const float denom = 1.f + e;
+          rt[nl * ps + col] =
+              __fsub_rn(yn, z >= 0.f ? __fdiv_rn(1.f, denom) : __fdiv_rn(e, denom));
+        }
       }
-      __syncthreads();
-      if (g_tile) mac_rows(gacc, rt + g_c0, ps, xs + g_j, dp, 0, valid);
+      if constexpr (GRAD) {
+        __syncthreads();
+        if (g_tile) mac_rows(gacc, rt + g_c0, ps, xs + g_j, dp, 0, valid);
+      }
     }
-    if (g_tile) store_tile(out, dp, g_c0, g_j, gacc);
-    __syncthreads();
-    if (!mine) return 0.f;
     float gl[K];
-    get_row(out, dp, dim, col, lane, gl);
+    if constexpr (GRAD) {
+      if (g_tile) store_tile(out, dp, g_c0, g_j, gacc);
+      __syncthreads();
+      if (!mine) return 0.f;
+      get_row(out, dp, dim, col, lane, gl);
+    }
 
     const float tau = __shfl_sync(FULL_MASK, q[0], 0, 32);
     const float inv_scale = expf(-tau);
     float s = 0.f;
 #pragma unroll
     for (int r = 0; r < K; ++r) {
-      const float v = lane + 32 * r == 0 ? 0.f : q[r];
+      const float v = coord_of<K, 32, BLOCKED>(lane, r) == 0 ? 0.f : q[r];
       s = __fadd_rn(s, __fmul_rn(v, v));
     }
-    const float shrink = __fmul_rn(__fmul_rn(0.5f, inv_scale), group_sum<32>(s));
-    float lp = __fsub_rn(group_sum<32>(lik), shrink);
+    const float shrink = __fmul_rn(__fmul_rn(0.5f, inv_scale), group_sum<G>(s));
+    float lp = __fsub_rn(group_sum<G>(lik), shrink);
     lp = __fsub_rn(lp, __fmul_rn(half_p, tau));
     lp = __fsub_rn(lp, __fmul_rn(__fmul_rn(0.5f, tau), tau));
-    const float g_tau = __fsub_rn(__fsub_rn(shrink, half_p), tau);
+    if constexpr (GRAD) {
+      const float g_tau = __fsub_rn(__fsub_rn(shrink, half_p), tau);
 #pragma unroll
-    for (int r = 0; r < K; ++r) {
-      g[r] = lane + 32 * r == 0 ? g_tau : __fsub_rn(gl[r], __fmul_rn(q[r], inv_scale));
+      for (int r = 0; r < K; ++r) {
+        g[r] = lane + 32 * r == 0 ? g_tau : __fsub_rn(gl[r], __fmul_rn(q[r], inv_scale));
+      }
     }
     return lp;
   }
 };
 
-template <int K>
-struct family_of<TiledHierarchical<K>> {
+template <int K, int G, bool BLOCKED>
+struct family_of<TiledHierarchical<K, G, BLOCKED>> {
   static constexpr int value = HIERARCHICAL_LOGISTIC;
 };
 

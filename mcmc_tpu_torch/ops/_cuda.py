@@ -55,6 +55,8 @@ _SIGNATURES = {
     "grahmc_tile_geometry": [_I] * 4 + [_P, _P],
     # (dim, dense), out chains a block, out rows a tile
     "nuts_tile_geometry": [_I] * 2 + [_P, _P],
+    # (dim), out chains a block, out rows a tile
+    "rwmh_tile_geometry": [_I] + [_P, _P],
 }
 
 

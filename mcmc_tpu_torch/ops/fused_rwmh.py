@@ -9,7 +9,11 @@ the accept and history writes.
 
 A data-carrying target (the hierarchical posterior) runs as the TPU
 kernel's ``data_arrays`` form (variant 3a): the log-density only
-(``padded_targets.device_lp``), its data set passed as device pointers.
+(``padded_targets.device_lp``), its data set passed as device pointers,
+block-tiled (``rwmh_tiled_kernel``: HIER_TILE_CHAINS chains a block share
+each load of X, streamed through shared memory in tiles of LP_TILE_ROWS
+rows; ``tile_geometry``), in kernel 3's lane layout and sum order, so its
+outputs equal the lane-group kernel's bit for bit.
 
 The wrapper takes its plain PyTorch version ONLY for tensors on the CPU; for
 CUDA tensors it launches the kernel or raises. It counts its launches in
@@ -34,15 +38,36 @@ from typing import Optional
 import torch
 
 from mcmc_tpu_torch.ops.fused_trajectory import (
-    MAX_DIM, PhiloxStream, _f32, _kernel_device, _ptr, _raise_on_error, _U32,
-    check_tensors, count_launch, philox_normal, philox_uniform, target_args,
-    variant_name, variant_names)
-from mcmc_tpu_torch.ops.padded_targets import FAMILY_IDS, device_lp, kernel_info
+    HIER_TILE_CHAINS, MAX_DIM, PhiloxStream, TileGeometry, _f32,
+    _kernel_device, _ptr, _raise_on_error, _U32, check_tensors, count_launch,
+    philox_normal, philox_uniform, target_args, variant_name, variant_names)
+from mcmc_tpu_torch.ops.padded_targets import (
+    DATA_FAMILIES, FAMILY_IDS, device_lp, kernel_info)
 from mcmc_tpu_torch.samplers.trajectory import as_scalar
 
 Tensor = torch.Tensor
 
 VARIANT = "rwmh"     # kernel 3 has no metric or scheme variants
+LP_TILE_ROWS = 128   # csrc/tiled_step.cuh: 3a's rows a tile of X^T
+
+
+def tile_geometry(n_chains: int, dim: int, n_data: int) -> TileGeometry:
+    """3a's block-tiled geometry (csrc/fused_rwmh.cu:tiled_geometry) for
+    n_chains chains of dimension dim with a data set of n_data rows:
+    HIER_TILE_CHAINS chains a block, LP_TILE_ROWS rows a tile; shared
+    memory for the block's q transposed, its Z tile and two X^T tiles (no X
+    tile: no gradient), 165,888 bytes at D = 128, within MAX_TILE_SMEM at
+    every D (a static_assert there). Raises ValueError naming the limit for
+    a shape the kernel does not take."""
+    if n_chains < 1:
+        raise ValueError("need at least one chain")
+    if not 1 <= dim <= MAX_DIM:
+        raise ValueError(f"the tiled 3a takes 1 <= dim <= {MAX_DIM}, got {dim}")
+    if n_data < 1:
+        raise ValueError(f"the tiled 3a carries a data set: n_data >= 1, got {n_data}")
+    chains, rows = HIER_TILE_CHAINS, LP_TILE_ROWS
+    nbytes = 4 * (dim * (chains + 4) + chains * rows + 2 * dim * rows)
+    return TileGeometry(chains, -(-n_chains // chains), rows, -(-n_data // rows), nbytes)
 
 
 def rwmh_scale(scale, device) -> Tensor:
@@ -119,6 +144,8 @@ def rwmh_multistep_kernel(info: dict, transitions: int, q: Tensor, lp: Tensor,
                                     key, call, noise, u)
     _kernel_device(q)
     n_chains, dim = q.shape
+    if info["family"] in DATA_FAMILIES:
+        tile_geometry(n_chains, dim, info["params"]["n_data"])
     from mcmc_tpu_torch.ops import _cuda
     lib = _cuda.load_library().lib
     q_out, lp_out = torch.empty_like(q), torch.empty_like(lp)

@@ -531,11 +531,16 @@ def test_hierarchical_scaled_and_bridged_match_plain(dev, dim, dense):
             _assert_close(kern, ft.grahmc_bridged_plain(*bargs, l_inv=l_inv, **rand), log_u)
 
 
-@pytest.mark.parametrize("dim,n_data", [(5, 20), (9, 20), (20, 64), (100, 256), (128, 33)])
+@pytest.mark.parametrize("dim,n_data", [(5, 20), (9, 20), (20, 64), (100, 256), (128, 33),
+                                        (9, 50), (9, 1000), (20, 50), (20, 256), (20, 1000),
+                                        (100, 50), (100, 1000)])
 def test_hierarchical_rwmh_kernel_matches_plain(dev, dim, n_data):
-    """Kernel 3a (the log-density-only form in kernel 3's lane groups: 2, 4,
-    8 and 32 lanes per chain here) against its plain version, injected and
-    Philox: accepts equal, states and histories within 1e-4."""
+    """Kernel 3a (block-tiled, the log-density alone in kernel 3's lane
+    layout: G = 2, 4, 8 and 32 lanes a chain sum its rows here) against its
+    plain version over X's row tiles of 128 (n_data 50: one partial tile;
+    1,000: eight, through both buffers), 1,000 chains (a ragged last
+    block), injected and Philox: accepts equal, states and histories within
+    1e-4."""
     info, q, lp, _, g = _hier(dev, dim, n_data, 1000, dim)
     scale = fr.rwmh_scale(0.3 / dim ** 0.5, dev)
     noise = torch.randn((8, 1000, dim), generator=g, device=dev)
@@ -1351,3 +1356,154 @@ def test_tiled_nuts_geometry_agrees_with_the_kernel(dev):
             nbytes = lib.nuts_tile_geometry(dim, dense, ctypes.byref(chains), ctypes.byref(rows))
             assert (nbytes, chains.value, rows.value) == (geo.smem_bytes, geo.chains,
                                                           geo.row_tile), (dim, dense)
+
+
+# Kernel 4's warp window under the dense metric (4b, 4a+4b): its products
+# (csrc/metric.cuh, the loop over i outside the registers) sum in the
+# plain version's order (trajectory.ordered_matmul). Where the plain
+# version also repeats the target's gradient bit for bit (the standard
+# normal's -q, the correlated Gaussian's rounded sums), every chain that
+# agrees within window_agreement's 1e-4 must agree bit for bit in its
+# positions, momenta and gradients: a product summed in another order
+# would differ there in the last ulps. Energies may not: the kinetic
+# energy's warp sum and the plain version's torch.sum round differently.
+EXACT_GRAD_FAMILIES = ("standard_normal", "correlated_gaussian")
+POSITION_FIELDS = fn.FULL_FIELDS + fn.MULTI_FULL_FIELDS + fn.STACK_FIELDS
+
+
+def _dense_window_check(info, q, lp, grad, g, step, multinomial, label, max_split=0,
+                        max_drift=0):
+    """Injected and Philox windows of 16 iterations x W = 4 from a state one
+    plain window in, a random SPD metric: one launch of the variant each;
+    at most `max_split` chains split and `max_drift` drifted in flight
+    (window_agreement), and with an exact-gradient family and injected
+    draws the other chains' positions bit for bit (the Philox normals' logf, sinf and cosf may
+    differ from PyTorch's in the last ulp)."""
+    n, dim = q.shape
+    inv_mass, l_inv = _dense_metric(q.device, dim, g)
+    args = (info, 16, 4, 10)
+    scalars = fn.nuts_scalars(step, 1000.0, q.device)
+    key = torch.tensor([3, 4], dtype=torch.int32, device=q.device)
+    start = tn._init_pstate(q, lp, grad, torch.float32, multinomial=multinomial)
+    warm = fn.nuts_window_plain(*args, start, scalars, inv_mass, key=key, call=0, l_inv=l_inv)
+    n_slice = 64 if multinomial else 16
+    draws = (torch.randn((16, n, dim), generator=g, device=q.device),
+             torch.rand((16, n), generator=g, device=q.device) < 0.5,
+             torch.rand((16, n), generator=g, device=q.device) < 0.5,
+             torch.rand((16, n), generator=g, device=q.device),
+             torch.rand((n_slice, n), generator=g, device=q.device).clamp_min(2.0 ** -25),
+             torch.rand((16, n), generator=g, device=q.device))
+    name = fn.VARIANTS[(multinomial, True)]
+    exact = info["family"] in EXACT_GRAD_FAMILIES
+
+    def clone():
+        return tn._PState(*(None if t is None else t.clone() for t in warm))
+    for mode, rand in (("injected", dict(draws=draws)), ("philox", dict(key=key, call=4))):
+        before = fn.nuts_window_kernel.variant_launches[name]
+        kern = fn.nuts_window_kernel(*args, clone(), scalars, inv_mass, l_inv=l_inv, **rand)
+        assert fn.nuts_window_kernel.variant_launches[name] == before + 1
+        plain = fn.nuts_window_plain(*args, clone(), scalars, inv_mass, l_inv=l_inv, **rand)
+        same, emitted, in_flight, err = fn.window_agreement(kern, plain)
+        kept = same & emitted & in_flight
+        split, drifted = int((~(same & emitted)).sum()), int((same & emitted & ~in_flight).sum())
+        print(f"READING {name} {label} {mode}: split {split}, drifted {drifted} of {n}, "
+              f"max |err| {err:.3g}")
+        assert split <= max_split and drifted <= max_drift, (split, drifted, err)
+        if exact and mode == "injected":
+            for field in POSITION_FIELDS:
+                a, b = getattr(kern, field), getattr(plain, field)
+                if a is not None:
+                    _assert_bits(a[kept], b[kept], f"{label} {mode} {field}")
+
+
+WARP_FAMILY_CASES = ([(f, d) for f in ["standard_normal", "neals_funnel", "correlated_gaussian",
+                                       "gaussian_mixture"] + NEW_FAMILIES for d in (10, 50)]
+                     + [("rosenbrock", 10), ("rosenbrock", 50), ("multimodal_funnel_2d", 2),
+                        ("concentric_l1_balls", 3), ("nested_l1_balls", 2)])
+
+
+@pytest.mark.parametrize("multinomial", [False, True])
+@pytest.mark.parametrize("family,dim", WARP_FAMILY_CASES)
+def test_dense_window_order_on_every_family(dev, family, dim, multinomial):
+    """4b and 4a+4b against their plain versions on each family without
+    data (D 10 and 50; the 2- and 3-D families at theirs), 2,048
+    chains: the exact-gradient families split or drift at most one chain
+    each (an energy, summed in another order than PyTorch's, within an ulp
+    of a slice or reservoir edge) and keep the other chains' positions bit
+    for bit; the others, whose transcendentals differ
+    from PyTorch's in the last ulp, split at most 2 chains and drift as
+    test_new_families_in_kernel_4 and test_nuts_window_kernel_matches_plain
+    allow (the funnel's neck, up to 5%)."""
+    if family in RAHMC_STEP:
+        info, q, lp, grad, g = _rahmc_inputs(dev, family, dim, 2048, dim + 11)
+        step = RAHMC_STEP[family]
+    else:
+        info, q, lp, grad, g = _family_inputs(dev, family, dim, 2048, dim + 11)
+        step = FAMILY_STEP.get(family, 0.1)
+    exact = family in EXACT_GRAD_FAMILIES
+    drift = 0.05 * 2048 if family == "neals_funnel" else FAMILY_DRIFT.get(family, (0, 0, 2))[2]
+    _dense_window_check(info, q, lp, grad, g, step, multinomial, f"{family} D={dim}",
+                        max_split=1 if exact else 2, max_drift=1 if exact else drift)
+
+
+@pytest.mark.parametrize("multinomial", [False, True])
+@pytest.mark.parametrize("dim,n", [(1, 1), (2, 7), (7, 9), (31, 31), (32, 33), (33, 100),
+                                   (50, 257), (64, 1000), (65, 8191), (100, 33), (127, 9),
+                                   (128, 8191)])
+def test_dense_window_order_at_register_edges_and_ragged_counts(dev, dim, n, multinomial):
+    """4b and 4a+4b on the correlated Gaussian at D from 1 to 128 (both
+    sides of K's steps of 32 coordinates and of the products' steps of 4
+    terms) and ragged chain counts (the last block of 8 warps partly
+    used): at most one chain split or drifted (as on every family), the
+    positions bit for bit."""
+    info, q, lp, grad, g = _inputs(dev, "correlated_gaussian", dim, n, dim * 1000 + n)
+    _dense_window_check(info, q, lp, grad, g, 0.1, multinomial, f"D={dim} C={n}",
+                        max_split=1, max_drift=1)
+
+
+# Kernel 3's tiled 3a (csrc/fused_rwmh.cu:rwmh_tiled_kernel): the
+# hierarchical posterior's log-density block-tiled over X's row tiles in
+# the lane-group kernel's layout and order (and
+# test_hierarchical_rwmh_kernel_matches_plain). Held to the plain version
+# here (expf and log1pf against PyTorch's exp and log1p: the lp within
+# 1e-4); experiments/torch_tiled_nuts_timing.py holds it bit for bit to the
+# lane-group kernel it replaced.
+def _tiled_rwmh_check(info, q, lp, g, transitions=8, n_hist=37):
+    n, dim = q.shape
+    scale = fr.rwmh_scale(0.3 / dim ** 0.5, q.device)
+    noise = torch.randn((transitions, n, dim), generator=g, device=q.device)
+    u = torch.rand((transitions, n), generator=g, device=q.device).clamp_min(2.0 ** -25)
+    key = torch.tensor([7, -8], dtype=torch.int32, device=q.device)
+    n_hist = min(n_hist, n)
+    for rand in (dict(noise=noise, u=u), dict(key=key, call=3)):
+        before = fr.rwmh_multistep_kernel.variant_launches["rwmh+data"]
+        kern = fr.rwmh_multistep_kernel(info, transitions, q, lp, scale, n_hist, **rand)
+        assert fr.rwmh_multistep_kernel.variant_launches["rwmh+data"] == before + 1
+        plain = fr.rwmh_multistep_plain(info, transitions, q, lp, scale, n_hist, **rand)
+        assert torch.equal(kern[2], plain[2])
+        for a, b in zip(kern[:2] + kern[3:], plain[:2] + plain[3:]):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+        assert 0.01 < float(plain[2].float().mean()) < 1.0
+
+
+@pytest.mark.parametrize("n", [1, 7, 31, 33, 8191])
+def test_tiled_rwmh_at_ragged_chain_counts(dev, n):
+    """The last block's warps past n_chains run a clamped chain, meet every
+    barrier and store nothing (n 1 and 33: one chain past the full
+    blocks)."""
+    info, q, lp, _, g = _hier(dev, 100, 256, n, n)
+    _tiled_rwmh_check(info, q, lp, g, n_hist=5)
+
+
+def test_tiled_rwmh_geometry_agrees_with_the_kernel(dev):
+    """The wrapper's tile_geometry against csrc/fused_rwmh.cu's, through
+    the library's rwmh_tile_geometry, for every D."""
+    import ctypes
+    from mcmc_tpu_torch.ops import _cuda
+    lib = _cuda.load_library().lib
+    chains, rows = ctypes.c_int(), ctypes.c_int()
+    for dim in range(1, ft.MAX_DIM + 1):
+        geo = fr.tile_geometry(100, dim, 256)
+        nbytes = lib.rwmh_tile_geometry(dim, ctypes.byref(chains), ctypes.byref(rows))
+        assert (nbytes, chains.value, rows.value) == (geo.smem_bytes, geo.chains,
+                                                      geo.row_tile), dim

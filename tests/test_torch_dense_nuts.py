@@ -3,8 +3,10 @@ the compound-symmetry `correlated_gaussian`: the target and its kernel
 device function against the JAX package, the eager dense machine against
 the JAX XLA machine in float64, kernel 4's plain version against the JAX
 Pallas window in interpret mode (dense, and dense with the multinomial
-scheme) at W = 1 and 4, and on the run: the oracle metric samples the
-target and beats the diagonal metric on bulk ESS."""
+scheme) at W = 1 and 4 and at the oracle metric of the dense NUTS row,
+the kernels' product order (trajectory.ordered_matmul) against a loop
+written out, and on the run: the oracle metric samples the target and
+beats the diagonal metric on bulk ESS."""
 
 import numpy as np
 import pytest
@@ -23,7 +25,7 @@ from mcmc_tpu_torch.ops.fused_trajectory import kernel_metric  # noqa: E402
 from mcmc_tpu_torch.ops.padded_targets import (  # noqa: E402
     KERNEL_FAMILIES, device_params, kernel_info, make_device_vag)
 from mcmc_tpu_torch.samplers import nuts_persistent as tn  # noqa: E402
-from mcmc_tpu_torch.samplers.trajectory import dense_unwhitening  # noqa: E402
+from mcmc_tpu_torch.samplers.trajectory import dense_unwhitening, ordered_matmul  # noqa: E402
 from test_torch_nuts_multinomial import (  # noqa: E402
     assert_state_close, random_metric, run_eager_against_jax, run_pallas_and_plain)
 
@@ -156,3 +158,52 @@ def test_dense_oracle_metric_beats_diagonal():
             backend="eager")
         ess[name] = float(ess_bulk(r.samples).min())
     assert ess["dense"] > 3 * ess["diag"], ess
+
+
+def _in_order_written_out(x, a):
+    """x @ a one output at a time: x_i a_id added for i in order from -0,
+    each product rounded (float32 numpy scalars: every operation rounds
+    once)."""
+    x, a = x.numpy(), a.numpy()
+    out = np.empty((x.shape[0], a.shape[1]), dtype=x.dtype)
+    for c in range(x.shape[0]):
+        for d in range(a.shape[1]):
+            acc = x.dtype.type(-0.0)
+            for i in range(a.shape[0]):
+                acc = acc + x[c, i] * a[i, d]
+            out[c, d] = acc
+    return torch.from_numpy(out)
+
+
+@pytest.mark.parametrize("lower", [False, True])
+@pytest.mark.parametrize("dim", [1, 3, 6, 10, 50])
+def test_ordered_matmul_bit_for_bit(dim, lower):
+    """ordered_matmul, the order of csrc/metric.cuh's products (its loop over
+    i outside the registers changes no output's order), equals the sum
+    written out bit for bit, from -0 as the kernel starts it; on the
+    lower-triangular L^{-1} of the unwhitening too, whose zero terms the
+    kernel skips: they leave the sums unchanged."""
+    rng = np.random.default_rng(dim * 10 + lower)
+    x = torch.from_numpy(rng.standard_normal((5, dim)).astype(np.float32))
+    m = torch.from_numpy(random_metric(dim))
+    if lower:
+        m = dense_unwhitening(m.double()).float()
+        assert torch.equal(m, m.tril())
+    got = ordered_matmul(x, m)
+    assert torch.equal(got.view(torch.int32), _in_order_written_out(x, m).view(torch.int32))
+
+
+@pytest.mark.parametrize("slots", [1, 4])
+@pytest.mark.parametrize("multinomial", [False, True])
+def test_plain_window_at_the_oracle_metric(multinomial, slots):
+    """test_plain_window_dense_matches_pallas_kernel at the dense NUTS row's
+    metric: the rho = 0.9 Gaussian's oracle metric at D = 50, condition
+    number 451, whose products cancel (csrc/metric.cuh), step 0.3: discrete
+    state equal, continuous within 2e-4; a chain split here would be a
+    finding, not a tolerance."""
+    cov = tt.get_target("correlated_gaussian", dim=50).true_cov.numpy().astype(np.float32)
+    ev = np.linalg.eigvalsh(cov.astype(np.float64))
+    assert ev.max() / ev.min() == pytest.approx(451.0, rel=1e-3)
+    out, theirs = run_pallas_and_plain("correlated_gaussian", 50, 0.3, slots, cov, multinomial)
+    assert_state_close(out, theirs, 2e-4)
+    assert int(out.transitions.sum()) > 16
