@@ -2820,6 +2820,12 @@ def phase_rosenbrock_reference(torch, targets, dev):
     return {"seconds": seconds, "rhat": rhat}
 
 
+def _us_per_leapfrog(ms, leapfrogs, chains):
+    """A window's time per executed chain-leapfrog: what one chain's
+    leapfrog costs, the chains running side by side."""
+    return f"{1000.0 * ms / max(leapfrogs / chains, 1e-9):.3f} us per chain-leapfrog"
+
+
 def _time_family(torch, ft, fr, fn, tn, dev, key, family, info, state, dim, metric, schedule,
                  n_steps, rwmh_t, chains, reps, burst, plain_burst, times, measured, shapes):
     """Time each kernel a cell of `family` launched at the cell's shape,
@@ -2891,7 +2897,8 @@ def _time_family(torch, ft, fr, fn, tn, dev, key, family, info, state, dim, metr
         shapes[pair] = (chains, dim, 0, NUTS_ITERS)
         say(f"  {pair} ({chains} x {dim}, {NUTS_ITERS} iterations x W = {NUTS_W}): "
             f"kernel {times[pair][0]:.4f} ms, plain {times[pair][1]:.4f} ms; "
-            f"{measured[pair]['leapfrogs']:.0f} leapfrogs executed per call")
+            f"{measured[pair]['leapfrogs']:.0f} leapfrogs executed per call "
+            f"({_us_per_leapfrog(times[pair][0], measured[pair]['leapfrogs'], chains)})")
 
 
 def phase_timing_rahmc(torch, ft, fr, fn, tn, rahmc, dev, reps=6, burst=10, plain_burst=1):
@@ -3240,7 +3247,9 @@ def phase_timing_rwmh_nuts(torch, ft, fr, fn, tn, targets, nuts_step, dense_step
         say(f"  {name} ({family}, {NUTS_CHAINS} x {DIM}, {NUTS_ITERS} iterations x W = "
             f"{NUTS_W}, step {float(step):.4f}): kernel {times[name][0]:.4f} ms, plain "
             f"{times[name][1]:.4f} ms; {measured[name]['leapfrogs']:.0f} leapfrogs executed "
-            f"per call; live stack slots in and out {measured[name]['stack_slots']}")
+            f"per call "
+            f"({_us_per_leapfrog(times[name][0], measured[name]['leapfrogs'], NUTS_CHAINS)}); "
+            f"live stack slots in and out {measured[name]['stack_slots']}")
         if name == NUTS_NAMES["dense"]:
             starts = (int(states["kernel"].transitions.sum()) - done_before) / calls
             n_mm = max(1, round(2 * (measured[name]["leapfrogs"] + starts) / NUTS_CHAINS))

@@ -89,6 +89,8 @@ import time
 from pathlib import Path
 
 HOLD_CYCLES = 5_000_000
+OUTPUT_WORKERS = 3        # trees whose outputs are computed at once (the host has 8 cores)
+BUILD_TREES = 5           # trees built at once (each runs one nvcc a source)
 # The tile-skipping form of the tiled products, as (file, text, replacement)
 # on a copy of the tree: live_tile leaves each live chain in its own column
 # and returns the mask of chain tiles (RC chains each) holding a live chain;
@@ -150,9 +152,240 @@ K1_COMMON_BOUND = (
     ("nuts_window.cuh", "  if constexpr (DENSE && !MULTI && K == 1) {",
      "  if constexpr (false) {"),
 )
+# The L1 functors' shells one after another in every layout, as kernel 3's
+# lane groups run them (the axes still computed once).
+SHELLS_SERIAL = (
+    ("targets.cuh", "constexpr bool LANE_SHELLS = G == 32 && !BLOCKED;",
+     "constexpr bool LANE_SHELLS = false;"),
+)
+# The shells one after another without branches: every one of MAX_SHELLS
+# computed, a shell past n_shells masked by a select; the nested functor's
+# MAX_SHELLS group sums independent, so they may overlap.
+SHELLS_SELECT = SHELLS_SERIAL + (
+    ("targets.cuh", """      mx = shell_term(u, radius[0], sig2);
+#pragma unroll
+      for (int k = 1; k < MAX_SHELLS; ++k) {
+        if (k < n) mx = fmaxf(mx, shell_term(u, radius[k], sig2));
+      }
+#pragma unroll
+      for (int k = 0; k < MAX_SHELLS; ++k) {
+        if (k < n) {
+          const float e = expf(__fsub_rn(shell_term(u, radius[k], sig2), mx));
+          lse = __fadd_rn(lse, e);
+          du = __fadd_rn(du, __fmul_rn(e, shell_slope(u, radius[k], sig2)));
+        }
+      }""", """      float term[MAX_SHELLS];
+#pragma unroll
+      for (int k = 0; k < MAX_SHELLS; ++k) term[k] = shell_term(u, radius[k], sig2);
+      mx = term[0];
+#pragma unroll
+      for (int k = 1; k < MAX_SHELLS; ++k) mx = k < n ? fmaxf(mx, term[k]) : mx;
+#pragma unroll
+      for (int k = 0; k < MAX_SHELLS; ++k) {
+        const float e = expf(__fsub_rn(term[k], mx));
+        const float lse_k = __fadd_rn(lse, e);
+        const float du_k = __fadd_rn(du, __fmul_rn(e, shell_slope(u, radius[k], sig2)));
+        lse = k < n ? lse_k : lse;
+        du = k < n ? du_k : du;
+      }"""),
+    ("targets.cuh", """      for (int k = 0; k < MAX_SHELLS; ++k) {
+        u[k] = 0.f;
+        if (k < n) u[k] = group_sum<G>(partial(q, lane, k));
+      }
+      mx = shell_term(u[0], radius[0], sig2);
+#pragma unroll
+      for (int k = 1; k < MAX_SHELLS; ++k) {
+        if (k < n) mx = fmaxf(mx, shell_term(u[k], radius[k], sig2));
+      }
+#pragma unroll
+      for (int k = 0; k < MAX_SHELLS; ++k) {
+        if (k < n) {
+          const float e = expf(__fsub_rn(shell_term(u[k], radius[k], sig2), mx));
+          lse = __fadd_rn(lse, e);
+          add_grad(q, g, lane, k, __fmul_rn(e, shell_slope(u[k], radius[k], sig2)), true);
+        }
+      }""", """      float term[MAX_SHELLS];
+#pragma unroll
+      for (int k = 0; k < MAX_SHELLS; ++k) {
+        u[k] = group_sum<G>(partial(q, lane, k));
+        term[k] = shell_term(u[k], radius[k], sig2);
+      }
+      mx = term[0];
+#pragma unroll
+      for (int k = 1; k < MAX_SHELLS; ++k) mx = k < n ? fmaxf(mx, term[k]) : mx;
+#pragma unroll
+      for (int k = 0; k < MAX_SHELLS; ++k) {
+        const float e = expf(__fsub_rn(term[k], mx));
+        const float lse_k = __fadd_rn(lse, e);
+        lse = k < n ? lse_k : lse;
+        add_grad(q, g, lane, k, __fmul_rn(e, shell_slope(u[k], radius[k], sig2)), k < n);
+      }"""),
+)
+# The warp window's termination test with its two dot products one after
+# the other (the || short-circuits), as before the redesign.
+UTURN_SERIAL = (
+    ("nuts_window.cuh", """    const float2 ends = dot2(dq, p_l, p_r);
+    const bool u_turn = ends.x < 0.f || ends.y < 0.f;""",
+     "    const bool u_turn = (dot(dq, p_l) < 0.f) || (dot(dq, p_r) < 0.f);"),
+)
+# The multinomial scheme's odd-leaf checks after the first, as the tree
+# makes them: every later slot's rows loaded when its check starts.
+CHECKS_TREE = """          float qs[K], ps[K];
+          copy(qs, q_prev), copy(ps, p_prev);
+          for (int si = sslot; si >= lo; --si) {
+            float dq[K];
+            if (si < sslot) {
+              const size_t at = static_cast<size_t>(si) * dim;
+              load_row(q_stk, at, lane, dim, qs);
+              load_row(p_stk, at, lane, dim, ps);
+            }
+#pragma unroll
+            for (int r = 0; r < K; ++r) dq[r] = (q_c[r] - qs[r]) * direction;
+            const float2 d = dot2(dq, ps, p_c);
+            if (d.x < 0.f || d.y < 0.f) {
+              turn_sub = true;
+              break;
+            }
+          }"""
+# The odd-leaf checks as before the redesign: every slot's rows loaded from
+# the stacks when its check starts, the two dot products one after the
+# other.
+CHECKS_SERIAL = (
+    ("nuts_window.cuh", CHECKS_TREE, """          for (int si = sslot; si >= lo; --si) {
+            float qs[K], ps[K], dq[K];
+            const size_t at = static_cast<size_t>(si) * dim;
+            load_row(q_stk, at, lane, dim, qs);
+            load_row(p_stk, at, lane, dim, ps);
+#pragma unroll
+            for (int r = 0; r < K; ++r) dq[r] = (q_c[r] - qs[r]) * direction;
+            if (dot(dq, ps) < 0.f || dot(dq, p_c) < 0.f) {
+              turn_sub = true;
+              break;
+            }
+          }"""),
+)
+# The later checks' rows loaded ahead: each slot's rows while the slot
+# before is checked (two more rows of registers).
+CHECKS_PREFETCH_LOOP = """          float qs[K], ps[K];
+          copy(qs, q_prev), copy(ps, p_prev);
+          for (int si = sslot;; --si) {
+            const bool more = si > lo;
+            float q_next[K], p_next[K], dq[K];
+            if (more) {
+              const size_t at = static_cast<size_t>(si - 1) * dim;
+              load_row(q_stk, at, lane, dim, q_next);
+              load_row(p_stk, at, lane, dim, p_next);
+            }
+#pragma unroll
+            for (int r = 0; r < K; ++r) dq[r] = (q_c[r] - qs[r]) * direction;
+            const float2 d = dot2(dq, ps, p_c);
+            if (d.x < 0.f || d.y < 0.f) {
+              turn_sub = true;
+              break;
+            }
+            if (!more) break;
+            copy(qs, q_next), copy(ps, p_next);
+          }"""
+CHECKS_PREFETCH = (("nuts_window.cuh", CHECKS_TREE, CHECKS_PREFETCH_LOOP),)
+# An odd leaf's first check made right after its leapfrog, from the old and
+# the new (q_c, p_c) before they move on, so no copy of the previous leaf's
+# state stays live; the later checks' rows loaded ahead.
+CHECKS_EARLY = (
+    ("nuts_window.cuh", """      // the previous leaf's state, the multinomial scheme's first check
+      float q_prev[MULTI ? K : 1], p_prev[MULTI ? K : 1];
+      if constexpr (MULTI) copy(q_prev, q_c), copy(p_prev, p_c);""",
+     """      // an odd leaf's first check, against the previous leaf's state
+      float2 first = make_float2(0.f, 0.f);
+      if constexpr (MULTI) {
+        if ((((1 << depth) - steps_left) & 1) && !turn_sub) {
+          float dq[K];
+#pragma unroll
+          for (int r = 0; r < K; ++r) dq[r] = (qn[r] - q_c[r]) * direction;
+          first = dot2(dq, p_c, p);
+        }
+      }"""),
+    ("nuts_window.cuh", CHECKS_TREE, """          bool turn = first.x < 0.f || first.y < 0.f;
+          float qs[K], ps[K];
+          if (!turn && sslot > lo) {
+            load_row(q_stk, static_cast<size_t>(sslot - 1) * dim, lane, dim, qs);
+            load_row(p_stk, static_cast<size_t>(sslot - 1) * dim, lane, dim, ps);
+          }
+          for (int si = sslot - 1; si >= lo && !turn; --si) {
+            const bool more = si > lo;
+            float q_next[K], p_next[K], dq[K];
+            if (more) {
+              const size_t at = static_cast<size_t>(si - 1) * dim;
+              load_row(q_stk, at, lane, dim, q_next);
+              load_row(p_stk, at, lane, dim, p_next);
+            }
+#pragma unroll
+            for (int r = 0; r < K; ++r) dq[r] = (q_c[r] - qs[r]) * direction;
+            const float2 d = dot2(dq, ps, p_c);
+            turn = d.x < 0.f || d.y < 0.f;
+            if (more) copy(qs, q_next), copy(ps, p_next);
+          }
+          turn_sub = turn;"""),
+)
+# The multinomial diagonal warp window held to 5 resident blocks of 4 warps
+# an SM (at most 96 registers a thread).
+MULTI_BOUND = (
+    ("nuts_window.cuh", """__global__ void __launch_bounds__(WARPS_PER_BLOCK<DENSE> * 32)
+    nuts_window_kernel(const Args a) {""",
+     """__global__ void __launch_bounds__(WARPS_PER_BLOCK<DENSE> * 32, MULTI && !DENSE ? 5 : 1)
+    nuts_window_kernel(const Args a) {"""),
+)
+# A probe of what the leaf reservoir's transcendentals cost: log_add_exp's
+# log1pf and expf and the leaf's expf as the fast intrinsics (other bits:
+# the multinomial windows are left out of the comparison).
+RESERVOIR_FAST = (
+    ("nuts_window.cuh", "return mx == -INFINITY ? mx : mx + log1pf(expf(mn - mx));",
+     "return mx == -INFINITY ? mx : mx + __logf(1.f + __expf(mn - mx));"),
+    ("nuts_window.cuh",
+     "        if (!dead && su < expf(lw_leaf - lse)) {\n          copy(q_sub, q_c)",
+     "        if (!dead && su < __expf(lw_leaf - lse)) {\n          copy(q_sub, q_c)"),
+)
+# A probe of what the warp sums' butterfly depth costs at D <= 4: three
+# shuffle levels instead of five (xor 2, xor 1, then lane 0's total to every
+# lane), the same bits there (lanes past dim hold +0); windows past D = 4
+# are left out of the comparison.
+BUTTERFLY_4 = (
+    ("targets.cuh", """__device__ __forceinline__ float group_sum(float v) {
+#pragma unroll""", """__device__ __forceinline__ float group_sum(float v) {
+  if constexpr (G == 32) {
+    v += __shfl_xor_sync(FULL_MASK, v, 2);
+    v += __shfl_xor_sync(FULL_MASK, v, 1);
+    return __shfl_sync(FULL_MASK, v, 0);
+  }
+#pragma unroll"""),
+)
+# 4a at K = 2 under the warp window's common launch bound (the compiler's
+# own register count) instead of its own.
+MULTI_COMMON_BOUND = (
+    ("nuts_window.cuh", "  } else if constexpr (MULTI && !DENSE && K == 2) {",
+     "  } else if constexpr (false) {"),
+)
 PATCHES = {"tile-skip": TILE_SKIP, "k1-reordered": K1_REORDERED, "sums-2": SUMS_2,
-           "dense-3-blocks": DENSE_3_BLOCKS, "k1-common-bound": K1_COMMON_BOUND}
-ORDER_CHANGING = {"sums-2"}   # the warp windows' dense products in another order
+           "dense-3-blocks": DENSE_3_BLOCKS, "k1-common-bound": K1_COMMON_BOUND,
+           "shells-serial": SHELLS_SERIAL, "shells-select": SHELLS_SELECT,
+           "uturn-serial": UTURN_SERIAL, "checks-serial": CHECKS_SERIAL,
+           "checks-prefetch": CHECKS_PREFETCH, "checks-early": CHECKS_EARLY,
+           "multi-bound": MULTI_BOUND, "multi-common-bound": MULTI_COMMON_BOUND,
+           "reservoir-fast": RESERVOIR_FAST,
+           "butterfly-4": BUTTERFLY_4}
+
+
+def _dim_of(label):
+    return int(label.split(" D", 1)[1].split()[0])
+
+
+# The outputs a patch changes on purpose, left out of its comparison: the
+# warp windows' dense products in another order ("sums-2"), the probes'
+# other bits.
+LEFT_OUT = {
+    "sums-2": lambda k: " dense " in k and not k.startswith(HIER) and not k.startswith("3a"),
+    "reservoir-fast": lambda k: " multinomial " in k,
+    "butterfly-4": lambda k: _dim_of(k) > 4,
+}
 BLOCK_CHAINS = (8, 16, 32)
 FAMILIES_2D = {"multimodal_funnel_2d": (2,), "concentric_l1_2d": (2,), "concentric_l1_3d": (3,),
                "nested_l1_2d": (2,), "nested_l1_3d": (3,)}
@@ -161,16 +394,41 @@ FAMILIES = ("standard_normal", "neals_funnel", "correlated_gaussian", "gaussian_
             "log_gamma_unconstrained", "rosenbrock")
 STEP = {"neals_funnel": 0.1, "rosenbrock": 0.02, "log_gamma": 0.1, "student_t": 0.3}
 HIER = "hierarchical_logistic"
+# The L1 families at every shell count the redesign's selects mask (a
+# family name with ":n", the shell count) and at D across the layouts
+L1_SHELLS = (1, 2, 3, 5, 8)
+L1_DIMS = (1, 2, 3, 10, 32, 50)
+L1_RADII = (4.0, 8.0, 16.0, 24.0, 32.0, 40.0, 48.0, 56.0)
+
+
+def _get_target(family, dim, n_data=0):
+    """get_target, or an L1 family at a shell count ("concentric_l1:3")."""
+    from mcmc_tpu_torch.targets import get_target, rahmc_paper
+    if ":" in family:
+        name, n = family.split(":")
+        if name == "concentric_l1":
+            return rahmc_paper.concentric_l1_balls(dim=dim, radii=L1_RADII[:int(n)])
+        return rahmc_paper.nested_l1_balls(dim=dim, n_inner=int(n) - 1)
+    return get_target(family, dim=dim, **({"n_data": n_data} if n_data else {}))
 
 
 def cases():
-    """(label, family, dim, chains, multinomial, dense, n_data) compared."""
+    """(label, family, dim, chains, multinomial, dense, n_data) compared:
+    the warp windows under either metric on every family without data, at
+    ragged counts and D 1-128, the L1 families at every shell count, and
+    the tiled data windows."""
     out = []
     for multi in (False, True):
-        for family in FAMILIES:
-            out += [(family, d, 1200, multi, True, 0) for d in (10, 100)]
-        for family, dims in FAMILIES_2D.items():
-            out += [(family, d, 1200, multi, True, 0) for d in dims]
+        for dense in (False, True):
+            for family in FAMILIES:
+                out += [(family, d, 1200, multi, dense, 0) for d in (10, 100)]
+            for family, dims in FAMILIES_2D.items():
+                out += [(family, d, 1200, multi, dense, 0) for d in dims]
+        for name in ("concentric_l1", "nested_l1"):
+            out += [(f"{name}:{n}", d, 257, multi, False, 0) for n in L1_SHELLS for d in L1_DIMS]
+        out += [("neals_funnel", d, n, multi, False, 0)
+                for d, n in ((1, 1), (32, 7), (33, 9), (64, 31), (65, 33), (128, 8191))]
+        out.append(("neals_funnel", 50, 65536, multi, False, 0))
         out += [("correlated_gaussian", d, n, multi, True, 0)
                 for d, n in ((1, 1), (32, 7), (33, 9), (64, 31), (65, 33), (128, 8191))]
         out += [("correlated_gaussian", d, 65536, multi, True, 0) for d in (50, 100)]
@@ -217,13 +475,12 @@ def worker_outputs(torch, save):
     from mcmc_tpu_torch.ops import fused_nuts as fn
     from mcmc_tpu_torch.ops import fused_trajectory as ft
     from mcmc_tpu_torch.samplers import nuts_persistent as tn
-    from mcmc_tpu_torch.targets import get_target
     dev = torch.device("cuda", 0)
     key = torch.tensor([11, -12], dtype=torch.int32, device=dev)
     out = {}
     for i, (label, family, dim, n, multi, dense, n_data) in enumerate(cases()):
         g = torch.Generator(device=dev).manual_seed(1000 + i)
-        t = get_target(family, dim=dim, **({"n_data": n_data} if n_data else {}))
+        t = _get_target(family, dim, n_data)
         if family == HIER:
             q = t.init_sampler(g, n) * 2.0
         elif family == "log_gamma":
@@ -254,6 +511,8 @@ def worker_outputs(torch, save):
                 st = fn.nuts_window_kernel(*args, st, scalars, inv_mass, l_inv=l_inv, **rand)
                 out[f"{label} {mode} window {call}"] = [digest(torch, x) for x in st]
     from mcmc_tpu_torch.ops import fused_rwmh as fr
+    from mcmc_tpu_torch.targets import get_target
+    out.update(l1_outputs(torch, key))
     for i, (label, dim, n, n_data, steps) in enumerate(rwmh_cases()):
         g = torch.Generator(device=dev).manual_seed(5000 + i)
         t = get_target(HIER, dim=dim, n_data=n_data)
@@ -268,6 +527,61 @@ def worker_outputs(torch, save):
             out[f"{label} {mode}"] = [digest(torch, x) for x in res]
     Path(save).write_text(json.dumps(out))
     print(f"{len(out)} outputs' digests saved")
+
+
+def l1_outputs(torch, key):
+    """Kernels 1, 1b, 1c, 2 and 3 on the L1 families (their functors are
+    every kernel's), injected and Philox: {label: output digests}."""
+    from mcmc_tpu_torch.ops import fused_rwmh as fr
+    from mcmc_tpu_torch.ops import fused_trajectory as ft
+    from mcmc_tpu_torch.ops.padded_targets import device_lp
+    dev = torch.device("cuda", 0)
+    out = {}
+    for i, (name, n_shells, dim) in enumerate(
+            (name, n, d) for name in ("concentric_l1", "nested_l1") for n in L1_SHELLS
+            for d in L1_DIMS):
+        g = torch.Generator(device=dev).manual_seed(9000 + i)
+        t = _get_target(f"{name}:{n_shells}", dim)
+        n = 999                   # three rungs of 333 for 1b
+        q = t.init_sampler(g, n).float().contiguous()
+        lp, grad = (x.float().contiguous() for x in t.value_and_grad_fn(q))
+        info = t.value_and_grad_fn.kernel_info
+        invm = torch.rand(dim, generator=g, device=dev) + 0.5
+        label = f"{name}:{n_shells} D{dim} C{n}"
+        args = (info, 8, ft.SCHEDULE_IDS["tanh"], q, lp, grad,
+                ft.kernel_scalars(0.1, 0.3, 2.0, dev), invm)
+        p0 = torch.randn((n, dim), generator=g, device=dev)
+        u = torch.rand(n, generator=g, device=dev).clamp_min(2.0 ** -25)
+        for mode, rand in (("injected", dict(p0=p0, u=u)), ("philox", dict(key=key, call=1))):
+            out[f"k1 {label} {mode}"] = [digest(torch, x) for x in
+                                         ft.grahmc_step_kernel(*args, **rand)]
+        betas = torch.tensor([1.0, 0.3, 0.05], device=dev)
+        beta_row = betas.repeat_interleave(n // 3)
+        sargs = args[:4] + ((beta_row * lp).contiguous(), (beta_row[:, None] * grad).contiguous(),
+                            ft.rung_table(0.1 / torch.sqrt(betas), 0.3, 2.0, betas, dev), invm)
+        out[f"k1b {label} philox"] = [digest(torch, x) for x in
+                                      ft.grahmc_scaled_kernel(*sargs, key=key, call=1)]
+        base = ft.bridge_base(0.5, 2.0, dim, dev)
+        bridge = ft.bridged_vag(ft.device_vag(info), torch.tensor(0.5, device=dev),
+                                torch.tensor(base.log_norm, dtype=torch.float32, device=dev),
+                                base.mean, base.inv_scale)
+        blp, bgrad = bridge(q)
+        bargs = (info, 8, 0, q, blp.contiguous(), bgrad.contiguous(),
+                 ft.bridge_scalars(0.1, 0.0, 1.0, 0.5, base.log_norm, dev), base.mean,
+                 base.inv_scale, invm)
+        out[f"k1c {label} philox"] = [digest(torch, x) for x in
+                                      ft.grahmc_bridged_kernel(*bargs, key=key, call=1)]
+        margs = args[:3] + (4,) + args[3:]
+        out[f"k2 {label} philox"] = [digest(torch, x) for x in
+                                     ft.grahmc_multistep_kernel(*margs, key=key, call=2)]
+        rlp = device_lp(info)(q).contiguous()
+        noise = torch.randn((8, n, dim), generator=g, device=dev)
+        ru = torch.rand((8, n), generator=g, device=dev).clamp_min(2.0 ** -25)
+        for mode, rand in (("injected", dict(noise=noise, u=ru)),
+                           ("philox", dict(key=key, call=3))):
+            out[f"k3 {label} {mode}"] = [digest(torch, x) for x in fr.rwmh_multistep_kernel(
+                info, 8, q, rlp, fr.rwmh_scale(0.05, dev), 37, **rand)]
+    return out
 
 
 def _event_ms(torch, fn, burst):
@@ -386,6 +700,69 @@ def worker_lockstep(torch, inputs, save):
     Path(save).write_text(json.dumps(result))
 
 
+# Kernel 4's small windows, as chip_smoke.py's [6h] and [6i] run them:
+# (family, dim, step) at 1,024 chains, 16 iterations x W = 4, depth 10, the
+# [5o] and [5n] cells' tuned steps (H100 runs of chip_smoke.py); the
+# inverse metric the positions' variance, as the cells learn one.
+SMALL_WINDOWS = (("nested_l1_2d", 2, 0.16884), ("concentric_l1_2d", 2, 0.12101),
+                 ("multimodal_funnel_2d", 2, 0.22771), ("standard_normal", 2, 0.9),
+                 ("neals_funnel_noncentered", 10, 1.12239),
+                 ("ill_conditioned_gaussian", 10, 1.12021), ("student_t", 10, 0.58272),
+                 ("log_gamma", 10, 0.14341), ("log_gamma_unconstrained", 10, 0.68463))
+SMALL_CHAINS = 1024
+
+
+def _small_window(torch, t, step, key, g, multinomial=False, n=SMALL_CHAINS, dim=None):
+    """(run, state): a window of t at n chains two windows in, its inverse
+    metric the positions' variance."""
+    from mcmc_tpu_torch.ops import fused_nuts as fn
+    from mcmc_tpu_torch.samplers import nuts_persistent as tn
+    dev = torch.device("cuda", 0)
+    if t.init_sampler is not None:
+        q = t.init_sampler(g, n).float().contiguous()
+    else:
+        q = (torch.randn((n, dim), generator=g, device=dev) * 0.5 + 1.0).contiguous()
+    lp, grad = (x.float().contiguous() for x in t.value_and_grad_fn(q))
+    inv_mass = q.var(dim=0).clamp_min(0.05).contiguous()
+    args = (t.value_and_grad_fn.kernel_info, 16, 4, 10)
+    scalars = fn.nuts_scalars(step, 1000.0, dev)
+    st = tn._init_pstate(q, lp, grad, torch.float32, multinomial=multinomial)
+    for call in range(2):
+        st = fn.nuts_window_kernel(*args, st, scalars, inv_mass, key=key, call=call)
+    return (lambda: fn.nuts_window_kernel(*args, st, scalars, inv_mass, key=key, call=2)), st
+
+
+def small_windows(torch, key, g):
+    """{name: (run, state)}: kernel 4 on SMALL_WINDOWS, on the concentric
+    shells at 1-8 shells (radii 4, 8, ..., 32) at 1,024 x 2, and kernel 1
+    and 2 on the nested shells at 1,024 x 2 (L = 16; T = 8), whose functor
+    they share."""
+    from mcmc_tpu_torch.ops import fused_trajectory as ft
+    from mcmc_tpu_torch.targets import get_target, rahmc_paper
+    dev = torch.device("cuda", 0)
+    out = {}
+    for family, dim, step in SMALL_WINDOWS:
+        t = get_target(family, dim=dim)
+        out[f"4 1,024 x {dim} ({family})"] = _small_window(torch, t, step, key, g, dim=dim)
+    for n_shells in range(1, 9):
+        t = rahmc_paper.concentric_l1_balls(dim=2, radii=L1_RADII[:n_shells])
+        out[f"4 1,024 x 2 (concentric, {n_shells} shells)"] = _small_window(
+            torch, t, 0.12101, key, g)
+    t = get_target("nested_l1_2d", dim=2)
+    q = t.init_sampler(g, SMALL_CHAINS).float().contiguous()
+    lp, grad = (x.float().contiguous() for x in t.value_and_grad_fn(q))
+    invm = q.var(dim=0).contiguous()
+    info = t.value_and_grad_fn.kernel_info
+    sc = ft.kernel_scalars(0.17, 1.0, 1.0, dev)
+    a1 = (info, 16, ft.SCHEDULE_IDS["constant"], q, lp, grad, sc, invm)
+    out["1 1,024 x 2 (nested_l1_2d)"] = (lambda: ft.grahmc_step_kernel(*a1, key=key, call=0),
+                                         None)
+    a2 = (info, 16, ft.SCHEDULE_IDS["constant"], 8, q, lp, grad, sc, invm)
+    out["2 1,024 x 2 (nested_l1_2d)"] = (
+        lambda: ft.grahmc_multistep_kernel(*a2, key=key, call=0), None)
+    return out
+
+
 def worker_time(torch, inputs, reps=10, burst=10):
     """Per-call ms of `reps` bursts of each timed kernel and shape, Philox
     mode, and the yardsticks; prints one JSON line."""
@@ -437,8 +814,30 @@ def worker_time(torch, inputs, reps=10, burst=10):
     f_sc = fn.nuts_scalars(0.2, 1000.0, dev)
     for call in range(2):
         f_st = fn.nuts_window_kernel(*f_args, f_st, f_sc, ones, key=key, call=call)
-    fns["4 (control)"] = lambda: fn.nuts_window_kernel(*f_args, f_st, f_sc, ones, key=key,
-                                                       call=2)
+    fns["4 65,536 x 50 (control)"] = lambda: fn.nuts_window_kernel(*f_args, f_st, f_sc, ones,
+                                                                   key=key, call=2)
+    per_call["4 65,536 x 50 (control)"] = f_st
+    m_st = tn._init_pstate(fq, flp, fgrad, torch.float32, multinomial=True)
+    for call in range(2):
+        m_st = fn.nuts_window_kernel(*f_args, m_st, f_sc, ones, key=key, call=call)
+    fns["4a 65,536 x 50"] = lambda: fn.nuts_window_kernel(*f_args, m_st, f_sc, ones, key=key,
+                                                          call=2)
+    per_call["4a 65,536 x 50"] = m_st
+    rb = get_target("rosenbrock", dim=50)
+    rbq = (1.0 + 0.05 * torch.randn((65536, 50), generator=g, device=dev)).contiguous()
+    rb_lp, rb_grad = rb.value_and_grad_fn(rbq)
+    rb_args = (rb.value_and_grad_fn.kernel_info, 16, 4, 10)
+    rb_sc = fn.nuts_scalars(0.02, 1000.0, dev)
+    rb_st = tn._init_pstate(rbq, rb_lp, rb_grad, torch.float32, multinomial=True)
+    for call in range(2):
+        rb_st = fn.nuts_window_kernel(*rb_args, rb_st, rb_sc, ones, key=key, call=call)
+    fns["4a 65,536 x 50 (rosenbrock)"] = lambda: fn.nuts_window_kernel(
+        *rb_args, rb_st, rb_sc, ones, key=key, call=2)
+    per_call["4a 65,536 x 50 (rosenbrock)"] = rb_st
+    for name, (run, st) in small_windows(torch, key, g).items():
+        fns[name] = run
+        if st is not None:
+            per_call[name] = st
     k_args = (f.value_and_grad_fn.kernel_info, 16, ft.SCHEDULE_IDS["constant"], fq,
               flp.contiguous(), fgrad.contiguous(), ft.kernel_scalars(0.024, 1.0, 1.0, dev), ones)
     fns["1 (control)"] = lambda: ft.grahmc_step_kernel(*k_args, key=key, call=0)
@@ -487,7 +886,8 @@ def worker_time(torch, inputs, reps=10, burst=10):
             st = per_call[name]
             calls = 1 + reps * burst
             counts[name] = {"leapfrogs": (int(st.n_exec.sum()) - before[0]) / calls,
-                            "transitions": (int(st.transitions.sum()) - before[1]) / calls}
+                            "transitions": (int(st.transitions.sum()) - before[1]) / calls,
+                            "chains": st.q.shape[0]}
     # yardsticks: 4b's dense products as full-batch torch.matmul(p, M^{-1})
     # calls, one a leapfrog's velocity and kinetic energy and a start's
     # unwhitening and kinetic energy (starts ~ transitions completed),
@@ -595,26 +995,33 @@ def compare_outputs(trees, work):
     """Kernel 4's outputs of every tree against the parent's (the tree's
     without one), bit for bit; returns the differing (tree, window)s."""
     t0 = time.perf_counter()
-    for label, root in trees.items():
-        run_worker("outputs", root, work / f"outputs_{label}.json")
+    labels = list(trees)
+    for i in range(0, len(labels), OUTPUT_WORKERS):   # a few trees' workers at once
+        procs = {label: subprocess.Popen(
+            [sys.executable, __file__, "--worker", "outputs", "--root", str(trees[label]),
+             "--save", str(work / f"outputs_{label}.json")], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for label in labels[i:i + OUTPUT_WORKERS]}
+        for label, proc in procs.items():
+            text = proc.communicate(timeout=1800)[0]
+            if proc.returncode:
+                sys.exit(f"outputs worker in {trees[label]} failed:\n{text[-8000:]}")
     ref = "parent" if "parent" in trees else "tree"
     a = json.loads((work / f"outputs_{ref}.json").read_text())
-    warp_dense = [k for k in a if " dense " in k and not k.startswith(HIER)
-                  and not k.startswith("3a")]
     differ = []
     for label in trees:
         if label == ref:
             continue
         b = json.loads((work / f"outputs_{label}.json").read_text())
         keys = list(a)
-        if set(label.split("+")) & ORDER_CHANGING:
-            keys = [k for k in keys if k not in warp_dense]
-            print(f"[outputs] {label}: its {len(warp_dense)} warp windows under the dense "
-                  f"metric left out (another order)", flush=True)
+        for patch in set(label.split("+")) & set(LEFT_OUT):
+            kept = [k for k in keys if not LEFT_OUT[patch](k)]
+            print(f"[outputs] {label}: {len(keys) - len(kept)} outputs left out ({patch} "
+                  f"changes them on purpose)", flush=True)
+            keys = kept
         bad = [k for k in keys if a[k] != b[k]]
-        print(f"[outputs] {label} against {ref}: {len(keys)} kernel-4 windows and 3a calls "
-              f"compared bit for bit: {len(keys) - len(bad)} equal, {len(bad)} differ",
-              flush=True)
+        print(f"[outputs] {label} against {ref}: {len(keys)} kernel-4 windows, kernel 1-3 "
+              f"calls on the L1 families and 3a calls compared bit for bit: "
+              f"{len(keys) - len(bad)} equal, {len(bad)} differ", flush=True)
         differ += [(label, k) for k in bad]
         for k in bad:
             print(f"  differs: {k}")
@@ -657,14 +1064,22 @@ def main():
         trees[label] = make_patched(trees["tree"], work / label.replace("+", "_"),
                                     label.split("+"))
     t0 = time.perf_counter()
-    procs = {label: subprocess.Popen(
-        [sys.executable, __file__, "--worker", "build", "--root", str(root), "--save",
-         str(out / f"build_{label}.log")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True) for label, root in trees.items()}
+    procs = {}
+    for label, root in list(trees.items()):
+        while sum(q.poll() is None for q in procs.values()) >= BUILD_TREES:
+            time.sleep(1)         # nvcc's memory: a few trees' builds at once
+        procs[label] = subprocess.Popen(
+            [sys.executable, __file__, "--worker", "build", "--root", str(root), "--save",
+             str(out / f"build_{label}.log")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
     for label, proc in procs.items():
-        text = proc.communicate(timeout=1200)[0]
+        text = proc.communicate(timeout=1800)[0]
         if proc.returncode:
-            sys.exit(f"build of {label} failed:\n{text[-8000:]}")
+            if label in ("parent", "tree"):
+                sys.exit(f"build of {label} failed:\n{text[-8000:]}")
+            print(f"[build] {label} failed, left out:\n{text[-3000:]}", flush=True)
+            del trees[label]
+            continue
         print(f"[build] {label}: {text.strip().splitlines()[-1]}", flush=True)
     print(f"[build] all trees in {time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -688,12 +1103,14 @@ def main():
         return 1 if differ else 0
 
     results = {label: {} for label in trees}
+    counts_of = {label: {} for label in trees}
     order = list(trees)
     for label in order + order[::-1]:
         text = run_worker("time", trees[label], inputs=inputs)
         got = json.loads(text.split("TIMES ", 1)[1].splitlines()[0])
         for k, v in got["ms"].items():
             results[label].setdefault(k, []).extend(v)
+        counts_of[label].update(got["counts"])
         print(f"[time] {label}: " + ", ".join(
             f"{k} median {statistics.median(v):.4f} ms ({min(v):.4f}-{max(v):.4f})"
             for k, v in got["ms"].items()) + f"; per call {got['counts']}", flush=True)
@@ -701,7 +1118,21 @@ def main():
     for label, r in results.items():
         print(f"  {label}: " + ", ".join(
             f"{k} {statistics.median(v):.4f} [{min(v):.4f}-{max(v):.4f}]" for k, v in r.items()))
-    (out / "times.json").write_text(json.dumps({"card": smi, "times": results}))
+    print("[time] by window: each tree's median (min-max) ms, and us per executed "
+          "chain-leapfrog (the tree's own leapfrogs a call):")
+    for k in results["tree"]:
+        cells = []
+        for label, r in results.items():
+            if k not in r:
+                continue
+            c = counts_of[label].get(k)
+            per = (f", {1000 * statistics.median(r[k]) / (c['leapfrogs'] / c['chains']):.3f} us"
+                   if c and c.get("chains") else "")
+            cells.append(f"{label} {statistics.median(r[k]):.4f} ({min(r[k]):.4f}-"
+                         f"{max(r[k]):.4f}){per}")
+        print(f"  {k}: " + "; ".join(cells))
+    (out / "times.json").write_text(json.dumps({"card": smi, "times": results,
+                                                "counts": counts_of}))
     return 1 if differ else 0
 
 

@@ -31,9 +31,9 @@
 //
 // Two kernels (WARP_WINDOW picks by family). nuts_window_kernel, warp per
 // chain, runs every family without data in either metric (4, 4a, 4b,
-// 4a+4b; 4b at D <= 32 under its own launch bound,
-// nuts_window_k1_dense_kernel), M^{-1} and L^{-1} in shared memory
-// (metric.cuh:DenseMetric).
+// 4a+4b; 4b at D <= 32 and 4a at D 33-64 under launch bounds of their own,
+// nuts_window_k1_dense_kernel and nuts_window_multi_k2_kernel), M^{-1} and
+// L^{-1} in shared memory (metric.cuh:DenseMetric).
 // nuts_tiled_window_kernel runs the data-carrying target in either scheme
 // and metric (4c, 4a's and 4b's data forms): its products with a matrix
 // every chain shares (X, M^{-1}, L^{-1}) are block-tiled as kernel 1's 1d
@@ -47,13 +47,24 @@
 // 3.35 TB/s -- against 64 leapfrogs per chain in a bench window. Each
 // leapfrog is the target (one expf and a warp reduction on the funnel), the
 // kinetic energy (a second reduction) and the accept expf; a subtree's end
-// adds two reductions for the U-turn test. Instruction issue and the
-// latency of those dependent shuffles, not device memory, set the time.
-// MULTI adds per leaf a log1pf/expf pair, a stack store or up to depth
-// checks of two reductions each. DENSE adds per leapfrog two D x D
-// products (velocity and kinetic energy), 2 D^2 multiply-adds per chain:
-// at D = 50 these, not the target, set the time. Each multiply-add reads
-// two shared words, and the load/store unit sets the pace.
+// adds the U-turn test's two reductions, issued together (dot2). Instruction
+// issue and the latency of those dependent shuffles, not device memory, set
+// the time: 16.5 us a chain-leapfrog at 65,536 x 50 (20 warps an SM). At
+// 1,024 chains (~8 warps an SM) each chain's dependent stream alone sets
+// it: 0.66 us at D = 2 on N(0, I), 0.9-1.9 us on the L1 shells once their
+// functors spread the shells over the lanes (targets.cuh; 1.0-4.2 us with
+// the shells in sequence). A probe that cut every butterfly to 3 levels at
+// D <= 4 took 2-17% off those windows: lane groups sized to D are not taken
+// (PERF.md section 6).
+// MULTI adds per leaf a log1pf/expf pair (~5% of 4a at 65,536 x 50), a
+// stack store or up to depth checks of two reductions each. An odd leaf's
+// first check is against the leaf before it, whose state is still in
+// registers, so it waits on no load; with 4a's own launch bound at K = 2
+// (nuts_window_multi_k2_kernel) that took 4a from 2.07 to 1.81 ms at 65,536
+// x 50. DENSE adds per leapfrog two D x D products (velocity and kinetic
+// energy), 2 D^2 multiply-adds per chain: at D = 50 these, not the target,
+// set the time. Each multiply-add reads two shared words, and the
+// load/store unit sets the pace.
 //
 // Design of nuts_window_kernel: one warp per chain, as kernels 1 and 2. Lane j
 // holds coordinates j, j+32, ... of all rows (K = ceil(D / 32) registers each),
@@ -242,6 +253,25 @@ __device__ __forceinline__ float dot(const float (&a)[K], const float (&b)[K]) {
   return warp_sum(s);
 }
 
+// Two per-chain dot products, a . b and a . c, their butterflies issued
+// together: each equals dot()'s bits, in one butterfly's latency.
+template <int K>
+__device__ __forceinline__ float2 dot2(const float (&a)[K], const float (&b)[K],
+                                       const float (&c)[K]) {
+  float s = 0.f, t = 0.f;
+#pragma unroll
+  for (int r = 0; r < K; ++r) {
+    s += a[r] * b[r];
+    t += a[r] * c[r];
+  }
+#pragma unroll
+  for (int offset = 16; offset > 0; offset >>= 1) {
+    s += __shfl_xor_sync(FULL_MASK, s, offset);
+    t += __shfl_xor_sync(FULL_MASK, t, offset);
+  }
+  return make_float2(s, t);
+}
+
 // log(e^a + e^b) as max + log1p(exp(min - max)); -inf when both are -inf.
 __device__ __forceinline__ float log_add_exp(float a, float b) {
   const float mx = fmaxf(a, b), mn = fminf(a, b);
@@ -386,6 +416,9 @@ __device__ __forceinline__ void warp_window(const Args& a) {
       h_c = -lp_c + metric.kinetic(p);
       const float dh = h0 - h_c;
       sum_alpha += expf(dh > 0.f ? 0.f : dh);  // min(0, dh), NaN kept
+      // the previous leaf's state, the multinomial scheme's first check
+      float q_prev[MULTI ? K : 1], p_prev[MULTI ? K : 1];
+      if constexpr (MULTI) copy(q_prev, q_c), copy(p_prev, p_c);
       copy(q_c, qn), copy(p_c, p), copy(g_c, gn);
       ++n_steps;
       ++n_exec;
@@ -413,15 +446,23 @@ __device__ __forceinline__ void warp_window(const Args& a) {
           store_row(q_stk, at, lane, dim, q_c);
           store_row(p_stk, at, lane, dim, p_c);
         } else if (!turn_sub) {  // a set flag stays set: the checks would change nothing
+          // Slot sslot holds leaf i_leaf - 1 of this subtree, the previous
+          // leapfrog's state, still in registers; a later slot's rows are
+          // loaded when its check starts.
           const int lo = sslot - (__popc(i_leaf ^ (i_leaf + 1)) - 1) + 1;
+          float qs[K], ps[K];
+          copy(qs, q_prev), copy(ps, p_prev);
           for (int si = sslot; si >= lo; --si) {
-            float qs[K], ps[K], dq[K];
-            const size_t at = static_cast<size_t>(si) * dim;
-            load_row(q_stk, at, lane, dim, qs);
-            load_row(p_stk, at, lane, dim, ps);
+            float dq[K];
+            if (si < sslot) {
+              const size_t at = static_cast<size_t>(si) * dim;
+              load_row(q_stk, at, lane, dim, qs);
+              load_row(p_stk, at, lane, dim, ps);
+            }
 #pragma unroll
             for (int r = 0; r < K; ++r) dq[r] = (q_c[r] - qs[r]) * direction;
-            if (dot(dq, ps) < 0.f || dot(dq, p_c) < 0.f) {
+            const float2 d = dot2(dq, ps, p_c);
+            if (d.x < 0.f || d.y < 0.f) {
               turn_sub = true;
               break;
             }
@@ -471,7 +512,8 @@ __device__ __forceinline__ void warp_window(const Args& a) {
     float dq[K];
 #pragma unroll
     for (int r = 0; r < K; ++r) dq[r] = q_r[r] - q_l[r];
-    const bool u_turn = (dot(dq, p_l) < 0.f) || (dot(dq, p_r) < 0.f);
+    const float2 ends = dot2(dq, p_l, p_r);
+    const bool u_turn = ends.x < 0.f || ends.y < 0.f;
     if (depth + 1 >= a.max_tree_depth || u_turn || diverged || (MULTI && turn_sub)) {
       // the transition completes: adopt the proposal, log its statistics
       float mean_alpha = sum_alpha / static_cast<float>(max(n_steps, 1));
@@ -562,11 +604,24 @@ __global__ void __launch_bounds__(WARPS_PER_BLOCK<true> * 32, 3)
   warp_window<FAMILY, 1, false, true>(a);
 }
 
+// 4a at K = 2 (D 33-64; the NUTS-multinomial row's 50-D funnel), asking
+// the compiler for 5 blocks of 4 warps an SM (96 registers a thread, 40
+// bytes spilled). Its own choice, 110 registers and 4 blocks, was 7% slower
+// at 65,536 x 50; a minimum of blocks on every instance gave the others
+// more registers and made kernel 4 13% slower there (PERF.md section 6).
+template <int FAMILY>
+__global__ void __launch_bounds__(WARPS_PER_BLOCK<false> * 32, 5)
+    nuts_window_multi_k2_kernel(const Args a) {
+  warp_window<FAMILY, 2, true, false>(a);
+}
+
 // The warp window's kernel for an instance.
 template <int FAMILY, int K, bool MULTI, bool DENSE>
 auto warp_window_kernel() {
   if constexpr (DENSE && !MULTI && K == 1) {
     return nuts_window_k1_dense_kernel<FAMILY>;
+  } else if constexpr (MULTI && !DENSE && K == 2) {
+    return nuts_window_multi_k2_kernel<FAMILY>;
   } else {
     return nuts_window_kernel<FAMILY, K, MULTI, DENSE>;
   }

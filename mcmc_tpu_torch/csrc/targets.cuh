@@ -646,11 +646,89 @@ __device__ __forceinline__ float shell_slope(float u, float r, float sig2) {
   return __fdiv_rn(-__fsub_rn(u, r), sig2);
 }
 
+// The L1 families' shells spread over a warp (the warp-per-chain layout, G
+// = 32): lanes SHELL_LANES k .. SHELL_LANES k + 3 compute shell k, so the
+// shells' divisions and expf run once, side by side, instead of one shell
+// after another. At 1,024 chains (~8 warps an SM) a kernel waits on each
+// chain's dependent stream, and the shells in sequence were its longest
+// part: on an H100 kernel 4's window at 1,024 x 2 took 4.18 us a
+// chain-leapfrog on the nested shells and 1.96 on the concentric ones (N(0,
+// I) 0.69), and with the shells over the lanes 1.92 and 1.32; the shells
+// in sequence without branches (every shell computed, selects) 3.64 and
+// 1.93, the axes computed once alone 4.00 (PERF.md section 6). Kernel 3's
+// lane groups (G < 32) keep the shells in sequence.
+constexpr int SHELL_LANES = 32 / MAX_SHELLS;
+template <int G, bool BLOCKED>
+constexpr bool LANE_SHELLS = G == 32 && !BLOCKED;
+
+// x[k] for a k known only at run time, by selects: a register array indexed
+// at run time would live in local memory.
+__device__ __forceinline__ float pick_shell(const float (&x)[MAX_SHELLS], int k) {
+  float v = x[0];
+#pragma unroll
+  for (int j = 1; j < MAX_SHELLS; ++j) v = k == j ? x[j] : v;
+  return v;
+}
+
+// The shells' logsumexp pieces on this lane's shell k = lane / SHELL_LANES,
+// whose value of u is `u`: returns the max of the valid shells' terms on
+// every lane (the plain version's max: fmaxf ignores the NaN that masks a
+// shell past n, and every term is -0 or below, so the order of the maxima
+// changes no bit) and sets e = exp(term - max) and the slope of this lane's
+// shell.
+__device__ __forceinline__ float lane_shell(float u, float radius, float sig2, bool valid,
+                                            float& e, float& slope) {
+  const float t = shell_term(u, radius, sig2);
+  slope = shell_slope(u, radius, sig2);
+  float mx = valid ? t : NAN;
+#pragma unroll
+  for (int offset = SHELL_LANES; offset < 32; offset <<= 1) {
+    mx = fmaxf(mx, __shfl_xor_sync(FULL_MASK, mx, offset));
+  }
+  e = expf(__fsub_rn(t, mx));
+  return mx;
+}
+
+// Shell j's value of x, read from its first lane (every lane gets it).
+__device__ __forceinline__ float shell_value(float x, int j) {
+  return __shfl_sync(FULL_MASK, x, j * SHELL_LANES);
+}
+
+// Eight warp sums at once, s[k] this lane's share of shell k's: returns
+// shell lane / SHELL_LANES's total. Each of the first three levels of the
+// butterfly sends half of a lane's sums to its partner and keeps the other
+// half, so 4 + 2 + 1 + 1 + 1 shuffles do what eight group_sums' 40 do. Each
+// shell's sum is group_sum's tree, level for level (offsets 16, 8, 4, 2, 1),
+// so the totals are group_sum's bits.
+__device__ __forceinline__ float shell_sums(const float (&s)[MAX_SHELLS], int lane) {
+  static_assert(MAX_SHELLS == 8 && SHELL_LANES == 4, "three halving levels");
+  float s4[4], s2[2];
+  const bool hi16 = (lane & 16) != 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float send = hi16 ? s[j] : s[4 + j];
+    s4[j] = __fadd_rn(hi16 ? s[4 + j] : s[j], __shfl_xor_sync(FULL_MASK, send, 16));
+  }
+  const bool hi8 = (lane & 8) != 0;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const float send = hi8 ? s4[j] : s4[2 + j];
+    s2[j] = __fadd_rn(hi8 ? s4[2 + j] : s4[j], __shfl_xor_sync(FULL_MASK, send, 8));
+  }
+  const bool hi4 = (lane & 4) != 0;
+  float s1 = __fadd_rn(hi4 ? s2[1] : s2[0], __shfl_xor_sync(FULL_MASK, hi4 ? s2[0] : s2[1], 4));
+  s1 = __fadd_rn(s1, __shfl_xor_sync(FULL_MASK, s1, 2));
+  return __fadd_rn(s1, __shfl_xor_sync(FULL_MASK, s1, 1));
+}
+
 // Concentric L1 shells: p ∝ sum_k exp(-(|q|_1 - r_k)^2 / (2 s^2)). One
-// group sum for u = |q|_1, then the shells' logsumexp unrolled in the JAX
-// builder's order (the max, the exps, their sum), lp = max + log(sum), and
-// grad = (sum_k e_k (-(u - r_k) / s^2)) / sum * sign(q), the sign 0 at 0.
-// Up to MAX_SHELLS shells from the params (`shell`, `n_shells`). Params: s^2.
+// group sum for u = |q|_1, then the shells' logsumexp in the JAX builder's
+// order (the max, the exps, their sum), lp = max + log(sum), and grad =
+// (sum_k e_k (-(u - r_k) / s^2)) / sum * sign(q), the sign 0 at 0. Up to
+// MAX_SHELLS shells from the params (`shell`, `n_shells`); a shell past
+// n_shells is masked by a select. In the warp-per-chain layout the shells'
+// terms, slopes and exps are spread over the lanes (LANE_SHELLS) and the
+// sums gathered in shell order. Params: s^2.
 template <int K, int G, bool BLOCKED>
 struct Target<CONCENTRIC_L1, K, G, BLOCKED> {
   float sig2;
@@ -663,23 +741,36 @@ struct Target<CONCENTRIC_L1, K, G, BLOCKED> {
   }
 
   __device__ __forceinline__ float operator()(const float (&q)[K], float (&g)[K],
-                                              int /*lane*/) const {
+                                              int lane) const {
     float s = 0.f;
 #pragma unroll
     for (int r = 0; r < K; ++r) s = __fadd_rn(s, fabsf(q[r]));
     const float u = group_sum<G>(s);
-    float mx = shell_term(u, radius[0], sig2);
+    float mx, lse = 0.f, du = 0.f;
+    if constexpr (LANE_SHELLS<G, BLOCKED>) {
+      const int k = lane / SHELL_LANES;
+      float e, slope;
+      mx = lane_shell(u, pick_shell(radius, k), sig2, k < n, e, slope);
+      const float term = __fmul_rn(e, slope);
 #pragma unroll
-    for (int k = 1; k < MAX_SHELLS; ++k) {
-      if (k < n) mx = fmaxf(mx, shell_term(u, radius[k], sig2));
-    }
-    float lse = 0.f, du = 0.f;
+      for (int j = 0; j < MAX_SHELLS; ++j) {
+        const float ej = shell_value(e, j), tj = shell_value(term, j);
+        lse = j < n ? __fadd_rn(lse, ej) : lse;
+        du = j < n ? __fadd_rn(du, tj) : du;
+      }
+    } else {
+      mx = shell_term(u, radius[0], sig2);
 #pragma unroll
-    for (int k = 0; k < MAX_SHELLS; ++k) {
-      if (k < n) {
-        const float e = expf(__fsub_rn(shell_term(u, radius[k], sig2), mx));
-        lse = __fadd_rn(lse, e);
-        du = __fadd_rn(du, __fmul_rn(e, shell_slope(u, radius[k], sig2)));
+      for (int k = 1; k < MAX_SHELLS; ++k) {
+        if (k < n) mx = fmaxf(mx, shell_term(u, radius[k], sig2));
+      }
+#pragma unroll
+      for (int k = 0; k < MAX_SHELLS; ++k) {
+        if (k < n) {
+          const float e = expf(__fsub_rn(shell_term(u, radius[k], sig2), mx));
+          lse = __fadd_rn(lse, e);
+          du = __fadd_rn(du, __fmul_rn(e, shell_slope(u, radius[k], sig2)));
+        }
       }
     }
     const float coef = __fdiv_rn(du, lse);
@@ -696,58 +787,89 @@ struct Target<CONCENTRIC_L1, K, G, BLOCKED> {
 // |q - c_k|_1, the shells' logsumexp in the JAX builder's order, and grad =
 // (sum_k e_k (-(u_k - r_k) / s^2) sign(q - c_k)) / sum. Shell k's radius is
 // shell[k] (r_outer, then r_inner n_inner times), n_shells = n_inner + 1 <=
-// MAX_SHELLS. Params: s^2, mu_norm.
+// MAX_SHELLS. The axes are computed once, with the functor. In the
+// warp-per-chain layout the MAX_SHELLS sums run at once (shell_sums) and
+// the shells' terms, slopes and exps are spread over the lanes
+// (LANE_SHELLS); a shell past n_shells is masked by a select. Params: s^2,
+// mu_norm.
 template <int K, int G, bool BLOCKED>
 struct Target<NESTED_L1, K, G, BLOCKED> {
   float sig2, mu;
   float radius[MAX_SHELLS];
-  int n, dim;
-  __device__ explicit Target(int dim_, const TargetParams& p, const TargetData& = TargetData{})
-      : sig2(p.v[0]), mu(p.v[1]), n(p.n_shells), dim(dim_) {
+  int axis[MAX_SHELLS / 2];  // j % dim: the axis of shells 2 j + 1 and 2 j + 2
+  int n;
+  __device__ explicit Target(int dim, const TargetParams& p, const TargetData& = TargetData{})
+      : sig2(p.v[0]), mu(p.v[1]), n(p.n_shells) {
 #pragma unroll
     for (int k = 0; k < MAX_SHELLS; ++k) radius[k] = p.shell[k];
+#pragma unroll
+    for (int j = 0; j < MAX_SHELLS / 2; ++j) axis[j] = j % dim;
   }
 
   // q - c_k at coordinate i
   __device__ __forceinline__ float diff(float qi, int i, int k) const {
-    if (k == 0 || i != (k - 1) / 2 % dim) return qi;
+    if (k == 0 || i != axis[(k - 1) / 2]) return qi;
     return __fsub_rn(qi, (k - 1) % 2 == 0 ? mu : -mu);
+  }
+
+  // |q - c_k|_1 of this lane's coordinates
+  __device__ __forceinline__ float partial(const float (&q)[K], int lane, int k) const {
+    float s = 0.f;
+#pragma unroll
+    for (int r = 0; r < K; ++r) {
+      s = __fadd_rn(s, fabsf(diff(q[r], coord_of<K, G, BLOCKED>(lane, r), k)));
+    }
+    return s;
+  }
+
+  // g += coef sign(q - c_k)
+  __device__ __forceinline__ void add_grad(const float (&q)[K], float (&g)[K], int lane, int k,
+                                           float coef, bool valid) const {
+#pragma unroll
+    for (int r = 0; r < K; ++r) {
+      const int i = coord_of<K, G, BLOCKED>(lane, r);
+      const float gk = __fadd_rn(g[r], __fmul_rn(coef, sign_of(diff(q[r], i, k))));
+      g[r] = valid ? gk : g[r];
+    }
   }
 
   __device__ __forceinline__ float operator()(const float (&q)[K], float (&g)[K],
                                               int lane) const {
-    float u[MAX_SHELLS];
-#pragma unroll
-    for (int k = 0; k < MAX_SHELLS; ++k) {
-      if (k < n) {
-        float s = 0.f;
-#pragma unroll
-        for (int r = 0; r < K; ++r) {
-          s = __fadd_rn(s, fabsf(diff(q[r], coord_of<K, G, BLOCKED>(lane, r), k)));
-        }
-        u[k] = group_sum<G>(s);
-      } else {
-        u[k] = 0.f;
-      }
-    }
-    float mx = shell_term(u[0], radius[0], sig2);
-#pragma unroll
-    for (int k = 1; k < MAX_SHELLS; ++k) {
-      if (k < n) mx = fmaxf(mx, shell_term(u[k], radius[k], sig2));
-    }
-    float lse = 0.f;
+    float mx, lse = 0.f;
 #pragma unroll
     for (int r = 0; r < K; ++r) g[r] = 0.f;
+    if constexpr (LANE_SHELLS<G, BLOCKED>) {
+      float s[MAX_SHELLS];
 #pragma unroll
-    for (int k = 0; k < MAX_SHELLS; ++k) {
-      if (k < n) {
-        const float e = expf(__fsub_rn(shell_term(u[k], radius[k], sig2), mx));
-        lse = __fadd_rn(lse, e);
-        const float coef = __fmul_rn(e, shell_slope(u[k], radius[k], sig2));
+      for (int k = 0; k < MAX_SHELLS; ++k) s[k] = partial(q, lane, k);
+      const int k = lane / SHELL_LANES;
+      float e, slope;
+      mx = lane_shell(shell_sums(s, lane), pick_shell(radius, k), sig2, k < n, e, slope);
+      const float coef = __fmul_rn(e, slope);
 #pragma unroll
-        for (int r = 0; r < K; ++r) {
-          const int i = coord_of<K, G, BLOCKED>(lane, r);
-          g[r] = __fadd_rn(g[r], __fmul_rn(coef, sign_of(diff(q[r], i, k))));
+      for (int j = 0; j < MAX_SHELLS; ++j) {
+        const float ej = shell_value(e, j);
+        lse = j < n ? __fadd_rn(lse, ej) : lse;
+        add_grad(q, g, lane, j, shell_value(coef, j), j < n);
+      }
+    } else {
+      float u[MAX_SHELLS];
+#pragma unroll
+      for (int k = 0; k < MAX_SHELLS; ++k) {
+        u[k] = 0.f;
+        if (k < n) u[k] = group_sum<G>(partial(q, lane, k));
+      }
+      mx = shell_term(u[0], radius[0], sig2);
+#pragma unroll
+      for (int k = 1; k < MAX_SHELLS; ++k) {
+        if (k < n) mx = fmaxf(mx, shell_term(u[k], radius[k], sig2));
+      }
+#pragma unroll
+      for (int k = 0; k < MAX_SHELLS; ++k) {
+        if (k < n) {
+          const float e = expf(__fsub_rn(shell_term(u[k], radius[k], sig2), mx));
+          lse = __fadd_rn(lse, e);
+          add_grad(q, g, lane, k, __fmul_rn(e, shell_slope(u[k], radius[k], sig2)), true);
         }
       }
     }

@@ -1507,3 +1507,123 @@ def test_tiled_rwmh_geometry_agrees_with_the_kernel(dev):
         nbytes = lib.rwmh_tile_geometry(dim, ctypes.byref(chains), ctypes.byref(rows))
         assert (nbytes, chains.value, rows.value) == (geo.smem_bytes, geo.chains,
                                                       geo.row_tile), dim
+
+
+# Kernel 4's warp window at small D and its multinomial scheme, redesigned
+# for Hopper (csrc/targets.cuh: the L1 shells spread over the warp's lanes;
+# csrc/nuts_window.cuh: the termination test's and the multinomial checks'
+# dot products together, each odd leaf's first check from registers):
+# against the plain window, injected draws and Philox, from a state one
+# plain window in, on families whose kernels round the leapfrog as the
+# plain version does (csrc/targets.cuh:ROUNDED_LEAPFROG). No chain may
+# drift in flight; with injected draws every chain that agrees keeps its
+# positions, momenta, gradients, reservoir and checkpoint stacks bit for
+# bit (with Philox the normals' logf, sinf and cosf may differ from
+# PyTorch's in the last ulp).
+L1_RADII = (4.0, 8.0, 16.0, 24.0, 32.0, 40.0, 48.0, 56.0)
+
+
+def _l1_target(family, n_shells, dim):
+    from mcmc_tpu_torch.targets import rahmc_paper
+    if family == "concentric_l1_balls":
+        return rahmc_paper.concentric_l1_balls(dim=dim, radii=L1_RADII[:n_shells])
+    return rahmc_paper.nested_l1_balls(dim=dim, n_inner=n_shells - 1)
+
+
+def _warp_window_bits(t, q, g, step, multinomial, label, max_split=0, max_drift=0,
+                      exact=True):
+    """The diagonal warp window (4 or 4a, 16 iterations x W = 4, depth 10)
+    against its plain version as the comment above says (bit for bit when
+    `exact`); one launch of the variant a call."""
+    n, dim = q.shape
+    lp, grad = (x.float().contiguous() for x in t.value_and_grad_fn(q))
+    info = t.value_and_grad_fn.kernel_info
+    inv_mass = torch.rand(dim, generator=g, device=q.device) + 0.5
+    args = (info, 16, 4, 10)
+    scalars = fn.nuts_scalars(step, 1000.0, q.device)
+    key = torch.tensor([5, -6], dtype=torch.int32, device=q.device)
+    start = tn._init_pstate(q, lp, grad, torch.float32, multinomial=multinomial)
+    warm = fn.nuts_window_plain(*args, start, scalars, inv_mass, key=key, call=0)
+    n_slice = 64 if multinomial else 16
+    draws = (torch.randn((16, n, dim), generator=g, device=q.device),
+             torch.rand((16, n), generator=g, device=q.device) < 0.5,
+             torch.rand((16, n), generator=g, device=q.device) < 0.5,
+             torch.rand((16, n), generator=g, device=q.device),
+             torch.rand((n_slice, n), generator=g, device=q.device).clamp_min(2.0 ** -25),
+             torch.rand((16, n), generator=g, device=q.device))
+    name = fn.VARIANTS[(multinomial, False)]
+
+    def clone():
+        return tn._PState(*(None if x is None else x.clone() for x in warm))
+    for mode, rand in (("injected", dict(draws=draws)), ("philox", dict(key=key, call=4))):
+        before = fn.nuts_window_kernel.variant_launches[name]
+        kern = fn.nuts_window_kernel(*args, clone(), scalars, inv_mass, **rand)
+        assert fn.nuts_window_kernel.variant_launches[name] == before + 1
+        plain = fn.nuts_window_plain(*args, clone(), scalars, inv_mass, **rand)
+        same, emitted, in_flight, err = fn.window_agreement(kern, plain)
+        kept = same & emitted & in_flight
+        split, drifted = int((~(same & emitted)).sum()), int((same & emitted & ~in_flight).sum())
+        print(f"READING {name} {label} {mode}: split {split}, drifted {drifted} of {n}, "
+              f"max |err| {err:.3g}, {int((kern.n_exec - warm.n_exec).sum())} leapfrogs")
+        assert split <= max_split and drifted <= max_drift, (split, drifted, err)
+        assert int((kern.transitions - warm.transitions).sum()) > 0
+        if exact and mode == "injected":
+            for field in POSITION_FIELDS:
+                a, b = getattr(kern, field), getattr(plain, field)
+                if a is not None:
+                    _assert_bits(a[kept], b[kept], f"{label} {mode} {field}")
+
+
+@pytest.mark.parametrize("dim", [1, 2, 3, 10, 32])
+@pytest.mark.parametrize("n_shells", [1, 2, 3, 5, 8])
+@pytest.mark.parametrize("family", ["concentric_l1_balls", "nested_l1_balls"])
+def test_l1_shells_window_bit_for_bit(dev, family, n_shells, dim):
+    """Kernel 4 on the L1 families at 1-8 shells (every mask of the lanes'
+    shells; 8 is MAX_SHELLS) and D 1-32 (K = 1, where [6h] runs them), at
+    [6h]'s 1,024 chains: no chain split or drifted, the agreeing chains bit
+    for bit."""
+    g = torch.Generator(device=dev).manual_seed(100 * n_shells + dim)
+    t = _l1_target(family, n_shells, dim)
+    q = t.init_sampler(g, 1024).float().contiguous()
+    _warp_window_bits(t, q, g, 0.12, False, f"{family} {n_shells} shells D={dim}")
+
+
+@pytest.mark.parametrize("multinomial", [False, True])
+def test_bimodal_funnel_window_bit_for_bit(dev, multinomial):
+    """Kernel 4 and 4a on the bimodal funnel at [6h]'s 1,024 x 2: no chain
+    split or drifted, the agreeing chains bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(17)
+    t = get_target("multimodal_funnel_2d", dim=2)
+    q = t.init_sampler(g, 1024).float().contiguous()
+    _warp_window_bits(t, q, g, 0.23, multinomial, "multimodal_funnel_2d")
+
+
+@pytest.mark.parametrize("n", [1, 7, 33, 8191, 65536])
+def test_multinomial_window_bit_for_bit(dev, n):
+    """4a at the NUTS-multinomial row's 65,536 x 50 and at ragged chain
+    counts (a block of 4 warps partly used), on the 50-D Rosenbrock, a
+    family whose kernels round the leapfrog as its plain version does
+    (csrc/targets.cuh:ROUNDED_LEAPFROG; the funnel's FMA-contracted
+    leapfrog differs from it in the last ulp): the odd leaves' checks from
+    registers and prefetched stack rows change no bit. At most one chain in
+    1,000 split (an energy summed in another order than PyTorch's, within an
+    ulp of a slice or reservoir edge: chip_smoke.py's SPLIT_MAX), none
+    drifted."""
+    g = torch.Generator(device=dev).manual_seed(n)
+    t = get_target("rosenbrock", dim=50)
+    q = (1.0 + 0.05 * torch.randn((n, 50), generator=g, device=dev)).contiguous()
+    _warp_window_bits(t, q, g, 0.02, True, f"rosenbrock C={n}", max_split=n // 1000)
+
+
+def test_multinomial_funnel_row_window(dev):
+    """4a on the NUTS-multinomial row's 65,536 x 50 funnel, whose leapfrog
+    nvcc contracts to FMA (so no bit-for-bit hold): split and drifted
+    chains within [3c]'s bounds for it (at most 1 in 1,000 split, 5% of the
+    trajectories in flight drifted: the neck amplifies an ulp), and the
+    agreeing chains' emitted state within window_agreement's 1e-4."""
+    n = 65536
+    g = torch.Generator(device=dev).manual_seed(50)
+    t = get_target("neals_funnel", dim=50)
+    q = (torch.randn((n, 50), generator=g, device=dev) * 0.5).contiguous()
+    _warp_window_bits(t, q, g, 0.2, True, "neals_funnel", max_split=n // 1000,
+                      max_drift=n // 20, exact=False)
