@@ -3051,10 +3051,28 @@ def _interleaved(torch, fns, reps, bursts):
     return ms
 
 
-def phase_timing(torch, ft, targets, step, dev, reps=20, burst=10):
+def _per_substep(ms, chains, steps, transitions=1):
+    """A kernel's time per chain-substep (chains x L x T), in ns."""
+    return 1e6 * ms / (chains * steps * transitions)
+
+
+def say_lane_ptxas(log, kernel, family, dim):
+    """The ptxas lines of `kernel`'s diagonal instances for `family` at
+    dim's K, every lane count G (its last template argument; the lane
+    groups G < 32, csrc/trajectory.cuh:step_lanes)."""
+    from mcmc_tpu_torch.ops.padded_targets import FAMILY_IDS
+    k = -(-dim // 32)
+    for line in ptxas_summary(log):
+        if re.match(rf"_ZN4mcmc\d+{kernel}ILi{FAMILY_IDS[family]}ELi{k}ELb0ELi\d+EE", line):
+            say(f"  ptxas: {line}")
+
+
+def phase_timing(torch, ft, targets, step, dev, log, reps=20, burst=10):
     """Median over `reps` samples of the time per call of kernel and plain
     version at the main-path shape, Philox mode as on the main path, samples
-    interleaved in turns (plain, kernel, kernel, plain, ...)."""
+    interleaved in turns (plain, kernel, kernel, plain, ...); each time also
+    per chain-substep, and the ptxas lines of kernel 1's instances on the
+    funnel at D = 50 (from the build `log`)."""
     say(f"[6] kernel vs plain version: CUDA events, median of {reps} bursts of "
         f"{burst} calls, Philox mode")
     t = targets.neals_funnel(DIM)
@@ -3079,9 +3097,11 @@ def phase_timing(torch, ft, targets, step, dev, reps=20, burst=10):
         ms = _interleaved(torch, fns, reps, {"kernel": burst, "plain": burst})
         times[name] = (statistics.median(ms["kernel"]), statistics.median(ms["plain"]))
         say(f"  {name} ({n} chains{', T = %d' % MULTI_T if lead else ''}, L = "
-            f"{NUM_STEPS}): kernel {times[name][0]:.4f} ms, plain "
-            f"{times[name][1]:.4f} ms; kernel quartiles "
+            f"{NUM_STEPS}): kernel {times[name][0]:.4f} ms "
+            f"({_per_substep(times[name][0], n, NUM_STEPS, *lead):.4f} ns a chain-substep), "
+            f"plain {times[name][1]:.4f} ms; kernel quartiles "
             f"{[round(x, 4) for x in statistics.quantiles(ms['kernel'], n=4)]}")
+    say_lane_ptxas(log, "grahmc_step_kernel", "neals_funnel", DIM)
     return times
 
 
@@ -3270,12 +3290,14 @@ def phase_timing_rwmh_nuts(torch, ft, fr, fn, tn, targets, nuts_step, dense_step
     return times, measured
 
 
-def phase_timing_variants(torch, ft, targets, samplers, dev, reps=10, burst=10, plain_burst=1):
+def phase_timing_variants(torch, ft, targets, samplers, dev, log, reps=10, burst=10,
+                          plain_burst=1):
     """Kernels 1b (the tempered row's 6 x 8,192 x 10 replicas and rung
     table, L = 16) and 1c (65,536 x 10, L = 16, beta 0.5; and the SMC row's
     32,768 x 10, L = 8, printed) against their plain versions, Philox mode:
     median over `reps` samples, interleaved, `burst` kernel or `plain_burst`
-    plain calls per sample."""
+    plain calls per sample; each time also per chain-substep, and the ptxas
+    lines of 1b's instances on the mixture at D = 10 (from the build `log`)."""
     say(f"[6e] kernels 1b and 1c vs plain versions: CUDA events, median of {reps} bursts of "
         f"{burst} kernel / {plain_burst} plain calls, Philox mode")
     t = targets.get_target("gaussian_mixture", dim=TEMP_DIM)
@@ -3288,7 +3310,7 @@ def phase_timing_variants(torch, ft, targets, samplers, dev, reps=10, burst=10, 
             *_mixture_state(torch, t, n, 44, dev, betas.repeat_interleave(TEMP_CHAINS)),
             ft.rung_table(TEMP_STEP / torch.sqrt(betas), TEMP_GAMMA, TEMP_STEEP, betas, dev), ones)
     cases = [("grahmc_scaled_kernel", f"{TEMP_K} x {TEMP_CHAINS} x {TEMP_DIM}, L = {TEMP_L}",
-              ft.grahmc_scaled_kernel, ft.grahmc_scaled_plain, args)]
+              ft.grahmc_scaled_kernel, ft.grahmc_scaled_plain, args, n * TEMP_L)]
     base = ft.bridge_base(None, SMC_BASE_SCALE, TEMP_DIM, dev)
     for label, n_p, steps in (("grahmc_bridged_kernel", MOVE_P, MOVE_L),
                               ("grahmc_bridged_kernel (SMC row)", SMC_P, SMC_L)):
@@ -3300,16 +3322,18 @@ def phase_timing_variants(torch, ft, targets, samplers, dev, reps=10, burst=10, 
                       ft.grahmc_bridged_kernel, ft.grahmc_bridged_plain,
                       (info, steps, 0, q, lp.contiguous(), grad.contiguous(),
                        ft.bridge_scalars(SMC_STEP, 0.0, 1.0, 0.5, base.log_norm, dev),
-                       base.mean, base.inv_scale, ones)))
+                       base.mean, base.inv_scale, ones), n_p * steps))
     times = {}
-    for name, shape, kernel_fn, plain_fn, a in cases:
+    for name, shape, kernel_fn, plain_fn, a, substeps in cases:
         fns = {"kernel": lambda: kernel_fn(*a, key=key, call=0),
                "plain": lambda: plain_fn(*a, key=key, call=0)}
         ms = _interleaved(torch, fns, reps, {"kernel": burst, "plain": plain_burst})
         times[name] = (statistics.median(ms["kernel"]), statistics.median(ms["plain"]))
-        say(f"  {name} ({shape}): kernel {times[name][0]:.4f} ms, plain {times[name][1]:.4f} "
-            f"ms; kernel quartiles "
+        say(f"  {name} ({shape}): kernel {times[name][0]:.4f} ms "
+            f"({_per_substep(times[name][0], substeps, 1):.4f} ns a chain-substep), plain "
+            f"{times[name][1]:.4f} ms; kernel quartiles "
             f"{[round(x, 4) for x in statistics.quantiles(ms['kernel'], n=4)]}")
+    say_lane_ptxas(log, "grahmc_scaled_kernel", "gaussian_mixture", TEMP_DIM)
     return times
 
 
@@ -3512,13 +3536,14 @@ HIER_COORD_FLOPS = 4
 HIER_COORD_LP_FLOPS = 2
 
 
-def hier_eval_flops(grad=True):
-    """Float operations of one evaluation of config 5's target for one chain."""
-    p, n = HIER_DIM - 1, HIER_N_DATA
+def hier_eval_flops(grad=True, dim=HIER_DIM, n_data=HIER_N_DATA):
+    """Float operations of one evaluation of config 5's target (or the
+    hierarchical posterior at dim and n_data) for one chain."""
+    p, n = dim - 1, n_data
     if grad:
         return (4 * n * p + (HIER_ROW_LP_FLOPS + HIER_ROW_GRAD_FLOPS) * n
-                + HIER_COORD_FLOPS * HIER_DIM)
-    return 2 * n * p + HIER_ROW_LP_FLOPS * n + HIER_COORD_LP_FLOPS * HIER_DIM
+                + HIER_COORD_FLOPS * dim)
+    return 2 * n * p + HIER_ROW_LP_FLOPS * n + HIER_COORD_LP_FLOPS * dim
 
 
 def bound(nbytes, flops):
@@ -3526,6 +3551,17 @@ def bound(nbytes, flops):
     card's memory rate and the float operations over its f32 rate."""
     t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_F32
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def rwmh_data_bound(chains=HIER_CHAINS, dim=HIER_DIM, n_data=HIER_N_DATA, transitions=RWMH_T,
+                    n_hist=COLLECT):
+    """3a's bound at a shape: q and lp read and written, the accepts, the
+    first n_hist chains' history, X and y read once; per transition and
+    chain the proposal's float work and its log-density alone."""
+    row, data = dim * 4, (n_data * (dim - 1) + n_data) * 4
+    return bound(chains * (row + 4) * 2 + transitions * chains
+                 + transitions * n_hist * (row + 4) + data,
+                 transitions * chains * (dim * 8 + hier_eval_flops(False, dim, n_data)))
 
 
 def kernel_bounds(measured):
@@ -3626,9 +3662,7 @@ def kernel_bounds(measured):
     out["grahmc_multistep_kernel[data]"] = bound(
         hm * (2 * h_row + chain) * 2 + MULTI_T * hm * (1 + chain + h_row + chain) + data,
         MULTI_T * hm * per_transition)
-    out["rwmh_multistep_kernel[data]"] = bound(
-        hc * (h_row + 4) * 2 + RWMH_T * hc + RWMH_T * COLLECT * (h_row + 4) + data,
-        RWMH_T * hc * (HIER_DIM * 8 + hier_eval_flops(grad=False)))
+    out["rwmh_multistep_kernel[data]"] = rwmh_data_bound()
     for multinomial in (False, True):
         name = NUTS_NAMES["multinomial+data" if multinomial else "endpoint+data"]
         state = hc * (14 * h_row + 17 * chain + 2)
@@ -3833,13 +3867,13 @@ def main():
             and all(n > 0 for n in own.values()) and set(own) == set(KERNELS),
             f"launches by row {own}, {pairs}; by kernel {launches}")
 
-    times = phase_timing(torch, ft, targets, g_step, dev)
+    times = phase_timing(torch, ft, targets, g_step, dev, lib.build_log)
     nuts_times, measured = phase_timing_rwmh_nuts(torch, ft, fr, fn, tn, targets,
                                                   nuts["step"], dense["step"], dev)
     times.update(nuts_times)
     dense_times, yard_ms = phase_timing_dense(torch, ft, targets, dense_row, dev)
     times.update(dense_times)
-    times.update(phase_timing_variants(torch, ft, targets, samplers, dev))
+    times.update(phase_timing_variants(torch, ft, targets, samplers, dev, lib.build_log))
     hier_times, hier_measured, vag_ms = phase_timing_hier(torch, ft, fr, fn, tn, targets, hier,
                                                           dev)
     times.update(hier_times)

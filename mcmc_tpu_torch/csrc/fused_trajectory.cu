@@ -35,27 +35,43 @@
 // What bounds them on an H100: per transition a kernel reads and writes the
 // chain state once -- q and grad in; q, grad and the proposal out -- about
 // 5 x 13 MB at 65,536 chains x 50 dims in float32, ~20 us at 3.35 TB/s.
-// Inside, each of the L substeps costs per chain one expf (the funnel's
-// exp(-x0)) and about 10 flops per coordinate, plus two dependent warp
-// reductions (5 shuffles each) per substep on the funnel. At L = 16 the
-// arithmetic and the serial dependency chain of each chain's substeps, not
-// device memory, set the time of the diagonal variants. The dense variants
+// Inside, each of the L substeps costs per chain about 10 instructions per
+// coordinate slot (64 at D = 50) and a per-chain part that does not scale
+// with D: the friction factor (an expf, a tanhf under tanh), the funnel's
+// exp(-x0) and neck broadcast, the lane-0 gradient, two butterflies; the
+// momentum draw a Philox block per coordinate. Warp per chain, every lane
+// issues that per-chain part, so kernel 1 was issue-bound at 8x its memory
+// bound (0.160 ms at 65,536 x 50 on the funnel, L = 16, H100 80GB HBM3 at
+// 700 W): the NO_FRICTION schedule took 20% off, injected draws 24%, the
+// standard normal's simpler functor 21%, D = 64 (no padding slots) none
+// (experiments/torch_step_kernel_timing.py, PERF.md section 6). The dense variants
 // add L + 3 D x D products per transition (the unwhitening, two kinetic
 // energies, a velocity per substep), 2 D^2 flops each per chain, every
 // multiply-add reading one word of shared memory: those products set their
 // time (kernel 1's 1a and 1d compute them block-tiled, tiled_step.cuh).
 //
-// Design: one warp per chain. Lane j holds coordinates j, j+32, j+64, j+96
-// (K = ceil(D / 32) <= 4 registers each of q, p and grad; the diagonal of
-// M^{-1} too under the diagonal metric), and q, p and grad stay in registers
-// for the whole trajectory -- in the multistep kernel for all T transitions
-// -- so device memory sees the state once per call. Per-chain sums are
-// __shfl_xor_sync butterflies; the funnel's neck coordinate is broadcast from
-// lane 0 with __shfl_sync. The public (C, D) row-major layout is read and
-// written as is: a warp touches one contiguous row, nothing is padded or
-// transposed, and lanes past D hold zeros that no sum sees. 65,536 chains
-// are 65,536 warps, enough to keep every SM's schedulers fed while each warp
-// waits on its shuffles. Under DENSE the block's warps share one copy of
+// Design: one warp per chain, or in kernel 1's diagonal instances without
+// data (and 1b's) on the GROUPED_FAMILY targets a group of G lanes per
+// chain (trajectory.cuh). Warp per chain, lane j holds coordinates j, j+32,
+// j+64, j+96 (K = ceil(D / 32) <= 4 registers each of q, p and grad; the
+// diagonal of M^{-1} too under the diagonal metric), and q, p and grad stay
+// in registers for the whole trajectory -- in the multistep kernel for all
+// T transitions -- so device memory sees the state once per call. Per-chain
+// sums are __shfl_xor_sync butterflies; the funnel's neck coordinate is
+// broadcast from lane 0 with __shfl_sync. The public (C, D) row-major layout
+// is read and written as is: a warp touches one contiguous row, nothing is
+// padded or transposed, and lanes past D hold zeros. Lane groups keep the
+// coordinate slots (a lane holds the 32 / G warp-per-chain lanes j + G m)
+// and divide the per-chain part by the 32 / G chains a warp: a lane folds
+// its partials in registers where the butterfly's levels 16 .. G were, the
+// group draws each Philox block once and computes G substeps' friction
+// factors at once, bit for bit the warp-per-chain kernel. step_lanes takes
+// the fewest lanes that keep 2,048 warps in the launch (4 at K = 1, 8 at K
+// = 2, 16 at K >= 3), else a warp per chain: 0.1605 -> 0.0694 ms at 65,536
+// x 50 and 1b 0.1604 -> 0.0323 at 6 x 8,192 x 10, while groups of 4 at
+// 2,048 x 20 and 1,024 x 10 lost 13-270% to the warp kernel, their few
+// warps waiting on each lane's longer stream. Kernel 2 shares the friction
+// factors too (-14% at 4,096 x 50, T = 8). Under DENSE the block's warps share one copy of
 // M^{-1} and L^{-1} in shared memory (20 kB at D = 50, 128 kB at D = 128),
 // and the leapfrog's products are rounded before their sums (add_scaled):
 // under an ill-conditioned metric a rounding difference would grow along

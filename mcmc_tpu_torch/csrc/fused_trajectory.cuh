@@ -5,7 +5,9 @@
 // instances fused_trajectory_families_{1,2,3}.cu compile in parallel.
 // Kernel 1's dense variant 1a and its data-carrying variant 1d launch the
 // block-tiled grahmc_tiled_step_kernel (tiled_step.cuh); its diagonal
-// instances without data, and every kernel 2 instance, are warp-per-chain.
+// instances without data run in lane groups (G < 32, step_lanes) on the
+// families of GROUPED_FAMILY and warp per chain (G = 32) on the others,
+// and every kernel 2 instance is warp-per-chain.
 #pragma once
 
 #include <cstddef>
@@ -30,18 +32,32 @@ struct MultiArgs {
   float *dh_out, *hist_q, *hist_lp;
 };
 
-template <int FAMILY, int K, bool DENSE>
+// Kernel 1's chain (the warp-per-chain body at G = 32) or, in lane groups,
+// the chain of this lane's group; chains past n_chains in a partly used warp
+// run a clamped chain and store nothing, so every shuffle sees the full warp.
+template <int FAMILY, int K, bool DENSE, int G>
 __global__ void __launch_bounds__(WARPS_PER_BLOCK * 32) grahmc_step_kernel(const StepArgs a) {
   const int warp = threadIdx.x >> 5;
-  const int chain = blockIdx.x * WARPS_PER_BLOCK + warp;
   const int lane = threadIdx.x & 31;
-  extern __shared__ __align__(16) float smem[];
-  const Metric<K, DENSE> metric =
-      make_metric<K, DENSE>(a.inv_mass, a.l_inv, a.dim, smem, warp, lane);
-  if (chain >= a.n_chains) return;  // uniform across the warp
-
   const Scalars sc{a.scalars[0], a.scalars[1], a.scalars[2]};
-  step_chain<K>(a, Target<FAMILY, K>(a.dim, a.params, a.data), metric, sc, chain, lane);
+  if constexpr (G == 32) {
+    const int chain = blockIdx.x * WARPS_PER_BLOCK + warp;
+    extern __shared__ __align__(16) float smem[];
+    const Metric<K, DENSE> metric =
+        make_metric<K, DENSE>(a.inv_mass, a.l_inv, a.dim, smem, warp, lane);
+    if (chain >= a.n_chains) return;  // uniform across the warp
+    step_chain<K>(a, Target<FAMILY, K>(a.dim, a.params, a.data), metric, sc, chain, lane);
+  } else {
+    static_assert(!DENSE && GROUPED_FAMILY<FAMILY>, "lane groups: diagonal, no data");
+    constexpr int N = K * 32 / G;  // registers a lane
+    const int first = (blockIdx.x * WARPS_PER_BLOCK + warp) * (32 / G);
+    if (first >= a.n_chains) return;  // uniform across the warp
+    const int chain = first + lane / G, gl = lane & (G - 1);
+    const bool active = chain < a.n_chains;
+    step_chain<N, G>(a, Target<FAMILY, N, G>(a.dim, a.params, a.data),
+                     DiagMetric<N, G>(a.inv_mass, gl, a.dim), sc,
+                     active ? chain : a.n_chains - 1, gl, active);
+  }
 }
 
 template <int FAMILY, int K, bool DENSE>
@@ -70,8 +86,8 @@ __global__ void __launch_bounds__(WARPS_PER_BLOCK * 32)
     randoms(a.p0, a.u, trow, slot, metric, lane, a.dim, chain, a.call,
             static_cast<uint32_t>(t), a.key, p0, u);
     float q1[K], lp1, dh;
-    const bool accept = transition(target, metric, sc, a.num_steps, a.schedule, lane, p0, u,
-                                   q, g, lp, q1, lp1, dh);
+    const bool accept = transition<32, true>(target, metric, sc, a.num_steps, a.schedule,
+                                             lane, p0, u, q, g, lp, q1, lp1, dh);
     store_row(a.hist_q, trow, lane, a.dim, q);
     if (lane == 0) {
       a.hist_lp[slot] = lp;
@@ -85,14 +101,18 @@ __global__ void __launch_bounds__(WARPS_PER_BLOCK * 32)
 }
 
 // Kernel 1: 1a (DENSE) and 1d (the data-carrying family) block-tiled, the
-// rest warp-per-chain.
+// rest in the lanes step_lanes picks.
 template <int FAMILY, int K, bool DENSE>
 struct StepLaunch {
   static cudaError_t run(const StepArgs& a, cudaStream_t stream) {
     if constexpr (DENSE || FAMILY == HIERARCHICAL_LOGISTIC) {
       return launch_tiled<FAMILY, K, DENSE>(a, stream);
     } else {
-      return launch<K, DENSE>(grahmc_step_kernel<FAMILY, K, DENSE>, a, stream);
+      constexpr int LEAST = least_lanes<FAMILY, K>();
+      return launch_lanes<LEAST>(step_lanes(LEAST, a.n_chains), [&](auto lanes) {
+        constexpr int G = decltype(lanes)::value;
+        return launch<K, DENSE, G>(grahmc_step_kernel<FAMILY, K, DENSE, G>, a, stream);
+      });
     }
   }
 };

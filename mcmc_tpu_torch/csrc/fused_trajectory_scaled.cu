@@ -18,8 +18,12 @@
 // once per transition, q and grad in, q, grad and the proposal out (about
 // 10.7 MB at 49,152 rows x 10 dims, ~3.2 us at 3.35 TB/s), against L
 // substeps of per-chain arithmetic and two dependent warp sums each (the
-// mixture's). At D = 10 one warp per row leaves 22 of 32 lanes idle, so
-// the substeps' issue and latency, not memory, set its time.
+// mixture's). Warp per row at D = 10, 22 of 32 lanes hold padding while
+// every lane issues the per-row tanhf friction, the mixture's expf, logf
+// and broadcast and the butterflies: 0.160 ms, 50x the bound. In kernel 1's
+// lane groups (trajectory.cuh), 8 rows a warp at D = 10, each group its own
+// rung's scalars (a warp's rows may lie in two rungs), it takes 0.032 ms
+// (H100 80GB HBM3 at 700 W, experiments/torch_step_kernel_timing.py).
 //
 // Build: as fused_trajectory.cu (nvcc -gencode arch=compute_90a,code=sm_90a
 // -std=c++17 -O3, no --use_fast_math).
@@ -52,27 +56,50 @@ struct Scaled {
 template <typename T>
 struct family_of<Scaled<T>> : family_of<T> {};
 
-template <int FAMILY, int K, bool DENSE>
+// Kernel 1's layout (fused_trajectory.cuh:grahmc_step_kernel): warp per
+// chain at G = 32, else lane groups of G lanes. A group reads its own rung's
+// row, so a warp's chains may belong to two rungs.
+template <int FAMILY, int K, bool DENSE, int G>
 __global__ void __launch_bounds__(WARPS_PER_BLOCK * 32) grahmc_scaled_kernel(const StepArgs a) {
   const int warp = threadIdx.x >> 5;
-  const int chain = blockIdx.x * WARPS_PER_BLOCK + warp;
   const int lane = threadIdx.x & 31;
-  extern __shared__ __align__(16) float smem[];
-  const Metric<K, DENSE> metric =
-      make_metric<K, DENSE>(a.inv_mass, a.l_inv, a.dim, smem, warp, lane);
-  if (chain >= a.n_chains) return;  // uniform across the warp
+  if constexpr (G == 32) {
+    const int chain = blockIdx.x * WARPS_PER_BLOCK + warp;
+    extern __shared__ __align__(16) float smem[];
+    const Metric<K, DENSE> metric =
+        make_metric<K, DENSE>(a.inv_mass, a.l_inv, a.dim, smem, warp, lane);
+    if (chain >= a.n_chains) return;  // uniform across the warp
 
-  const float* rung = a.scalars + 4 * (chain / a.rung_chains);
-  const Scalars sc{rung[0], rung[1], rung[2]};
-  const Scaled<Target<FAMILY, K>> potential{Target<FAMILY, K>(a.dim, a.params, a.data),
-                                             rung[3]};
-  step_chain<K>(a, potential, metric, sc, chain, lane);
+    const float* rung = a.scalars + 4 * (chain / a.rung_chains);
+    const Scalars sc{rung[0], rung[1], rung[2]};
+    const Scaled<Target<FAMILY, K>> potential{Target<FAMILY, K>(a.dim, a.params, a.data),
+                                               rung[3]};
+    step_chain<K>(a, potential, metric, sc, chain, lane);
+  } else {
+    static_assert(!DENSE && GROUPED_FAMILY<FAMILY>, "lane groups: diagonal, no data");
+    constexpr int N = K * 32 / G;  // registers a lane
+    const int first = (blockIdx.x * WARPS_PER_BLOCK + warp) * (32 / G);
+    if (first >= a.n_chains) return;  // uniform across the warp
+    const int gl = lane & (G - 1);
+    const bool active = first + lane / G < a.n_chains;
+    const int chain = active ? first + lane / G : a.n_chains - 1;
+    const float* rung = a.scalars + 4 * (chain / a.rung_chains);
+    const Scalars sc{rung[0], rung[1], rung[2]};
+    const Scaled<Target<FAMILY, N, G>> potential{Target<FAMILY, N, G>(a.dim, a.params, a.data),
+                                                 rung[3]};
+    step_chain<N, G>(a, potential, DiagMetric<N, G>(a.inv_mass, gl, a.dim), sc, chain, gl,
+                     active);
+  }
 }
 
 template <int FAMILY, int K, bool DENSE>
 struct ScaledLaunch {
   static cudaError_t run(const StepArgs& a, cudaStream_t stream) {
-    return launch<K, DENSE>(grahmc_scaled_kernel<FAMILY, K, DENSE>, a, stream);
+    constexpr int LEAST = DENSE ? 32 : least_lanes<FAMILY, K>();
+    return launch_lanes<LEAST>(step_lanes(LEAST, a.n_chains), [&](auto lanes) {
+      constexpr int G = decltype(lanes)::value;
+      return launch<K, DENSE, G>(grahmc_scaled_kernel<FAMILY, K, DENSE, G>, a, stream);
+    });
   }
 };
 

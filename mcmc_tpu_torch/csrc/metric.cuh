@@ -1,5 +1,6 @@
 // The kinetic-energy metric of the warp-per-chain kernels: lane j holds
-// coordinates j, j+32, ... (K registers) of a chain's momentum.
+// coordinates j, j+32, ... (K registers) of a chain's momentum, or, in
+// kernel 1's and 1b's lane groups of G lanes, j, j+G, ... (DiagMetric's G).
 //
 // Replaces mcmc_tpu/ops/fused_trajectory.py:_metric_ops and the dense
 // unwhitening of unwhiten_op: velocity v = M^{-1} p, kinetic energy
@@ -74,7 +75,8 @@ struct LiveTile {
   int col, n;
 };
 
-template <int K>
+// `lane` is the lane's place in its group of G lanes.
+template <int K, int G = 32>
 struct DiagMetric {
   static constexpr bool DENSE = false;
   float invm[K];
@@ -82,7 +84,7 @@ struct DiagMetric {
   __device__ DiagMetric(const float* inv_mass, int lane, int dim) {
 #pragma unroll
     for (int r = 0; r < K; ++r) {
-      const int d = lane + 32 * r;
+      const int d = lane + G * r;
       invm[r] = d < dim ? inv_mass[d] : 1.f;
     }
   }
@@ -92,12 +94,10 @@ struct DiagMetric {
     for (int r = 0; r < K; ++r) v[r] = p[r] * invm[r];
   }
 
-  // 0.5 p . M^{-1} p; every lane gets it.
+  // 0.5 p . M^{-1} p; every lane of the group gets it.
   __device__ __forceinline__ float kinetic(const float (&p)[K]) const {
-    float s = 0.f;
-#pragma unroll
-    for (int r = 0; r < K; ++r) s += p[r] * (p[r] * invm[r]);
-    return 0.5f * warp_sum(s);
+    return 0.5f * chain_sum<K, G, false>(
+                      [&](float s, int r) { return s + p[r] * (p[r] * invm[r]); });
   }
 
   // z -> z / sqrt(M^{-1}), in place.

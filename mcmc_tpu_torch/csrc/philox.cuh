@@ -65,6 +65,45 @@ __device__ __forceinline__ void philox_normal_row(float (&z)[K], int lane, int d
   }
 }
 
+// philox_normal_row's z for the lane groups of kernel 1 and 1b: lane j of a
+// group of G lanes (4 <= G <= 32) holds coordinates j + G r, and every
+// Philox block is drawn once a chain. Lane j draws blocks j, j + G, ..., all
+// four of each block's normals (philox_normal_row draws a block once for
+// each of its four coordinates, each Box-Muller radius twice), and writes
+// them to the group's row of shared memory `row` (G K floats, on 16
+// bytes); then each lane reads its coordinates back, zeros past dim. Every
+// normal is philox_normal_row's expression on the same words, so the bits
+// are its bits. All lanes of the warp call it together.
+template <int K, int G>
+__device__ __forceinline__ void philox_normal_shared(float (&z)[K], float* row, int lane,
+                                                     int dim, uint32_t chain, uint32_t call,
+                                                     uint32_t t, uint32_t k0, uint32_t k1) {
+  static_assert(G >= 4 && (G * K) % 4 == 0, "a block's four normals in one row");
+  const int draws = (dim + 3) >> 2;
+#pragma unroll
+  for (int c = 0; c < (G * K / 4 + G - 1) / G; ++c) {
+    const int k = lane + G * c;
+    if (k < draws) {
+      const uint4 x =
+          philox4x32_10(make_uint4(chain, call, t, static_cast<uint32_t>(k)), k0, k1);
+      const float rad_a = sqrtf(-2.f * logf(bits_to_uniform(x.x)));
+      const float theta_a = TWO_PI_F * bits_to_uniform(x.y);
+      const float rad_b = sqrtf(-2.f * logf(bits_to_uniform(x.z)));
+      const float theta_b = TWO_PI_F * bits_to_uniform(x.w);
+      reinterpret_cast<float4*>(row)[k] =
+          make_float4(rad_a * cosf(theta_a), rad_a * sinf(theta_a), rad_b * cosf(theta_b),
+                      rad_b * sinf(theta_b));
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int r = 0; r < K; ++r) {
+    const int d = lane + G * r;
+    z[r] = d < dim ? row[d] : 0.f;
+  }
+  __syncwarp();  // the row is read before any lane writes it again
+}
+
 // p ~ N(0, M) for a diagonal M^{-1}: z / sqrt(M^{-1}), zeros past dim.
 template <int K>
 __device__ __forceinline__ void philox_momentum(float (&p)[K], const float (&invm)[K],

@@ -8,9 +8,12 @@
 // A group of G lanes (G a power of two, 32 = a whole warp) holds one chain:
 // each lane owns K coordinates (zeros past dim), and coordinate 0 is register
 // 0 of the group's lane 0. Two layouts, the template flag BLOCKED: the
-// GRAHMC and NUTS kernels use G = 32 with lane j owning j, j+32, ...
-// (BLOCKED false); the RWMH kernel packs 32 / G chains into a warp, lane j
-// of a group owning 4j..4j+3 (BLOCKED true, K = 4). Each functor maps this
+// GRAHMC and NUTS kernels use lane j owning j, j+G, j+2G, ... (BLOCKED
+// false; G = 32 but for kernel 1's and 1b's lane groups, where one lane
+// stands for the 32 / G lanes j + G m of the warp-per-chain layout and
+// chain_sum keeps that layout's order); the RWMH kernel packs 32 / G chains
+// into a warp, lane j of a group owning 4j..4j+3 (BLOCKED true, K = 4).
+// Each functor maps this
 // lane's q to its gradient entries and returns the chain's log-density,
 // identical on every lane of the group. The float arithmetic follows the
 // plain PyTorch version in mcmc_tpu_torch/ops/padded_targets.py term for
@@ -112,6 +115,46 @@ __device__ __forceinline__ float group_sum(float v) {
 // Sum over the 32 lanes of a warp; every lane gets the total.
 __device__ __forceinline__ float warp_sum(float v) { return group_sum<32>(v); }
 
+// A chain's sum over its group: `acc(s, r)` returns s plus register r's
+// term, and every lane of the group gets the total. In the warp-per-chain
+// layout (G = 32) and kernel 3's (BLOCKED) a lane adds its registers in
+// turn, then group_sum. In kernel 1's lane groups (G < 32, not BLOCKED) the
+// sum is the warp-per-chain layout's, bit for bit: lane j of the group holds
+// the coordinates of that layout's lanes j + G m (m < 32 / G), its register
+// m + (32 / G) r being lane j + G m's register r. So the lane first sums
+// each such lane's registers in that lane's order, then folds the 32 / G
+// partials in registers as the butterfly's levels 16, ..., G pair them, and
+// runs the levels G / 2, ..., 1 as shuffles. Addition is commutative, so
+// every partial and every level is the one the warp-per-chain butterfly
+// forms; a partial of padding alone still adds its term (ops/padded_targets.py:
+// warp_order_sum is this order; tests/test_torch_fold_order.py models the fold).
+template <int K, int G, bool BLOCKED, typename Acc>
+__device__ __forceinline__ float chain_sum(const Acc& acc) {
+  if constexpr (G == 32 || BLOCKED) {
+    float s = 0.f;
+#pragma unroll
+    for (int r = 0; r < K; ++r) s = acc(s, r);
+    return group_sum<G>(s);
+  } else {
+    constexpr int M = 32 / G;  // warp-per-chain lanes a lane stands for
+    static_assert(K % M == 0, "a lane holds whole warp-per-chain lanes");
+    float part[M];
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      float s = 0.f;
+#pragma unroll
+      for (int r = m; r < K; r += M) s = acc(s, r);
+      part[m] = s;
+    }
+#pragma unroll
+    for (int w = M / 2; w > 0; w /= 2) {
+#pragma unroll
+      for (int m = 0; m < w; ++m) part[m] += part[m + w];
+    }
+    return group_sum<G>(part[0]);
+  }
+}
+
 // The coordinate register r of a group's lane `lane` holds: lane + G r in
 // the warp-per-chain layout (G = 32), K lane + r in kernel 3's blocked one.
 template <int K, int G, bool BLOCKED>
@@ -157,13 +200,11 @@ struct Target<STANDARD_NORMAL, K, G, BLOCKED> {
 
   __device__ __forceinline__ float operator()(const float (&q)[K], float (&g)[K],
                                               int /*lane*/) const {
-    float s = 0.f;
-#pragma unroll
-    for (int r = 0; r < K; ++r) {
-      s += q[r] * q[r];
+    const float sum_sq = chain_sum<K, G, BLOCKED>([&](float s, int r) {
       g[r] = -q[r];
-    }
-    return -0.5f * (group_sum<G>(s) + c);
+      return s + q[r] * q[r];
+    });
+    return -0.5f * (sum_sq + c);
   }
 };
 
@@ -183,14 +224,11 @@ struct Target<NEALS_FUNNEL, K, G, BLOCKED> {
                                               int lane) const {
     const float x0 = __shfl_sync(FULL_MASK, q[0], 0, G);
     const float inv_var = expf(-x0);
-    float s = 0.f;
-#pragma unroll
-    for (int r = 0; r < K; ++r) {
+    const float sum_sq = chain_sum<K, G, BLOCKED>([&](float s, int r) {
       const float v = (r == 0 && lane == 0) ? 0.f : q[r];
-      s += v * v;
       g[r] = -q[r] * inv_var;
-    }
-    const float sum_sq = group_sum<G>(s);
+      return s + v * v;
+    });
     if (lane == 0) {
       g[0] = -x0 / 9.f + 0.5f * inv_var * sum_sq - 0.5f * d_rest;
     }
@@ -218,20 +256,15 @@ struct Target<CORRELATED_GAUSSIAN, K, G, BLOCKED> {
 
   __device__ __forceinline__ float operator()(const float (&q)[K], float (&g)[K],
                                               int lane) const {
-    float s = 0.f;
-#pragma unroll
-    for (int r = 0; r < K; ++r) s += q[r];
-    s = group_sum<G>(s);
+    const float s = chain_sum<K, G, BLOCKED>([&](float t, int r) { return t + q[r]; });
     const float bs = __fmul_rn(b, s);
-    float m = 0.f;
-#pragma unroll
-    for (int r = 0; r < K; ++r) {
+    const float m = chain_sum<K, G, BLOCKED>([&](float t, int r) {
       const float siv =
           coord_of<K, G, BLOCKED>(lane, r) < dim ? __fadd_rn(__fmul_rn(a, q[r]), bs) : 0.f;
-      m = __fadd_rn(m, __fmul_rn(siv, q[r]));
       g[r] = -siv;
-    }
-    return -0.5f * (group_sum<G>(m) + c);
+      return __fadd_rn(t, __fmul_rn(siv, q[r]));
+    });
+    return -0.5f * (m + c);
   }
 };
 
@@ -258,14 +291,11 @@ struct Target<GAUSSIAN_MIXTURE, K, G, BLOCKED> {
     const float lse = e1 + e2;
     const float log_p_x0 =
         static_cast<float>(LOG_HALF) + mx + logf(lse) - static_cast<float>(HALF_LOG_2PI);
-    float s = 0.f;
-#pragma unroll
-    for (int r = 0; r < K; ++r) {
+    const float sum_sq = chain_sum<K, G, BLOCKED>([&](float s, int r) {
       const float v = (r == 0 && lane == 0) ? 0.f : q[r];
-      s += v * v;
       g[r] = -q[r];
-    }
-    const float sum_sq = group_sum<G>(s);
+      return s + v * v;
+    });
     if (lane == 0) g[0] = -(a * e1 + b * e2) / lse;
     return log_p_x0 - 0.5f * (sum_sq + c_rest);
   }

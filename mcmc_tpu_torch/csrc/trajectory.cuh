@@ -3,19 +3,29 @@
 // (fused_trajectory_scaled.cu) and the bridged variant 1c
 // (fused_trajectory_bridged.cu). Replaces the body of
 // mcmc_tpu/ops/fused_trajectory.py:_make_kernel (with _integrate,
-// _metric_ops, _gaussian and _bits_to_uniform), one warp per chain: lane j
-// holds coordinates j, j+32, j+64, j+96 (K = ceil(D / 32) <= 4 registers).
+// _metric_ops, _gaussian and _bits_to_uniform). Two layouts, the template
+// G: one warp per chain (G = 32), lane j holding coordinates j, j+32,
+// j+64, j+96 (K = ceil(D / 32) <= 4 registers); or, in kernel 1 and 1b on
+// the GROUPED_FAMILY targets, lane groups of G = 4, 8 or 16 lanes, 32 / G
+// chains a warp, lane j of a group holding j, j+G, ... (K 32 / G
+// registers): the warp-per-chain lanes j + G m folded into one lane. Every
+// sum keeps the warp-per-chain order (targets.cuh:chain_sum), each Philox
+// block is drawn once a chain (philox.cuh:philox_normal_shared) and the
+// friction factors once a group per G substeps (transition's
+// SHARED_FRICTION), so a lane group's outputs are the warp-per-chain
+// kernel's bit for bit; step_lanes picks G from D and the chain count.
 //
 // `transition` takes the potential as a functor, (q, g, lane) -> lp with
 // the gradient written to g: a target of targets.cuh for kernels 1 and 2,
 // the target wrapped in Scaled or Bridged for the variants, whose state
 // machine is kernel 1's. `step_chain` is kernel 1's whole body for one
 // chain: load, momentum draw, transition, store. The launch helpers pick the
-// instantiation for the family, K and metric at run time.
+// instantiation for the family, K, metric and lanes at run time.
 #pragma once
 
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 #include "chain_rows.cuh"
@@ -58,11 +68,27 @@ __device__ __forceinline__ float friction(int schedule, float t, float T, float 
   }
 }
 
-// One MH transition of the chain this warp holds, from momentum p0. On entry
-// (q, g, lp) is the current state; on exit the selected state. (q1, lp1) is
-// the proposal and dh = H1 - H0. Returns the accept decision (uniform across
-// the warp).
-template <typename P, int K, typename M>
+// The momentum's friction factor at substep i: exp(-gamma(t) eps / 2) on the
+// midpoint grid t = (i + 1/2) eps.
+__device__ __forceinline__ float friction_scale(int schedule, int i, const Scalars& sc,
+                                                float total, float half) {
+  const float gt =
+      friction(schedule, (static_cast<float>(i) + 0.5f) * sc.eps, total, sc.gamma, sc.steep);
+  return expf(-gt * half);
+}
+
+// One MH transition of the chain this warp (group of G lanes) holds, from
+// momentum p0. On entry (q, g, lp) is the current state; on exit the
+// selected state. (q1, lp1) is the proposal and dh = H1 - H0. Returns the
+// accept decision (uniform across the group). `lane` is the lane's place in
+// its group. SHARED_FRICTION (lane groups, and kernel 2): the friction
+// factors depend on the chain's scalars and i alone, so the group computes
+// G substeps' factors at once, lane j substep i + j, and each substep takes
+// its own by a shuffle: the same function of the same inputs, so the same
+// bits. (Kernel 1's warp-per-chain instances and 1c keep a factor a
+// substep on every lane: shared, it cost them 1-2% where the schedule is
+// NO_FRICTION, PERF.md section 6.)
+template <int G = 32, bool SHARED_FRICTION = (G < 32), typename P, int K, typename M>
 __device__ __forceinline__ bool transition(const P& potential, const M& metric,
                                            const Scalars& sc, int num_steps, int schedule,
                                            int lane, const float (&p0)[K], float u,
@@ -81,13 +107,16 @@ __device__ __forceinline__ bool transition(const P& potential, const M& metric,
   const float half = 0.5f * sc.eps;
   const float total = sc.eps * static_cast<float>(num_steps);
   lp1 = lp;
+  float scales = 1.f;  // lane groups: substep (i & ~(G - 1)) + lane's factor
   for (int i = 0; i < num_steps; ++i) {
     float scale = 1.f;
     if (schedule != NO_FRICTION) {
-      // midpoint grid t = (i + 1/2) eps
-      const float gt = friction(schedule, (static_cast<float>(i) + 0.5f) * sc.eps, total,
-                                sc.gamma, sc.steep);
-      scale = expf(-gt * half);
+      if constexpr (SHARED_FRICTION) {
+        if ((i & (G - 1)) == 0) scales = friction_scale(schedule, i + lane, sc, total, half);
+        scale = __shfl_sync(FULL_MASK, scales, i & (G - 1), G);
+      } else {
+        scale = friction_scale(schedule, i, sc, total, half);
+      }
 #pragma unroll
       for (int r = 0; r < K; ++r) p[r] *= scale;
     }
@@ -125,19 +154,81 @@ __device__ __forceinline__ bool transition(const P& potential, const M& metric,
 }
 
 // The momentum and accept uniform of transition t: injected, or the Philox
-// normals unwhitened by the metric.
-template <int K, typename M>
+// normals unwhitened by the metric. Lane groups (G < 32) draw each Philox
+// block once (philox_normal_shared), through a row of static shared memory
+// per group.
+template <int K, int G = 32, typename M>
 __device__ __forceinline__ void randoms(const float* p0_in, const float* u_in, size_t trow,
                                         size_t slot, const M& metric, int lane,
                                         int dim, uint32_t chain, uint32_t call, uint32_t t,
                                         const uint32_t* key, float (&p0)[K], float& u) {
   if (p0_in != nullptr) {
-    load_row(p0_in, trow, lane, dim, p0);
+    load_row<K, G>(p0_in, trow, lane, dim, p0);
     u = u_in[slot];
   } else {
-    philox_normal_row(p0, lane, dim, chain, call, t, key[0], key[1]);
+    if constexpr (G < 32) {
+      __shared__ __align__(16) float rows[WARPS_PER_BLOCK * 32 * K];
+      philox_normal_shared<K, G>(p0, rows + (threadIdx.x & ~(G - 1)) * K, lane, dim, chain,
+                                 call, t, key[0], key[1]);
+    } else {
+      philox_normal_row(p0, lane, dim, chain, call, t, key[0], key[1]);
+    }
     metric.unwhiten(p0);
     u = philox_accept_uniform(chain, call, t, key[0], key[1]);
+  }
+}
+
+// Families whose kernel 1 and 1b run in lane groups: those the main paths
+// launch at chain counts that take them (the funnel's and N(0, I)'s 65,536
+// chains, the tempered mixture's 6 x 8,192, the correlated Gaussian's 4,096
+// in the dense warmup's diagonal phase). Their functors sum through
+// chain_sum and hold no shuffle in a branch that differs between a warp's
+// chains. The others keep G = 32: the L1 shells (LANE_SHELLS), Rosenbrock
+// (its neighbour exchange), the bimodal funnel, the hierarchical posterior,
+// and the sweep's families, which the paths launch at 1,024-2,048 chains,
+// below MIN_GROUP_WARPS in any lane group.
+template <int FAMILY>
+constexpr bool GROUPED_FAMILY = FAMILY == STANDARD_NORMAL || FAMILY == NEALS_FUNNEL ||
+                                FAMILY == GAUSSIAN_MIXTURE || FAMILY == CORRELATED_GAUSSIAN;
+
+// The fewest lanes a chain of kernel 1 or 1b takes at K = ceil(D / 32)
+// warp-per-chain registers: 32 / G chains share a warp and a lane holds
+// K 32 / G registers (8 at most).
+template <int FAMILY, int K>
+constexpr int least_lanes() {
+  if constexpr (!GROUPED_FAMILY<FAMILY>) {
+    return 32;
+  } else {
+    return K == 1 ? 4 : (K == 2 ? 8 : 16);
+  }
+}
+
+// Warps a launch in lane groups must keep (about 16 an SM): below them a
+// warp's longer stream of registers waits on latency. On an H100 at 700 W,
+// against the warp kernel: at 65,536 x 50 and 6 x 8,192 x 10 the fewest
+// lanes won (kernel 1 -57%, 1b -80%), at 4,096 x 50 16 lanes (-35%; 8
+// lanes -23%), at 2,048 x 20 and 1,024 x 10 groups of 4 lost 13% to 270%
+// (PERF.md section 6, experiments/torch_step_kernel_timing.py).
+constexpr int MIN_GROUP_WARPS = 2048;
+
+// The lanes of a chain of kernel 1 or 1b: the fewest from `least` up that
+// keep MIN_GROUP_WARPS warps in the launch, else 32 (warp per chain).
+inline int step_lanes(int least, int n_chains) {
+  for (int g = least; g < 32; g *= 2) {
+    if (static_cast<long long>(n_chains) * g >= 32LL * MIN_GROUP_WARPS) return g;
+  }
+  return 32;
+}
+
+// launch(std::integral_constant<int, G>{}) for G = `lanes`, one of LEAST,
+// 2 LEAST, ..., 32.
+template <int LEAST, typename Launch>
+cudaError_t launch_lanes(int lanes, const Launch& launch) {
+  if constexpr (LEAST < 32) {
+    if (lanes == LEAST) return launch(std::integral_constant<int, LEAST>{});
+    return launch_lanes<2 * LEAST>(lanes, launch);
+  } else {
+    return launch(std::integral_constant<int, 32>{});
   }
 }
 
@@ -160,27 +251,30 @@ struct StepArgs {
   float *dh_out, *prop_q, *prop_lp;
 };
 
-// One transition of `chain` under `potential`: kernel 1's body. The Philox
-// counter's chain word is the chain's row.
-template <int K, typename P, typename M>
+// One transition of `chain` under `potential`: kernel 1's body, for the
+// group of G lanes holding the chain (`lane` its place there). The Philox
+// counter's chain word is the chain's row. A group that is not `active` (past
+// n_chains in a partly used warp, on a clamped chain) stores nothing.
+template <int K, int G = 32, typename P, typename M>
 __device__ __forceinline__ void step_chain(const StepArgs& a, const P& potential,
                                            const M& metric, const Scalars& sc, int chain,
-                                           int lane) {
+                                           int lane, bool active = true) {
   const size_t row = static_cast<size_t>(chain) * a.dim;
   float q[K], g[K], p0[K];
-  load_row(a.q, row, lane, a.dim, q);
-  load_row(a.grad, row, lane, a.dim, g);
+  load_row<K, G>(a.q, row, lane, a.dim, q);
+  load_row<K, G>(a.grad, row, lane, a.dim, g);
   float lp = a.lp[chain];
   float u;
-  randoms(a.p0, a.u, row, chain, metric, lane, a.dim, chain, a.call, 0u, a.key, p0, u);
+  randoms<K, G>(a.p0, a.u, row, chain, metric, lane, a.dim, chain, a.call, 0u, a.key, p0, u);
 
   float q1[K], lp1, dh;
-  const bool accept = transition(potential, metric, sc, a.num_steps, a.schedule, lane, p0, u,
-                                 q, g, lp, q1, lp1, dh);
+  const bool accept = transition<G>(potential, metric, sc, a.num_steps, a.schedule, lane, p0,
+                                    u, q, g, lp, q1, lp1, dh);
 
-  store_row(a.q_out, row, lane, a.dim, q);
-  store_row(a.grad_out, row, lane, a.dim, g);
-  store_row(a.prop_q, row, lane, a.dim, q1);
+  if (!active) return;
+  store_row<K, G>(a.q_out, row, lane, a.dim, q);
+  store_row<K, G>(a.grad_out, row, lane, a.dim, g);
+  store_row<K, G>(a.prop_q, row, lane, a.dim, q1);
   if (lane == 0) {
     a.lp_out[chain] = lp;
     a.acc_out[chain] = accept;
@@ -189,13 +283,15 @@ __device__ __forceinline__ void step_chain(const StepArgs& a, const P& potential
   }
 }
 
-inline dim3 grid_for(int n_chains) {
-  return dim3(static_cast<unsigned>((n_chains + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK));
+// Blocks of WARPS_PER_BLOCK warps for n_chains chains, G lanes a chain.
+inline dim3 grid_for(int n_chains, int G = 32) {
+  const int per_block = WARPS_PER_BLOCK * (32 / G);
+  return dim3(static_cast<unsigned>((n_chains + per_block - 1) / per_block));
 }
 
-// Launch `kernel` with the metric's shared memory; above 48 kB (dense,
-// D > 76) only after opting in.
-template <int K, bool DENSE, typename Args>
+// Launch `kernel` (G lanes a chain) with the metric's shared memory; above
+// 48 kB (dense, D > 76) only after opting in.
+template <int K, bool DENSE, int G = 32, typename Args>
 cudaError_t launch(void (*kernel)(const Args), const Args& a, cudaStream_t stream) {
   const size_t smem = metric_smem_bytes<K, DENSE>(a.dim, WARPS_PER_BLOCK);
   if constexpr (DENSE) {
@@ -203,7 +299,7 @@ cudaError_t launch(void (*kernel)(const Args), const Args& a, cudaStream_t strea
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  kernel<<<grid_for(a.n_chains), WARPS_PER_BLOCK * 32, smem, stream>>>(a);
+  kernel<<<grid_for(a.n_chains, G), WARPS_PER_BLOCK * 32, smem, stream>>>(a);
   return cudaGetLastError();
 }
 

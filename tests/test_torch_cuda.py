@@ -1627,3 +1627,86 @@ def test_multinomial_funnel_row_window(dev):
     q = (torch.randn((n, 50), generator=g, device=dev) * 0.5).contiguous()
     _warp_window_bits(t, q, g, 0.2, True, "neals_funnel", max_split=n // 1000,
                       max_drift=n // 20, exact=False)
+
+
+# Kernel 1's and 1b's lane groups (csrc/trajectory.cuh:step_lanes): D at
+# every group and register boundary; chain counts that leave a warp partly
+# used, below the lane groups' MIN_GROUP_WARPS (warp per chain) and above it
+# (8,191: 16 lanes at K = 1; 16,385: 4 lanes at K = 1, 8 at K = 2, 16 at
+# K >= 3); every schedule, with L 0, 1 and 64 among them.
+GROUP_FAMILIES = ["standard_normal", "neals_funnel", "gaussian_mixture", "correlated_gaussian"]
+GROUP_DIMS = [1, 2, 4, 8, 9, 16, 17, 32, 33, 50, 64, 65, 128]
+GROUP_CHAINS = [1, 3, 7, 33, 8191, 16385]
+GROUP_SCHEDULES = [(None, 64), ("constant", 1), ("tanh", 0), ("sigmoid", 16), ("linear", 3),
+                   ("sine", 64)]
+
+
+@pytest.mark.parametrize("n", GROUP_CHAINS)
+@pytest.mark.parametrize("dim", GROUP_DIMS)
+@pytest.mark.parametrize("family", GROUP_FAMILIES)
+def test_lane_group_kernel_1_matches_plain(dev, family, dim, n):
+    """Kernel 1 against its plain version under every schedule, injected
+    and Philox: accepts equal away from the MH borderline, states within
+    1e-4."""
+    info, q, lp, grad, g = _inputs(dev, family, dim, n, 31 * dim + n)
+    inv_mass = torch.rand(dim, generator=g, device=dev) + 0.5
+    for schedule, steps in GROUP_SCHEDULES:
+        eps = 0.01 if steps > 16 else 0.05
+        args = (info, steps, ft.SCHEDULE_IDS[schedule], q, lp, grad,
+                ft.kernel_scalars(eps, 0.7, 3.0, dev), inv_mass)
+        for rand, log_u in _rand(dev, g, n, dim):
+            _assert_close(ft.grahmc_step_kernel(*args, **rand),
+                          ft.grahmc_step_plain(*args, **rand), log_u)
+
+
+@pytest.mark.parametrize("dim", GROUP_DIMS)
+@pytest.mark.parametrize("family", GROUP_FAMILIES)
+def test_lane_group_chains_do_not_depend_on_the_count(dev, family, dim):
+    """A chain's outputs do not depend on how many chains a launch holds
+    (its Philox counter is its row), nor so on the lanes the count picks:
+    the rows of each count, from a warp per chain to the fewest lanes and
+    partly used warps, equal the first rows of 32,768 chains bit for bit.
+    So every layout sums in the warp-per-chain order, and the clamped
+    groups of a partly used warp store nothing."""
+    info, q, lp, grad, g = _inputs(dev, family, dim, 32768, 7 * dim)
+    sched = ft.SCHEDULE_IDS["tanh"]
+    scalars = ft.kernel_scalars(0.05, 0.7, 3.0, dev)
+    inv_mass = torch.rand(dim, generator=g, device=dev) + 0.5
+    (inj, _), (phil, _) = _rand(dev, g, 32768, dim)
+    full = {mode: ft.grahmc_step_kernel(info, 16, sched, q, lp, grad, scalars, inv_mass, **rand)
+            for mode, rand in (("injected", inj), ("philox", phil))}
+    for n in [1, 3, 7, 33, 2049, 4097, 8191, 8193, 16383, 16385]:
+        cut = {"injected": dict(p0=inj["p0"][:n].contiguous(), u=inj["u"][:n].contiguous()),
+               "philox": phil}
+        for mode, rand in cut.items():
+            part = ft.grahmc_step_kernel(info, 16, sched, q[:n].contiguous(),
+                                         lp[:n].contiguous(), grad[:n].contiguous(), scalars,
+                                         inv_mass, **rand)
+            for k, (a, b) in enumerate(zip(part, full[mode])):
+                if a.dtype == torch.float32:
+                    _assert_bits(a, b[:n], f"{family} D={dim} C={n} {mode} output {k}")
+                else:
+                    assert torch.equal(a, b[:n])
+
+
+@pytest.mark.parametrize("rungs,chains", [(3, 333), (3, 7), (3, 5461), (2, 8193), (6, 8192),
+                                          (1, 33)])
+@pytest.mark.parametrize("dim", [1, 9, 10, 33, 50, 128])
+@pytest.mark.parametrize("family", GROUP_FAMILIES)
+def test_lane_group_scaled_kernel_matches_plain(dev, family, dim, rungs, chains):
+    """1b against its plain version under the tempered row's tanh schedule
+    and NO_FRICTION, injected and Philox, with rung_chains no multiple of
+    the chains a warp holds where the count takes lane groups (a warp's
+    groups in two rungs)."""
+    n = rungs * chains
+    info, q, lp, grad, g = _inputs(dev, family, dim, n, 13 * dim + n)
+    invm = torch.rand(dim, generator=g, device=dev) + 0.5
+    betas = torch.linspace(1.0, 0.05, rungs, device=dev)
+    table = ft.rung_table(0.05 / torch.sqrt(betas), 0.1, 5.0, betas, dev)
+    beta_row = betas.repeat_interleave(chains)
+    slp, sgrad = (beta_row * lp).contiguous(), (beta_row[:, None] * grad).contiguous()
+    for schedule in ("tanh", None):
+        sargs = (info, 16, ft.SCHEDULE_IDS[schedule], q, slp, sgrad, table, invm)
+        for rand, log_u in _rand(dev, g, n, dim):
+            _assert_close(ft.grahmc_scaled_kernel(*sargs, **rand),
+                          ft.grahmc_scaled_plain(*sargs, **rand), log_u)
