@@ -45,9 +45,9 @@ NUTS row and a dense-warmup GRAHMC row on the port:
   posterior (256 data rows) at 8,192 chains, the windowed warmup with its
   gamma tune (kernel 1d, the data-carrying form of kernel 1), a
   1,000-draw full-history GRAHMC run with its diagnostics (1d), a 4,096-chain
-  run through the multistep dispatch (2b), persistent NUTS (4c) and RWMH
-  (3a) on the same posterior; GRAHMC's posterior means must agree with
-  RWMH's, two kernels apart;
+  run through the multistep dispatch (2b, block-tiled as 1d is), persistent
+  NUTS (4c) and RWMH (3a) on the same posterior; GRAHMC's posterior means
+  must agree with RWMH's, two kernels apart;
 - ChEES (bench.py:527-579): the 20-D non-centered funnel at 2,048 chains,
   run_chees_warmup("hmc", 2,500 steps), then chees_run at the tuned step, T
   and metric, 8,192 jittered draws a run (kernel 1, one launch per draw at
@@ -91,11 +91,11 @@ kernel is timed at the shapes the paths ran it at ([6]-[6i]; kernel 1 and
 1a also at the dense-warmup row's 4,096-chain warmups, kernels 1-4 at the
 family sweep's 1,024 x 10), and [8] prints, largest first, each (kernel,
 shape)'s launches x (time - bound), with 1a's, 4b's and 3a's yardsticks
-(their products as torch.matmul calls) and 1d's and 4c's time per gradient
-evaluation beside the eager value_and_grad. The last two lines are a JSON object describing each
-kernel and kernel variant at its main shape, each split row (ChEES, the
-4,096-chain warmups) and each (kernel, family) pair of the sweep's and
-[5o]'s cells (its launches at that shape -- a kernel's launches at the
+(their products as torch.matmul calls), 1d's and 4c's time per gradient
+evaluation beside the eager value_and_grad, and the tiled 2b's beside 1d's.
+The last two lines are a JSON object describing each kernel and kernel
+variant at its main shape, each split row (ChEES, the 4,096-chain
+warmups) and each (kernel, family) pair of the sweep's and [5o]'s cells (its launches at that shape -- a kernel's launches at the
 shapes left untimed, the crossing check's, the ladder tune's, the SMC
 row's and the dense NUTS row's 4,096-chain check, stay in its main row --
 error against its plain version, time, the plain version's time and the
@@ -412,8 +412,8 @@ KERNELS = {   # name: (source, the TPU kernel it replaces)
     # the data-carrying forms on config 5's posterior
     "grahmc_step_kernel[data]": ("mcmc_tpu_torch/csrc/tiled_step.cuh",
                                  "mcmc_tpu/ops/fused_trajectory.py:300"),         # 1d
-    "grahmc_multistep_kernel[data]": ("mcmc_tpu_torch/csrc/fused_trajectory.cu",
-                                      "mcmc_tpu/ops/fused_trajectory.py:701"),    # 2b
+    "grahmc_multistep_kernel[data]": ("mcmc_tpu_torch/csrc/tiled_step.cuh",
+                                      "mcmc_tpu/ops/fused_trajectory.py:701"),    # 2b, tiled
     "rwmh_multistep_kernel[data]": ("mcmc_tpu_torch/csrc/fused_rwmh.cu",
                                     "mcmc_tpu/ops/fused_rwmh.py:52"),             # 3a
     "nuts_window_kernel[data]": ("mcmc_tpu_torch/csrc/nuts_window.cuh",
@@ -1569,7 +1569,8 @@ def phase_multinomial_variance(torch, targets, samplers, dev):
 def phase_rwmh_row(torch, targets, samplers, dev):
     """bench.py's RWMH row on the port: 65,536 chains of the 10-D standard
     normal, 16,384 draws through kernel 3 (T = 32), a warm-up and RWMH_REPS
-    timed reps, the median of reps 2 and up."""
+    timed reps, the median of reps 2 and up; then one profiled rep for the
+    device-busy share."""
     say("[5c] RWMH row: 10-D standard normal, 65,536 chains (kernel 3)")
     t = targets.standard_normal(RWMH_DIM)
     r_init = torch.randn((RWMH_CHAINS, RWMH_DIM), generator=_gen(torch, dev, 6),
@@ -1591,6 +1592,9 @@ def phase_rwmh_row(torch, targets, samplers, dev):
     say(f"  timed runs: {RWMH_SAMPLES} draws x {RWMH_CHAINS} chains, reps "
         f"{[round(x, 4) for x in dts]} s; chain-steps/s "
         f"{RWMH_CHAINS * RWMH_SAMPLES / dt:.1f}; accept {accept:.4f}")
+    busy = device_busy_seconds(torch, lambda: samplers.rwmh_run(
+        _gen(torch, dev, 8), t.log_prob_fn, r_init, **kw))
+    say_busy("RWMH row", busy, dt)
     require(res.samples.shape == (RWMH_SAMPLES, RWMH_COLLECT, RWMH_DIM), "RWMH history shape")
     require(bool(torch.isfinite(res.samples).all()), "non-finite RWMH draws")
     require(0.2 < accept < 0.35, f"RWMH accept {accept}")
@@ -2138,12 +2142,16 @@ def phase_hier_row(torch, targets, samplers, tuning, diagnostics, dev):
     require(ess_min >= HIER_ESS_MIN, f"config-5 min bulk ESS {ess_min}")
     del res
 
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     multi = samplers.grahmc_run(_gen(torch, dev, 113), t.log_prob_fn,
                                 pos[:HIER_MULTI_CHAINS].contiguous(),
                                 num_samples=HIER_MULTI_DRAWS, collect_chains=COLLECT, **kw)
+    torch.cuda.synchronize()
+    multi_wall = time.perf_counter() - t0
     acc_m = float(multi.accept_rate.mean())
     say(f"  {HIER_MULTI_CHAINS} chains, {HIER_MULTI_DRAWS} draws through the multistep dispatch "
-        f"(kernel 2b): accept {acc_m:.4f}")
+        f"(kernel 2b, block-tiled) in {multi_wall:.4f} s (one run): accept {acc_m:.4f}")
     require(bool(torch.isfinite(multi.samples).all()), "config-5 multistep draws")
     require(abs(acc_m - accept) <= 0.05, f"config-5 multistep accept {acc_m} vs {accept}")
     del multi
@@ -3353,7 +3361,8 @@ def phase_timing_hier(torch, ft, fr, fn, tn, targets, row, dev, reps=6, burst=10
     kernel 4's data variants' leapfrogs per call and live stack slots as
     phase_timing_rwmh_nuts counts them, with "yardstick_ms" and "products"
     under 3a's name, the eager value_and_grad's ms)."""
-    say(f"[6f] kernels 1d, 2b, 3a and 4c vs plain versions: CUDA events, median of {reps} "
+    say(f"[6f] kernels 1d, 2b, 3a and 4c (all four block-tiled) vs plain versions: CUDA "
+        f"events, median of {reps} "
         f"bursts of {burst} kernel / {plain_burst} plain calls, Philox mode")
     t = _hier_target(targets)
     info = t.value_and_grad_fn.kernel_info
@@ -3810,7 +3819,7 @@ def main():
                    "nuts_window_kernel[multinomial+dense]": row_runs,
                    "nuts_window_kernel": NUTS_TUNE_CALLS + check_runs})
     drive("RWMH row", lambda: phase_rwmh_row(torch, targets, samplers, dev),
-          {"rwmh_multistep_kernel": RWMH_SAMPLES // RWMH_T * (1 + RWMH_REPS)})
+          {"rwmh_multistep_kernel": RWMH_SAMPLES // RWMH_T * (2 + RWMH_REPS)})
     warmed = WARMUP_TRANSITIONS + TUNE_TRANSITIONS     # one warmup with its tune
     dense_row = drive("dense-warmup GRAHMC row",
                       lambda: phase_dense_warmup_row(torch, targets, samplers, tuning,
@@ -3913,6 +3922,10 @@ def main():
     one_a, one_d = times["grahmc_step_kernel[dense]"][0], times["grahmc_step_kernel[data]"][0]
     say(f"  1a's yardstick {yard_ms:.4f} ms against 1a's {one_a:.4f} ms; 1d per evaluation "
         f"{one_d / HIER_L:.4f} ms against the eager value_and_grad's {vag_ms:.4f} ms")
+    two_b = times["grahmc_multistep_kernel[data]"][0]
+    say(f"  2b, block-tiled (tiled_step.cuh:grahmc_tiled_multistep_kernel, {HIER_MULTI_CHAINS} "
+        f"chains): {two_b / (MULTI_T * HIER_L):.4f} ms per evaluation of its chains against "
+        f"1d's {one_d / HIER_L:.4f} ms for {HIER_CHAINS}")
     four_b, four_c = NUTS_NAMES["dense"], NUTS_NAMES["endpoint+data"]
     evals = measured[four_c]["leapfrogs"] / HIER_CHAINS
     say(f"  4b's yardstick {measured[four_b]['yardstick_ms']:.4f} ms ({measured[four_b]['products']} "

@@ -1,65 +1,95 @@
-"""Kernel 1's warp-per-chain instances and its tempered variant 1b, in lane
-groups, against the parent's kernels, on one CUDA card.
+"""Kernel 1's warp-per-chain instances and its tempered variant 1b in lane
+groups, kernel 3 with the accept draw in the lane group's spare lane, and
+kernel 2's block-tiled data form 2b, against the parent's kernels, on one
+CUDA card.
 
     python experiments/torch_step_kernel_timing.py --parent DIR [--tree .]
-        [--patched NAME[+NAME...] ...] [--out _archive/step_out]
-        [--work _archive/step] [--skip-timing] [--reps N]
+        [--patched NAME[+NAME...] ...] [--probe NAME[+NAME...] ...]
+        [--out _archive/step_out] [--work _archive/step] [--skip-timing]
+        [--reps N] [--cases REGEX] [--outputs GROUP[,GROUP...]] [--sass REGEX]
 
 DIR is an unpacked tree of the commit before the redesign (`git archive`;
 its mcmc_tpu_torch/ alone is enough); --tree the tree under test. Each
 --patched adds the variant NAME: a copy of the tree's mcmc_tpu_torch/
 under --work with the edits PATCHES[NAME] applied (several joined by "+")
-and only kernels 1, 2, 1b and 1c built (TRAJECTORY_SOURCES; kernels 3 and
-4 are left out of its outputs and times). The edits: "lanes-32", every
-chain warp per chain (step_lanes 32: the parent's layout); "least-lanes",
-the fewest lanes at every chain count (no MIN_GROUP_WARPS);
-"min-warps-1024", that bound halved; "lanes-16", lane groups of at least
-16 lanes at every K; "lanes-8", 8 at K <= 2; "friction-once", the
-substeps' friction factors computed once a group of lanes and shared by
-shuffles in every kernel (1c and kernel 1's warp-per-chain instances
-too); "philox-once", each Philox block drawn once a chain at G = 32 too;
-"no-friction-once" and "no-philox-once", every factor computed on every
-lane, every block drawn once a coordinate; and the probe "unfolded" (a lane
-adds all its registers in turn, then the butterfly over G lanes: not the
-warp-per-chain order, so its grouped outputs differ; PROBES). The script
+and only the sources those edits touch built (TRAJECTORY_SOURCES: kernels
+1, 2, 1b and 1c; RWMH_SOURCES: kernel 3; the other kernels are left out of
+its outputs and times); each --probe the same on a copy of the parent.
+The edits: "lanes-32", every chain warp per chain (step_lanes 32: the
+parent's layout); "least-lanes", the fewest lanes at every chain count (no
+MIN_GROUP_WARPS); "min-warps-1024", that bound halved; "lanes-16", lane
+groups of at least 16 lanes at every K; "lanes-8", 8 at K <= 2;
+"friction-once", the substeps' friction factors computed once a group of
+lanes and shared by shuffles in every kernel (1c and kernel 1's
+warp-per-chain instances too); "philox-once", each Philox block drawn once
+a chain at G = 32 too; "no-friction-once" and "no-philox-once", every
+factor computed on every lane, every block drawn once a coordinate; the
+probe "unfolded" (a lane adds all its registers in turn, then the
+butterfly over G lanes: not the warp-per-chain order, so its grouped
+outputs differ; PROBES). Kernel 3's, for --probe on the parent:
+"u-hash", the accept uniform from a three-instruction hash of (chain, t)
+in place of its Philox block (the block's share of the time; its outputs
+differ, PROBES); "threads-64" and "threads-128", blocks of 64 or 128
+threads at every chain count; "sized-blocks", the most threads a block of
+(256, 128, 64) that still give each of the card's 132 SMs a block (the
+tree's launch_threads); and for --patched on the tree "log-u-late", the
+logarithm of an injected u taken after the target, where the parent takes
+it. The script
 
 1. builds every tree's kernel library, one process per tree, a few at once;
 2. prints each kernel instance's ptxas line (registers, spills) that
    differs between the parent and the tree, the instances the tree adds or
    drops (kernel 1's and 1b's warp-per-chain instances carry G = 32 in
    their names now and are compared with the parent's under that name),
-   and the lane-group instances' lines;
+   the lane-group instances' lines, and, for kernel 3 (`cuobjdump -sass` of
+   each library), every instance's SASS instructions in all and in its
+   transition loop (the largest backward branch's span: both arms of its
+   uniform branches and the transcendentals' rare slow paths included, so
+   more than a transition executes) with its ptxas line; --sass writes the
+   SASS of the functions it names under --out/sass/<tree>/;
 3. runs every tree on the same inputs and compares each output's sha256
-   digest with the parent's: kernel 1 and 1b on every family they
-   dispatch at D 1, 2, 4, 8, 9, 16, 17, 32, 33, 50, 64, 65, 128 (the 2-
-   and 3-D families at theirs) and 1, 7, 33 chains, at 8,191 chains at D
-   10 and 50, under every schedule (NO_FRICTION, L 3; constant, L 16;
-   tanh, L 64; sigmoid, L 1; linear, L 0; sine, L 7), injected draws and
-   Philox; 1b in three rungs of a third of the chains (333 a rung at 999
-   chains: a warp's chains in two rungs) and in one rung; kernel 2 (T =
-   3) and 1c on every family at D 10 and 50; kernels 3 (T = 8) and 4 (two
-   windows, endpoint and multinomial, diagonal and dense) on the nine
-   families whose functors are per-coordinate sums (the four that run in
-   lane groups among them) at D 10 and 50; 1a and 1d at one shape each;
+   digest with the parent's (--outputs picks the groups, all by default):
+   "step", kernel 1 and 1b on every family they dispatch at D 1, 2, 4, 8,
+   9, 16, 17, 32, 33, 50, 64, 65, 128 (the 2- and 3-D families at theirs)
+   and 1, 7, 33 chains, at 8,191 chains at D 10 and 50, under every
+   schedule (NO_FRICTION, L 3; constant, L 16; tanh, L 64; sigmoid, L 1;
+   linear, L 0; sine, L 7), injected draws and Philox; 1b in three rungs
+   of a third of the chains (333 a rung at 999 chains: a warp's chains in
+   two rungs) and in one rung; "control", kernel 2 (T = 3) and 1c on every
+   family at D 10 and 50, and kernels 3 (T = 8) and 4 (two windows,
+   endpoint and multinomial, diagonal and dense) on the nine families
+   whose functors are per-coordinate sums at D 10 and 50, 1a and 1d at one
+   shape each; "rwmh", kernel 3 on all 14 families (the hierarchical
+   posterior's 3a at 256 rows) at D 1-128 around every lane-group edge,
+   1-4,099 chains (N(0, I) at every D from 1 to 128, and 65,536 chains at
+   D 2 and 10), both draw modes; "multistep", 2b under both metrics at D
+   9, 20 and 100 with 64 and 256 rows, T 1, 2, 4 and 8, 1, 31, 33 and
+   4,099 chains, both draw modes;
 4. times, in turns (parent, tree, variants, then back), with CUDA events
    around bursts enqueued while the card sleeps (chip_smoke.py's
-   _event_ms), Philox mode unless named: kernel 1 at 65,536 x 50 on the
-   funnel, L 16, the constant schedule (chip_smoke.py's [6]) and its
-   probes (the NO_FRICTION schedule, injected draws, N(0, I) at D 50, the
-   funnel at D 64); 1b at the tempered row's 6 x 8,192 x 10 (the mixture,
-   tanh, L 16; [6e]) and its probes (NO_FRICTION, injected); the shapes
-   that must not lose: kernel 1 at 4,096 x 50 (the correlated Gaussian, L
-   16), at the ChEES row's 2,048 x 20 (the non-centered funnel, no
-   friction, L 1 to 4) and at the sweep's 1,024 x 10 (its five families,
-   L 16); and the controls kernel 2 (4,096 x 50, T 8, L 16), 1c (65,536 x
-   10, L 16), kernel 4 (65,536 x 50, the funnel) and 1a (65,536 x 50, the
-   rho = 0.9 Gaussian's oracle metric). Each time is printed with its ns
-   per chain-substep (chains x L x T).
+   _event_ms), Philox mode unless named, the cases --cases selects (all
+   by default): kernel 1 at 65,536 x 50 on the funnel, L 16, the constant
+   schedule (chip_smoke.py's [6]) and its probes (the NO_FRICTION
+   schedule, injected draws, N(0, I) at D 50, the funnel at D 64); 1b at
+   the tempered row's 6 x 8,192 x 10 (the mixture, tanh, L 16; [6e]) and
+   its probes (NO_FRICTION, injected); kernel 1 at 4,096 x 50 (the
+   correlated Gaussian, L 16), at the ChEES row's 2,048 x 20 (the
+   non-centered funnel, no friction, L 1 to 4) and at the sweep's 1,024 x
+   10 (its five families, L 16); kernel 2 (4,096 x 50, T 8, L 16), 1c
+   (65,536 x 10, L 16), kernel 4 (65,536 x 50, the funnel) and 1a (65,536 x
+   50, the rho = 0.9 Gaussian's oracle metric); kernel 3 at the RWMH row's
+   65,536 x 10, T 32 (Philox, and both draws injected), on the sweep's five
+   families at 1,024 x 10, T 16, and on [6h]'s three RAHMC families at
+   1,024 x 2, T 16; 3a at 8,192 x 100, 256 rows, T 32; 2b at config 5's
+   4,096 x 100, 256 rows, T 8, L 16 (tanh), and 1d at 8,192 x 100, L 16.
+   Each time is printed with its ns per chain-substep (chains x L x T; a
+   chain-transition for kernel 3).
 
 Each measurement runs in a process of its own, in the tree it measures.
-Prints the card's name and power limit; writes the build logs and the
-times under --out, the digests under --work. Exits 1 if an output of a
-tree that is not a probe differs from the parent's.
+Prints the card's name, power limit and SM clocks (before and after the
+timings); writes the build logs and the times under --out, the digests
+under --work. Exits 1 if an output of a tree that is not a probe differs
+from the parent's.
 """
 
 import argparse
@@ -112,7 +142,33 @@ PATCHES = {
     "unfolded": (("targets.cuh", FOLD,
                   "#pragma unroll\n    for (int m = 1; m < M; ++m) part[0] += part[m];"),),
 }
-PROBES = {"unfolded"}     # change the outputs on purpose
+RWMH_LAUNCH = ("    const long long chains_per_block = (THREADS / 32) * (32 / G);\n"
+               "    const unsigned blocks = static_cast<unsigned>((a.n_chains + chains_per_block - 1) /\n"
+               "                                                  chains_per_block);\n"
+               "    rwmh_multistep_kernel<FAMILY, G><<<blocks, THREADS, 0, stream>>>(a);")
+U_DRAW = "      u = philox_accept_uniform(chain, a.call, static_cast<uint32_t>(t), k0, k1);"
+SIZED = ("    int threads = THREADS;  // the most that still give every SM a block\n"
+         "    while (threads > 64 && (a.n_chains + (threads / 32) * (32 / G) - 1) /\n"
+         "                               ((threads / 32) * (32 / G)) < 132) threads /= 2;\n"
+         + RWMH_LAUNCH.replace("(THREADS / 32)", "(threads / 32)").replace(
+             "<<<blocks, THREADS,", "<<<blocks, threads,"))
+PATCHES.update({
+    "u-hash": (("fused_rwmh.cu", U_DRAW,
+                "      u = bits_to_uniform((static_cast<uint32_t>(chain) * 0x9E3779B9u) ^\n"
+                "                          (static_cast<uint32_t>(t) * 0x85EBCA6Bu) ^ k0);"),),
+    "threads-64": (("fused_rwmh.cu", RWMH_LAUNCH, RWMH_LAUNCH.replace("THREADS", "64")),),
+    "threads-128": (("fused_rwmh.cu", RWMH_LAUNCH, RWMH_LAUNCH.replace("THREADS", "128")),),
+    "sized-blocks": (("fused_rwmh.cu", RWMH_LAUNCH, SIZED),),
+    # the injected u's logarithm taken after the target, as the parent takes it
+    "log-u-late": (("fused_rwmh.cu", "      log_u = logf(a.u[slot]);\n    }",
+                    "      log_u = a.u[slot];\n    }"),
+                   ("fused_rwmh.cu", "    const float lp1 = log_density(prop);\n",
+                    "    const float lp1 = log_density(prop);\n"
+                    "    if (!philox) log_u = logf(log_u);\n")),
+})
+RWMH_SOURCES = ("fused_rwmh.cu",)
+PROBES = {"unfolded", "u-hash"}     # change the outputs on purpose
+OUTPUT_GROUPS = ("step", "control", "rwmh", "multistep")
 SIMPLE = ("standard_normal", "neals_funnel", "gaussian_mixture", "correlated_gaussian",
           "neals_funnel_noncentered", "ill_conditioned_gaussian", "student_t", "log_gamma",
           "log_gamma_unconstrained")
@@ -157,12 +213,27 @@ def _target(family, dim):
     return get_target(family, dim=dim)
 
 
-def step_outputs(torch, full):
-    """Kernels 1 and 1b (and, with `full`, 2, 1c, 3, 4, 1a, 1d) on the cases
-    of step 3: {label: [output digests]}."""
-    from mcmc_tpu_torch.ops import fused_trajectory as ft
+def outputs(torch, groups, has):
+    """The cases of step 3 in `groups` that the tree's sources build (`has`:
+    "trajectory", "rwmh", "nuts"): {label: [output digests]}."""
     dev = torch.device(DEVICE)
     key = torch.tensor([11, -12], dtype=torch.int32, device=dev)
+    out = {}
+    if "step" in groups and has["trajectory"]:
+        out.update(step_outputs(torch, key))
+    if "control" in groups and has["trajectory"]:
+        out.update(control_outputs(torch, key, has["rwmh"] and has["nuts"]))
+    if "rwmh" in groups and has["rwmh"]:
+        out.update(rwmh_outputs(torch, key))
+    if "multistep" in groups and has["trajectory"]:
+        out.update(multistep_outputs(torch, key))
+    return out
+
+
+def step_outputs(torch, key):
+    """Kernels 1 and 1b on the cases of step 3's "step" group."""
+    from mcmc_tpu_torch.ops import fused_trajectory as ft
+    dev = torch.device(DEVICE)
     shapes = [(f, d, n) for f in SIMPLE + OTHER for d in DIMS for n in CHAINS
               if not (f == "rosenbrock" and d < 2)]
     shapes += [(f, d, 8191) for f in SIMPLE + OTHER for d in (10, 50)]
@@ -192,7 +263,6 @@ def step_outputs(torch, full):
                                       for x in ft.grahmc_step_kernel(*args, **rand)]
                 out[f"k1b {label}"] = [digest(torch, x)
                                        for x in ft.grahmc_scaled_kernel(*sargs, **rand)]
-    out.update(control_outputs(torch, key, full))
     return out
 
 
@@ -260,6 +330,97 @@ def k34_outputs(torch, key, family, t, info, q, lp, grad, g, label):
     return out
 
 
+# kernel 3's D: every lane-group edge (G 1, 2, 4, 8, 16, 32 fill at D 4, 8,
+# 16, 32, 64, 128; a spare lane at D 9-12, 17-28, 33-60, 65-124)
+RWMH_DIMS = (1, 2, 3, 4, 5, 8, 9, 10, 12, 13, 16, 17, 20, 28, 29, 32, 33, 50, 60, 61, 64,
+             65, 100, 124, 125, 128)
+RWMH_CHAINS = (1, 7, 33, 999, 4099)
+MULTI_DIMS, MULTI_ROWS, MULTI_COUNTS = (9, 20, 100), (64, 256), (1, 31, 33, 4099)   # 2b's
+
+
+def rwmh_outputs(torch, key):
+    """Kernel 3 (T = 8, a 37-chain history) on every family at RWMH_DIMS
+    (the 2- and 3-D families at theirs; N(0, I) at every D 1-128 too, and
+    at 65,536 chains at D 2 and 10), RWMH_CHAINS chains, injected draws and
+    Philox; 3a (the hierarchical posterior, 256 rows) at D 2-128."""
+    from mcmc_tpu_torch.ops import fused_rwmh as fr
+    from mcmc_tpu_torch.ops.padded_targets import device_lp
+    from mcmc_tpu_torch.targets import get_target
+    dev = torch.device(DEVICE)
+    cases = [(f, d, n) for f in SIMPLE + OTHER for d in RWMH_DIMS for n in RWMH_CHAINS
+             if not (f == "rosenbrock" and d < 2)]
+    cases += [(f, d, n) for f, dims in SMALL.items() for d in dims for n in RWMH_CHAINS]
+    cases += [("standard_normal", d, n) for d in range(1, 129) if d not in RWMH_DIMS
+              for n in (7, 1031)]
+    cases += [(f, d, 65536) for f in ("standard_normal", "student_t") for d in (2, 10)]
+    cases += [("hierarchical_logistic", d, n) for d in (2, 5, 9, 12, 20, 33, 100, 128)
+              for n in (1, 33, 999, 8191)]
+    out = {}
+    for i, (family, dim, n) in enumerate(cases):
+        g = torch.Generator(device=dev).manual_seed(9000 + i)
+        t = (get_target(family, dim=dim, n_data=256) if family == "hierarchical_logistic"
+             else _target(family, dim))
+        info = t.value_and_grad_fn.kernel_info
+        q, _, _ = _state(torch, t, family, n, dim, g, dev)
+        lp = device_lp(info)(q).float().contiguous()
+        scale = fr.rwmh_scale((0.1 if family == "rosenbrock" else 1.2) / dim ** 0.5, dev)
+        noise = torch.randn((8, n, dim), generator=g, device=dev)
+        u = torch.rand((8, n), generator=g, device=dev).clamp_min(2.0 ** -25)
+        for mode, rand in (("injected", dict(noise=noise, u=u)), ("philox", dict(key=key, call=3))):
+            out[f"k3 {family} D{dim} C{n} {mode}"] = [digest(torch, x) for x in
+                                                      fr.rwmh_multistep_kernel(
+                                                          info, 8, q, lp, scale, min(n, 37),
+                                                          **rand)]
+    return out
+
+
+def multistep_outputs(torch, key):
+    """2b (kernel 2 on the hierarchical posterior) under both metrics, L 8
+    (tanh), at D 9, 20 and 100 with 64 and 256 rows, T 1, 2, 4, 8, at 1,
+    31, 33 and 4,099 chains, injected draws and Philox."""
+    from mcmc_tpu_torch.ops import fused_trajectory as ft
+    from mcmc_tpu_torch.targets import get_target
+    dev = torch.device(DEVICE)
+    out = {}
+    i = 0
+    for dim in MULTI_DIMS:
+        for n_data in MULTI_ROWS:
+            h = get_target("hierarchical_logistic", dim=dim, n_data=n_data)
+            info = h.value_and_grad_fn.kernel_info
+            for dense in (False, True):
+                for transitions in (1, 2, 4, 8):
+                    for n in MULTI_COUNTS:
+                        i += 1
+                        g = torch.Generator(device=dev).manual_seed(11000 + i)
+                        q = (h.init_sampler(g, n) * 2.0).float().contiguous()
+                        lp, grad = (x.float().contiguous() for x in h.value_and_grad_fn(q))
+                        if dense:
+                            a = torch.randn((dim, dim), generator=g, device=dev,
+                                            dtype=torch.float64)
+                            invm, l_inv = ft.prepare_dense_metric(
+                                a @ a.T / dim + 0.5 * torch.eye(dim, device=dev,
+                                                                dtype=torch.float64))
+                        else:
+                            invm = torch.rand(dim, generator=g, device=dev) * 0.5 + 0.25
+                            l_inv = None
+                        p0 = torch.randn((transitions, n, dim), generator=g, device=dev)
+                        if dense:
+                            p0 = ft.unwhiten(p0.reshape(-1, dim), invm, l_inv).reshape(
+                                transitions, n, dim)
+                        u = torch.rand((transitions, n), generator=g, device=dev).clamp_min(
+                            2.0 ** -25)
+                        args = (info, 8, ft.SCHEDULE_IDS["tanh"], transitions, q, lp, grad,
+                                ft.kernel_scalars(0.1 if dense else 0.2, 0.5, 0.5, dev), invm)
+                        label = (f"2b {'dense' if dense else 'diagonal'} D{dim} N{n_data} "
+                                 f"T{transitions} C{n}")
+                        for mode, rand in (("injected", dict(p0=p0.contiguous(), u=u)),
+                                           ("philox", dict(key=key, call=2))):
+                            out[f"{label} {mode}"] = [digest(torch, x) for x in
+                                                      ft.grahmc_multistep_kernel(
+                                                          *args, l_inv=l_inv, **rand)]
+    return out
+
+
 def tiled_outputs(torch, key):
     """1a on the correlated Gaussian at 1,000 x 50 and 1d on config 5's
     posterior at 300 x 20 x 64 rows."""
@@ -296,8 +457,91 @@ def _event_ms(torch, fn, burst):
     return start.elapsed_time(end) / burst
 
 
-def timed_cases(torch, full):
-    """{name: (fn, chain-substeps a call)} of step 4."""
+def timed_cases(torch, has, pick):
+    """{name: (fn, chain-substeps a call)} of step 4: the cases whose name
+    `pick` (a compiled regex) finds, among those the tree's sources build."""
+    cases = {}
+    if has["trajectory"]:
+        cases.update(step_cases(torch, has["nuts"]))
+        cases.update(data_cases(torch))
+    if has["rwmh"]:
+        cases.update(rwmh_cases(torch))
+    return {k: v for k, v in cases.items() if pick.search(k)}
+
+
+def rwmh_cases(torch):
+    """Kernel 3 at the RWMH row's shape (Philox; both draws injected), the
+    sweep's and [6h]'s 1,024-chain cells; a chain-transition a "substep"."""
+    import chip_smoke as cs
+    from mcmc_tpu_torch.ops import fused_rwmh as fr
+    from mcmc_tpu_torch.ops.padded_targets import device_lp
+    dev = torch.device(DEVICE)
+    key = torch.tensor([5, 6], dtype=torch.int32, device=dev)
+    g = torch.Generator(device=dev).manual_seed(8)
+    cases = {}
+
+    def k3(name, family, n, dim, T, n_hist, scale, injected=False):
+        t = _target(family, dim)
+        info = t.value_and_grad_fn.kernel_info
+        q = t.init_sampler(g, n) if t.init_sampler is not None else (
+            torch.randn((n, dim), generator=g, device=dev) * 0.5)
+        if family == "log_gamma":
+            q = torch.rand((n, dim), generator=g, device=dev) * 2.0 + 0.3
+        q = q.float().contiguous()
+        lp = device_lp(info)(q).float().contiguous()
+        args = (info, T, q, lp, fr.rwmh_scale(scale, dev), n_hist)
+        rand = dict(key=key, call=0)
+        if injected:
+            rand = dict(noise=torch.randn((T, n, dim), generator=g, device=dev),
+                        u=torch.rand((T, n), generator=g, device=dev).clamp_min(2.0 ** -25))
+        cases[name] = (lambda: fr.rwmh_multistep_kernel(*args, **rand), n * T)
+
+    k3("k3 65,536 x 10 T 32", "standard_normal", cs.RWMH_CHAINS, cs.RWMH_DIM, cs.RWMH_T,
+       cs.RWMH_COLLECT, cs.RWMH_SCALE)
+    k3("k3 65,536 x 10 injected", "standard_normal", cs.RWMH_CHAINS, cs.RWMH_DIM, cs.RWMH_T,
+       cs.RWMH_COLLECT, cs.RWMH_SCALE, injected=True)
+    for family in SWEEP:
+        k3(f"k3 sweep 1,024 x 10 {family}", family, cs.SWEEP_CHAINS, cs.SWEEP_DIM,
+           cs.SWEEP_RWMH_T, cs.SWEEP_CHAINS, 0.5)
+    for family in ("multimodal_funnel_2d", "concentric_l1_2d", "nested_l1_2d"):
+        k3(f"k3 [6h] 1,024 x 2 {family}", family, cs.RAHMC_CHAINS, 2, cs.RAHMC_RWMH_T,
+           cs.RAHMC_CHAINS, 0.5)
+    return cases
+
+
+def data_cases(torch):
+    """Config 5's data forms: 2b at 4,096 x 100 (T 8) and the controls 1d
+    (8,192 x 100) and 3a (8,192 x 100, T 32), 256 rows, from the target's
+    init sampler, tanh, L 16."""
+    import chip_smoke as cs
+    from mcmc_tpu_torch.ops import fused_rwmh as fr
+    from mcmc_tpu_torch.ops import fused_trajectory as ft
+    from mcmc_tpu_torch.targets import get_target
+    dev = torch.device(DEVICE)
+    key = torch.tensor([5, 6], dtype=torch.int32, device=dev)
+    g = torch.Generator(device=dev).manual_seed(9)
+    h = get_target("hierarchical_logistic", dim=cs.HIER_DIM, n_data=cs.HIER_N_DATA)
+    info = h.value_and_grad_fn.kernel_info
+    q = h.init_sampler(g, cs.HIER_CHAINS).float().contiguous()
+    lp, grad = (x.float().contiguous() for x in h.value_and_grad_fn(q))
+    invm = torch.rand(cs.HIER_DIM, generator=g, device=dev) * 0.05 + 0.02
+    sc = ft.kernel_scalars(0.05, 0.5, 1.0, dev)
+    tanh = ft.SCHEDULE_IDS["tanh"]
+    n = cs.HIER_MULTI_CHAINS
+    a2 = (info, cs.HIER_L, tanh, cs.MULTI_T, q[:n].contiguous(), lp[:n].contiguous(),
+          grad[:n].contiguous(), sc, invm)
+    a1 = (info, cs.HIER_L, tanh, q, lp, grad, sc, invm)
+    a3 = (info, cs.RWMH_T, q, lp, fr.rwmh_scale(0.02, dev), cs.COLLECT)
+    return {"2b 4,096 x 100 x 256 T 8": (lambda: ft.grahmc_multistep_kernel(*a2, key=key, call=0),
+                                         n * cs.HIER_L * cs.MULTI_T),
+            "1d 8,192 x 100 x 256": (lambda: ft.grahmc_step_kernel(*a1, key=key, call=0),
+                                     cs.HIER_CHAINS * cs.HIER_L),
+            "3a 8,192 x 100 x 256 T 32": (lambda: fr.rwmh_multistep_kernel(*a3, key=key, call=0),
+                                          cs.HIER_CHAINS * cs.RWMH_T)}
+
+
+def step_cases(torch, full):
+    """Kernels 1, 1b, 2, 1c, 1a and, with `full`, kernel 4."""
     import chip_smoke as cs
     from mcmc_tpu_torch import samplers
     from mcmc_tpu_torch.ops import fused_nuts as fn
@@ -390,8 +634,8 @@ def timed_cases(torch, full):
     return cases
 
 
-def worker_time(torch, full, reps, burst=10):
-    cases = timed_cases(torch, full)
+def worker_time(torch, has, reps, pick, burst=10):
+    cases = timed_cases(torch, has, pick)
     ms, per = {}, {}
     for name, (run, substeps) in cases.items():
         run()
@@ -407,25 +651,29 @@ def worker(args):
     import torch
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA card")
-    full = (root / "mcmc_tpu_torch" / "csrc" / "fused_nuts.cu").exists()
+    csrc = root / "mcmc_tpu_torch" / "csrc"
+    has = {"trajectory": (csrc / "fused_trajectory.cu").exists(),
+           "rwmh": (csrc / "fused_rwmh.cu").exists(), "nuts": (csrc / "fused_nuts.cu").exists()}
     if args.worker == "build":
         from mcmc_tpu_torch.ops import _cuda
+        for old in _cuda.BUILD_DIR.glob(f"libmcmc_kernels_{_cuda._digest()}.so"):
+            old.unlink()      # built before (a test run): build again for the ptxas log
         lib = _cuda.load_library()
         Path(args.save).write_text(lib.build_log)
         print(f"built {lib.path.name} in {lib.build_seconds:.1f} s")
     elif args.worker == "outputs":
         t0 = time.perf_counter()
-        out = step_outputs(torch, full)
+        out = outputs(torch, args.outputs.split(","), has)
         torch.cuda.synchronize()
         Path(args.save).write_text(json.dumps(out))
         print(f"{len(out)} outputs' digests saved in {time.perf_counter() - t0:.1f} s")
     else:
-        worker_time(torch, full, args.reps)
+        worker_time(torch, has, args.reps, re.compile(args.cases))
 
 
-def run_worker(kind, root, save="", reps=10):
+def run_worker(kind, root, save="", reps=10, cases="."):
     cmd = [sys.executable, __file__, "--worker", kind, "--root", str(root), "--save", str(save),
-           "--reps", str(reps)]
+           "--reps", str(reps), "--cases", cases]
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=1800)
     if proc.returncode:
         sys.exit(f"{kind} worker in {root} failed:\n{proc.stdout[-4000:]}\n{proc.stderr[-8000:]}")
@@ -433,14 +681,19 @@ def run_worker(kind, root, save="", reps=10):
 
 
 def make_patched(tree, dst, names):
-    """A copy of tree's mcmc_tpu_torch under dst, cut to TRAJECTORY_SOURCES,
-    with the edits of each of `names` (PATCHES) applied."""
+    """A copy of tree's mcmc_tpu_torch under dst, cut to the sources the
+    edits of `names` (PATCHES) touch (RWMH_SOURCES for fused_rwmh.cu's,
+    TRAJECTORY_SOURCES for the others'), with those edits applied."""
     shutil.rmtree(dst, ignore_errors=True)
     shutil.copytree(Path(tree) / "mcmc_tpu_torch", dst / "mcmc_tpu_torch",
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
     csrc = dst / "mcmc_tpu_torch" / "csrc"
+    keep = set()
+    for patch in names:
+        for name, _, _ in PATCHES[patch]:
+            keep |= set(RWMH_SOURCES if name in RWMH_SOURCES else TRAJECTORY_SOURCES)
     for src in csrc.glob("*.cu"):
-        if src.name not in TRAJECTORY_SOURCES:
+        if src.name not in keep:
             src.unlink()
     cuda = dst / "mcmc_tpu_torch" / "ops" / "_cuda.py"
     text = cuda.read_text()
@@ -495,13 +748,110 @@ def compare_ptxas(lines):
     return changed
 
 
-def compare_outputs(trees, work):
+def sass_counts(so):
+    """{kernel 3 instance's mangled name: (SASS instructions in all, in its
+    largest loop)} from `cuobjdump -sass` of the library `so`: the loop is
+    the span of the backward branch that covers the most instructions
+    (the transition loop over t; Philox's rounds and the coordinate loops
+    are unrolled). Branch targets are read as addresses or as labels."""
+    text = sass_text(so)
+    out = {}
+
+    def close(name, ins, labels):
+        if name and "rwmh" in name:
+            loops = []
+            for at, target in ins:
+                to = labels.get(target) if target and not target.startswith("0x") else (
+                    int(target, 16) if target else None)
+                if to is not None and to < at:
+                    loops.append((at - to) // 16 + 1)
+            out[name] = (len(ins), max(loops, default=0))
+
+    name, ins, labels, pending = None, [], {}, []
+    for line in text.splitlines():
+        head = re.search(r"Function : (\S+)", line)
+        if head:
+            close(name, ins, labels)
+            name, ins, labels, pending = head.group(1), [], {}, []
+            continue
+        label = re.match(r"\s*\.?(L_x_\d+):", line)
+        if label:
+            pending.append(label.group(1))
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+        if m and name:
+            at = int(m.group(1), 16)
+            for lab in pending:
+                labels[lab] = at
+            pending = []
+            jump = re.search(r"\bBRA(?:\.\w+)*\s+(?:`\(\.?(L_x_\d+)\)|(0x[0-9a-f]+))",
+                             m.group(2))
+            ins.append((at, (jump.group(1) or jump.group(2)) if jump else None))
+    close(name, ins, labels)
+    return out
+
+
+def sass_text(so):
+    tool = Path(_cuda_home()) / "bin" / "cuobjdump"
+    return subprocess.run([str(tool), "-sass", str(so)], capture_output=True, text=True,
+                          check=True).stdout
+
+
+def dump_sass(so, pattern, dst):
+    """Write the SASS of every function whose mangled name `pattern` finds to
+    dst/<name>.sass."""
+    dst.mkdir(parents=True, exist_ok=True)
+    name, lines = None, []
+    for line in sass_text(so).splitlines() + ["Function : end"]:
+        head = re.search(r"Function : (\S+)", line)
+        if head:
+            if name and re.search(pattern, name):
+                (dst / f"{name}.sass").write_text("\n".join(lines) + "\n")
+            name, lines = head.group(1), []
+        lines.append(line)
+
+
+def _cuda_home():
+    from shutil import which
+    nvcc = which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    return str(Path(nvcc).resolve().parents[1])
+
+
+def sm_clocks():
+    return subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip()
+
+
+def print_rwmh_code(trees, lines, sass_dir=None, pattern=None):
+    """Step 2's kernel-3 part: each tree's kernel-3 instances, SASS counts
+    and ptxas lines; with `pattern`, the SASS of the functions it finds
+    under sass_dir/<tree>/."""
+    for label, root in trees.items():
+        libs = sorted((Path(root) / "mcmc_tpu_torch" / "_build").glob("libmcmc_kernels_*.so"))
+        if not libs or not (Path(root) / "mcmc_tpu_torch" / "csrc" / "fused_rwmh.cu").exists():
+            continue
+        try:
+            counts = sass_counts(libs[-1])
+            if pattern:
+                dump_sass(libs[-1], pattern, sass_dir / label)
+        except (OSError, subprocess.CalledProcessError) as err:
+            print(f"[sass] {label}: cuobjdump failed: {err}", flush=True)
+            continue
+        print(f"[sass] {label}: kernel 3's instances, SASS instructions in all / in the "
+              f"transition loop; ptxas", flush=True)
+        for k, (total, span) in sorted(counts.items()):
+            print(f"  {k}: {total} / {span}; {lines[label].get(k, '?')}")
+
+
+def compare_outputs(trees, work, groups):
     t0 = time.perf_counter()
     labels = list(trees)
     for i in range(0, len(labels), OUTPUT_WORKERS):
         procs = {label: subprocess.Popen(
             [sys.executable, __file__, "--worker", "outputs", "--root", str(trees[label]),
-             "--save", str(work / f"outputs_{label}.json")], stdout=subprocess.PIPE,
+             "--save", str(work / f"outputs_{label}.json"), "--outputs", groups],
+            stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True) for label in labels[i:i + OUTPUT_WORKERS]}
         for label, proc in procs.items():
             text = proc.communicate(timeout=1800)[0]
@@ -534,6 +884,12 @@ def main():
     ap.add_argument("--out", default="_archive/step_out")
     ap.add_argument("--work", default="_archive/step")
     ap.add_argument("--patched", action="append", default=[], help="+".join(PATCHES))
+    ap.add_argument("--probe", action="append", default=[], help="PATCHES on the parent")
+    ap.add_argument("--cases", default=".", help="a regex of the timed cases to run")
+    ap.add_argument("--outputs", default=",".join(OUTPUT_GROUPS),
+                    help="the output groups to compare: " + ",".join(OUTPUT_GROUPS))
+    ap.add_argument("--sass", default="", help="a regex of the functions whose SASS is "
+                                                "written under --out/sass/<tree>/")
     ap.add_argument("--skip-timing", action="store_true")
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--worker", choices=("build", "outputs", "time"))
@@ -551,12 +907,15 @@ def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi, flush=True)
+    print(f"SM clock, max SM clock: {sm_clocks()}", flush=True)
     trees = {"parent": Path(args.parent).resolve(), "tree": Path(args.tree).resolve()}
-    for label in args.patched:
-        if not set(label.split("+")) <= set(PATCHES):
-            sys.exit(f"--patched {label}: not among {sorted(PATCHES)}")
-        trees[label] = make_patched(trees["tree"], work / label.replace("+", "_"),
-                                    label.split("+"))
+    for base, names in (("tree", args.patched), ("parent", args.probe)):
+        for label in names:
+            if not set(label.split("+")) <= set(PATCHES):
+                sys.exit(f"{label}: not among {sorted(PATCHES)}")
+            name = label if base == "tree" else f"parent+{label}"
+            trees[name] = make_patched(trees[base], work / name.replace("+", "_"),
+                                       label.split("+"))
     t0 = time.perf_counter()
     procs = {}
     for label, root in list(trees.items()):
@@ -587,7 +946,8 @@ def main():
         print(f"[ptxas] {label}: {len(grouped)} lane-group instances of kernels 1 and 1b:")
         for k, v in grouped:
             print(f"  {k}: {v}")
-    differ = compare_outputs(trees, work)
+    print_rwmh_code(trees, lines, out / "sass", args.sass)
+    differ = compare_outputs(trees, work, args.outputs)
     if args.skip_timing:
         return 1 if differ else 0
 
@@ -595,7 +955,7 @@ def main():
     substeps = {}
     order = list(trees)
     for label in order + order[::-1]:
-        text = run_worker("time", trees[label], reps=args.reps)
+        text = run_worker("time", trees[label], reps=args.reps, cases=args.cases)
         got = json.loads(text.split("TIMES ", 1)[1].splitlines()[0])
         for k, v in got["ms"].items():
             results[label].setdefault(k, []).extend(v)
@@ -616,6 +976,7 @@ def main():
             cells.append(f"{label} {m:.4f} [{min(r[k]):.4f}-{max(r[k]):.4f}]{per}"
                          + ("" if label == "parent" else f" ({100 * (m / base - 1):+.1f}%)"))
         print(f"  {k}: " + "; ".join(cells))
+    print(f"SM clock, max SM clock after the timings: {sm_clocks()}", flush=True)
     (out / "times.json").write_text(json.dumps({"card": smi, "times": results,
                                                 "substeps": substeps}))
     return 1 if differ else 0

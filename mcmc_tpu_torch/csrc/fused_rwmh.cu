@@ -22,7 +22,11 @@
 // in float32), the (T, C) accept bytes (2.1 MB at T = 32) and a history of
 // only the n_hist chains the harness keeps: ~0.25 MB of traffic per
 // transition, so the Philox and transcendental arithmetic sets the time
-// (0.14 ms per 32-transition call on an H100, ~2.5 us of it memory).
+// (0.11 ms per 32-transition call at 65,536 x 10 on an H100, ~2.5 us of it
+// memory, 1.3x the issue floor of its 331 warp instructions a transition,
+// PERF.md section 6): the kernel is issue-bound, and a warp's instruction
+// stream costs the same whether one of its lanes needs an instruction or
+// all 32 do.
 //
 // Design: a group of G = 2^ceil(log2(ceil(D / 4))) lanes holds one chain and
 // lane j of the group holds the four consecutive coordinates 4j..4j+3 -- the
@@ -31,7 +35,15 @@
 // chain leaving 22 of 32 lanes idle. Group sums are __shfl_xor_sync
 // butterflies over G lanes. Chains past n_chains in a partly used warp
 // compute on a clamped index and store nothing, so every shuffle sees the
-// full warp.
+// full warp. Where the group has a lane past the chain's draws (ceil(D / 4)
+// < G: D = 9-12, 17-28, 33-60, 65-124), its last lane draws the accept
+// block ACCEPT_DRAW in the same philox4x32_10 call as the others draw
+// theirs, and its first Box-Muller logarithm, logf of the accept uniform,
+// reaches the group by one shuffle: the second Philox block and the
+// logarithm of u leave the warp's stream. Where D fills the group, every
+// lane still draws the accept block after its own, under a branch uniform
+// across the warp; at D <= 2 (one lane, one Box-Muller pair used) the
+// second pair is skipped.
 //
 // Design of rwmh_tiled_kernel (3a): in lane groups every chain read all of
 // X from L1 for each transition, n_data x D multiply-adds with no load
@@ -53,7 +65,7 @@
 // Randomness: injected (noise, u non-null; noise (T, C, D), u (T, C)) or
 // Philox4x32-10 with counter (chain, call, t, draw): noise coordinate d from
 // draw d / 4 (the layout of philox.cuh), the accept uniform word x0 of draw
-// ACCEPT_DRAW.
+// ACCEPT_DRAW; from whichever lane, its bits are philox_accept_uniform's.
 
 #include <cstddef>
 #include <cstdint>
@@ -66,7 +78,8 @@
 namespace mcmc {
 namespace rwmh {
 
-constexpr int THREADS = 256;
+constexpr int THREADS = 256;      // the lane-group kernel's largest block
+constexpr int MIN_THREADS = 64;   // and its smallest (launch_threads)
 constexpr int K = 4;  // coordinates per lane: the four normals of one Philox draw
 static_assert(THREADS / 32 <= TARGET_MAX_WARPS, "targets.cuh stages one row per warp");
 
@@ -83,11 +96,11 @@ struct Args {
   TargetData data;
 };
 
-// T transitions of one chain; `gl` is the lane's place in its group (lane
-// gl holds coordinates 4 gl .. 4 gl + 3) and `log_density(prop)` the
-// proposal's lp, which every lane of the group (and, tiled, of the block)
+// T transitions of one chain; `gl` is the lane's place in its group of G
+// lanes (lane gl holds coordinates 4 gl .. 4 gl + 3) and `log_density(prop)`
+// the proposal's lp, which every lane of the group (and, tiled, of the block)
 // calls together. `active`: the chain is no clamped stand-in, so it stores.
-template <typename LogDensity>
+template <int G, typename LogDensity>
 __device__ __forceinline__ void run_chain(const Args& a, const LogDensity& log_density,
                                           int chain, bool active, int gl) {
   const float scale = a.scale[0];
@@ -95,6 +108,11 @@ __device__ __forceinline__ void run_chain(const Args& a, const LogDensity& log_d
   const size_t row = static_cast<size_t>(chain) * dim;
   const bool philox = a.noise == nullptr;
   const uint32_t k0 = philox ? a.key[0] : 0u, k1 = philox ? a.key[1] : 0u;
+  // uniform across the warp: the group's last lane holds no coordinates
+  // (it draws the accept block), and lanes hold a second pair of normals
+  const bool spare = (dim + K - 1) / K < G;
+  const bool second_pair = dim > 2;
+  const uint32_t draw = spare && gl == G - 1 ? ACCEPT_DRAW : static_cast<uint32_t>(gl);
 
   float q[K], prop[K];
 #pragma unroll
@@ -106,26 +124,35 @@ __device__ __forceinline__ void run_chain(const Args& a, const LogDensity& log_d
 
   for (int t = 0; t < a.transitions; ++t) {
     const size_t slot = static_cast<size_t>(t) * a.n_chains + chain;  // (T, C) index
-    float noise[K], u;
+    float noise[K], log_u;
     if (philox) {
       const uint4 x = philox4x32_10(
-          make_uint4(chain, a.call, static_cast<uint32_t>(t), static_cast<uint32_t>(gl)), k0, k1);
-      const uint32_t w[4] = {x.x, x.y, x.z, x.w};
-#pragma unroll
-      for (int pair = 0; pair < 2; ++pair) {
-        const float rad = sqrtf(-2.f * logf(bits_to_uniform(w[2 * pair])));
-        const float theta = TWO_PI_F * bits_to_uniform(w[2 * pair + 1]);
-        noise[2 * pair] = rad * cosf(theta);
-        noise[2 * pair + 1] = rad * sinf(theta);
+          make_uint4(chain, a.call, static_cast<uint32_t>(t), draw), k0, k1);
+      // philox_normal_row's Box-Muller pairs on words (x0, x1) and (x2, x3)
+      const float log_w0 = logf(bits_to_uniform(x.x));
+      const float rad0 = sqrtf(-2.f * log_w0);
+      const float theta0 = TWO_PI_F * bits_to_uniform(x.y);
+      noise[0] = rad0 * cosf(theta0);
+      noise[1] = rad0 * sinf(theta0);
+      noise[2] = noise[3] = 0.f;
+      if (second_pair) {
+        const float rad1 = sqrtf(-2.f * logf(bits_to_uniform(x.z)));
+        const float theta1 = TWO_PI_F * bits_to_uniform(x.w);
+        noise[2] = rad1 * cosf(theta1);
+        noise[3] = rad1 * sinf(theta1);
       }
-      u = philox_accept_uniform(chain, a.call, static_cast<uint32_t>(t), k0, k1);
+      // log u: the spare lane's log_w0 is logf of the accept uniform, word x0
+      // of block ACCEPT_DRAW as philox_accept_uniform reads it
+      log_u = spare ? __shfl_sync(FULL_MASK, log_w0, G - 1, G)
+                    : logf(philox_accept_uniform(chain, a.call, static_cast<uint32_t>(t), k0,
+                                                 k1));
     } else {
 #pragma unroll
       for (int r = 0; r < K; ++r) {
         const int d = gl * K + r;
         noise[r] = d < dim ? a.noise[slot * dim + d] : 0.f;
       }
-      u = a.u[slot];
+      log_u = logf(a.u[slot]);
     }
 #pragma unroll
     for (int r = 0; r < K; ++r) {
@@ -134,7 +161,6 @@ __device__ __forceinline__ void run_chain(const Args& a, const LogDensity& log_d
       prop[r] = d < dim ? __fadd_rn(q[r], __fmul_rn(scale, noise[r])) : 0.f;
     }
     const float lp1 = log_density(prop);
-    const float log_u = logf(u);
     // log u < min(0, lp' - lp); a NaN lp' rejects, as in PyTorch
     const bool accept = (log_u < 0.f) && (log_u < lp1 - lp);
     if (accept) {
@@ -177,15 +203,16 @@ __global__ void __launch_bounds__(THREADS) rwmh_multistep_kernel(const Args a) {
   const int c = warp * CHAINS_PER_WARP + lane / G;
   const bool active = c < a.n_chains;
   const Target<FAMILY, K, G, true> target(a.dim, a.params, a.data);
-  run_chain(a, [&](const float (&prop)[K]) {
+  run_chain<G>(a, [&](const float (&prop)[K]) {
     float g[K];
     return target(prop, g, gl);
   }, active ? c : a.n_chains - 1, active, gl);
 }
 
 // 3a: HIER_TILE_CHAINS chains a block, one warp each, lanes past G idle in
-// the sums (the design above). One block an SM: without that bound ptxas
-// gave the G < 32 instances 32 registers and spilled.
+// the sums (the design above); lane G - 1 draws the accept block where
+// ceil(D / 4) < G, as in the lane groups. One block an SM: without that
+// bound ptxas gave the G < 32 instances 32 registers and spilled.
 template <int G>
 __global__ void __launch_bounds__(32 * HIER_TILE_CHAINS, 1)
     rwmh_tiled_kernel(const Args a, const TileGeometry geo) {
@@ -195,7 +222,7 @@ __global__ void __launch_bounds__(32 * HIER_TILE_CHAINS, 1)
   const bool active = c < a.n_chains;
   const TiledHierarchical<K, G, true> target(a.data, geo, reinterpret_cast<float*>(tile_smem),
                                              warp);
-  run_chain(a, [&](const float (&prop)[K]) { return target.log_prob(prop, lane); },
+  run_chain<G>(a, [&](const float (&prop)[K]) { return target.log_prob(prop, lane); },
             active ? c : a.n_chains - 1, active, lane);
 }
 
@@ -203,6 +230,28 @@ __global__ void __launch_bounds__(32 * HIER_TILE_CHAINS, 1)
 // of X^T, no X tile (ops/fused_rwmh.py:tile_geometry mirrors it).
 inline TileGeometry tiled_geometry(int dim) {
   return tile_layout(dim, false, LP_TILE_ROWS, HIER_TILE_CHAINS, false);
+}
+
+// Threads a block of the lane-group kernel for n_chains chains of G lanes:
+// the most of THREADS, THREADS / 2, ..., MIN_THREADS that still give every
+// SM of the card a block, so that a small launch spreads over the SMs (at
+// 1,024 chains 256 threads made 16 blocks at D = 10 and 4 at D <= 4, each
+// SM's few warps waiting on their chains' dependent streams; on an H100 64
+// threads took 10-12% off there, PERF.md section 6). Blocks do not
+// interact, so the outputs are the same bits at any size.
+inline int launch_threads(int n_chains, int G) {
+  int device = 0, sms = 0;
+  if (cudaGetDevice(&device) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess) {
+    return THREADS;  // the launch reports the runtime's error
+  }
+  int threads = THREADS;
+  const long long chains_per_warp = 32 / G;
+  while (threads > MIN_THREADS &&
+         (n_chains + threads / 32 * chains_per_warp - 1) / (threads / 32 * chains_per_warp) < sms) {
+    threads /= 2;
+  }
+  return threads;
 }
 
 template <int FAMILY, int G>
@@ -216,10 +265,11 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
         static_cast<unsigned>((a.n_chains + HIER_TILE_CHAINS - 1) / HIER_TILE_CHAINS);
     rwmh_tiled_kernel<G><<<blocks, 32 * HIER_TILE_CHAINS, geo.bytes, stream>>>(a, geo);
   } else {
-    const long long chains_per_block = (THREADS / 32) * (32 / G);
+    const int threads = launch_threads(a.n_chains, G);
+    const long long chains_per_block = (threads / 32) * (32 / G);
     const unsigned blocks = static_cast<unsigned>((a.n_chains + chains_per_block - 1) /
                                                   chains_per_block);
-    rwmh_multistep_kernel<FAMILY, G><<<blocks, THREADS, 0, stream>>>(a);
+    rwmh_multistep_kernel<FAMILY, G><<<blocks, threads, 0, stream>>>(a);
   }
   return cudaGetLastError();
 }

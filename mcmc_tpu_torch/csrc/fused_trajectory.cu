@@ -21,9 +21,9 @@
 //   (variants 1d and 2b: the target's `data_arrays` refs): the design matrix
 //   and labels in device memory (struct TargetData). That target's
 //   likelihood, two products with X per evaluation, not the state traffic,
-//   sets those variants' time: kernel 1 (1d, and 1a's data form) computes
-//   it for a block of chains at once (tiled_step.cuh:TiledHierarchical),
-//   kernel 2 with the warp-per-chain functor (targets.cuh).
+//   sets those variants' time: kernels 1 (1d, and 1a's data form) and 2
+//   (2b, either metric) compute it for a block of chains at once
+//   (tiled_step.cuh:TiledHierarchical).
 // The kernels and their launchers are in fused_trajectory.cuh; this file
 // holds the entry points, and fused_trajectory_families_{1,2,3}.cu
 // instantiate ten of the families so that nvcc compiles four sources at once.

@@ -6,8 +6,10 @@
 // Kernel 1's dense variant 1a and its data-carrying variant 1d launch the
 // block-tiled grahmc_tiled_step_kernel (tiled_step.cuh); its diagonal
 // instances without data run in lane groups (G < 32, step_lanes) on the
-// families of GROUPED_FAMILY and warp per chain (G = 32) on the others,
-// and every kernel 2 instance is warp-per-chain.
+// families of GROUPED_FAMILY and warp per chain (G = 32) on the others.
+// Kernel 2's data-carrying variant 2b launches the block-tiled
+// grahmc_tiled_multistep_kernel (tiled_step.cuh); its other instances, the
+// dense 2a among them, are warp-per-chain.
 #pragma once
 
 #include <cstddef>
@@ -18,19 +20,6 @@
 #include "trajectory.cuh"
 
 namespace mcmc {
-
-struct MultiArgs {
-  int dim, n_chains, num_steps, schedule, transitions;
-  TargetParams params;
-  TargetData data;
-  const float* scalars;
-  const uint32_t* key;
-  uint32_t call;
-  const float *q, *lp, *grad, *inv_mass, *l_inv, *p0, *u;
-  float *q_out, *lp_out, *grad_out;
-  bool* acc_out;
-  float *dh_out, *hist_q, *hist_lp;
-};
 
 // Kernel 1's chain (the warp-per-chain body at G = 32) or, in lane groups,
 // the chain of this lane's group; chains past n_chains in a partly used warp
@@ -106,7 +95,7 @@ template <int FAMILY, int K, bool DENSE>
 struct StepLaunch {
   static cudaError_t run(const StepArgs& a, cudaStream_t stream) {
     if constexpr (DENSE || FAMILY == HIERARCHICAL_LOGISTIC) {
-      return launch_tiled<FAMILY, K, DENSE>(a, stream);
+      return launch_tiled<FAMILY, DENSE>(grahmc_tiled_step_kernel<FAMILY, K, DENSE>, a, stream);
     } else {
       constexpr int LEAST = least_lanes<FAMILY, K>();
       return launch_lanes<LEAST>(step_lanes(LEAST, a.n_chains), [&](auto lanes) {
@@ -117,10 +106,16 @@ struct StepLaunch {
   }
 };
 
+// Kernel 2: 2b (the data-carrying family, either metric) block-tiled, the
+// rest (2a among them) warp per chain.
 template <int FAMILY, int K, bool DENSE>
 struct MultiLaunch {
   static cudaError_t run(const MultiArgs& a, cudaStream_t stream) {
-    return launch<K, DENSE>(grahmc_multistep_kernel<FAMILY, K, DENSE>, a, stream);
+    if constexpr (FAMILY == HIERARCHICAL_LOGISTIC) {
+      return launch_tiled<FAMILY, DENSE>(grahmc_tiled_multistep_kernel<K, DENSE>, a, stream);
+    } else {
+      return launch<K, DENSE>(grahmc_multistep_kernel<FAMILY, K, DENSE>, a, stream);
+    }
   }
 };
 

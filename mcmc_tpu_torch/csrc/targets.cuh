@@ -324,9 +324,9 @@ struct Target<GAUSSIAN_MIXTURE, K, G, BLOCKED> {
 // What bounds it on an H100: every chain reads all of X twice per
 // evaluation from L1 (~230 kB at dim 100, n_data 256, 32 K coordinates a
 // row in the backward product), so the L1 load rate, not device memory or
-// the f32 units, sets the time. This warp-per-chain form serves kernel 2
-// (2b) and kernel 1's scaled and bridged variants (1b, 1c); kernels 1 (1d,
-// and 1a's data form), 3 (3a) and 4 (4c, and 4b's data form) evaluate the
+// the f32 units, sets the time. This warp-per-chain form serves kernel 1's
+// scaled and bridged variants (1b, 1c); kernels 1 (1d, and 1a's data form),
+// 2 (2b, either metric), 3 (3a) and 4 (4c, and 4b's data form) evaluate the
 // posterior for a block of chains at once, each X load shared by the
 // block's chains (tiled_step.cuh:TiledHierarchical, the same sums in the
 // same order; 3a's in kernel 3's lane groups).

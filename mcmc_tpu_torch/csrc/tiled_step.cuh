@@ -1,20 +1,24 @@
 // Kernel 1's block-tiled form for NVIDIA Hopper (sm_90a): the dense-metric
 // variant 1a (every family) and the data-carrying variant 1d (the
-// hierarchical posterior, either metric). Its building blocks
-// (TiledDenseMetric, TiledHierarchical, with live_tile's LiveTile for the
-// chains live in a call) also serve kernel 4's tiled window
-// (nuts_window.cuh: 4c in either scheme and metric) and, the log-density
-// alone in kernel 3's lane layout, kernel 3's tiled 3a (fused_rwmh.cu).
-// Kernel 1's other instances (fused_trajectory.cuh:grahmc_step_kernel,
-// diagonal metric, no data), kernels 2, 1b and 1c, and kernel 4's other
-// instances keep the warp-per-chain forms of metric.cuh and targets.cuh.
+// hierarchical posterior, either metric); and kernel 2's data-carrying
+// variant 2b (either metric), T transitions a call through the same body
+// (tiled_chain). Its building blocks (TiledDenseMetric, TiledHierarchical,
+// with live_tile's LiveTile for the chains live in a call) also serve
+// kernel 4's tiled window (nuts_window.cuh: 4c in either scheme and metric)
+// and, the log-density alone in kernel 3's lane layout, kernel 3's tiled 3a
+// (fused_rwmh.cu). Kernel 1's other instances (fused_trajectory.cuh:
+// grahmc_step_kernel, diagonal metric, no data), kernel 2's (2a among them),
+// 1b and 1c, and kernel 4's other instances keep the warp-per-chain forms of
+// metric.cuh and targets.cuh.
 //
 // Replaces mcmc_tpu/ops/fused_trajectory.py:_make_kernel with dense=True
 // (variant 1a) and with data_arrays (variant 1d), one MH transition per
-// chain. A block owns a tile of chains, one warp each (1a 8, 1d 32): the
-// warps run the transition of trajectory.cuh (leapfrog, energies, accept)
-// and the family's functor as kernel 1 does, and the whole block computes
-// the products that every chain of the tile takes with one shared matrix.
+// chain, and mcmc_tpu/ops/fused_trajectory.py:_make_multistep_kernel with
+// data_arrays (variant 2b), T per call. A block owns a tile of chains, one
+// warp each (1a 8, 1d and 2b 32): the warps run the transition of
+// trajectory.cuh (leapfrog, energies, accept) and the family's functor as
+// kernels 1 and 2 do, and the whole block computes the products that every
+// chain of the tile takes with one shared matrix.
 //
 // What bounds these variants on an H100 is those products, not device
 // memory. 1a: each transition takes L + 3 products p @ A with a (D, D)
@@ -44,9 +48,10 @@
 // do. No tensor cores: a TF32 or split-float mma would change the order.
 //
 // Lockstep: the block's warps meet at __syncthreads() in every product, so
-// a warp past n_chains (the last, ragged block) runs the transition on a
-// zero row and stores nothing. Kernel 1's L is uniform and its leapfrog
-// never exits early; the accept and the energy guard stay per chain.
+// a warp past n_chains (the last, ragged block) runs the transitions on a
+// zero row and stores nothing. Kernels 1's and 2's L is uniform and their
+// leapfrog never exits early; the accept and the energy guard stay per
+// chain.
 #pragma once
 
 #include <cstddef>
@@ -531,47 +536,58 @@ struct family_of<TiledHierarchical<K, G, BLOCKED>> {
   static constexpr int value = HIERARCHICAL_LOGISTIC;
 };
 
-// Kernel 1's body for the block's chains: the tiled counterpart of
-// trajectory.cuh:step_chain, a chain past n_chains taking part on a zero
-// row. The Philox counter's chain word is the chain's row, as there.
-template <int K, typename P, typename M>
-__device__ __forceinline__ void tiled_step(const StepArgs& a, const P& potential,
-                                           const M& metric, int chain, int lane) {
+// The tiled kernels' body for the block's chains: T = `transitions`
+// transitions of `chain` (kernel 1: T = 1, the tiled counterpart of
+// trajectory.cuh:step_chain; kernel 2: a.transitions, as
+// fused_trajectory.cuh:grahmc_multistep_kernel runs them), q, grad and lp
+// in registers throughout. The draws of transition t are injected at (t,
+// chain) or Philox with counter (chain, call, t, draw), the chain word the
+// chain's row, as there. After each transition a live chain hands `record`
+// (its (T, C) slot, the accept, delta H, the selected q and lp, the
+// proposal q1 and lp1) what the kernel keeps of it; the end state goes to
+// q_out, grad_out and lp_out. A chain past n_chains takes part on a zero
+// row and stores nothing. SHARED_FRICTION: transition's (kernel 2's).
+template <int K, bool SHARED_FRICTION, typename A, typename P, typename M, typename Record>
+__device__ __forceinline__ void tiled_chain(const A& a, int transitions, const P& potential,
+                                            const M& metric, int chain, int lane,
+                                            const Record& record) {
   const bool live = chain < a.n_chains;
   const size_t row = static_cast<size_t>(live ? chain : 0) * a.dim;
-  float q[K], g[K], p0[K], lp = 0.f, u = 1.f;
+  float q[K], g[K], lp = 0.f;
 #pragma unroll
-  for (int r = 0; r < K; ++r) q[r] = g[r] = p0[r] = 0.f;
+  for (int r = 0; r < K; ++r) q[r] = g[r] = 0.f;
   if (live) {
     load_row(a.q, row, lane, a.dim, q);
     load_row(a.grad, row, lane, a.dim, g);
     lp = a.lp[chain];
   }
-  if (a.p0 != nullptr) {  // uniform across the grid
-    if (live) {
-      load_row(a.p0, row, lane, a.dim, p0);
-      u = a.u[chain];
-    }
-  } else {
-    philox_normal_row(p0, lane, a.dim, chain, a.call, 0u, a.key[0], a.key[1]);
-    metric.unwhiten(p0);
-    u = philox_accept_uniform(chain, a.call, 0u, a.key[0], a.key[1]);
-  }
-
   const Scalars sc{a.scalars[0], a.scalars[1], a.scalars[2]};
-  float q1[K], lp1, dh;
-  const bool accept = transition(potential, metric, sc, a.num_steps, a.schedule, lane, p0, u,
-                                 q, g, lp, q1, lp1, dh);
+  for (int t = 0; t < transitions; ++t) {
+    const size_t slot = static_cast<size_t>(t) * a.n_chains + chain;  // (T, C) index
+    float p0[K], u = 1.f;
+#pragma unroll
+    for (int r = 0; r < K; ++r) p0[r] = 0.f;
+    if (a.p0 != nullptr) {  // uniform across the grid
+      if (live) {
+        load_row(a.p0, slot * a.dim, lane, a.dim, p0);
+        u = a.u[slot];
+      }
+    } else {
+      philox_normal_row(p0, lane, a.dim, chain, a.call, static_cast<uint32_t>(t), a.key[0],
+                        a.key[1]);
+      metric.unwhiten(p0);
+      u = philox_accept_uniform(chain, a.call, static_cast<uint32_t>(t), a.key[0], a.key[1]);
+    }
+    float q1[K], lp1, dh;
+    const bool accept = transition<32, SHARED_FRICTION>(potential, metric, sc, a.num_steps,
+                                                        a.schedule, lane, p0, u, q, g, lp, q1,
+                                                        lp1, dh);
+    if (live) record(slot, accept, dh, q, lp, q1, lp1);
+  }
   if (!live) return;
   store_row(a.q_out, row, lane, a.dim, q);
   store_row(a.grad_out, row, lane, a.dim, g);
-  store_row(a.prop_q, row, lane, a.dim, q1);
-  if (lane == 0) {
-    a.lp_out[chain] = lp;
-    a.acc_out[chain] = accept;
-    a.dh_out[chain] = dh;
-    a.prop_lp[chain] = lp1;
-  }
+  if (lane == 0) a.lp_out[chain] = lp;
 }
 
 template <int K, bool DENSE, int C>
@@ -595,7 +611,8 @@ __device__ __forceinline__ TileMetric<K, DENSE, C> make_tile_metric(const A& a,
 }
 
 // Variants 1a (DENSE, every family) and 1d (the hierarchical family, either
-// metric): TileChains<FAMILY> chains a block.
+// metric): TileChains<FAMILY> chains a block, one transition, the proposal
+// kept.
 template <int FAMILY, int K, bool DENSE>
 __global__ void __launch_bounds__(32 * TileChains<FAMILY>::value)
     grahmc_tiled_step_kernel(const StepArgs a, const TileGeometry geo) {
@@ -606,28 +623,70 @@ __global__ void __launch_bounds__(32 * TileChains<FAMILY>::value)
   const int lane = threadIdx.x & 31;
   const int chain = blockIdx.x * C + warp;
   const TileMetric<K, DENSE, C> metric = make_tile_metric<K, DENSE, C>(a, geo, smem, warp, lane);
+  const auto record = [&](size_t slot, bool accept, float dh, const float(&)[K], float,
+                          const float(&q1)[K], float lp1) {
+    store_row(a.prop_q, slot * a.dim, lane, a.dim, q1);
+    if (lane == 0) {
+      a.acc_out[slot] = accept;
+      a.dh_out[slot] = dh;
+      a.prop_lp[slot] = lp1;
+    }
+  };
   if constexpr (FAMILY == HIERARCHICAL_LOGISTIC) {
-    tiled_step<K>(a, TiledHierarchical<K>(a.data, geo, smem, warp), metric, chain, lane);
+    tiled_chain<K, false>(a, 1, TiledHierarchical<K>(a.data, geo, smem, warp), metric, chain,
+                          lane, record);
   } else {
-    tiled_step<K>(a, Target<FAMILY, K>(a.dim, a.params, a.data), metric, chain, lane);
+    tiled_chain<K, false>(a, 1, Target<FAMILY, K>(a.dim, a.params, a.data), metric, chain, lane,
+                          record);
   }
 }
 
-// Launch the tiled kernel: ceil(n_chains / chains) blocks, the geometry's
-// shared memory (above 48 kB after opting in). Returns the launch's error;
-// cudaErrorInvalidValue when no row tile fits.
-template <int FAMILY, int K, bool DENSE>
-cudaError_t launch_tiled(const StepArgs& a, cudaStream_t stream) {
+// Variant 2b (kernel 2 on the hierarchical family, either metric):
+// HIER_TILE_CHAINS chains a block, T transitions a call, their chains in
+// lockstep (L is uniform and no leapfrog exits early), every transition's
+// state written to the history as grahmc_multistep_kernel writes it; the
+// friction factors shared as kernel 2 shares them. Replaces the
+// warp-per-chain 2b, where every chain read all of X twice a gradient from
+// L1 with no load shared across chains.
+template <int K, bool DENSE>
+__global__ void __launch_bounds__(32 * HIER_TILE_CHAINS)
+    grahmc_tiled_multistep_kernel(const MultiArgs a, const TileGeometry geo) {
+  constexpr int C = HIER_TILE_CHAINS;
+  extern __shared__ float4 tile_smem[];
+  float* smem = reinterpret_cast<float*>(tile_smem);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int chain = blockIdx.x * C + warp;
+  const TileMetric<K, DENSE, C> metric = make_tile_metric<K, DENSE, C>(a, geo, smem, warp, lane);
+  tiled_chain<K, true>(a, a.transitions, TiledHierarchical<K>(a.data, geo, smem, warp), metric,
+                       chain, lane,
+                       [&](size_t slot, bool accept, float dh, const float(&q)[K], float lp,
+                           const float(&)[K], float) {
+                         store_row(a.hist_q, slot * a.dim, lane, a.dim, q);
+                         if (lane == 0) {
+                           a.hist_lp[slot] = lp;
+                           a.acc_out[slot] = accept;
+                           a.dh_out[slot] = dh;
+                         }
+                       });
+}
+
+// Launch a tiled kernel (kernel 1's or 2's) for FAMILY: ceil(n_chains /
+// chains) blocks, the geometry's shared memory (above 48 kB after opting
+// in). Returns the launch's error; cudaErrorInvalidValue when no row tile
+// fits.
+template <int FAMILY, bool DENSE, typename Args>
+cudaError_t launch_tiled(void (*kernel)(const Args, const TileGeometry), const Args& a,
+                         cudaStream_t stream) {
   constexpr int C = TileChains<FAMILY>::value;
   const TileGeometry geo =
       tile_geometry(a.dim, a.data.n_data, DENSE, FAMILY == HIERARCHICAL_LOGISTIC);
   if (geo.bytes == 0) return cudaErrorInvalidValue;
   const cudaError_t err =
-      cudaFuncSetAttribute(grahmc_tiled_step_kernel<FAMILY, K, DENSE>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, geo.bytes);
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, geo.bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid(static_cast<unsigned>((a.n_chains + C - 1) / C));
-  grahmc_tiled_step_kernel<FAMILY, K, DENSE><<<grid, 32 * C, geo.bytes, stream>>>(a, geo);
+  kernel<<<grid, 32 * C, geo.bytes, stream>>>(a, geo);
   return cudaGetLastError();
 }
 

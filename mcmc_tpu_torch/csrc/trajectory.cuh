@@ -251,6 +251,23 @@ struct StepArgs {
   float *dh_out, *prop_q, *prop_lp;
 };
 
+// Arguments of kernel 2: kernel 1's state, metric and draws, T =
+// `transitions` a call (injected p0 (T, C, D) and u (T, C)), and each
+// transition's accept, delta H and post-transition q and lp ((T, C), (T, C,
+// D)).
+struct MultiArgs {
+  int dim, n_chains, num_steps, schedule, transitions;
+  TargetParams params;
+  TargetData data;
+  const float* scalars;
+  const uint32_t* key;
+  uint32_t call;
+  const float *q, *lp, *grad, *inv_mass, *l_inv, *p0, *u;
+  float *q_out, *lp_out, *grad_out;
+  bool* acc_out;
+  float *dh_out, *hist_q, *hist_lp;
+};
+
 // One transition of `chain` under `potential`: kernel 1's body, for the
 // group of G lanes holding the chain (`lane` its place there). The Philox
 // counter's chain word is the chain's row. A group that is not `active` (past

@@ -5,7 +5,11 @@ Port of ``mcmc_tpu/ops/fused_rwmh.py``. One kernel, in
 random-walk Metropolis transitions per call with the chain state on chip
 (the TPU ``_make_rwmh_kernel``). Per transition: q' = q + scale * eps, the
 target's log-density only, accept if log u < min(0, lp' - lp), select, and
-the accept and history writes.
+the accept and history writes. A chain takes a lane group of
+``padded_targets.rwmh_lanes(dim)`` lanes, four coordinates a lane; where the
+group has a lane past the chain's coordinates, that lane draws the accept
+uniform's Philox block, and a launch too small to give every SM a block
+takes blocks of fewer threads. Neither changes a bit of the outputs.
 
 A data-carrying target (the hierarchical posterior) runs as the TPU
 kernel's ``data_arrays`` form (variant 3a): the log-density only

@@ -37,11 +37,12 @@ posterior) runs in every kernel and metric here: the TPU kernels' form with
 2a). Its data set goes to the kernels as device pointers
 (``padded_targets.device_data``).
 
-Kernel 1's variants 1a (dense metric) and 1d (a data-carrying target) are
-block-tiled (``csrc/tiled_step.cuh``): a block of DENSE_TILE_CHAINS (1a) or
-HIER_TILE_CHAINS (1d) chains computes the products its chains take with
+Kernel 1's variants 1a (dense metric) and 1d (a data-carrying target), and
+kernel 2's 2b (a data-carrying target, either metric), are block-tiled
+(``csrc/tiled_step.cuh``): a block of DENSE_TILE_CHAINS (1a) or
+HIER_TILE_CHAINS (1d, 2b) chains computes the products its chains take with
 the shared M^{-1}, L^{-1} or X together, X streamed through shared memory
-in row tiles.
+in row tiles; 2b's chains run their T transitions in lockstep.
 ``tile_geometry`` is their geometry (blocks, row tile, shared memory) as the
 launcher picks it; the card tests hold the two equal.
 Their outputs equal the warp-per-chain kernels' bit for bit.
@@ -132,7 +133,8 @@ def schedule_id(friction_schedule: Optional[Callable]) -> int:
 
 
 class TileGeometry(NamedTuple):
-    """The block-tiled kernel 1's geometry for one call (1a, 1d)."""
+    """A block-tiled kernel's geometry for one call (1a, 1d, 2b; 3a's in
+    ops/fused_rwmh.py)."""
     chains: int        # chains a block, one warp each
     blocks: int        # ceil(n_chains / chains); a warp past n_chains stores nothing
     row_tile: int      # data rows a tile of X (0 without data)
@@ -156,10 +158,11 @@ def _tile_bytes(dim: int, dense: bool, rows: int, chains: int) -> int:
 
 def tile_geometry(n_chains: int, dim: int, n_data: int = 0,
                   dense: bool = False) -> TileGeometry:
-    """The geometry of kernel 1's block-tiled variants for n_chains chains of
-    dimension dim, with a data set of n_data rows (0: none; HIER_TILE_CHAINS
-    chains a block with data, DENSE_TILE_CHAINS without) and a dense or
-    diagonal metric, as csrc/tiled_step.cuh:tile_geometry picks it (the
+    """The geometry of the block-tiled variants of kernel 1 (1a, 1d) and 2
+    (2b, which takes 1d's) for n_chains chains of dimension dim, with a data
+    set of n_data rows (0: none; HIER_TILE_CHAINS chains a block with data,
+    DENSE_TILE_CHAINS without) and a dense or diagonal metric, as
+    csrc/tiled_step.cuh:tile_geometry picks it (the
     largest row tile that fits; the smallest fits at MAX_DIM, which a
     static_assert there checks). Raises ValueError naming the limit for a
     shape the kernel does not take."""
@@ -636,7 +639,8 @@ def grahmc_multistep_kernel(info: dict, num_steps: int, schedule: int,
                             u: Optional[Tensor] = None,
                             l_inv: Optional[Tensor] = None):
     """T = `transitions` fused transitions of every chain (kernel 2; 2a
-    with a dense metric).
+    with a dense metric; 2b with a data-carrying target, either metric:
+    block-tiled, tile_geometry).
 
     Inputs as grahmc_step_kernel; injected p0 is (T, C, D) and u (T, C).
     Returns (q, lp, grad, accept (T, C) bool, delta_h (T, C),
@@ -653,6 +657,8 @@ def grahmc_multistep_kernel(info: dict, num_steps: int, schedule: int,
                                       call, p0, u, l_inv)
     _kernel_device(q)
     n_chains, dim = q.shape
+    if info["family"] in DATA_FAMILIES:
+        tile_geometry(n_chains, dim, info["params"]["n_data"], inv_mass.ndim == 2)
     from mcmc_tpu_torch.ops import _cuda
     lib = _cuda.load_library().lib
     q_out, grad_out = torch.empty_like(q), torch.empty_like(grad)

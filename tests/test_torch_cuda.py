@@ -1710,3 +1710,157 @@ def test_lane_group_scaled_kernel_matches_plain(dev, family, dim, rungs, chains)
         for rand, log_u in _rand(dev, g, n, dim):
             _assert_close(ft.grahmc_scaled_kernel(*sargs, **rand),
                           ft.grahmc_scaled_plain(*sargs, **rand), log_u)
+
+
+# Kernel 3 with the accept draw in the lane group's spare lane (csrc/
+# fused_rwmh.cu: where ceil(D / 4) < G the group's last lane draws block
+# ACCEPT_DRAW and shuffles its first Box-Muller logarithm, log u, to the
+# group; where D fills the group every lane draws the accept block after
+# its own): against the plain version under chip_smoke.py's rule for kernel
+# 3 (each chain's accept sequence equal on all but SPLIT_MAX of the chains,
+# the agreeing chains' state and history within 1e-4), and a chain's
+# outputs bit for bit the same at every chain count.
+SPLIT_MAX = 1e-3               # chip_smoke.py's: the share of chains that may split
+RWMH_GROUP_DIMS = [1, 2, 3, 4, 5, 8, 10, 13, 16, 20, 50, 100, 128]
+
+
+def _rwmh_inputs(dev, dim, n, seed, transitions=8):
+    info, q, _, _, g = _inputs(dev, "standard_normal", dim, n, seed)
+    lp = pt.device_lp(info)(q).contiguous()
+    noise = torch.randn((transitions, n, dim), generator=g, device=dev)
+    u = torch.rand((transitions, n), generator=g, device=dev).clamp_min(2.0 ** -25)
+    key = torch.tensor([21, -22], dtype=torch.int32, device=dev)
+    return info, q, lp, fr.rwmh_scale(1.6 / dim ** 0.5, dev), (dict(noise=noise, u=u),
+                                                              dict(key=key, call=4))
+
+
+@pytest.mark.parametrize("n", [1, 7, 1024, 4099])
+@pytest.mark.parametrize("dim", RWMH_GROUP_DIMS)
+def test_rwmh_spare_lane_kernel_matches_plain(dev, dim, n):
+    """Kernel 3 at D with a spare lane (10, 20, 50, 100) and without (1-5,
+    8, 13, 16, 128), injected and Philox, against its plain version."""
+    info, q, lp, scale, rands = _rwmh_inputs(dev, dim, n, 31 * dim + n)
+    n_hist = min(n, 37)
+    for rand in rands:
+        kern = fr.rwmh_multistep_kernel(info, 8, q, lp, scale, n_hist, **rand)
+        plain = fr.rwmh_multistep_plain(info, 8, q, lp, scale, n_hist, **rand)
+        agree = (kern[2] == plain[2]).all(dim=0)
+        assert n - int(agree.sum()) <= SPLIT_MAX * n, f"D={dim} C={n}: chains split"
+        hist = agree[:n_hist]
+        for a, b in ((kern[0][agree], plain[0][agree]), (kern[1][agree], plain[1][agree]),
+                     (kern[3][:, hist], plain[3][:, hist]), (kern[4][:, hist], plain[4][:, hist])):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+        if n >= 1024:
+            assert 0.02 < float(plain[2].float().mean()) < 0.98
+
+
+@pytest.mark.parametrize("dim", RWMH_GROUP_DIMS)
+def test_rwmh_chains_do_not_depend_on_the_count(dev, dim):
+    """A chain's kernel-3 outputs, its accept draw from the spare lane or
+    its own second block, are the same bits at every chain count (its
+    Philox counter is its row): partly used warps' clamped chains store
+    nothing and draw nothing into another chain."""
+    info, q, lp, scale, (inj, phil) = _rwmh_inputs(dev, dim, 4099, 5 * dim)
+    full = {mode: fr.rwmh_multistep_kernel(info, 8, q, lp, scale, 40, **rand)
+            for mode, rand in (("injected", inj), ("philox", phil))}
+    for n in [1, 3, 7, 33, 1024, 4097]:
+        cut = {"injected": dict(noise=inj["noise"][:, :n].contiguous(),
+                                u=inj["u"][:, :n].contiguous()), "philox": phil}
+        for mode, rand in cut.items():
+            part = fr.rwmh_multistep_kernel(info, 8, q[:n].contiguous(), lp[:n].contiguous(),
+                                            scale, min(n, 40), **rand)
+            for k, (a, b) in enumerate(zip(part, full[mode])):
+                b = b[:n] if k < 2 else b[:, :n]
+                if a.dtype == torch.float32:
+                    _assert_bits(a, b, f"D={dim} C={n} {mode} output {k}")
+                else:
+                    assert torch.equal(a, b)
+
+
+# Kernel 2's data-carrying 2b, block-tiled (csrc/tiled_step.cuh:
+# grahmc_tiled_multistep_kernel: HIER_TILE_CHAINS chains a block through 1d's
+# evaluator, T transitions in lockstep): against its plain version at config
+# 5's shape and at ragged chain counts, both metrics, T 1 and 8, and a
+# chain's outputs bit for bit the same at every count. Each of the T
+# transitions is held to one plain transition from the kernel's own state
+# before it (its history; the gradient the potential's there) with that
+# transition's draws, as kernel 1 is held (_assert_close): over 8
+# transitions the diagonal leapfrog, FMA-contracted in the kernel and not in
+# the plain version, carries a few chains in 4,096 more than 1e-4 apart
+# from this wide state, which a comparison of the whole run would count
+# against the kernel.
+@pytest.mark.parametrize("transitions", [1, 8])
+@pytest.mark.parametrize("dense", [False, True])
+@pytest.mark.parametrize("n", [1, 31, 33, 4096, 4099])
+def test_tiled_multistep_matches_plain(dev, n, dense, transitions):
+    info, q, lp, grad, g = _hier(dev, 100, 256, n, n + 3 * transitions)
+    invm, l_inv = _dense_metric(dev, 100, g) if dense else (
+        torch.rand(100, generator=g, device=dev) * 0.5 + 0.25, None)
+    tanh = ft.SCHEDULE_IDS["tanh"]
+    scalars = ft.kernel_scalars(0.1 if dense else 0.2, 0.5, 0.5, dev)
+    name = "dense+data" if dense else "diagonal+data"
+    p0 = torch.randn((transitions, n, 100), generator=g, device=dev)
+    if dense:
+        p0 = ft.unwhiten(p0.reshape(-1, 100), invm, l_inv).reshape(transitions, n, 100)
+    u = torch.rand((transitions, n), generator=g, device=dev).clamp_min(2.0 ** -25)
+    key = torch.tensor([9, 10], dtype=torch.int32, device=dev)
+    vag = ft.device_vag(info)
+    for rand in (dict(p0=p0.contiguous(), u=u), dict(key=key, call=2)):
+        before = ft.grahmc_multistep_kernel.variant_launches[name]
+        kern = ft.grahmc_multistep_kernel(info, 8, tanh, transitions, q, lp, grad, scalars,
+                                          invm, l_inv=l_inv, **rand)
+        assert ft.grahmc_multistep_kernel.variant_launches[name] == before + 1
+        q_t, lp_t, grad_t = q, lp, grad
+        for t in range(transitions):
+            p0_t, u_t = ft._randoms(rand.get("key"), 2, t, None if "key" in rand else p0[t],
+                                    None if "key" in rand else u[t], invm, l_inv, n, 100, dev)
+            plain = ft.grahmc_step_plain(info, 8, tanh, q_t, lp_t, grad_t, scalars, invm,
+                                         p0=p0_t.contiguous(), u=u_t.contiguous(), l_inv=l_inv)
+            border = (torch.log(u_t) - torch.clamp(-plain[4], max=0.0)).abs() < 1e-4
+            assert not bool(((kern[3][t] != plain[3]) & ~border).any()), f"t={t}"
+            same = kern[3][t] == plain[3]
+            for a, b in ((kern[5][t], plain[0]), (kern[6][t], plain[1])):
+                torch.testing.assert_close(a[same], b[same], rtol=1e-4, atol=1e-4)
+            torch.testing.assert_close(kern[4][t][same], plain[4][same], rtol=2e-3, atol=2e-3)
+            q_t, lp_t = kern[5][t].contiguous(), kern[6][t].contiguous()
+            grad_t = vag(q_t)[1].contiguous()
+        assert torch.equal(kern[0], kern[5][-1]) and torch.equal(kern[1], kern[6][-1])
+        # tau's gradient, shrink - (D - 1) / 2 - tau, cancels: the final
+        # gradient is held to the potential's at the kernel's own q, as
+        # _tiled_check holds 1d's
+        torch.testing.assert_close(kern[2], grad_t, rtol=1e-4, atol=1e-4)
+    if n >= 4096:
+        assert 0.05 < float(kern[3].float().mean()) < 0.99
+
+
+@pytest.mark.parametrize("dense", [False, True])
+def test_tiled_multistep_chains_do_not_depend_on_the_count(dev, dense):
+    """The tiled 2b's rows at 1, 31, 32, 33 and 4,096 chains (a ragged last
+    block whose warps past n_chains run zero rows) equal the first rows of
+    4,099 chains bit for bit, injected and Philox, T = 3."""
+    info, q, lp, grad, g = _hier(dev, 100, 256, 4099, 71)
+    invm, l_inv = _dense_metric(dev, 100, g) if dense else (
+        torch.rand(100, generator=g, device=dev) * 0.5 + 0.25, None)
+    scalars = ft.kernel_scalars(0.1 if dense else 0.2, 0.5, 0.5, dev)
+    p0 = torch.randn((3, 4099, 100), generator=g, device=dev)
+    if dense:
+        p0 = ft.unwhiten(p0.reshape(-1, 100), invm, l_inv).reshape(3, 4099, 100)
+    inj = dict(p0=p0.contiguous(),
+               u=torch.rand((3, 4099), generator=g, device=dev).clamp_min(2.0 ** -25))
+    phil = dict(key=torch.tensor([5, 6], dtype=torch.int32, device=dev), call=1)
+
+    def run(n, rand):
+        return ft.grahmc_multistep_kernel(info, 8, ft.SCHEDULE_IDS["tanh"], 3, q[:n].contiguous(),
+                                          lp[:n].contiguous(), grad[:n].contiguous(), scalars,
+                                          invm, l_inv=l_inv, **rand)
+    full = {"injected": run(4099, inj), "philox": run(4099, phil)}
+    for n in [1, 31, 32, 33, 4096]:
+        cut = {"injected": dict(p0=inj["p0"][:, :n].contiguous(), u=inj["u"][:, :n].contiguous()),
+               "philox": phil}
+        for mode, rand in cut.items():
+            for k, (a, b) in enumerate(zip(run(n, rand), full[mode])):
+                b = b[:n] if k < 3 else b[:, :n]
+                if a.dtype == torch.float32:
+                    _assert_bits(a, b, f"dense={dense} C={n} {mode} output {k}")
+                else:
+                    assert torch.equal(a, b)

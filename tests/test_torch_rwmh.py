@@ -24,6 +24,7 @@ from mcmc_tpu.targets import get_target as j_get_target  # noqa: E402
 from mcmc_tpu_torch.ops import _cuda  # noqa: E402
 from mcmc_tpu_torch.ops import fused_rwmh as fr  # noqa: E402
 from mcmc_tpu_torch.ops import fused_trajectory as ft  # noqa: E402
+from mcmc_tpu_torch.ops.padded_targets import RWMH_COORDS_PER_LANE, rwmh_lanes  # noqa: E402
 from mcmc_tpu_torch.samplers import rwmh as tr  # noqa: E402
 from mcmc_tpu_torch.targets import get_target as t_get_target  # noqa: E402
 
@@ -85,6 +86,78 @@ def test_philox_plain_draws_the_documented_counters():
     ref = fr.rwmh_multistep_kernel(info, 4, q, lp, scale, 32, noise=noise, u=u)
     for a, b in zip(out, ref):
         assert torch.equal(a, b)
+
+
+def _kernel_3_lane_draws(key, call, t, n_chains, dim):
+    """Kernel 3's Philox draws of transition t as its lanes make them
+    (csrc/fused_rwmh.cu:run_chain), in PyTorch: a chain's group of G =
+    rwmh_lanes(dim) lanes, lane j drawing block j and its Box-Muller pairs
+    giving coordinates 4j..4j+3 (the second pair skipped at dim <= 2),
+    except that where ceil(dim / 4) < G the group's last lane draws block
+    ACCEPT_DRAW and its first Box-Muller logarithm is log u; where dim fills
+    the group, u is word x0 of a second block ACCEPT_DRAW. Returns (noise
+    (C, dim), u (C,), log u (C,), the lane that drew u or None)."""
+    lanes = rwmh_lanes(dim)
+    spare = -(-dim // RWMH_COORDS_PER_LANE) < lanes
+    lane = torch.arange(lanes, dtype=torch.int64)[None, :]
+    chains = torch.arange(n_chains, dtype=torch.int64)[:, None]
+    draws = torch.where(torch.tensor(spare) & (lane == lanes - 1), ft.ACCEPT_DRAW, lane)
+    w = [ft._bits_to_uniform(x) for x in ft._philox_words(key, call, t, chains, draws)]
+    log_w0 = torch.log(w[0])
+    rad, theta = torch.sqrt(-2.0 * log_w0), ft.TWO_PI * w[1]
+    pairs = [rad * torch.cos(theta), rad * torch.sin(theta)]
+    if dim > 2:
+        rad, theta = torch.sqrt(-2.0 * torch.log(w[2])), ft.TWO_PI * w[3]
+        pairs += [rad * torch.cos(theta), rad * torch.sin(theta)]
+    else:
+        pairs += [torch.zeros_like(rad)] * 2
+    noise = torch.stack(pairs, dim=2).reshape(n_chains, 4 * lanes)[:, :dim]
+    if spare:
+        return noise, w[0][:, -1], log_w0[:, -1], lanes - 1
+    u = ft.philox_uniform(key, call, t, n_chains, "cpu")
+    return noise, u, torch.log(u), None
+
+
+def _bits(x):
+    return x.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("dim", range(1, ft.MAX_DIM + 1))
+def test_kernel_3_lanes_draw_the_plain_versions_draws(dim):
+    """Kernel 3's lanes, modelled in PyTorch (_kernel_3_lane_draws), gather
+    bit for bit the Philox normals and accept uniform that
+    rwmh_multistep_plain draws (philox_normal, philox_uniform), at every
+    dim: where the group has a spare lane it holds no coordinate and draws
+    the accept block, and its first Box-Muller logarithm is log u. The
+    plain version run on those draws injected equals its Philox run bit
+    for bit."""
+    key = torch.tensor([13, -14], dtype=torch.int32)
+    n, T = 37, 3
+    lanes = rwmh_lanes(dim)
+    spare = (dim + 3) // 4 < lanes
+    assert spare == (dim in range(9, 13) or dim in range(17, 29) or dim in range(33, 61)
+                     or dim in range(65, 125))
+    gathered = [_kernel_3_lane_draws(key, 9, t, n, dim) for t in range(T)]
+    for t, (noise, u, log_u, lane) in enumerate(gathered):
+        assert (lane is None) != spare
+        if spare:
+            assert 4 * lane >= dim            # the spare lane holds no coordinate
+        assert torch.equal(_bits(noise), _bits(ft.philox_normal(key, 9, t, n, dim, "cpu")))
+        plain_u = ft.philox_uniform(key, 9, t, n, "cpu")
+        assert torch.equal(_bits(u), _bits(plain_u))
+        assert torch.equal(_bits(log_u), _bits(torch.log(plain_u)))
+    t_ = t_get_target("standard_normal", dim=dim)
+    info = t_.value_and_grad_fn.kernel_info
+    q = torch.randn((n, dim), generator=torch.Generator().manual_seed(dim)) * 0.7
+    lp = t_.log_prob_fn(q).float()
+    scale = fr.rwmh_scale(1.5 / dim ** 0.5, "cpu")
+    ref = fr.rwmh_multistep_plain(info, T, q, lp, scale, 5, key=key, call=9)
+    out = fr.rwmh_multistep_plain(info, T, q, lp, scale, 5,
+                                  noise=torch.stack([g[0] for g in gathered]),
+                                  u=torch.stack([g[1] for g in gathered]))
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
+    assert 0 < int(ref[2].sum()) < T * n
 
 
 @pytest.mark.parametrize("family,dim", [("standard_normal", 5), ("neals_funnel", 8)])
