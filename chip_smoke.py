@@ -2835,7 +2835,8 @@ def _us_per_leapfrog(ms, leapfrogs, chains):
 
 
 def _time_family(torch, ft, fr, fn, tn, dev, key, family, info, state, dim, metric, schedule,
-                 n_steps, rwmh_t, chains, reps, burst, plain_burst, times, measured, shapes):
+                 n_steps, rwmh_t, chains, reps, burst, plain_burst, times, measured, shapes,
+                 log=""):
     """Time each kernel a cell of `family` launched at the cell's shape,
     kernel against plain version (Philox mode, _interleaved): kernel 1 or
     1a and kernel 2 or 2a (T = 8) from GRAHMC's warmed positions at its
@@ -2845,7 +2846,8 @@ def _time_family(torch, ft, fr, fn, tn, dev, key, family, info, state, dim, metr
     metric, two windows in, its executed leapfrogs counted for the bound.
     Fills times {pair: (kernel ms, plain ms)}, measured {pair: {"leapfrogs":
     per call}} and shapes {pair: (chains, dim, L, T)}; a pair is "kernel
-    (family)"."""
+    (family)". Kernel 2's and 2a's lines add its ns a chain-substep and the
+    ptxas lines of its instances (from the build `log`)."""
     from mcmc_tpu_torch.ops.padded_targets import device_lp
     vag = ft.device_vag(info)
     runs = []
@@ -2878,8 +2880,13 @@ def _time_family(torch, ft, fr, fn, tn, dev, key, family, info, state, dim, metr
                           {"kernel": burst, "plain": plain_burst})
         times[pair] = (statistics.median(ms["kernel"]), statistics.median(ms["plain"]))
         shapes[pair] = (chains, dim, L, T)
+        per = (f" ({_per_substep(times[pair][0], chains, L, T):.4f} ns a chain-substep)"
+               if name.startswith("grahmc_multistep") else "")
         say(f"  {pair} ({chains} x {dim}, L = {L}, T = {T}): kernel "
-            f"{times[pair][0]:.4f} ms, plain {times[pair][1]:.4f} ms")
+            f"{times[pair][0]:.4f} ms{per}, plain {times[pair][1]:.4f} ms")
+        if name.startswith("grahmc_multistep"):
+            say_lane_ptxas(log, "grahmc_multistep_kernel", info["family"], dim,
+                           metric == "dense")
     if "nuts" in state:
         step, inv_mass, pos, _ = state["nuts"]
         q = pos.float().contiguous()
@@ -2909,7 +2916,8 @@ def _time_family(torch, ft, fr, fn, tn, dev, key, family, info, state, dim, metr
             f"({_us_per_leapfrog(times[pair][0], measured[pair]['leapfrogs'], chains)})")
 
 
-def phase_timing_rahmc(torch, ft, fr, fn, tn, rahmc, dev, reps=6, burst=10, plain_burst=1):
+def phase_timing_rahmc(torch, ft, fr, fn, tn, rahmc, dev, log, reps=6, burst=10,
+                       plain_burst=1):
     """Each (kernel, family) pair the [5o] cells launched, at its cell's
     shape (1,024 chains; Rosenbrock's 10-D cell), as _time_family times
     them. Returns ({pair: (kernel ms, plain ms)}, {pair: {"leapfrogs": per
@@ -2927,11 +2935,12 @@ def phase_timing_rahmc(torch, ft, fr, fn, tn, rahmc, dev, reps=6, burst=10, plai
         _, dim, _, metric, schedule, n_steps = RAHMC_CELLS[cell]
         _time_family(torch, ft, fr, fn, tn, dev, key, family, out["info"], out["state"], dim,
                      metric, schedule, n_steps, RAHMC_RWMH_T, RAHMC_CHAINS, reps, burst,
-                     plain_burst, times, measured, shapes)
+                     plain_burst, times, measured, shapes, log)
     return times, measured, shapes
 
 
-def phase_timing_sweep(torch, ft, fr, fn, tn, sweep, dev, reps=6, burst=10, plain_burst=1):
+def phase_timing_sweep(torch, ft, fr, fn, tn, sweep, dev, log, reps=6, burst=10,
+                       plain_burst=1):
     """Kernels 1, 2, 3 and 4 on each family of the sweep at its cell's shape
     (1,024 x 10: L = 16, T = 8; RWMH T = 16; NUTS 16 iterations x W = 4) from
     the sweep's tuned states, as _time_family times them; returns as
@@ -2943,7 +2952,7 @@ def phase_timing_sweep(torch, ft, fr, fn, tn, sweep, dev, reps=6, burst=10, plai
     for family, state in sweep["states"].items():
         _time_family(torch, ft, fr, fn, tn, dev, key, family, state["info"], state, SWEEP_DIM,
                      "diagonal", "constant", SWEEP_L, SWEEP_RWMH_T, SWEEP_CHAINS, reps, burst,
-                     plain_burst, times, measured, shapes)
+                     plain_burst, times, measured, shapes, log)
     return times, measured, shapes
 
 
@@ -3064,14 +3073,16 @@ def _per_substep(ms, chains, steps, transitions=1):
     return 1e6 * ms / (chains * steps * transitions)
 
 
-def say_lane_ptxas(log, kernel, family, dim):
-    """The ptxas lines of `kernel`'s diagonal instances for `family` at
-    dim's K, every lane count G (its last template argument; the lane
-    groups G < 32, csrc/trajectory.cuh:step_lanes)."""
+def say_lane_ptxas(log, kernel, family, dim, dense=False):
+    """The ptxas lines of `kernel`'s instances for `family` (a kernel
+    family, FAMILY_IDS) at dim's K under the metric, every lane count G
+    (its last template argument; the lane groups G < 32,
+    csrc/trajectory.cuh:step_lanes)."""
     from mcmc_tpu_torch.ops.padded_targets import FAMILY_IDS
     k = -(-dim // 32)
     for line in ptxas_summary(log):
-        if re.match(rf"_ZN4mcmc\d+{kernel}ILi{FAMILY_IDS[family]}ELi{k}ELb0ELi\d+EE", line):
+        if re.match(rf"_ZN4mcmc\d+{kernel}ILi{FAMILY_IDS[family]}ELi{k}ELb{int(dense)}ELi\d+EE",
+                    line):
             say(f"  ptxas: {line}")
 
 
@@ -3110,10 +3121,11 @@ def phase_timing(torch, ft, targets, step, dev, log, reps=20, burst=10):
             f"plain {times[name][1]:.4f} ms; kernel quartiles "
             f"{[round(x, 4) for x in statistics.quantiles(ms['kernel'], n=4)]}")
     say_lane_ptxas(log, "grahmc_step_kernel", "neals_funnel", DIM)
+    say_lane_ptxas(log, "grahmc_multistep_kernel", "neals_funnel", DIM)
     return times
 
 
-def phase_timing_dense(torch, ft, targets, row, dev, reps=10, burst=10, plain_burst=1):
+def phase_timing_dense(torch, ft, targets, row, dev, log, reps=10, burst=10, plain_burst=1):
     """Kernels 1a (65,536 x 50, L = 16) and 2a (4,096 x 50, T = 8, L = 16)
     against their plain versions with the learned metric at the tuned step,
     Philox mode, from the warmed positions: median over `reps` samples,
@@ -3150,8 +3162,11 @@ def phase_timing_dense(torch, ft, targets, row, dev, reps=10, burst=10, plain_bu
         ms = _interleaved(torch, fns, reps, {"kernel": burst, "plain": plain_burst})
         times[name] = (statistics.median(ms["kernel"]), statistics.median(ms["plain"]))
         say(f"  {name} ({n} x {DIM}{', T = %d' % MULTI_T if lead else ''}, L = {NUM_STEPS}): "
-            f"kernel {times[name][0]:.4f} ms, plain {times[name][1]:.4f} ms; kernel "
+            f"kernel {times[name][0]:.4f} ms "
+            f"({_per_substep(times[name][0], n, NUM_STEPS, *lead):.4f} ns a chain-substep), "
+            f"plain {times[name][1]:.4f} ms; kernel "
             f"quartiles {[round(x, 4) for x in statistics.quantiles(ms['kernel'], n=4)]}")
+    say_lane_ptxas(log, "grahmc_multistep_kernel", "correlated_gaussian", DIM, dense=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     p = torch.randn((CHAINS, DIM), generator=_gen(torch, dev, 43), device=dev)
 
@@ -3880,7 +3895,7 @@ def main():
     nuts_times, measured = phase_timing_rwmh_nuts(torch, ft, fr, fn, tn, targets,
                                                   nuts["step"], dense["step"], dev)
     times.update(nuts_times)
-    dense_times, yard_ms = phase_timing_dense(torch, ft, targets, dense_row, dev)
+    dense_times, yard_ms = phase_timing_dense(torch, ft, targets, dense_row, dev, lib.build_log)
     times.update(dense_times)
     times.update(phase_timing_variants(torch, ft, targets, samplers, dev, lib.build_log))
     hier_times, hier_measured, vag_ms = phase_timing_hier(torch, ft, fr, fn, tn, targets, hier,
@@ -3895,9 +3910,9 @@ def main():
     for name, err in family_err.items():     # [3g]'s checks of the same kernels
         max_err[name] = max(max_err.get(name, 0.0), err)
     pair_times, pair_measured, pair_shapes = phase_timing_rahmc(torch, ft, fr, fn, tn, rahmc,
-                                                                dev)
+                                                                dev, lib.build_log)
     sweep_times, sweep_measured, sweep_shapes = phase_timing_sweep(torch, ft, fr, fn, tn, sweep,
-                                                                   dev)
+                                                                   dev, lib.build_log)
     pair_times.update(sweep_times)
     require(set(pair_times) == set(pairs), f"timed pairs {sorted(pair_times)}, launched "
                                            f"{sorted(pairs)}")

@@ -1,12 +1,14 @@
 """Kernel 1's warp-per-chain instances and its tempered variant 1b in lane
-groups, kernel 3 with the accept draw in the lane group's spare lane, and
-kernel 2's block-tiled data form 2b, against the parent's kernels, on one
+groups, kernel 3 with the accept draw in the lane group's spare lane,
+kernel 2's block-tiled data form 2b, and kernel 2 and 2a where their small
+launches wait on each chain's stream, against the parent's kernels, on one
 CUDA card.
 
     python experiments/torch_step_kernel_timing.py --parent DIR [--tree .]
         [--patched NAME[+NAME...] ...] [--probe NAME[+NAME...] ...]
         [--out _archive/step_out] [--work _archive/step] [--skip-timing]
         [--reps N] [--cases REGEX] [--outputs GROUP[,GROUP...]] [--sass REGEX]
+        [--other LABEL=DIR ...]
 
 DIR is an unpacked tree of the commit before the redesign (`git archive`;
 its mcmc_tpu_torch/ alone is enough); --tree the tree under test. Each
@@ -14,7 +16,9 @@ its mcmc_tpu_torch/ alone is enough); --tree the tree under test. Each
 under --work with the edits PATCHES[NAME] applied (several joined by "+")
 and only the sources those edits touch built (TRAJECTORY_SOURCES: kernels
 1, 2, 1b and 1c; RWMH_SOURCES: kernel 3; the other kernels are left out of
-its outputs and times); each --probe the same on a copy of the parent.
+its outputs and times); each --probe the same on a copy of the parent;
+each --other a variant LABEL copied unpatched from another unpacked tree
+DIR, its TRAJECTORY_SOURCES alone.
 The edits: "lanes-32", every chain warp per chain (step_lanes 32: the
 parent's layout); "least-lanes", the fewest lanes at every chain count (no
 MIN_GROUP_WARPS); "min-warps-1024", that bound halved; "lanes-16", lane
@@ -34,7 +38,16 @@ threads at every chain count; "sized-blocks", the most threads a block of
 (256, 128, 64) that still give each of the card's 132 SMs a block (the
 tree's launch_threads); and for --patched on the tree "log-u-late", the
 logarithm of an injected u taken after the target, where the parent takes
-it. The script
+it. Kernel 2's (K2_STEPS), for --patched: "no-STEP" and "only-STEP" take
+out STEP or every other step ("k2-none" all): "lp-last", the log-density
+summed at a trajectory's last substep alone; "lanes", the GROUPED_FAMILY
+targets' lane groups; "sized-blocks", blocks of 4 or 2 warps where 8
+leave an SM without one; "min-blocks-2", __launch_bounds__'s two blocks
+an SM where a lane holds 2 or more registers; and "k2-bound-everywhere",
+two blocks an SM at every instance. Its probes on the parent:
+"butterfly-16", the warp's sums over 16 lanes (its outputs differ,
+PROBES); "k2-threads-64" and "k2-threads-128", kernels 1 and 2 in blocks
+of 64 or 128 threads. The script
 
 1. builds every tree's kernel library, one process per tree, a few at once;
 2. prints each kernel instance's ptxas line (registers, spills) that
@@ -45,8 +58,9 @@ it. The script
    each library), every instance's SASS instructions in all and in its
    transition loop (the largest backward branch's span: both arms of its
    uniform branches and the transcendentals' rare slow paths included, so
-   more than a transition executes) with its ptxas line; --sass writes the
-   SASS of the functions it names under --out/sass/<tree>/;
+   more than a transition executes) with its ptxas line, and the same spans
+   of kernel 2's timed instances (K2_TIMED) with their substep loop's;
+   --sass writes the SASS of the functions it names under --out/sass/<tree>/;
 3. runs every tree on the same inputs and compares each output's sha256
    digest with the parent's (--outputs picks the groups, all by default):
    "step", kernel 1 and 1b on every family they dispatch at D 1, 2, 4, 8,
@@ -64,7 +78,10 @@ it. The script
    1-4,099 chains (N(0, I) at every D from 1 to 128, and 65,536 chains at
    D 2 and 10), both draw modes; "multistep", 2b under both metrics at D
    9, 20 and 100 with 64 and 256 rows, T 1, 2, 4 and 8, 1, 31, 33 and
-   4,099 chains, both draw modes;
+   4,099 chains, both draw modes; "kernel2", kernel 2 and 2a on every family
+   at D 1-128 and 1-16,385 chains (K2_DIMS, K2_CHAINS, K2_GROUPS), every
+   schedule, L 0-64, T 1-8, both metrics and draw modes; a variant tree
+   computes only that group;
 4. times, in turns (parent, tree, variants, then back), with CUDA events
    around bursts enqueued while the card sleeps (chip_smoke.py's
    _event_ms), Philox mode unless named, the cases --cases selects (all
@@ -81,7 +98,8 @@ it. The script
    65,536 x 10, T 32 (Philox, and both draws injected), on the sweep's five
    families at 1,024 x 10, T 16, and on [6h]'s three RAHMC families at
    1,024 x 2, T 16; 3a at 8,192 x 100, 256 rows, T 32; 2b at config 5's
-   4,096 x 100, 256 rows, T 8, L 16 (tanh), and 1d at 8,192 x 100, L 16.
+   4,096 x 100, 256 rows, T 8, L 16 (tanh), and 1d at 8,192 x 100, L 16;
+   kernel 2 and 2a at the paths' other shapes (multi_cases).
    Each time is printed with its ns per chain-substep (chains x L x T; a
    chain-transition for kernel 3).
 
@@ -142,6 +160,8 @@ PATCHES = {
     "unfolded": (("targets.cuh", FOLD,
                   "#pragma unroll\n    for (int m = 1; m < M; ++m) part[0] += part[m];"),),
 }
+K2_BOUNDS = ("__launch_bounds__(WARPS_PER_BLOCK * 32, "
+             "(K * 32 / G > 1 ? MULTI_MIN_BLOCKS : 1))")
 RWMH_LAUNCH = ("    const long long chains_per_block = (THREADS / 32) * (32 / G);\n"
                "    const unsigned blocks = static_cast<unsigned>((a.n_chains + chains_per_block - 1) /\n"
                "                                                  chains_per_block);\n"
@@ -166,9 +186,41 @@ PATCHES.update({
                     "    const float lp1 = log_density(prop);\n"
                     "    if (!philox) log_u = logf(log_u);\n")),
 })
+# Kernel 2's design steps, as edits of fused_trajectory.cuh that take one
+# out: "no-STEP" the tree without it, "only-STEP" the tree with it alone
+# (the parent's kernel 2 with that step), "k2-none" the tree without any.
+K2_STEPS = {
+    "lp-last": ("    const bool accept = transition<G, true, true>(",
+                "    const bool accept = transition<G, true, false>("),
+    "lanes": ("    } else if constexpr (!DENSE) {\n      constexpr int LEAST",
+              "    } else if constexpr (false) {\n      constexpr int LEAST"),
+    "sized-blocks": ("constexpr int MIN_MULTI_WARPS = 2;",
+                     "constexpr int MIN_MULTI_WARPS = WARPS_PER_BLOCK;"),
+    "min-blocks-2": (K2_BOUNDS, "__launch_bounds__(WARPS_PER_BLOCK * 32)"),
+}
+for _step, (_old, _new) in K2_STEPS.items():
+    PATCHES[f"no-{_step}"] = (("fused_trajectory.cuh", _old, _new),)
+    PATCHES[f"only-{_step}"] = tuple(("fused_trajectory.cuh", o, n)
+                                     for k, (o, n) in K2_STEPS.items() if k != _step)
+PATCHES["k2-none"] = tuple(("fused_trajectory.cuh", o, n) for o, n in K2_STEPS.values())
+# kernel 2's two blocks an SM at every instance, one register a lane too
+PATCHES["k2-bound-everywhere"] = (("fused_trajectory.cuh", K2_BOUNDS, K2_BOUNDS.replace(
+    "(K * 32 / G > 1 ? MULTI_MIN_BLOCKS : 1))", "MULTI_MIN_BLOCKS)")),)
+# probes on the parent: the warp's sums over its first 16 lanes (4 butterfly
+# levels, the least power of two >= D at D 9-16; lanes 16-31 get their own
+# sums, so its outputs may differ), and kernels 1 and 2 in blocks of 64 or
+# 128 threads at every chain count (only kernel 2's times are read)
+PATCHES.update({
+    "butterfly-16": (("targets.cuh", "  for (int offset = G / 2; offset > 0; offset >>= 1) {",
+                      "  for (int offset = G == 32 ? 8 : G / 2; offset > 0; offset >>= 1) {"),),
+    "k2-threads-64": (("trajectory.cuh", "constexpr int WARPS_PER_BLOCK = 8;",
+                       "constexpr int WARPS_PER_BLOCK = 2;"),),
+    "k2-threads-128": (("trajectory.cuh", "constexpr int WARPS_PER_BLOCK = 8;",
+                        "constexpr int WARPS_PER_BLOCK = 4;"),),
+})
 RWMH_SOURCES = ("fused_rwmh.cu",)
-PROBES = {"unfolded", "u-hash"}     # change the outputs on purpose
-OUTPUT_GROUPS = ("step", "control", "rwmh", "multistep")
+PROBES = {"unfolded", "u-hash", "butterfly-16"}     # change the outputs on purpose
+OUTPUT_GROUPS = ("step", "control", "rwmh", "multistep", "kernel2")
 SIMPLE = ("standard_normal", "neals_funnel", "gaussian_mixture", "correlated_gaussian",
           "neals_funnel_noncentered", "ill_conditioned_gaussian", "student_t", "log_gamma",
           "log_gamma_unconstrained")
@@ -227,6 +279,8 @@ def outputs(torch, groups, has):
         out.update(rwmh_outputs(torch, key))
     if "multistep" in groups and has["trajectory"]:
         out.update(multistep_outputs(torch, key))
+    if "kernel2" in groups and has["trajectory"]:
+        out.update(kernel2_outputs(torch, key))
     return out
 
 
@@ -421,6 +475,57 @@ def multistep_outputs(torch, key):
     return out
 
 
+# kernel 2's and 2a's matrix: every family at K2_DIMS (the 2- and 3-D
+# families at theirs), K2_CHAINS chains, and past MIN_GROUP_WARPS the
+# grouped families' lane groups (16 lanes at 4,099 chains and K >= 3, 8 at
+# 8,193 and K = 2, 4 at 16,385 and K = 1); each case one of SCHEDULES (L 0,
+# 1, 3, 7, 16, 64) and T 1, 2 or 8 in turn, both metrics, both draw modes
+K2_DIMS = (1, 2, 4, 9, 10, 16, 17, 32, 33, 50, 64, 65, 128)
+K2_CHAINS = (1, 3, 33, 1024, 4099)
+K2_GROUPS = ((33, 8193), (50, 8193), (64, 8193), (1, 16385), (2, 16385), (10, 16385),
+             (32, 16385))
+
+
+def kernel2_outputs(torch, key):
+    """Kernel 2 (diagonal) and 2a on K2_DIMS x K2_CHAINS and K2_GROUPS."""
+    from mcmc_tpu_torch.ops import fused_trajectory as ft
+    dev = torch.device(DEVICE)
+    cases = [(f, d, n) for f in SIMPLE + OTHER for d in K2_DIMS for n in K2_CHAINS
+             if not (f == "rosenbrock" and d < 2)]
+    cases += [(f, d, n) for f, dims in SMALL.items() for d in dims for n in K2_CHAINS]
+    cases += [(f, d, n) for f in ("standard_normal", "neals_funnel", "gaussian_mixture",
+                                  "correlated_gaussian") for d, n in K2_GROUPS]
+    out = {}
+    for i, (family, dim, n) in enumerate(cases):
+        t = _target(family, dim)
+        info = t.value_and_grad_fn.kernel_info
+        for dense in (False, True):
+            j = 2 * i + dense
+            g = torch.Generator(device=dev).manual_seed(13000 + j)
+            q, lp, grad = _state(torch, t, family, n, dim, g, dev)
+            sched, L = SCHEDULES[j % len(SCHEDULES)]
+            T = (1, 2, 8)[j % 3]
+            if dense:
+                a = torch.randn((dim, dim), generator=g, device=dev, dtype=torch.float64)
+                invm, l_inv = ft.prepare_dense_metric(
+                    a @ a.T / dim + 0.5 * torch.eye(dim, device=dev, dtype=torch.float64))
+            else:
+                invm, l_inv = torch.rand(dim, generator=g, device=dev) + 0.5, None
+            p0 = torch.randn((T, n, dim), generator=g, device=dev)
+            if dense:
+                p0 = ft.unwhiten(p0.reshape(-1, dim), invm, l_inv).reshape(T, n, dim)
+            u = torch.rand((T, n), generator=g, device=dev).clamp_min(2.0 ** -25)
+            eps = 0.02 if family == "rosenbrock" else 0.15
+            args = (info, L, sched, T, q, lp, grad, ft.kernel_scalars(eps, 0.5, 2.0, dev), invm)
+            label = (f"k2m {'dense' if dense else 'diagonal'} {family} D{dim} C{n} "
+                     f"sched{sched} L{L} T{T}")
+            for mode, rand in (("injected", dict(p0=p0.contiguous(), u=u)),
+                               ("philox", dict(key=key, call=4))):
+                out[f"{label} {mode}"] = [digest(torch, x) for x in ft.grahmc_multistep_kernel(
+                    *args, l_inv=l_inv, **rand)]
+    return out
+
+
 def tiled_outputs(torch, key):
     """1a on the correlated Gaussian at 1,000 x 50 and 1d on config 5's
     posterior at 300 x 20 x 64 rows."""
@@ -463,7 +568,7 @@ def timed_cases(torch, has, pick):
     cases = {}
     if has["trajectory"]:
         cases.update(step_cases(torch, has["nuts"]))
-        cases.update(data_cases(torch))
+        cases.update(data_cases(torch, has["rwmh"]))
     if has["rwmh"]:
         cases.update(rwmh_cases(torch))
     return {k: v for k, v in cases.items() if pick.search(k)}
@@ -509,10 +614,10 @@ def rwmh_cases(torch):
     return cases
 
 
-def data_cases(torch):
+def data_cases(torch, rwmh=True):
     """Config 5's data forms: 2b at 4,096 x 100 (T 8) and the controls 1d
-    (8,192 x 100) and 3a (8,192 x 100, T 32), 256 rows, from the target's
-    init sampler, tanh, L 16."""
+    (8,192 x 100) and, with `rwmh` (a tree that builds kernel 3), 3a (8,192
+    x 100, T 32), 256 rows, from the target's init sampler, tanh, L 16."""
     import chip_smoke as cs
     from mcmc_tpu_torch.ops import fused_rwmh as fr
     from mcmc_tpu_torch.ops import fused_trajectory as ft
@@ -532,12 +637,14 @@ def data_cases(torch):
           grad[:n].contiguous(), sc, invm)
     a1 = (info, cs.HIER_L, tanh, q, lp, grad, sc, invm)
     a3 = (info, cs.RWMH_T, q, lp, fr.rwmh_scale(0.02, dev), cs.COLLECT)
-    return {"2b 4,096 x 100 x 256 T 8": (lambda: ft.grahmc_multistep_kernel(*a2, key=key, call=0),
-                                         n * cs.HIER_L * cs.MULTI_T),
-            "1d 8,192 x 100 x 256": (lambda: ft.grahmc_step_kernel(*a1, key=key, call=0),
-                                     cs.HIER_CHAINS * cs.HIER_L),
-            "3a 8,192 x 100 x 256 T 32": (lambda: fr.rwmh_multistep_kernel(*a3, key=key, call=0),
-                                          cs.HIER_CHAINS * cs.RWMH_T)}
+    cases = {"2b 4,096 x 100 x 256 T 8": (lambda: ft.grahmc_multistep_kernel(*a2, key=key, call=0),
+                                          n * cs.HIER_L * cs.MULTI_T),
+             "1d 8,192 x 100 x 256": (lambda: ft.grahmc_step_kernel(*a1, key=key, call=0),
+                                      cs.HIER_CHAINS * cs.HIER_L)}
+    if rwmh:
+        cases["3a 8,192 x 100 x 256 T 32"] = (
+            lambda: fr.rwmh_multistep_kernel(*a3, key=key, call=0), cs.HIER_CHAINS * cs.RWMH_T)
+    return cases
 
 
 def step_cases(torch, full):
@@ -602,6 +709,7 @@ def step_cases(torch, full):
           ft.kernel_scalars(cs.PARITY_STEP, 1.0, 1.0, dev), torch.ones(50, device=dev))
     cases["k2 4,096 x 50 T 8"] = (lambda: ft.grahmc_multistep_kernel(*a2, key=key, call=0),
                                   4096 * 16 * 8)
+    cases.update(multi_cases(torch, g, key))
     q = t.init_sampler(g, 65536)
     base = ft.bridge_base(None, cs.SMC_BASE_SCALE, cs.TEMP_DIM, dev)
     blp, bgrad = ft.bridged_vag(ft.device_vag(info), torch.tensor(0.5, device=dev),
@@ -631,6 +739,56 @@ def step_cases(torch, full):
             st = fn.nuts_window_kernel(*wargs, st, sc, ones50, key=key, call=call)
         cases["k4 65,536 x 50"] = (lambda: fn.nuts_window_kernel(*wargs, st, sc, ones50,
                                                                  key=key, call=2), None)
+    return cases
+
+
+def multi_cases(torch, g, key):
+    """Kernel 2 and 2a at the paths' other shapes (T 8): [6h]'s three 2-D
+    cells (1,024 chains, L 16, constant), the sweep's five families (1,024 x
+    10, L 16, constant), Rosenbrock's 2a (1,024 x 10, L 64, linear) and 2a
+    at 4,096 x 50 (the rho = 0.9 Gaussian's oracle metric, L 16,
+    constant)."""
+    import chip_smoke as cs
+    from mcmc_tpu_torch.ops import fused_trajectory as ft
+    from mcmc_tpu_torch.targets import get_target
+    dev = torch.device(DEVICE)
+    const, linear = ft.SCHEDULE_IDS["constant"], ft.SCHEDULE_IDS["linear"]
+    cases = {}
+
+    def k2(name, family, n, dim, L, sched, step, invm=None, l_inv=None):
+        t = get_target(family, dim=dim)
+        q = t.init_sampler(g, n) if t.init_sampler is not None else (
+            torch.randn((n, dim), generator=g, device=dev) * 0.5)
+        if family == "log_gamma":
+            q = torch.rand((n, dim), generator=g, device=dev) * 2.0 + 0.3
+        q = q.float().contiguous()
+        lp, grad = (x.float().contiguous() for x in t.value_and_grad_fn(q))
+        args = (t.value_and_grad_fn.kernel_info, L, sched, cs.MULTI_T, q, lp, grad,
+                ft.kernel_scalars(step, 0.1, cs.STEEPNESS, dev),
+                torch.ones(dim, device=dev) if invm is None else invm)
+        cases[name] = (lambda: ft.grahmc_multistep_kernel(*args, key=key, call=0, l_inv=l_inv),
+                       n * L * cs.MULTI_T)
+
+    for family, step in (("multimodal_funnel_2d", 0.3), ("concentric_l1_2d", 0.1),
+                         ("nested_l1_2d", 0.1)):
+        k2(f"k2 [6h] 1,024 x 2 {family}", family, cs.RAHMC_CHAINS, 2, 16, const, step)
+    for family in SWEEP:
+        k2(f"k2 sweep 1,024 x 10 {family}", family, cs.SWEEP_CHAINS, cs.SWEEP_DIM, cs.SWEEP_L,
+           const, 0.1 if family == "log_gamma" else 0.3)
+    a = torch.randn((10, 10), generator=g, device=dev, dtype=torch.float64)
+    invm, l_inv = ft.prepare_dense_metric(0.02 * (a @ a.T / 10) + 0.02 * torch.eye(
+        10, device=dev, dtype=torch.float64))
+    k2("2a Rosenbrock 1,024 x 10 L 64", "rosenbrock", cs.RAHMC_CHAINS, 10, 64, linear, 0.02,
+       invm, l_inv)
+    c = get_target("correlated_gaussian", dim=50, correlation=0.9)
+    invm, l_inv = ft.prepare_dense_metric(c.true_cov.to(dev, torch.float64))
+    cq = (torch.randn((cs.MULTI_CHAINS, 50), generator=g, device=dev) * 0.5).contiguous()
+    clp, cgrad = (x.float().contiguous() for x in c.value_and_grad_fn(cq))
+    a2a = (c.value_and_grad_fn.kernel_info, cs.NUM_STEPS, const, cs.MULTI_T, cq, clp, cgrad,
+           ft.kernel_scalars(0.3, 0.1, cs.STEEPNESS, dev), invm)
+    cases["2a 4,096 x 50 T 8"] = (lambda: ft.grahmc_multistep_kernel(*a2a, key=key, call=0,
+                                                                       l_inv=l_inv),
+                                  cs.MULTI_CHAINS * cs.NUM_STEPS * cs.MULTI_T)
     return cases
 
 
@@ -680,18 +838,20 @@ def run_worker(kind, root, save="", reps=10, cases="."):
     return proc.stdout
 
 
-def make_patched(tree, dst, names):
-    """A copy of tree's mcmc_tpu_torch under dst, cut to the sources the
-    edits of `names` (PATCHES) touch (RWMH_SOURCES for fused_rwmh.cu's,
-    TRAJECTORY_SOURCES for the others'), with those edits applied."""
+def make_patched(tree, dst, names, keep=None):
+    """A copy of tree's mcmc_tpu_torch under dst, cut to the sources `keep`
+    names, by default those the edits of `names` (PATCHES) touch
+    (RWMH_SOURCES for fused_rwmh.cu's, TRAJECTORY_SOURCES for the others'),
+    with those edits applied."""
     shutil.rmtree(dst, ignore_errors=True)
     shutil.copytree(Path(tree) / "mcmc_tpu_torch", dst / "mcmc_tpu_torch",
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
     csrc = dst / "mcmc_tpu_torch" / "csrc"
-    keep = set()
-    for patch in names:
-        for name, _, _ in PATCHES[patch]:
-            keep |= set(RWMH_SOURCES if name in RWMH_SOURCES else TRAJECTORY_SOURCES)
+    if keep is None:
+        keep = set()
+        for patch in names:
+            for name, _, _ in PATCHES[patch]:
+                keep |= set(RWMH_SOURCES if name in RWMH_SOURCES else TRAJECTORY_SOURCES)
     for src in csrc.glob("*.cu"):
         if src.name not in keep:
             src.unlink()
@@ -728,9 +888,11 @@ def ptxas_lines(log):
 
 
 def with_lanes(name):
-    """The parent's kernel-1 or 1b instance name with G = 32 added, as the
-    tree names its warp-per-chain instances."""
-    return re.sub(r"(grahmc_(?:step|scaled)_kernelILi\d+ELi\d+ELb[01]E)E", r"\1Li32EE", name)
+    """The parent's kernel-1, 1b or 2 instance name with G = 32 added, as
+    the tree names its warp-per-chain instances (kernel 2's since its lane
+    groups; a name that has G already is left as it is)."""
+    return re.sub(r"(grahmc_(?:step|scaled|multistep)_kernelILi\d+ELi\d+ELb[01]E)E",
+                  r"\1Li32EE", name)
 
 
 def compare_ptxas(lines):
@@ -749,23 +911,29 @@ def compare_ptxas(lines):
 
 
 def sass_counts(so):
-    """{kernel 3 instance's mangled name: (SASS instructions in all, in its
-    largest loop)} from `cuobjdump -sass` of the library `so`: the loop is
-    the span of the backward branch that covers the most instructions
-    (the transition loop over t; Philox's rounds and the coordinate loops
-    are unrolled). Branch targets are read as addresses or as labels."""
+    """{kernel 3's or kernel 2's instance's mangled name: (SASS
+    instructions in all, in its largest loop, in the largest loop inside
+    that one)} from `cuobjdump -sass` of the library `so`: a loop is the
+    span of a backward branch; the largest is the transition loop over t
+    (Philox's rounds and the coordinate loops are unrolled), the one inside
+    it kernel 2's substep loop. Branch targets are read as addresses or as
+    labels."""
     text = sass_text(so)
     out = {}
 
     def close(name, ins, labels):
-        if name and "rwmh" in name:
+        if name and ("rwmh" in name or "multistep" in name):
             loops = []
             for at, target in ins:
                 to = labels.get(target) if target and not target.startswith("0x") else (
                     int(target, 16) if target else None)
                 if to is not None and to < at:
-                    loops.append((at - to) // 16 + 1)
-            out[name] = (len(ins), max(loops, default=0))
+                    loops.append((to, at))
+            span = lambda lo, hi: (hi - lo) // 16 + 1   # noqa: E731
+            outer = max(loops, key=lambda x: span(*x), default=(0, -16))
+            inner = [x for x in loops if x != outer and outer[0] <= x[0] and x[1] <= outer[1]]
+            out[name] = (len(ins), span(*outer),
+                         max((span(*x) for x in inner), default=0))
 
     name, ins, labels, pending = None, [], {}, []
     for line in text.splitlines():
@@ -823,34 +991,55 @@ def sm_clocks():
                           check=True).stdout.strip()
 
 
-def print_rwmh_code(trees, lines, sass_dir=None, pattern=None):
-    """Step 2's kernel-3 part: each tree's kernel-3 instances, SASS counts
-    and ptxas lines; with `pattern`, the SASS of the functions it finds
-    under sass_dir/<tree>/."""
+# kernel 2's instances the timed cases run: the sweep's five families and
+# [6h]'s three at K = 1, Rosenbrock's 2a, the funnel at K = 2 (warp and 16
+# lanes), 2a on the correlated Gaussian at K = 2
+K2_TIMED = (r"grahmc_multistep_kernelILi(?:(?:5|6|7|8|9|11|12|13)ELi1ELb0|10ELi1ELb1|"
+            r"1ELi2ELb0|2ELi2ELb1)ELi(?:16|32)EE")
+
+
+def print_sass_code(trees, lines, sass_dir=None, pattern=None):
+    """Step 2's SASS part: each tree's kernel-3 instances and kernel 2's
+    timed ones (K2_TIMED), their SASS counts and ptxas lines; with
+    `pattern`, the SASS of the functions it finds under sass_dir/<tree>/."""
     for label, root in trees.items():
         libs = sorted((Path(root) / "mcmc_tpu_torch" / "_build").glob("libmcmc_kernels_*.so"))
-        if not libs or not (Path(root) / "mcmc_tpu_torch" / "csrc" / "fused_rwmh.cu").exists():
+        csrc = Path(root) / "mcmc_tpu_torch" / "csrc"
+        if not libs:
             continue
         try:
-            counts = sass_counts(libs[-1])
+            counts = {with_lanes(k): v for k, v in sass_counts(libs[-1]).items()}
             if pattern:
                 dump_sass(libs[-1], pattern, sass_dir / label)
         except (OSError, subprocess.CalledProcessError) as err:
             print(f"[sass] {label}: cuobjdump failed: {err}", flush=True)
             continue
-        print(f"[sass] {label}: kernel 3's instances, SASS instructions in all / in the "
-              f"transition loop; ptxas", flush=True)
-        for k, (total, span) in sorted(counts.items()):
-            print(f"  {k}: {total} / {span}; {lines[label].get(k, '?')}")
+        ptx = {with_lanes(k): v for k, v in lines[label].items()}
+        if (csrc / "fused_rwmh.cu").exists():
+            print(f"[sass] {label}: kernel 3's instances, SASS instructions in all / in the "
+                  f"transition loop; ptxas", flush=True)
+            for k, (total, span, _) in sorted(counts.items()):
+                if "rwmh" in k:
+                    print(f"  {k}: {total} / {span}; {ptx.get(k, '?')}")
+        if (csrc / "fused_trajectory.cu").exists():
+            print(f"[sass] {label}: kernel 2's timed instances, SASS instructions in all / in "
+                  f"the transition loop / in the substep loop (static spans); ptxas", flush=True)
+            for k, (total, span, inner) in sorted(counts.items()):
+                if re.search(K2_TIMED, k):
+                    print(f"  {k}: {total} / {span} / {inner}; {ptx.get(k, '?')}")
 
 
 def compare_outputs(trees, work, groups):
+    """Every tree's outputs of `groups` against the parent's; a variant
+    (not "tree") computes only kernel 2's matrix when "kernel2" is among
+    them."""
     t0 = time.perf_counter()
     labels = list(trees)
     for i in range(0, len(labels), OUTPUT_WORKERS):
         procs = {label: subprocess.Popen(
             [sys.executable, __file__, "--worker", "outputs", "--root", str(trees[label]),
-             "--save", str(work / f"outputs_{label}.json"), "--outputs", groups],
+             "--save", str(work / f"outputs_{label}.json"), "--outputs",
+             "kernel2" if label not in ("parent", "tree") and "kernel2" in groups else groups],
             stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True) for label in labels[i:i + OUTPUT_WORKERS]}
         for label, proc in procs.items():
@@ -885,6 +1074,8 @@ def main():
     ap.add_argument("--work", default="_archive/step")
     ap.add_argument("--patched", action="append", default=[], help="+".join(PATCHES))
     ap.add_argument("--probe", action="append", default=[], help="PATCHES on the parent")
+    ap.add_argument("--other", action="append", default=[],
+                    help="LABEL=DIR: another tree's trajectory kernels, unpatched")
     ap.add_argument("--cases", default=".", help="a regex of the timed cases to run")
     ap.add_argument("--outputs", default=",".join(OUTPUT_GROUPS),
                     help="the output groups to compare: " + ",".join(OUTPUT_GROUPS))
@@ -916,6 +1107,10 @@ def main():
             name = label if base == "tree" else f"parent+{label}"
             trees[name] = make_patched(trees[base], work / name.replace("+", "_"),
                                        label.split("+"))
+    for other in args.other:
+        label, root = other.split("=", 1)
+        trees[label] = make_patched(Path(root).resolve(), work / label, [],
+                                    keep=set(TRAJECTORY_SOURCES))
     t0 = time.perf_counter()
     procs = {}
     for label, root in list(trees.items()):
@@ -942,11 +1137,12 @@ def main():
         if label == "parent":
             continue
         grouped = sorted((k, v) for k, v in lines[label].items()
-                         if re.search(r"grahmc_(?:step|scaled)_kernelI.*Li(4|8|16)EE", k))
-        print(f"[ptxas] {label}: {len(grouped)} lane-group instances of kernels 1 and 1b:")
+                         if re.search(r"grahmc_(?:step|scaled|multistep)_kernelI.*Li(4|8|16)EE",
+                                      k))
+        print(f"[ptxas] {label}: {len(grouped)} lane-group instances of kernels 1, 1b and 2:")
         for k, v in grouped:
             print(f"  {k}: {v}")
-    print_rwmh_code(trees, lines, out / "sass", args.sass)
+    print_sass_code(trees, lines, out / "sass", args.sass)
     differ = compare_outputs(trees, work, args.outputs)
     if args.skip_timing:
         return 1 if differ else 0

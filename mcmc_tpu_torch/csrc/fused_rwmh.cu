@@ -234,24 +234,11 @@ inline TileGeometry tiled_geometry(int dim) {
 
 // Threads a block of the lane-group kernel for n_chains chains of G lanes:
 // the most of THREADS, THREADS / 2, ..., MIN_THREADS that still give every
-// SM of the card a block, so that a small launch spreads over the SMs (at
-// 1,024 chains 256 threads made 16 blocks at D = 10 and 4 at D <= 4, each
-// SM's few warps waiting on their chains' dependent streams; on an H100 64
-// threads took 10-12% off there, PERF.md section 6). Blocks do not
-// interact, so the outputs are the same bits at any size.
+// SM of the card a block (trajectory.cuh:spread_warps; at 1,024 chains 256
+// threads made 16 blocks at D = 10 and 4 at D <= 4, and on an H100 64
+// threads took 10-12% off there, PERF.md section 6).
 inline int launch_threads(int n_chains, int G) {
-  int device = 0, sms = 0;
-  if (cudaGetDevice(&device) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess) {
-    return THREADS;  // the launch reports the runtime's error
-  }
-  int threads = THREADS;
-  const long long chains_per_warp = 32 / G;
-  while (threads > MIN_THREADS &&
-         (n_chains + threads / 32 * chains_per_warp - 1) / (threads / 32 * chains_per_warp) < sms) {
-    threads /= 2;
-  }
-  return threads;
+  return 32 * spread_warps(n_chains, G, THREADS / 32, MIN_THREADS / 32);
 }
 
 template <int FAMILY, int G>

@@ -71,7 +71,20 @@
 // x 50 and 1b 0.1604 -> 0.0323 at 6 x 8,192 x 10, while groups of 4 at
 // 2,048 x 20 and 1,024 x 10 lost 13-270% to the warp kernel, their few
 // warps waiting on each lane's longer stream. Kernel 2 shares the friction
-// factors too (-14% at 4,096 x 50, T = 8). Under DENSE the block's warps share one copy of
+// factors too (-14% at 4,096 x 50, T = 8) and runs the same lane groups
+// (0.0807 -> 0.0529 ms there). Its other launches hold ~8 warps an SM
+// (1,024 chains), so each chain's in-order stream sets their time: every
+// substep but a trajectory's last computes the gradient alone, without the
+// log-density's butterfly and terms (the sweep's families -13 to -40%, 2a
+// on Rosenbrock 0.2269 -> 0.1791 ms), and a launch too small to give every
+// SM a block of 8 warps takes blocks of 4 or 2 (the nested shells -4%).
+// Launching the next transition's draws before the trajectory, the
+// friction factors once a launch and 2a's M^{-1} in registers lost as
+// often as they won, and were left out. The same peel in kernels 1, 1b,
+// 1c, 1a, 1d and 2b ran up to 30% faster (1c) but made 62 of their
+// instances spill anew or more, so they sum the lp at every substep
+// (trajectory.cuh:transition's LP_LAST off; H100 80GB HBM3 at 700 W,
+// PERF.md section 6). Under DENSE the block's warps share one copy of
 // M^{-1} and L^{-1} in shared memory (20 kB at D = 50, 128 kB at D = 128),
 // and the leapfrog's products are rounded before their sums (add_scaled):
 // under an ill-conditioned metric a rounding difference would grow along

@@ -15,7 +15,15 @@
 // into a warp, lane j of a group owning 4j..4j+3 (BLOCKED true, K = 4).
 // Each functor maps this
 // lane's q to its gradient entries and returns the chain's log-density,
-// identical on every lane of the group. The float arithmetic follows the
+// identical on every lane of the group. A functor's optional last argument
+// `with_lp` (true unless given) asks for the log-density: false computes the
+// same gradient bits (where a functor has two arms, both write g through one
+// lambda, `grad`) and returns 0, leaving out the sums and terms only the
+// log-density reads (kernel 2 reads the lp of a trajectory's last substep
+// alone, trajectory.cuh:transition's LP_LAST); a sum the gradient reads stays
+// (the funnel's, the correlated Gaussian's first, log-gamma's support count,
+// the L1 shells'). The hierarchical functor always computes it (its kernel 2,
+// 2b, runs block-tiled). The float arithmetic follows the
 // plain PyTorch version in mcmc_tpu_torch/ops/padded_targets.py term for
 // term; the functors of families 5-13 and the correlated Gaussian also
 // round each product before its sum (__fmul_rn, __fadd_rn: no FMA) and sum
@@ -199,9 +207,15 @@ struct Target<STANDARD_NORMAL, K, G, BLOCKED> {
       : c(static_cast<float>(dim * LOG_2PI)) {}
 
   __device__ __forceinline__ float operator()(const float (&q)[K], float (&g)[K],
-                                              int /*lane*/) const {
+                                              int /*lane*/, bool with_lp = true) const {
+    const auto grad = [&](int r) { g[r] = -q[r]; };
+    if (!with_lp) {
+#pragma unroll
+      for (int r = 0; r < K; ++r) grad(r);
+      return 0.f;
+    }
     const float sum_sq = chain_sum<K, G, BLOCKED>([&](float s, int r) {
-      g[r] = -q[r];
+      grad(r);
       return s + q[r] * q[r];
     });
     return -0.5f * (sum_sq + c);
@@ -221,7 +235,7 @@ struct Target<NEALS_FUNNEL, K, G, BLOCKED> {
         c_neck(static_cast<float>(LOG_2PI_9)) {}
 
   __device__ __forceinline__ float operator()(const float (&q)[K], float (&g)[K],
-                                              int lane) const {
+                                              int lane, bool with_lp = true) const {
     const float x0 = __shfl_sync(FULL_MASK, q[0], 0, G);
     const float inv_var = expf(-x0);
     const float sum_sq = chain_sum<K, G, BLOCKED>([&](float s, int r) {
@@ -232,6 +246,7 @@ struct Target<NEALS_FUNNEL, K, G, BLOCKED> {
     if (lane == 0) {
       g[0] = -x0 / 9.f + 0.5f * inv_var * sum_sq - 0.5f * d_rest;
     }
+    if (!with_lp) return 0.f;
     return -0.5f * (x0 * x0 / 9.f + c_neck) -
            0.5f * (sum_sq * inv_var + d_rest * x0 + c_rest);
   }
@@ -255,15 +270,22 @@ struct Target<CORRELATED_GAUSSIAN, K, G, BLOCKED> {
       : a(p.v[0]), b(p.v[1]), c(p.v[2]), dim(dim_) {}
 
   __device__ __forceinline__ float operator()(const float (&q)[K], float (&g)[K],
-                                              int lane) const {
+                                              int lane, bool with_lp = true) const {
     const float s = chain_sum<K, G, BLOCKED>([&](float t, int r) { return t + q[r]; });
     const float bs = __fmul_rn(b, s);
-    const float m = chain_sum<K, G, BLOCKED>([&](float t, int r) {
+    const auto grad = [&](int r) {  // g = -siv; returns siv
       const float siv =
           coord_of<K, G, BLOCKED>(lane, r) < dim ? __fadd_rn(__fmul_rn(a, q[r]), bs) : 0.f;
       g[r] = -siv;
-      return __fadd_rn(t, __fmul_rn(siv, q[r]));
-    });
+      return siv;
+    };
+    if (!with_lp) {  // the gradient alone: the sum m is the log-density's
+#pragma unroll
+      for (int r = 0; r < K; ++r) grad(r);
+      return 0.f;
+    }
+    const float m = chain_sum<K, G, BLOCKED>(
+        [&](float t, int r) { return __fadd_rn(t, __fmul_rn(grad(r), q[r])); });
     return -0.5f * (m + c);
   }
 };
@@ -279,7 +301,7 @@ struct Target<GAUSSIAN_MIXTURE, K, G, BLOCKED> {
       : half_sep(p.v[0]), c_rest(static_cast<float>((dim - 1) * LOG_2PI)) {}
 
   __device__ __forceinline__ float operator()(const float (&q)[K], float (&g)[K],
-                                              int lane) const {
+                                              int lane, bool with_lp = true) const {
     const float x0 = __shfl_sync(FULL_MASK, q[0], 0, G);
     const float a = x0 + half_sep;
     const float b = x0 - half_sep;
@@ -289,14 +311,24 @@ struct Target<GAUSSIAN_MIXTURE, K, G, BLOCKED> {
     const float e1 = expf(m1 - mx);
     const float e2 = expf(m2 - mx);
     const float lse = e1 + e2;
+    const auto grad = [&](int r) { g[r] = -q[r]; };
+    const auto grad_x0 = [&] {
+      if (lane == 0) g[0] = -(a * e1 + b * e2) / lse;
+    };
+    if (!with_lp) {  // the gradient alone: no logf, no sum
+#pragma unroll
+      for (int r = 0; r < K; ++r) grad(r);
+      grad_x0();
+      return 0.f;
+    }
     const float log_p_x0 =
         static_cast<float>(LOG_HALF) + mx + logf(lse) - static_cast<float>(HALF_LOG_2PI);
     const float sum_sq = chain_sum<K, G, BLOCKED>([&](float s, int r) {
       const float v = (r == 0 && lane == 0) ? 0.f : q[r];
-      g[r] = -q[r];
+      grad(r);
       return s + v * v;
     });
-    if (lane == 0) g[0] = -(a * e1 + b * e2) / lse;
+    grad_x0();
     return log_p_x0 - 0.5f * (sum_sq + c_rest);
   }
 };
@@ -427,7 +459,7 @@ struct Target<NEALS_FUNNEL_NONCENTERED, K, G, BLOCKED> {
       : c(p.v[0]) {}
 
   __device__ __forceinline__ float operator()(const float (&q)[K], float (&g)[K],
-                                              int lane) const {
+                                              int lane, bool with_lp = true) const {
     float s = 0.f;
 #pragma unroll
     for (int r = 0; r < K; ++r) {
@@ -435,6 +467,7 @@ struct Target<NEALS_FUNNEL_NONCENTERED, K, G, BLOCKED> {
       s = __fadd_rn(s, __fmul_rn(siv, q[r]));
       g[r] = -siv;
     }
+    if (!with_lp) return 0.f;
     return -0.5f * (group_sum<G>(s) + c);
   }
 };
@@ -451,7 +484,7 @@ struct Target<ILL_CONDITIONED_GAUSSIAN, K, G, BLOCKED> {
       : slope(p.v[0]), c(p.v[1]), dim(dim_) {}
 
   __device__ __forceinline__ float operator()(const float (&q)[K], float (&g)[K],
-                                              int lane) const {
+                                              int lane, bool with_lp = true) const {
     float s = 0.f;
 #pragma unroll
     for (int r = 0; r < K; ++r) {
@@ -461,6 +494,7 @@ struct Target<ILL_CONDITIONED_GAUSSIAN, K, G, BLOCKED> {
       s = __fadd_rn(s, __fmul_rn(siv, q[r]));
       g[r] = -siv;
     }
+    if (!with_lp) return 0.f;
     return -0.5f * (group_sum<G>(s) + c);
   }
 };
@@ -476,7 +510,7 @@ struct Target<STUDENT_T, K, G, BLOCKED> {
       : df(p.v[0]), half_df1(p.v[1]), c(p.v[2]), neg_df1(p.v[3]) {}
 
   __device__ __forceinline__ float operator()(const float (&q)[K], float (&g)[K],
-                                              int /*lane*/) const {
+                                              int /*lane*/, bool with_lp = true) const {
     float s = 0.f;
 #pragma unroll
     for (int r = 0; r < K; ++r) {
@@ -484,6 +518,7 @@ struct Target<STUDENT_T, K, G, BLOCKED> {
       s = __fadd_rn(s, log1pf(__fdiv_rn(x2, df)));
       g[r] = __fdiv_rn(__fmul_rn(neg_df1, q[r]), __fadd_rn(df, x2));
     }
+    if (!with_lp) return 0.f;
     return __fsub_rn(c, __fmul_rn(half_df1, group_sum<G>(s)));
   }
 };
@@ -503,7 +538,7 @@ struct Target<LOG_GAMMA, K, G, BLOCKED> {
       : sm1(p.v[0]), rate(p.v[1]), log_norm(p.v[2]), dim(dim_) {}
 
   __device__ __forceinline__ float operator()(const float (&q)[K], float (&g)[K],
-                                              int lane) const {
+                                              int lane, bool with_lp = true) const {
     constexpr float EPS = 1e-10f;
     float s = 0.f, bad = 0.f;
 #pragma unroll
@@ -517,7 +552,7 @@ struct Target<LOG_GAMMA, K, G, BLOCKED> {
       bad += q[r] > 0.f ? 0.f : 1.f;
       g[r] = __fsub_rn(__fmul_rn(sm1, q[r] > EPS ? __fdiv_rn(1.f, qc) : 0.f), rate);
     }
-    const float lp = group_sum<G>(s);
+    const float lp = with_lp ? group_sum<G>(s) : 0.f;
     if (group_sum<G>(bad) > 0.f) {
 #pragma unroll
       for (int r = 0; r < K; ++r) g[r] = 0.f;
@@ -539,7 +574,7 @@ struct Target<LOG_GAMMA_UNCONSTRAINED, K, G, BLOCKED> {
       : shape(p.v[0]), rate(p.v[1]), c(p.v[2]), dim(dim_) {}
 
   __device__ __forceinline__ float operator()(const float (&q)[K], float (&g)[K],
-                                              int lane) const {
+                                              int lane, bool with_lp = true) const {
     float s = 0.f;
 #pragma unroll
     for (int r = 0; r < K; ++r) {
@@ -549,6 +584,7 @@ struct Target<LOG_GAMMA_UNCONSTRAINED, K, G, BLOCKED> {
       s = __fadd_rn(s, __fsub_rn(__fmul_rn(shape, q[r]), rey));
       g[r] = __fsub_rn(shape, rey);
     }
+    if (!with_lp) return 0.f;
     return __fsub_rn(group_sum<G>(s), c);
   }
 };
@@ -582,7 +618,7 @@ struct Target<ROSENBROCK, K, G, BLOCKED> {
       : a(p.v[0]), a2(p.v[1]), a4(p.v[2]), dim(dim_) {}
 
   __device__ __forceinline__ float operator()(const float (&q)[K], float (&g)[K],
-                                              int lane) const {
+                                              int lane, bool with_lp = true) const {
     float nxt[K];  // q_{i+1} of each register's coordinate i
 #pragma unroll
     for (int r = 0; r < K; ++r) {
@@ -619,6 +655,7 @@ struct Target<ROSENBROCK, K, G, BLOCKED> {
       }
       g[r] = -__fadd_rn(fwd[r], __fmul_rn(a2, prev));
     }
+    if (!with_lp) return 0.f;
     return -group_sum<G>(s);
   }
 };
@@ -635,7 +672,7 @@ struct Target<MULTIMODAL_FUNNEL_2D, K, G, BLOCKED> {
       : mu(p.v[0]), sig2(p.v[1]), c(p.v[2]), log_norm_prior(p.v[3]), log_2pi_c(p.v[4]) {}
 
   __device__ __forceinline__ float operator()(const float (&q)[K], float (&g)[K],
-                                              int lane) const {
+                                              int lane, bool with_lp = true) const {
     // coordinate 1: lane 0's register 1, or lane 1's register 0
     constexpr int R1 = BLOCKED && K > 1 ? 1 : 0;
     const float v = __shfl_sync(FULL_MASK, q[0], 0, G);
@@ -662,6 +699,7 @@ struct Target<MULTIMODAL_FUNNEL_2D, K, G, BLOCKED> {
       const int i = coord_of<K, G, BLOCKED>(lane, r);
       g[r] = i == 0 ? gv : (i == 1 ? gx : 0.f);
     }
+    if (!with_lp) return 0.f;
     return __fadd_rn(log_prior, log_cond);
   }
 };
@@ -771,7 +809,7 @@ struct Target<CONCENTRIC_L1, K, G, BLOCKED> {
   }
 
   __device__ __forceinline__ float operator()(const float (&q)[K], float (&g)[K],
-                                              int lane) const {
+                                              int lane, bool with_lp = true) const {
     float s = 0.f;
 #pragma unroll
     for (int r = 0; r < K; ++r) s = __fadd_rn(s, fabsf(q[r]));
@@ -806,6 +844,7 @@ struct Target<CONCENTRIC_L1, K, G, BLOCKED> {
     const float coef = __fdiv_rn(du, lse);
 #pragma unroll
     for (int r = 0; r < K; ++r) g[r] = __fmul_rn(coef, sign_of(q[r]));
+    if (!with_lp) return 0.f;
     return __fadd_rn(mx, logf(lse));
   }
 };
@@ -864,7 +903,7 @@ struct Target<NESTED_L1, K, G, BLOCKED> {
   }
 
   __device__ __forceinline__ float operator()(const float (&q)[K], float (&g)[K],
-                                              int lane) const {
+                                              int lane, bool with_lp = true) const {
     float mx, lse = 0.f;
 #pragma unroll
     for (int r = 0; r < K; ++r) g[r] = 0.f;
@@ -905,6 +944,7 @@ struct Target<NESTED_L1, K, G, BLOCKED> {
     }
 #pragma unroll
     for (int r = 0; r < K; ++r) g[r] = __fdiv_rn(g[r], lse);
+    if (!with_lp) return 0.f;
     return __fadd_rn(mx, logf(lse));
   }
 };

@@ -5,8 +5,8 @@
 // mcmc_tpu/ops/fused_trajectory.py:_make_kernel (with _integrate,
 // _metric_ops, _gaussian and _bits_to_uniform). Two layouts, the template
 // G: one warp per chain (G = 32), lane j holding coordinates j, j+32,
-// j+64, j+96 (K = ceil(D / 32) <= 4 registers); or, in kernel 1 and 1b on
-// the GROUPED_FAMILY targets, lane groups of G = 4, 8 or 16 lanes, 32 / G
+// j+64, j+96 (K = ceil(D / 32) <= 4 registers); or, in kernels 1, 1b and 2
+// on the GROUPED_FAMILY targets, lane groups of G = 4, 8 or 16 lanes, 32 / G
 // chains a warp, lane j of a group holding j, j+G, ... (K 32 / G
 // registers): the warp-per-chain lanes j + G m folded into one lane. Every
 // sum keeps the warp-per-chain order (targets.cuh:chain_sum), each Philox
@@ -77,6 +77,42 @@ __device__ __forceinline__ float friction_scale(int schedule, int i, const Scala
   return expf(-gt * half);
 }
 
+// Substep i of `transition`: the friction scaling, the two half kicks and
+// the drift, the gradient at the new q1 and, WITH_LP, its log-density in
+// lp1. `scales` carries the lane groups' shared friction factors.
+template <bool WITH_LP, int G, bool SHARED_FRICTION, bool ROUNDED, typename P, int K, typename M>
+__device__ __forceinline__ void substep(const P& potential, const M& metric, const Scalars& sc,
+                                        int schedule, int i, int lane, float total, float half,
+                                        float& scales, float (&p)[K], float (&q1)[K],
+                                        float (&g1)[K], float& lp1) {
+  float scale = 1.f, v[K];
+  if (schedule != NO_FRICTION) {
+    if constexpr (SHARED_FRICTION) {
+      if ((i & (G - 1)) == 0) scales = friction_scale(schedule, i + lane, sc, total, half);
+      scale = __shfl_sync(FULL_MASK, scales, i & (G - 1), G);
+    } else {
+      scale = friction_scale(schedule, i, sc, total, half);
+    }
+#pragma unroll
+    for (int r = 0; r < K; ++r) p[r] *= scale;
+  }
+#pragma unroll
+  for (int r = 0; r < K; ++r) p[r] = add_scaled<ROUNDED>(p[r], half, g1[r]);
+  metric.velocity(p, v);
+#pragma unroll
+  for (int r = 0; r < K; ++r) q1[r] = add_scaled<ROUNDED>(q1[r], sc.eps, v[r]);
+  if constexpr (WITH_LP) {
+    lp1 = potential(q1, g1, lane);
+  } else {
+    potential(q1, g1, lane, false);
+  }
+#pragma unroll
+  for (int r = 0; r < K; ++r) {
+    p[r] = add_scaled<ROUNDED>(p[r], half, g1[r]);
+    if (schedule != NO_FRICTION) p[r] *= scale;
+  }
+}
+
 // One MH transition of the chain this warp (group of G lanes) holds, from
 // momentum p0. On entry (q, g, lp) is the current state; on exit the
 // selected state. (q1, lp1) is the proposal and dh = H1 - H0. Returns the
@@ -87,15 +123,23 @@ __device__ __forceinline__ float friction_scale(int schedule, int i, const Scala
 // its own by a shuffle: the same function of the same inputs, so the same
 // bits. (Kernel 1's warp-per-chain instances and 1c keep a factor a
 // substep on every lane: shared, it cost them 1-2% where the schedule is
-// NO_FRICTION, PERF.md section 6.)
-template <int G = 32, bool SHARED_FRICTION = (G < 32), typename P, int K, typename M>
+// NO_FRICTION, PERF.md section 6.) LP_LAST (kernel 2): the potential's
+// log-density is asked for at the last substep alone, the only one the
+// transition reads; the others compute the gradient alone (targets.cuh's
+// `with_lp`), the last substep peeled off so that no substep branches on it.
+// Kernels 1, 1b, 1c, 1a, 1d and 2b keep it off: on an H100 it took up to
+// 30% off their path shapes (1c) but made 62 of their instances spill anew
+// or more (PERF.md section 6), and their functors (Scaled, Bridged, the
+// hierarchical ones) take no `with_lp`.
+template <int G = 32, bool SHARED_FRICTION = (G < 32), bool LP_LAST = false, typename P, int K,
+          typename M>
 __device__ __forceinline__ bool transition(const P& potential, const M& metric,
                                            const Scalars& sc, int num_steps, int schedule,
                                            int lane, const float (&p0)[K], float u,
                                            float (&q)[K], float (&g)[K], float& lp,
                                            float (&q1)[K], float& lp1, float& dh) {
   constexpr bool ROUNDED = M::DENSE || ROUNDED_LEAPFROG<family_of<P>::value>;
-  float p[K], g1[K], v[K];
+  float p[K], g1[K];
 #pragma unroll
   for (int r = 0; r < K; ++r) {
     q1[r] = q[r];
@@ -108,28 +152,20 @@ __device__ __forceinline__ bool transition(const P& potential, const M& metric,
   const float total = sc.eps * static_cast<float>(num_steps);
   lp1 = lp;
   float scales = 1.f;  // lane groups: substep (i & ~(G - 1)) + lane's factor
-  for (int i = 0; i < num_steps; ++i) {
-    float scale = 1.f;
-    if (schedule != NO_FRICTION) {
-      if constexpr (SHARED_FRICTION) {
-        if ((i & (G - 1)) == 0) scales = friction_scale(schedule, i + lane, sc, total, half);
-        scale = __shfl_sync(FULL_MASK, scales, i & (G - 1), G);
-      } else {
-        scale = friction_scale(schedule, i, sc, total, half);
-      }
-#pragma unroll
-      for (int r = 0; r < K; ++r) p[r] *= scale;
+  if constexpr (LP_LAST) {
+    for (int i = 0; i + 1 < num_steps; ++i) {
+      substep<false, G, SHARED_FRICTION, ROUNDED>(potential, metric, sc, schedule, i, lane,
+                                                  total, half, scales, p, q1, g1, lp1);
     }
-#pragma unroll
-    for (int r = 0; r < K; ++r) p[r] = add_scaled<ROUNDED>(p[r], half, g1[r]);
-    metric.velocity(p, v);
-#pragma unroll
-    for (int r = 0; r < K; ++r) q1[r] = add_scaled<ROUNDED>(q1[r], sc.eps, v[r]);
-    lp1 = potential(q1, g1, lane);
-#pragma unroll
-    for (int r = 0; r < K; ++r) {
-      p[r] = add_scaled<ROUNDED>(p[r], half, g1[r]);
-      if (schedule != NO_FRICTION) p[r] *= scale;
+    if (num_steps > 0) {
+      substep<true, G, SHARED_FRICTION, ROUNDED>(potential, metric, sc, schedule,
+                                                 num_steps - 1, lane, total, half, scales, p,
+                                                 q1, g1, lp1);
+    }
+  } else {
+    for (int i = 0; i < num_steps; ++i) {
+      substep<true, G, SHARED_FRICTION, ROUNDED>(potential, metric, sc, schedule, i, lane,
+                                                 total, half, scales, p, q1, g1, lp1);
     }
   }
 
@@ -178,10 +214,11 @@ __device__ __forceinline__ void randoms(const float* p0_in, const float* u_in, s
   }
 }
 
-// Families whose kernel 1 and 1b run in lane groups: those the main paths
-// launch at chain counts that take them (the funnel's and N(0, I)'s 65,536
-// chains, the tempered mixture's 6 x 8,192, the correlated Gaussian's 4,096
-// in the dense warmup's diagonal phase). Their functors sum through
+// Families whose kernels 1, 1b and 2 run in lane groups: those the main
+// paths launch at chain counts that take them (the funnel's and N(0, I)'s
+// 65,536 chains, the tempered mixture's 6 x 8,192, the correlated
+// Gaussian's 4,096 in the dense warmup's diagonal phase, kernel 2 on the
+// funnel at 4,096 x 50). Their functors sum through
 // chain_sum and hold no shuffle in a branch that differs between a warp's
 // chains. The others keep G = 32: the L1 shells (LANE_SHELLS), Rosenbrock
 // (its neighbour exchange), the bimodal funnel, the hierarchical posterior,
@@ -207,8 +244,9 @@ constexpr int least_lanes() {
 // warp's longer stream of registers waits on latency. On an H100 at 700 W,
 // against the warp kernel: at 65,536 x 50 and 6 x 8,192 x 10 the fewest
 // lanes won (kernel 1 -57%, 1b -80%), at 4,096 x 50 16 lanes (-35%; 8
-// lanes -23%), at 2,048 x 20 and 1,024 x 10 groups of 4 lost 13% to 270%
-// (PERF.md section 6, experiments/torch_step_kernel_timing.py).
+// lanes -23%), at 2,048 x 20 and 1,024 x 10 groups of 4 lost 13% to 270%;
+// kernel 2 at 4,096 x 50 -35% with 16 lanes (PERF.md section 6,
+// experiments/torch_step_kernel_timing.py).
 constexpr int MIN_GROUP_WARPS = 2048;
 
 // The lanes of a chain of kernel 1 or 1b: the fewest from `least` up that
@@ -218,6 +256,26 @@ inline int step_lanes(int least, int n_chains) {
     if (static_cast<long long>(n_chains) * g >= 32LL * MIN_GROUP_WARPS) return g;
   }
   return 32;
+}
+
+// Warps a block for n_chains chains of G lanes: the most of `most`, most /
+// 2, ..., `least` that still give every SM of the card a block, so that a
+// small launch spreads over the SMs, whose few warps each wait on their
+// chains' dependent streams (kernels 2 and 3). Blocks do not interact, so
+// the outputs are the same bits at any size.
+inline int spread_warps(int n_chains, int G, int most, int least) {
+  int device = 0, sms = 0;
+  if (cudaGetDevice(&device) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess) {
+    return most;  // the launch reports the runtime's error
+  }
+  int warps = most;
+  const long long chains_per_warp = 32 / G;
+  while (warps > least &&
+         (n_chains + warps * chains_per_warp - 1) / (warps * chains_per_warp) < sms) {
+    warps /= 2;
+  }
+  return warps;
 }
 
 // launch(std::integral_constant<int, G>{}) for G = `lanes`, one of LEAST,
@@ -300,23 +358,24 @@ __device__ __forceinline__ void step_chain(const StepArgs& a, const P& potential
   }
 }
 
-// Blocks of WARPS_PER_BLOCK warps for n_chains chains, G lanes a chain.
-inline dim3 grid_for(int n_chains, int G = 32) {
-  const int per_block = WARPS_PER_BLOCK * (32 / G);
+// Blocks of `warps` warps for n_chains chains, G lanes a chain.
+inline dim3 grid_for(int n_chains, int G = 32, int warps = WARPS_PER_BLOCK) {
+  const int per_block = warps * (32 / G);
   return dim3(static_cast<unsigned>((n_chains + per_block - 1) / per_block));
 }
 
-// Launch `kernel` (G lanes a chain) with the metric's shared memory; above
-// 48 kB (dense, D > 76) only after opting in.
+// Launch `kernel` (G lanes a chain) in blocks of `warps` warps with the
+// metric's shared memory; above 48 kB (dense, D > 76) only after opting in.
 template <int K, bool DENSE, int G = 32, typename Args>
-cudaError_t launch(void (*kernel)(const Args), const Args& a, cudaStream_t stream) {
-  const size_t smem = metric_smem_bytes<K, DENSE>(a.dim, WARPS_PER_BLOCK);
+cudaError_t launch(void (*kernel)(const Args), const Args& a, cudaStream_t stream,
+                   int warps = WARPS_PER_BLOCK) {
+  const size_t smem = metric_smem_bytes<K, DENSE>(a.dim, warps);
   if constexpr (DENSE) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  kernel<<<grid_for(a.n_chains, G), WARPS_PER_BLOCK * 32, smem, stream>>>(a);
+  kernel<<<grid_for(a.n_chains, G, warps), warps * 32, smem, stream>>>(a);
   return cudaGetLastError();
 }
 

@@ -12,6 +12,8 @@ JAX, so it runs on a GPU host without the JAX package's dependencies:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
 
+import math
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -1862,5 +1864,171 @@ def test_tiled_multistep_chains_do_not_depend_on_the_count(dev, dense):
                 b = b[:n] if k < 3 else b[:, :n]
                 if a.dtype == torch.float32:
                     _assert_bits(a, b, f"dense={dense} C={n} {mode} output {k}")
+                else:
+                    assert torch.equal(a, b)
+
+
+# Kernel 2 and 2a against their plain version: every family at every D of
+# K2_DIMS (the 2- and 3-D families at theirs) and K2_CHAINS chains, each
+# case one (schedule, L, T) of K2_RUNS in turn, so a family meets every
+# schedule, L 0, 1, 16 and 64 and T 1, 2 and 8; injected and Philox draws,
+# both metrics. At 4,099 chains and D >= 65 the grouped families' diagonal
+# launch takes lane groups of 16 (csrc/trajectory.cuh:step_lanes).
+K2_DIMS = [1, 2, 4, 9, 10, 16, 17, 32, 33, 50, 64, 65, 128]
+K2_CHAINS = [1, 3, 33, 1024, 4099]
+K2_RUNS = [(None, 64, 2), ("constant", 16, 8), ("tanh", 1, 1), ("sigmoid", 0, 2),
+           ("linear", 16, 1), ("sine", 64, 1), ("tanh", 16, 2), ("constant", 1, 8)]
+K2_TARGETS = {f: K2_DIMS for f in ["standard_normal", "neals_funnel", "correlated_gaussian",
+                                   "gaussian_mixture"] + NEW_FAMILIES}
+K2_TARGETS.update({"rosenbrock": K2_DIMS[1:], "multimodal_funnel_2d": [2],
+                   "concentric_l1_2d": [2], "concentric_l1_3d": [3], "nested_l1_2d": [2],
+                   "nested_l1_3d": [3]})
+# Chains a transition that may drift past _assert_close's 1e-4 (accepts
+# equal, the state, its gradient or delta H apart), each with q within
+# K2_DRIFT_CEILING (absolute and relative) of the plain version's: the
+# family's FAMILY_DRIFT, and on the funnel 4 at its neck, where the diagonal
+# leapfrog's FMA rounding (targets.cuh:ROUNDED_LEAPFROG) grows (on an H100
+# one chain of 4,099 at D = 128 drifted 2e-4 in q). The funnel's chains
+# that fall into the neck diverge in both versions with delta H <= -1000,
+# which both accept: up to 5% of them (at least 2), as the kernel-4 tests
+# allow the neck (the plain version alone diverges on up to 1.7% of a
+# case's chains a transition; K2_DIVERGED).
+K2_DRIFT = {"neals_funnel": 4}
+K2_DRIFT_CEILING = 1e-2
+K2_DIVERGED = {"neals_funnel": 0.05}
+
+
+def _k2_inputs(dev, family, dim, n, seed):
+    """(info, q, lp, grad, generator): log-gamma inside its support,
+    Rosenbrock near its mode, the others from their init samplers (the
+    funnel's reaches its neck) or N(0, 0.25 I)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    t = get_target(family, dim=dim)
+    if family == "log_gamma":
+        q = torch.rand((n, dim), generator=g, device=dev) * 2.0 + 0.5
+    elif family == "rosenbrock":
+        q = 1.0 + 0.05 * torch.randn((n, dim), generator=g, device=dev)
+    elif t.init_sampler is not None:
+        q = t.init_sampler(g, n)
+    else:
+        q = torch.randn((n, dim), generator=g, device=dev) * 0.5
+    q = q.float().contiguous()
+    lp, grad = t.value_and_grad_fn(q)
+    return t.value_and_grad_fn.kernel_info, q, lp.float().contiguous(), grad.float().contiguous(), g
+
+
+def _multistep_check(info, steps, sched, transitions, q, lp, grad, scalars, invm, l_inv, rand,
+                     max_drift=0, max_diverged=0):
+    """Kernel 2 against its plain version transition by transition: each
+    transition's plain step starts from the kernel's state after the one
+    before (the gradient there from the eager value_and_grad), so rounding
+    does not carry from one transition to the next; _assert_close on each
+    transition's accepts, delta H and new state (q and lp from the
+    history), and the final outputs as the history's last row. A trajectory
+    that diverged in both versions (|delta H| >= 1000, its energy rounding
+    amplified, as _assert_close_or_drift counts them) and rejected by both
+    keeps its state, the one before; at most `max_diverged` a transition
+    diverge and are accepted by either (K2_DIVERGED). Of the others at most
+    `max_drift` a transition may drift (K2_DRIFT), each with q within
+    K2_DRIFT_CEILING, and _assert_close holds the rest."""
+    n, dim = q.shape
+    variant = "dense" if invm.ndim == 2 else "diagonal"
+    before = ft.grahmc_multistep_kernel.variant_launches[variant]
+    kern = ft.grahmc_multistep_kernel(info, steps, sched, transitions, q, lp, grad, scalars,
+                                      invm, l_inv=l_inv, **rand)
+    assert ft.grahmc_multistep_kernel.variant_launches[variant] == before + q.is_cuda
+    vag = ft.device_vag(info)
+    q_t, lp_t, grad_t = q, lp, grad
+    for t in range(transitions):
+        p0_t, u_t = ft._randoms(rand.get("key"), rand.get("call", 0), t,
+                                None if "key" in rand else rand["p0"][t],
+                                None if "key" in rand else rand["u"][t], invm, l_inv, n, dim,
+                                q.device)
+        plain = ft.grahmc_step_plain(info, steps, sched, q_t, lp_t, grad_t, scalars, invm,
+                                     p0=p0_t.contiguous(), u=u_t.contiguous(), l_inv=l_inv)
+        q_t, lp_t = kern[5][t].contiguous(), kern[6][t].contiguous()
+        grad_t = vag(q_t)[1].float().contiguous()
+        wild = (kern[4][t].abs() >= 1000.0) & (plain[4].abs() >= 1000.0)
+        held = wild & ~kern[3][t] & ~plain[3]
+        assert int((wild & ~held).sum()) <= max_diverged, int((wild & ~held).sum())
+        torch.testing.assert_close(q_t[held], plain[0][held])
+        close = (((q_t - plain[0]).abs() <= 1e-4 + 1e-4 * plain[0].abs()).all(dim=1)
+                 & ((grad_t - plain[2]).abs() <= 1e-4 + 1e-4 * plain[2].abs()).all(dim=1)
+                 & ((lp_t - plain[1]).abs() <= 1e-4 + 1e-4 * plain[1].abs())
+                 & ((kern[4][t] - plain[4]).abs() <= 2e-3 + 2e-3 * plain[4].abs()))
+        drifted = ~wild & (kern[3][t] == plain[3]) & ~close
+        assert int(drifted.sum()) <= max_drift, int(drifted.sum())
+        far = (q_t - plain[0]).abs() > K2_DRIFT_CEILING * (1.0 + plain[0].abs())
+        assert not bool((drifted[:, None] & far).any())
+        keep = ~wild & ~drifted
+        _assert_close(tuple(x[keep] for x in (q_t, lp_t, grad_t, kern[3][t], kern[4][t])),
+                      tuple(x[keep] for x in plain[:5]), torch.log(u_t)[keep])
+    assert torch.equal(kern[0], kern[5][-1]) and torch.equal(kern[1], kern[6][-1])
+    torch.testing.assert_close(kern[2], grad_t, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dense", [False, True])
+@pytest.mark.parametrize("family", sorted(K2_TARGETS))
+def test_kernel_2_matches_plain(dev, family, dense):
+    i = 0
+    for dim in K2_TARGETS[family]:
+        for n in K2_CHAINS:
+            info, q, lp, grad, g = _k2_inputs(dev, family, dim, n, 97 * dim + n + dense)
+            invm, l_inv = _dense_metric(dev, dim, g) if dense else (
+                torch.rand(dim, generator=g, device=dev) + 0.5, None)
+            schedule, steps, transitions = K2_RUNS[i % len(K2_RUNS)]
+            i += 1
+            eps = (0.002 if steps > 16 else 0.01) if family == "rosenbrock" else (
+                0.01 if steps > 16 else 0.05)
+            scalars = ft.kernel_scalars(eps, 0.7, 3.0, dev)
+            z = torch.randn((transitions, n, dim), generator=g, device=dev)
+            p0 = z if l_inv is None else ft.unwhiten(z.reshape(-1, dim), invm, l_inv).reshape(
+                transitions, n, dim)
+            u = torch.rand((transitions, n), generator=g, device=dev).clamp_min(2.0 ** -25)
+            key = torch.tensor([11, -12], dtype=torch.int32, device=dev)
+            for rand in (dict(p0=p0.contiguous(), u=u), dict(key=key, call=3)):
+                _multistep_check(info, steps, ft.SCHEDULE_IDS[schedule], transitions, q, lp,
+                                 grad, scalars, invm, l_inv, rand,
+                                 K2_DRIFT.get(family, FAMILY_DRIFT.get(family, (0,))[0]),
+                                 max(2, math.ceil(K2_DIVERGED[family] * n))
+                                 if family in K2_DIVERGED else 0)
+
+
+@pytest.mark.parametrize("dense", [False, True])
+@pytest.mark.parametrize("dim", [2, 10, 33, 50, 128])
+@pytest.mark.parametrize("family", GROUP_FAMILIES + ["student_t", "rosenbrock"])
+def test_kernel_2_chains_do_not_depend_on_the_count(dev, family, dim, dense):
+    """A chain's rows of kernel 2 and 2a do not depend on how many chains a
+    launch holds, nor so on the lanes and the block size the count picks
+    (csrc/trajectory.cuh:spread_warps, step_lanes): at 1, 3, 33, 1,024,
+    4,099 and 8,193 chains, from blocks of 2 warps to lane groups of 4 to
+    16 and partly used warps, they equal the first rows of 16,385 chains
+    bit for bit, injected and Philox, T = 3."""
+    n_full = 16385
+    info, q, lp, grad, g = _k2_inputs(dev, family, dim, n_full, 5 * dim + dense)
+    invm, l_inv = _dense_metric(dev, dim, g) if dense else (
+        torch.rand(dim, generator=g, device=dev) + 0.5, None)
+    scalars = ft.kernel_scalars(0.002 if family == "rosenbrock" else 0.05, 0.7, 3.0, dev)
+    z = torch.randn((3, n_full, dim), generator=g, device=dev)
+    p0 = z if l_inv is None else ft.unwhiten(z.reshape(-1, dim), invm, l_inv).reshape(
+        3, n_full, dim)
+    inj = dict(p0=p0.contiguous(),
+               u=torch.rand((3, n_full), generator=g, device=dev).clamp_min(2.0 ** -25))
+    phil = dict(key=torch.tensor([5, 6], dtype=torch.int32, device=dev), call=1)
+
+    def run(n, rand):
+        return ft.grahmc_multistep_kernel(info, 16, ft.SCHEDULE_IDS["tanh"], 3,
+                                          q[:n].contiguous(), lp[:n].contiguous(),
+                                          grad[:n].contiguous(), scalars, invm, l_inv=l_inv,
+                                          **rand)
+    full = {"injected": run(n_full, inj), "philox": run(n_full, phil)}
+    for n in [1, 3, 33, 1024, 4099, 8193]:
+        cut = {"injected": dict(p0=inj["p0"][:, :n].contiguous(), u=inj["u"][:, :n].contiguous()),
+               "philox": phil}
+        for mode, rand in cut.items():
+            for k, (a, b) in enumerate(zip(run(n, rand), full[mode])):
+                b = b[:n] if k < 3 else b[:, :n]
+                if a.dtype == torch.float32:
+                    _assert_bits(a, b, f"{family} D={dim} dense={dense} C={n} {mode} output {k}")
                 else:
                     assert torch.equal(a, b)
