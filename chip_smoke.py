@@ -861,7 +861,9 @@ def phase_parity_variants(torch, ft, targets, samplers, dev):
     concave ridge where the leapfrog at the hot rungs' long steps is
     unstable, so up to IN_FLIGHT_MAX of the proposals may drift; lp and grad
     held at the kernel's q). Then the beta = 1 identity:
-    1b (one rung) and 1c give kernel 1's results bit for bit."""
+    1b (one rung) and 1c give kernel 1's results bit for bit (at MOVE_P
+    chains all three run 4-lane groups, 1c its lp at a trajectory's last
+    substep alone)."""
     say("[3e] kernels 1b (scaled) and 1c (bridged) vs plain versions on the card")
     t = targets.get_target("gaussian_mixture", dim=TEMP_DIM)
     info = t.value_and_grad_fn.kernel_info
@@ -3320,7 +3322,8 @@ def phase_timing_variants(torch, ft, targets, samplers, dev, log, reps=10, burst
     32,768 x 10, L = 8, printed) against their plain versions, Philox mode:
     median over `reps` samples, interleaved, `burst` kernel or `plain_burst`
     plain calls per sample; each time also per chain-substep, and the ptxas
-    lines of 1b's instances on the mixture at D = 10 (from the build `log`)."""
+    lines of 1b's and 1c's instances on the mixture at D = 10 (from the
+    build `log`; both run 4-lane groups at these shapes)."""
     say(f"[6e] kernels 1b and 1c vs plain versions: CUDA events, median of {reps} bursts of "
         f"{burst} kernel / {plain_burst} plain calls, Philox mode")
     t = targets.get_target("gaussian_mixture", dim=TEMP_DIM)
@@ -3357,6 +3360,7 @@ def phase_timing_variants(torch, ft, targets, samplers, dev, log, reps=10, burst
             f"{times[name][1]:.4f} ms; kernel quartiles "
             f"{[round(x, 4) for x in statistics.quantiles(ms['kernel'], n=4)]}")
     say_lane_ptxas(log, "grahmc_scaled_kernel", "gaussian_mixture", TEMP_DIM)
+    say_lane_ptxas(log, "grahmc_bridged_kernel", "gaussian_mixture", TEMP_DIM)
     return times
 
 

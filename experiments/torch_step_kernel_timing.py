@@ -1,24 +1,28 @@
 """Kernel 1's warp-per-chain instances and its tempered variant 1b in lane
 groups, kernel 3 with the accept draw in the lane group's spare lane,
-kernel 2's block-tiled data form 2b, and kernel 2 and 2a where their small
-launches wait on each chain's stream, against the parent's kernels, on one
-CUDA card.
+kernel 2's block-tiled data form 2b, kernel 2 and 2a where their small
+launches wait on each chain's stream, and the bridged variant 1c in lane
+groups with its lp at a trajectory's last substep alone, against the
+parent's kernels, on one CUDA card.
 
     python experiments/torch_step_kernel_timing.py --parent DIR [--tree .]
         [--patched NAME[+NAME...] ...] [--probe NAME[+NAME...] ...]
         [--out _archive/step_out] [--work _archive/step] [--skip-timing]
         [--reps N] [--cases REGEX] [--outputs GROUP[,GROUP...]] [--sass REGEX]
-        [--other LABEL=DIR ...]
+        [--other LABEL=DIR ...] [--keep SOURCE[,SOURCE...]] [--skip-sass]
+        [--build-trees N] [--smc]
 
 DIR is an unpacked tree of the commit before the redesign (`git archive`;
 its mcmc_tpu_torch/ alone is enough); --tree the tree under test. Each
 --patched adds the variant NAME: a copy of the tree's mcmc_tpu_torch/
 under --work with the edits PATCHES[NAME] applied (several joined by "+")
 and only the sources those edits touch built (TRAJECTORY_SOURCES: kernels
-1, 2, 1b and 1c; RWMH_SOURCES: kernel 3; the other kernels are left out of
-its outputs and times); each --probe the same on a copy of the parent;
-each --other a variant LABEL copied unpatched from another unpacked tree
-DIR, its TRAJECTORY_SOURCES alone.
+1, 2, 1b and 1c; BRIDGED_SOURCES: 1c; RWMH_SOURCES: kernel 3; the other
+kernels are left out of its outputs and times); each --probe the same on a
+copy of the parent; each --other a variant LABEL copied unpatched from
+another unpacked tree DIR, its TRAJECTORY_SOURCES alone. --keep cuts every
+tree, the parent and the tree too, to the sources it names (1c's alone
+builds in a few minutes where every kernel takes ~3).
 The edits: "lanes-32", every chain warp per chain (step_lanes 32: the
 parent's layout); "least-lanes", the fewest lanes at every chain count (no
 MIN_GROUP_WARPS); "min-warps-1024", that bound halved; "lanes-16", lane
@@ -47,14 +51,23 @@ an SM where a lane holds 2 or more registers; and "k2-bound-everywhere",
 two blocks an SM at every instance. Its probes on the parent:
 "butterfly-16", the warp's sums over 16 lanes (its outputs differ,
 PROBES); "k2-threads-64" and "k2-threads-128", kernels 1 and 2 in blocks
-of 64 or 128 threads. The script
+of 64 or 128 threads. 1c's (C1_STEPS), for --patched: "no-1c-STEP" and
+"only-1c-STEP" ("1c-none" all): "lanes", the grouped families' diagonal
+instances in kernel 1's lane groups; "lp-last", the log-density summed at
+a trajectory's last substep alone; "friction-once", the lane groups'
+shared friction factors; its register budgets "1c-bound-B" (B blocks an SM
+at every instance) and "1c-bound-none" (no minimum); and the funnel's
+log-density in 1c as nvcc fuses it at each instance ("funnel-lp-nvcc";
+1c writes out the fusion of its warp instances). The script
 
 1. builds every tree's kernel library, one process per tree, a few at once;
 2. prints each kernel instance's ptxas line (registers, spills) that
    differs between the parent and the tree, the instances the tree adds or
    drops (kernel 1's and 1b's warp-per-chain instances carry G = 32 in
    their names now and are compared with the parent's under that name),
-   the lane-group instances' lines, and, for kernel 3 (`cuobjdump -sass` of
+   the lane-group instances' lines, each tree's 1c instances that spill
+   more than the parent's (a lane-group instance against the parent's
+   warp instance), and, unless --skip-sass, for kernel 3 (`cuobjdump -sass` of
    each library), every instance's SASS instructions in all and in its
    transition loop (the largest backward branch's span: both arms of its
    uniform branches and the transcendentals' rare slow paths included, so
@@ -80,8 +93,12 @@ of 64 or 128 threads. The script
    9, 20 and 100 with 64 and 256 rows, T 1, 2, 4 and 8, 1, 31, 33 and
    4,099 chains, both draw modes; "kernel2", kernel 2 and 2a on every family
    at D 1-128 and 1-16,385 chains (K2_DIMS, K2_CHAINS, K2_GROUPS), every
-   schedule, L 0-64, T 1-8, both metrics and draw modes; a variant tree
-   computes only that group;
+   schedule, L 0-64, T 1-8, both metrics and draw modes; "bridged", 1c on
+   the four grouped families at D 1-128 and 1-65,536 chains
+   (BRIDGED_DIMS, BRIDGED_CHAINS), beta 0-1, no friction and tanh, L 0-16
+   (BRIDGED_SETTINGS), and on every family warp per chain under both
+   metrics, both draw modes; a variant tree computes only the groups of
+   VARIANT_GROUPS;
 4. times, in turns (parent, tree, variants, then back), with CUDA events
    around bursts enqueued while the card sleeps (chip_smoke.py's
    _event_ms), Philox mode unless named, the cases --cases selects (all
@@ -99,9 +116,14 @@ of 64 or 128 threads. The script
    families at 1,024 x 10, T 16, and on [6h]'s three RAHMC families at
    1,024 x 2, T 16; 3a at 8,192 x 100, 256 rows, T 32; 2b at config 5's
    4,096 x 100, 256 rows, T 8, L 16 (tanh), and 1d at 8,192 x 100, L 16;
-   kernel 2 and 2a at the paths' other shapes (multi_cases).
+   kernel 2 and 2a at the paths' other shapes (multi_cases); 1c at beta
+   0.5 at [6e]'s 65,536 x 10, L 16 (no friction, and tanh) and the SMC
+   row's 32,768 x 10, L 8, Philox and injected (bridged_cases).
    Each time is printed with its ns per chain-substep (chains x L x T; a
-   chain-transition for kernel 3).
+   chain-transition for kernel 3);
+5. with --smc, chip_smoke.py's SMC row [5i] and move-dominated pair [5j]
+   on the parent's and the tree's kernels in turns: rates and device-busy
+   shares.
 
 Each measurement runs in a process of its own, in the tree it measures.
 Prints the card's name, power limit and SM clocks (before and after the
@@ -203,6 +225,33 @@ for _step, (_old, _new) in K2_STEPS.items():
     PATCHES[f"only-{_step}"] = tuple(("fused_trajectory.cuh", o, n)
                                      for k, (o, n) in K2_STEPS.items() if k != _step)
 PATCHES["k2-none"] = tuple(("fused_trajectory.cuh", o, n) for o, n in K2_STEPS.values())
+# 1c's design steps, as edits of fused_trajectory_bridged.cu that take one
+# out ("no-1c-STEP", "only-1c-STEP", "1c-none" as kernel 2's): "lanes", the
+# GROUPED_FAMILY targets' diagonal instances in kernel 1's lane groups;
+# "lp-last", the log-density summed at a trajectory's last substep alone;
+# "friction-once", the lane groups' shared friction factors.
+C1_STEPS = {
+    "lanes": ("    constexpr int LEAST = DENSE ? 32 : least_lanes<FAMILY, K>();",
+              "    constexpr int LEAST = 32;"),
+    "lp-last": ("  static constexpr bool PEELS = TAKES_WITH_LP<T, K>;",
+                "  static constexpr bool PEELS = false;"),
+    "friction-once": ("    step_chain<N, G, true, P::PEELS>(",
+                      "    step_chain<N, G, false, P::PEELS>("),
+}
+for _step, (_old, _new) in C1_STEPS.items():
+    PATCHES[f"no-1c-{_step}"] = (("fused_trajectory_bridged.cu", _old, _new),)
+    PATCHES[f"only-1c-{_step}"] = tuple(("fused_trajectory_bridged.cu", o, n)
+                                        for k, (o, n) in C1_STEPS.items() if k != _step)
+PATCHES["1c-none"] = tuple(("fused_trajectory_bridged.cu", o, n) for o, n in C1_STEPS.values())
+# 1c's register budget: __launch_bounds__'s minimum of blocks an SM at every
+# instance ("1c-bound-B"), or none ("1c-bound-none")
+C1_BUDGET = "  return K * 32 / G > 1 ? 2 : 1;\n}"
+C1_BOUNDS = "__launch_bounds__(WARPS_PER_BLOCK * 32, (bridged_min_blocks<K, G>()))"
+for _b in (1, 2, 3):
+    PATCHES[f"1c-bound-{_b}"] = (("fused_trajectory_bridged.cu", C1_BUDGET,
+                                  f"  return {_b};\n}}"),)
+PATCHES["1c-bound-none"] = (("fused_trajectory_bridged.cu", C1_BOUNDS,
+                             "__launch_bounds__(WARPS_PER_BLOCK * 32)"),)
 # kernel 2's two blocks an SM at every instance, one register a lane too
 PATCHES["k2-bound-everywhere"] = (("fused_trajectory.cuh", K2_BOUNDS, K2_BOUNDS.replace(
     "(K * 32 / G > 1 ? MULTI_MIN_BLOCKS : 1))", "MULTI_MIN_BLOCKS)")),)
@@ -218,9 +267,18 @@ PATCHES.update({
     "k2-threads-128": (("trajectory.cuh", "constexpr int WARPS_PER_BLOCK = 8;",
                         "constexpr int WARPS_PER_BLOCK = 4;"),),
 })
+# 1c with the funnel's log-density's sum_sq inv_var + d_rest x0 left to
+# nvcc, which fuses one product or the other by the instance (1c's lane
+# groups not as its warp instances did; fused_trajectory_bridged.cu writes
+# the warp instances' out)
+PATCHES["funnel-lp-nvcc"] = (("fused_trajectory_bridged.cu",
+                              "      return target.template operator()<K * G == 32 ? 1 : 2>(q, g, lane);",
+                              "      return target(q, g, lane);"),)
 RWMH_SOURCES = ("fused_rwmh.cu",)
-PROBES = {"unfolded", "u-hash", "butterfly-16"}     # change the outputs on purpose
-OUTPUT_GROUPS = ("step", "control", "rwmh", "multistep", "kernel2")
+BRIDGED_SOURCES = ("fused_trajectory_bridged.cu",)
+PROBES = {"unfolded", "u-hash", "butterfly-16", "funnel-lp-nvcc"}   # outputs may differ
+OUTPUT_GROUPS = ("step", "control", "rwmh", "multistep", "kernel2", "bridged")
+VARIANT_GROUPS = ("kernel2", "bridged")     # the groups a variant tree computes
 SIMPLE = ("standard_normal", "neals_funnel", "gaussian_mixture", "correlated_gaussian",
           "neals_funnel_noncentered", "ill_conditioned_gaussian", "student_t", "log_gamma",
           "log_gamma_unconstrained")
@@ -281,6 +339,8 @@ def outputs(torch, groups, has):
         out.update(multistep_outputs(torch, key))
     if "kernel2" in groups and has["trajectory"]:
         out.update(kernel2_outputs(torch, key))
+    if "bridged" in groups and has["bridged"]:
+        out.update(bridged_outputs(torch, key))
     return out
 
 
@@ -317,6 +377,71 @@ def step_outputs(torch, key):
                                       for x in ft.grahmc_step_kernel(*args, **rand)]
                 out[f"k1b {label}"] = [digest(torch, x)
                                        for x in ft.grahmc_scaled_kernel(*sargs, **rand)]
+    return out
+
+
+# 1c's matrix: the GROUPED_FAMILY targets at BRIDGED_DIMS x BRIDGED_CHAINS
+# (lane groups at 16,385 and 65,536 chains: 4 lanes at K = 1, 8 at K = 2,
+# 16 at K >= 3; 16,385 leaves a warp one chain), each case two of
+# BRIDGED_SETTINGS (beta, schedule, L) in turn, both draw modes; every family
+# at D 10 and 50 (the 2- and 3-D families at theirs), both metrics, and the
+# hierarchical posterior (20-D, 64 rows), at 1,000 chains (warp per chain)
+BRIDGED_DIMS = (1, 2, 9, 10, 17, 32, 33, 64, 65, 128)
+BRIDGED_CHAINS = (1, 7, 33, 16385, 65536)
+BRIDGED_SETTINGS = tuple((beta, sched, L) for beta in (0.0, 0.05, 0.5, 1.0)
+                         for sched in (0, 2) for L in (0, 1, 8, 16))
+
+
+def bridged_outputs(torch, key):
+    """1c on BRIDGED_DIMS x BRIDGED_CHAINS of the grouped families and on
+    every family's warp-per-chain instances, diagonal and dense."""
+    from mcmc_tpu_torch.ops import fused_trajectory as ft
+    from mcmc_tpu_torch.targets import get_target
+    dev = torch.device(DEVICE)
+    cases = [(f, d, n, False) for f in ("standard_normal", "neals_funnel", "gaussian_mixture",
+                                        "correlated_gaussian")
+             for d in BRIDGED_DIMS for n in BRIDGED_CHAINS]
+    cases += [(f, d, 1000, dense) for f in SIMPLE + OTHER for d in (10, 50)
+              for dense in (False, True)]
+    cases += [(f, d, 1000, dense) for f, dims in SMALL.items() for d in dims
+              for dense in (False, True)]
+    cases += [("hierarchical_logistic", 20, 1000, False)]
+    out = {}
+    j = 0
+    for i, (family, dim, n, dense) in enumerate(cases):
+        t = (get_target(family, dim=dim, n_data=64) if family == "hierarchical_logistic"
+             else _target(family, dim))
+        info = t.value_and_grad_fn.kernel_info
+        g = torch.Generator(device=dev).manual_seed(17000 + i)
+        q, _, _ = _state(torch, t, family, n, dim, g, dev)
+        if dense:
+            a = torch.randn((dim, dim), generator=g, device=dev, dtype=torch.float64)
+            invm, l_inv = ft.prepare_dense_metric(
+                a @ a.T / dim + 0.5 * torch.eye(dim, device=dev, dtype=torch.float64))
+        else:
+            invm, l_inv = torch.rand(dim, generator=g, device=dev) + 0.5, None
+        p0 = torch.randn((n, dim), generator=g, device=dev)
+        if dense:
+            p0 = ft.unwhiten(p0, invm, l_inv)
+        u = torch.rand(n, generator=g, device=dev).clamp_min(2.0 ** -25)
+        base = ft.bridge_base(0.5, 2.0, dim, dev)
+        eps = 0.02 if family == "rosenbrock" else 0.15
+        for _ in range(2):
+            beta, sched, L = BRIDGED_SETTINGS[j % len(BRIDGED_SETTINGS)]
+            j += 1
+            potential = ft.bridged_vag(ft.device_vag(info), torch.tensor(beta, device=dev),
+                                       torch.tensor(base.log_norm, dtype=torch.float32,
+                                                    device=dev), base.mean, base.inv_scale)
+            blp, bgrad = (x.float().contiguous() for x in potential(q))
+            args = (info, L, sched, q, blp, bgrad,
+                    ft.bridge_scalars(eps, 0.5, 2.0, beta, base.log_norm, dev), base.mean,
+                    base.inv_scale, invm)
+            label = (f"k1c {'dense' if dense else 'diagonal'} {family} D{dim} C{n} beta{beta} "
+                     f"sched{sched} L{L}")
+            for mode, rand in (("injected", dict(p0=p0.contiguous(), u=u)),
+                               ("philox", dict(key=key, call=5))):
+                out[f"{label} {mode}"] = [digest(torch, x) for x in ft.grahmc_bridged_kernel(
+                    *args, l_inv=l_inv, **rand)]
     return out
 
 
@@ -571,7 +696,42 @@ def timed_cases(torch, has, pick):
         cases.update(data_cases(torch, has["rwmh"]))
     if has["rwmh"]:
         cases.update(rwmh_cases(torch))
+    if has["bridged"]:
+        cases.update(bridged_cases(torch))
     return {k: v for k, v in cases.items() if pick.search(k)}
+
+
+def bridged_cases(torch):
+    """1c at beta 0.5 on the bridge from N(0, 6^2 I) to the 10-D mixture,
+    Philox and injected: [5j]'s and [6e]'s 65,536 x 10, L 16 (no friction,
+    and tanh) and the SMC row's 32,768 x 10, L 8 (no friction)."""
+    import chip_smoke as cs
+    from mcmc_tpu_torch.ops import fused_trajectory as ft
+    from mcmc_tpu_torch.targets import get_target
+    dev = torch.device(DEVICE)
+    key = torch.tensor([5, 6], dtype=torch.int32, device=dev)
+    g = torch.Generator(device=dev).manual_seed(10)
+    t = get_target("gaussian_mixture", dim=cs.TEMP_DIM)
+    info = t.value_and_grad_fn.kernel_info
+    base = ft.bridge_base(None, cs.SMC_BASE_SCALE, cs.TEMP_DIM, dev)
+    ones = torch.ones(cs.TEMP_DIM, device=dev)
+    tanh = ft.SCHEDULE_IDS["tanh"]
+    cases = {}
+    for name, n, L, sched in (("1c 65,536 x 10", cs.MOVE_P, cs.MOVE_L, 0),
+                              ("1c 65,536 x 10 tanh", cs.MOVE_P, cs.MOVE_L, tanh),
+                              ("1c SMC 32,768 x 10 L 8", cs.SMC_P, cs.SMC_L, 0)):
+        q = t.init_sampler(g, n)
+        blp, bgrad = ft.bridged_vag(ft.device_vag(info), torch.tensor(0.5, device=dev),
+                                    torch.tensor(base.log_norm, dtype=torch.float32,
+                                                 device=dev), base.mean, base.inv_scale)(q)
+        args = (info, L, sched, q, blp.contiguous(), bgrad.contiguous(),
+                ft.bridge_scalars(cs.SMC_STEP, cs.TEMP_GAMMA, cs.TEMP_STEEP, 0.5,
+                                  base.log_norm, dev), base.mean, base.inv_scale, ones)
+        inj = dict(p0=torch.randn((n, cs.TEMP_DIM), generator=g, device=dev),
+                   u=torch.rand(n, generator=g, device=dev).clamp_min(2.0 ** -25))
+        for label, rand in ((name, dict(key=key, call=0)), (f"{name} injected", inj)):
+            cases[label] = (lambda a=args, r=rand: ft.grahmc_bridged_kernel(*a, **r), n * L)
+    return cases
 
 
 def rwmh_cases(torch):
@@ -648,7 +808,7 @@ def data_cases(torch, rwmh=True):
 
 
 def step_cases(torch, full):
-    """Kernels 1, 1b, 2, 1c, 1a and, with `full`, kernel 4."""
+    """Kernels 1, 1b, 2, 1a and, with `full`, kernel 4."""
     import chip_smoke as cs
     from mcmc_tpu_torch import samplers
     from mcmc_tpu_torch.ops import fused_nuts as fn
@@ -710,16 +870,6 @@ def step_cases(torch, full):
     cases["k2 4,096 x 50 T 8"] = (lambda: ft.grahmc_multistep_kernel(*a2, key=key, call=0),
                                   4096 * 16 * 8)
     cases.update(multi_cases(torch, g, key))
-    q = t.init_sampler(g, 65536)
-    base = ft.bridge_base(None, cs.SMC_BASE_SCALE, cs.TEMP_DIM, dev)
-    blp, bgrad = ft.bridged_vag(ft.device_vag(info), torch.tensor(0.5, device=dev),
-                                torch.tensor(base.log_norm, dtype=torch.float32, device=dev),
-                                base.mean, base.inv_scale)(q)
-    a1c = (info, 16, 0, q, blp.contiguous(), bgrad.contiguous(),
-           ft.bridge_scalars(cs.SMC_STEP, 0.0, 1.0, 0.5, base.log_norm, dev), base.mean,
-           base.inv_scale, ones)
-    cases["1c 65,536 x 10"] = (lambda: ft.grahmc_bridged_kernel(*a1c, key=key, call=0),
-                               65536 * 16)
     c = get_target("correlated_gaussian", dim=50, correlation=0.9)
     cq = torch.randn((65536, 50), generator=g, device=dev) * 0.5
     clp, cgrad = c.value_and_grad_fn(cq)
@@ -802,6 +952,24 @@ def worker_time(torch, has, reps, pick, burst=10):
     print("TIMES " + json.dumps({"ms": ms, "substeps": per}))
 
 
+def worker_smc(torch):
+    """chip_smoke.py's [5i] and [5j] on this tree's kernels, and the device
+    share of one 8-move run of the pair (one profiled run)."""
+    import chip_smoke as cs
+    from mcmc_tpu_torch import samplers, targets
+    dev = torch.device(DEVICE)
+    row = cs.phase_smc_row(torch, targets, samplers, dev)
+    pair = cs.phase_smc_move_pair(torch, targets, samplers, dev)
+    t = targets.get_target("gaussian_mixture", dim=cs.SMC_DIM)
+    kw = dict(cs._smc_kw(t), n_particles=cs.MOVE_P, num_steps=cs.MOVE_L, move_steps=8,
+              betas=torch.linspace(0.08, 1.0, cs.MOVE_RUNGS, dtype=torch.float64))
+    busy = cs.device_busy_seconds(
+        torch, lambda: samplers.smc_run(cs._gen(torch, dev, 80), t.log_prob_fn, **kw))
+    print("SMC_RESULT " + json.dumps({"row_rate": row["rate"], "row_wall": row["wall"],
+                                      "row_busy": row["busy"], "pair_rate": pair["rate"],
+                                      "pair_wall_8": pair["walls"][8], "pair_busy_8": busy}))
+
+
 def worker(args):
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
@@ -811,6 +979,7 @@ def worker(args):
         sys.exit("needs a CUDA card")
     csrc = root / "mcmc_tpu_torch" / "csrc"
     has = {"trajectory": (csrc / "fused_trajectory.cu").exists(),
+           "bridged": (csrc / "fused_trajectory_bridged.cu").exists(),
            "rwmh": (csrc / "fused_rwmh.cu").exists(), "nuts": (csrc / "fused_nuts.cu").exists()}
     if args.worker == "build":
         from mcmc_tpu_torch.ops import _cuda
@@ -825,6 +994,8 @@ def worker(args):
         torch.cuda.synchronize()
         Path(args.save).write_text(json.dumps(out))
         print(f"{len(out)} outputs' digests saved in {time.perf_counter() - t0:.1f} s")
+    elif args.worker == "smc":
+        worker_smc(torch)
     else:
         worker_time(torch, has, args.reps, re.compile(args.cases))
 
@@ -841,8 +1012,9 @@ def run_worker(kind, root, save="", reps=10, cases="."):
 def make_patched(tree, dst, names, keep=None):
     """A copy of tree's mcmc_tpu_torch under dst, cut to the sources `keep`
     names, by default those the edits of `names` (PATCHES) touch
-    (RWMH_SOURCES for fused_rwmh.cu's, TRAJECTORY_SOURCES for the others'),
-    with those edits applied."""
+    (RWMH_SOURCES for fused_rwmh.cu's, BRIDGED_SOURCES for
+    fused_trajectory_bridged.cu's, TRAJECTORY_SOURCES for the others'), with
+    those edits applied."""
     shutil.rmtree(dst, ignore_errors=True)
     shutil.copytree(Path(tree) / "mcmc_tpu_torch", dst / "mcmc_tpu_torch",
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
@@ -851,17 +1023,19 @@ def make_patched(tree, dst, names, keep=None):
         keep = set()
         for patch in names:
             for name, _, _ in PATCHES[patch]:
-                keep |= set(RWMH_SOURCES if name in RWMH_SOURCES else TRAJECTORY_SOURCES)
+                keep |= set(next((srcs for srcs in (RWMH_SOURCES, BRIDGED_SOURCES)
+                                  if name in srcs), TRAJECTORY_SOURCES))
     for src in csrc.glob("*.cu"):
         if src.name not in keep:
             src.unlink()
     cuda = dst / "mcmc_tpu_torch" / "ops" / "_cuda.py"
     text = cuda.read_text()
-    old = "        fn = getattr(lib, name)\n"
-    if text.count(old) != 1:
-        sys.exit(f"_cuda.py: {old!r} is not once there")
-    cuda.write_text(text.replace(old, "        fn = getattr(lib, name, None)\n"
-                                      "        if fn is None:\n            continue\n"))
+    old, new = ("        fn = getattr(lib, name)\n",
+                "        fn = getattr(lib, name, None)\n        if fn is None:\n            continue\n")
+    if text.count(new) != 1:        # not a copy of a cut tree already
+        if text.count(old) != 1:
+            sys.exit(f"_cuda.py: {old!r} is not once there")
+        cuda.write_text(text.replace(old, new))
     for patch in names:
         for name, old, new in PATCHES[patch]:
             path = csrc / name
@@ -888,11 +1062,38 @@ def ptxas_lines(log):
 
 
 def with_lanes(name):
-    """The parent's kernel-1, 1b or 2 instance name with G = 32 added, as
-    the tree names its warp-per-chain instances (kernel 2's since its lane
+    """The parent's kernel-1, 1b, 1c or 2 instance name with G = 32 added,
+    as the tree names its warp-per-chain instances (1c's since its lane
     groups; a name that has G already is left as it is)."""
-    return re.sub(r"(grahmc_(?:step|scaled|multistep)_kernelILi\d+ELi\d+ELb[01]E)E",
+    return re.sub(r"(grahmc_(?:step|scaled|multistep|bridged)_kernelILi\d+ELi\d+ELb[01]E)E",
                   r"\1Li32EE", name)
+
+
+def spill_bytes(line):
+    """(spill stores, spill loads) in bytes of a ptxas_lines entry."""
+    m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+    return (int(m.group(1)), int(m.group(2))) if m else (0, 0)
+
+
+def compare_bridged_spills(lines):
+    """Each tree's 1c instances that spill more than the parent's instance
+    of the same name (or spill where it did not), and their count."""
+    old = {with_lanes(k): v for k, v in lines["parent"].items() if "bridged" in k}
+    for label, got in lines.items():
+        if label == "parent":
+            continue
+        mine = {k: v for k, v in got.items() if "grahmc_bridged_kernel" in k}
+        worse = []
+        for k, v in sorted(mine.items()):
+            # a lane-group instance against the parent's warp instance
+            base = spill_bytes(old.get(re.sub(r"(Lb[01]E)Li\d+E", r"\1Li32E", k), ""))
+            if spill_bytes(v) > base and spill_bytes(v) != (0, 0):
+                worse.append((k, v, base))
+        spilling = sum(spill_bytes(v) != (0, 0) for v in mine.values())
+        print(f"[ptxas] {label}: {len(mine)} 1c instances, {spilling} spill, {len(worse)} spill "
+              f"more than the parent's", flush=True)
+        for k, v, base in worse:
+            print(f"  {k}: {v} (parent {base[0]}/{base[1]} bytes)")
 
 
 def compare_ptxas(lines):
@@ -1031,15 +1232,15 @@ def print_sass_code(trees, lines, sass_dir=None, pattern=None):
 
 def compare_outputs(trees, work, groups):
     """Every tree's outputs of `groups` against the parent's; a variant
-    (not "tree") computes only kernel 2's matrix when "kernel2" is among
-    them."""
+    (not "tree") computes only those of VARIANT_GROUPS among them."""
     t0 = time.perf_counter()
     labels = list(trees)
     for i in range(0, len(labels), OUTPUT_WORKERS):
         procs = {label: subprocess.Popen(
             [sys.executable, __file__, "--worker", "outputs", "--root", str(trees[label]),
              "--save", str(work / f"outputs_{label}.json"), "--outputs",
-             "kernel2" if label not in ("parent", "tree") and "kernel2" in groups else groups],
+             groups if label in ("parent", "tree") else
+             ",".join(x for x in groups.split(",") if x in VARIANT_GROUPS) or "none"],
             stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True) for label in labels[i:i + OUTPUT_WORKERS]}
         for label, proc in procs.items():
@@ -1066,6 +1267,25 @@ def compare_outputs(trees, work, groups):
     return differ
 
 
+def smc_in_turns(trees, out):
+    """[5i] and [5j] in the parent and the tree, in turns (parent, tree,
+    tree, parent): each run's rates, walls and device shares."""
+    runs = {"parent": [], "tree": []}
+    for label in ("parent", "tree", "tree", "parent"):
+        text = run_worker("smc", trees[label])
+        got = json.loads(next(line for line in text.splitlines()
+                              if line.startswith("SMC_RESULT "))[len("SMC_RESULT "):])
+        runs[label].append(got)
+        print(f"[smc] {label}: " + ", ".join(f"{k} {v:.6g}" for k, v in got.items()), flush=True)
+    for label, rs in runs.items():
+        print(f"[smc] {label}, both turns: [5i] smc_particle_leapfrogs_per_sec "
+              f"{[round(r['row_rate']) for r in rs]}, busy "
+              f"{[round(r['row_busy'] / r['row_wall'], 4) for r in rs]}; [5j] "
+              f"smc_move_dominated_leapfrogs_per_sec {[round(r['pair_rate']) for r in rs]}, "
+              f"busy {[round(r['pair_busy_8'] / r['pair_wall_8'], 4) for r in rs]}", flush=True)
+    (out / "smc.json").write_text(json.dumps(runs))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent")
@@ -1082,8 +1302,17 @@ def main():
     ap.add_argument("--sass", default="", help="a regex of the functions whose SASS is "
                                                 "written under --out/sass/<tree>/")
     ap.add_argument("--skip-timing", action="store_true")
+    ap.add_argument("--skip-sass", action="store_true", help="leave out step 2's SASS part")
+    ap.add_argument("--keep", default="", help="SOURCE[,SOURCE]: the sources every tree "
+                                               "keeps (default: all in the parent and the "
+                                               "tree, those its edits touch in a variant)")
+    ap.add_argument("--build-trees", type=int, default=BUILD_TREES,
+                    help="trees built at once")
+    ap.add_argument("--smc", action="store_true",
+                    help="the SMC row [5i] and the move-dominated pair [5j], parent and tree "
+                         "in turns")
     ap.add_argument("--reps", type=int, default=10)
-    ap.add_argument("--worker", choices=("build", "outputs", "time"))
+    ap.add_argument("--worker", choices=("build", "outputs", "time", "smc"))
     ap.add_argument("--root")
     ap.add_argument("--save", default="")
     args = ap.parse_args()
@@ -1100,13 +1329,17 @@ def main():
     print(smi, flush=True)
     print(f"SM clock, max SM clock: {sm_clocks()}", flush=True)
     trees = {"parent": Path(args.parent).resolve(), "tree": Path(args.tree).resolve()}
+    keep = set(args.keep.split(",")) if args.keep else None
+    if keep:
+        trees = {label: make_patched(root, work / f"{label}_kept", [], keep=keep)
+                 for label, root in trees.items()}
     for base, names in (("tree", args.patched), ("parent", args.probe)):
         for label in names:
             if not set(label.split("+")) <= set(PATCHES):
                 sys.exit(f"{label}: not among {sorted(PATCHES)}")
             name = label if base == "tree" else f"parent+{label}"
             trees[name] = make_patched(trees[base], work / name.replace("+", "_"),
-                                       label.split("+"))
+                                       label.split("+"), keep=keep)
     for other in args.other:
         label, root = other.split("=", 1)
         trees[label] = make_patched(Path(root).resolve(), work / label, [],
@@ -1114,7 +1347,7 @@ def main():
     t0 = time.perf_counter()
     procs = {}
     for label, root in list(trees.items()):
-        while sum(p.poll() is None for p in procs.values()) >= BUILD_TREES:
+        while sum(p.poll() is None for p in procs.values()) >= args.build_trees:
             time.sleep(1)
         procs[label] = subprocess.Popen(
             [sys.executable, __file__, "--worker", "build", "--root", str(root), "--save",
@@ -1137,13 +1370,18 @@ def main():
         if label == "parent":
             continue
         grouped = sorted((k, v) for k, v in lines[label].items()
-                         if re.search(r"grahmc_(?:step|scaled|multistep)_kernelI.*Li(4|8|16)EE",
-                                      k))
-        print(f"[ptxas] {label}: {len(grouped)} lane-group instances of kernels 1, 1b and 2:")
+                         if re.search(r"grahmc_(?:step|scaled|multistep|bridged)_kernelI.*"
+                                      r"Li(4|8|16)EE", k))
+        print(f"[ptxas] {label}: {len(grouped)} lane-group instances of kernels 1, 1b, 1c "
+              f"and 2:")
         for k, v in grouped:
             print(f"  {k}: {v}")
-    print_sass_code(trees, lines, out / "sass", args.sass)
+    compare_bridged_spills(lines)
+    if not args.skip_sass:
+        print_sass_code(trees, lines, out / "sass", args.sass)
     differ = compare_outputs(trees, work, args.outputs)
+    if args.smc:
+        smc_in_turns(trees, out)
     if args.skip_timing:
         return 1 if differ else 0
 

@@ -224,7 +224,11 @@ struct Target<STANDARD_NORMAL, K, G, BLOCKED> {
 
 // Neal's funnel: x0 ~ N(0, 9), x_i | x0 ~ N(0, exp(x0)). The neck x0 is
 // coordinate 0, the group's lane 0's first register; it is broadcast with
-// one shuffle. `lane` is the lane's index within its group.
+// one shuffle. `lane` is the lane's index within its group. FUSED: the
+// log-density's sum_sq inv_var + d_rest x0 as nvcc compiles it (0; it
+// fuses one product or the other by the kernel and layout), or with
+// d_rest x0 (1) or sum_sq inv_var (2) fused, as a kernel that must keep
+// its bits across layouts asks (1c, fused_trajectory_bridged.cu).
 template <int K, int G, bool BLOCKED>
 struct Target<NEALS_FUNNEL, K, G, BLOCKED> {
   float d_rest, c_rest, c_neck;
@@ -234,6 +238,7 @@ struct Target<NEALS_FUNNEL, K, G, BLOCKED> {
         c_rest(static_cast<float>((dim - 1) * LOG_2PI)),
         c_neck(static_cast<float>(LOG_2PI_9)) {}
 
+  template <int FUSED = 0>
   __device__ __forceinline__ float operator()(const float (&q)[K], float (&g)[K],
                                               int lane, bool with_lp = true) const {
     const float x0 = __shfl_sync(FULL_MASK, q[0], 0, G);
@@ -247,8 +252,14 @@ struct Target<NEALS_FUNNEL, K, G, BLOCKED> {
       g[0] = -x0 / 9.f + 0.5f * inv_var * sum_sq - 0.5f * d_rest;
     }
     if (!with_lp) return 0.f;
-    return -0.5f * (x0 * x0 / 9.f + c_neck) -
-           0.5f * (sum_sq * inv_var + d_rest * x0 + c_rest);
+    if constexpr (FUSED == 0) {
+      return -0.5f * (x0 * x0 / 9.f + c_neck) -
+             0.5f * (sum_sq * inv_var + d_rest * x0 + c_rest);
+    } else {
+      const float rest = FUSED == 1 ? __fmaf_rn(d_rest, x0, sum_sq * inv_var)
+                                    : __fmaf_rn(sum_sq, inv_var, d_rest * x0);
+      return -0.5f * (x0 * x0 / 9.f + c_neck) - 0.5f * (rest + c_rest);
+    }
   }
 };
 

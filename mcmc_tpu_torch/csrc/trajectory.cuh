@@ -5,9 +5,9 @@
 // mcmc_tpu/ops/fused_trajectory.py:_make_kernel (with _integrate,
 // _metric_ops, _gaussian and _bits_to_uniform). Two layouts, the template
 // G: one warp per chain (G = 32), lane j holding coordinates j, j+32,
-// j+64, j+96 (K = ceil(D / 32) <= 4 registers); or, in kernels 1, 1b and 2
-// on the GROUPED_FAMILY targets, lane groups of G = 4, 8 or 16 lanes, 32 / G
-// chains a warp, lane j of a group holding j, j+G, ... (K 32 / G
+// j+64, j+96 (K = ceil(D / 32) <= 4 registers); or, in kernels 1, 1b, 1c
+// and 2 on the GROUPED_FAMILY targets, lane groups of G = 4, 8 or 16 lanes,
+// 32 / G chains a warp, lane j of a group holding j, j+G, ... (K 32 / G
 // registers): the warp-per-chain lanes j + G m folded into one lane. Every
 // sum keeps the warp-per-chain order (targets.cuh:chain_sum), each Philox
 // block is drawn once a chain (philox.cuh:philox_normal_shared) and the
@@ -26,6 +26,7 @@
 #include <cstddef>
 #include <cstdint>
 #include <type_traits>
+#include <utility>
 #include <cuda_runtime.h>
 
 #include "chain_rows.cuh"
@@ -121,16 +122,20 @@ __device__ __forceinline__ void substep(const P& potential, const M& metric, con
 // factors depend on the chain's scalars and i alone, so the group computes
 // G substeps' factors at once, lane j substep i + j, and each substep takes
 // its own by a shuffle: the same function of the same inputs, so the same
-// bits. (Kernel 1's warp-per-chain instances and 1c keep a factor a
+// bits. (Kernel 1's and 1c's warp-per-chain instances keep a factor a
 // substep on every lane: shared, it cost them 1-2% where the schedule is
-// NO_FRICTION, PERF.md section 6.) LP_LAST (kernel 2): the potential's
-// log-density is asked for at the last substep alone, the only one the
-// transition reads; the others compute the gradient alone (targets.cuh's
-// `with_lp`), the last substep peeled off so that no substep branches on it.
-// Kernels 1, 1b, 1c, 1a, 1d and 2b keep it off: on an H100 it took up to
-// 30% off their path shapes (1c) but made 62 of their instances spill anew
-// or more (PERF.md section 6), and their functors (Scaled, Bridged, the
-// hierarchical ones) take no `with_lp`.
+// NO_FRICTION, PERF.md section 6.) LP_LAST (kernel 2 and 1c): the
+// potential's log-density is asked for at the last substep alone, the only
+// one the transition reads; the others compute the gradient alone
+// (targets.cuh's `with_lp`, Bridged's), the last substep peeled off so that
+// no substep branches on it. 1c's instances are compiled under a register
+// budget that keeps the peel from spilling (fused_trajectory_bridged.cu);
+// a potential whose functor takes no `with_lp` (the hierarchical one,
+// TAKES_WITH_LP) keeps the unpeeled loop. Kernels 1, 1b, 1a, 1d and 2b keep
+// it off: on an H100 it took 5-30% off their path shapes but made 62 of
+// their instances spill anew or more at ptxas's register targets (PERF.md
+// section 6), and their functors (Scaled, the hierarchical ones) take no
+// `with_lp`.
 template <int G = 32, bool SHARED_FRICTION = (G < 32), bool LP_LAST = false, typename P, int K,
           typename M>
 __device__ __forceinline__ bool transition(const P& potential, const M& metric,
@@ -214,7 +219,19 @@ __device__ __forceinline__ void randoms(const float* p0_in, const float* u_in, s
   }
 }
 
-// Families whose kernels 1, 1b and 2 run in lane groups: those the main
+// Whether the functor P's call takes `with_lp` (targets.cuh): every
+// target's but the hierarchical posterior's.
+template <typename P, int K, typename = void>
+struct takes_with_lp : std::false_type {};
+template <typename P, int K>
+struct takes_with_lp<P, K,
+                     std::void_t<decltype(std::declval<const P&>()(
+                         std::declval<const float (&)[K]>(), std::declval<float (&)[K]>(), 0,
+                         false))>> : std::true_type {};
+template <typename P, int K>
+constexpr bool TAKES_WITH_LP = takes_with_lp<P, K>::value;
+
+// Families whose kernels 1, 1b, 1c and 2 run in lane groups: those the main
 // paths launch at chain counts that take them (the funnel's and N(0, I)'s
 // 65,536 chains, the tempered mixture's 6 x 8,192, the correlated
 // Gaussian's 4,096 in the dense warmup's diagonal phase, kernel 2 on the
@@ -228,7 +245,7 @@ template <int FAMILY>
 constexpr bool GROUPED_FAMILY = FAMILY == STANDARD_NORMAL || FAMILY == NEALS_FUNNEL ||
                                 FAMILY == GAUSSIAN_MIXTURE || FAMILY == CORRELATED_GAUSSIAN;
 
-// The fewest lanes a chain of kernel 1 or 1b takes at K = ceil(D / 32)
+// The fewest lanes a chain of kernel 1, 1b or 1c takes at K = ceil(D / 32)
 // warp-per-chain registers: 32 / G chains share a warp and a lane holds
 // K 32 / G registers (8 at most).
 template <int FAMILY, int K>
@@ -249,7 +266,7 @@ constexpr int least_lanes() {
 // experiments/torch_step_kernel_timing.py).
 constexpr int MIN_GROUP_WARPS = 2048;
 
-// The lanes of a chain of kernel 1 or 1b: the fewest from `least` up that
+// The lanes of a chain of kernel 1, 1b or 1c: the fewest from `least` up that
 // keep MIN_GROUP_WARPS warps in the launch, else 32 (warp per chain).
 inline int step_lanes(int least, int n_chains) {
   for (int g = least; g < 32; g *= 2) {
@@ -330,7 +347,9 @@ struct MultiArgs {
 // group of G lanes holding the chain (`lane` its place there). The Philox
 // counter's chain word is the chain's row. A group that is not `active` (past
 // n_chains in a partly used warp, on a clamped chain) stores nothing.
-template <int K, int G = 32, typename P, typename M>
+// SHARED_FRICTION and LP_LAST as transition's.
+template <int K, int G = 32, bool SHARED_FRICTION = (G < 32), bool LP_LAST = false, typename P,
+          typename M>
 __device__ __forceinline__ void step_chain(const StepArgs& a, const P& potential,
                                            const M& metric, const Scalars& sc, int chain,
                                            int lane, bool active = true) {
@@ -343,8 +362,8 @@ __device__ __forceinline__ void step_chain(const StepArgs& a, const P& potential
   randoms<K, G>(a.p0, a.u, row, chain, metric, lane, a.dim, chain, a.call, 0u, a.key, p0, u);
 
   float q1[K], lp1, dh;
-  const bool accept = transition<G>(potential, metric, sc, a.num_steps, a.schedule, lane, p0,
-                                    u, q, g, lp, q1, lp1, dh);
+  const bool accept = transition<G, SHARED_FRICTION, LP_LAST>(
+      potential, metric, sc, a.num_steps, a.schedule, lane, p0, u, q, g, lp, q1, lp1, dh);
 
   if (!active) return;
   store_row<K, G>(a.q_out, row, lane, a.dim, q);

@@ -36,32 +36,51 @@ def _smc(target, generator_seed=0, **kw):
                       value_and_grad_fn=target.value_and_grad_fn, dtype=torch.float64, **kw)
 
 
-@pytest.mark.parametrize("dense", [False, True])
-@pytest.mark.parametrize("beta", [0.05, 0.5, 1.0])
-def test_bridged_plain_matches_jax_bridge_kernel(beta, dense):
+# (family, dim, friction schedule, dense metric, beta): the 6-D mixture
+# under both metrics (ids "beta-dense"), and kernel 1c's lane-group families
+# (csrc/trajectory.cuh:GROUPED_FAMILY) at D 10 and 33 without friction and
+# under tanh
+GROUPED = ("standard_normal", "neals_funnel", "gaussian_mixture", "correlated_gaussian")
+BRIDGE_CASES = (
+    [pytest.param("gaussian_mixture", 6, None, dense, beta, id=f"{beta}-{dense}")
+     for beta in (0.05, 0.5, 1.0, 0.0) for dense in (False, True)]
+    + [pytest.param(f, d, sched, False, beta, id=f"{f}-D{d}-{sched or 'no_friction'}-{beta}")
+       for f in GROUPED for d in (10, 33) for sched in (None, "tanh")
+       for beta in (0.0, 0.05, 0.5, 1.0)])
+
+
+@pytest.mark.parametrize("family, dim, schedule, dense, beta", BRIDGE_CASES)
+def test_bridged_plain_matches_jax_bridge_kernel(family, dim, schedule, dense, beta):
     """Kernel 1c's plain version == the JAX package's bridged kernel
-    (make_debug_trajectory(bridge=...), interpret mode) on the mixture's
-    bridge to N(0.5, 2^2 I), injected draws: accepts equal, q, lp and grad
-    within 2e-4, delta H within 2e-3 (tests/test_pallas_ops.py:146-190)."""
-    dim, n, L, eps = 6, 16, 8, 0.3
-    rng = np.random.default_rng(7)
-    q = (rng.standard_normal((n, dim)) * 1.5).astype(np.float32)
+    (make_debug_trajectory(bridge=...), interpret mode) on the target's
+    bridge to N(0.5, 2^2 I), 16 chains, L = 8, injected draws: accepts
+    equal, q, lp and grad within 2e-4, delta H within 2e-3
+    (tests/test_pallas_ops.py:146-190)."""
+    from mcmc_tpu.samplers import grahmc as jg
+    n, L = 16, 8
+    eps = 0.1 if family == "neals_funnel" else 0.3
+    gamma, steep = (0.5, 5.0) if schedule else (0.0, 1.0)
+    rng = np.random.default_rng(7 + dim)
+    q = (rng.standard_normal((n, dim)) * (0.8 if family == "neals_funnel" else 1.5)).astype(
+        np.float32)
     p0 = rng.standard_normal((n, dim)).astype(np.float32)
     u = rng.uniform(size=n).astype(np.float32)
     a = rng.standard_normal((dim, dim))
     invm = ((a @ a.T / dim + 0.5 * np.eye(dim)) if dense else np.ones(dim)).astype(np.float32)
-    jt = j_get_target("gaussian_mixture", dim=dim)
+    jt = j_get_target(family, dim=dim)
     _, _, base_vag = jsmc.gaussian_base(dim, 0.5, 2.0)
     lt, gt = jt.value_and_grad_fn(jnp.asarray(q))
     lb, gb = base_vag(jnp.asarray(q))
     lp = np.asarray(beta * lt.astype(jnp.float32) + (1 - beta) * lb, np.float32)
     grad = np.asarray(beta * gt.astype(jnp.float32) + (1 - beta) * gb, np.float32)
-    run_j = jft.make_debug_trajectory(jt.value_and_grad_fn, L, None, n, dim)
-    outs_j = run_j(*(jnp.asarray(x) for x in (q, lp, grad, p0, u)), eps, 0.0, 1.0,
+    run_j = jft.make_debug_trajectory(jt.value_and_grad_fn, L,
+                                      getattr(jg, f"{schedule}_schedule", None), n, dim)
+    outs_j = run_j(*(jnp.asarray(x) for x in (q, lp, grad, p0, u)), eps, gamma, steep,
                    jnp.asarray(invm), bridge=(beta, 0.5, 2.0))
-    tt = t_get_target("gaussian_mixture", dim=dim)
-    run_t = ft.make_debug_trajectory(tt.value_and_grad_fn, L, None, n, dim)
-    outs_t = run_t(*(_t(x) for x in (q, lp, grad, p0, u)), eps, 0.0, 1.0, _t(invm),
+    tt = t_get_target(family, dim=dim)
+    run_t = ft.make_debug_trajectory(tt.value_and_grad_fn, L,
+                                     getattr(tg, f"{schedule}_schedule", None), n, dim)
+    outs_t = run_t(*(_t(x) for x in (q, lp, grad, p0, u)), eps, gamma, steep, _t(invm),
                    bridge=(beta, 0.5, 2.0))
     np.testing.assert_array_equal(outs_t[3].numpy(), np.asarray(outs_j[3]))
     for ours, theirs in zip(outs_t[:3], outs_j[:3]):
