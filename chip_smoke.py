@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the mcmc_tpu_torch main paths once on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--multistep-switch | --smc-repeat]
+    python3 chip_smoke.py [--multistep-switch | --smc-repeat | --runner-cell]
 
 Run from the repository root on a machine with a CUDA GPU and nvcc. It
 builds the hand-written CUDA kernels from mcmc_tpu_torch/csrc, holds each
@@ -72,7 +72,15 @@ NUTS row and a dense-warmup GRAHMC row on the port:
   timed at its cell's shape [6h];
 - classic NUTS (samplers.nuts, eager) at 1,024 chains on the 10-D
   standard normal and Student-t [5p], and generate_rosenbrock_reference at
-  a cut [5q].
+  a cut [5q];
+- the research runner [5r]: run_benchmarks_torch.py's main() on the
+  canonical matrix's non-centered-funnel cell (GRAHMC-constant, persistent
+  NUTS and RWMH at dim 10, 1,024 chains, 2,500 warmup, 10,000 draws;
+  kernels 1, 2, 3 and 4 through the runner's warmups, samplers,
+  diagnostics, gates and Sliced-W2), GRAHMC's row held to the JAX
+  package's recorded verdict; run again into the same directory (the
+  warmup cache and resume: nothing runs, the files stay byte-equal) and
+  with --no-warmup-cache into another (the same tuned steps and draws).
 
 --multistep-switch adds a measurement that gates nothing: grahmc_run at
 1,024 and 4,096 chains through the multi-transition dispatch (T = 8)
@@ -85,6 +93,10 @@ runs only the build and the SMC repeat probe: the resampling CDF summed by
 torch.cumsum and by samplers.smc.prefix_sum, each repeated on one input,
 and the SMC row's warm run repeated with each, printing log Z's bits so
 that two processes can be compared. It exits 0 whatever it finds.
+
+    python3 chip_smoke.py --runner-cell
+
+runs only the build and [5r], with its launch counts.
 
 Every phase passes or raises; there is no CPU path. After the rows every
 kernel is timed at the shapes the paths ran it at ([6]-[6i]; kernel 1 and
@@ -286,6 +298,18 @@ FAMILY_DRIFT = {"log_gamma": (2e-3, 2e-2, 3.6e-2), "student_t": (5e-4, 0.0, SPLI
                 # proposals diverged in both versions (0 drifted, 0 in flight);
                 # the other new families read 0 everywhere
                 "multimodal_funnel_2d": (0.0, 8e-4, SPLIT_MAX)}
+# run_benchmarks_torch.py on the canonical matrix's non-centered-funnel cell
+# (experiments/run_native_rescue_arm.sh:29 and :54's budgets; the L grid
+# pinned at 16, the L the JAX package's row took from the default grid) [5r]
+RUNNER_ARGS = ("--targets", "neals_funnel_noncentered", "--samplers", "grahmc", "nuts", "rwmh",
+               "--schedules", "constant", "--dim", "10", "--n-chains", "1024", "--num-warmup",
+               "2500", "--num-samples", "10000", "--num-steps-grid", "16",
+               "--mass-matrix-mode", "mass", "--seed", "42", "--mesh", "off")
+RUNNER_PATH = "runner cell"
+RUNNER_REFERENCE = "results_full_matrix_native/benchmark_results.json"   # read as data
+RUNNER_TARGET = "NealsFunnelNonCentered10D"
+RUNNER_TUNE_T = 4            # the RWMH tuner's T: the largest dividing its 100 transitions
+RUNNER_TUNE_CHUNK = 25       # DA iterations a chunk of dual_averaging_tune_rwmh
 # the family sweep at the canonical matrix's cell size
 # (results_full_matrix_native/README.md: dim 10, 1,024 chains, 2,500 warmup,
 # 10,000 draws) [5n]
@@ -438,7 +462,7 @@ SPLITS = {"grahmc_step_kernel (ChEES row)": ("grahmc_step_kernel", "ChEES row", 
           "grahmc_step_kernel[dense] (4,096 chains)": ("grahmc_step_kernel[dense]",
                                                        "dense-warmup GRAHMC row",
                                                        MULTI_CHAINS)}
-PAIR_PATHS = ("family sweep",) + tuple(f"{cell} cell" for cell in RAHMC_CELLS)
+PAIR_PATHS = ("family sweep", RUNNER_PATH) + tuple(f"{cell} cell" for cell in RAHMC_CELLS)
 # kernels 1, 2, 1b and 1c's variants (ops/fused_trajectory.py:variant_name),
 # kernel 3's (ops/fused_rwmh.py) and kernel 4's (ops/fused_nuts.py:variant)
 # -> the names above (1b's and 1c's dense variants, and the data-carrying
@@ -2568,6 +2592,118 @@ def phase_family_sweep(torch, targets, samplers, tuning, diagnostics, dev):
     return {"rows": out, "states": states}
 
 
+def _runner_verdict(row):
+    return ("PASS" if row.get("quality_pass") else "USABLE" if row.get("usable") else "FAIL")
+
+
+def phase_runner_cell(torch, counts):
+    """run_benchmarks_torch.py's main() on the canonical matrix's
+    non-centered-funnel cell (RUNNER_ARGS: GRAHMC-constant, persistent NUTS,
+    RWMH at dim 10, 1,024 chains, 2,500 warmup, 10,000 draws), three times:
+    into a new directory; again into it (the warmup cache on and resume by
+    signature: nothing may run, the CSV and JSON stay byte-equal); and with
+    --no-warmup-cache into another (the same tuned steps and the same draws'
+    sha256 as the first: the card repeats itself). GRAHMC's row must be
+    usable and pass quality, as the JAX package's row in RUNNER_REFERENCE
+    does; the others' verdicts are printed beside the JAX package's. Each
+    row's draws are hashed where the runner's _sample returns them, and the
+    RWMH tuner's DA iterations counted where the runner calls it (its
+    kernel-3 launches depend on when it converges). `counts` reads the
+    kernels' launch counts. Returns {"expected": launches by kernel, "rows":
+    the first run's rows, "wall": seconds}."""
+    import hashlib
+    import shutil
+    import tempfile
+
+    import run_benchmarks_torch as cli
+    from mcmc_tpu_torch.benchmark import runner as R
+
+    say(f"[5r] run_benchmarks_torch.py {' '.join(RUNNER_ARGS)}")
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), RUNNER_REFERENCE)) as f:
+        reference = {r["sampler"]: r for r in json.load(f)
+                     if r["target"] == RUNNER_TARGET and r.get("mass_matrix_learned") is True
+                     and r.get("schedule") in (None, "constant")}
+    digests, tunes = {}, []
+    real_sample, real_tune = R._sample, R.dual_averaging_tune_rwmh
+
+    def sample(sampler, *a, **k):
+        res = real_sample(sampler, *a, **k)
+        digests[sampler] = hashlib.sha256(
+            res.samples.contiguous().cpu().numpy().tobytes()).hexdigest()
+        return res
+
+    def tune(*a, **k):
+        scale, hist = real_tune(*a, **k)
+        tunes.append(len(hist["scale_history"]))
+        return scale, hist
+
+    root = tempfile.mkdtemp(prefix="runner_cell_")
+    runs = {}
+    t0 = time.perf_counter()
+    R._sample, R.dual_averaging_tune_rwmh = sample, tune
+    try:
+        for label, out_dir, extra in (("first", "run", ()), ("second", "run", ()),
+                                      ("no-cache", "fresh", ("--no-warmup-cache",))):
+            digests.clear()
+            out = os.path.join(root, out_dir)
+            before = counts()
+            t = time.perf_counter()
+            rows = cli.main([*RUNNER_ARGS, *extra, "--output-dir", out])
+            after = counts()
+            runs[label] = {
+                "rows": {r["sampler"]: r for r in rows}, "digests": dict(digests),
+                "wall": time.perf_counter() - t,
+                "launches": sum(after.values()) - sum(before.values()),
+                "files": {name: open(os.path.join(out, name), "rb").read()
+                          for name in ("benchmark_results.csv", "benchmark_results.json")}}
+            say(f"  [5r] {label} run: {runs[label]['wall']:.1f} s, "
+                f"{runs[label]['launches']} kernel launches")
+    finally:
+        R._sample, R.dual_averaging_tune_rwmh = real_sample, real_tune
+        shutil.rmtree(root, ignore_errors=True)
+    wall = time.perf_counter() - t0
+
+    first, second, fresh = runs["first"], runs["second"], runs["no-cache"]
+    for sampler, row in first["rows"].items():
+        ref = reference[sampler]
+        require(row.get("error") is None, f"[5r] {sampler}: {row.get('error')}")
+        say(f"  [5r] {sampler}: {_runner_verdict(row)} (R-hat {row['rhat_max']:.4f}, bulk/tail "
+            f"ESS {row['ess_bulk_min']:.0f}/{row['ess_tail_min']:.0f}, z {row['z_score_max']:.3f} "
+            f"of {row['z_score_threshold']:.3f}, divergences {row['divergence_rate']:.5f}, "
+            f"accept {row['accept_rate']:.4f}, W2 {row['sliced_w2']:.4f}, "
+            f"transformed W2 {row['sliced_w2_transformed']:.4f}; warmup "
+            f"{row['warmup_time']:.3f} s, sampling {row['sample_time']:.3f} s, "
+            f"n_gradients {row['n_gradients']}); the JAX package's row: {_runner_verdict(ref)} "
+            f"(R-hat {ref['rhat_max']:.4f}, bulk/tail ESS {ref['ess_bulk_min']:.0f}/"
+            f"{ref['ess_tail_min']:.0f}, z {ref['z_score_max']:.3f}, W2 {ref['sliced_w2']:.4f})")
+    g = first["rows"]["grahmc"]
+    require(g["usable"] and g["quality_pass"] and reference["grahmc"]["quality_pass"],
+            f"[5r] GRAHMC-constant: usable {g['usable']}, quality {g['quality_pass']} "
+            f"(R-hat {g['rhat_max']}, z {g['z_score_max']}); the JAX package's row passes")
+    require(second["launches"] == 0 and not second["digests"]
+            and second["files"] == first["files"],
+            f"[5r] the second run re-ran {sorted(second['digests'])}, "
+            f"{second['launches']} launches")
+    require(fresh["digests"] == first["digests"] and len(first["digests"]) == 3,
+            f"[5r] draws' sha256 {fresh['digests']} after {first['digests']}")
+    for sampler, row in first["rows"].items():
+        step = "scale" if sampler == "rwmh" else "step_size"
+        require(fresh["rows"][sampler][step] == row[step],
+                f"[5r] {sampler}'s tuned {step}: {fresh['rows'][sampler][step]} vs {row[step]}")
+    say(f"  [5r] second run: nothing re-ran, CSV and JSON byte-equal; no-cache run: the same "
+        f"tuned steps and draws ({', '.join(f'{s} {d[:12]}' for s, d in first['digests'].items())})")
+    require(len(tunes) == 2, f"[5r] {len(tunes)} RWMH tunes")
+    per_run = {"grahmc_step_kernel": WARMUP_TRANSITIONS + TUNE_TRANSITIONS,
+               "grahmc_multistep_kernel": SWEEP_DRAWS // SWEEP_MULTI_T,
+               "nuts_window_kernel": WARMUP_TRANSITIONS + SWEEP_DRAWS}
+    expected = {name: 2 * n for name, n in per_run.items()}
+    expected["rwmh_multistep_kernel"] = sum(
+        n * (100 // RUNNER_TUNE_T) + SWEEP_DRAWS // SWEEP_RWMH_T for n in tunes)
+    say(f"  [5r] phase wall {wall:.1f} s (runs {first['wall']:.1f}, {second['wall']:.1f}, "
+        f"{fresh['wall']:.1f} s); RWMH DA iterations {tunes}")
+    return {"expected": expected, "rows": first["rows"], "wall": wall}
+
+
 def _occupancy(torch, info, x):
     """The family's mode shares of draws x (draws, chains, dim), from the
     target's kernel_info: the bimodal funnel's share with v > 0; the L1
@@ -3781,6 +3917,16 @@ def main():
     if "--smc-repeat" in sys.argv[1:]:
         phase_smc_repeat(torch, targets, samplers, dev)
         return 0
+    if "--runner-cell" in sys.argv[1:]:
+        for module in (ft, fr, fn):
+            module.reset_launches()
+        out = phase_runner_cell(torch, lambda: launch_counts(ft, fr, fn))
+        got = launch_counts(ft, fr, fn)
+        want = {name: out["expected"].get(name, 0) for name in got}
+        say(f"  launches on the {RUNNER_PATH}: {got} (expected {want})")
+        require(got == want, f"{RUNNER_PATH}: launches {got}, expected {want}")
+        say(f"  launches by shape: {shape_counts(ft, fr, fn)}")
+        return 0
 
     max_err = phase_parity(torch, ft, targets, dev)
     max_err.update(phase_parity_rwmh(torch, ft, fr, targets, dev))
@@ -3880,6 +4026,9 @@ def main():
                    "rwmh_multistep_kernel": n_fam * (SWEEP_RWMH_TUNE
                                                      + SWEEP_DRAWS // SWEEP_RWMH_T),
                    "nuts_window_kernel": n_fam * (NUTS_TUNE_CALLS + SWEEP_DRAWS)})
+    runner_cell = drive(RUNNER_PATH,
+                        lambda: phase_runner_cell(torch, lambda: launch_counts(ft, fr, fn)),
+                        lambda out: out["expected"])
     rahmc = {cell: drive(f"{cell} cell",
                          lambda cell=cell: phase_rahmc_cells(torch, targets, samplers, tuning,
                                                              diagnostics, dev, cell),
@@ -3985,7 +4134,9 @@ def main():
         f"chees_warmup_seconds {chees['warmup_sec']:.4f}, chees_T {chees['t_len']:.4f}, "
         f"chees_L {chees['num_steps']}, chees_transitions_per_sec {chees['rate']:.1f}, "
         f"chees_accept {chees['accept']:.4f}, chees_jitter_levels {chees['levels']}, "
-        f"chees_busy_share {chees['busy'] / chees['wall']:.4f}")
+        f"chees_busy_share {chees['busy'] / chees['wall']:.4f}, "
+        f"runner_cell_sec {runner_cell['wall']:.1f} ("
+        + ", ".join(f"{s} {_runner_verdict(r)}" for s, r in runner_cell["rows"].items()) + ")")
     say("  family sweep (R-hat, means' max z by the chains' spread and by bulk ESS, divergence "
         "rate): " + "; ".join(
         f"{family} " + ", ".join(f"{s} {r['rhat']:.4f}/{r['z_chains']:.2f}/{r['z_ess']:.2f}/"

@@ -1,5 +1,6 @@
 """Convergence diagnostics as batched tensor reductions (port of
-``mcmc_tpu/diagnostics/rhat_ess.py``).
+``mcmc_tpu/diagnostics/rhat_ess.py``): split R-hat, bulk, tail and mean
+ESS, and the MCSE of the mean.
 
 Vehtari, Gelman, Simpson, Carpenter & Buerkner (2021): split chains in half,
 rank-normalize with the (r - 3/8)/(S + 1/4) normal-scores transform, R-hat as
@@ -141,3 +142,38 @@ def _ess_core(x: Tensor) -> Tensor:
 def ess_bulk(samples: Tensor) -> Tensor:
     """Bulk ESS: ESS of rank-normalized split chains. (S, C, D) -> (D,)."""
     return _ess_core(_rank_normalize(_split_chains(samples)))
+
+
+def _quantile0(flat: Tensor, q: float) -> Tensor:
+    """Quantile q along axis 0 by linear interpolation between order
+    statistics at q (n - 1), as jnp.quantile's default method weighs them.
+    Sorted here rather than by torch.quantile, which refuses inputs past
+    2^24 elements (a 10,000-draw x 1,024-chain column has 10.2M)."""
+    s = torch.sort(flat, dim=0).values
+    n = s.shape[0]
+    pos = q * (n - 1)
+    lo = int(math.floor(pos))
+    hi = min(lo + 1, n - 1)
+    frac = pos - lo
+    return s[lo] * (1.0 - frac) + s[hi] * frac
+
+
+def ess_tail(samples: Tensor) -> Tensor:
+    """Tail ESS: the smaller ESS of the 5% and 95% quantile indicator
+    series of the split chains. (S, C, D) -> (D,)."""
+    x = _split_chains(samples)
+    flat = x.reshape(-1, x.shape[-1])
+    ess = [_ess_core((x <= _quantile0(flat, q)).to(flat.dtype)) for q in (0.05, 0.95)]
+    return torch.minimum(*ess)
+
+
+def ess_mean(samples: Tensor) -> Tensor:
+    """ESS of the raw split draws (the 'mean' method), used for the MCSE."""
+    return _ess_core(_split_chains(samples))
+
+
+def mcse_mean(samples: Tensor) -> Tensor:
+    """Monte Carlo standard error of the mean: sd (ddof 1, over every draw)
+    / sqrt(ess_mean)."""
+    flat = samples.reshape(-1, samples.shape[-1])
+    return torch.std(flat, dim=0, correction=1) / torch.sqrt(ess_mean(samples))

@@ -83,6 +83,17 @@ def kernel_info(value_and_grad_fn, kernel: Optional[str] = None) -> dict:
     return info
 
 
+def fusable(kernel: str, value_and_grad_fn, device) -> bool:
+    """Whether `kernel`'s (a KERNEL_FAMILIES key) CUDA launcher takes this
+    target on this device: CUDA, a tagged family it dispatches on, and D
+    within the kernels' cap (fused_trajectory.MAX_DIM). Every "auto"
+    backend asks this; an explicit "fused" skips it and raises instead."""
+    from mcmc_tpu_torch.ops.fused_trajectory import MAX_DIM
+    info = getattr(value_and_grad_fn, "kernel_info", None)
+    return (torch.device(device).type == "cuda" and info is not None
+            and info["family"] in KERNEL_FAMILIES[kernel] and info["dim"] <= MAX_DIM)
+
+
 def make_device_vag(value_and_grad_fn) -> Callable:
     """(C, D) float32 -> (lp (C,), grad (C, D)), the plain version of the
     device function the kernels inline for this target."""

@@ -436,16 +436,13 @@ def draw_window(generator: torch.Generator, n: int, n_chains: int, dim: int,
 
 
 def _resolve_backend(backend: str, value_and_grad_fn, device) -> str:
-    """"auto" -> "fused" for CUDA tensors and a target kernel 4 dispatches
-    on, else "eager". An explicit "fused" with an untagged target raises
-    TypeError, with a family kernel 4 lacks KeyError."""
-    from mcmc_tpu_torch.ops.padded_targets import KERNEL_FAMILIES, kernel_info
+    """"auto" -> "fused" where kernel 4 takes the target on this device
+    (padded_targets.fusable), else "eager". An explicit "fused" with an
+    untagged target raises TypeError, with a family kernel 4 lacks
+    KeyError."""
+    from mcmc_tpu_torch.ops.padded_targets import fusable, kernel_info
     if backend == "auto":
-        info = getattr(value_and_grad_fn, "kernel_info", None)
-        if (torch.device(device).type == "cuda" and info is not None
-                and info["family"] in KERNEL_FAMILIES["nuts"]):
-            return "fused"
-        return "eager"
+        return "fused" if fusable("nuts", value_and_grad_fn, device) else "eager"
     if backend == "fused":
         if value_and_grad_fn is None:
             raise TypeError("the fused backend requires an analytic "

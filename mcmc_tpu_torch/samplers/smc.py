@@ -166,11 +166,10 @@ def resolve_move_backend(move_backend: str, value_and_grad_fn, tune_trajectory: 
         raise ValueError(f"unknown move_backend {move_backend!r}")
     info = getattr(value_and_grad_fn, "kernel_info", None)
     if move_backend == "auto":
-        from mcmc_tpu_torch.ops.padded_targets import KERNEL_FAMILIES
-        fusable = info is not None and info["family"] in KERNEL_FAMILIES["grahmc"]
+        from mcmc_tpu_torch.ops.padded_targets import fusable
         dense = inv_mass_matrix is not None and inv_mass_matrix.ndim == 2
-        return ("fused" if fusable and not tune_trajectory and not dense
-                and torch.device(device).type == "cuda" else "eager")
+        return ("fused" if fusable("grahmc", value_and_grad_fn, device)
+                and not tune_trajectory and not dense else "eager")
     if move_backend == "fused":
         if tune_trajectory:
             raise ValueError("move_backend='fused' fuses the fixed-length move path; "

@@ -121,16 +121,14 @@ def swap_phase(state: ChainState, betas: Tensor, phase: int, u: Tensor, swap_acc
 
 
 def _resolve_backend(backend: str, value_and_grad_fn, device) -> str:
-    """"auto" is fused for CUDA positions and a target kernel 1b dispatches
-    on, as nuts_run_persistent resolves it; eager otherwise."""
+    """"auto" is fused where kernel 1b takes the target on this device
+    (padded_targets.fusable); eager otherwise."""
     if backend not in ("auto", "eager", "fused"):
         raise ValueError(f"unknown backend {backend!r}; use 'auto', 'eager' or 'fused'")
     if backend != "auto":
         return backend
-    from mcmc_tpu_torch.ops.padded_targets import KERNEL_FAMILIES
-    info = getattr(value_and_grad_fn, "kernel_info", None)
-    fusable = info is not None and info["family"] in KERNEL_FAMILIES["grahmc"]
-    return "fused" if fusable and torch.device(device).type == "cuda" else "eager"
+    from mcmc_tpu_torch.ops.padded_targets import fusable
+    return "fused" if fusable("grahmc", value_and_grad_fn, device) else "eager"
 
 
 def tempered_run(

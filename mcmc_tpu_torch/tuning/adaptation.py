@@ -117,12 +117,12 @@ def _persistent_accept_stat(d_alpha: torch.Tensor, d_transitions: torch.Tensor,
 
 def _resolve_backend(sampler: str, backend: str, value_and_grad_fn,
                      device) -> str:
-    """"auto" -> "fused" for GRAHMC with CUDA positions and a target kernel
-    1 dispatches on, else "eager". NUTS: "persistent" runs the persistent
-    machine (kernel 4 or the eager machine, _make_step_fn), "auto" and
-    "eager" classic NUTS, eager. No other path is taken than the one asked
+    """"auto" -> "fused" for GRAHMC where kernel 1 takes the target on this
+    device (padded_targets.fusable), else "eager". NUTS: "persistent" runs
+    the persistent machine (kernel 4 or the eager machine, _make_step_fn),
+    "auto" and "eager" classic NUTS, eager. No other path is taken than the one asked
     for: an explicit "fused" runs the kernel or raises."""
-    from mcmc_tpu_torch.ops.padded_targets import KERNEL_FAMILIES
+    from mcmc_tpu_torch.ops.padded_targets import fusable
     if sampler == "nuts":
         if backend in ("auto", "eager"):
             return "eager"
@@ -135,11 +135,8 @@ def _resolve_backend(sampler: str, backend: str, value_and_grad_fn,
     if sampler not in ("hmc", "grahmc", "rahmc"):
         raise ValueError(f"Unknown sampler: {sampler}")
     if backend == "auto":
-        info = getattr(value_and_grad_fn, "kernel_info", None)
-        if (sampler != "hmc" and torch.device(device).type == "cuda"
-                and info is not None and info["family"] in KERNEL_FAMILIES["grahmc"]):
-            return "fused"
-        return "eager"
+        return ("fused" if sampler != "hmc" and fusable("grahmc", value_and_grad_fn, device)
+                else "eager")
     if backend == "fused" and sampler == "hmc":
         raise ValueError("the HMC warmup runs eager; the fused warmup is GRAHMC's")
     if backend not in ("eager", "fused"):
@@ -159,7 +156,7 @@ def _persistent_step_fn(generator: torch.Generator, log_prob_fn, value_and_grad_
     step to step; its Philox key is drawn from `generator` whenever the
     metric changes. Otherwise the eager machine's G iterations, its draws
     from `generator`."""
-    from mcmc_tpu_torch.ops.padded_targets import KERNEL_FAMILIES
+    from mcmc_tpu_torch.ops.padded_targets import fusable
     from mcmc_tpu_torch.samplers.nuts_persistent import (_init_pstate, _make_window_step,
                                                          draw_window)
     max_tree_depth = kwargs.get("max_tree_depth", 10)
@@ -170,9 +167,7 @@ def _persistent_step_fn(generator: torch.Generator, log_prob_fn, value_and_grad_
     multinomial = scheme == "multinomial"
     use_fused = kwargs.get("fused_warmup")
     if use_fused is None:
-        info = getattr(value_and_grad_fn, "kernel_info", None)
-        use_fused = (torch.device(device).type == "cuda" and info is not None
-                     and info["family"] in KERNEL_FAMILIES["nuts"])
+        use_fused = fusable("nuts", value_and_grad_fn, device)
 
     def chain_state(pos):
         return init_chain_state(pos, log_prob_fn, value_and_grad_fn, needs_grad=True)

@@ -241,13 +241,11 @@ def jitter_levels_of(trajectory_length: float, step_size: float, max_steps: int,
 
 
 def _resolve_backend(backend: str, value_and_grad_fn, device) -> str:
-    """"auto" -> "fused" for CUDA positions and a family kernel 1
-    dispatches on, else "eager"."""
-    from mcmc_tpu_torch.ops.padded_targets import KERNEL_FAMILIES
+    """"auto" -> "fused" where kernel 1 takes the target on this device
+    (padded_targets.fusable), else "eager"."""
+    from mcmc_tpu_torch.ops.padded_targets import fusable
     if backend == "auto":
-        info = getattr(value_and_grad_fn, "kernel_info", None)
-        fusable = info is not None and info["family"] in KERNEL_FAMILIES["grahmc"]
-        return "fused" if fusable and torch.device(device).type == "cuda" else "eager"
+        return "fused" if fusable("grahmc", value_and_grad_fn, device) else "eager"
     if backend not in ("eager", "fused"):
         raise ValueError(f"unknown backend {backend!r}; use 'auto', 'eager' or 'fused'")
     return backend

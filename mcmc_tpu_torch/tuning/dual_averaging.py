@@ -161,14 +161,12 @@ def _tune_with_da(
 
 
 def _fused_backend(backend: str, kernel: str, value_and_grad_fn, device) -> bool:
-    """Whether a tuner runs its fused kernel: "auto" for CUDA positions and
-    a target the kernel dispatches on, "fused" always (the kernel runs or
-    raises), "eager" never."""
-    from mcmc_tpu_torch.ops.padded_targets import KERNEL_FAMILIES
+    """Whether a tuner runs its fused kernel: "auto" where the kernel takes
+    the target on this device (padded_targets.fusable), "fused" always (the
+    kernel runs or raises), "eager" never."""
+    from mcmc_tpu_torch.ops.padded_targets import fusable
     if backend == "auto":
-        info = getattr(value_and_grad_fn, "kernel_info", None)
-        return (torch.device(device).type == "cuda" and info is not None
-                and info["family"] in KERNEL_FAMILIES[kernel])
+        return fusable(kernel, value_and_grad_fn, device)
     if backend not in ("eager", "fused"):
         raise ValueError(f"unknown backend {backend!r}; use 'auto', 'eager' or 'fused'")
     return backend == "fused"

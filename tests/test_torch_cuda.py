@@ -2109,3 +2109,153 @@ def test_kernel_2_chains_do_not_depend_on_the_count(dev, family, dim, dense):
                     _assert_bits(a, b, f"{family} D={dim} dense={dense} C={n} {mode} output {k}")
                 else:
                     assert torch.equal(a, b)
+
+
+# --------------------------------------------------------------------------
+# The runner's diagnostics and mid-sampling resume on the card
+# --------------------------------------------------------------------------
+
+def _ar_history(shape, dtype, device):
+    """An AR(0.7) history of `shape`, rounded to tenths (ties), made from a
+    seed on `device`."""
+    S, C, D = shape
+    g = torch.Generator(device=device).manual_seed(S + C)
+    x = torch.empty(shape, dtype=dtype, device=device)
+    x[0] = torch.randn((C, D), generator=g, dtype=dtype, device=device)
+    for s in range(1, S):
+        x[s] = 0.7 * x[s - 1] + torch.randn((C, D), generator=g, dtype=dtype, device=device)
+    return torch.round(x * 10) / 10
+
+
+def _assert_diagnostics_close(card, cpu, rtol, atol=0.0):
+    import numpy as np
+    for k, v in cpu.items():
+        if k == "summary":
+            for kk, vv in v.items():
+                np.testing.assert_allclose(card[k][kk], vv, rtol=rtol, atol=atol, err_msg=kk)
+        else:
+            np.testing.assert_allclose(card[k], v, rtol=rtol, atol=atol, err_msg=k)
+
+
+@pytest.mark.parametrize("chunked", [False, True])
+@pytest.mark.parametrize("shape", [(200, 16, 5), (201, 1024, 3), (10000, 64, 2)])
+def test_compute_diagnostics_on_the_card_matches_the_cpu(dev, shape, chunked, monkeypatch):
+    """compute_diagnostics of one float64 history on the card and on the
+    CPU, in one pass and (with the size threshold at 1 byte) through the
+    chain-chunked estimators: cuFFT and pocketfft differ in the last bits,
+    so rtol 1e-9."""
+    from mcmc_tpu_torch import diagnostics as T
+    if chunked:
+        monkeypatch.setattr(T, "_CHUNKED_THRESHOLD_BYTES", 1)
+    x = _ar_history(shape, torch.float64, "cpu")
+    _assert_diagnostics_close(T.compute_diagnostics(x.to(dev)), T.compute_diagnostics(x),
+                              rtol=1e-9)
+
+
+def test_compute_diagnostics_of_the_runners_history_on_the_card(dev, monkeypatch):
+    """The runner's history at the canonical cell's size (10,000 draws x
+    1,024 chains x 10, float32 as the card's positions: 0.41 GB, past the
+    threshold) goes through the chain-chunked estimators on the card and
+    agrees with the CPU's on the same values. Tolerance rtol 1e-3 with
+    atol 1e-5: float32 sums over 10M draws differ in the order of 1e-7 of
+    their scale between the two devices, and where a Geyer pair sits that
+    close to 0 one device may keep it and the other stop, moving tau by
+    one pair of ~1e-4 (the AR(0.7) autocorrelation at the cut) in 5.7."""
+    from mcmc_tpu_torch import diagnostics as T
+    seen = []
+    real = T.compute_diagnostics_chunked
+
+    def spy(samples, chain_chunk, dim_chunk):
+        seen.append((samples.device.type, chain_chunk, dim_chunk))
+        return real(samples, chain_chunk, dim_chunk)
+    monkeypatch.setattr(T, "compute_diagnostics_chunked", spy)
+    x = _ar_history((10000, 1024, 10), torch.float32, dev)
+    card = T.compute_diagnostics(x)
+    cpu = T.compute_diagnostics(x.cpu())
+    assert [d for d, _, _ in seen] == ["cuda", "cpu"], seen
+    _assert_diagnostics_close(card, cpu, rtol=1e-3, atol=1e-5)
+
+
+def test_w2_tracker_without_a_generator_runs_on_the_card(dev, monkeypatch):
+    """A tracker built without a generator, given CUDA samples, draws its
+    reference and directions on the card, from a generator seeded
+    DEFAULT_REFERENCE_SEED there, and projects and sorts there; the samples
+    never go to the host. A CPU tracker given the same reference and
+    directions gives the same W2 to rtol 1e-10 (float64 products)."""
+    from mcmc_tpu_torch.diagnostics import wasserstein as W
+    from mcmc_tpu_torch.targets import get_reference_sampler
+    devices = []
+    real = W._sorted_projections
+
+    def spy(samples, directions):
+        devices.append((samples.device.type, directions.device.type))
+        return real(samples, directions)
+    monkeypatch.setattr(W, "_sorted_projections", spy)
+    tr = W.ConvergenceW2Tracker("standard_normal", 10)
+    s = torch.randn((500, 64, 10), generator=torch.Generator(device=dev).manual_seed(4),
+                    device=dev)
+    w2 = tr.w2(s)
+    assert devices == [("cuda", "cuda")] * 2, devices
+    assert tr.generator.device.type == "cuda" and tr._ref_sorted.device.type == "cuda"
+    assert 0.0 < w2 < 0.05
+    g = torch.Generator(device=dev).manual_seed(W.DEFAULT_REFERENCE_SEED)
+    ref = get_reference_sampler("standard_normal", 10)(g, 50000)
+    dirs = W.unit_directions(g, 500, 10)
+    given = W.ConvergenceW2Tracker("standard_normal", 10, reference=ref, directions=dirs)
+    assert given.w2(s) == w2
+    on_cpu = W.ConvergenceW2Tracker("standard_normal", 10, reference=ref.cpu(),
+                                    directions=dirs.cpu())
+    assert abs(on_cpu.w2(s.cpu()) - w2) <= 1e-10 * w2
+
+
+def test_resumed_fused_grahmc_run_equals_the_uninterrupted_one(dev, tmp_path, monkeypatch):
+    """The runner's tracked GRAHMC row through kernels 1 (warmup) and 2
+    (sampling) on the card, preempted after two checkpoints and resumed:
+    the same trace, row and draws, bit for bit."""
+    import hashlib
+
+    from mcmc_tpu_torch.benchmark import runner as R
+    from mcmc_tpu_torch.utils.checkpoint import SamplingCheckpoint
+
+    t = get_target("neals_funnel_noncentered", dim=6)
+    kw = dict(n_chains=256, num_warmup=300, num_samples=400, schedule_type="tanh", num_steps=8,
+              track_convergence=True, mesh_devices="off")
+    assert R._resolve_backend("grahmc", t, dev) == "fused"
+    histories = []
+    real_diag = R.compute_diagnostics
+
+    def hashing_diag(samples):
+        histories.append(hashlib.sha256(samples.contiguous().cpu().numpy().tobytes()).hexdigest())
+        return real_diag(samples)
+    monkeypatch.setattr(R, "compute_diagnostics", hashing_diag)
+    launches = ft.grahmc_multistep_kernel.launches
+    ra = R.run_single_benchmark_with_L("grahmc", t, "neals_funnel_noncentered",
+                                       R.make_generator(3, dev),
+                                       warmup_cache_dir=str(tmp_path / "a"), **kw)
+    assert ra.get("error") is None
+    assert ft.grahmc_multistep_kernel.launches > launches
+    full = histories[-1]                     # Phase 3's history
+
+    calls = {"n": 0}
+    real_save = SamplingCheckpoint.save
+
+    def killing_save(self, *args, **kwargs):
+        if calls["n"] >= 2:
+            raise RuntimeError("simulated preemption")
+        calls["n"] += 1
+        return real_save(self, *args, **kwargs)
+    monkeypatch.setattr(SamplingCheckpoint, "save", killing_save)
+    killed = R.run_single_benchmark_with_L("grahmc", t, "neals_funnel_noncentered",
+                                           R.make_generator(3, dev),
+                                           warmup_cache_dir=str(tmp_path / "b"), **kw)
+    assert "simulated preemption" in str(killed.get("error"))
+    monkeypatch.setattr(SamplingCheckpoint, "save", real_save)
+    rb = R.run_single_benchmark_with_L("grahmc", t, "neals_funnel_noncentered",
+                                       R.make_generator(3, dev),
+                                       warmup_cache_dir=str(tmp_path / "b"), **kw)
+    assert rb.get("error") is None and rb["warmup_restored"] is True
+    assert histories[-1] == full
+    assert rb["convergence_trace"] == ra["convergence_trace"]
+    for field in ("accept_rate", "rhat_max", "ess_bulk_min", "ess_tail_min", "z_score_max",
+                  "sliced_w2", "sliced_w2_transformed", "step_size", "gamma"):
+        assert rb[field] == ra[field], field
