@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the mcmc_tpu_torch main paths once on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--multistep-switch | --smc-repeat | --runner-cell]
+    python3 chip_smoke.py [--multistep-switch | --smc-repeat | --runner-cell | --chain-mesh]
 
 Run from the repository root on a machine with a CUDA GPU and nvcc. It
 builds the hand-written CUDA kernels from mcmc_tpu_torch/csrc, holds each
@@ -80,7 +80,15 @@ NUTS row and a dense-warmup GRAHMC row on the port:
   diagnostics, gates and Sliced-W2), GRAHMC's row held to the JAX
   package's recorded verdict; run again into the same directory (the
   warmup cache and resume: nothing runs, the files stay byte-equal) and
-  with --no-warmup-cache into another (the same tuned steps and draws).
+  with --no-warmup-cache into another (the same tuned steps and draws);
+- the chain mesh [7] (mcmc_tpu_torch.parallel): the 11 surfaces of
+  __graft_entry__.dryrun_multichip on two gloo ranks time-sharing the card
+  (GRAHMC at the headline width, 65,536 x 50, L = 16; kernels 1, 1b, 1c,
+  4, 4a and 4b each held bit for bit against a 1-rank run over the rank's
+  chains; an eager run, the gathered diagnostics; the mesh warmup with its
+  gamma tune, ChEES and the joint gamma tuner, and fixed-ladder SMC against
+  their unsharded runs, held to the dryrun's bounds), then the GRAHMC
+  surface on a 1-rank NCCL group; its launches are the ranks' counts.
 
 --multistep-switch adds a measurement that gates nothing: grahmc_run at
 1,024 and 4,096 chains through the multi-transition dispatch (T = 8)
@@ -97,6 +105,10 @@ that two processes can be compared. It exits 0 whatever it finds.
     python3 chip_smoke.py --runner-cell
 
 runs only the build and [5r], with its launch counts.
+
+    python3 chip_smoke.py --chain-mesh
+
+runs only the build and [7], with its launch counts.
 
 Every phase passes or raises; there is no CPU path. After the rows every
 kernel is timed at the shapes the paths ran it at ([6]-[6i]; kernel 1 and
@@ -115,6 +127,7 @@ least time the card could take) and {"ok": true, "device": {...}}.
 """
 
 import json
+import math
 import os
 import re
 import statistics
@@ -3840,6 +3853,359 @@ def kernel_bounds(measured):
     return out
 
 
+# ----------------------------------------------------------------------------
+# [7] the chain mesh: __graft_entry__.dryrun_multichip's 11 surfaces on the
+# port, two gloo ranks time-sharing cuda:0, and a 1-rank NCCL group
+# ----------------------------------------------------------------------------
+
+MESH_PATH = "chain mesh [7]"
+MESH_RANKS = 2
+MESH_TIMEOUT = 300               # seconds a rank group may take, its start included
+MESH_DRAWS = 256                 # the headline GRAHMC surface: DIM, CHAINS, NUM_STEPS
+MESH_COLLECT = 64                # history prefix a rank
+MESH_EAGER_CHAINS = 8192
+MESH_EAGER_DRAWS = 8
+MESH_NUTS_CHAINS = 16384
+MESH_NUTS_SPS = 16
+MESH_NUTS_DRAWS = 8
+MESH_TEMP_K = 3
+MESH_TEMP_DRAWS = 64
+MESH_SMC_DIM = 8                 # the dryrun's funnel
+MESH_SMC_P = 32768
+MESH_SMC_RUNGS = 8
+MESH_SMC_MOVES = 2
+MESH_TUNE_DIM = 8
+MESH_TUNE_CHAINS = 4096
+MESH_WARMUP = dict(num_warmup=80, schedule_type="tanh", num_steps=4, exploration_steps=20,
+                   adaptation_windows=[40], cooldown_steps=20, max_iter_step=20,
+                   gamma_samples_per_eval=5)
+MESH_CHEES = dict(num_warmup=80, exploration_steps=20, adaptation_windows=[40],
+                  cooldown_steps=20)
+MESH_CHEES_DRAWS = 64
+MESH_BOUNDS = {"step": 0.3, "mass": 2.4, "chees": 0.35, "joint_gamma": 1.0}   # the dryrun's
+
+
+def _mesh_warmup_launches():
+    """Kernel-1 launches of one MESH_WARMUP run: its windows in batches of
+    update_freq 100, then the gamma tune's 7 evaluations."""
+    w = MESH_WARMUP
+    batches = sum(-(-n // 100) for n in (w["exploration_steps"], *w["adaptation_windows"],
+                                         w["cooldown_steps"]))
+    return 100 * batches + 7 * (max(1, w["max_iter_step"] // 25) * 25
+                                + w["gamma_samples_per_eval"])
+
+
+def _mesh_surfaces(torch, mesh, only_headline=False):
+    """dryrun_multichip's surfaces on this rank. Each surface's mesh run is
+    counted (every count set to 0 just before it, read just after) and timed;
+    its check against the 1-rank run over this rank's chains (the solo mesh
+    folding by this rank) or its unsharded run comes after, uncounted."""
+    from mcmc_tpu_torch import diagnostics, parallel as P, targets, tuning
+    from mcmc_tpu_torch.benchmark import runner as R
+    from mcmc_tpu_torch.ops import fused_nuts as fn
+    from mcmc_tpu_torch.ops import fused_rwmh as fr
+    from mcmc_tpu_torch.ops import fused_trajectory as ft
+    from mcmc_tpu_torch.parallel import fused_sharded as fs
+    from mcmc_tpu_torch.samplers import smc as ts
+    r, dev = mesh.rank, mesh.device
+    solo = P.solo_mesh(dev, fold_index=r)
+    out = {"rank": r, "device": str(dev), "backend": mesh.backend, "surfaces": {},
+           "launches": {}, "shapes": {}, "expected": {}}
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    def counted(name, expected, run):
+        for module in (ft, fr, fn):
+            module.reset_launches()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        got = launch_counts(ft, fr, fn)
+        for key, n in got.items():
+            out["launches"][key] = out["launches"].get(key, 0) + n
+        for key, n in shape_counts(ft, fr, fn).items():
+            out["shapes"][key] = out["shapes"].get(key, 0) + n
+        for key, n in expected.items():
+            out["expected"][key] = out["expected"].get(key, 0) + n
+        out["surfaces"][name] = {"wall": wall, "launches": {k: n for k, n in got.items() if n},
+                                 "expected": expected}
+        return res
+
+    def same(a, b):
+        return float((a.double() - b.double()).abs().max()) if a.shape == b.shape else math.inf
+
+    def block(x, n):
+        local = n // mesh.size
+        return x[r * local:(r + 1) * local]
+
+    # shard_map/Pallas: kernel 1 at the headline width
+    funnel = targets.get_target("neals_funnel", dim=DIM)
+    init = funnel.init_sampler(gen(0), CHAINS)
+    kw = dict(step_size=PARITY_STEP, num_steps=NUM_STEPS, gamma=GAMMA, steepness=STEEPNESS,
+              num_samples=MESH_DRAWS, collect_chains_per_device=MESH_COLLECT)
+    a = counted("kernel 1 (GRAHMC, 50-D funnel)", {"grahmc_step_kernel": MESH_DRAWS},
+                lambda: fs.grahmc_run_sharded(gen(2), funnel, init, mesh, **kw))
+    b = fs.grahmc_run_sharded(gen(2), funnel, block(init, CHAINS), solo, **kw)
+    out["surfaces"]["kernel 1 (GRAHMC, 50-D funnel)"]["check"] = max(
+        same(a.samples[:, r * MESH_COLLECT:(r + 1) * MESH_COLLECT], b.samples),
+        same(block(a.final_state.position, CHAINS), b.final_state.position))
+    out["surfaces"]["kernel 1 (GRAHMC, 50-D funnel)"]["accept"] = float(a.accept_rate.mean())
+    out["surfaces"]["kernel 1 (GRAHMC, 50-D funnel)"]["finite"] = bool(
+        torch.isfinite(a.samples).all())
+    if only_headline:
+        return out
+
+    # GSPMD's counterpart: an eager sampler run on each rank's chains and
+    # gathered (the runner's path for samplers without a sharded run)
+    x0 = funnel.init_sampler(gen(1), MESH_EAGER_CHAINS)
+    info = {"gamma": GAMMA, "steepness": STEEPNESS}
+    eager = ("grahmc", funnel, None, None, 0.05, 4, MESH_EAGER_DRAWS, None, "tanh", info)
+
+    def eager_run(g, x, m):
+        args = list(eager)
+        args[2], args[3] = g, x
+        return R._sample(*args, backend="eager", mesh=m)
+    a = counted("eager sampling path (runner)", {}, lambda: eager_run(gen(3), x0, mesh))
+    b = fs.gather_result(R._sample(*eager[:2], P.rank_generator(gen(3), solo),
+                                   block(x0, MESH_EAGER_CHAINS), *eager[4:], backend="eager"),
+                         solo, MESH_EAGER_DRAWS)
+    local = MESH_EAGER_CHAINS // mesh.size
+    out["surfaces"]["eager sampling path (runner)"]["check"] = same(
+        a.samples[:, r * local:(r + 1) * local], b.samples)
+
+    # collective diagnostics: a gathered history gives the unsharded numbers
+    hist = torch.randn((80, 256, MESH_TUNE_DIM), generator=gen(11), device=dev)
+
+    def diag():
+        g = fs.gather_history(block(hist.transpose(0, 1), 256).transpose(0, 1).contiguous(),
+                              mesh)
+        return diagnostics.split_rhat(g), diagnostics.ess_bulk(g), g
+    rh, ess, g = counted("collective diagnostics", {}, diag)
+    out["surfaces"]["collective diagnostics"]["check"] = max(
+        same(g, hist), same(rh, diagnostics.split_rhat(hist)),
+        same(ess, diagnostics.ess_bulk(hist)))
+
+    # persistent NUTS: kernel 4, 4a, 4b
+    x0 = funnel.init_sampler(gen(4), MESH_NUTS_CHAINS)
+    nkw = dict(step_size=NUTS_PARITY_STEP, num_samples=MESH_NUTS_DRAWS,
+               steps_per_sample=MESH_NUTS_SPS, collect_chains_per_device=MESH_COLLECT)
+    for name, kernel, extra in (
+            ("kernel 4 (persistent NUTS)", "nuts_window_kernel", {}),
+            ("kernel 4a (multinomial NUTS)", "nuts_window_kernel[multinomial]",
+             {"proposal_scheme": "multinomial"}),
+            ("kernel 4b (dense-metric NUTS)", "nuts_window_kernel[dense]",
+             {"inv_mass_matrix": torch.eye(DIM, device=dev) * 1.5})):
+        a = counted(name, {kernel: MESH_NUTS_DRAWS},
+                    lambda extra=extra: fs.nuts_persistent_run_sharded(
+                        gen(5), funnel, x0, mesh, **nkw, **extra))
+        b = fs.nuts_persistent_run_sharded(gen(5), funnel, block(x0, MESH_NUTS_CHAINS), solo,
+                                           **nkw, **extra)
+        out["surfaces"][name]["check"] = max(
+            same(a.samples[:, r * MESH_COLLECT:(r + 1) * MESH_COLLECT], b.samples),
+            same(block(a.final_state.position, MESH_NUTS_CHAINS), b.final_state.position))
+        out["surfaces"][name]["slots"] = int(a.info["n_leapfrog_slots"])
+
+    # tempering: kernel 1b
+    mix = targets.get_target("gaussian_mixture", dim=TEMP_DIM)
+    x0 = mix.init_sampler(gen(6), TEMP_CHAINS)
+    tkw = dict(step_size=TEMP_STEP, num_steps=TEMP_L, num_samples=MESH_TEMP_DRAWS,
+               betas=torch.tensor([1.0, 0.3, 0.08], device=dev), gamma=TEMP_GAMMA,
+               steepness=TEMP_STEEP)
+    a = counted("kernel 1b (tempering)", {"grahmc_scaled_kernel": MESH_TEMP_DRAWS},
+                lambda: fs.tempered_run_sharded(gen(7), mix, x0, mesh, **tkw))
+    b = fs.tempered_run_sharded(gen(7), mix, block(x0, TEMP_CHAINS), solo, **tkw)
+    rows = MESH_TEMP_K * TEMP_CHAINS
+    out["surfaces"]["kernel 1b (tempering)"]["check"] = max(
+        same(block(a.samples.transpose(0, 1), TEMP_CHAINS).transpose(0, 1), b.samples),
+        same(block(a.info["replica_final_positions"], rows),
+             b.info["replica_final_positions"]))
+
+    # SMC: kernel 1c, a fixed ladder; the moves alone (no resampling, a
+    # fixed step) bit for bit, then the dryrun's run against the unsharded one
+    sfun = targets.get_target("neals_funnel", dim=MESH_SMC_DIM)
+    moves = MESH_SMC_RUNGS * MESH_SMC_MOVES
+    skw = dict(n_particles=MESH_SMC_P, dim=MESH_SMC_DIM, step_size=0.3, num_steps=4,
+               move_steps=MESH_SMC_MOVES, base_scale=2.0,
+               betas=torch.linspace(0.2, 1.0, MESH_SMC_RUNGS), max_stages=30,
+               value_and_grad_fn=sfun.value_and_grad_fn, move_backend="fused")
+    pkw = dict(skw, resample_threshold=0.0, adapt_step_size=False)
+    a = counted("kernel 1c (SMC moves)", {"grahmc_bridged_kernel": moves},
+                lambda: fs.smc_run_sharded(gen(8), sfun.log_prob_fn, mesh, **pkw))
+    b = fs.smc_run_sharded(gen(8), sfun.log_prob_fn, solo,
+                           **dict(pkw, n_particles=MESH_SMC_P // mesh.size))
+    out["surfaces"]["kernel 1c (SMC moves)"]["check"] = same(
+        block(a.particles, MESH_SMC_P), b.particles)
+    s = counted("SMC (fixed ladder)", {"grahmc_bridged_kernel": moves},
+                lambda: fs.smc_run_sharded(gen(9), sfun.log_prob_fn, mesh, **skw))
+    out["surfaces"]["SMC (fixed ladder)"].update(
+        stages=int(s.info["n_stages"]), log_z=float(s.log_Z),
+        weight_sum=float(torch.exp(s.log_weights.double()).sum()),
+        finite=bool(torch.isfinite(s.particles).all()))
+
+    # the tuners: the mesh warmup with its gamma tune, ChEES and the joint
+    # gamma tuner (their unsharded runs come from the parent process)
+    tfun = targets.get_target("neals_funnel", dim=MESH_TUNE_DIM)
+    x0 = tfun.init_sampler(gen(12), MESH_TUNE_CHAINS)
+    vag = tfun.value_and_grad_fn
+    w = counted("mesh warmup and gamma tune", {"grahmc_step_kernel": _mesh_warmup_launches()},
+                lambda: tuning.run_adaptive_warmup(
+                    "grahmc", tfun.log_prob_fn, None, x0, gen(13), mesh=mesh,
+                    value_and_grad_fn=vag, backend="fused", **MESH_WARMUP))
+    out["surfaces"]["mesh warmup and gamma tune"].update(
+        step=w[0], inv_mass=w[1].cpu(), gamma=w[3]["gamma"])
+
+    def chees():
+        c = tuning.run_chees_warmup("hmc", tfun.log_prob_fn, None, x0, gen(14), mesh=mesh,
+                                    value_and_grad_fn=vag, **MESH_CHEES)
+        run = tuning.chees_run(gen(15), tfun.log_prob_fn, c[2], c[0],
+                               c[3]["trajectory_length"], MESH_CHEES_DRAWS,
+                               inv_mass_matrix=c[1], value_and_grad_fn=vag, backend="fused",
+                               mesh=mesh)
+        return c, run
+    c, run = counted("ChEES warmup and jittered run", {"grahmc_step_kernel": MESH_CHEES_DRAWS},
+                     chees)
+    out["surfaces"]["ChEES warmup and jittered run"].update(
+        step=c[0], t_len=c[3]["trajectory_length"],
+        finite=bool(torch.isfinite(run.samples).all()))
+
+    def joint():
+        return tuning.run_chees_warmup("grahmc", tfun.log_prob_fn, None, x0, gen(16),
+                                       mesh=mesh, value_and_grad_fn=vag, schedule_type="tanh",
+                                       gamma=1.0, gamma_tuner="joint", **MESH_CHEES)
+    j = counted("joint gamma (SPSA)", {}, joint)
+    grid = j[3]["gamma_tuner"] == "grid"     # fell back: the ESJD grid runs kernel 1
+    out["surfaces"]["joint gamma (SPSA)"].update(step=j[0], gamma=j[3]["gamma"],
+                                                 tuner=j[3]["gamma_tuner"])
+    if grid:
+        extra = 7 * (1000 + 150)
+        out["surfaces"]["joint gamma (SPSA)"]["expected"] = {"grahmc_step_kernel": extra}
+        out["expected"]["grahmc_step_kernel"] += extra
+    return out
+
+
+def mesh_rank(mesh):
+    """A rank of [7]'s gloo group (parallel.launch runs it)."""
+    import torch
+    return _mesh_surfaces(torch, mesh)
+
+
+def mesh_rank_nccl(mesh):
+    """The 1-rank NCCL group's rank: the headline GRAHMC surface."""
+    import torch
+    return _mesh_surfaces(torch, mesh, only_headline=True)
+
+
+def _mesh_references(torch, targets, tuning, samplers, dev):
+    """The unsharded runs of the tuning and SMC surfaces (same seeds)."""
+    tfun = targets.get_target("neals_funnel", dim=MESH_TUNE_DIM)
+    gen = lambda seed: _gen(torch, dev, seed)          # noqa: E731
+    x0 = tfun.init_sampler(gen(12), MESH_TUNE_CHAINS)
+    vag = tfun.value_and_grad_fn
+    w = tuning.run_adaptive_warmup("grahmc", tfun.log_prob_fn, None, x0, gen(13),
+                                   value_and_grad_fn=vag, backend="fused", **MESH_WARMUP)
+    c = tuning.run_chees_warmup("hmc", tfun.log_prob_fn, None, x0, gen(14),
+                                value_and_grad_fn=vag, **MESH_CHEES)
+    j = tuning.run_chees_warmup("grahmc", tfun.log_prob_fn, None, x0, gen(16),
+                                value_and_grad_fn=vag, schedule_type="tanh", gamma=1.0,
+                                gamma_tuner="joint", **MESH_CHEES)
+    sfun = targets.get_target("neals_funnel", dim=MESH_SMC_DIM)
+    s = samplers.smc_run(gen(9), sfun.log_prob_fn, MESH_SMC_P, MESH_SMC_DIM, 0.3, 4,
+                         move_steps=MESH_SMC_MOVES, base_scale=2.0,
+                         betas=torch.linspace(0.2, 1.0, MESH_SMC_RUNGS), max_stages=30,
+                         value_and_grad_fn=sfun.value_and_grad_fn, move_backend="fused")
+    return {"step": w[0], "inv_mass": w[1].cpu(), "chees_step": c[0],
+            "chees_t": c[3]["trajectory_length"], "joint_step": j[0],
+            "joint_gamma": j[3]["gamma"], "smc_stages": int(s.info["n_stages"]),
+            "smc_log_z": float(s.log_Z)}
+
+
+def phase_chain_mesh(torch, targets, tuning, samplers, dev, smi):
+    """[7]: dryrun_multichip's 11 surfaces on MESH_RANKS gloo ranks sharing
+    the card, each rank's kernels held bit for bit against 1-rank runs over
+    its chains, the tuners and SMC against their unsharded runs (computed
+    here while the ranks run), and the headline surface on a 1-rank NCCL
+    group started with them. Returns the ranks' launch counts for `drive`."""
+    from mcmc_tpu_torch.parallel.launch import RankRun
+    here = os.path.abspath(__file__)
+    say(f"[7] chain mesh: {MESH_RANKS} gloo ranks time-sharing {dev} ({smi}); "
+        f"expect no speedup")
+    t0 = time.perf_counter()
+    gloo_run = RankRun(f"{here}:mesh_rank", MESH_RANKS, device="cuda", backend="gloo",
+                       timeout=MESH_TIMEOUT)
+    nccl_run = RankRun(f"{here}:mesh_rank_nccl", 1, device="cuda", backend="nccl",
+                       timeout=MESH_TIMEOUT)
+    try:
+        ref = _mesh_references(torch, targets, tuning, samplers, dev)
+    finally:
+        ranks = gloo_run.results()
+        gloo_wall = time.perf_counter() - t0
+        nccl = nccl_run.results()
+        nccl_wall = time.perf_counter() - t0
+    say(f"  both groups started together: the gloo group done at {gloo_wall:.1f} s, the "
+        f"NCCL group at {nccl_wall:.1f} s (their start and the unsharded references "
+        f"included; the three ranks and this process share the card)")
+    for res in ranks + nccl:
+        require(res["device"] == "cuda:0", f"rank {res['rank']} on {res['device']}")
+        for name, s in res["surfaces"].items():
+            got = {k: n for k, n in s["launches"].items()}
+            say(f"  {res['backend']} rank {res['rank']} {name}: {s['wall']:.3f} s, launches "
+                f"{got or 0}" + (f", max |mesh - 1-rank| {s['check']:.1e}" if "check" in s
+                                 else ""))
+            require(got == {k: n for k, n in s["expected"].items() if n},
+                    f"[7] rank {res['rank']} {name}: launches {got}, expected {s['expected']}")
+            if "check" in s:
+                require(s["check"] == 0.0, f"[7] rank {res['rank']} {name}: a rank differs "
+                                           f"from its 1-rank run by {s['check']}")
+    head = "kernel 1 (GRAHMC, 50-D funnel)"
+    require(all(res["surfaces"][head]["finite"] for res in ranks + nccl),
+            "[7] non-finite GRAHMC draws")
+    m = [res["surfaces"] for res in ranks]
+    for key in ("step", "gamma"):
+        require(m[0]["mesh warmup and gamma tune"][key] == m[1]["mesh warmup and gamma tune"][key],
+                f"[7] the ranks' warmup {key} differ")
+    require(torch.equal(m[0]["mesh warmup and gamma tune"]["inv_mass"],
+                        m[1]["mesh warmup and gamma tune"]["inv_mass"]),
+            "[7] the ranks' metrics differ")
+    w, c, j = (m[0][k] for k in ("mesh warmup and gamma tune", "ChEES warmup and jittered run",
+                                 "joint gamma (SPSA)"))
+    s = m[0]["SMC (fixed ladder)"]
+    d = {"step": abs(math.log(w["step"] / ref["step"])),
+         "mass": float(torch.max(torch.abs(torch.log(w["inv_mass"] / ref["inv_mass"])))),
+         "chees_t": abs(math.log(c["t_len"] / ref["chees_t"])),
+         "chees_step": abs(math.log(c["step"] / ref["chees_step"])),
+         "joint_gamma": abs(math.log(j["gamma"] / ref["joint_gamma"])),
+         "joint_step": abs(math.log(j["step"] / ref["joint_step"])),
+         "smc_log_z": abs(s["log_z"] - ref["smc_log_z"])}
+    say(f"  against the unsharded runs: |log step| {d['step']:.3f} (< {MESH_BOUNDS['step']}), "
+        f"max |log mass| {d['mass']:.3f} (< {MESH_BOUNDS['mass']}), ChEES |log T| "
+        f"{d['chees_t']:.3f} and |log step| {d['chees_step']:.3f} (< {MESH_BOUNDS['chees']}), "
+        f"joint |log gamma| {d['joint_gamma']:.3f} (< {MESH_BOUNDS['joint_gamma']}) and |log "
+        f"step| {d['joint_step']:.3f} ({j['tuner']}); SMC {s['stages']} stages (unsharded "
+        f"{ref['smc_stages']}), |d log Z| {d['smc_log_z']:.4f} (< 0.5)")
+    require(d["step"] < MESH_BOUNDS["step"] and d["mass"] < MESH_BOUNDS["mass"]
+            and d["chees_t"] < MESH_BOUNDS["chees"] and d["chees_step"] < MESH_BOUNDS["chees"]
+            and d["joint_gamma"] < MESH_BOUNDS["joint_gamma"]
+            and d["joint_step"] < MESH_BOUNDS["chees"], f"[7] mesh tuners off: {d}")
+    require(s["stages"] == ref["smc_stages"] == MESH_SMC_RUNGS and d["smc_log_z"] < 0.5
+            and abs(s["weight_sum"] - 1.0) < 1e-4 and s["finite"], f"[7] mesh SMC: {s}, {ref}")
+    require(c["finite"], "[7] non-finite ChEES draws")
+    launches, shapes, expected = {}, {}, {}
+    for res in ranks + nccl:
+        for table, part in ((launches, res["launches"]), (shapes, res["shapes"]),
+                            (expected, res["expected"])):
+            for key, n in part.items():
+                table[key] = table.get(key, 0) + n
+    say(f"  [7] wall {time.perf_counter() - t0:.1f} s; launches a rank: "
+        + "; ".join(f"{res['backend']} rank {res['rank']} "
+                    f"{ {k: n for k, n in res['launches'].items() if n} }"
+                    for res in ranks + nccl))
+    return {"rank_launches": launches, "rank_shapes": shapes, "expected": expected,
+            "wall": time.perf_counter() - t0}
+
+
 def launch_counts(ft, fr, fn):
     """Each kernel's and kernel variant's launch count (the modules
     ops.fused_trajectory, ops.fused_rwmh and ops.fused_nuts)."""
@@ -3917,6 +4283,15 @@ def main():
     if "--smc-repeat" in sys.argv[1:]:
         phase_smc_repeat(torch, targets, samplers, dev)
         return 0
+    if "--chain-mesh" in sys.argv[1:]:
+        for module in (ft, fr, fn):
+            module.reset_launches()
+        out = phase_chain_mesh(torch, targets, tuning, samplers, dev, smi[0])
+        require({k: n for k, n in out["rank_launches"].items() if n}
+                == {k: n for k, n in out["expected"].items() if n},
+                f"{MESH_PATH}: launches {out['rank_launches']}, expected {out['expected']}")
+        say(f"  launches by shape: {out['rank_shapes']}")
+        return 0
     if "--runner-cell" in sys.argv[1:]:
         for module in (ft, fr, fn):
             module.reset_launches()
@@ -3928,6 +4303,7 @@ def main():
         say(f"  launches by shape: {shape_counts(ft, fr, fn)}")
         return 0
 
+    t_checks = time.perf_counter()
     max_err = phase_parity(torch, ft, targets, dev)
     max_err.update(phase_parity_rwmh(torch, ft, fr, targets, dev))
     max_err.update(phase_parity_nuts(torch, ft, fn, tn, targets, dev))
@@ -3936,8 +4312,9 @@ def main():
     phase_philox_stats(torch, targets, samplers, dev)
     phase_stats_rwmh_nuts(torch, targets, samplers, dev)
     phase_multinomial_variance(torch, targets, samplers, dev)
+    say(f"  the checks [3]-[4c]: {time.perf_counter() - t_checks:.1f} s")
 
-    launches, path_counts, path_shapes = {}, {}, {}
+    launches, path_counts, path_shapes, walls = {}, {}, {}, {}
 
     def drive(label, run, expected):
         """Run one main path with every count set to 0 just before it; each
@@ -3948,14 +4325,20 @@ def main():
         ft.reset_launches()
         fr.reset_launches()
         fn.reset_launches()
+        t_path = time.perf_counter()
         out = run()
+        walls[label] = time.perf_counter() - t_path
         got = launch_counts(ft, fr, fn)
+        shapes = shape_counts(ft, fr, fn)
+        if isinstance(out, dict) and "rank_launches" in out:
+            # a path its rank processes ran ([7]): their counts, summed
+            got = {name: out["rank_launches"].get(name, 0) for name in got}
+            shapes = out["rank_shapes"]
         if callable(expected):
             expected = expected(out)
         want = {name: expected.get(name, 0) for name in got}
         say(f"  launches on the {label}: {got} (expected {want})")
         require(got == want, f"{label}: launches {got}, expected {want}")
-        shapes = shape_counts(ft, fr, fn)
         by_name = {name: sum(n for key, n in shapes.items() if key[0] == name) for name in got}
         require(by_name == got, f"{label}: launches by shape {shapes}, in all {got}")
         path_counts[label] = got
@@ -4037,6 +4420,9 @@ def main():
         torch, targets, samplers, tuning, diagnostics, dev), {})
     reference = drive("Rosenbrock reference run",
                       lambda: phase_rosenbrock_reference(torch, targets, dev), {})
+    chain_mesh = drive(MESH_PATH, lambda: phase_chain_mesh(torch, targets, tuning, samplers, dev,
+                                                           smi[0]),
+                       lambda out: out["expected"])
     require(all(n > 0 for n in launches.values()) and set(launches) == set(KERNELS) - set(SPLITS),
             f"a kernel no main path launched: {launches}")
     own, pairs, own_shapes = row_launches(path_shapes)
@@ -4044,6 +4430,8 @@ def main():
             and all(n > 0 for n in own.values()) and set(own) == set(KERNELS),
             f"launches by row {own}, {pairs}; by kernel {launches}")
 
+    say("  each path's wall (s): " + ", ".join(f"{label} {w:.1f}" for label, w in walls.items())
+        + f"; the build, checks and paths {time.perf_counter() - t_start:.1f} s in all")
     times = phase_timing(torch, ft, targets, g_step, dev, lib.build_log)
     nuts_times, measured = phase_timing_rwmh_nuts(torch, ft, fr, fn, tn, targets,
                                                   nuts["step"], dense["step"], dev)
@@ -4103,7 +4491,7 @@ def main():
     three_a = RWMH_NAMES["rwmh+data"]
     say(f"  3a's yardstick {measured[three_a]['yardstick_ms']:.4f} ms ({RWMH_T} matmuls) "
         f"against 3a's {times[three_a][0]:.4f} ms")
-    say(f"[7] done in {time.perf_counter() - t_start:.1f} s")
+    say(f"[9] done in {time.perf_counter() - t_start:.1f} s")
     say(f"  rows: nuts_useful_grads_per_sec {nuts['endpoint']['rate']:.1f}, "
         f"nuts_ess_per_sec {nuts['endpoint']['ess_rate']:.1f}, "
         f"nuts_multinomial_useful_grads_per_sec {nuts['multinomial']['rate']:.1f}, "
@@ -4135,6 +4523,7 @@ def main():
         f"chees_L {chees['num_steps']}, chees_transitions_per_sec {chees['rate']:.1f}, "
         f"chees_accept {chees['accept']:.4f}, chees_jitter_levels {chees['levels']}, "
         f"chees_busy_share {chees['busy'] / chees['wall']:.4f}, "
+        f"chain_mesh_sec {chain_mesh['wall']:.1f}, "
         f"runner_cell_sec {runner_cell['wall']:.1f} ("
         + ", ".join(f"{s} {_runner_verdict(r)}" for s, r in runner_cell["rows"].items()) + ")")
     say("  family sweep (R-hat, means' max z by the chains' spread and by bulk ESS, divergence "

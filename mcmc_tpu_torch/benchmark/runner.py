@@ -18,8 +18,15 @@ The port's own device decisions:
 - "auto" backends run the fused CUDA kernels for CUDA positions and a
   target they dispatch on, up to the kernels' D <= 128, else eager; NUTS
   "auto" is the persistent machine (kernel 4) there, else classic;
-- a mesh needs ``parallel/``, not ported: more than one card, or a count
-  above 1, raises NotImplementedError rather than running on one card;
+- a chain mesh is one process per rank (``--mesh N`` under ``torchrun
+  --nproc-per-node N``, ``mcmc_tpu_torch.parallel``): every rank builds the
+  same global positions from the seed, the warmups and the samplers with a
+  sharded run (GRAHMC/HMC through kernel 1, tempering, persistent NUTS,
+  ChEES, SMC) take the mesh, the other samplers run on each rank's chains
+  and are gathered, and every history the diagnostics read is gathered to
+  every rank, so each rank computes the same row; rank 0 alone writes the
+  files, and a failure on any rank ends the run instead of becoming an
+  error row;
 - the CSV is written with the standard library's ``csv`` (no pandas on the
   card's machine), as pandas writes it;
 - ``warmup_time`` and ``sample_time`` are the card's: every clock read
@@ -68,7 +75,6 @@ _GRID_SUMMARY_FIELDS = [
 ]
 
 TRAJECTORY_SAMPLERS = ("hmc", "grahmc", "rahmc")
-_MESH_TODO = "a chain mesh waits for parallel/ (ROADMAP Queue 1, item 7)"
 
 
 # ----------------------------------------------------------------------------
@@ -184,20 +190,51 @@ def _resolve_nuts_backend(nuts_backend: str, target: TargetDistribution, device)
 
 
 def _resolve_mesh(n_chains: int, mesh_devices="auto", device="cpu"):
-    """None for one device. "off", None, 0 and 1 are one device, and so is
-    "auto" with one visible card (or on the CPU); more cards, or a count
-    above 1, raise NotImplementedError: the chain mesh is not ported, and
-    the runner never runs on one card where the caller asked for more."""
+    """The chain mesh of a multi-process run, or None for one process.
+
+    "off", None, 0 and 1 are one process; "auto" is the process group's
+    ranks when the run was started with more than one (torchrun), else one;
+    an int N > 1 needs a group of N ranks, which parallel.distributed.
+    initialize joins from torchrun's environment. A chain count that does
+    not divide over the ranks runs the whole cell on every rank, as the JAX
+    runner runs it on one device. The collectives take the group's backend
+    (run_benchmarks_torch.py's --mesh-backend; else parallel.mesh_backend's
+    rule)."""
+    import torch.distributed as dist
+    from mcmc_tpu_torch.parallel import make_mesh
+    from mcmc_tpu_torch.parallel.distributed import initialize
     if mesh_devices in (None, "off", 0, 1):
         return None
     if mesh_devices == "auto":
-        n = torch.cuda.device_count() if torch.device(device).type == "cuda" else 1
-        if n <= 1:
+        if not dist.is_initialized():
             return None
-        raise NotImplementedError(f"{n} visible cards: {_MESH_TODO}")
-    if int(mesh_devices) <= 1:
+        n_dev = dist.get_world_size()
+    else:
+        n_dev = int(mesh_devices)
+    if n_dev <= 1:
         return None
-    raise NotImplementedError(f"--mesh {mesh_devices}: {_MESH_TODO}")
+    initialize(device=device)
+    if n_chains % n_dev:
+        print(f"  [mesh] n_chains={n_chains} not divisible by {n_dev} ranks; "
+              f"running every chain on every rank")
+        return None
+    return make_mesh(n_dev, device=_rank_device(device))
+
+
+def _rank_device(device):
+    """This rank's device: the card cuda:(rank mod cards), or the CPU."""
+    import torch.distributed as dist
+    device = torch.device(device)
+    if device.type != "cuda":
+        return device
+    return torch.device("cuda", dist.get_rank() % torch.cuda.device_count())
+
+
+def is_writer() -> bool:
+    """Whether this process writes the run's files: the only process, or
+    rank 0 of a mesh."""
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 # ----------------------------------------------------------------------------
@@ -206,11 +243,13 @@ def _resolve_mesh(n_chains: int, mesh_devices="auto", device="cpu"):
 
 def _warmup(sampler, target, target_name, generator, init_pos, num_warmup, schedule_type,
             num_steps, learn_mass_matrix, verbose=True, nuts_backend="auto",
-            trajectory_tuner="grid", nuts_proposal="endpoint", gamma_tuner="grid"):
+            trajectory_tuner="grid", nuts_proposal="endpoint", gamma_tuner="grid", mesh=None):
     """Phase 1. Returns (step_size, inv_mass, position, warmup_info).
     trajectory_tuner='chees' (HMC/GRAHMC) runs the ChEES joint adaptation
     of step, metric and trajectory length (the caller's num_steps ignored);
-    RWMH tunes its scale by dual averaging and samples from `init_pos`."""
+    RWMH tunes its scale by dual averaging and samples from `init_pos` (on
+    every rank of a mesh alike, as the JAX runner's GSPMD tune is global).
+    The windowed and ChEES warmups take the mesh."""
     device = init_pos.device
     vag = target.value_and_grad_fn
     is_grahmc = sampler in ("grahmc", "rahmc")
@@ -227,7 +266,7 @@ def _warmup(sampler, target, target_name, generator, init_pos, num_warmup, sched
             num_warmup=num_warmup, schedule_type=schedule_type if is_grahmc else None,
             learn_mass_matrix=learn_mass_matrix, value_and_grad_fn=vag, verbose=verbose,
             gamma=1.0, steepness=default_steepness(schedule_type) if is_grahmc else None,
-            gamma_tuner=gamma_tuner)
+            gamma_tuner=gamma_tuner, mesh=mesh)
 
     kwargs = {}
     backend = "auto"
@@ -250,7 +289,7 @@ def _warmup(sampler, target, target_name, generator, init_pos, num_warmup, sched
         num_warmup=num_warmup, target_accept=0.65,
         schedule_type=schedule_type if is_grahmc else None,
         learn_mass_matrix=learn_mass_matrix, value_and_grad_fn=vag, verbose=verbose,
-        backend=backend, **kwargs)
+        backend=backend, mesh=mesh, **kwargs)
 
 
 def _sample(sampler, target, generator, position, step_size, num_steps, num_samples, inv_mass,
@@ -262,10 +301,14 @@ def _sample(sampler, target, generator, position, step_size, num_steps, num_samp
     """Phase 2 dispatch; returns the sampler's RunResult. tempering > 1
     (HMC/GRAHMC) runs the replica-exchange ladder and emits the cold
     replica's draws; replica_position carries the whole (K C, D) ladder
-    from one checkpoint batch to the next."""
-    if mesh is not None:
-        raise NotImplementedError(_MESH_TODO)
-    device = position.device
+    from one checkpoint batch to the next.
+
+    With a mesh (positions global, the same on every rank): tempering,
+    persistent NUTS and fused HMC/GRAHMC take their sharded runs
+    (parallel.fused_sharded, the JAX runner's dispatch); every other
+    sampler runs on the rank's chains with its folded generator and is
+    gathered (where the JAX runner lets GSPMD partition it)."""
+    device = position.device if mesh is None else mesh.device
     if backend == "auto":
         backend = _resolve_backend(sampler, target, device)
     nuts_backend = _resolve_nuts_backend(nuts_backend, target, device)
@@ -274,17 +317,49 @@ def _sample(sampler, target, generator, position, step_size, num_steps, num_samp
     friction = dict(gamma=0.0 if is_hmc else warmup_info.get("gamma", 1.0),
                     steepness=0.0 if is_hmc else warmup_info.get("steepness", 5.0),
                     friction_schedule=None if is_hmc else get_friction_schedule(schedule_type))
+    if mesh is not None:
+        from mcmc_tpu_torch.parallel import fused_sharded as fs
+        n_local = position.shape[0] // mesh.size
     if tempering and tempering > 1 and sampler in TRAJECTORY_SAMPLERS:
         from mcmc_tpu_torch.samplers.tempered import tempered_run
         if tempering_step_sizes is not None:
             step_size = torch.as_tensor(np.asarray(tempering_step_sizes, np.float32),
                                         device=device)
+        if mesh is not None:
+            return fs.tempered_run_sharded(
+                generator, target, position, mesh, step_size, num_steps=num_steps,
+                num_samples=num_samples, n_temps=tempering, beta_min=tempering_beta_min,
+                swap_interval=tempering_swap_interval, inv_mass_matrix=inv_mass,
+                backend=backend, replica_position=replica_position, betas=tempering_betas,
+                **friction)
         return tempered_run(
             generator, target.log_prob_fn, position, step_size, num_steps=num_steps,
             num_samples=num_samples, betas=tempering_betas, n_temps=tempering,
             beta_min=tempering_beta_min, swap_interval=tempering_swap_interval, burn_in=0,
             inv_mass_matrix=inv_mass, value_and_grad_fn=vag, backend=backend,
             init_replica_position=replica_position, **friction)
+    if mesh is not None and sampler == "nuts" and nuts_backend == "persistent":
+        return fs.nuts_persistent_run_sharded(
+            generator, target, position, mesh, step_size, num_samples,
+            steps_per_sample=nuts_steps_per_sample, burn_in_steps=0, inv_mass_matrix=inv_mass,
+            max_tree_depth=10, collect_chains_per_device=n_local,
+            proposal_scheme=nuts_proposal,
+            backend="fused" if fusable("nuts", vag, device) else "eager")
+    if mesh is not None and backend == "fused" and sampler in TRAJECTORY_SAMPLERS:
+        return fs.grahmc_run_sharded(
+            generator, target, position, mesh, step_size, num_steps, friction["gamma"],
+            friction["steepness"], num_samples, inv_mass_matrix=inv_mass,
+            friction_schedule=friction["friction_schedule"], collect_chains_per_device=n_local)
+    if mesh is not None:
+        from mcmc_tpu_torch.parallel import rank_generator, shard_chains
+        res = _sample(sampler, target, rank_generator(generator, mesh),
+                      shard_chains(position, mesh), step_size, num_steps, num_samples,
+                      inv_mass, schedule_type, warmup_info, backend=backend,
+                      nuts_backend=nuts_backend)
+        for key in ("tree_depths", "mean_accept_probs"):      # classic NUTS: (draws, chains)
+            if key in res.info:
+                res.info[key] = fs.gather_history(res.info[key], mesh)
+        return fs.gather_result(res, mesh, num_samples)
     if sampler == "rwmh":
         return rwmh_run(generator, target.log_prob_fn, position, num_samples=num_samples,
                         scale=step_size, burn_in=0, value_and_grad_fn=vag, backend=backend)
@@ -437,9 +512,9 @@ def run_single_benchmark_with_L(
                 sampler, target, target_name, warm_gen, init_pos, num_warmup, schedule_type,
                 num_steps, learn_mass_matrix, nuts_backend=nuts_backend,
                 trajectory_tuner=trajectory_tuner, nuts_proposal=nuts_proposal,
-                gamma_tuner=gamma_tuner)
+                gamma_tuner=gamma_tuner, mesh=mesh)
             warmup_restored = False
-            if warmup_cache_dir is not None:
+            if warmup_cache_dir is not None and is_writer():
                 from mcmc_tpu_torch.utils.checkpoint import save_warmup
                 save_warmup(warmup_cache_dir, warmup_sig, step_size, inv_mass, position,
                             warmup_info)
@@ -525,7 +600,8 @@ def run_single_benchmark_with_L(
                     inv_mass_matrix=inv_mass, value_and_grad_fn=target.value_and_grad_fn,
                     schedule_type=schedule_type if is_grahmc else None,
                     gamma=warmup_info.get("gamma", 0.0),
-                    steepness=warmup_info.get("steepness", 1.0), halton_offset=offset)
+                    steepness=warmup_info.get("steepness", 1.0), halton_offset=offset,
+                    mesh=mesh)
             return _sample(sampler, target, gen, pos, step_size, num_steps, n_draws, inv_mass,
                            schedule_type, warmup_info, replica_position=replica_pos,
                            tempering_betas=tempering_betas,
@@ -615,7 +691,7 @@ def run_single_benchmark_with_L(
                     "ess_tail_min": float(cp_diag["ess_tail_min"]),
                     "rhat_max": float(cp_diag["rhat_max"]),
                 })
-                if sampling_ckpt is not None:
+                if sampling_ckpt is not None and is_writer():
                     sampling_ckpt.save(prev, generator.get_state(), w2_gen.get_state(),
                                        position, replica_pos if use_tempering else None,
                                        halton_cursor, chees_leapfrogs, convergence_trace,
@@ -789,7 +865,7 @@ def run_single_benchmark_with_L(
         }
         results.update(sampler_metadata)
         results["warmup_restored"] = warmup_restored
-        results["mesh_devices"] = None
+        results["mesh_devices"] = mesh.size if mesh is not None else None
         results["mass_matrix_learned"] = learn_mass_matrix
         if learn_mass_matrix and inv_mass is not None:
             results["mass_matrix_min"] = float(torch.min(inv_mass))
@@ -803,11 +879,13 @@ def run_single_benchmark_with_L(
               f"div={divergence_rate:.1%} "
               f"W2={sliced_w2 if sliced_w2 is None else round(sliced_w2, 4)} "
               f"({total_time:.1f}s)")
-        if sampling_ckpt is not None:
+        if sampling_ckpt is not None and is_writer():
             sampling_ckpt.clear()
         return results
 
     except Exception as e:
+        if mesh is not None:
+            raise     # one rank's failure: the ranks cannot go on in step
         import traceback
         traceback.print_exc()
         return {
@@ -858,18 +936,24 @@ def run_single_smc_benchmark(
         print("  [WARN] positive-support target under a full-support "
               "Gaussian base: mass leaks outside the support at small "
               "beta. Run with --reparam auto for the unconstrained bridge.")
-    _resolve_mesh(n_particles, mesh_devices, device)
+    mesh = _resolve_mesh(n_particles, mesh_devices, device)
     _say_past_cap(target, device)
     try:
         run_gen = split_generator(generator)
-        print(f"[Phase 1] Annealing (single-device, adaptive schedule, "
+        where = f"mesh {mesh.size} ranks" if mesh is not None else "single-device"
+        print(f"[Phase 1] Annealing ({where}, adaptive schedule, "
               f"target rel-ESS {target_rel_ess})...")
         sample_start = _clock(device)
-        res = smc_run(run_gen, target.log_prob_fn, n_particles=n_particles, dim=target.dim,
-                      step_size=step_size, num_steps=num_steps, move_steps=move_steps,
-                      max_stages=max_stages, base_scale=base_scale,
-                      target_rel_ess=target_rel_ess, value_and_grad_fn=target.value_and_grad_fn,
+        common = dict(n_particles=n_particles, dim=target.dim, step_size=step_size,
+                      num_steps=num_steps, move_steps=move_steps, max_stages=max_stages,
+                      base_scale=base_scale, target_rel_ess=target_rel_ess,
+                      value_and_grad_fn=target.value_and_grad_fn,
                       tune_trajectory=tune_trajectory, dtype=position_dtype(device))
+        if mesh is not None:
+            from mcmc_tpu_torch.parallel.fused_sharded import smc_run_sharded
+            res = smc_run_sharded(run_gen, target.log_prob_fn, mesh, **common)
+        else:
+            res = smc_run(run_gen, target.log_prob_fn, **common)
         sample_time = _clock(device) - sample_start
 
         n_stages = int(res.info["n_stages"])
@@ -978,7 +1062,7 @@ def run_single_smc_benchmark(
             "smc_final_trajectory_length": (float(res.info["final_trajectory_length"])
                                             if tune_trajectory else None),
             "step_size": float(res.info["final_step_size"]),
-            "mesh_devices": None,
+            "mesh_devices": mesh.size if mesh is not None else None,
             "mass_matrix_learned": False,
         }
         status = ("[PASS]" if results["quality_pass"]
@@ -989,6 +1073,8 @@ def run_single_smc_benchmark(
               f"({total_time:.1f}s)")
         return results
     except Exception as e:
+        if mesh is not None:
+            raise
         import traceback
         traceback.print_exc()
         return {
@@ -1329,7 +1415,8 @@ def run_all_benchmarks(
         ck = _config_key(result)
         all_results = [r for r in all_results if _config_key(r) != ck]
         all_results.append(result)
-        save_result_incremental(result, output_dir, is_first=is_first)
+        if is_writer():
+            save_result_incremental(result, output_dir, is_first=is_first)
         is_first = False
 
     for target_name in targets:

@@ -1,8 +1,10 @@
 """Chain-chunked (streaming) diagnostics for large histories (port of
 ``mcmc_tpu/diagnostics/streaming.py``: bulk, tail and mean ESS, split R-hat,
 the MCSE of the mean and ``compute_diagnostics_chunked``). The JAX
-package's per-dim-sharded path for a history sharded over a device mesh is
-not ported: such a history (a DTensor) raises NotImplementedError.
+package's per-dim-sharded path for a history sharded over a device mesh has
+no counterpart: the port's chain-sharded runs (``parallel.fused_sharded``)
+return their histories gathered on every rank, and a history sharded as a
+DTensor is gathered first.
 
 At the main path's size — a (192, 65536, 50) float32 history, 2.5 GB — the
 pooled rank normalization runs once per block of dims, and the ESS / R-hat
@@ -27,11 +29,9 @@ DEFAULT_DIM_CHUNK = 8
 
 def _as_history(samples):
     """The (S, C, D) history as a tensor (numpy arrays are taken as they
-    are); a history sharded over a device mesh raises."""
+    are); a history sharded over a device mesh (a DTensor) is gathered."""
     if hasattr(samples, "device_mesh"):
-        raise NotImplementedError(
-            "diagnostics of a history sharded over a device mesh wait for "
-            "parallel/ (ROADMAP Queue 1, item 7)")
+        samples = samples.full_tensor()
     return torch.as_tensor(samples)
 
 

@@ -205,3 +205,39 @@ def metric_from_numpy(inv_mass, l_inv=None, dim=None, device="cuda"):
     return PreparedDenseMetric(
         *(_tensor(np.ascontiguousarray(a), device, torch.float32)
           for a in (invm, np.tril(l_inv))))
+
+
+def replica_position_from_numpy(replica_final_positions, n_temps: int, jax_devices: int,
+                                mesh_size: int = 1, device="cuda") -> torch.Tensor:
+    """The JAX package's sharded tempering continuation,
+    info["replica_final_positions"] of `tempered_run_sharded` ((K C, D):
+    `jax_devices` device-major blocks, each its device's replica-major
+    rows), laid out for `parallel.fused_sharded.tempered_run_sharded` over a
+    mesh of `mesh_size` ranks (the same layout: rank-major blocks of
+    replica-major rows), dtype kept, on the card unless `device` names
+    another. Equal sizes leave the rows as they are."""
+    x = np.asarray(replica_final_positions)
+    rows, dim = x.shape
+    n_chains = rows // n_temps
+    if rows % n_temps or n_chains % jax_devices or n_chains % mesh_size:
+        raise ValueError(f"{rows} rows do not split into {n_temps} rungs over "
+                         f"{jax_devices} devices and {mesh_size} ranks")
+    rungs = (x.reshape(jax_devices, n_temps, n_chains // jax_devices, dim)
+             .transpose(1, 0, 2, 3).reshape(n_temps, n_chains, dim))
+    out = (rungs.reshape(n_temps, mesh_size, n_chains // mesh_size, dim)
+           .transpose(1, 0, 2, 3).reshape(rows, dim))
+    return _tensor(out, device)
+
+
+def nuts_state_for_rank(rank: int, n_ranks: int, device="cuda", **fields) -> _PState:
+    """Rank `rank`'s block of a JAX persistent-NUTS machine state over the
+    global chains (nuts_state_from_numpy's fields, every array with the
+    chains on its leading axis): the machine state that rank's chains
+    carry on a mesh of `n_ranks` ranks (parallel.shard_chains' blocks)."""
+    n_chains = np.shape(fields["lp"])[0]
+    if n_chains % n_ranks:
+        raise ValueError(f"{n_chains} chains do not divide over {n_ranks} ranks")
+    local = n_chains // n_ranks
+    rows = slice(rank * local, (rank + 1) * local)
+    return nuts_state_from_numpy(device=device, **{
+        name: None if a is None else np.asarray(a)[rows] for name, a in fields.items()})

@@ -125,15 +125,24 @@ def systematic_resample(generator: Optional[torch.Generator], log_weights: Tenso
     return torch.clamp(torch.searchsorted(cdf, points), 0, n - 1)
 
 
-def _lse(x: Tensor) -> Tensor:
-    """logsumexp over the particle population."""
-    return torch.logsumexp(x, dim=0)
+def _lse(x: Tensor, mesh=None) -> Tensor:
+    """logsumexp over the particle population. With a chain mesh, x is this
+    rank's shard and the sum spans every rank: one pmax for the shift, one
+    psum for the sum (the JAX package's `_lse(axis_name=...)`)."""
+    if mesh is None:
+        return torch.logsumexp(x, dim=0)
+    from mcmc_tpu_torch.parallel import pmax, psum
+    m = pmax(torch.max(x), mesh)
+    m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    return torch.log(psum(torch.sum(torch.exp(x - m_safe)), mesh)) + m_safe
 
 
-def _rel_ess(log_weights: Tensor) -> Tensor:
+def _rel_ess(log_weights: Tensor, total: Optional[int] = None, mesh=None) -> Tensor:
     """Relative effective sample size of NORMALIZED log-weights:
-    1 / (P sum w_i^2), in (0, 1]."""
-    return torch.exp(-_lse(2.0 * log_weights)) / log_weights.shape[0]
+    1 / (P sum w_i^2), in (0, 1]. `total` is the global particle count
+    when log_weights is a rank's shard of a mesh."""
+    n = total if total is not None else log_weights.shape[0]
+    return torch.exp(-_lse(2.0 * log_weights, mesh)) / n
 
 
 def _validate_beta_schedule(betas) -> None:
@@ -205,6 +214,8 @@ def smc_run(
     max_leapfrogs: Optional[int] = None,
     move_backend: str = "auto",
     dtype: torch.dtype = torch.float32,
+    mesh=None,
+    jitter_generator: Optional[torch.Generator] = None,
 ) -> SMCResult:
     """Annealed SMC from N(base_mean, base_scale^2 I) to exp(log_prob_fn).
 
@@ -241,6 +252,17 @@ def smc_run(
     for a CUDA generator): it draws the initial population, the resampling
     uniforms and the eager moves' momenta; the fused moves draw their
     Philox key from it once per run.
+
+    mesh, jitter_generator: the rank's part of
+    `parallel.fused_sharded.smc_run_sharded`, which passes them. Then
+    n_particles is the rank's shard of n_particles x mesh.size;
+    every weight reduction (the reweight's normalization, the log-Z
+    increment, the relative ESS, the conditional-ESS bisection), each
+    move's accept mean and the divergence count span the mesh, so every
+    rank takes the same schedule, resampling decisions and step sizes;
+    resampling stays on the rank, each rank's particles carrying its total
+    weight forward. The tuned moves' jitter comes from jitter_generator
+    (the unfolded run generator, the same on every rank).
     """
     if betas is not None:
         _validate_beta_schedule(betas)
@@ -259,6 +281,9 @@ def smc_run(
     if max_leapfrogs is None:
         max_leapfrogs = max(4 * num_steps, 16)
     dev = generator.device
+    total = n_particles * (1 if mesh is None else mesh.size)
+    if jitter_generator is None:
+        jitter_generator = generator
     move_backend = resolve_move_backend(move_backend, value_and_grad_fn, tune_trajectory,
                                         inv_mass_matrix, dev)
     n, d = n_particles, dim
@@ -280,7 +305,7 @@ def smc_run(
     q = base_sampler(generator, n, dtype)
     lp_t, g_t = target_vag(q)
     lp_t, g_t = lp_t.to(e_dtype), g_t.to(dtype)
-    logw = torch.full((n,), -math.log(n), dtype=e_dtype, device=dev)
+    logw = torch.full((n,), -math.log(total), dtype=e_dtype, device=dev)
     log_z = torch.zeros((), dtype=e_dtype, device=dev)
     beta = torch.zeros((), dtype=torch.float32, device=dev)
     eps = torch.as_tensor(step_size, dtype=torch.float32).to(dev).reshape(())
@@ -299,7 +324,7 @@ def smc_run(
 
     def cond_ess(logw, ll, delta):
         w = logw + delta.to(logw.dtype) * ll
-        return _rel_ess(w - _lse(w))
+        return _rel_ess(w - _lse(w, mesh), total, mesh)
 
     def pick_beta(beta, logw, ll, stage):
         """The next inverse temperature: the fixed schedule's, or the largest
@@ -324,7 +349,7 @@ def smc_run(
         leapfrog count)."""
         if tune_trajectory:
             q0 = mstate.position
-            h = torch.rand((), generator=generator, device=dev)
+            h = torch.rand((), generator=jitter_generator, device=dev)
             t_len = torch.exp(chees.log_t)
             n_lf = int(num_leapfrog_steps(h * t_len, eps, max_leapfrogs))    # the host read
             mstate, _acc, q1, p1, log_alpha, _div = mh_transition_dynamic(
@@ -332,7 +357,7 @@ def smc_run(
                 friction_schedule=friction_schedule, gamma_max=gamma, steepness=steepness)
             # the criterion's gradient needs the unflipped endpoint momentum
             g = chees_log_t_grad(q0, q1, p1, h, t_len,
-                                 torch.exp(log_alpha).to(torch.float32), inv_mass)
+                                 torch.exp(log_alpha).to(torch.float32), inv_mass, mesh=mesh)
             return mstate, chees_update(chees, g), n_lf
         if move_backend == "fused":
             return fused_move(stream, mstate, eps, gamma, steepness, inv_mass,
@@ -349,17 +374,17 @@ def smc_run(
         b_new = pick_beta(beta, logw, ll, stage)
         # reweight and the unbiased log-Z increment (logw stays normalized)
         w = logw + (b_new - beta).to(e_dtype) * ll
-        incr = _lse(w)
+        incr = _lse(w, mesh)
         logw = w - incr
         log_z = log_z + incr
-        rel = _rel_ess(logw)
+        rel = _rel_ess(logw, total, mesh)
         do_res = rel < resample_threshold
         # the stage's one host read: resample?, and is b still below 1?
         resample, more = (bool(x) for x in torch.stack([do_res, b_new < 1.0]).tolist())
         if resample:
             idx = systematic_resample(generator, logw)
             q, lp_t, g_t, lp_b, g_b = q[idx], lp_t[idx], g_t[idx], lp_b[idx], g_b[idx]
-            logw = torch.full_like(logw, -math.log(n))
+            logw = _reset_weights(logw, mesh)
             n_resamples += 1
 
         # moves targeting pi_{b_new}; the state's mixture log-prob is built
@@ -386,6 +411,10 @@ def smc_run(
             mstate, chees, n_lf = move(mstate, eps, mixture_vag, b_new, chees)
             n_leapfrogs += n_lf
             acc_t = (mstate.accept_count - prev).to(torch.float32).mean()
+            if mesh is not None:
+                # the global accept: the step sizes must agree on every rank
+                from mcmc_tpu_torch.parallel import pmean
+                acc_t = pmean(acc_t, mesh)
             accs.append(acc_t)
             if adapt_step_size:
                 # asymmetric: growth capped at e^0.05, shrink up to e^-1,
@@ -414,8 +443,11 @@ def smc_run(
 
     if final_resample:
         idx = systematic_resample(generator, logw)
-        logw = torch.full((n,), -math.log(n), dtype=e_dtype, device=dev)
+        logw = _reset_weights(logw, mesh)
         q, lp_t, g_t = q[idx], lp_t[idx], g_t[idx]
+    if mesh is not None:
+        from mcmc_tpu_torch.parallel import psum
+        n_divergences = psum(n_divergences, mesh)
 
     zeros = torch.zeros(n, dtype=torch.int32, device=dev)
     final_state = ChainState(position=q, log_prob=lp_t, grad_log_prob=g_t,
@@ -424,7 +456,7 @@ def smc_run(
         "n_stages": stage,
         "n_resamples": n_resamples,
         "n_divergences": n_divergences,
-        "ess": _rel_ess(logw) * n,
+        "ess": _rel_ess(logw, total, mesh) * total,
         "final_step_size": eps,
         # leapfrogs PER PARTICLE: every particle integrates the same count
         "n_leapfrogs": n_leapfrogs,
@@ -432,6 +464,16 @@ def smc_run(
         **hist,
     }
     return SMCResult(q, logw, log_z, final_state, info)
+
+
+def _reset_weights(logw: Tensor, mesh) -> Tensor:
+    """Uniform log-weights after a resample: -log P, or on a rank of a mesh
+    its island's total weight spread over its particles, so that the
+    global weights stay normalized while no particle leaves its rank."""
+    n = logw.shape[0]
+    if mesh is None:
+        return torch.full_like(logw, -math.log(n))
+    return torch.full_like(logw, 0.0) + (torch.logsumexp(logw, dim=0) - math.log(n))
 
 
 def weighted_moments(particles: Tensor, log_weights: Tensor):

@@ -35,7 +35,13 @@ the accept trace once, after the loop, as the JAX package does. With the
 fused backend (kernel 1; 1a for the dense metric) a dense metric is
 factored when it changes, at window ends, without waiting for the device.
 
-Not ported yet (it raises NotImplementedError): `mesh=`.
+With a chain mesh (``mcmc_tpu_torch.parallel``) each rank steps its block
+of the chains on its own stream (the run generator folded by rank), and
+every statistic the tuning feeds back is global: each step's accept
+statistic is averaged over the ranks (the persistent machine's sums are
+added), the dense moments are pooled by `welford.psum_increment`, and the
+diagonal estimate averages every chain's variance, so the dual-averaging
+state and the metric are the same on every rank.
 """
 
 import math
@@ -52,7 +58,7 @@ from mcmc_tpu_torch.tuning.dual_averaging import (da_final_step_size, da_init,
 from mcmc_tpu_torch.tuning.sequential import accept_rate, sequential_tune_grahmc
 from mcmc_tpu_torch.tuning.welford import (chain_averaged_variance,
                                            dense_covariance, dense_moment_init,
-                                           dense_moment_update,
+                                           dense_moment_update, psum_increment,
                                            shrink_covariance, shrink_variance,
                                            welford_init, welford_update)
 
@@ -101,16 +107,20 @@ def fixed_width_batches(window_len: int, batch_width: int):
 
 
 def _persistent_accept_stat(d_alpha: torch.Tensor, d_transitions: torch.Tensor,
-                            fallback: float = 0.65) -> torch.Tensor:
+                            fallback: float = 0.65, mesh=None) -> torch.Tensor:
     """A persistent-NUTS warmup step's accept statistic from the per-chain
     accumulator deltas: the mean over the chains that completed a
     transition of their mean alpha, `fallback` when none did (the JAX
-    package's statistic, shared by its machine and fused backends)."""
+    package's statistic, shared by its machine and fused backends). With a
+    chain mesh the two sums span every rank's chains."""
     valid = d_transitions > 0
     per_chain = torch.where(valid, d_alpha / torch.clamp(d_transitions, min=1.0),
                             torch.zeros_like(d_alpha))
     num = torch.sum(per_chain)
     den = torch.sum(valid.to(per_chain.dtype))
+    if mesh is not None:
+        from mcmc_tpu_torch.parallel import psum
+        num, den = psum(torch.stack([num, den]), mesh)
     stat = num / torch.clamp(den, min=1.0)
     return torch.where(den > 0, stat, torch.full_like(stat, fallback))
 
@@ -146,7 +156,7 @@ def _resolve_backend(sampler: str, backend: str, value_and_grad_fn,
 
 
 def _persistent_step_fn(generator: torch.Generator, log_prob_fn, value_and_grad_fn,
-                        kwargs, device):
+                        kwargs, device, mesh=None):
     """The persistent-NUTS warmup's (step, make_state, get_position): one
     step advances every chain's machine by G = steps_per_warmup_step
     leapfrog slots. For CUDA positions and a target kernel 4 dispatches on
@@ -193,7 +203,8 @@ def _persistent_step_fn(generator: torch.Generator, log_prob_fn, value_and_grad_
             a0, t0 = ps.alpha_acc.clone(), ps.transitions.clone()
             ps = built["window"](ps, G, step_size)
             return ps, _persistent_accept_stat(ps.alpha_acc - a0,
-                                               (ps.transitions - t0).to(torch.float32))
+                                               (ps.transitions - t0).to(torch.float32),
+                                               mesh=mesh)
         return step, make_state, lambda ps: ps.q.to(built["dtype"])
 
     vag = make_value_and_grad(log_prob_fn, value_and_grad_fn)
@@ -213,23 +224,34 @@ def _persistent_step_fn(generator: torch.Generator, log_prob_fn, value_and_grad_
         for xs in zip(*draw_window(generator, G, C, D, ps.q.dtype)):
             ps = wstep(ps, xs)
         return ps, _persistent_accept_stat((ps.alpha_acc - a0).to(e_dtype),
-                                           (ps.transitions - t0).to(e_dtype))
+                                           (ps.transitions - t0).to(e_dtype), mesh=mesh)
     return step, make_state, lambda ps: ps.q
 
 
 def _make_step_fn(sampler: str, generator: torch.Generator, log_prob_fn,
                   value_and_grad_fn, kwargs, schedule_type, gamma, steepness,
-                  backend: str):
+                  backend: str, mesh=None):
     """Build the warmup stepping triple (step, make_state, get_position):
     step(state, step_size, metric) -> (state, accept_stat), its randomness
     from `generator` (a Philox stream drawn from it for the fused backend);
     make_state(initial_position) -> the chain state; get_position(state) ->
     (n_chains, dim) for the moments and the returned position. The accept
-    statistic is a float32 device tensor (sequential.accept_rate)."""
+    statistic is a float32 device tensor (sequential.accept_rate), averaged
+    over a chain mesh's ranks (the JAX package's `_mean_stat`)."""
     if backend == "persistent":
         return _persistent_step_fn(generator, log_prob_fn, value_and_grad_fn, kwargs,
-                                   generator.device)
+                                   generator.device, mesh)
     num_steps = kwargs.get("num_steps", 20)
+    if mesh is not None:
+        from mcmc_tpu_torch.parallel import pmean
+        step, make_state, get_position = _make_step_fn(
+            sampler, generator, log_prob_fn, value_and_grad_fn, kwargs, schedule_type,
+            gamma, steepness, backend)
+
+        def global_step(state, step_size, metric):
+            state, stat = step(state, step_size, metric)
+            return state, pmean(stat, mesh)
+        return global_step, make_state, get_position
 
     def make_state(pos):
         return init_chain_state(pos, log_prob_fn, value_and_grad_fn, needs_grad=True)
@@ -315,13 +337,23 @@ def run_adaptive_warmup(
     the sequential gamma tune's included. kwargs as in the JAX package:
     num_steps, gamma, steepness, exploration_steps, adaptation_windows,
     cooldown_steps, max_iter_step, gamma_coarse_values,
-    gamma_samples_per_eval."""
-    if mesh is not None:
-        raise NotImplementedError("the mesh warmup waits for parallel/ "
-                                  "(ROADMAP Queue 1, item 14)")
+    gamma_samples_per_eval.
+
+    mesh: a chain mesh (`mcmc_tpu_torch.parallel.make_mesh`). Every rank
+    passes the same global initial_position and generator; each steps its
+    block of the chains (kernel 1, 1a or 4 on the card, as without a mesh)
+    on the run generator folded by its rank, with the global feedback the
+    module docstring describes, and the gamma tune runs over the mesh too.
+    The returned position is the global one, gathered on every rank."""
     n_chains, n_dim = initial_position.shape
-    device = initial_position.device
     start_time = time.time()
+    step_generator = generator
+    if mesh is not None:
+        from mcmc_tpu_torch.parallel import all_gather, pmean, rank_generator, shard_chains
+        initial_position = shard_chains(initial_position, mesh)
+        step_generator = rank_generator(generator, mesh)
+    n_local = initial_position.shape[0]
+    device = initial_position.device
     dense_mass = learn_mass_matrix == "dense"
     backend = _resolve_backend(sampler, backend, value_and_grad_fn, device)
 
@@ -332,8 +364,8 @@ def run_adaptive_warmup(
         gamma = steepness = None
 
     step_fn, make_state, get_position = _make_step_fn(
-        sampler, generator, target_log_prob, value_and_grad_fn, kwargs,
-        schedule_type, gamma, steepness, backend)
+        sampler, step_generator, target_log_prob, value_and_grad_fn, kwargs,
+        schedule_type, gamma, steepness, backend, mesh)
 
     def step_metric(inv_mass):
         """What the step takes: the fused kernels a dense metric factored
@@ -355,7 +387,7 @@ def run_adaptive_warmup(
         welford = dense_moment_init(torch.zeros(n_dim, dtype=pos_dtype, device=device))
     else:
         inv_mass = torch.ones(n_dim, dtype=pos_dtype, device=device)
-        welford = welford_init((n_chains, n_dim), pos_dtype, device)
+        welford = welford_init((n_local, n_dim), pos_dtype, device)
     metric = step_metric(inv_mass)
 
     schedule = build_schedule(
@@ -370,16 +402,23 @@ def run_adaptive_warmup(
         if not learn_mass_matrix:
             print("  [mass matrix learning disabled - identity metric]")
 
+    def update(welford, position):
+        if not dense_mass:
+            return welford_update(welford, position)
+        pooled = dense_moment_update(welford, position)
+        # the pooled sums over every rank's chains
+        return pooled if mesh is None else psum_increment(pooled, welford, mesh)
+
     accept_trace = []
     # --- windowed adaptation (fixed-width DA batches) ---------------------
     for start_idx, end_idx, phase in schedule:
         accumulate = phase == "adaptation" and bool(learn_mass_matrix)
         if accumulate:
             if dense_mass:
-                welford = dense_moment_init(torch.mean(get_position(chain_state), dim=0))
+                center = torch.mean(get_position(chain_state), dim=0)
+                welford = dense_moment_init(center if mesh is None else pmean(center, mesh))
             else:
-                welford = welford_init((n_chains, n_dim), pos_dtype, device)
-        update = dense_moment_update if dense_mass else welford_update
+                welford = welford_init((n_local, n_dim), pos_dtype, device)
 
         for _n_real, mask in fixed_width_batches(end_idx - start_idx, update_freq):
             step_size = da_step_size(da_state)
@@ -400,7 +439,7 @@ def run_adaptive_warmup(
                 cov = dense_covariance(welford)
                 inv_mass = shrink_covariance(cov, welford.count / n_chains).to(pos_dtype)
             else:
-                variance = chain_averaged_variance(welford)
+                variance = chain_averaged_variance(welford, mesh)
                 inv_mass = shrink_variance(variance, welford.count).to(pos_dtype)
             metric = step_metric(inv_mass)
             da_state = da_reset(da_state)
@@ -413,6 +452,8 @@ def run_adaptive_warmup(
     accept_trace = torch.stack(accept_trace).tolist()
     final_step_size = float(da_final_step_size(da_state))
     position = get_position(chain_state).to(pos_dtype)
+    if mesh is not None:
+        position = all_gather(position, mesh)
     if verbose:
         print(f"Warmup complete. Final step_size: {final_step_size:.5f}")
 
@@ -431,6 +472,7 @@ def run_adaptive_warmup(
             value_and_grad_fn=value_and_grad_fn,
             verbose=verbose,
             backend=backend,
+            mesh=mesh,
         )
         gamma, steepness, final_step_size = tuned_gamma, tuned_steepness, tuned_step
         if verbose:

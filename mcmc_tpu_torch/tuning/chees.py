@@ -29,7 +29,13 @@ kernel 1 (1a for a dense metric, factored once) once per draw at the
 draw's level length: the CUDA kernel takes L at launch, so one kernel
 serves every level. The ChEES and SPSA states take the energy dtype of the
 positions (`mcmc_tpu_torch.precision`), as the port's dual averaging does.
-`mesh=` raises.
+
+With a chain mesh (``mcmc_tpu_torch.parallel``) each rank runs its block
+of the chains on the run generator folded by its rank; the criterion's
+cross-chain means and sums, each step's mean acceptance, the SPSA probe's
+ESJD and the pooled moments span every rank, and the Halton jitter is the
+same on every rank, so every rank integrates the same lengths and keeps the
+same step, T and gamma.
 """
 
 import math
@@ -47,8 +53,8 @@ from mcmc_tpu_torch.tuning.dual_averaging import (da_final_step_size, da_init,
                                                   da_reset, da_step_size, da_update)
 from mcmc_tpu_torch.tuning.welford import (chain_averaged_variance, dense_covariance,
                                            dense_moment_init, dense_moment_update,
-                                           shrink_covariance, shrink_variance,
-                                           welford_init, welford_update)
+                                           psum_increment, shrink_covariance,
+                                           shrink_variance, welford_init, welford_update)
 
 Tensor = torch.Tensor
 
@@ -160,7 +166,7 @@ def _midpoint_median(x: Tensor) -> Tensor:
 
 def chees_log_t_grad(q0: Tensor, q1: Tensor, p1: Tensor, h, trajectory_length,
                      alpha: Tensor, inv_mass: Tensor,
-                     winsorize: float = CHEES_WINSOR_MULT) -> Tensor:
+                     winsorize: float = CHEES_WINSOR_MULT, mesh=None) -> Tensor:
     """Acceptance-weighted cross-chain estimate of d ChEES / d log T.
 
     q0/q1: (C, D) current/proposed positions; p1 the unflipped endpoint
@@ -170,7 +176,9 @@ def chees_log_t_grad(q0: Tensor, q1: Tensor, p1: Tensor, h, trajectory_length,
     sqrt(M^{-1})). Chains whose endpoint or velocity is not finite are left
     out of the means and the gradient; each chain's term is clipped at
     `winsorize` times the cross-chain median |term| (0 disables), which
-    bounds a runaway tail chain's pull."""
+    bounds a runaway tail chain's pull. With a chain mesh the means and sums
+    span every rank's chains and the clip bound is the mean of the ranks'
+    medians, as the JAX package's `axis_name` path takes them."""
     if inv_mass.ndim == 2:
         chol = torch.linalg.cholesky(inv_mass.to(q0.dtype))
         z0 = torch.linalg.solve_triangular(chol, q0.T, upper=False).T
@@ -185,7 +193,12 @@ def chees_log_t_grad(q0: Tensor, q1: Tensor, p1: Tensor, h, trajectory_length,
     vz1 = torch.where(finite[:, None], vz1, torch.zeros_like(vz1))
     n_fin = torch.sum(fmask)
     mu0 = torch.mean(z0, dim=0)
-    mu1 = torch.sum(z1, dim=0) / torch.clamp(n_fin, min=1.0)
+    mu1_num = torch.sum(z1, dim=0)
+    if mesh is not None:
+        from mcmc_tpu_torch.parallel import pmean, psum
+        mu0 = pmean(mu0, mesh)
+        mu1_num, n_fin = psum(mu1_num, mesh), psum(n_fin, mesh)
+    mu1 = mu1_num / torch.clamp(n_fin, min=1.0)
     d1 = z1 - mu1
     c = torch.sum(d1 * d1, dim=-1) - torch.sum((z0 - mu0) ** 2, dim=-1)
     dc_dt = fmask * c * torch.sum(d1 * vz1, dim=-1)
@@ -194,9 +207,14 @@ def chees_log_t_grad(q0: Tensor, q1: Tensor, p1: Tensor, h, trajectory_length,
     dc_dt = torch.where(ok, dc_dt, torch.zeros_like(dc_dt))
     alpha = alpha * fmask * ok
     if winsorize:
-        bound = winsorize * _midpoint_median(torch.abs(dc_dt))
-        dc_dt = torch.clamp(dc_dt, -bound, bound)
-    g = torch.sum(alpha * dc_dt) / torch.clamp(torch.sum(alpha), min=1e-12)
+        med = _midpoint_median(torch.abs(dc_dt))
+        if mesh is not None:
+            med = pmean(med, mesh)      # the mean of the ranks' medians
+        dc_dt = torch.clamp(dc_dt, -winsorize * med, winsorize * med)
+    w_num, w_den = torch.sum(alpha * dc_dt), torch.sum(alpha)
+    if mesh is not None:
+        w_num, w_den = psum(w_num, mesh), psum(w_den, mesh)
+    g = w_num / torch.clamp(w_den, min=1e-12)
     return g * h * trajectory_length       # t = h T: d / d log T = t d / dt
 
 
@@ -295,10 +313,24 @@ def chees_run(
 
     Returns the RunResult; info carries total_leapfrogs (the leapfrogs the
     draws really took), mean_num_steps, num_steps_per_draw,
-    trajectory_length, jitter_backend and, fused, jitter_level_steps."""
+    trajectory_length, jitter_backend and, fused, jitter_level_steps.
+
+    mesh: a chain mesh. init_position is global (the same on every rank);
+    each rank runs its block of the chains on the generator folded by its
+    rank, every rank the same jitter, and the result is gathered on every
+    rank (parallel.fused_sharded.gather_result); collect_chains then counts
+    each rank's chains (default: all of them)."""
     if mesh is not None:
-        raise NotImplementedError("chees_run over a mesh waits for parallel/ "
-                                  "(ROADMAP Queue 1, item 7)")
+        from mcmc_tpu_torch.parallel import rank_generator, shard_chains
+        from mcmc_tpu_torch.parallel.fused_sharded import gather_result
+        local = chees_run(
+            rank_generator(generator, mesh), log_prob_fn, shard_chains(init_position, mesh),
+            step_size, trajectory_length, num_samples, burn_in=burn_in,
+            inv_mass_matrix=inv_mass_matrix, value_and_grad_fn=value_and_grad_fn,
+            collect_chains=collect_chains, backend=backend, max_steps=max_steps,
+            jitter_levels=jitter_levels, schedule_type=schedule_type, gamma=gamma,
+            steepness=steepness, halton_offset=halton_offset)
+        return gather_result(local, mesh, num_samples)
     if trajectory_length <= 0 or step_size <= 0:
         raise ValueError("step_size and trajectory_length must be positive")
     state = init_chain_state(init_position, log_prob_fn, value_and_grad_fn, needs_grad=True)
@@ -402,10 +434,16 @@ def run_chees_warmup(
     chains but adapt nothing), one DA update per batch from the batch's
     mean acceptance probability. log T (and log gamma) is averaged over the
     cooldown batches. `generator` lives on the positions' device and
-    drives every draw."""
+    drives every draw. mesh: a chain mesh over which the global
+    initial_position (the same on every rank) is sharded; the transitions
+    draw from the generator folded by rank, every statistic is global (the
+    module docstring), and the returned position is gathered on every
+    rank."""
+    step_generator = generator
     if mesh is not None:
-        raise NotImplementedError("the mesh warmup waits for parallel/ "
-                                  "(ROADMAP Queue 1, item 7)")
+        from mcmc_tpu_torch.parallel import all_gather, pmean, rank_generator, shard_chains
+        initial_position = shard_chains(initial_position, mesh)
+        step_generator = rank_generator(generator, mesh)
     if sampler not in ("hmc", "grahmc", "rahmc"):
         raise ValueError(f"ChEES adaptation supports hmc/grahmc, got {sampler}")
     if gamma_tuner not in ("grid", "joint"):
@@ -415,7 +453,8 @@ def run_chees_warmup(
         raise ValueError("gamma_tuner='joint' needs a diagonal metric (sphered ESJD); "
                          "use gamma_tuner='grid' with learn_mass_matrix='dense'")
     dense_mass = learn_mass_matrix == "dense"
-    n_chains, n_dim = initial_position.shape
+    n_local, n_dim = initial_position.shape
+    n_chains = n_local * (1 if mesh is None else mesh.size)
     pos_dtype, device = initial_position.dtype, initial_position.device
     e_dtype = precision.energy_dtype(pos_dtype)
 
@@ -440,8 +479,16 @@ def run_chees_warmup(
         moments = dense_moment_init(torch.zeros(n_dim, dtype=pos_dtype, device=device))
     else:
         inv_mass = torch.ones(n_dim, dtype=pos_dtype, device=device)
-        moments = welford_init((n_chains, n_dim), pos_dtype, device)
-    update = dense_moment_update if dense_mass else welford_update
+        moments = welford_init((n_local, n_dim), pos_dtype, device)
+
+    def global_mean(x):
+        return x if mesh is None else pmean(x, mesh)
+
+    def update(moments, position):
+        if not dense_mass:
+            return welford_update(moments, position)
+        pooled = dense_moment_update(moments, position)
+        return pooled if mesh is None else psum_increment(pooled, moments, mesh)
 
     if any(k in kwargs for k in ("exploration_steps", "adaptation_windows", "cooldown_steps")):
         exploration_steps = kwargs.get("exploration_steps", 500)
@@ -473,24 +520,25 @@ def run_chees_warmup(
             sign = torch.where(probe_plus, 1.0, -1.0)
             gamma_t = torch.exp(gs.log_gamma + sign * GAMMA_SPSA_DELTA).to(pos_dtype)
         cs, _accept, q1, p1, log_alpha, _div = mh_transition_dynamic(
-            generator, cs, vag, eps, n, inv_mass, friction_schedule=friction_schedule,
+            step_generator, cs, vag, eps, n, inv_mass, friction_schedule=friction_schedule,
             gamma_max=gamma_t, steepness=steepness)
         alpha = torch.exp(log_alpha)
         if joint_gamma and live:
             d = (q1 - q0).to(torch.float32)
-            esjd = torch.mean(alpha.to(torch.float32)
-                              * torch.sum(d * d / inv_mass.to(torch.float32), dim=-1))
+            esjd = global_mean(torch.mean(
+                alpha.to(torch.float32) * torch.sum(d * d / inv_mass.to(torch.float32), dim=-1)))
             zero = torch.zeros_like(esjd)
             gs = gs._replace(sum_p=gs.sum_p + torch.where(probe_plus, esjd, zero),
                              n_p=gs.n_p + probe_plus.to(torch.float32),
                              sum_m=gs.sum_m + torch.where(probe_plus, zero, esjd),
                              n_m=gs.n_m + (~probe_plus).to(torch.float32))
         if live:
-            g = chees_log_t_grad(q0, q1, p1, h_t, t_len, alpha.to(pos_dtype), inv_mass)
+            g = chees_log_t_grad(q0, q1, p1, h_t, t_len, alpha.to(pos_dtype), inv_mass,
+                                 mesh=mesh)
             ch = chees_update(ch, g, lr=adam_lr)
             if accumulate:
                 moments = update(moments, cs.position)
-        return cs, ch, gs, moments, torch.mean(alpha), n, ch.log_t
+        return cs, ch, gs, moments, global_mean(torch.mean(alpha)), n, ch.log_t
 
     halton_offset = 0
     accept_trace, log_t_trace, mean_n_trace, log_gamma_trace = [], [], [], []
@@ -498,8 +546,8 @@ def run_chees_warmup(
     for start_idx, end_idx, phase in schedule:
         accumulate = phase == "adaptation" and bool(learn_mass_matrix)
         if accumulate:
-            moments = (dense_moment_init(torch.mean(cs.position, dim=0)) if dense_mass
-                       else welford_init((n_chains, n_dim), pos_dtype, device))
+            moments = (dense_moment_init(global_mean(torch.mean(cs.position, dim=0)))
+                       if dense_mass else welford_init((n_local, n_dim), pos_dtype, device))
         for n_real, mask in fixed_width_batches(end_idx - start_idx, update_freq):
             row = np.zeros(mask.numel(), dtype=np.float64)
             row[:n_real] = halton_sequence(n_real, halton_offset)
@@ -529,7 +577,7 @@ def run_chees_warmup(
                 inv_mass = shrink_covariance(dense_covariance(moments),
                                              moments.count / n_chains).to(pos_dtype)
             else:
-                inv_mass = shrink_variance(chain_averaged_variance(moments),
+                inv_mass = shrink_variance(chain_averaged_variance(moments, mesh),
                                            moments.count).to(pos_dtype)
             da = da_reset(da)
             if verbose:
@@ -546,7 +594,7 @@ def run_chees_warmup(
     trajectory_length = float(np.clip(np.exp(log_t_final), step_size, max_steps * step_size))
     num_steps = int(max(1, round(trajectory_length / step_size)))
     inv_mass = inv_mass if learn_mass_matrix else None
-    position = cs.position
+    position = cs.position if mesh is None else all_gather(cs.position, mesh)
 
     gamma_fallback_to_grid = False
     run_grid_phase = friction_schedule is not None and kwargs.get("tune_gamma", True)
@@ -574,7 +622,8 @@ def run_chees_warmup(
             value_and_grad_fn=value_and_grad_fn,
             steepness=steepness,
             verbose=verbose,
-            backend=warmup_backend("grahmc", "auto", value_and_grad_fn, device))
+            backend=warmup_backend("grahmc", "auto", value_and_grad_fn, device),
+            mesh=mesh)
         step_size = float(step_size)
         num_steps = int(max(1, round(trajectory_length / step_size)))
         if num_steps > max_steps:

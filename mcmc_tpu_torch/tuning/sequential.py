@@ -17,6 +17,11 @@ gamma's three numbers and, once, phase 1's accept history. Backends: "eager"
 (``grahmc_step`` with the run's generator) and "fused" (kernel 1, or 1a for
 a dense metric, which exports the proposal ESJD needs; one Philox stream per
 evaluation drawn from the generator, the metric factored once).
+
+With a chain mesh each rank tunes on its block of the chains with the run
+generator folded by its rank, and every statistic fed back (each DA batch's
+accept, the ESJD and its accept) is the mean over all ranks' chains
+(`_gmean`, the JAX package's), so every rank selects the same gamma and step.
 """
 
 import math
@@ -42,6 +47,16 @@ def accept_rate(accepts) -> torch.Tensor:
     return torch.stack(accepts).to(torch.float32).mean()
 
 
+def _gmean(x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """The mean over every chain: over a chain mesh's ranks too (equal
+    shards make the mean of the ranks' means the global mean)."""
+    m = torch.mean(x)
+    if mesh is None:
+        return m
+    from mcmc_tpu_torch.parallel import pmean
+    return pmean(m, mesh)
+
+
 def sequential_tune_grahmc(
     generator: torch.Generator,
     log_prob_fn,
@@ -64,10 +79,14 @@ def sequential_tune_grahmc(
 ) -> Tuple[float, float, float, Dict]:
     """Returns (step_size, gamma, steepness, history). `generator` lives on
     the positions' device; the DA state and ESJD take the energy dtype of
-    the positions, the accept rates float32 (accept_rate)."""
+    the positions, the accept rates float32 (accept_rate). mesh: a chain
+    mesh over which init_position (global, the same on every rank) is
+    sharded; the results are the same on every rank."""
     if mesh is not None:
-        raise NotImplementedError("sequential_tune_grahmc over a mesh waits for "
-                                  "parallel/ (ROADMAP Queue 1, item 14)")
+        from mcmc_tpu_torch.parallel import rank_generator, shard_chains
+        init_position = shard_chains(init_position, mesh)
+        generator = rank_generator(generator, mesh)
+
     if gamma_coarse_values is None:
         gamma_coarse_values = DEFAULT_GAMMA_GRID
     if steepness is None:
@@ -121,7 +140,7 @@ def sequential_tune_grahmc(
             for _ in range(da_batch):
                 chain_state, (accept, *_r) = transition(chain_state, step_size, gamma)
                 accepts.append(accept)
-            stat = accept_rate(accepts)
+            stat = _gmean(accept_rate(accepts), mesh)
             da = da_update(da, stat, target_accept)
             da_accepts.append(stat)
         tuned_step = da_final_step_size(da)
@@ -135,8 +154,8 @@ def sequential_tune_grahmc(
             jump_sq = torch.sum((prop_q - pre_q) ** 2, dim=-1)
             esjd_steps.append(alpha * jump_sq)
             esjd_accepts.append(accept)
-        return (chain_state, tuned_step, torch.stack(esjd_steps).to(dtype).mean(),
-                accept_rate(esjd_accepts), da_accepts)
+        return (chain_state, tuned_step, _gmean(torch.stack(esjd_steps).to(dtype), mesh),
+                _gmean(accept_rate(esjd_accepts), mesh), da_accepts)
 
     # Phase 1: conservative-gamma step tune (each gamma's DA warm start)
     state, base_step, _, _, da_accepts = tune_and_measure(

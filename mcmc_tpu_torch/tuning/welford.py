@@ -8,8 +8,8 @@ operations on the device; nothing is read on the host.
 
 Dtype: the JAX package picks float64 from its global x64 flag. PyTorch has
 no such flag, so the port's states take the dtype they are built with, and
-the warmup builds them in the positions' dtype. `psum_increment`, the mesh
-warmup's reduction, is not ported here (no mesh yet).
+the warmup builds them in the positions' dtype. `psum_increment` is the
+mesh warmup's reduction of the pooled dense moments.
 """
 
 from typing import NamedTuple, Tuple
@@ -63,10 +63,15 @@ def welford_covariance(state: WelfordState) -> Tuple[Tensor, Tensor]:
     return state.mean, state.m2 / (n - 1.0)
 
 
-def chain_averaged_variance(state: WelfordState) -> Tensor:
+def chain_averaged_variance(state: WelfordState, mesh=None) -> Tensor:
     """Stan-style estimate for (n_chains, dim) states: per-chain variances
-    averaged over chains. Returns (dim,)."""
+    averaged over chains. Returns (dim,). With a chain mesh the state is a
+    rank's chains and the average spans every rank's: the variances are
+    gathered, so every rank averages the same rows in the same order."""
     _, var = welford_covariance(state)
+    if mesh is not None:
+        from mcmc_tpu_torch.parallel import all_gather
+        var = all_gather(var, mesh)
     return torch.mean(var, dim=0)
 
 
@@ -97,6 +102,17 @@ def dense_moment_init(center: Tensor) -> DenseMomentState:
         center=center,
         sum_d=torch.zeros((d,), dtype=center.dtype, device=center.device),
         sum_o=torch.zeros((d, d), dtype=center.dtype, device=center.device))
+
+
+def psum_increment(new, old, mesh):
+    """A replicated accumulator's update made global over a chain mesh: each
+    rank computed `new` from its own chains, so old + psum(new - old) is
+    the update of every rank's chains together, the same on every rank.
+    `new` and `old` are NamedTuples of tensors (or tensors)."""
+    from mcmc_tpu_torch.parallel import psum
+    if isinstance(new, torch.Tensor):
+        return old + psum(new - old, mesh)
+    return type(new)(*(b + psum(a - b, mesh) for a, b in zip(new, old)))
 
 
 def dense_moment_update(state: DenseMomentState,

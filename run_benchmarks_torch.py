@@ -11,9 +11,16 @@ The flags and defaults of run_benchmarks.py, plus --device: the runs go on
 the CUDA card ("cuda", the default; it raises where there is none) or, only
 when asked, on the CPU. The output is run_benchmarks.py's
 benchmark_results.{csv,json}, which analyze_benchmarks.py and analysis/ read.
+
+A chain mesh runs one process per rank; rank 0 alone writes the files:
+    torchrun --nproc-per-node 2 run_benchmarks_torch.py --mesh 2 ...
+(--mesh-backend gloo when the ranks share one card; on the CPU with
+--device cpu the mesh takes gloo.)
 """
 
 import argparse
+
+import torch
 
 from mcmc_tpu_torch.benchmark import ALL_TARGET_NAMES, print_summary, run_all_benchmarks
 
@@ -63,8 +70,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "on the card for a target it takes, classic otherwise), 'classic' "
                         "or 'persistent'")
     parser.add_argument("--mesh", type=str, default="auto",
-                        help="Chain sharding over devices: 'auto', a device count or 'off'; "
-                        "the port runs one card, and more raises")
+                        help="Chain sharding over ranks: 'auto' (the ranks torchrun "
+                        "started), a rank count N (run under torchrun --nproc-per-node "
+                        "N) or 'off'")
+    parser.add_argument("--mesh-backend", type=str, default=None, choices=["nccl", "gloo"],
+                        help="The mesh's collectives: NCCL where each rank owns a card "
+                        "(default on the card), gloo on the CPU or, when asked, for "
+                        "ranks sharing one card")
     parser.add_argument("--nuts-steps-per-sample", type=_positive_int, default=64,
                         help="Persistent-NUTS snapshot interval in leapfrog slots")
     parser.add_argument("--nuts-proposal", type=str, default="endpoint",
@@ -122,6 +134,15 @@ def main(argv=None):
         print("Error: Must specify --targets or --all-targets")
         return None
 
+    mesh = args.mesh if args.mesh in ("auto", "off") else int(args.mesh)
+    if mesh not in ("off", 0, 1):
+        # join torchrun's group (a no-op in one process) before any tensor
+        # is placed: a rank's "cuda" is its own card
+        from mcmc_tpu_torch.parallel.distributed import initialize
+        initialize(backend=args.mesh_backend, device=args.device)
+        if args.device == "cuda" and torch.distributed.is_initialized():
+            torch.cuda.set_device(torch.distributed.get_rank() % torch.cuda.device_count())
+
     mass_modes = {"mass": [True], "no-mass": [False], "both": [True, False],
                   "dense": ["dense"]}[args.mass_matrix_mode]
     num_samples = args.num_samples if args.num_samples is not None else 10000
@@ -150,7 +171,7 @@ def main(argv=None):
         mass_matrix_modes=mass_modes,
         track_convergence=args.track_convergence,
         convergence_base=args.convergence_base,
-        mesh_devices=args.mesh if args.mesh in ("auto", "off") else int(args.mesh),
+        mesh_devices=mesh,
         warmup_cache=not args.no_warmup_cache,
         nuts_steps_per_sample=args.nuts_steps_per_sample,
         nuts_backend=args.nuts_backend,

@@ -273,14 +273,14 @@ def test_chees_run_and_warmup_refusals():
         tc.chees_run(torch.Generator(), tt.log_prob_fn, x, 0.1, 1.0, 4, backend="pallas")
     with pytest.raises(TypeError):
         tc.chees_run(torch.Generator(), tt.log_prob_fn, x, 0.1, 1.0, 4, backend="fused")
-    with pytest.raises(NotImplementedError, match="parallel"):
+    with pytest.raises(TypeError, match="ChainMesh"):      # mesh= runs, but takes only a ChainMesh
         tc.chees_run(torch.Generator(), tt.log_prob_fn, x, 0.1, 1.0, 4, mesh=object())
     with pytest.raises(ValueError):
         tc.run_chees_warmup("nuts", tt.log_prob_fn, None, x, torch.Generator())
     with pytest.raises(ValueError, match="diagonal"):
         tc.run_chees_warmup("grahmc", tt.log_prob_fn, None, x, torch.Generator(),
                             learn_mass_matrix="dense", gamma_tuner="joint")
-    with pytest.raises(NotImplementedError, match="parallel"):
+    with pytest.raises(TypeError, match="ChainMesh"):
         tc.run_chees_warmup("hmc", tt.log_prob_fn, None, x, torch.Generator(), mesh=object())
     assert tc._resolve_backend("auto", tt.value_and_grad_fn, "cpu") == "eager"
     assert tc._resolve_backend("auto", tt.value_and_grad_fn, "cuda") == "fused"

@@ -2259,3 +2259,114 @@ def test_resumed_fused_grahmc_run_equals_the_uninterrupted_one(dev, tmp_path, mo
     for field in ("accept_rate", "rhat_max", "ess_bulk_min", "ess_tail_min", "z_score_max",
                   "sliced_w2", "sliced_w2_transformed", "step_size", "gamma"):
         assert rb[field] == ra[field], field
+
+
+# ----------------------------------------------------------------------------
+# The chain mesh: two gloo ranks sharing cuda:0 (mcmc_tpu_torch.parallel)
+# ----------------------------------------------------------------------------
+
+MESH_CHAINS = 8192       # 4,096 a rank
+
+
+def _card_mesh_cases(mesh):
+    """Each sharded run on this rank against a 1-rank run over its chains
+    (bit for bit), with the kernels' launch counts of the mesh runs."""
+    from mcmc_tpu_torch import parallel as P
+    from mcmc_tpu_torch.parallel import fused_sharded as fs
+    from mcmc_tpu_torch.samplers import smc as ts
+    r, dev = mesh.rank, mesh.device
+    t = get_target("neals_funnel", dim=10)
+    init = t.init_sampler(torch.Generator(device=dev).manual_seed(0), MESH_CHAINS,
+                          dtype=torch.float32)
+    local = MESH_CHAINS // mesh.size
+    block = slice(r * local, (r + 1) * local)
+    solo = P.solo_mesh(dev, fold_index=r)
+
+    def G(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+    out, launches = {}, {}
+
+    def both(name, run):
+        """The mesh run (its launches counted) and the 1-rank run over this
+        rank's chains: are the samples and final positions equal?"""
+        for module in (ft, fn):
+            module.reset_launches()
+        a = run(init, mesh)
+        launches[name] = dict(ft.grahmc_step_kernel.variant_launches,
+                              multistep=ft.grahmc_multistep_kernel.launches,
+                              scaled=ft.grahmc_scaled_kernel.launches,
+                              **{f"nuts{k}": v for k, v in
+                                 fn.nuts_window_kernel.variant_launches.items()})
+        b = run(init[block], solo)
+        out[name] = [bool(torch.equal(a.samples[:, block], b.samples)),
+                     bool(torch.equal(a.final_state.position[block], b.final_state.position))]
+
+    both("grahmc", lambda x, m: fs.grahmc_run_sharded(
+        G(1), t, x, m, 0.05, 16, 1.0, 0.5, 20, collect_chains_per_device=local))
+    for name, extra in (("nuts", {}), ("nuts_multinomial", {"proposal_scheme": "multinomial"}),
+                        ("nuts_dense", {"inv_mass_matrix": torch.eye(10, device=dev) * 1.5})):
+        both(name, lambda x, m, extra=extra: fs.nuts_persistent_run_sharded(
+            G(2), t, x, m, 0.2, 4, steps_per_sample=16, collect_chains_per_device=local,
+            **extra))
+    both("tempered", lambda x, m: fs.tempered_run_sharded(
+        G(3), t, x, m, 0.05, 8, 8, betas=torch.tensor([1.0, 0.4, 0.1], device=dev)))
+    for module in (ft, fn):
+        module.reset_launches()
+    s = fs.smc_run_sharded(G(4), t.log_prob_fn, mesh, MESH_CHAINS, 10, 0.2, 8,
+                           betas=torch.linspace(0.2, 1.0, 6), move_steps=2, base_scale=2.0,
+                           value_and_grad_fn=t.value_and_grad_fn)
+    launches["smc"] = {"bridged": ft.grahmc_bridged_kernel.launches}
+    u = ts.smc_run(G(4), t.log_prob_fn, MESH_CHAINS, 10, 0.2, 8,
+                   betas=torch.linspace(0.2, 1.0, 6), move_steps=2, base_scale=2.0,
+                   value_and_grad_fn=t.value_and_grad_fn)
+    out["smc"] = {"stages": (s.info["n_stages"], u.info["n_stages"]),
+                  "log_z": (float(s.log_Z), float(u.log_Z)),
+                  "finite": bool(torch.isfinite(s.particles).all())}
+    out["launches"] = launches
+    out["device"] = str(dev)
+    return out
+
+
+@pytest.fixture(scope="module")
+def card_mesh():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from mcmc_tpu_torch.parallel.launch import run_ranks
+    return run_ranks(f"{__file__}:_card_mesh_cases", 2, device="cuda", backend="gloo",
+                     timeout=300)
+
+
+@pytest.mark.parametrize("name", ["grahmc", "nuts", "nuts_multinomial", "nuts_dense",
+                                  "tempered"])
+@pytest.mark.parametrize("rank", [0, 1])
+def test_mesh_rank_on_card_equals_a_one_rank_run(card_mesh, name, rank):
+    assert all(card_mesh[rank][name]), card_mesh[rank][name]
+    assert card_mesh[rank]["device"] == "cuda:0"
+
+
+@pytest.mark.parametrize("rank", [0, 1])
+def test_mesh_runs_launch_their_kernels_on_card(card_mesh, rank):
+    got = card_mesh[rank]["launches"]
+    # 4,096 chains a rank: kernel 2 at T = 4 over the 20 draws, as the
+    # single-device run takes it
+    assert got["grahmc"]["multistep"] == 20 // 4 and got["grahmc"]["diagonal"] == 0
+    assert got["nuts"]["nutsendpoint"] > 0 and got["nuts_multinomial"]["nutsmultinomial"] > 0
+    assert got["nuts_dense"]["nutsdense"] > 0
+    assert got["tempered"]["scaled"] == 8
+    assert got["smc"]["bridged"] == 6 * 2
+
+
+def test_mesh_smc_on_card_takes_the_unsharded_stages(card_mesh):
+    for res in card_mesh:
+        s = res["smc"]
+        assert s["stages"][0] == s["stages"][1] == 6 and s["finite"]
+        assert abs(s["log_z"][0] - s["log_z"][1]) < 0.5
+
+
+def test_nccl_refuses_two_ranks_on_one_card(dev):
+    if torch.cuda.device_count() > 1:
+        pytest.skip("the card is not shared on a host with more than one")
+    from mcmc_tpu_torch.parallel.launch import run_ranks
+    with pytest.raises(RuntimeError, match="NCCL refuses two ranks on one GPU"):
+        run_ranks(f"{__file__}:_card_mesh_cases", 2, device="cuda", backend="nccl",
+                  timeout=120)

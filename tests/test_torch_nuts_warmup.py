@@ -217,7 +217,7 @@ def test_nuts_warmup_backends_and_refusals():
     with pytest.raises(ValueError):
         ta.run_adaptive_warmup("hmc", tt.log_prob_fn, None, x, torch.Generator(),
                                backend="persistent")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="ChainMesh"):     # mesh= runs, but takes only a ChainMesh
         ta.run_adaptive_warmup("nuts", tt.log_prob_fn, None, x, torch.Generator(),
                                mesh=object())
 

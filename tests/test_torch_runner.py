@@ -148,13 +148,14 @@ def test_mesh_resolution():
     for off in (None, "off", 0, 1):
         assert T._resolve_mesh(16, off, "cpu") is None
     assert T._resolve_mesh(16, "auto", "cpu") is None
+    # a mesh of N > 1 ranks is N processes (torchrun); in one process it raises
     for many in (2, 8, "4"):
-        with pytest.raises(NotImplementedError, match="item 7"):
+        with pytest.raises(ValueError, match="torchrun"):
             T._resolve_mesh(16, many, "cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(ValueError, match="torchrun"):
         T.run_all_benchmarks(["rwmh"], ["standard_normal"], ["constant"], 2, 4, 10, 10, 0,
                              "unused", mesh_devices=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(ValueError, match="torchrun"):
         T.run_single_benchmark_with_L("rwmh", t_target("standard_normal", dim=2),
                                       "standard_normal", T.make_generator(0, "cpu"), 4, 10, 10,
                                       "constant", 8, mesh_devices=2)

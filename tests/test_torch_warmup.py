@@ -229,11 +229,12 @@ def test_warmup_refuses_what_is_not_ported():
     g = torch.Generator()
     # the NUTS warmups are ported (tests/test_torch_nuts_warmup.py): classic
     # under "auto"/"eager", the persistent machine under "persistent"; the
-    # mesh warmup is not
+    # mesh warmup too (tests/test_torch_parallel.py), and a mesh that is not
+    # a parallel.ChainMesh is refused
     for kw in (dict(sampler="nuts", mesh=object()),
                dict(sampler="nuts", backend="persistent", mesh=object()),
                dict(sampler="grahmc", mesh=object())):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(TypeError, match="ChainMesh"):
             t_adapt.run_adaptive_warmup(kw.pop("sampler"), t.log_prob_fn, None, q, g,
                                         value_and_grad_fn=t.value_and_grad_fn, **kw)
     assert t_adapt._resolve_backend("nuts", "auto", t.value_and_grad_fn, "cuda") == "eager"
@@ -244,7 +245,7 @@ def test_warmup_refuses_what_is_not_ported():
     with pytest.raises(ValueError):
         t_adapt.run_adaptive_warmup("hmc", t.log_prob_fn, None, q, g, backend="fused",
                                     value_and_grad_fn=t.value_and_grad_fn)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="ChainMesh"):
         t_seq.sequential_tune_grahmc(g, t.log_prob_fn, None, q, 4, mesh=object())
     # "auto" on CPU positions resolves to eager, never to the kernels
     assert t_adapt._resolve_backend("grahmc", "auto", t.value_and_grad_fn, "cpu") == "eager"
