@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the mcmc_tpu_torch main paths once on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--multistep-switch | --smc-repeat | --runner-cell | --chain-mesh]
+    python3 chip_smoke.py [--multistep-switch | --smc-repeat | --runner-cell | --tune-cli
+                           | --chain-mesh]
 
 Run from the repository root on a machine with a CUDA GPU and nvcc. It
 builds the hand-written CUDA kernels from mcmc_tpu_torch/csrc, holds each
@@ -81,6 +82,13 @@ NUTS row and a dense-warmup GRAHMC row on the port:
   package's recorded verdict; run again into the same directory (the
   warmup cache and resume: nothing runs, the files stay byte-equal) and
   with --no-warmup-cache into another (the same tuned steps and draws);
+- the tune-and-sample CLI [5s]: python -m mcmc_tpu_torch.tuning.core's
+  main() in process, the GRAHMC grid (L 8 and 16) on the 50-D funnel at
+  4,096 chains (kernel 1's warmups and gamma tunes, kernel 2's batches) and
+  RWMH on the 10-D standard normal at 16,384 chains (kernel 3), each batch
+  diagnosed; one batch of the grid's best configuration inside
+  utils.profiling.device_trace (the trace must name kernel 2); and
+  compat.rahmc_run bit for bit against grahmc_run;
 - the chain mesh [7] (mcmc_tpu_torch.parallel): the 11 surfaces of
   __graft_entry__.dryrun_multichip on two gloo ranks time-sharing the card
   (GRAHMC at the headline width, 65,536 x 50, L = 16; kernels 1, 1b, 1c,
@@ -105,6 +113,10 @@ that two processes can be compared. It exits 0 whatever it finds.
     python3 chip_smoke.py --runner-cell
 
 runs only the build and [5r], with its launch counts.
+
+    python3 chip_smoke.py --tune-cli
+
+runs only the build and [5s], with its launch counts.
 
     python3 chip_smoke.py --chain-mesh
 
@@ -323,6 +335,28 @@ RUNNER_REFERENCE = "results_full_matrix_native/benchmark_results.json"   # read 
 RUNNER_TARGET = "NealsFunnelNonCentered10D"
 RUNNER_TUNE_T = 4            # the RWMH tuner's T: the largest dividing its 100 transitions
 RUNNER_TUNE_CHUNK = 25       # DA iterations a chunk of dual_averaging_tune_rwmh
+# the tune-and-sample CLI in process through tuning.core.main [5s]: the GRAHMC
+# grid on the headline funnel at 4,096 chains (kernel 1's warmup and gamma
+# tune, kernel 2's batches at T = MULTI_T) and RWMH on N(0, I_10) at 16,384
+# chains (kernel 3); the unreachable target ESS makes every batch run
+TUNE_CLI_PATH = "tune-and-sample CLI"
+TUNE_CLI_GRID = (8, 16)
+TUNE_CLI_BATCH = 512
+TUNE_CLI_DRAWS = 2048
+TUNE_CLI_GRID_ARGS = ("--sampler", "grahmc", "--target", "neals_funnel", "--dim", str(DIM),
+                      "--chains", str(MULTI_CHAINS), "--num-steps-grid",
+                      ",".join(map(str, TUNE_CLI_GRID)), "--schedule", "constant",
+                      "--warmup-steps", "500", "--batch-size", str(TUNE_CLI_BATCH),
+                      "--max-samples", str(TUNE_CLI_DRAWS), "--target-ess", "1000000")
+TUNE_CLI_RWMH_CHAINS = 16384
+TUNE_CLI_RWMH_BATCH = 2048
+TUNE_CLI_RWMH_DRAWS = 4096
+TUNE_CLI_RWMH_ARGS = ("--sampler", "rwmh", "--target", "standard_normal", "--dim",
+                      str(RWMH_DIM), "--chains", str(TUNE_CLI_RWMH_CHAINS), "--warmup-steps",
+                      "300", "--batch-size", str(TUNE_CLI_RWMH_BATCH), "--max-samples",
+                      str(TUNE_CLI_RWMH_DRAWS), "--target-ess", "1000000")
+TUNE_CLI_ACCEPT = (0.05, 0.6)        # tests/test_aux.py:94's band of the mean acceptance
+COMPAT_DIM, COMPAT_CHAINS, COMPAT_DRAWS = 10, 1024, 20
 # the family sweep at the canonical matrix's cell size
 # (results_full_matrix_native/README.md: dim 10, 1,024 chains, 2,500 warmup,
 # 10,000 draws) [5n]
@@ -400,15 +434,15 @@ RAHMC_GATES = {("rosenbrock10", "grahmc"): ("rhat",),
                ("nested", "rwmh"): ("z",), ("nested", "nuts"): ("z",)}
 ROSENBROCK_20D_REF = "mcmc_tpu/targets/reference_samples/rosenbrock_20d.npy"
 # classic NUTS on the card [5p]: 1,024 chains, depth 10, a 150-step warmup
-# (50 + 25 + 50 + 25, DA batches of 25) and 200 draws. The batch runs until
-# its deepest tree ends, ~0.33 s a transition on Student-t on an H100, so
-# the cut is short.
+# (50 + 25 + 50 + 25, DA batches of 25), 200 draws of the gated standard
+# normal and 100 of Student-t. The batch runs until its deepest tree ends,
+# ~0.2-0.33 s a transition on Student-t on an H100, so the cut is short.
 CLASSIC_DIM = 10
 CLASSIC_CHAINS = 1024
 CLASSIC_DEPTH = 10
 CLASSIC_WARMUP = dict(exploration_steps=50, adaptation_windows=[25, 50], cooldown_steps=25,
                       update_freq=25)
-CLASSIC_DRAWS = 200
+CLASSIC_DRAWS = {"standard_normal": 200, "student_t": 100}
 # generate_rosenbrock_reference at a cut [5q]: dim 10, 32 chains, the
 # classic warmup above, depth 10 (the function's default 12 took 0.43 s a
 # transition), 1,024 draws thinned by 2 (32 per chain)
@@ -465,15 +499,16 @@ KERNELS = {   # name: (source, the TPU kernel it replaces)
     "grahmc_step_kernel[dense] (4,096 chains)": TILED_SRC,
 }
 # rows split from a kernel's main-shape row: entry -> (the kernel's entry,
-# the path whose launches it takes, and their chains, None for every shape).
+# the paths whose launches it takes, and their chains, None for every shape).
 # The family sweep's and [5o]'s launches go to "kernel (family)" pairs
 # (PAIR_PATHS); a row's launches are read from the counts by shape
 # (ops/fused_trajectory.py:count_launch).
-SPLITS = {"grahmc_step_kernel (ChEES row)": ("grahmc_step_kernel", "ChEES row", None),
-          "grahmc_step_kernel (4,096 chains)": ("grahmc_step_kernel", "dense-warmup GRAHMC row",
+SPLITS = {"grahmc_step_kernel (ChEES row)": ("grahmc_step_kernel", ("ChEES row",), None),
+          "grahmc_step_kernel (4,096 chains)": ("grahmc_step_kernel",
+                                                ("dense-warmup GRAHMC row", TUNE_CLI_PATH),
                                                 MULTI_CHAINS),
           "grahmc_step_kernel[dense] (4,096 chains)": ("grahmc_step_kernel[dense]",
-                                                       "dense-warmup GRAHMC row",
+                                                       ("dense-warmup GRAHMC row",),
                                                        MULTI_CHAINS)}
 PAIR_PATHS = ("family sweep", RUNNER_PATH) + tuple(f"{cell} cell" for cell in RAHMC_CELLS)
 # kernels 1, 2, 1b and 1c's variants (ops/fused_trajectory.py:variant_name),
@@ -2717,6 +2752,157 @@ def phase_runner_cell(torch, counts):
     return {"expected": expected, "rows": first["rows"], "wall": wall}
 
 
+def phase_tune_cli(torch, targets, samplers, dev, counts):
+    """[5s]: the tune-and-sample CLI (python -m mcmc_tpu_torch.tuning.core)
+    in process through main(argv), then the profiler and the compat API.
+
+    (a) TUNE_CLI_GRID_ARGS: the GRAHMC grid on the 50-D funnel at 4,096
+    chains; kernel 1 and kernel 2 must launch, every draw be finite, the
+    best L be in the grid and every grid entry carry its tuned gamma.
+    (b) TUNE_CLI_RWMH_ARGS: RWMH through kernel 3; finite draws and the
+    mean acceptance in TUNE_CLI_ACCEPT; R-hat and the means' z against 0
+    printed, not gated (as in the JAX CLI, the batches start from the
+    initial positions, so the transient stays in the draws). (c) One batch
+    of (a)'s best configuration (unit metric) inside
+    utils.profiling.device_trace, then force_completion: the trace must
+    exist and name kernel 2's symbol. (d) compat.rahmc_run against
+    grahmc_run on the 10-D funnel at 1,024 chains, seeded alike: bit for
+    bit. `counts` reads the kernels' launch counts. Returns {"expected":
+    launches by kernel, "wall": seconds, "walls": seconds by part}."""
+    import tempfile
+
+    from mcmc_tpu_torch import compat
+    from mcmc_tpu_torch.ops.padded_targets import sampler_backend
+    from mcmc_tpu_torch.tuning import core
+    from mcmc_tpu_torch.utils import profiling
+
+    t0 = time.perf_counter()
+    walls = {}
+    finite, seconds = [], []
+    real_warmup, real_sample = core.run_adaptive_warmup, core._adaptive_sample
+
+    def timed(fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t)
+            return out
+        return run
+
+    def sample(*a, **k):
+        out = timed(real_sample)(*a, **k)
+        finite.append(bool(torch.isfinite(out["samples"]).all()))
+        return out
+
+    say(f"[5s] python -m mcmc_tpu_torch.tuning.core {' '.join(TUNE_CLI_GRID_ARGS)}")
+    before = counts()
+    t = time.perf_counter()
+    core.run_adaptive_warmup, core._adaptive_sample = timed(real_warmup), sample
+    try:
+        grid = core.main(list(TUNE_CLI_GRID_ARGS))
+    finally:
+        core.run_adaptive_warmup, core._adaptive_sample = real_warmup, real_sample
+    walls["grid"] = time.perf_counter() - t
+    after = counts()
+    k1, k2 = (after[n] - before[n] for n in ("grahmc_step_kernel", "grahmc_multistep_kernel"))
+    for i, entry in enumerate(grid["grid_results"]):
+        say(f"  [5s] L {entry['num_steps']}: step {entry['step_size']:.5f}, gamma "
+            f"{entry['gamma']}, steepness {entry['steepness']}, accept "
+            f"{entry['mean_acceptance']:.4f}, min bulk ESS {entry['ess_bulk_min']:.1f}, R-hat "
+            f"{entry['rhat_max']:.4f}, {entry['total_samples']} draws; warmup and gamma tune "
+            f"{seconds[2 * i]:.2f} s, batches with their diagnostics {seconds[2 * i + 1]:.2f} s")
+    best = grid["best_config"]
+    say(f"  [5s] best L {best['num_steps']}; kernel 1 {k1} launches, kernel 2 {k2}; "
+        f"{walls['grid']:.1f} s")
+    require(k1 > 0 and k2 > 0, f"[5s] grid: kernel 1 {k1} and kernel 2 {k2} launches")
+    require(len(finite) == len(TUNE_CLI_GRID) and all(finite), f"[5s] grid: finite {finite}")
+    require(best["num_steps"] in TUNE_CLI_GRID, f"[5s] best L {best['num_steps']}")
+    require(all(e.get("gamma") is not None for e in grid["grid_results"]),
+            f"[5s] a grid entry without gamma: {grid['grid_results']}")
+
+    say(f"[5s] python -m mcmc_tpu_torch.tuning.core {' '.join(TUNE_CLI_RWMH_ARGS)}")
+    before = counts()
+    t = time.perf_counter()
+    rwmh = core.main(list(TUNE_CLI_RWMH_ARGS))
+    torch.cuda.synchronize()
+    walls["rwmh"] = time.perf_counter() - t
+    k3 = counts()["rwmh_multistep_kernel"] - before["rwmh_multistep_kernel"]
+    diag = rwmh["diagnostics"]
+    z = max(abs(float(m)) / float(se)
+            for m, se in zip(diag["summary"]["mean"], diag["summary"]["mcse_mean"]))
+    n_tune = len(rwmh["history"]["scale_history"])
+    say(f"  [5s] RWMH: scale {rwmh['scale']:.5f} after {n_tune} DA iterations, mean accept "
+        f"{rwmh['mean_acceptance']:.4f}, R-hat {diag['rhat_max']:.4f}, min bulk ESS "
+        f"{diag['ess_bulk_min']:.1f}, means' max z against 0 {z:.3f}; kernel 3 {k3} "
+        f"launches; {walls['rwmh']:.1f} s")
+    require(k3 > 0, "[5s] RWMH: no kernel-3 launch")
+    require(bool(torch.isfinite(rwmh["samples"]).all()), "[5s] RWMH: non-finite draws")
+    lo, hi = TUNE_CLI_ACCEPT
+    require(lo < rwmh["mean_acceptance"] < hi,
+            f"[5s] RWMH mean acceptance {rwmh['mean_acceptance']} outside {TUNE_CLI_ACCEPT}")
+    del rwmh
+
+    t = targets.get_target("neals_funnel", dim=DIM)
+    gen = _gen(torch, dev, 520)
+    pos = t.init_sampler(gen, MULTI_CHAINS, dtype=torch.float32)
+    friction = samplers.get_friction_schedule("constant")
+    with tempfile.TemporaryDirectory(prefix="tune_cli_trace_") as trace_dir:
+        torch.cuda.synchronize()
+        with profiling.device_trace(trace_dir) as prof:
+            t1 = time.perf_counter()
+            res = samplers.grahmc_run(
+                gen, t.log_prob_fn, pos, best["step_size"], best["num_steps"], best["gamma"],
+                best["steepness"], TUNE_CLI_BATCH, friction_schedule=friction,
+                value_and_grad_fn=t.value_and_grad_fn,
+                backend=sampler_backend("grahmc", t, dev))
+            profiling.force_completion(res)
+            walls["profiled batch"] = time.perf_counter() - t1
+        traces = [f for f in os.listdir(trace_dir) if f.endswith(".pt.trace.json")]
+        require(len(traces) == 1, f"[5s] device_trace wrote {traces}")
+        with open(os.path.join(trace_dir, traces[0])) as f:
+            text = f.read()
+    kernel_us = sum(getattr(e, "device_time_total", 0.0) for e in prof.key_averages()
+                    if "grahmc_multistep_kernel" in e.key)
+    rates = profiling.throughput_counters(TUNE_CLI_BATCH, MULTI_CHAINS, best["num_steps"],
+                                          walls["profiled batch"])
+    say(f"  [5s] profiled batch ({TUNE_CLI_BATCH} draws, L {best['num_steps']}, "
+        f"{MULTI_CHAINS} chains): {walls['profiled batch']:.3f} s, trace "
+        f"{len(text) / 1e6:.2f} MB naming grahmc_multistep_kernel "
+        f"{text.count('grahmc_multistep_kernel')} times, kernel 2's device time "
+        f"{kernel_us / 1e3:.3f} ms; " + ", ".join(f"{k} {v:.1f}" for k, v in rates.items()))
+    require("grahmc_multistep_kernel" in text, "[5s] the trace does not name kernel 2")
+    require(bool(torch.isfinite(res.samples).all()), "[5s] profiled batch: non-finite draws")
+    del res, text
+
+    t = targets.get_target("neals_funnel", dim=COMPAT_DIM)
+    init = t.init_sampler(_gen(torch, dev, 530), COMPAT_CHAINS, dtype=torch.float32)
+    kw = dict(step_size=0.1, num_steps=8, gamma=0.5, steepness=1.0)
+    t1 = time.perf_counter()
+    a = compat.rahmc_run(_gen(torch, dev, 531), t.log_prob_fn, init,
+                         num_samples=COMPAT_DRAWS, **kw)
+    b = samplers.grahmc_run(_gen(torch, dev, 531), t.log_prob_fn, init,
+                            num_samples=COMPAT_DRAWS, **kw)
+    same = [torch.equal(x, y) for x, y in zip(a, (b.samples, b.log_probs, b.accept_rate))]
+    same.append(torch.equal(a[3].position, b.final_state.position))
+    walls["compat"] = time.perf_counter() - t1
+    say(f"  [5s] compat.rahmc_run against grahmc_run ({COMPAT_CHAINS} x {COMPAT_DIM} funnel, "
+        f"{COMPAT_DRAWS} draws, eager): samples, log-probs, accept, final position equal "
+        f"{same}; {walls['compat']:.2f} s")
+    require(all(same), f"[5s] compat.rahmc_run differs from grahmc_run: {same}")
+
+    n_grid = len(TUNE_CLI_GRID)
+    expected = {"grahmc_step_kernel": n_grid * (WARMUP_TRANSITIONS + TUNE_TRANSITIONS),
+                "grahmc_multistep_kernel": (n_grid * TUNE_CLI_DRAWS + TUNE_CLI_BATCH) // MULTI_T,
+                "rwmh_multistep_kernel": n_tune * (100 // RUNNER_TUNE_T)
+                + TUNE_CLI_RWMH_DRAWS // RWMH_T}
+    wall = time.perf_counter() - t0
+    say(f"  [5s] phase wall {wall:.1f} s (" + ", ".join(f"{k} {v:.1f}" for k, v in walls.items())
+        + ")")
+    return {"expected": expected, "wall": wall, "walls": walls}
+
+
 def _occupancy(torch, info, x):
     """The family's mode shares of draws x (draws, chains, dim), from the
     target's kernel_info: the bimodal funnel's share with v > 0; the L1
@@ -2889,7 +3075,7 @@ def phase_classic_nuts(torch, targets, samplers, tuning, diagnostics, dev):
     """Classic NUTS (samplers.nuts, plain batched PyTorch: no kernel) on
     the card [5p]: the 10-D standard normal and Student-t(3), 1,024 chains,
     run_adaptive_warmup("nuts") over CLASSIC_WARMUP at depth 10, then
-    nuts_run for CLASSIC_DRAWS draws. Gates on the standard normal: finite,
+    nuts_run for its CLASSIC_DRAWS draws. Gates on the standard normal: finite,
     R-hat <= 1.05, means within 5 MCSE of 0 (both MCSEs). Prints the
     seconds per transition, the mean tree depth and, on Student-t, the
     share of draws outside the exact central 99.9% against the exact 0.1%
@@ -2897,9 +3083,9 @@ def phase_classic_nuts(torch, targets, samplers, tuning, diagnostics, dev):
     persistent-NUTS reading."""
     say(f"[5p] classic NUTS: dim {CLASSIC_DIM}, {CLASSIC_CHAINS} chains, depth {CLASSIC_DEPTH}, "
         f"{sum(CLASSIC_WARMUP['adaptation_windows']) + CLASSIC_WARMUP['exploration_steps'] + CLASSIC_WARMUP['cooldown_steps']}"
-        f"-step warmup, {CLASSIC_DRAWS} draws")
+        f"-step warmup, " + ", ".join(f"{n} draws of {f}" for f, n in CLASSIC_DRAWS.items()))
     out = {}
-    for k, family in enumerate(("standard_normal", "student_t")):
+    for k, family in enumerate(CLASSIC_DRAWS):
         t = targets.get_target(family, dim=CLASSIC_DIM)
         gen = _gen(torch, dev, 400 + k)
         init = torch.randn((CLASSIC_CHAINS, CLASSIC_DIM), generator=gen, device=dev) * 0.5
@@ -2910,7 +3096,8 @@ def phase_classic_nuts(torch, targets, samplers, tuning, diagnostics, dev):
         torch.cuda.synchronize()
         warm = time.perf_counter() - t0
         t0 = time.perf_counter()
-        res = samplers.nuts_run(gen, t.log_prob_fn, pos, step, CLASSIC_DRAWS,
+        draws = CLASSIC_DRAWS[family]
+        res = samplers.nuts_run(gen, t.log_prob_fn, pos, step, draws,
                                 inv_mass_matrix=inv_mass, max_tree_depth=CLASSIC_DEPTH,
                                 value_and_grad_fn=t.value_and_grad_fn)
         torch.cuda.synchronize()
@@ -2931,8 +3118,8 @@ def phase_classic_nuts(torch, targets, samplers, tuning, diagnostics, dev):
             [SWEEP_TAIL / 2, 1 - SWEEP_TAIL / 2], dtype=exact.dtype, device=dev), dim=0)
         share, stretch = _tail_stats(torch, x, lo, hi)
         depth = float(res.info["tree_depths"].double().mean())
-        per = wall / CLASSIC_DRAWS
-        say(f"  {family}: warmup {warm:.2f} s (step {step:.5f}), {CLASSIC_DRAWS} draws in "
+        per = wall / draws
+        say(f"  {family}: warmup {warm:.2f} s (step {step:.5f}), {draws} draws in "
             f"{wall:.2f} s = {per * 1e3:.2f} ms per transition of all {CLASSIC_CHAINS} chains "
             f"(mean tree depth {depth:.3f}, max {int(res.info['tree_depths'].max())}); R-hat "
             f"{rhat:.4f}, min bulk-ESS {float(ess.min()):.1f}; means' max z {z_chains:.3f} by "
@@ -4231,7 +4418,7 @@ def shape_counts(ft, fr, fn):
 def row_launches(path_shapes):
     """Each row of the kernels line and its launches, read from every main
     path's counts by shape ({path: {(kernel, family, n_chains, dim):
-    launches}}): a split row (SPLITS) takes its path's launches of its
+    launches}}): a split row (SPLITS) takes its paths' launches of its
     kernel at its chains, a path of PAIR_PATHS gives "kernel (family)"
     pairs, and every other launch goes to its kernel's own row. Returns
     ({row of KERNELS: launches}, {pair: launches}, {row or pair:
@@ -4242,8 +4429,8 @@ def row_launches(path_shapes):
             if path in PAIR_PATHS:
                 row, table = f"{name} ({family})", pairs
             else:
-                row = next((split for split, (base, at, chains) in SPLITS.items()
-                            if (base, at) == (name, path) and chains in (None, n)), name)
+                row = next((split for split, (base, paths, chains) in SPLITS.items()
+                            if base == name and path in paths and chains in (None, n)), name)
                 table = own
             table[row] = table.get(row, 0) + c
             at_shape = shapes.setdefault(row, {})
@@ -4292,14 +4479,19 @@ def main():
                 f"{MESH_PATH}: launches {out['rank_launches']}, expected {out['expected']}")
         say(f"  launches by shape: {out['rank_shapes']}")
         return 0
-    if "--runner-cell" in sys.argv[1:]:
+    for flag, label, phase in (
+            ("--runner-cell", RUNNER_PATH, phase_runner_cell),
+            ("--tune-cli", TUNE_CLI_PATH,
+             lambda torch, counts: phase_tune_cli(torch, targets, samplers, dev, counts))):
+        if flag not in sys.argv[1:]:
+            continue
         for module in (ft, fr, fn):
             module.reset_launches()
-        out = phase_runner_cell(torch, lambda: launch_counts(ft, fr, fn))
+        out = phase(torch, lambda: launch_counts(ft, fr, fn))
         got = launch_counts(ft, fr, fn)
         want = {name: out["expected"].get(name, 0) for name in got}
-        say(f"  launches on the {RUNNER_PATH}: {got} (expected {want})")
-        require(got == want, f"{RUNNER_PATH}: launches {got}, expected {want}")
+        say(f"  launches on the {label}: {got} (expected {want})")
+        require(got == want, f"{label}: launches {got}, expected {want}")
         say(f"  launches by shape: {shape_counts(ft, fr, fn)}")
         return 0
 
@@ -4412,6 +4604,10 @@ def main():
     runner_cell = drive(RUNNER_PATH,
                         lambda: phase_runner_cell(torch, lambda: launch_counts(ft, fr, fn)),
                         lambda out: out["expected"])
+    tune_cli = drive(TUNE_CLI_PATH,
+                     lambda: phase_tune_cli(torch, targets, samplers, dev,
+                                            lambda: launch_counts(ft, fr, fn)),
+                     lambda out: out["expected"])
     rahmc = {cell: drive(f"{cell} cell",
                          lambda cell=cell: phase_rahmc_cells(torch, targets, samplers, tuning,
                                                              diagnostics, dev, cell),
@@ -4525,7 +4721,8 @@ def main():
         f"chees_busy_share {chees['busy'] / chees['wall']:.4f}, "
         f"chain_mesh_sec {chain_mesh['wall']:.1f}, "
         f"runner_cell_sec {runner_cell['wall']:.1f} ("
-        + ", ".join(f"{s} {_runner_verdict(r)}" for s, r in runner_cell["rows"].items()) + ")")
+        + ", ".join(f"{s} {_runner_verdict(r)}" for s, r in runner_cell["rows"].items()) + "), "
+        f"tune_cli_sec {tune_cli['wall']:.1f}")
     say("  family sweep (R-hat, means' max z by the chains' spread and by bulk ESS, divergence "
         "rate): " + "; ".join(
         f"{family} " + ", ".join(f"{s} {r['rhat']:.4f}/{r['z_chains']:.2f}/{r['z_ess']:.2f}/"

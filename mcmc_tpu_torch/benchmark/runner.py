@@ -49,13 +49,14 @@ from mcmc_tpu_torch.diagnostics import (
     MIN_ESS_QUALITY, MIN_ESS_TAIL_QUALITY, ConvergenceW2Tracker, check_summary_statistics,
     compute_diagnostics, compute_sliced_w2, evaluate_gates, evaluate_smc_gates,
 )
-from mcmc_tpu_torch.ops.padded_targets import fusable
+from mcmc_tpu_torch.ops.padded_targets import fusable, sampler_backend as _resolve_backend
 from mcmc_tpu_torch.samplers import (
     default_steepness, get_friction_schedule, grahmc_run, hmc_run, nuts_run,
     nuts_run_persistent, rwmh_run,
 )
 from mcmc_tpu_torch.targets import TargetDistribution, get_reference_sampler, get_target
 from mcmc_tpu_torch.tuning import dual_averaging_tune_rwmh, run_adaptive_warmup
+from mcmc_tpu_torch.utils.generators import make_generator, position_dtype, split_generator
 
 ALL_TARGET_NAMES = [
     "standard_normal", "correlated_gaussian", "ill_conditioned_gaussian",
@@ -78,26 +79,8 @@ TRAJECTORY_SAMPLERS = ("hmc", "grahmc", "rahmc")
 
 
 # ----------------------------------------------------------------------------
-# Generators, devices, timing
+# Devices, timing
 # ----------------------------------------------------------------------------
-
-def make_generator(seed: int, device) -> torch.Generator:
-    """The run's generator on `device`, seeded from `seed`."""
-    return torch.Generator(device=torch.device(device)).manual_seed(int(seed))
-
-
-def split_generator(generator: torch.Generator) -> torch.Generator:
-    """A child generator on the same device, seeded by one draw of the
-    parent (the JAX runner's random.split)."""
-    seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator,
-                             device=generator.device).item())
-    return make_generator(seed, generator.device)
-
-
-def position_dtype(device) -> torch.dtype:
-    """float32 on a card (the fused kernels'), float64 elsewhere."""
-    return torch.float32 if torch.device(device).type == "cuda" else torch.float64
-
 
 def _sync(device) -> None:
     if torch.device(device).type == "cuda":
@@ -169,16 +152,6 @@ def _say_past_cap(target: TargetDistribution, device) -> None:
     if torch.device(device).type == "cuda" and target.dim > MAX_DIM:
         print(f"  [backend] dim {target.dim} is past the fused kernels' {MAX_DIM}: "
               f"this row runs eager")
-
-
-def _resolve_backend(sampler: str, target: TargetDistribution, device) -> str:
-    """"fused" for RWMH (kernel 3) and HMC/GRAHMC (kernels 1 and 2) where
-    the kernels take the target on this device (padded_targets.fusable),
-    else "eager"."""
-    if sampler not in ("rwmh",) + TRAJECTORY_SAMPLERS:
-        return "eager"
-    kernel = "rwmh" if sampler == "rwmh" else "grahmc"
-    return "fused" if fusable(kernel, target.value_and_grad_fn, device) else "eager"
 
 
 def _resolve_nuts_backend(nuts_backend: str, target: TargetDistribution, device) -> str:

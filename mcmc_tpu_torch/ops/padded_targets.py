@@ -94,6 +94,22 @@ def fusable(kernel: str, value_and_grad_fn, device) -> bool:
             and info["family"] in KERNEL_FAMILIES[kernel] and info["dim"] <= MAX_DIM)
 
 
+# the kernel each sampler's fused run launches: RWMH kernel 3, HMC and
+# GRAHMC (RAHMC its reference name) kernels 1 and 2
+_SAMPLER_KERNELS = {"rwmh": "rwmh", "hmc": "grahmc", "grahmc": "grahmc", "rahmc": "grahmc"}
+
+
+def sampler_backend(sampler: str, target, device) -> str:
+    """The "auto" backend of a sampler's run (the benchmark runner's and
+    the tune-and-sample CLI's): "fused" for RWMH, HMC and GRAHMC where
+    `fusable` takes the target on this device, else "eager" (NUTS
+    included: its "auto" is the runner's NUTS backend rule)."""
+    kernel = _SAMPLER_KERNELS.get(sampler)
+    if kernel is None:
+        return "eager"
+    return "fused" if fusable(kernel, target.value_and_grad_fn, device) else "eager"
+
+
 def make_device_vag(value_and_grad_fn) -> Callable:
     """(C, D) float32 -> (lp (C,), grad (C, D)), the plain version of the
     device function the kernels inline for this target."""

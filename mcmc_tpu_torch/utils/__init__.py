@@ -1,11 +1,17 @@
-"""Utilities: chain-state and warmup checkpoints (``utils.checkpoint``) and
-the headless plotting backend. The JAX package's XLA compilation cache has
-no counterpart (the port's kernel cache is ``mcmc_tpu_torch/_build/``);
-its profiling helpers are not ported yet."""
+"""Utilities: timers, the torch.profiler trace, the timing barrier and the
+throughput counters (``utils.profiling``), chain-state and warmup
+checkpoints (``utils.checkpoint``), the run's generators
+(``utils.generators``) and the headless plotting backend. The JAX
+package's ``enable_compilation_cache`` (XLA's cache) has no counterpart:
+the port's kernels are cached in ``mcmc_tpu_torch/_build/``."""
 
 import os
 
-__all__ = ["setup_headless_backend"]
+from mcmc_tpu_torch.utils.profiling import (device_trace, force_completion,
+                                            throughput_counters, wall_timer)
+
+__all__ = ["wall_timer", "device_trace", "force_completion", "throughput_counters",
+           "setup_headless_backend"]
 
 
 def setup_headless_backend():

@@ -4,7 +4,8 @@ NUTS 4 with its multinomial and dense variants, and each of them on the
 data-carrying hierarchical posterior: 1d, 2b, 3a, 4c) against their plain
 versions, on the card, for every target family (Rosenbrock and the RAHMC
 paper's among them, with the L1 shell cap), and the dense warmup,
-tempered, SMC and persistent-NUTS-warmup runs that run them.
+tempered, SMC and persistent-NUTS-warmup runs that run them; the
+tune-and-sample CLI's launches, the profiler's trace and the compat API.
 
 Marked `cuda`; each test skips without a CUDA device. This file imports no
 JAX, so it runs on a GPU host without the JAX package's dependencies:
@@ -2370,3 +2371,79 @@ def test_nccl_refuses_two_ranks_on_one_card(dev):
     with pytest.raises(RuntimeError, match="NCCL refuses two ranks on one GPU"):
         run_ranks(f"{__file__}:_card_mesh_cases", 2, device="cuda", backend="nccl",
                   timeout=120)
+
+
+# ----------------------------------------------------------------------------
+# The tune-and-sample CLI (tuning/core.py), the profiler and compat on the card
+# ----------------------------------------------------------------------------
+
+CLI_WARMUP_TRANSITIONS = 2700 + 7 * (1000 + 150)     # the windowed warmup and its gamma tune
+
+
+def _cli_launches():
+    return (ft.grahmc_step_kernel.launches, ft.grahmc_multistep_kernel.launches,
+            fr.rwmh_multistep_kernel.launches)
+
+
+@pytest.mark.parametrize("sampler", ["grahmc", "hmc"])
+def test_tune_cli_grid_launches_kernels_1_and_2(dev, sampler):
+    """The GRAHMC grid's warmup and gamma tune run kernel 1 (HMC's warmup
+    stays eager) and both samplers' batches kernel 2 at T 8."""
+    from mcmc_tpu_torch.tuning import core
+    t = get_target("neals_funnel", dim=10)
+    before = _cli_launches()
+    run = core.tune_and_sample_grahmc_grid if sampler == "grahmc" else core.tune_and_sample_hmc_grid
+    r = run(torch.Generator(device=dev).manual_seed(0), t, n_chains=256, target_ess=10 ** 9,
+            batch_size=64, max_samples=128, warmup_steps=500, num_steps_grid=[8])
+    grew = [a - b for a, b in zip(_cli_launches(), before)]
+    assert grew == [CLI_WARMUP_TRANSITIONS if sampler == "grahmc" else 0, 128 // 8, 0]
+    assert r["best_config"]["num_steps"] == 8 and r["best_config"]["total_samples"] == 128
+    assert math.isfinite(r["best_config"]["ess_bulk_min"])
+
+
+def test_tune_cli_rwmh_launches_kernel_3(dev):
+    """The RWMH tuner's DA iterations (4 transitions a call) and the
+    batches (32 a call) run kernel 3."""
+    from mcmc_tpu_torch.tuning import core
+    t = get_target("standard_normal", dim=10)
+    before = _cli_launches()
+    r = core.tune_and_sample_rwmh(torch.Generator(device=dev).manual_seed(1), t, n_chains=512,
+                                  target_ess=10 ** 9, batch_size=256, max_samples=512,
+                                  warmup_steps=100)
+    grew = [a - b for a, b in zip(_cli_launches(), before)]
+    assert grew == [0, 0, len(r["history"]["scale_history"]) * 25 + 2 * 256 // 32]
+    assert r["samples"].device.type == "cuda" and r["samples"].dtype == torch.float32
+    assert bool(torch.isfinite(r["samples"]).all()) and 0.05 < r["mean_acceptance"] < 0.6
+
+
+def test_tune_cli_main_runs_on_the_card_by_default(dev):
+    from mcmc_tpu_torch.tuning import core
+    r = core.main(["--sampler", "rwmh", "--dim", "4", "--chains", "64", "--warmup-steps", "50",
+                   "--batch-size", "64", "--max-samples", "64"])
+    assert r["samples"].device.type == "cuda" and r["total_samples"] == 64
+
+
+def test_device_trace_names_the_multistep_kernel(dev, tmp_path):
+    from mcmc_tpu_torch.utils import device_trace, force_completion
+    t = get_target("neals_funnel", dim=10)
+    g = torch.Generator(device=dev).manual_seed(2)
+    init = t.init_sampler(g, 256, dtype=torch.float32)
+    with device_trace(str(tmp_path)) as prof:
+        res = tg.grahmc_run(g, t.log_prob_fn, init, 0.1, 8, 0.5, 1.0, 16,
+                            value_and_grad_fn=t.value_and_grad_fn, backend="fused")
+        assert force_completion(res) is res
+    (trace,) = list(tmp_path.glob("*.pt.trace.json"))
+    assert "grahmc_multistep_kernel" in trace.read_text()
+    assert any("grahmc_multistep_kernel" in e.key for e in prof.key_averages())
+
+
+def test_compat_rahmc_run_equals_grahmc_run_on_the_card(dev):
+    from mcmc_tpu_torch import compat
+    t = get_target("neals_funnel", dim=10)
+    init = t.init_sampler(torch.Generator(device=dev).manual_seed(3), 1024, dtype=torch.float32)
+    kw = dict(step_size=0.1, num_steps=8, gamma=0.5, steepness=1.0, num_samples=10)
+    a = compat.rahmc_run(torch.Generator(device=dev).manual_seed(4), t.log_prob_fn, init, **kw)
+    b = tg.grahmc_run(torch.Generator(device=dev).manual_seed(4), t.log_prob_fn, init, **kw)
+    for x, y in zip(a, (b.samples, b.log_probs, b.accept_rate)):
+        assert torch.equal(x, y)
+    assert torch.equal(a[3].position, b.final_state.position)

@@ -132,3 +132,37 @@ def test_a_split_row_takes_only_its_own_chains():
     paths = {DENSE_ROW: {("grahmc_step_kernel", "correlated_gaussian", 2048, cs.DIM): 4}}
     own, pairs, _ = cs.row_launches(paths)
     assert own == {"grahmc_step_kernel": 4} and pairs == {}
+
+
+def test_the_tune_clis_warmups_take_the_4096_chain_row():
+    """[5s]'s kernel-1 launches at 4,096 chains (the GRAHMC grid's warmups
+    and gamma tunes on the funnel) join the dense-warmup row's in the
+    4,096-chain row; its kernel-2 and kernel-3 launches stay on their
+    kernels' own rows."""
+    paths = dict(PATHS)
+    paths[cs.TUNE_CLI_PATH] = {
+        ("grahmc_step_kernel", "neals_funnel", cs.MULTI_CHAINS, cs.DIM): 6,
+        ("grahmc_multistep_kernel", "neals_funnel", cs.MULTI_CHAINS, cs.DIM): 3,
+        ("rwmh_multistep_kernel", "standard_normal", cs.TUNE_CLI_RWMH_CHAINS, cs.RWMH_DIM): 2}
+    own, _pairs, at_shape = cs.row_launches(paths)
+    assert own["grahmc_step_kernel (4,096 chains)"] == 4 + 6
+    assert at_shape["grahmc_step_kernel (4,096 chains)"] == {
+        (cs.MULTI_CHAINS, cs.DIM, "correlated_gaussian"): 4,
+        (cs.MULTI_CHAINS, cs.DIM, "neals_funnel"): 6}
+    assert own["grahmc_step_kernel"] == 10 and own["grahmc_multistep_kernel"] == 2 + 3
+    assert own["rwmh_multistep_kernel"] == 2
+    assert "grahmc_step_kernel[dense] (4,096 chains)" in own and own[
+        "grahmc_step_kernel[dense] (4,096 chains)"] == 3
+
+
+def test_tune_cli_expected_launches_follow_its_arguments():
+    """[5s]'s flags and its launch arithmetic share their constants: T 8 at
+    4,096 chains for kernel 2, T 32 at its RWMH batch for kernel 3."""
+    args = dict(zip(cs.TUNE_CLI_GRID_ARGS[::2], cs.TUNE_CLI_GRID_ARGS[1::2]))
+    assert int(args["--chains"]) == cs.MULTI_CHAINS and int(args["--dim"]) == cs.DIM
+    assert int(args["--batch-size"]) % cs.MULTI_T == 0
+    assert int(args["--max-samples"]) == cs.TUNE_CLI_DRAWS
+    assert args["--num-steps-grid"] == ",".join(map(str, cs.TUNE_CLI_GRID))
+    rwmh = dict(zip(cs.TUNE_CLI_RWMH_ARGS[::2], cs.TUNE_CLI_RWMH_ARGS[1::2]))
+    assert int(rwmh["--batch-size"]) % cs.RWMH_T == 0
+    assert int(rwmh["--max-samples"]) == cs.TUNE_CLI_RWMH_DRAWS

@@ -167,6 +167,34 @@ def test_entry_points_default_to_the_card():
                interop.welford_state_from_numpy, interop.dense_moment_state_from_numpy,
                interop.metric_from_numpy, welford_init):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__
+    from mcmc_tpu_torch.tuning import core
+    assert core.build_parser().parse_args(["--sampler", "rwmh"]).device == "cuda"
+
+
+def test_the_card_side_modules_never_import_matplotlib():
+    """The card's host has no matplotlib: the CLI, compat, the profiler and
+    chip_smoke import it nowhere (tuning.plots only under --plot)."""
+    code = (
+        "import sys\n"
+        "import mcmc_tpu_torch.tuning, mcmc_tpu_torch.tuning.core, mcmc_tpu_torch.compat\n"
+        "import mcmc_tpu_torch.utils.profiling, chip_smoke\n"
+        "bad = sorted(m for m in sys.modules if m == 'matplotlib' or m.startswith('matplotlib.'))\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_top_level_exports_equal_the_jax_packages():
+    import mcmc_tpu
+    import mcmc_tpu_torch
+    assert sorted(mcmc_tpu_torch.__all__) == sorted(mcmc_tpu.__all__)
+    from mcmc_tpu_torch import targets
+    assert mcmc_tpu_torch.get_reference_sampler is targets.get_reference_sampler
+    assert mcmc_tpu_torch.has_reference_sampler is targets.has_reference_sampler
 
 
 def test_port_never_imports_jax():
@@ -183,6 +211,9 @@ def test_port_never_imports_jax():
         "import mcmc_tpu_torch.tuning.sequential, mcmc_tpu_torch.tuning.ladder\n"
         "import mcmc_tpu_torch.samplers.tempered, mcmc_tpu_torch.samplers.smc\n"
         "import mcmc_tpu_torch.targets.hierarchical\n"
+        "import mcmc_tpu_torch.compat, mcmc_tpu_torch.utils.profiling\n"
+        "import mcmc_tpu_torch.tuning.core, mcmc_tpu_torch.tuning.plots\n"
+        "import mcmc_tpu_torch.animations\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'mcmc_tpu')\n"
         "             or m.startswith(('jax.', 'mcmc_tpu.')))\n"
         "assert not bad, bad\n"
